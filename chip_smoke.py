@@ -19,7 +19,20 @@ both matrix products and cuDNN:
    checks every result against a per-image plain forward;
 6. times each kernel, its plain version and the library call at the
    main-path shapes beside the card's bound, and the full forward per
-   bucket.
+   bucket;
+7. holds the four Winograd kernels (input transform from NHWC and from
+   stored tiles, batched GEMM, output transform) against their plain
+   versions at VGG16 shapes, F(2,3) and F(4,3), ragged cases included, and
+   whole Winograd convs (3x3 and a 5x5 multi-round) against ``F.conv2d``;
+8. runs full-width VGG16 (224x224, scale 1.0) under its exact plan of 8
+   im2col + 5 Winograd F(4,3) layers, kernels vs the plain path on the
+   card, at every bucket with layout elision and once without, and checks
+   the launches of all six kernels per forward;
+9. serves distinct requests of VGG16 through ``CNNServingEngine`` and
+   checks every result against a per-image plain forward;
+10. times the Winograd kernels at VGG16's conv0_1 and conv2_1 (bucket 8)
+    beside their bounds, each Winograd layer as the three-kernel sum vs
+    cuDNN vs this port's im2col kernel, and the VGG16 forward per bucket.
 
 Every check raises on failure, so the script exits nonzero without its
 final line. The line before the last is one JSON object of per-kernel
@@ -44,6 +57,12 @@ BUCKETS = (1, 2, 4, 8)
 FORWARD_TOL = dict(rtol=2e-2, atol=2e-3)    # the reference's whole-plan tol
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)     # the reference's f32 kernel tol
 N_REQUESTS = 13
+N_VGG_REQUESTS = 12
+# FLOP per (tile, channel) of the Winograd transforms as csrc/winograd.cu
+# writes them: two passes of 1-D transforms (adds and small-constant
+# FMAs), plus bias and ReLU on the m x m outputs of the output transform.
+TRANSFORM_FLOPS = {("in", 2): 32, ("in", 4): 336,
+                   ("out", 2): 24 + 8, ("out", 4): 130 + 32}
 
 
 class CheckFailed(AssertionError):
@@ -90,12 +109,14 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 
 def device_time(fn):
     """(device ms summed over every kernel one call runs, that time split
-    into this port's kernels by tile, torch's index gathers — the Toeplitz
-    layout conversions — and all other torch kernels) from
-    ``torch.profiler``."""
+    into this port's kernels by tile or F(m,3), torch's index gathers — the
+    Toeplitz and Winograd-tile layout conversions — and all other torch
+    kernels) from ``torch.profiler``. Only the kernels' own rows are
+    summed: an aten op's row repeats the time of the kernels it launched."""
     import re
 
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -106,14 +127,19 @@ def device_time(fn):
     groups = {}
     for e in prof.key_averages():
         ms = getattr(e, "self_device_time_total", 0) / 1e3
-        if ms <= 0:
+        if e.device_type != DeviceType.CUDA or ms <= 0:
             continue
-        ours = re.search(r"(gemm_f32|conv_im2col_f32)_kernel<(\d+), (\d+)>",
-                         e.key)
-        key = (f"{ours[1]}<{ours[2]}x{ours[3]}>" if ours
-               else "torch index/gather" if "index" in e.key
+        gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32)"
+                         r"_kernel<(\d+), (\d+)>", e.key)
+        wino = re.search(r"\b(input_transform_tiles|input_transform|"
+                         r"output_transform)_kernel<(\d+)>", e.key)
+        key = (f"{gemm[1]}<{gemm[2]}x{gemm[3]}>" if gemm
+               else f"{wino[1]}<F{wino[2]}>" if wino
+               else "torch index/gather" if re.search(r"index|gather", e.key)
                else "torch other")
         groups[key] = groups.get(key, 0.0) + ms
+    if not groups:
+        raise CheckFailed("the profiler recorded no kernel time")
     split = ", ".join(f"{k} {v:.3f}" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
     return sum(groups.values()), split
@@ -143,16 +169,23 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.cnn.executor import compile_plan, init_params
-    from repro_torch.cnn.models import googlenet
+    from repro_torch.cnn.models import googlenet, vgg16
     from repro_torch.core.algorithms import AlgoFamily
     from repro_torch.core.dse import identify_parameters
+    from repro_torch.core.layouts import LayoutSpec
     from repro_torch.core.mapper import map_network
     from repro_torch.kernels import build
     from repro_torch.kernels.common import pad_nhwc
     from repro_torch.kernels.conv_im2col.conv_im2col import (
         CONV, conv_im2col_call, conv_plain)
     from repro_torch.kernels.conv_im2col.ref import conv_geometry
-    from repro_torch.kernels.gemm.gemm import GEMM, gemm_call, gemm_plain
+    from repro_torch.kernels.gemm.gemm import (BATCHED_GEMM, GEMM,
+                                              batched_gemm_call,
+                                              batched_gemm_plain, gemm_call,
+                                              gemm_plain)
+    from repro_torch.kernels.layouts import materialize
+    from repro_torch.kernels.winograd import winograd as wino
+    from repro_torch.kernels.winograd.ops import conv_winograd
     from repro_torch.serving.cnn_engine import CNNRequest, CNNServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -162,6 +195,17 @@ def main() -> int:
 
     def randn(*shape, scale: float = 1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    WINO_KERNELS = (wino.INPUT_TRANSFORM, wino.INPUT_TRANSFORM_TILES,
+                    BATCHED_GEMM, wino.OUTPUT_TRANSFORM)
+    ALL_KERNELS = (CONV, GEMM) + WINO_KERNELS
+
+    def reset_counts():
+        for kern in ALL_KERNELS:
+            kern.launches = 0
+
+    def counts():
+        return tuple(kern.launches for kern in ALL_KERNELS)
 
     # ---- 1. card and toolchain -----------------------------------------
     smi = subprocess.run(
@@ -249,10 +293,13 @@ def main() -> int:
                                  tuning_batch=bsz, elide=elide,
                                  use_pallas=False, device=dev)
             x = randn(bsz, 224, 224, 3)
-            GEMM.launches = CONV.launches = 0
+            reset_counts()
             got = run_k(params, x)
             torch.cuda.synchronize()
             n_gemm, n_conv = GEMM.launches, CONV.launches
+            if any(k.launches for k in WINO_KERNELS):
+                raise CheckFailed(f"googlenet b{bsz} launched a Winograd "
+                                  "kernel")
             # Elided: 56 convs read their Toeplitz matrix (gemm), the stem
             # reads the NHWC image (conv). Not elided: every conv is NHWC.
             expect = (56, 1) if elide else (0, len(convs))
@@ -277,10 +324,12 @@ def main() -> int:
               for _ in range(N_REQUESTS)]
     for rid, img in enumerate(images):
         engine.submit(CNNRequest(rid=rid, image=img))
-    GEMM.launches = CONV.launches = 0
+    reset_counts()
     done = engine.run_until_done()
     torch.cuda.synchronize()
     launches = {"gemm": GEMM.launches, "conv": CONV.launches}
+    if any(k.launches for k in WINO_KERNELS):
+        raise CheckFailed("serving googlenet launched a Winograd kernel")
     stats = engine.stats()
     ticks = sum(stats["dispatches"].values())
     if stats["served"] != N_REQUESTS or sorted(done) != list(
@@ -356,6 +405,307 @@ def main() -> int:
               f"{dev_ms:.3f} ms of the kernels' forward "
               f"({100 * dev_ms / f_ms:.1f}%) = {split} (ms)")
 
+    # ---- 7. Winograd kernels vs plain ----------------------------------
+    # (label, batch, map, Cin, Cout, m): VGG16's conv0_1 and conv2_1 at
+    # bucket 8 in F(4,3), conv2_1 in F(2,3), and a 14x14 map whose 16x16
+    # tile grid the output transform crops inside the kernel.
+    wino_cases = [("conv0_1", 8, 224, 64, 64, 4),
+                  ("conv2_1", 8, 56, 256, 256, 4),
+                  ("conv2_1 F(2,3)", 8, 56, 256, 256, 2),
+                  ("ragged 14x14", 2, 14, 32, 48, 4)]
+    wino_err = {}
+    wino_inputs = {}
+    for label, bsz, hw, c_in, c_out, m in wino_cases:
+        t = m + 2
+        tiles_yx = -(-hw // m)
+        geo = dict(m=m, tiles_y=tiles_yx, tiles_x=tiles_yx)
+        x = randn(bsz, hw, hw, c_in)
+        w = randn(3, 3, c_in, c_out, scale=(9 * c_in) ** -0.5)
+        bias = randn(c_out, scale=0.1)
+        errs = {}
+        v_p = wino.input_transform_plain(x, pad_top=1, pad_left=1, **geo)
+        v_k = wino.input_transform_call(x, pad_top=1, pad_left=1, **geo)
+        torch.cuda.synchronize()
+        errs["input_transform"] = check_close(
+            f"input_transform {label}", v_k, v_p, **KERNEL_TOL)
+        spec = LayoutSpec("winograd", h=hw, w=hw, c=c_in, k1=3, k2=3, m=m,
+                          r=3)
+        tiles = materialize(x, spec).reshape(-1, t, t, c_in).contiguous()
+        vt_k = wino.input_transform_tiles_call(tiles, m=m)
+        torch.cuda.synchronize()
+        errs["input_transform_tiles"] = check_close(
+            f"input_transform_tiles {label}", vt_k,
+            wino.input_transform_tiles_plain(tiles, m=m), **KERNEL_TOL)
+        check_close(f"input_transform_tiles {label} vs NHWC transform",
+                    vt_k, v_k, **KERNEL_TOL)
+        u = wino.transform_kernel_weights(w, m, 3)
+        mm_p = batched_gemm_plain(v_p, u)
+        mm_k = batched_gemm_call(v_p, u)
+        torch.cuda.synchronize()
+        errs["batched_gemm"] = check_close(
+            f"batched_gemm {label} G={t * t} M={v_p.shape[1]} K={c_in} "
+            f"N={c_out}", mm_k, mm_p, **KERNEL_TOL)
+        out_geo = dict(geo, o1=hw, o2=hw, epilogue="bias_relu", bias=bias)
+        y_k = wino.output_transform_call(mm_p, **out_geo)
+        torch.cuda.synchronize()
+        errs["output_transform"] = check_close(
+            f"output_transform {label}", y_k,
+            wino.output_transform_plain(mm_p, **out_geo), **KERNEL_TOL)
+        # The whole Winograd conv against the vendor conv (the reference's
+        # Winograd tolerance).
+        got = conv_winograd(x, w, m=m, epilogue="bias_relu", bias=bias)
+        want = torch.relu(F.conv2d(x.permute(0, 3, 1, 2), w.permute(
+            3, 2, 0, 1), bias, padding=1).permute(0, 2, 3, 1))
+        torch.cuda.synchronize()
+        conv_e = check_close(f"conv_winograd {label} vs F.conv2d", got,
+                             want, rtol=2e-3, atol=2e-3)
+        wino_err[label] = errs
+        wino_inputs[label] = (x, w, bias, m, v_p, tiles, u, mm_p)
+        print(f"[7] winograd F({m},3) {label} x({bsz}, {hw}, {hw}, {c_in})"
+              f" Cout {c_out}: max|diff| vs plain "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (rtol/atol 1e-4); whole conv vs F.conv2d {conv_e:.3e} "
+              f"(2e-3)")
+    a = randn(16, 333, 70)
+    b = randn(16, 70, 100, scale=70 ** -0.5)
+    bias = randn(100, scale=0.1)
+    want = batched_gemm_plain(a, b, "bias_relu", bias)
+    bg_ragged = 0.0
+    for bm, bn in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        got = batched_gemm_call(a, b, bm=bm, bn=bn, epilogue="bias_relu",
+                                bias=bias)
+        torch.cuda.synchronize()
+        bg_ragged = max(bg_ragged, check_close(
+            f"batched_gemm ragged tile ({bm},{bn})", got, want,
+            **KERNEL_TOL))
+    print(f"[7] batched_gemm ragged G=16 M=333 K=70 N=100 bias_relu tiles "
+          f"(64|128)x(64|128): max|diff| {bg_ragged:.3e} (rtol/atol 1e-4)")
+    x = randn(2, 28, 28, 16)
+    w = randn(5, 5, 16, 32, scale=400 ** -0.5)
+    got = conv_winograd(x, w, m=4)
+    want = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                    padding=2).permute(0, 2, 3, 1)
+    torch.cuda.synchronize()
+    mr_err = check_close("conv_winograd 5x5 multi-round vs F.conv2d", got,
+                         want, rtol=2e-3, atol=2e-3)
+    print(f"[7] conv_winograd 5x5 F(4,3) multi-round (4 rounds) x(2, 28, 28,"
+          f" 16) Cout 32 vs F.conv2d: max|diff| {mr_err:.3e} (2e-3)")
+
+    # ---- 8. full-width VGG16: kernels vs plain path --------------------
+    gv = vgg16(res=224, scale=1.0)
+    vplan = map_network(gv, hw=identify_parameters(gv, max_dim=512))
+    algos = sorted(vplan.assignment[n.id].key for n in gv.conv_nodes())
+    if not vplan.solver.exact or algos != ["im2col"] * 8 + [
+            "winograd(F4x3)"] * 5:
+        raise CheckFailed(f"the VGG16 plan is not the exact 8 im2col + 5 "
+                          f"F(4,3) plan this slice serves: {algos}")
+    vparams = init_params(gv, seed=1, device=dev)
+    for nid in sorted(vparams):
+        vparams[nid]["b"].copy_(randn(*vparams[nid]["b"].shape,
+                                      scale=0.05))
+    # Launches per forward, in ALL_KERNELS order: conv, gemm,
+    # input_transform, input_transform_tiles, batched_gemm,
+    # output_transform. Elided: conv0_0 reads the image (conv), seven
+    # im2col layers their Toeplitz matrix (gemm), the five Winograd layers
+    # their stored tiles; not elided: every layer reads NHWC.
+    vgg_expect = {True: (1, 7, 0, 5, 5, 5), False: (8, 0, 5, 0, 5, 5)}
+    vruns = {}
+    vgg_launches = {}
+    for elide, buckets in ((True, BUCKETS), (False, (8,))):
+        for bsz in buckets:
+            run_k = compile_plan(gv, vplan, epilogue="bias_relu",
+                                 tuning_batch=bsz, elide=elide, device=dev)
+            run_p = compile_plan(gv, vplan, epilogue="bias_relu",
+                                 tuning_batch=bsz, elide=elide,
+                                 use_pallas=False, device=dev)
+            x = randn(bsz, 224, 224, 3)
+            reset_counts()
+            got = run_k(vparams, x)
+            torch.cuda.synchronize()
+            n = counts()
+            if n != vgg_expect[elide]:
+                raise CheckFailed(
+                    f"vgg16 b{bsz} elide={elide}: launches {n}, expected "
+                    f"{vgg_expect[elide]} (conv, gemm, input_transform, "
+                    "input_transform_tiles, batched_gemm, output_transform)")
+            vgg_launches[elide] = n
+            want = run_p(vparams, x)
+            err = check_close(f"vgg16 b{bsz} elide={elide}", got, want,
+                              **FORWARD_TOL)
+            vruns[(elide, bsz)] = (run_k, run_p, x)
+            print(f"[8] vgg16 224 b{bsz} elide={elide}: logits "
+                  f"{tuple(got.shape)} max|diff| vs plain {err:.3e} (rtol "
+                  f"2e-2 atol 2e-3); launches per forward conv={n[0]} "
+                  f"gemm={n[1]} input_transform={n[2]} "
+                  f"input_transform_tiles={n[3]} batched_gemm={n[4]} "
+                  f"output_transform={n[5]}")
+
+    # ---- 9. serving VGG16 ---------------------------------------------
+    vengine = CNNServingEngine(gv, vparams, vplan, batch_size=8, slo_s=0.25,
+                               warmup=True, device=dev)
+    rng = np.random.default_rng(2)
+    vimages = [rng.standard_normal((224, 224, 3)).astype(np.float32)
+               for _ in range(N_VGG_REQUESTS)]
+    for rid, img in enumerate(vimages):
+        vengine.submit(CNNRequest(rid=rid, image=img))
+    reset_counts()
+    vdone = vengine.run_until_done()
+    torch.cuda.synchronize()
+    vserve = counts()
+    vstats = vengine.stats()
+    vticks = sum(vstats["dispatches"].values())
+    if vstats["served"] != N_VGG_REQUESTS or sorted(vdone) != list(
+            range(N_VGG_REQUESTS)):
+        raise CheckFailed(f"served {vstats['served']} of {N_VGG_REQUESTS}")
+    if vserve != tuple(vticks * k for k in vgg_expect[True]):
+        raise CheckFailed(f"vgg16 serving launches {vserve} over {vticks} "
+                          "ticks")
+    vrun_p1 = vruns[(True, 1)][1]
+    vserve_err = 0.0
+    for rid, img in enumerate(vimages):
+        want = vrun_p1(vparams, img[None])[0]
+        got = torch.as_tensor(vdone[rid], device=dev)
+        vserve_err = max(vserve_err, check_close(
+            f"served vgg16 request {rid}", got, want, **FORWARD_TOL))
+    vtick_ms = [(t.bucket, round(t.service_s * 1e3, 3))
+                for t in {t.t_dispatch: t
+                          for t in vengine.request_log}.values()]
+    print(f"[9] served vgg16 {vstats['served']}/{N_VGG_REQUESTS} requests in "
+          f"{vticks} ticks, dispatches per bucket {vstats['dispatches']}; "
+          f"wall time per tick (bucket, ms) {vtick_ms}; max|diff| vs "
+          f"per-image plain forward {vserve_err:.3e}; launches conv="
+          f"{vserve[0]} gemm={vserve[1]} input_transform={vserve[2]} "
+          f"input_transform_tiles={vserve[3]} batched_gemm={vserve[4]} "
+          f"output_transform={vserve[5]}")
+
+    # ---- 10. Winograd timings ------------------------------------------
+    wino_times = {}
+    for label in ("conv0_1", "conv2_1"):
+        x, w, bias, m, v_p, tiles, u, mm_p = wino_inputs[label]
+        bsz, hw, _, c_in = x.shape
+        c_out = w.shape[-1]
+        t = m + 2
+        n_tiles = v_p.shape[1]
+        geo = dict(m=m, tiles_y=-(-hw // m), tiles_x=-(-hw // m))
+        out_geo = dict(geo, o1=hw, o2=hw, epilogue="bias_relu", bias=bias)
+        v_bytes = 4.0 * t * t * n_tiles * c_in
+        m_bytes = 4.0 * t * t * n_tiles * c_out
+        # The library calls: the tile transform is one einsum; the NHWC
+        # transform is one depthwise conv (cuDNN) with the T² outer
+        # products of Bᵀ's rows as filters, stride m, which gives V's
+        # values in (B, C·T², tiles_y, tiles_x) order (checked below;
+        # these maps need no bottom/right fill beyond the halo).
+        bt, _, _ = wino.torch_matrices(m, 3, dev)
+        filt = torch.einsum("ti,uj->tuij", bt, bt).reshape(
+            t * t, 1, t, t).repeat(c_in, 1, 1, 1)
+        x_nchw = x.permute(0, 3, 1, 2)
+
+        def depthwise():
+            return F.conv2d(x_nchw, filt, stride=m, padding=1, groups=c_in)
+
+        check_close(f"depthwise-conv input transform {label}",
+                    depthwise().reshape(bsz, c_in, t * t, -1).permute(
+                        2, 0, 3, 1).reshape(t * t, n_tiles, c_in), v_p,
+                    **KERNEL_TOL)
+        rows = {
+            "input_transform": (
+                lambda: wino.input_transform_call(x, pad_top=1, pad_left=1,
+                                                  **geo),
+                lambda: wino.input_transform_plain(x, pad_top=1, pad_left=1,
+                                                   **geo),
+                ("F.conv2d depthwise (cuDNN, no TF32)", depthwise),
+                bound(n_tiles * c_in * TRANSFORM_FLOPS[("in", m)],
+                      4.0 * x.numel() + v_bytes)),
+            "input_transform_tiles": (
+                lambda: wino.input_transform_tiles_call(tiles, m=m),
+                lambda: wino.input_transform_tiles_plain(tiles, m=m),
+                ("torch.einsum", lambda: torch.einsum(
+                    "ti,nijc,uj->tunc", bt, tiles, bt)),
+                bound(n_tiles * c_in * TRANSFORM_FLOPS[("in", m)],
+                      4.0 * tiles.numel() + v_bytes)),
+            "batched_gemm": (
+                lambda: batched_gemm_call(v_p, u),
+                lambda: batched_gemm_plain(v_p, u),
+                ("torch.bmm (no TF32)", lambda: torch.bmm(v_p, u)),
+                bound(2.0 * t * t * n_tiles * c_in * c_out,
+                      v_bytes + 4.0 * u.numel() + m_bytes)),
+            "output_transform": (
+                lambda: wino.output_transform_call(mm_p, **out_geo),
+                lambda: wino.output_transform_plain(mm_p, **out_geo),
+                None,
+                bound(n_tiles * c_out * TRANSFORM_FLOPS[("out", m)],
+                      m_bytes + 4.0 * (c_out + bsz * hw * hw * c_out))),
+        }
+        for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
+            k_ms, p_ms = time_ms(kern), time_ms(plain)
+            l_ms = time_ms(lib[1]) if lib is not None else None
+            wino_times[(name, label)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            lib_txt = (f"{lib[0]} {l_ms:.4f} ms" if lib is not None
+                       else "library: none")
+            print(f"[10] {name} {label} b{bsz} F({m},3): kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, {lib_txt}, bound "
+                  f"{b_ms:.4f} ms ({b_by})")
+
+    # Per Winograd layer of VGG16 at bucket 8: the three kernels of the
+    # NHWC pipeline (each timed alone, summed) vs cuDNN vs this port's
+    # im2col kernel on the same layer, all with bias.
+    for name, hw, c_in, c_out in (("conv0_1", 224, 64, 64),
+                                  ("conv1_0", 112, 64, 128),
+                                  ("conv1_1", 112, 128, 128),
+                                  ("conv2_1", 56, 256, 256),
+                                  ("conv2_2", 56, 256, 256)):
+        x = randn(8, hw, hw, c_in)
+        w = randn(3, 3, c_in, c_out, scale=(9 * c_in) ** -0.5)
+        bias = randn(c_out, scale=0.1)
+        geo = dict(m=4, tiles_y=-(-hw // 4), tiles_x=-(-hw // 4))
+        u = wino.transform_kernel_weights(w, 4, 3)
+        v = wino.input_transform_call(x, pad_top=1, pad_left=1, **geo)
+        mm = batched_gemm_call(v, u)
+        it_ms = time_ms(lambda: wino.input_transform_call(
+            x, pad_top=1, pad_left=1, **geo))
+        bg_ms = time_ms(lambda: batched_gemm_call(v, u))
+        ot_ms = time_ms(lambda: wino.output_transform_call(
+            mm, o1=hw, o2=hw, epilogue="bias_relu", bias=bias, **geo))
+        layer_ms = time_ms(lambda: conv_winograd(
+            x, w, m=4, epilogue="bias_relu", bias=bias))
+        wt_ms = time_ms(lambda: wino.transform_kernel_weights(w, 4, 3))
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        cudnn_ms = time_ms(lambda: F.conv2d(x_nchw, w_oihw, bias,
+                                            padding=1))
+        im2col_ms = time_ms(lambda: conv_im2col_call(
+            x, w, epilogue="bias_relu", bias=bias))
+        l_bound, l_by = bound(2.0 * 8 * hw * hw * c_out * 9 * c_in,
+                              4.0 * (x.numel() + w.numel() + c_out
+                                     + 8 * hw * hw * c_out))
+        print(f"[10] vgg16 {name} b8 {hw}x{hw} {c_in}->{c_out}: winograd "
+              f"F(4,3) kernels {it_ms + bg_ms + ot_ms:.4f} ms (input "
+              f"{it_ms:.4f} + gemm {bg_ms:.4f} + output {ot_ms:.4f}; the "
+              f"call {layer_ms:.4f} with the weight transform, alone "
+              f"{wt_ms:.4f}), F.conv2d "
+              f"(cuDNN, no TF32) {cudnn_ms:.4f} ms, im2col kernel "
+              f"{im2col_ms:.4f} ms; direct-conv bound {l_bound:.4f} ms "
+              f"({l_by})")
+
+    for bsz in BUCKETS:
+        run_k, run_p, x = vruns[(True, bsz)]
+        f_ms = time_ms(lambda: run_k(vparams, x), reps=5, rounds=5)
+        p_ms = time_ms(lambda: run_p(vparams, x), reps=5, rounds=5)
+        dev_ms, split = device_time(lambda: run_k(vparams, x))
+        print(f"[10] vgg16 224 forward b{bsz} (elide): kernels {f_ms:.3f} "
+              f"ms, plain path {p_ms:.3f} ms; device busy {dev_ms:.3f} ms "
+              f"of the kernels' forward ({100 * dev_ms / f_ms:.1f}%) = "
+              f"{split} (ms; the Winograd tile and Toeplitz gathers are "
+              f"'torch index/gather')")
+
+    def wino_entry(name, source, replaces, label, launches):
+        k_ms, p_ms, l_ms, b_ms, b_by = wino_times[(name, label)]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": wino_err[label][name], "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": l_ms}
+
     kernels = [
         {"name": "gemm_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/gemm.cu",
@@ -369,6 +719,22 @@ def main() -> int:
          "launches": launches["conv"], "max_abs_err": conv_err["stem"],
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
          "bound_by": c_by, "library_ms": c_lib},
+        # Winograd kernels at VGG16's conv0_1, bucket 8. Launches: the
+        # VGG16 serving run; the NHWC input transform is not on the elided
+        # path, so its count is the unelided forward's.
+        wino_entry("input_transform", "src/repro_torch/csrc/winograd.cu",
+                   "src/repro/kernels/winograd/winograd.py:111", "conv0_1",
+                   vgg_launches[False][2]),
+        wino_entry("input_transform_tiles",
+                   "src/repro_torch/csrc/winograd.cu",
+                   "src/repro/kernels/winograd/winograd.py:141", "conv0_1",
+                   vserve[3]),
+        wino_entry("batched_gemm", "src/repro_torch/csrc/gemm.cu",
+                   "src/repro/kernels/gemm/gemm.py:175", "conv0_1",
+                   vserve[4]),
+        wino_entry("output_transform", "src/repro_torch/csrc/winograd.cu",
+                   "src/repro/kernels/winograd/winograd.py:192", "conv0_1",
+                   vserve[5]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,26 @@
 """The DYNAMAP Computing Unit overlay — single entry point for every conv.
 
 ``apply_conv`` takes the plan's per-layer ``(algo, dataflow, p1, p2)`` and
-routes the convolution to the hand-written kernels (``kernels/conv_im2col``
-and ``kernels/gemm``) or to the plain torch oracles. The backend names
-are the reference's: "pallas" is the Hopper kernel, "reference" the plain
-per-algorithm torch oracle, "lax" the vendor convolution (``F.conv2d``,
-cuDNN on the card). ``use_pallas=None`` (the default) follows the device:
-CUDA tensors take the kernels, CPU tensors their plain versions; asking
-for the kernels on CPU tensors raises.
+routes the convolution to the hand-written kernels (``kernels/conv_im2col``,
+``kernels/gemm`` and ``kernels/winograd``) or to the plain torch oracles.
+The backend names are the reference's: "pallas" is the Hopper kernel,
+"reference" the plain per-algorithm torch oracle, "lax" the vendor
+convolution (``F.conv2d``, cuDNN on the card). ``use_pallas=None`` (the
+default) follows the device: CUDA tensors take the kernels, CPU tensors
+their plain versions; asking for the kernels on CPU tensors raises.
 
 Layout semantics (§3.3, Table 2): ``in_layout``/``out_layout`` carry the
-plan's store formats. A matched Toeplitz ``in_layout`` means ``x`` arrives
-as the layer's own Toeplitz matrix; a non-NHWC ``out_layout`` makes the
-call emit its consumer's store format. Backends that cannot consume a
-layout directly restore to NHWC first, so every (backend, layout) pair
-computes the same function. Every path accepts one sample or a batch.
+plan's store formats. A matched Toeplitz or Winograd-tile ``in_layout``
+means ``x`` arrives as the layer's own Toeplitz matrix or input tiles; a
+non-NHWC ``out_layout`` makes the call emit its consumer's store format.
+Backends that cannot consume a layout directly restore to NHWC first, so
+every (backend, layout) pair computes the same function. Every path
+accepts one sample or a batch.
 
-This slice ports the im2col algorithm: kn2row and Winograd layers, and
-int8 layers on the kernel path, raise ``NotImplementedError`` — a layer
-never falls back to another algorithm.
+The im2col and Winograd algorithms are ported; kn2row layers, and int8
+layers on the kernel path, raise ``NotImplementedError`` — a layer never
+falls back to another algorithm. Winograd rejects int8, as the reference
+does.
 """
 from __future__ import annotations
 
@@ -37,6 +39,9 @@ from repro_torch.kernels.conv_im2col.ref import (conv_from_toeplitz_ref,
                                                  conv_ref,
                                                  conv_via_toeplitz_ref)
 from repro_torch.kernels.layouts import materialize, restore
+from repro_torch.kernels.winograd.ops import conv_winograd
+from repro_torch.kernels.winograd.ref import (winograd_from_tiles_ref,
+                                              winograd_ref)
 
 
 def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
@@ -74,9 +79,12 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
         raise ValueError(f"unknown backend {backend!r}")
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}; want {PRECISIONS}")
-    if algo.family is not AlgoFamily.IM2COL and backend != "lax":
+    if precision == "int8" and algo.family is AlgoFamily.WINOGRAD:
+        raise ValueError("Winograd is bf16-only: its input/output "
+                         "transforms amplify quantization error")
+    if algo.family is AlgoFamily.KN2ROW and backend != "lax":
         raise NotImplementedError(
-            f"{algo.key} is not ported yet; only im2col layers run")
+            f"{algo.key} is not ported yet; im2col and Winograd layers run")
     if backend is not None:
         use_pallas = backend == "pallas"
     if precision == "int8" and use_pallas is not False:
@@ -104,6 +112,11 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
     if backend == "lax":
         y = apply_epilogue(conv_ref(restore(x, in_layout), w, stride=stride,
                                     padding=padding), epilogue, bias)
+    elif algo.family is AlgoFamily.WINOGRAD:
+        return _winograd(x, w, algo, dataflow, p1, p2, stride=stride,
+                         padding=padding, use_pallas=use_pallas,
+                         epilogue=epilogue, bias=bias, in_layout=in_layout,
+                         out_layout=out_layout)
     elif use_pallas is not False:
         return conv_im2col(x, w, stride=stride, padding=padding,
                            dataflow=dataflow, p1=p1, p2=p2,
@@ -119,3 +132,38 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
                                   padding=padding), epilogue, bias)
     y = materialize(y, out_layout)
     return requantize(y, post_requant) if post_requant else y
+
+
+def _winograd(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
+              dataflow: Dataflow, p1: int, p2: int, *, stride: int,
+              padding: str, use_pallas: Optional[bool], epilogue: str,
+              bias: Optional[torch.Tensor],
+              in_layout: Optional[LayoutSpec],
+              out_layout: Optional[LayoutSpec]) -> torch.Tensor:
+    """The WINOGRAD branch: stride-1 square kernels only (``menu_for``
+    never assigns Winograd to anything else). The kernel path runs
+    ``conv_winograd``; the plain path runs the oracles, on the matched
+    tile layout directly, and K > r through ``conv_winograd``'s plain
+    stages (the oracle is single-round only)."""
+    if stride != 1 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"{algo.key} needs a stride-1 square kernel, got "
+                         f"stride {stride} and {tuple(w.shape[:2])}")
+    if use_pallas is not False:
+        return conv_winograd(x, w, m=algo.m, padding=padding,
+                             dataflow=dataflow, p1=p1, p2=p2,
+                             epilogue=epilogue, bias=bias,
+                             in_layout=in_layout, out_layout=out_layout)
+    if in_layout is not None and in_layout.kind == "winograd" \
+            and in_layout.m == algo.m and w.shape[0] == in_layout.r:
+        spec = in_layout
+        y = winograd_from_tiles_ref(x, w, algo.m, spec.tiles_y,
+                                    spec.tiles_x, spec.o1, spec.o2)
+        return materialize(apply_epilogue(y, epilogue, bias), out_layout)
+    x = restore(x, in_layout)
+    if w.shape[0] == 3:
+        y = apply_epilogue(winograd_ref(x, w, m=algo.m, padding=padding),
+                           epilogue, bias)
+        return materialize(y, out_layout)
+    return conv_winograd(x, w, m=algo.m, padding=padding, dataflow=dataflow,
+                         p1=p1, p2=p2, epilogue=epilogue, bias=bias,
+                         out_layout=out_layout, plain=True)

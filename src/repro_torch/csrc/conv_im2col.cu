@@ -114,7 +114,7 @@ extern "C" int conv_im2col_f32(const void* x, const void* w, const void* bias,
   const ConvGeom g{h,        w_in,     c_in, k2, stride,
                    pad_top,  pad_left, o1,   o2, k1 * k2 * c_in};
   const int m = batch * o1 * o2;
-  REPRO_DISPATCH_TILE(conv_im2col_f32_kernel, tile_m, tile_n, m, c_out, s,
+  REPRO_DISPATCH_TILE(conv_im2col_f32_kernel, tile_m, tile_n, m, c_out, 1, s,
                       static_cast<const float*>(x),
                       static_cast<const float*>(w),
                       static_cast<const float*>(bias),

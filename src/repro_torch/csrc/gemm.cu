@@ -1,18 +1,30 @@
-// Dataflow-bound tiled GEMM with the fused bias/ReLU flush, IEEE f32.
+// Dataflow-bound tiled GEMM with the fused bias/ReLU flush, IEEE f32, and
+// its batched form.
 //
-// Replaces: src/repro/kernels/gemm/gemm.py::gemm_pallas (body _gemm_kernel),
-// the TPU Computing Unit on the MXU. On the main path it runs every conv
-// whose input edge already carries its Toeplitz matrix
+// gemm_f32 replaces src/repro/kernels/gemm/gemm.py::gemm_pallas, the TPU
+// Computing Unit on the MXU. On the main path it runs every conv whose
+// input edge already carries its Toeplitz matrix
 // (kernels/gemm/ops.py::toeplitz_gemm), with the batch folded into M so
 // one launch covers a layer for the whole batch.
+//
+// batched_gemm_f32 replaces gemm.py::batched_gemm_pallas: G independent
+// products C[g] = A[g] · B[g], the (m+r-1)^2 transform-space GEMMs of a
+// Winograd layer (kernels/winograd/ops.py). Each block takes its problem
+// from blockIdx.z and offsets A, B and C by g·M·K, g·K·N and g·M·N; the
+// optional (N,) bias is shared by every g, as in the reference. On the
+// Winograd path it runs without an epilogue (bias and ReLU fuse into the
+// output transform) and with M = B·tiles, the batch folded into the tiles.
 //
 // What bounds it on an H100: arithmetic, for most main-path layers. The
 // card's 67 TFLOP/s of non-tensor-core f32 meets its 3.35 TB/s of HBM at
 // ~20 FLOP per byte; conv2 at batch 8 (M = 25088, K = 576, N = 192) does
 // ~72 FLOP per byte of operands, and only layers with a narrow N (32, 48,
-// 64 channels on 7x7 maps) fall below the ridge. The kernel computes in
-// IEEE f32 FMA (not TF32) so it matches the reference at 1e-4, which rules
-// out the tensor cores.
+// 64 channels on 7x7 maps) fall below the ridge. The batched GEMM of a
+// Winograd layer does 2·K·N / (4·(K + N)) FLOP per byte per row of A and C:
+// ~16 for VGG16's conv0_1 (K = N = 64, bytes-bound) and ~64 for conv2_x
+// (K = N = 256, operations-bound). Both kernels compute in IEEE f32 FMA
+// (not TF32) so they match the reference at 1e-4, which rules out the
+// tensor cores.
 //
 // What the design does about it: a 128 x 128 (or 64-edge) output tile per
 // 256-thread block with an 8 x 8 register micro-tile, so each thread does
@@ -53,6 +65,19 @@ __global__ void __launch_bounds__(repro::kThreads)
   repro::tile_gemm<BM, BN>(lda, b, bias, c, m, n, k, relu);
 }
 
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    batched_gemm_f32_kernel(const float* __restrict__ a,
+                            const float* __restrict__ b,
+                            const float* __restrict__ bias,
+                            float* __restrict__ c, int m, int n, int k,
+                            int relu) {
+  const size_t g = blockIdx.z;
+  DenseA lda(a + g * m * k, m, k, blockIdx.y * BM + threadIdx.x / 16);
+  repro::tile_gemm<BM, BN>(lda, b + g * k * n, bias, c + g * m * n, m, n, k,
+                           relu);
+}
+
 }  // namespace
 
 // C (m, n) = epilogue(A (m, k) · B (k, n) [+ bias (n)]); all f32,
@@ -62,8 +87,25 @@ extern "C" int gemm_f32(const void* a, const void* b, const void* bias,
                         void* c, int m, int n, int k, int tile_m, int tile_n,
                         int relu, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_TILE(gemm_f32_kernel, tile_m, tile_n, m, n, s,
+  REPRO_DISPATCH_TILE(gemm_f32_kernel, tile_m, tile_n, m, n, 1, s,
                       static_cast<const float*>(a),
+                      static_cast<const float*>(b),
+                      static_cast<const float*>(bias), static_cast<float*>(c),
+                      m, n, k, relu);
+  return (int)cudaGetLastError();
+}
+
+// C[g] (m, n) = epilogue(A[g] (m, k) · B[g] (k, n) [+ bias (n)]) for
+// g < groups; A (groups, m, k), B (groups, k, n), C (groups, m, n), all f32,
+// contiguous, on the current device. bias may be NULL. (tile_m, tile_n)
+// must be an instantiated tile: 64 or 128 each. Returns cudaGetLastError().
+extern "C" int batched_gemm_f32(const void* a, const void* b,
+                                const void* bias, void* c, int groups, int m,
+                                int n, int k, int tile_m, int tile_n,
+                                int relu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH_TILE(batched_gemm_f32_kernel, tile_m, tile_n, m, n, groups,
+                      s, static_cast<const float*>(a),
                       static_cast<const float*>(b),
                       static_cast<const float*>(bias), static_cast<float*>(c),
                       m, n, k, relu);

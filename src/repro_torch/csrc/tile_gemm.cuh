@@ -1,5 +1,6 @@
 // One block's share of C = epilogue(A · B + bias) in IEEE f32 — the tile
-// loop both hand-written kernels share (gemm.cu, conv_im2col.cu).
+// loop the GEMM kernels share (gemm.cu's dense and batched GEMMs,
+// conv_im2col.cu).
 //
 // A block of 256 threads (16 x 16) owns a BM x BN tile of C. K is walked in
 // 16-deep chunks staged through shared memory: A's chunk is stored
@@ -97,13 +98,15 @@ __device__ __forceinline__ void tile_gemm(ALoader& lda,
   }
 }
 
-// Launch `kernel<BM, BN>` for one of the instantiated tiles. Returns
-// cudaErrorInvalidValue for a tile that is not instantiated.
-#define REPRO_DISPATCH_TILE(KERNEL, TILE_M, TILE_N, GRID_M, GRID_N, STREAM, \
-                            ...)                                            \
+// Launch `kernel<BM, BN>` for one of the instantiated tiles on a grid of
+// (GRID_N / TILE_N) x (GRID_M / TILE_M) x GRID_G blocks (blockIdx.z picks
+// one of GRID_G independent problems). Returns cudaErrorInvalidValue for a
+// tile that is not instantiated.
+#define REPRO_DISPATCH_TILE(KERNEL, TILE_M, TILE_N, GRID_M, GRID_N, GRID_G, \
+                            STREAM, ...)                                    \
   do {                                                                      \
     const dim3 grid_(((GRID_N) + (TILE_N)-1) / (TILE_N),                    \
-                     ((GRID_M) + (TILE_M)-1) / (TILE_M));                   \
+                     ((GRID_M) + (TILE_M)-1) / (TILE_M), (GRID_G));         \
     if ((TILE_M) == 128 && (TILE_N) == 128)                                 \
       KERNEL<128, 128><<<grid_, repro::kThreads, 0, STREAM>>>(__VA_ARGS__); \
     else if ((TILE_M) == 128 && (TILE_N) == 64)                             \

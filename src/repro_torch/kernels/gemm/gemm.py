@@ -1,11 +1,15 @@
 """Dataflow-bound tiled GEMM — the paper's Computing Unit as a hand-written
-Hopper kernel (``csrc/gemm.cu``), with its plain torch version beside it.
+Hopper kernel (``csrc/gemm.cu``), dense and batched, each with its plain
+torch version beside it.
 
-C = epilogue(A · B [+ bias]) in IEEE f32. The kernel masks ragged M/N/K
-edges itself, so no operand is padded on the host, and applies bias/ReLU
-in registers before its single store. ``gemm_call`` launches it for CUDA
-tensors and runs ``gemm_plain`` for CPU tensors; nothing else selects
-between the two.
+C = epilogue(A · B [+ bias]) in IEEE f32; the batched form computes G
+independent products C[g] = epilogue(A[g] · B[g] [+ bias]) with one bias
+shared by every g (Winograd's transform-space GEMMs). The kernels mask
+ragged M/N/K edges themselves, so no operand is padded on the host, and
+apply bias/ReLU in registers before their single store. ``gemm_call`` and
+``batched_gemm_call`` launch them for CUDA tensors and run ``gemm_plain``
+/ ``batched_gemm_plain`` for CPU tensors; nothing else selects between
+the two.
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ from repro_torch.kernels.common import EPILOGUES, apply_epilogue, ceil_to
 GEMM = CudaKernel("gemm", "gemm_f32",
                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p])
+BATCHED_GEMM = CudaKernel("gemm", "batched_gemm_f32",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p])
 
 _MAX_GRID_Y = 65535
 
@@ -65,7 +72,9 @@ def check_cuda_f32(name: str, t: torch.Tensor, device: torch.device,
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, epilogue: str = "none",
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The kernel's function in plain torch: ``a @ b`` plus the epilogue."""
+    """The kernel's function in plain torch: ``a @ b`` plus the epilogue
+    (for (G, M, K) × (G, K, N) operands, the batched kernel's: the bias
+    (N,) is shared across G)."""
     check_epilogue(epilogue, bias)
     return apply_epilogue(a @ b, epilogue, bias)
 
@@ -104,4 +113,48 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                     None if bias is None else bias.data_ptr(),
                     out.data_ptr(), m, n, k, tile_m, tile_n, int(relu),
                     torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+# ``a @ b`` broadcasts over the leading dim, so one plain body serves both.
+batched_gemm_plain = gemm_plain
+
+
+def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+                      bn: int = 128, epilogue: str = "none",
+                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C (G, M, N) = epilogue(A (G, M, K) · B (G, K, N) [+ bias (N,)]).
+
+    CUDA tensors launch the batched kernel (one grid layer per g) on the
+    current stream under the tile ``kernel_tile(bm, bn, M, N)``; CPU
+    tensors run ``batched_gemm_plain``."""
+    if a.device.type == "cpu":
+        return batched_gemm_plain(a, b, epilogue, bias)
+    if a.device.type != "cuda":
+        raise ValueError(f"batched_gemm: unsupported device {a.device}")
+    relu = check_epilogue(epilogue, bias)
+    if a.ndim != 3 or b.ndim != 3:
+        raise ValueError(f"batched_gemm wants 3-D operands, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    g, m, k = (int(d) for d in a.shape)
+    n = int(b.shape[2])
+    check_cuda_f32("a", a, a.device, (g, m, k))
+    check_cuda_f32("b", b, a.device, (g, k, n))
+    if bias is not None and not epilogue.startswith("bias"):
+        bias = None
+    if bias is not None:
+        check_cuda_f32("bias", bias, a.device, (n,))
+    if min(g, m, n, k) < 1:
+        raise ValueError(f"batched_gemm: empty operand G={g} M={m} N={n} "
+                         f"K={k}")
+    tile_m, tile_n = kernel_tile(bm, bn, m, n)
+    if -(-m // tile_m) > _MAX_GRID_Y or g > _MAX_GRID_Y:
+        raise ValueError(f"batched_gemm: G={g} M={m} exceeds the launch grid")
+    out = torch.empty((g, m, n), device=a.device, dtype=torch.float32)
+    with torch.cuda.device(a.device):
+        BATCHED_GEMM.launch(a.data_ptr(), b.data_ptr(),
+                            None if bias is None else bias.data_ptr(),
+                            out.data_ptr(), g, m, n, k, tile_m, tile_n,
+                            int(relu),
+                            torch.cuda.current_stream().cuda_stream)
     return out

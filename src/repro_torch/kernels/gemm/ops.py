@@ -1,5 +1,5 @@
-"""Public GEMM wrappers: dataflow → block-dim binding (Eq. 9) and the
-matched-Toeplitz conv leg."""
+"""Public GEMM wrappers: dataflow → block-dim binding (Eq. 9), the
+matched-Toeplitz conv leg and Winograd's batched transform-space GEMM."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -7,7 +7,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.cost_model import Dataflow
-from repro_torch.kernels.gemm.gemm import gemm_call
+from repro_torch.kernels.gemm.gemm import batched_gemm_call, gemm_call
 
 _STREAM_TILE = 128   # granularity of the streamed dim (the reference's MXU)
 
@@ -54,3 +54,17 @@ def toeplitz_gemm(t: torch.Tensor, w2d: torch.Tensor, spec,
     out = gemm(t.reshape(-1, t.shape[-1]).contiguous(), w2d.contiguous(),
                dataflow, p1, p2, epilogue=epilogue, bias=bias)
     return out.reshape(*lead, spec.o1, spec.o2, w2d.shape[1])
+
+
+def batched_gemm(a: torch.Tensor, b: torch.Tensor,
+                 dataflow: Dataflow = Dataflow.NS,
+                 p1: int = 128, p2: int = 128,
+                 epilogue: str = "none",
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C[g] = epilogue(A[g] @ B[g] [+ bias]) — Winograd's (m+r−1)²
+    transform-space products (Eq. 6) under the plan's block binding.
+    Unlike the reference, nothing is padded or cropped: the kernel masks
+    ragged edges."""
+    bm, bn, _ = dataflow_blocks(dataflow, p1, p2)
+    return batched_gemm_call(a, b, bm=bm, bn=bn, epilogue=epilogue,
+                             bias=bias)

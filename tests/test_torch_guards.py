@@ -42,6 +42,11 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    names = {str(f.relative_to(REPO / "src" / "repro_torch")) for f in files
+             if "repro_torch" in f.parts}
+    assert {"kernels/winograd/winograd.py", "kernels/winograd/ops.py",
+            "kernels/winograd/ref.py", "kernels/layouts.py",
+            "kernels/gemm/gemm.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -114,19 +119,22 @@ def test_library_path_tracks_sources():
 
 
 def test_unported_algorithms_and_int8_kernels_raise():
+    """kn2row and the int8 kernels are not ported and raise; Winograd is
+    ported and rejects int8 with the reference's ``ValueError``."""
     x, w = torch.zeros(8, 8, 3), torch.zeros(3, 3, 3, 4)
-    for algo in (KN2ROW, WINO_2_3):
-        for kw in ({}, dict(backend="reference"), dict(use_pallas=False)):
-            with pytest.raises(NotImplementedError):
-                apply_conv(x, w, algo, **kw)
+    for kw in ({}, dict(backend="reference"), dict(use_pallas=False)):
+        with pytest.raises(NotImplementedError):
+            apply_conv(x, w, KN2ROW, **kw)
     for kw in ({}, dict(backend="pallas")):
         with pytest.raises(NotImplementedError, match="int8"):
             apply_conv(x, w, IM2COL, precision="int8", in_scale=0.1, **kw)
+    for kw in ({}, dict(backend="reference"), dict(backend="lax")):
+        with pytest.raises(ValueError, match="bf16-only"):
+            apply_conv(x, w, WINO_2_3, precision="int8", in_scale=0.1, **kw)
     spec = LayoutSpec(kind="winograd", h=8, w=8, c=3, k1=3, k2=3, m=2, r=3)
-    with pytest.raises(NotImplementedError):
-        materialize(x, spec)
-    with pytest.raises(NotImplementedError):
-        restore(torch.zeros(16, 4, 4, 3), spec)
+    tiles = materialize(x, spec)
+    assert tuple(tiles.shape) == (16, 4, 4, 3)
+    assert torch.equal(restore(tiles, spec), x)
 
 
 def test_later_slice_options_raise(small):

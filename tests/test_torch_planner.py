@@ -1,16 +1,18 @@
 """The port's planner copy against the reference planner: identical plans
-and lowerings (exact equality) for reduced and full-width GoogleNet."""
+and lowerings (exact equality) for reduced and full-width GoogleNet and
+full-width VGG16."""
 import dataclasses
 
 import pytest
 
 from repro.cnn.executor import graph_hash as jax_graph_hash
 from repro.cnn.models import googlenet as jax_googlenet
+from repro.cnn.models import vgg16 as jax_vgg16
 from repro.core.dse import identify_parameters as jax_identify
 from repro.core.mapper import lower_plan as jax_lower_plan
 from repro.core.mapper import map_network as jax_map_network
 from repro_torch.cnn.executor import graph_hash
-from repro_torch.cnn.models import googlenet
+from repro_torch.cnn.models import googlenet, vgg16
 from repro_torch.core.algorithms import AlgoFamily
 from repro_torch.core.dse import identify_parameters
 from repro_torch.core.mapper import lower_plan, map_network
@@ -94,3 +96,34 @@ def test_full_width_main_path_layouts():
     stem = g.nodes[nhwc_in[0]].conv
     assert (stem.h1, stem.k1, stem.stride, stem.c_in, stem.c_out) == \
         (224, 7, 2, 3, 64)
+
+
+@pytest.mark.parametrize("elide", [True, False])
+def test_full_width_vgg16_plan_and_lowering_match_reference(elide):
+    """Full-width VGG16 plans 8 im2col + 5 Winograd F(4,3) layers, exactly
+    as the reference; with elision the five Winograd layers read their
+    stored tiles, without it every layer reads NHWC."""
+    g, jg = vgg16(res=224, scale=1.0), jax_vgg16(res=224, scale=1.0)
+    plan = map_network(g, hw=identify_parameters(g, max_dim=512))
+    jplan = jax_map_network(jg, hw=jax_identify(jg, max_dim=512))
+    assert graph_hash(g) == jax_graph_hash(jg)
+    assert _plan_view(plan) == _plan_view(jplan)
+    assert plan.solver.exact
+    ours = lower_plan(g, plan, epilogue="bias_relu", elide=elide)
+    ref = jax_lower_plan(jg, jplan, epilogue="bias_relu", elide=elide)
+    assert _lowering_view(ours) == _lowering_view(ref)
+    assert ours.elided_edges == ref.elided_edges
+    algos = {g.nodes[n].name: l.algo.key for n, l in ours.items()}
+    wino = sorted(n for n, a in algos.items() if a == "winograd(F4x3)")
+    assert wino == ["conv0_1", "conv1_0", "conv1_1", "conv2_1", "conv2_2"]
+    assert sum(a == "im2col" for a in algos.values()) == 8
+    reads = {g.nodes[n].name: (l.in_layout.kind if l.in_layout else "nhwc")
+             for n, l in ours.items()}
+    if elide:
+        assert {reads[n] for n in wino} == {"winograd"}
+        assert reads["conv0_0"] == "nhwc"
+        assert sorted(n for n, k in reads.items() if k == "toeplitz") == [
+            "conv2_0", "conv3_0", "conv3_1", "conv3_2", "conv4_0",
+            "conv4_1", "conv4_2"]
+    else:
+        assert set(reads.values()) == {"nhwc"}
