@@ -13,7 +13,7 @@ both matrix products and cuDNN:
 4. runs full-width GoogleNet (224x224, scale 1.0; random weights from a
    seed) planned by the port's planner, kernels vs the plain path on the
    card, at every bucket with layout elision and once without, and checks
-   the kernel launches per forward;
+   the launches of every kernel per forward, as the lowering gives them;
 5. serves distinct requests through the port's ``CNNServingEngine`` (the
    main path: the launch counts of that run are the ones reported) and
    checks every result against a per-image plain forward;
@@ -27,12 +27,28 @@ both matrix products and cuDNN:
 8. runs full-width VGG16 (224x224, scale 1.0) under its exact plan of 8
    im2col + 5 Winograd F(4,3) layers, kernels vs the plain path on the
    card, at every bucket with layout elision and once without, and checks
-   the launches of all six kernels per forward;
+   the launches of every kernel per forward;
 9. serves distinct requests of VGG16 through ``CNNServingEngine`` and
    checks every result against a per-image plain forward;
 10. times the Winograd kernels at VGG16's conv0_1 and conv2_1 (bucket 8)
     beside their bounds, each Winograd layer as the three-kernel sum vs
-    cuDNN vs this port's im2col kernel, and the VGG16 forward per bucket.
+    cuDNN vs this port's im2col kernel, and the VGG16 forward per bucket;
+11. holds the two kn2row kernels (unit-conv GEMMs, pad-and-accumulate)
+    against their plain versions at Inception-v4 shapes (bucket 8), ragged
+    tiles, 1x3 / 3x1 SAME pads, G = 1 and all four epilogues, and whole
+    kn2row convs against ``F.conv2d`` on the reference's seven cases at
+    batch 1 and 3;
+12. runs full-width Inception-v4 (299x299, scale 1.0, 4/7/3 blocks) under
+    its exact plan of 117 im2col + 16 kn2row + 16 Winograd F(4,3) layers,
+    kernels vs the plain path on the card, at every bucket with layout
+    elision and once without, and checks the launches of all eight kernels
+    per forward;
+13. serves distinct Inception-v4 requests through ``CNNServingEngine`` and
+    checks every result against a per-image plain forward;
+14. times the kn2row kernels at stem/c4, stem/c5 and incC0/b4d (bucket 8)
+    beside their bounds and library calls, each distinct kn2row layer as
+    the two-kernel sum vs cuDNN vs this port's im2col kernel, and the
+    Inception-v4 forward per bucket.
 
 Every check raises on failure, so the script exits nonzero without its
 final line. The line before the last is one JSON object of per-kernel
@@ -43,6 +59,7 @@ from __future__ import annotations
 
 import json
 import statistics
+from collections import Counter
 import subprocess
 import sys
 from pathlib import Path
@@ -58,6 +75,7 @@ FORWARD_TOL = dict(rtol=2e-2, atol=2e-3)    # the reference's whole-plan tol
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)     # the reference's f32 kernel tol
 N_REQUESTS = 13
 N_VGG_REQUESTS = 12
+N_IV4_REQUESTS = 11
 # FLOP per (tile, channel) of the Winograd transforms as csrc/winograd.cu
 # writes them: two passes of 1-D transforms (adds and small-constant
 # FMAs), plus bias and ReLU on the m x m outputs of the output transform.
@@ -107,12 +125,14 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def device_time(fn):
+def device_time(fn, reps: int = 1):
     """(device ms summed over every kernel one call runs, that time split
     into this port's kernels by tile or F(m,3), torch's index gathers — the
     Toeplitz and Winograd-tile layout conversions — and all other torch
-    kernels) from ``torch.profiler``. Only the kernels' own rows are
-    summed: an aten op's row repeats the time of the kernels it launched."""
+    kernels, as text and as a dict of ms) from ``torch.profiler``, over
+    ``reps`` calls in one profiled window, divided by ``reps``. Only the
+    kernels' own rows are summed: an aten op's row repeats the time of the
+    kernels it launched."""
     import re
 
     import torch
@@ -122,19 +142,23 @@ def device_time(fn):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     groups = {}
     for e in prof.key_averages():
-        ms = getattr(e, "self_device_time_total", 0) / 1e3
+        ms = getattr(e, "self_device_time_total", 0) / 1e3 / reps
         if e.device_type != DeviceType.CUDA or ms <= 0:
             continue
-        gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32)"
-                         r"_kernel<(\d+), (\d+)>", e.key)
+        gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32|"
+                         r"unit_conv_gemms_f32)_kernel<(\d+), (\d+)>",
+                         e.key)
         wino = re.search(r"\b(input_transform_tiles|input_transform|"
                          r"output_transform)_kernel<(\d+)>", e.key)
         key = (f"{gemm[1]}<{gemm[2]}x{gemm[3]}>" if gemm
                else f"{wino[1]}<F{wino[2]}>" if wino
+               else "pad_accumulate_f32" if "pad_accumulate_f32_kernel"
+               in e.key
                else "torch index/gather" if re.search(r"index|gather", e.key)
                else "torch other")
         groups[key] = groups.get(key, 0.0) + ms
@@ -142,7 +166,7 @@ def device_time(fn):
         raise CheckFailed("the profiler recorded no kernel time")
     split = ", ".join(f"{k} {v:.3f}" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
-    return sum(groups.values()), split
+    return sum(groups.values()), split, groups
 
 
 def bound(flops: float, nbytes: float):
@@ -169,7 +193,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.cnn.executor import compile_plan, init_params
-    from repro_torch.cnn.models import googlenet, vgg16
+    from repro_torch.cnn.models import googlenet, inception_v4, vgg16
     from repro_torch.core.algorithms import AlgoFamily
     from repro_torch.core.dse import identify_parameters
     from repro_torch.core.layouts import LayoutSpec
@@ -183,6 +207,8 @@ def main() -> int:
                                               batched_gemm_call,
                                               batched_gemm_plain, gemm_call,
                                               gemm_plain)
+    from repro_torch.kernels.kn2row import kn2row as kn2
+    from repro_torch.kernels.kn2row.ops import conv_kn2row
     from repro_torch.kernels.layouts import materialize
     from repro_torch.kernels.winograd import winograd as wino
     from repro_torch.kernels.winograd.ops import conv_winograd
@@ -196,9 +222,16 @@ def main() -> int:
     def randn(*shape, scale: float = 1.0):
         return (torch.randn(shape, generator=gen) * scale).to(dev)
 
-    WINO_KERNELS = (wino.INPUT_TRANSFORM, wino.INPUT_TRANSFORM_TILES,
-                    BATCHED_GEMM, wino.OUTPUT_TRANSFORM)
-    ALL_KERNELS = (CONV, GEMM) + WINO_KERNELS
+    # Every kernel of the port; launch counts are tuples in this order.
+    KERNELS = {"conv": CONV, "gemm": GEMM,
+               "input_transform": wino.INPUT_TRANSFORM,
+               "input_transform_tiles": wino.INPUT_TRANSFORM_TILES,
+               "batched_gemm": BATCHED_GEMM,
+               "output_transform": wino.OUTPUT_TRANSFORM,
+               "unit_conv_gemms": kn2.UNIT_CONV_GEMMS,
+               "pad_accumulate": kn2.PAD_ACCUMULATE}
+    ALL_KERNELS = tuple(KERNELS.values())
+    KERNEL_NAMES = tuple(KERNELS)
 
     def reset_counts():
         for kern in ALL_KERNELS:
@@ -206,6 +239,115 @@ def main() -> int:
 
     def counts():
         return tuple(kern.launches for kern in ALL_KERNELS)
+
+    def launch_text(n):
+        return " ".join(f"{k}={v}" for k, v in zip(KERNEL_NAMES, n))
+
+    def expected_launches(lowering):
+        """Launches per forward in ALL_KERNELS order, derived from a
+        lowering: an im2col layer runs the conv kernel on NHWC and the GEMM
+        on its Toeplitz matrix; a Winograd layer the NHWC or the stored-tile
+        input transform, the batched GEMM and the output transform; a
+        kn2row layer both kn2row kernels."""
+        n = Counter()
+        for low in lowering.values():
+            kind = "nhwc" if low.in_layout is None else low.in_layout.kind
+            fam = low.algo.family
+            if fam is AlgoFamily.IM2COL:
+                n["gemm" if kind == "toeplitz" else "conv"] += 1
+            elif fam is AlgoFamily.WINOGRAD:
+                n["input_transform_tiles" if kind == "winograd"
+                  else "input_transform"] += 1
+                n["batched_gemm"] += 1
+                n["output_transform"] += 1
+            else:
+                n["unit_conv_gemms"] += 1
+                n["pad_accumulate"] += 1
+        return tuple(n[k] for k in KERNEL_NAMES)
+
+    def check_forwards(phase, tag, graph, plan, params, res, expect):
+        """Kernels vs the plain path on the card, at every bucket with
+        layout elision and at bucket 8 without: the lowering must give the
+        launches ``expect[elide]`` (ALL_KERNELS order), one forward must
+        launch exactly those, and the logits must agree at the whole-plan
+        tolerance. Returns {(elide, bucket): (run_k, run_p, x)}."""
+        runs = {}
+        for elide, buckets in ((True, BUCKETS), (False, (8,))):
+            for bsz in buckets:
+                run_k = compile_plan(graph, plan, epilogue="bias_relu",
+                                     tuning_batch=bsz, elide=elide,
+                                     device=dev)
+                run_p = compile_plan(graph, plan, epilogue="bias_relu",
+                                     tuning_batch=bsz, elide=elide,
+                                     use_pallas=False, device=dev)
+                derived = expected_launches(run_k.lowering)
+                if derived != expect[elide]:
+                    raise CheckFailed(
+                        f"{tag} b{bsz} elide={elide}: the lowering gives "
+                        f"{derived}, expected {expect[elide]} {KERNEL_NAMES}")
+                x = randn(bsz, res, res, 3)
+                reset_counts()
+                got = run_k(params, x)
+                torch.cuda.synchronize()
+                n = counts()
+                if n != derived:
+                    raise CheckFailed(
+                        f"{tag} b{bsz} elide={elide}: launches {n}, "
+                        f"expected {derived} {KERNEL_NAMES}")
+                want = run_p(params, x)
+                err = check_close(f"{tag} b{bsz} elide={elide}", got, want,
+                                  **FORWARD_TOL)
+                runs[(elide, bsz)] = (run_k, run_p, x)
+                print(f"[{phase}] {tag} b{bsz} elide={elide}: logits "
+                      f"{tuple(got.shape)} max|logit| "
+                      f"{float(want.abs().max()):.3e} max|diff| vs plain "
+                      f"{err:.3e} (rtol 2e-2 atol 2e-3); launches per forward "
+                      f"{launch_text(n)}")
+        return runs
+
+    def serve_checked(phase, tag, graph, plan, params, res, n_requests,
+                      seed, per_tick, run_p1):
+        """Serve distinct requests through ``CNNServingEngine`` with every
+        count reset just before: each result must match a per-image plain
+        forward, and the launches must be ``per_tick`` per tick. Returns
+        the launches (ALL_KERNELS order)."""
+        engine = CNNServingEngine(graph, params, plan, batch_size=8,
+                                  slo_s=0.25, warmup=True, device=dev)
+        rng = np.random.default_rng(seed)
+        images = [rng.standard_normal((res, res, 3)).astype(np.float32)
+                  for _ in range(n_requests)]
+        for rid, img in enumerate(images):
+            engine.submit(CNNRequest(rid=rid, image=img))
+        reset_counts()
+        done = engine.run_until_done()
+        torch.cuda.synchronize()
+        served = counts()
+        stats = engine.stats()
+        ticks = sum(stats["dispatches"].values())
+        if stats["served"] != n_requests or sorted(done) != list(
+                range(n_requests)):
+            raise CheckFailed(f"{tag}: served {stats['served']} of "
+                              f"{n_requests}")
+        if served != tuple(ticks * k for k in per_tick):
+            raise CheckFailed(f"{tag} serving launches {served} over {ticks} "
+                              "ticks")
+        err = 0.0
+        for rid, img in enumerate(images):
+            want = run_p1(params, img[None])[0]
+            got = torch.as_tensor(done[rid], device=dev)
+            err = max(err, check_close(f"served {tag} request {rid}", got,
+                                       want, **FORWARD_TOL))
+        # A correctness check, not a latency measurement: a handful of
+        # requests flushed at once, so only each tick's wall time is shown.
+        tick_ms = [(t.bucket, round(t.service_s * 1e3, 3))
+                   for t in {t.t_dispatch: t
+                             for t in engine.request_log}.values()]
+        print(f"[{phase}] served {tag} {stats['served']}/{n_requests} "
+              f"requests in {ticks} ticks, dispatches per bucket "
+              f"{stats['dispatches']}; wall time per tick (bucket, ms) "
+              f"{tick_ms}; max|diff| vs per-image plain forward {err:.3e}; "
+              f"launches {launch_text(served)}")
+        return served
 
     # ---- 1. card and toolchain -----------------------------------------
     smi = subprocess.run(
@@ -275,7 +417,6 @@ def main() -> int:
     # ---- 4. full-width GoogleNet: kernels vs plain path ---------------
     g = googlenet(res=224, scale=1.0)
     plan = map_network(g, hw=identify_parameters(g, max_dim=512))
-    convs = g.conv_nodes()
     if not plan.solver.exact or any(
             a.family is not AlgoFamily.IM2COL
             for a in plan.assignment.values()):
@@ -284,76 +425,17 @@ def main() -> int:
     params = init_params(g, seed=0, device=dev)
     for nid in sorted(params):
         params[nid]["b"].copy_(randn(*params[nid]["b"].shape, scale=0.05))
-    runs = {}
-    for elide, buckets in ((True, BUCKETS), (False, (8,))):
-        for bsz in buckets:
-            run_k = compile_plan(g, plan, epilogue="bias_relu",
-                                 tuning_batch=bsz, elide=elide, device=dev)
-            run_p = compile_plan(g, plan, epilogue="bias_relu",
-                                 tuning_batch=bsz, elide=elide,
-                                 use_pallas=False, device=dev)
-            x = randn(bsz, 224, 224, 3)
-            reset_counts()
-            got = run_k(params, x)
-            torch.cuda.synchronize()
-            n_gemm, n_conv = GEMM.launches, CONV.launches
-            if any(k.launches for k in WINO_KERNELS):
-                raise CheckFailed(f"googlenet b{bsz} launched a Winograd "
-                                  "kernel")
-            # Elided: 56 convs read their Toeplitz matrix (gemm), the stem
-            # reads the NHWC image (conv). Not elided: every conv is NHWC.
-            expect = (56, 1) if elide else (0, len(convs))
-            if (n_gemm, n_conv) != expect:
-                raise CheckFailed(
-                    f"forward b{bsz} elide={elide}: launches gemm={n_gemm} "
-                    f"conv={n_conv}, expected {expect}")
-            want = run_p(params, x)
-            err = check_close(f"googlenet b{bsz} elide={elide}", got, want,
-                              **FORWARD_TOL)
-            runs[(elide, bsz)] = (run_k, run_p, x)
-            print(f"[4] googlenet 224 b{bsz} elide={elide}: logits "
-                  f"{tuple(got.shape)} max|diff| vs plain {err:.3e} "
-                  f"(rtol 2e-2 atol 2e-3); launches per forward "
-                  f"gemm={n_gemm} conv={n_conv}")
+    # Launches per forward, in ALL_KERNELS order (KERNEL_NAMES). Elided:
+    # 56 convs read their Toeplitz matrix (gemm), the stem reads the NHWC
+    # image (conv). Not elided: every conv is NHWC.
+    googlenet_expect = {True: (1, 56, 0, 0, 0, 0, 0, 0),
+                        False: (57, 0, 0, 0, 0, 0, 0, 0)}
+    runs = check_forwards(4, "googlenet 224", g, plan, params, 224,
+                          googlenet_expect)
 
     # ---- 5. serving: the main path ------------------------------------
-    engine = CNNServingEngine(g, params, plan, batch_size=8, slo_s=0.25,
-                              warmup=True, device=dev)
-    rng = np.random.default_rng(1)
-    images = [rng.standard_normal((224, 224, 3)).astype(np.float32)
-              for _ in range(N_REQUESTS)]
-    for rid, img in enumerate(images):
-        engine.submit(CNNRequest(rid=rid, image=img))
-    reset_counts()
-    done = engine.run_until_done()
-    torch.cuda.synchronize()
-    launches = {"gemm": GEMM.launches, "conv": CONV.launches}
-    if any(k.launches for k in WINO_KERNELS):
-        raise CheckFailed("serving googlenet launched a Winograd kernel")
-    stats = engine.stats()
-    ticks = sum(stats["dispatches"].values())
-    if stats["served"] != N_REQUESTS or sorted(done) != list(
-            range(N_REQUESTS)):
-        raise CheckFailed(f"served {stats['served']} of {N_REQUESTS}")
-    if launches != {"gemm": 56 * ticks, "conv": ticks}:
-        raise CheckFailed(f"serving launches {launches} over {ticks} ticks")
-    run_p1 = runs[(True, 1)][1]
-    serve_err = 0.0
-    for rid, img in enumerate(images):
-        want = run_p1(params, img[None])[0]
-        got = torch.as_tensor(done[rid], device=dev)
-        serve_err = max(serve_err, check_close(f"served request {rid}", got,
-                                               want, **FORWARD_TOL))
-    # A correctness check, not a latency measurement: a handful of
-    # requests flushed at once, so only each tick's wall time is shown.
-    tick_ms = {(t.t_dispatch, t.bucket): round(t.service_s * 1e3, 3)
-               for t in engine.request_log}
-    print(f"[5] served {stats['served']}/{N_REQUESTS} requests in {ticks} "
-          f"ticks, dispatches per bucket {stats['dispatches']}; wall time "
-          f"per tick (bucket: ms) "
-          f"{[(b, ms) for (_, b), ms in tick_ms.items()]}; "
-          f"max|diff| vs per-image plain forward {serve_err:.3e}; "
-          f"launches gemm={launches['gemm']} conv={launches['conv']}")
+    gserve = serve_checked(5, "googlenet", g, plan, params, 224, N_REQUESTS,
+                           1, googlenet_expect[True], runs[(True, 1)][1])
 
     # ---- 6. timings ---------------------------------------------------
     a, b, bias = gemm_inputs["conv2"]
@@ -399,7 +481,7 @@ def main() -> int:
         run_k, run_p, x = runs[(True, bsz)]
         f_ms = time_ms(lambda: run_k(params, x), reps=10, rounds=5)
         p_ms = time_ms(lambda: run_p(params, x), reps=10, rounds=5)
-        dev_ms, split = device_time(lambda: run_k(params, x))
+        dev_ms, split, _ = device_time(lambda: run_k(params, x))
         print(f"[6] googlenet 224 forward b{bsz} (elide): kernels "
               f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms; device busy "
               f"{dev_ms:.3f} ms of the kernels' forward "
@@ -503,80 +585,19 @@ def main() -> int:
     for nid in sorted(vparams):
         vparams[nid]["b"].copy_(randn(*vparams[nid]["b"].shape,
                                       scale=0.05))
-    # Launches per forward, in ALL_KERNELS order: conv, gemm,
-    # input_transform, input_transform_tiles, batched_gemm,
-    # output_transform. Elided: conv0_0 reads the image (conv), seven
-    # im2col layers their Toeplitz matrix (gemm), the five Winograd layers
-    # their stored tiles; not elided: every layer reads NHWC.
-    vgg_expect = {True: (1, 7, 0, 5, 5, 5), False: (8, 0, 5, 0, 5, 5)}
-    vruns = {}
-    vgg_launches = {}
-    for elide, buckets in ((True, BUCKETS), (False, (8,))):
-        for bsz in buckets:
-            run_k = compile_plan(gv, vplan, epilogue="bias_relu",
-                                 tuning_batch=bsz, elide=elide, device=dev)
-            run_p = compile_plan(gv, vplan, epilogue="bias_relu",
-                                 tuning_batch=bsz, elide=elide,
-                                 use_pallas=False, device=dev)
-            x = randn(bsz, 224, 224, 3)
-            reset_counts()
-            got = run_k(vparams, x)
-            torch.cuda.synchronize()
-            n = counts()
-            if n != vgg_expect[elide]:
-                raise CheckFailed(
-                    f"vgg16 b{bsz} elide={elide}: launches {n}, expected "
-                    f"{vgg_expect[elide]} (conv, gemm, input_transform, "
-                    "input_transform_tiles, batched_gemm, output_transform)")
-            vgg_launches[elide] = n
-            want = run_p(vparams, x)
-            err = check_close(f"vgg16 b{bsz} elide={elide}", got, want,
-                              **FORWARD_TOL)
-            vruns[(elide, bsz)] = (run_k, run_p, x)
-            print(f"[8] vgg16 224 b{bsz} elide={elide}: logits "
-                  f"{tuple(got.shape)} max|diff| vs plain {err:.3e} (rtol "
-                  f"2e-2 atol 2e-3); launches per forward conv={n[0]} "
-                  f"gemm={n[1]} input_transform={n[2]} "
-                  f"input_transform_tiles={n[3]} batched_gemm={n[4]} "
-                  f"output_transform={n[5]}")
+    # Launches per forward, in ALL_KERNELS order (KERNEL_NAMES). Elided:
+    # conv0_0 reads the image (conv), seven im2col layers their Toeplitz
+    # matrix (gemm), the five Winograd layers their stored tiles; not
+    # elided: every layer reads NHWC. No kn2row layer.
+    vgg_expect = {True: (1, 7, 0, 5, 5, 5, 0, 0),
+                  False: (8, 0, 5, 0, 5, 5, 0, 0)}
+    vruns = check_forwards(8, "vgg16 224", gv, vplan, vparams, 224,
+                           vgg_expect)
 
     # ---- 9. serving VGG16 ---------------------------------------------
-    vengine = CNNServingEngine(gv, vparams, vplan, batch_size=8, slo_s=0.25,
-                               warmup=True, device=dev)
-    rng = np.random.default_rng(2)
-    vimages = [rng.standard_normal((224, 224, 3)).astype(np.float32)
-               for _ in range(N_VGG_REQUESTS)]
-    for rid, img in enumerate(vimages):
-        vengine.submit(CNNRequest(rid=rid, image=img))
-    reset_counts()
-    vdone = vengine.run_until_done()
-    torch.cuda.synchronize()
-    vserve = counts()
-    vstats = vengine.stats()
-    vticks = sum(vstats["dispatches"].values())
-    if vstats["served"] != N_VGG_REQUESTS or sorted(vdone) != list(
-            range(N_VGG_REQUESTS)):
-        raise CheckFailed(f"served {vstats['served']} of {N_VGG_REQUESTS}")
-    if vserve != tuple(vticks * k for k in vgg_expect[True]):
-        raise CheckFailed(f"vgg16 serving launches {vserve} over {vticks} "
-                          "ticks")
-    vrun_p1 = vruns[(True, 1)][1]
-    vserve_err = 0.0
-    for rid, img in enumerate(vimages):
-        want = vrun_p1(vparams, img[None])[0]
-        got = torch.as_tensor(vdone[rid], device=dev)
-        vserve_err = max(vserve_err, check_close(
-            f"served vgg16 request {rid}", got, want, **FORWARD_TOL))
-    vtick_ms = [(t.bucket, round(t.service_s * 1e3, 3))
-                for t in {t.t_dispatch: t
-                          for t in vengine.request_log}.values()]
-    print(f"[9] served vgg16 {vstats['served']}/{N_VGG_REQUESTS} requests in "
-          f"{vticks} ticks, dispatches per bucket {vstats['dispatches']}; "
-          f"wall time per tick (bucket, ms) {vtick_ms}; max|diff| vs "
-          f"per-image plain forward {vserve_err:.3e}; launches conv="
-          f"{vserve[0]} gemm={vserve[1]} input_transform={vserve[2]} "
-          f"input_transform_tiles={vserve[3]} batched_gemm={vserve[4]} "
-          f"output_transform={vserve[5]}")
+    vserve = serve_checked(9, "vgg16", gv, vplan, vparams, 224,
+                           N_VGG_REQUESTS, 2, vgg_expect[True],
+                           vruns[(True, 1)][1])
 
     # ---- 10. Winograd timings ------------------------------------------
     wino_times = {}
@@ -691,12 +712,275 @@ def main() -> int:
         run_k, run_p, x = vruns[(True, bsz)]
         f_ms = time_ms(lambda: run_k(vparams, x), reps=5, rounds=5)
         p_ms = time_ms(lambda: run_p(vparams, x), reps=5, rounds=5)
-        dev_ms, split = device_time(lambda: run_k(vparams, x))
+        dev_ms, split, _ = device_time(lambda: run_k(vparams, x))
         print(f"[10] vgg16 224 forward b{bsz} (elide): kernels {f_ms:.3f} "
               f"ms, plain path {p_ms:.3f} ms; device busy {dev_ms:.3f} ms "
               f"of the kernels' forward ({100 * dev_ms / f_ms:.1f}%) = "
               f"{split} (ms; the Winograd tile and Toeplitz gathers are "
               f"'torch index/gather')")
+
+    def nchw_conv_inputs(x, w, stride, padding):
+        """x (B, H, W, Cin) and w (K1, K2, Cin, Cout) as ``F.conv2d`` takes
+        them: NCHW with the (asymmetric) SAME pad applied, and OIHW."""
+        k1, k2 = int(w.shape[0]), int(w.shape[1])
+        _, _, pt, pb, pl, pr = conv_geometry(x.shape[1], x.shape[2], k1, k2,
+                                             stride, padding)
+        return (pad_nhwc(x, pt, pb, pl, pr).permute(0, 3, 1, 2).contiguous(),
+                w.permute(3, 2, 0, 1).contiguous())
+
+    # ---- 11. kn2row kernels vs plain -----------------------------------
+    # Inception-v4's distinct kn2row layer shapes: (map, K1, K2, stride,
+    # padding, Cin, Cout). Each runs at bucket 8 here.
+    kn2row_layers = {
+        "stem/c4": (147, 3, 3, 2, "VALID", 64, 96),
+        "stem/c5": (71, 3, 3, 2, "VALID", 192, 192),
+        "redA/b2": (35, 3, 3, 2, "VALID", 384, 384),
+        "redA/b3a": (35, 1, 1, 1, "SAME", 384, 192),
+        "incC/b3b": (8, 1, 3, 1, "SAME", 384, 256),
+        "incC/b3c": (8, 3, 1, 1, "SAME", 384, 256),
+        "incC/b4d": (8, 3, 1, 1, "SAME", 512, 256),
+        "incC/b4e": (8, 1, 3, 1, "SAME", 512, 256),
+    }
+    kn2_err = {"unit_conv_gemms": {}, "pad_accumulate": {}}
+    kn2_inputs = {}
+    for label in ("stem/c4", "stem/c5", "incC/b4d", "incC/b4e", "redA/b3a"):
+        hw, k1, k2, stride, pad, c_in, c_out = kn2row_layers[label]
+        x = randn(8, hw, hw, c_in)
+        w = randn(k1, k2, c_in, c_out, scale=(k1 * k2 * c_in) ** -0.5)
+        bias = randn(c_out, scale=0.1)
+        x2d, wg = x.reshape(-1, c_in), w.reshape(k1 * k2, c_in, c_out)
+        p_plain = kn2.unit_conv_gemms_plain(x2d, wg)
+        p_kern = kn2.unit_conv_gemms_call(x2d, wg)
+        torch.cuda.synchronize()
+        kn2_err["unit_conv_gemms"][label] = check_close(
+            f"unit_conv_gemms {label} G={k1 * k2} M={x2d.shape[0]} "
+            f"K={c_in} N={c_out}", p_kern, p_plain, **KERNEL_TOL)
+        del p_kern
+        o1, o2, pt, _, pl, _ = conv_geometry(hw, hw, k1, k2, stride, pad)
+        geo = dict(k1=k1, k2=k2, o1=o1, o2=o2, stride=stride, pad_top=pt,
+                   pad_left=pl)
+        p5 = p_plain.view(k1 * k2, 8, hw, hw, c_out)
+        pa_err = 0.0
+        for ep in ("none", "relu", "bias", "bias_relu"):
+            got = kn2.pad_accumulate_call(p5, epilogue=ep, bias=bias, **geo)
+            torch.cuda.synchronize()
+            pa_err = max(pa_err, check_close(
+                f"pad_accumulate {label} {ep}", got,
+                kn2.pad_accumulate_plain(p5, epilogue=ep, bias=bias, **geo),
+                **KERNEL_TOL))
+        kn2_err["pad_accumulate"][label] = pa_err
+        kn2_inputs[label] = (x, w, bias, x2d, wg, p5, geo)
+        print(f"[11] kn2row {label} b8 {hw}x{hw} {k1}x{k2} s{stride} {pad} "
+              f"{c_in}->{c_out}: max|diff| vs plain unit_conv_gemms "
+              f"{kn2_err['unit_conv_gemms'][label]:.3e}, pad_accumulate "
+              f"{pa_err:.3e} (four epilogues; rtol/atol 1e-4)")
+    a, b = randn(333, 70), randn(3, 70, 100, scale=70 ** -0.5)
+    want = kn2.unit_conv_gemms_plain(a, b)
+    ucg_ragged = 0.0
+    for bm, bn in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        got = kn2.unit_conv_gemms_call(a, b, bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        ucg_ragged = max(ucg_ragged, check_close(
+            f"unit_conv_gemms ragged tile ({bm},{bn})", got, want,
+            **KERNEL_TOL))
+    print(f"[11] unit_conv_gemms ragged G=3 M=333 K=70 N=100 tiles "
+          f"(64|128)x(64|128): max|diff| {ucg_ragged:.3e} (rtol/atol 1e-4)")
+    # Whole kn2row convs against cuDNN on the reference's seven cases
+    # (tests/test_kernels.py), a distinct random image in every batch slot.
+    conv_cases = [(14, 14, 8, 16, 3, 3, 1, "SAME"),
+                  (28, 28, 4, 8, 5, 5, 1, "SAME"),
+                  (15, 15, 3, 8, 3, 3, 2, "SAME"),
+                  (14, 14, 8, 8, 1, 1, 1, "SAME"),
+                  (16, 16, 6, 10, 7, 7, 2, "SAME"),
+                  (14, 14, 8, 16, 3, 3, 1, "VALID"),
+                  (10, 10, 6, 10, 1, 7, 1, "SAME")]
+    kn2_conv_err = 0.0
+    for h, w_in, c_in, c_out, k1, k2, stride, pad in conv_cases:
+        for bsz in (1, 3):
+            x = randn(bsz, h, w_in, c_in)
+            w = randn(k1, k2, c_in, c_out, scale=(k1 * k2 * c_in) ** -0.5)
+            bias = randn(c_out, scale=0.1)
+            got = conv_kn2row(x, w, stride=stride, padding=pad,
+                              epilogue="bias_relu", bias=bias)
+            xp, wo = nchw_conv_inputs(x, w, stride, pad)
+            want = torch.relu(F.conv2d(xp, wo, bias, stride=stride)
+                              ).permute(0, 2, 3, 1)
+            torch.cuda.synchronize()
+            kn2_conv_err = max(kn2_conv_err, check_close(
+                f"conv_kn2row {h}x{w_in} {k1}x{k2} s{stride} {pad} "
+                f"b{bsz} vs F.conv2d", got, want, **KERNEL_TOL))
+    print(f"[11] conv_kn2row vs F.conv2d (cuDNN, no TF32), bias_relu, the "
+          f"seven reference cases at batch 1 and 3: max|diff| "
+          f"{kn2_conv_err:.3e} (rtol/atol 1e-4)")
+
+    # ---- 12. full-width Inception-v4: kernels vs plain path ------------
+    gi = inception_v4(res=299, scale=1.0)
+    iplan = map_network(gi, hw=identify_parameters(gi, max_dim=512))
+    mix = Counter(a.key for a in iplan.assignment.values())
+    if not iplan.solver.exact or mix != {"im2col": 117, "kn2row": 16,
+                                         "winograd(F4x3)": 16}:
+        raise CheckFailed(f"the Inception-v4 plan is not the exact 117 "
+                          f"im2col + 16 kn2row + 16 F(4,3) plan this slice "
+                          f"serves: {dict(mix)}")
+    gflop = Counter()
+    for node in gi.conv_nodes():
+        gflop[iplan.assignment[node.id].family.value] += 2e-9 * node.conv.macs
+    print(f"[12] inception_v4 299 plan {dict(mix)}: conv GFLOP per image "
+          f"(2·MACs of the direct conv) {sum(gflop.values()):.2f} = "
+          + ", ".join(f"{k} {v:.2f}" for k, v in gflop.items()))
+    iparams = init_params(gi, seed=2, device=dev)
+    for nid in sorted(iparams):
+        iparams[nid]["b"].copy_(randn(*iparams[nid]["b"].shape, scale=0.05))
+    # Elided: stem/c1 reads the image (conv), 116 im2col layers their
+    # Toeplitz matrix (gemm), the 16 Winograd layers their stored tiles;
+    # not elided: every layer reads NHWC. Every kn2row layer reads NHWC.
+    iv4_expect = {True: (1, 116, 0, 16, 16, 16, 16, 16),
+                  False: (117, 0, 16, 0, 16, 16, 16, 16)}
+    iruns = check_forwards(12, "inception_v4 299", gi, iplan, iparams, 299,
+                           iv4_expect)
+
+    # ---- 13. serving Inception-v4 --------------------------------------
+    iserve = serve_checked(13, "inception_v4", gi, iplan, iparams, 299,
+                           N_IV4_REQUESTS, 3, iv4_expect[True],
+                           iruns[(True, 1)][1])
+
+    # ---- 14. kn2row timings ---------------------------------------------
+    def pad_accumulate_reads(p5, geo):
+        """The values of p the sum needs: for each offset, the in-map rows
+        and columns its strided window touches."""
+        _, batch, h, w, c = p5.shape
+        n = 0
+        for g in range(geo["k1"] * geo["k2"]):
+            dk1, dk2 = divmod(g, geo["k2"])
+            rows = sum(0 <= geo["stride"] * y + dk1 - geo["pad_top"]
+                       < h for y in range(geo["o1"]))
+            cols = sum(0 <= geo["stride"] * x + dk2 - geo["pad_left"]
+                       < w for x in range(geo["o2"]))
+            n += rows * cols
+        return n * batch * c
+
+    kn2_times = {}
+    for label in ("stem/c4", "stem/c5", "incC/b4d"):
+        x, w, bias, x2d, wg, p5, geo = kn2_inputs[label]
+        g_, bsz, hw, _, c_out = p5.shape
+        m, c_in = x2d.shape
+        o1, o2 = geo["o1"], geo["o2"]
+        # The library call for phase 2: one grouped conv over p laid out as
+        # (B, C·G, H, W), channel c·G + g, with a one-hot (C, G, K1, K2)
+        # weight picking offset g's tap, groups=C (built outside the timing).
+        p_nchw = p5.permute(1, 4, 0, 2, 3).reshape(bsz, c_out * g_, hw, hw
+                                                   ).contiguous()
+        onehot = torch.zeros(c_out, g_, geo["k1"], geo["k2"], device=dev)
+        for g in range(g_):
+            onehot[:, g, g // geo["k2"], g % geo["k2"]] = 1.0
+
+        def grouped():
+            return F.conv2d(p_nchw, onehot, bias, stride=geo["stride"],
+                            padding=(geo["pad_top"], geo["pad_left"]),
+                            groups=c_out)
+
+        pa_kw = dict(epilogue="bias", bias=bias, **geo)
+        pa_want = kn2.pad_accumulate_plain(p5, **pa_kw)
+        check_close(f"grouped F.conv2d pad_accumulate {label}",
+                    grouped().permute(0, 2, 3, 1), pa_want, **KERNEL_TOL)
+        check_close(f"torch.matmul unit_conv_gemms {label}",
+                    torch.matmul(x2d, wg), p5.reshape(g_, m, c_out),
+                    **KERNEL_TOL)
+        rows = {
+            "unit_conv_gemms": (
+                lambda: kn2.unit_conv_gemms_call(x2d, wg),
+                lambda: kn2.unit_conv_gemms_plain(x2d, wg),
+                ("torch.matmul (cuBLAS, no TF32)",
+                 lambda: torch.matmul(x2d, wg)),
+                bound(2.0 * g_ * m * c_in * c_out,
+                      4.0 * (m * c_in + g_ * c_in * c_out
+                             + g_ * m * c_out))),
+            "pad_accumulate": (
+                lambda: kn2.pad_accumulate_call(p5, **pa_kw),
+                lambda: kn2.pad_accumulate_plain(p5, **pa_kw),
+                ("grouped F.conv2d (cuDNN, no TF32)", grouped),
+                bound(1.0 * g_ * bsz * o1 * o2 * c_out,
+                      4.0 * (pad_accumulate_reads(p5, geo) + c_out
+                             + bsz * o1 * o2 * c_out))),
+        }
+        for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
+            k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib[1])
+            kn2_times[(name, label)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            # Back-to-back launches of a small kernel measure the host's
+            # launch rate; the profiler's kernel rows give the device time
+            # (over 20 calls: a single call's one kernel row can be lost).
+            k_dev, p_dev, l_dev = (device_time(fn, reps=20)[0]
+                                   for fn in (kern, plain, lib[1]))
+            print(f"[14] {name} {label} b{bsz}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, {lib[0]} {l_ms:.4f} ms, bound {b_ms:.4f} "
+                  f"ms ({b_by}); device time of one call (profiler): kernel "
+                  f"{k_dev:.4f}, plain {p_dev:.4f}, library {l_dev:.4f} ms")
+        del p_nchw
+
+    # Per distinct kn2row layer of Inception-v4 at bucket 8: the two
+    # kernels (each timed alone, summed) vs cuDNN vs this port's im2col
+    # kernel on the same layer, all with bias.
+    for label, (hw, k1, k2, stride, pad, c_in, c_out) in \
+            kn2row_layers.items():
+        x = randn(8, hw, hw, c_in)
+        w = randn(k1, k2, c_in, c_out, scale=(k1 * k2 * c_in) ** -0.5)
+        bias = randn(c_out, scale=0.1)
+        x2d, wg = x.reshape(-1, c_in), w.reshape(k1 * k2, c_in, c_out)
+        o1, o2, pt, _, pl, _ = conv_geometry(hw, hw, k1, k2, stride, pad)
+        geo = dict(k1=k1, k2=k2, o1=o1, o2=o2, stride=stride, pad_top=pt,
+                   pad_left=pl)
+        p5 = kn2.unit_conv_gemms_call(x2d, wg).view(k1 * k2, 8, hw, hw,
+                                                    c_out)
+        ucg_ms = time_ms(lambda: kn2.unit_conv_gemms_call(x2d, wg))
+        pa_ms = time_ms(lambda: kn2.pad_accumulate_call(
+            p5, epilogue="bias_relu", bias=bias, **geo))
+        layer_ms = time_ms(lambda: conv_kn2row(
+            x, w, stride=stride, padding=pad, epilogue="bias_relu",
+            bias=bias))
+        xp, wo = nchw_conv_inputs(x, w, stride, pad)
+        cudnn_ms = time_ms(lambda: F.conv2d(xp, wo, bias, stride=stride))
+        im2col_ms = time_ms(lambda: conv_im2col_call(
+            x, w, stride=stride, padding=pad, epilogue="bias_relu",
+            bias=bias))
+        l_bound, l_by = bound(2.0 * 8 * o1 * o2 * c_out * k1 * k2 * c_in,
+                              4.0 * (x.numel() + w.numel() + c_out
+                                     + 8 * o1 * o2 * c_out))
+        busy = {name: device_time(fn, reps=20)[0] for name, fn in (
+            ("kn2row", lambda: conv_kn2row(
+                x, w, stride=stride, padding=pad, epilogue="bias_relu",
+                bias=bias)),
+            ("cuDNN", lambda: F.conv2d(xp, wo, bias, stride=stride)),
+            ("im2col", lambda: conv_im2col_call(
+                x, w, stride=stride, padding=pad, epilogue="bias_relu",
+                bias=bias)))}
+        print(f"[14] inception_v4 {label} b8 {hw}x{hw} {k1}x{k2} s{stride} "
+              f"{pad} {c_in}->{c_out}: kn2row kernels {ucg_ms + pa_ms:.4f} "
+              f"ms (unit_conv_gemms {ucg_ms:.4f} + pad_accumulate "
+              f"{pa_ms:.4f}; the call {layer_ms:.4f}), F.conv2d (cuDNN, no "
+              f"TF32) {cudnn_ms:.4f} ms, im2col kernel {im2col_ms:.4f} ms; "
+              f"direct-conv bound {l_bound:.4f} ms ({l_by}); p "
+              f"{4.0 * p5.numel() / 1e6:.1f} MB; device time of one call "
+              f"(profiler): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in busy.items()) + " ms")
+        del p5
+
+    for bsz in BUCKETS:
+        run_k, run_p, x = iruns[(True, bsz)]
+        f_ms = time_ms(lambda: run_k(iparams, x), reps=5, rounds=5)
+        p_ms = time_ms(lambda: run_p(iparams, x), reps=5, rounds=5)
+        dev_ms, split, groups = device_time(lambda: run_k(iparams, x))
+        kn2_ms = sum(v for k, v in groups.items()
+                     if k.startswith(("unit_conv_gemms_f32",
+                                      "pad_accumulate_f32")))
+        dense_ms = sum(v for k, v in groups.items()
+                       if k.startswith("gemm_f32<"))
+        print(f"[14] inception_v4 299 forward b{bsz} (elide): kernels "
+              f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms; device busy "
+              f"{dev_ms:.3f} ms of the kernels' forward "
+              f"({100 * dev_ms / f_ms:.1f}%); kn2row kernels {kn2_ms:.3f} ms "
+              f"({100 * kn2_ms / dev_ms:.1f}% of device busy), dense GEMM "
+              f"{dense_ms:.3f} ms ({100 * dense_ms / dev_ms:.1f}%) = {split} "
+              f"(ms)")
 
     def wino_entry(name, source, replaces, label, launches):
         k_ms, p_ms, l_ms, b_ms, b_by = wino_times[(name, label)]
@@ -710,13 +994,13 @@ def main() -> int:
         {"name": "gemm_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/gemm.cu",
          "replaces": "src/repro/kernels/gemm/gemm.py:117",
-         "launches": launches["gemm"], "max_abs_err": gemm_err["conv2"],
+         "launches": gserve[1], "max_abs_err": gemm_err["conv2"],
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
          "bound_by": g_by, "library_ms": g_lib},
         {"name": "conv_im2col_f32", "route": "cuda",
          "source": "src/repro_torch/csrc/conv_im2col.cu",
          "replaces": "src/repro/kernels/conv_im2col/conv_im2col.py:89",
-         "launches": launches["conv"], "max_abs_err": conv_err["stem"],
+         "launches": gserve[0], "max_abs_err": conv_err["stem"],
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
          "bound_by": c_by, "library_ms": c_lib},
         # Winograd kernels at VGG16's conv0_1, bucket 8. Launches: the
@@ -724,7 +1008,7 @@ def main() -> int:
         # path, so its count is the unelided forward's.
         wino_entry("input_transform", "src/repro_torch/csrc/winograd.cu",
                    "src/repro/kernels/winograd/winograd.py:111", "conv0_1",
-                   vgg_launches[False][2]),
+                   vgg_expect[False][2]),
         wino_entry("input_transform_tiles",
                    "src/repro_torch/csrc/winograd.cu",
                    "src/repro/kernels/winograd/winograd.py:141", "conv0_1",
@@ -736,6 +1020,20 @@ def main() -> int:
                    "src/repro/kernels/winograd/winograd.py:192", "conv0_1",
                    vserve[5]),
     ]
+    # kn2row kernels at Inception-v4's stem/c4, bucket 8; launches from the
+    # Inception-v4 serving run.
+    for name, symbol, line, idx in (
+            ("unit_conv_gemms", "unit_conv_gemms_f32", 66, 6),
+            ("pad_accumulate", "pad_accumulate_f32", 154, 7)):
+        k_ms, p_ms, l_ms, b_ms, b_by = kn2_times[(name, "stem/c4")]
+        kernels.append({
+            "name": symbol, "route": "cuda",
+            "source": "src/repro_torch/csrc/kn2row.cu",
+            "replaces": f"src/repro/kernels/kn2row/kn2row.py:{line}",
+            "launches": iserve[idx],
+            "max_abs_err": kn2_err[name]["stem/c4"], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 ``apply_conv`` takes the plan's per-layer ``(algo, dataflow, p1, p2)`` and
 routes the convolution to the hand-written kernels (``kernels/conv_im2col``,
-``kernels/gemm`` and ``kernels/winograd``) or to the plain torch oracles.
+``kernels/gemm``, ``kernels/kn2row`` and ``kernels/winograd``) or to the
+plain torch oracles.
 The backend names are the reference's: "pallas" is the Hopper kernel,
 "reference" the plain per-algorithm torch oracle, "lax" the vendor
 convolution (``F.conv2d``, cuDNN on the card). ``use_pallas=None`` (the
@@ -17,10 +18,10 @@ Backends that cannot consume a layout directly restore to NHWC first, so
 every (backend, layout) pair computes the same function. Every path
 accepts one sample or a batch.
 
-The im2col and Winograd algorithms are ported; kn2row layers, and int8
-layers on the kernel path, raise ``NotImplementedError`` — a layer never
-falls back to another algorithm. Winograd rejects int8, as the reference
-does.
+All three algorithms are ported in f32; int8 layers on the kernel path
+raise ``NotImplementedError`` (the plain backends emulate int8) — a layer
+never falls back to another algorithm. Winograd rejects int8, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ from repro_torch.kernels.conv_im2col.ops import conv_im2col
 from repro_torch.kernels.conv_im2col.ref import (conv_from_toeplitz_ref,
                                                  conv_ref,
                                                  conv_via_toeplitz_ref)
+from repro_torch.kernels.kn2row.ops import conv_kn2row
+from repro_torch.kernels.kn2row.ref import kn2row_ref
 from repro_torch.kernels.layouts import materialize, restore
 from repro_torch.kernels.winograd.ops import conv_winograd
 from repro_torch.kernels.winograd.ref import (winograd_from_tiles_ref,
@@ -72,7 +75,8 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
 
     ``precision="int8"`` runs the reference's fake-quant emulation
     (quantized-then-dequantized f32 operands) on the "reference" and
-    "lax" backends; the int8 kernels are not ported yet."""
+    "lax" backends, for im2col and kn2row layers; the int8 kernels are not
+    ported yet."""
     in_layout = None if is_nhwc(in_layout) else in_layout
     out_layout = None if is_nhwc(out_layout) else out_layout
     if backend is not None and backend not in ("lax", "pallas", "reference"):
@@ -82,9 +86,6 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
     if precision == "int8" and algo.family is AlgoFamily.WINOGRAD:
         raise ValueError("Winograd is bf16-only: its input/output "
                          "transforms amplify quantization error")
-    if algo.family is AlgoFamily.KN2ROW and backend != "lax":
-        raise NotImplementedError(
-            f"{algo.key} is not ported yet; im2col and Winograd layers run")
     if backend is not None:
         use_pallas = backend == "pallas"
     if precision == "int8" and use_pallas is not False:
@@ -117,6 +118,15 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
                          padding=padding, use_pallas=use_pallas,
                          epilogue=epilogue, bias=bias, in_layout=in_layout,
                          out_layout=out_layout)
+    elif algo.family is AlgoFamily.KN2ROW:
+        if use_pallas is not False:
+            return conv_kn2row(x, w, stride=stride, padding=padding,
+                               dataflow=dataflow, p1=p1, p2=p2,
+                               epilogue=epilogue, bias=bias,
+                               in_layout=in_layout, out_layout=out_layout)
+        y = apply_epilogue(kn2row_ref(restore(x, in_layout), w,
+                                      stride=stride, padding=padding),
+                           epilogue, bias)
     elif use_pallas is not False:
         return conv_im2col(x, w, stride=stride, padding=padding,
                            dataflow=dataflow, p1=p1, p2=p2,

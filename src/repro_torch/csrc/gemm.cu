@@ -40,28 +40,12 @@
 
 namespace {
 
-// Dense row-major A (m, k).
-struct DenseA {
-  const float* __restrict__ a;
-  int m, k, row0, gk;
-
-  __device__ DenseA(const float* a_, int m_, int k_, int row0_)
-      : a(a_), m(m_), k(k_), row0(row0_), gk(0) {}
-
-  __device__ __forceinline__ void begin_chunk(int gk_) { gk = gk_; }
-
-  __device__ __forceinline__ float load(int r) const {
-    const int gm = row0 + 16 * r;
-    return (gm < m && gk < k) ? a[(size_t)gm * k + gk] : 0.f;
-  }
-};
-
 template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ bias, float* __restrict__ c,
                     int m, int n, int k, int relu) {
-  DenseA lda(a, m, k, blockIdx.y * BM + threadIdx.x / 16);
+  repro::DenseA lda(a, m, k, blockIdx.y * BM + threadIdx.x / 16);
   repro::tile_gemm<BM, BN>(lda, b, bias, c, m, n, k, relu);
 }
 
@@ -73,7 +57,8 @@ __global__ void __launch_bounds__(repro::kThreads)
                             float* __restrict__ c, int m, int n, int k,
                             int relu) {
   const size_t g = blockIdx.z;
-  DenseA lda(a + g * m * k, m, k, blockIdx.y * BM + threadIdx.x / 16);
+  repro::DenseA lda(a + g * m * k, m, k,
+                    blockIdx.y * BM + threadIdx.x / 16);
   repro::tile_gemm<BM, BN>(lda, b + g * k * n, bias, c + g * m * n, m, n, k,
                            relu);
 }

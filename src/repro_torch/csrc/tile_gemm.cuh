@@ -1,6 +1,6 @@
 // One block's share of C = epilogue(A · B + bias) in IEEE f32 — the tile
 // loop the GEMM kernels share (gemm.cu's dense and batched GEMMs,
-// conv_im2col.cu).
+// conv_im2col.cu, kn2row.cu's unit-conv GEMMs).
 //
 // A block of 256 threads (16 x 16) owns a BM x BN tile of C. K is walked in
 // 16-deep chunks staged through shared memory: A's chunk is stored
@@ -97,6 +97,23 @@ __device__ __forceinline__ void tile_gemm(ALoader& lda,
     }
   }
 }
+
+// Dense row-major A (m, k): the ALoader of gemm.cu's GEMMs and kn2row.cu's
+// unit-conv GEMMs.
+struct DenseA {
+  const float* __restrict__ a;
+  int m, k, row0, gk;
+
+  __device__ DenseA(const float* a_, int m_, int k_, int row0_)
+      : a(a_), m(m_), k(k_), row0(row0_), gk(0) {}
+
+  __device__ __forceinline__ void begin_chunk(int gk_) { gk = gk_; }
+
+  __device__ __forceinline__ float load(int r) const {
+    const int gm = row0 + 16 * r;
+    return (gm < m && gk < k) ? a[(size_t)gm * k + gk] : 0.f;
+  }
+};
 
 // Launch `kernel<BM, BN>` for one of the instantiated tiles on a grid of
 // (GRID_N / TILE_N) x (GRID_M / TILE_M) x GRID_G blocks (blockIdx.z picks

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gemm", "conv_im2col", "winograd")
+SOURCES = ("gemm", "conv_im2col", "winograd", "kn2row")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

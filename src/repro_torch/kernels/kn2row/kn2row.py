@@ -1,0 +1,175 @@
+"""kn2row convolution kernels (§2.1.2) — hand-written Hopper kernels
+(``csrc/kn2row.cu``), each with its plain torch version beside it.
+
+Phase 1 ("unit-CONV GEMM", Eq. 3): each (k1, k2) kernel offset is a 1×1
+convolution, a (B·H·W, Cin) × (Cin, Cout) GEMM. All K1K2 of them run as
+one launch whose A operand (the flattened map) is the same for every
+offset — the reference's X block index map that ignores the offset.
+
+Phase 2 ("Pad-and-Accumulate", Eq. 4): each product p_{k1,k2} is shifted
+by its offset and summed: z[y, x] = Σ p_{k1,k2}[S·y + k1 − pt,
+S·x + k2 − pl]. The reference zero-pads p on the host first; the kernel
+takes p unpadded, and rows or columns outside one image's map count as 0.
+As the last kn2row stage it owns the fused bias/ReLU epilogue.
+
+``unit_conv_gemms_call`` and ``pad_accumulate_call`` launch the kernels
+for CUDA tensors and run ``unit_conv_gemms_plain`` /
+``pad_accumulate_plain`` for CPU tensors; nothing else selects between
+the two.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.common import apply_epilogue
+from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, check_cuda_f32,
+                                          check_epilogue, kernel_tile)
+
+UNIT_CONV_GEMMS = CudaKernel("kn2row", "unit_conv_gemms_f32",
+                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p])
+PAD_ACCUMULATE = CudaKernel("kn2row", "pad_accumulate_f32",
+                            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+                            + [ctypes.c_void_p])
+
+_INDEX_LIMIT = 2 ** 31
+
+
+# ---------------------------------------------------------------------------
+# Phase 1 — unit-conv GEMMs, batched over kernel offsets.
+# ---------------------------------------------------------------------------
+
+def unit_conv_gemms_plain(x2d: torch.Tensor, w: torch.Tensor
+                          ) -> torch.Tensor:
+    """The kernel's function in plain torch: x2d (M, Cin) @ w (G, Cin,
+    Cout), broadcast over G → p (G, M, Cout)."""
+    return x2d @ w
+
+
+def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
+                         bm: int = 128, bn: int = 128) -> torch.Tensor:
+    """p (G, M, Cout) = x2d (M, Cin) · w[g] (Cin, Cout) for every g < G,
+    in f32 and with no epilogue (phase 1 ends before the offsets' sum).
+
+    CUDA tensors launch the kernel on the current stream under the tile
+    ``kernel_tile(bm, bn, M, Cout)``; CPU tensors run
+    ``unit_conv_gemms_plain``."""
+    if x2d.device.type == "cpu":
+        return unit_conv_gemms_plain(x2d, w)
+    if x2d.device.type != "cuda":
+        raise ValueError(f"unit_conv_gemms: unsupported device {x2d.device}")
+    if x2d.ndim != 2 or w.ndim != 3:
+        raise ValueError(f"unit_conv_gemms wants x2d (M, Cin) and w (G, Cin, "
+                         f"Cout), got {tuple(x2d.shape)} and "
+                         f"{tuple(w.shape)}")
+    m, k = (int(d) for d in x2d.shape)
+    g, n = int(w.shape[0]), int(w.shape[2])
+    check_cuda_f32("x2d", x2d, x2d.device, (m, k))
+    check_cuda_f32("w", w, x2d.device, (g, k, n))
+    if min(g, m, n, k) < 1:
+        raise ValueError(f"unit_conv_gemms: empty operand G={g} M={m} N={n} "
+                         f"K={k}")
+    if max(x2d.numel(), w.numel(), g * m * n) >= _INDEX_LIMIT:
+        raise ValueError("unit_conv_gemms: tensor too large for 32-bit "
+                         "indices")
+    tile_m, tile_n = kernel_tile(bm, bn, m, n)
+    if -(-m // tile_m) > _MAX_GRID_Y or g > _MAX_GRID_Y:
+        raise ValueError(f"unit_conv_gemms: G={g} M={m} exceeds the launch "
+                         "grid")
+    p = torch.empty((g, m, n), device=x2d.device, dtype=torch.float32)
+    with torch.cuda.device(x2d.device):
+        UNIT_CONV_GEMMS.launch(x2d.data_ptr(), w.data_ptr(), p.data_ptr(),
+                               g, m, n, k, tile_m, tile_n,
+                               torch.cuda.current_stream().cuda_stream)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Phase 2 — Pad-and-Accumulate.
+# ---------------------------------------------------------------------------
+
+def _check_geometry(p: torch.Tensor, k1: int, k2: int, o1: int, o2: int,
+                    stride: int, pad_top: int, pad_left: int) -> None:
+    """Validate p (K1K2, B, H, W, C) and the output geometry."""
+    if p.ndim != 5 or p.shape[0] != k1 * k2:
+        raise ValueError(f"pad_accumulate wants p (K1K2={k1 * k2}, B, H, W, "
+                         f"C), got {tuple(p.shape)}")
+    if min(o1, o2, stride, k1, k2) < 1:
+        raise ValueError(f"pad_accumulate: bad geometry o=({o1}, {o2}) "
+                         f"stride {stride} kernel {k1}x{k2}")
+    if min(pad_top, pad_left) < 0:
+        raise ValueError(f"negative pad ({pad_top}, {pad_left})")
+
+
+def pad_accumulate_plain(p: torch.Tensor, *, k1: int, k2: int, o1: int,
+                         o2: int, stride: int = 1,
+                         pad_top: int = 0, pad_left: int = 0,
+                         epilogue: str = "none",
+                         bias: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """The kernel's function in plain torch: zero-pad p (K1K2, B, H, W, C)
+    with ``F.pad``, sum the K1K2 strided slices in the order g = 0 … G−1,
+    then the epilogue → (B, O1, O2, C)."""
+    _check_geometry(p, k1, k2, o1, o2, stride, pad_top, pad_left)
+    check_epilogue(epilogue, bias)
+    h, w = int(p.shape[2]), int(p.shape[3])
+    span_r, span_c = (o1 - 1) * stride + 1, (o2 - 1) * stride + 1
+    pad_bottom = max(0, span_r + k1 - 1 - pad_top - h)
+    pad_right = max(0, span_c + k2 - 1 - pad_left - w)
+    pp = F.pad(p.to(torch.float32),
+               (0, 0, pad_left, pad_right, pad_top, pad_bottom))
+    acc = None
+    for g in range(k1 * k2):
+        dk1, dk2 = divmod(g, k2)
+        sl = pp[g, :, dk1:dk1 + span_r:stride, dk2:dk2 + span_c:stride]
+        acc = sl if acc is None else acc + sl
+    return apply_epilogue(acc, epilogue, bias)
+
+
+def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
+                        o2: int, stride: int = 1,
+                        pad_top: int = 0, pad_left: int = 0,
+                        epilogue: str = "none",
+                        bias: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """out (B, O1, O2, C) = epilogue(Σ_{k1,k2} p_{k1,k2}[S·y + k1 −
+    pad_top, S·x + k2 − pad_left] [+ bias (C,)]) for the unpadded unit-conv
+    products p (K1K2, B, H, W, C); rows and columns outside each image's
+    (H, W) map count as 0.
+
+    CUDA tensors launch the kernel on the current stream; CPU tensors run
+    ``pad_accumulate_plain``."""
+    if p.device.type == "cpu":
+        return pad_accumulate_plain(p, k1=k1, k2=k2, o1=o1, o2=o2,
+                                    stride=stride, pad_top=pad_top,
+                                    pad_left=pad_left, epilogue=epilogue,
+                                    bias=bias)
+    if p.device.type != "cuda":
+        raise ValueError(f"pad_accumulate: unsupported device {p.device}")
+    _check_geometry(p, k1, k2, o1, o2, stride, pad_top, pad_left)
+    relu = check_epilogue(epilogue, bias)
+    _, batch, h, w, c = (int(d) for d in p.shape)
+    check_cuda_f32("p", p, p.device, (k1 * k2, batch, h, w, c))
+    if min(batch, c) < 1:
+        raise ValueError(f"pad_accumulate: empty problem B={batch} C={c}")
+    if bias is not None and not epilogue.startswith("bias"):
+        bias = None
+    if bias is not None:
+        check_cuda_f32("bias", bias, p.device, (c,))
+    if max(p.numel(), batch * o1 * o2 * c) >= _INDEX_LIMIT:
+        raise ValueError("pad_accumulate: tensor too large for 32-bit "
+                         "indices")
+    out = torch.empty((batch, o1, o2, c), device=p.device,
+                      dtype=torch.float32)
+    with torch.cuda.device(p.device):
+        PAD_ACCUMULATE.launch(p.data_ptr(),
+                              None if bias is None else bias.data_ptr(),
+                              out.data_ptr(), batch, h, w, c, k1, k2, o1, o2,
+                              stride, pad_top, pad_left, int(relu),
+                              torch.cuda.current_stream().cuda_stream)
+    return out

@@ -16,10 +16,13 @@ from repro_torch.cnn.executor import compile_plan, forward, init_params
 from repro_torch.cnn.models import googlenet
 from repro_torch.cnn.overlay import apply_conv
 from repro_torch.core.algorithms import IM2COL, KN2ROW, WINO_2_3
+from repro_torch.kernels.conv_im2col.ref import conv_ref
 from repro_torch.core.layouts import LayoutSpec
 from repro_torch.kernels import build
 from repro_torch.kernels.conv_im2col.conv_im2col import conv_im2col_call
 from repro_torch.kernels.gemm.gemm import gemm_call
+from repro_torch.kernels.kn2row.kn2row import (pad_accumulate_call,
+                                               unit_conv_gemms_call)
 from repro_torch.kernels.layouts import materialize, restore
 from repro_torch.serving.cnn_engine import CNNServingEngine
 
@@ -46,7 +49,8 @@ def test_port_imports_neither_jax_nor_the_reference():
              if "repro_torch" in f.parts}
     assert {"kernels/winograd/winograd.py", "kernels/winograd/ops.py",
             "kernels/winograd/ref.py", "kernels/layouts.py",
-            "kernels/gemm/gemm.py"} <= names
+            "kernels/gemm/gemm.py", "kernels/kn2row/kn2row.py",
+            "kernels/kn2row/ops.py", "kernels/kn2row/ref.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -97,6 +101,11 @@ def test_kernel_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         conv_im2col_call(torch.empty(1, 4, 4, 1, device="meta"),
                          torch.empty(1, 1, 1, 1, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        unit_conv_gemms_call(meta, torch.empty(9, 4, 2, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pad_accumulate_call(torch.empty(9, 1, 4, 4, 2, device="meta"),
+                            k1=3, k2=3, o1=4, o2=4)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -111,6 +120,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_library_path_tracks_sources():
+    assert build.SOURCES == ("gemm", "conv_im2col", "winograd", "kn2row")
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
     paths = {build.library_path(n) for n in build.SOURCES}
     assert len(paths) == len(build.SOURCES)
     for path in paths:
@@ -119,15 +131,24 @@ def test_library_path_tracks_sources():
 
 
 def test_unported_algorithms_and_int8_kernels_raise():
-    """kn2row and the int8 kernels are not ported and raise; Winograd is
-    ported and rejects int8 with the reference's ``ValueError``."""
+    """Every f32 algorithm is ported: kn2row runs on the plain backends
+    (CPU tensors) and computes the direct conv. The int8 kernels are not
+    ported and raise on the kernel path, for im2col and kn2row alike;
+    Winograd rejects int8 with the reference's ``ValueError``."""
     x, w = torch.zeros(8, 8, 3), torch.zeros(3, 3, 3, 4)
-    for kw in ({}, dict(backend="reference"), dict(use_pallas=False)):
-        with pytest.raises(NotImplementedError):
-            apply_conv(x, w, KN2ROW, **kw)
-    for kw in ({}, dict(backend="pallas")):
-        with pytest.raises(NotImplementedError, match="int8"):
-            apply_conv(x, w, IM2COL, precision="int8", in_scale=0.1, **kw)
+    xr = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 8, 3)).astype(np.float32))
+    wr = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 1, 3, 4)).astype(np.float32))
+    for kw in ({}, dict(backend="reference"), dict(use_pallas=False),
+               dict(backend="lax")):
+        got = apply_conv(xr, wr, KN2ROW, **kw)
+        np.testing.assert_allclose(got.numpy(), conv_ref(xr, wr).numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    for algo in (IM2COL, KN2ROW):
+        for kw in ({}, dict(backend="pallas")):
+            with pytest.raises(NotImplementedError, match="int8"):
+                apply_conv(x, w, algo, precision="int8", in_scale=0.1, **kw)
     for kw in ({}, dict(backend="reference"), dict(backend="lax")):
         with pytest.raises(ValueError, match="bf16-only"):
             apply_conv(x, w, WINO_2_3, precision="int8", in_scale=0.1, **kw)

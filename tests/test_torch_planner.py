@@ -7,12 +7,13 @@ import pytest
 
 from repro.cnn.executor import graph_hash as jax_graph_hash
 from repro.cnn.models import googlenet as jax_googlenet
+from repro.cnn.models import inception_v4 as jax_inception_v4
 from repro.cnn.models import vgg16 as jax_vgg16
 from repro.core.dse import identify_parameters as jax_identify
 from repro.core.mapper import lower_plan as jax_lower_plan
 from repro.core.mapper import map_network as jax_map_network
 from repro_torch.cnn.executor import graph_hash
-from repro_torch.cnn.models import googlenet, vgg16
+from repro_torch.cnn.models import googlenet, inception_v4, vgg16
 from repro_torch.core.algorithms import AlgoFamily
 from repro_torch.core.dse import identify_parameters
 from repro_torch.core.mapper import lower_plan, map_network
@@ -127,3 +128,39 @@ def test_full_width_vgg16_plan_and_lowering_match_reference(elide):
             "conv4_1", "conv4_2"]
     else:
         assert set(reads.values()) == {"nhwc"}
+
+
+@pytest.mark.parametrize("elide", [True, False])
+def test_full_width_inception_v4_plan_and_lowering_match_reference(elide):
+    """Full-width Inception-v4 (299², 4/7/3 blocks) plans 117 im2col, 16
+    kn2row and 16 Winograd F(4,3) layers, exactly as the reference. Every
+    kn2row layer reads NHWC; with elision only redA/b3a stores another
+    format (its 3x3 consumer's Toeplitz matrix), the 16 Winograd layers
+    read their stored tiles and 116 im2col layers their Toeplitz matrix."""
+    g, jg = inception_v4(), jax_inception_v4()
+    plan = map_network(g, hw=identify_parameters(g, max_dim=512))
+    jplan = jax_map_network(jg, hw=jax_identify(jg, max_dim=512))
+    assert graph_hash(g) == jax_graph_hash(jg)
+    assert _plan_view(plan) == _plan_view(jplan)
+    assert plan.solver.exact
+    ours = lower_plan(g, plan, epilogue="bias_relu", elide=elide)
+    ref = jax_lower_plan(jg, jplan, epilogue="bias_relu", elide=elide)
+    assert _lowering_view(ours) == _lowering_view(ref)
+    assert ours.elided_edges == ref.elided_edges
+    reads = {}
+    for n, l in ours.items():
+        key = (l.algo.key, l.in_layout.kind if l.in_layout else "nhwc")
+        reads[key] = reads.get(key, 0) + 1
+    kn2row_stores = {g.nodes[n].name: l.out_layout.kind
+                     for n, l in ours.items()
+                     if l.algo.family is AlgoFamily.KN2ROW and l.out_layout}
+    if elide:
+        assert reads == {("im2col", "nhwc"): 1, ("im2col", "toeplitz"): 116,
+                         ("winograd(F4x3)", "winograd"): 16,
+                         ("kn2row", "nhwc"): 16}
+        assert kn2row_stores == {"redA/b3a": "toeplitz"}
+    else:
+        assert reads == {("im2col", "nhwc"): 117,
+                         ("winograd(F4x3)", "nhwc"): 16,
+                         ("kn2row", "nhwc"): 16}
+        assert kn2row_stores == {}
