@@ -48,7 +48,28 @@ both matrix products and cuDNN:
 14. times the kn2row kernels at stem/c4, stem/c5 and incC0/b4d (bucket 8)
     beside their bounds and library calls, each distinct kn2row layer as
     the two-kernel sum vs cuDNN vs this port's im2col kernel, and the
-    Inception-v4 forward per bucket.
+    Inception-v4 forward per bucket;
+15. holds the four int8 kernels (int8 GEMM, int8 implicit-GEMM conv, int8
+    unit-conv GEMMs with exact int32 partials, int32 pad-and-accumulate)
+    against their plain versions at Inception-v4's int8 shapes (bucket 8)
+    and on a ragged G 3, M 333, K 70, N 100 over all four tiles, f32 and
+    requantized int8 outputs, all four epilogues: int32 partials and int8
+    outputs must be equal, f32 ones within 1e-5 (GEMM) / 1e-4 (convs);
+16. runs the accuracy gate on the card: ``plan_mixed_precision`` plans
+    full-width Inception-v4 at tol 0.02 on two calibration images and
+    must keep int8 im2col and int8 kn2row layers, each within tol; its
+    isolated errors must not move when TF32 is on globally;
+17. runs the gated plan, int8 kernels vs the plain path (the int8
+    emulation), at every bucket with layout elision and at bucket 8
+    without (whose fused int8 edges carry int8 between layers), checks
+    the launches of all twelve kernels per forward as the lowering gives
+    them and the logits against the f32 plan (``INT8_VS_F32``, set from
+    the JAX reference's own int8-vs-f32 reading), and times the int8
+    kernels (beside their bounds and cuBLASLt's int8 GEMM) and the
+    forward;
+18. serves distinct Inception-v4 requests through ``CNNServingEngine``
+    with the gate's ``act_scales`` and checks every result against a
+    per-image plain forward.
 
 Every check raises on failure, so the script exits nonzero without its
 final line. The line before the last is one JSON object of per-kernel
@@ -59,23 +80,40 @@ from __future__ import annotations
 
 import json
 import statistics
-from collections import Counter
 import subprocess
 import sys
+import time
+from collections import Counter
 from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 
-# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3.
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, dense int8
+# tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
 BUCKETS = (1, 2, 4, 8)
 FORWARD_TOL = dict(rtol=2e-2, atol=2e-3)    # the reference's whole-plan tol
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)     # the reference's f32 kernel tol
+GEMM_I8_TOL = dict(rtol=1e-5, atol=1e-5)    # the reference's int8 tols
+EXACT = dict(rtol=0.0, atol=0.0)            # int32 partials, int8 outputs
+GATE_TOL = 0.02                             # the gate's error budget
+# The gated Inception-v4's logits against the f32 plan's: max|int8 - f32| /
+# max|f32| below "rel" and every image's cosine similarity above "cos".
+# The deviation is the int8 semantics' own and grows with depth: at tol
+# 0.02 the JAX reference's emulation, against its own f32 plan, reads
+# 0.138 / 0.262 / 0.338 (cosine 0.990 / 0.948 / 0.934) at blocks 1/1/1,
+# 2/3/1 and 4/7/3 of width 0.25 and 0.418 (0.895) at 4/7/3 of width 0.5,
+# the port the same to 1e-4 (``python tests/test_torch_quant.py``, 299²,
+# batch 8; PERF.md section 6). The bounds leave room above those readings
+# and the card's at full width (0.428, 0.892).
+INT8_VS_F32 = {"rel": 0.6, "cos": 0.8}
 N_REQUESTS = 13
 N_VGG_REQUESTS = 12
 N_IV4_REQUESTS = 11
+N_IV4_I8_REQUESTS = 11
 # FLOP per (tile, channel) of the Winograd transforms as csrc/winograd.cu
 # writes them: two passes of 1-D transforms (adds and small-constant
 # FMAs), plus bias and ReLU on the m x m outputs of the output transform.
@@ -93,6 +131,10 @@ def check_close(name: str, got, want, rtol: float, atol: float) -> float:
     if tuple(got.shape) != tuple(want.shape):
         raise CheckFailed(f"{name}: shape {tuple(got.shape)} != "
                           f"{tuple(want.shape)}")
+    if got.dtype != want.dtype:
+        raise CheckFailed(f"{name}: dtype {got.dtype} != {want.dtype}")
+    if not got.is_floating_point():      # int32 partials, int8 outputs
+        got, want = got.double(), want.double()
     if not bool(torch.isfinite(got).all()):
         raise CheckFailed(f"{name}: non-finite output")
     diff = (got - want).abs()
@@ -140,38 +182,50 @@ def device_time(fn, reps: int = 1):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    groups = {}
-    for e in prof.key_averages():
-        ms = getattr(e, "self_device_time_total", 0) / 1e3 / reps
-        if e.device_type != DeviceType.CUDA or ms <= 0:
-            continue
-        gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32|"
-                         r"unit_conv_gemms_f32)_kernel<(\d+), (\d+)>",
-                         e.key)
-        wino = re.search(r"\b(input_transform_tiles|input_transform|"
-                         r"output_transform)_kernel<(\d+)>", e.key)
-        key = (f"{gemm[1]}<{gemm[2]}x{gemm[3]}>" if gemm
-               else f"{wino[1]}<F{wino[2]}>" if wino
-               else "pad_accumulate_f32" if "pad_accumulate_f32_kernel"
-               in e.key
-               else "torch index/gather" if re.search(r"index|gather", e.key)
-               else "torch other")
-        groups[key] = groups.get(key, 0.0) + ms
-    if not groups:
-        raise CheckFailed("the profiler recorded no kernel time")
+    # A profiled window now and then comes back without its kernel rows
+    # (seen on the card, for short windows); such a window is taken again,
+    # up to three times in all.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        groups = {}
+        for e in prof.key_averages():
+            ms = getattr(e, "self_device_time_total", 0) / 1e3 / reps
+            if e.device_type != DeviceType.CUDA or ms <= 0:
+                continue
+            gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32|"
+                             r"unit_conv_gemms_f32|gemm_i8|conv_im2col_i8|"
+                             r"unit_conv_gemms_i8)_kernel<(\d+), (\d+)>",
+                             e.key)
+            wino = re.search(r"\b(input_transform_tiles|input_transform|"
+                             r"output_transform)_kernel<(\d+)>", e.key)
+            key = (f"{gemm[1]}<{gemm[2]}x{gemm[3]}>" if gemm
+                   else f"{wino[1]}<F{wino[2]}>" if wino
+                   else "pad_accumulate_f32" if "pad_accumulate_f32_kernel"
+                   in e.key
+                   else "pad_accumulate_i32" if "pad_accumulate_i32_kernel"
+                   in e.key
+                   else "torch index/gather" if re.search(r"index|gather",
+                                                          e.key)
+                   else "torch other")
+            groups[key] = groups.get(key, 0.0) + ms
+        if groups:
+            break
+    else:
+        raise CheckFailed("the profiler recorded no kernel time in three "
+                          "windows")
     split = ", ".join(f"{k} {v:.3f}" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
     return sum(groups.values()), split, groups
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms the card could take, what bounds it) for f32 work."""
-    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    """(least ms the card could take, what bounds it) for f32 work, or at
+    another ``peak`` rate of operations (``PEAK_INT8_OPS`` for int8)."""
+    ops_ms = flops / peak * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
@@ -199,14 +253,15 @@ def main() -> int:
     from repro_torch.core.layouts import LayoutSpec
     from repro_torch.core.mapper import map_network
     from repro_torch.kernels import build
-    from repro_torch.kernels.common import pad_nhwc
+    from repro_torch.kernels.common import int8_product, pad_nhwc
+    from repro_torch.core.quant import layer_errors, plan_mixed_precision
     from repro_torch.kernels.conv_im2col.conv_im2col import (
-        CONV, conv_im2col_call, conv_plain)
+        CONV, CONV_I8, conv_i8_plain, conv_im2col_call, conv_plain)
     from repro_torch.kernels.conv_im2col.ref import conv_geometry
-    from repro_torch.kernels.gemm.gemm import (BATCHED_GEMM, GEMM,
+    from repro_torch.kernels.gemm.gemm import (BATCHED_GEMM, GEMM, GEMM_I8,
                                               batched_gemm_call,
                                               batched_gemm_plain, gemm_call,
-                                              gemm_plain)
+                                              gemm_i8_plain, gemm_plain)
     from repro_torch.kernels.kn2row import kn2row as kn2
     from repro_torch.kernels.kn2row.ops import conv_kn2row
     from repro_torch.kernels.layouts import materialize
@@ -229,7 +284,10 @@ def main() -> int:
                "batched_gemm": BATCHED_GEMM,
                "output_transform": wino.OUTPUT_TRANSFORM,
                "unit_conv_gemms": kn2.UNIT_CONV_GEMMS,
-               "pad_accumulate": kn2.PAD_ACCUMULATE}
+               "pad_accumulate": kn2.PAD_ACCUMULATE,
+               "gemm_i8": GEMM_I8, "conv_im2col_i8": CONV_I8,
+               "unit_conv_gemms_i8": kn2.UNIT_CONV_GEMMS_I8,
+               "pad_accumulate_i32": kn2.PAD_ACCUMULATE_I32}
     ALL_KERNELS = tuple(KERNELS.values())
     KERNEL_NAMES = tuple(KERNELS)
 
@@ -248,40 +306,46 @@ def main() -> int:
         lowering: an im2col layer runs the conv kernel on NHWC and the GEMM
         on its Toeplitz matrix; a Winograd layer the NHWC or the stored-tile
         input transform, the batched GEMM and the output transform; a
-        kn2row layer both kn2row kernels."""
+        kn2row layer both kn2row kernels; an int8 layer the int8 form of
+        each."""
         n = Counter()
         for low in lowering.values():
             kind = "nhwc" if low.in_layout is None else low.in_layout.kind
             fam = low.algo.family
+            i8 = "_i8" if low.precision == "int8" else ""
             if fam is AlgoFamily.IM2COL:
-                n["gemm" if kind == "toeplitz" else "conv"] += 1
+                n[("gemm" if kind == "toeplitz"
+                   else "conv_im2col" if i8 else "conv") + i8] += 1
             elif fam is AlgoFamily.WINOGRAD:
                 n["input_transform_tiles" if kind == "winograd"
                   else "input_transform"] += 1
                 n["batched_gemm"] += 1
                 n["output_transform"] += 1
             else:
-                n["unit_conv_gemms"] += 1
-                n["pad_accumulate"] += 1
+                n["unit_conv_gemms" + i8] += 1
+                n["pad_accumulate_i32" if i8 else "pad_accumulate"] += 1
         return tuple(n[k] for k in KERNEL_NAMES)
 
-    def check_forwards(phase, tag, graph, plan, params, res, expect):
+    def check_forwards(phase, tag, graph, plan, params, res, expect,
+                       act_scales=None):
         """Kernels vs the plain path on the card, at every bucket with
         layout elision and at bucket 8 without: the lowering must give the
-        launches ``expect[elide]`` (ALL_KERNELS order), one forward must
-        launch exactly those, and the logits must agree at the whole-plan
-        tolerance. Returns {(elide, bucket): (run_k, run_p, x)}."""
+        launches ``expect[elide]`` (ALL_KERNELS order; None: whatever it
+        derives), one forward must launch exactly those, and the logits
+        must agree at the whole-plan tolerance. Returns {(elide, bucket):
+        (run_k, run_p, x, logits)}."""
         runs = {}
         for elide, buckets in ((True, BUCKETS), (False, (8,))):
             for bsz in buckets:
                 run_k = compile_plan(graph, plan, epilogue="bias_relu",
                                      tuning_batch=bsz, elide=elide,
-                                     device=dev)
+                                     act_scales=act_scales, device=dev)
                 run_p = compile_plan(graph, plan, epilogue="bias_relu",
                                      tuning_batch=bsz, elide=elide,
-                                     use_pallas=False, device=dev)
+                                     use_pallas=False, act_scales=act_scales,
+                                     device=dev)
                 derived = expected_launches(run_k.lowering)
-                if derived != expect[elide]:
+                if expect is not None and derived != expect[elide]:
                     raise CheckFailed(
                         f"{tag} b{bsz} elide={elide}: the lowering gives "
                         f"{derived}, expected {expect[elide]} {KERNEL_NAMES}")
@@ -297,7 +361,7 @@ def main() -> int:
                 want = run_p(params, x)
                 err = check_close(f"{tag} b{bsz} elide={elide}", got, want,
                                   **FORWARD_TOL)
-                runs[(elide, bsz)] = (run_k, run_p, x)
+                runs[(elide, bsz)] = (run_k, run_p, x, got)
                 print(f"[{phase}] {tag} b{bsz} elide={elide}: logits "
                       f"{tuple(got.shape)} max|logit| "
                       f"{float(want.abs().max()):.3e} max|diff| vs plain "
@@ -306,13 +370,14 @@ def main() -> int:
         return runs
 
     def serve_checked(phase, tag, graph, plan, params, res, n_requests,
-                      seed, per_tick, run_p1):
+                      seed, per_tick, run_p1, act_scales=None):
         """Serve distinct requests through ``CNNServingEngine`` with every
         count reset just before: each result must match a per-image plain
         forward, and the launches must be ``per_tick`` per tick. Returns
         the launches (ALL_KERNELS order)."""
         engine = CNNServingEngine(graph, params, plan, batch_size=8,
-                                  slo_s=0.25, warmup=True, device=dev)
+                                  slo_s=0.25, warmup=True,
+                                  act_scales=act_scales, device=dev)
         rng = np.random.default_rng(seed)
         images = [rng.standard_normal((res, res, 3)).astype(np.float32)
                   for _ in range(n_requests)]
@@ -428,8 +493,8 @@ def main() -> int:
     # Launches per forward, in ALL_KERNELS order (KERNEL_NAMES). Elided:
     # 56 convs read their Toeplitz matrix (gemm), the stem reads the NHWC
     # image (conv). Not elided: every conv is NHWC.
-    googlenet_expect = {True: (1, 56, 0, 0, 0, 0, 0, 0),
-                        False: (57, 0, 0, 0, 0, 0, 0, 0)}
+    googlenet_expect = {True: (1, 56, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0),
+                        False: (57, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0)}
     runs = check_forwards(4, "googlenet 224", g, plan, params, 224,
                           googlenet_expect)
 
@@ -478,7 +543,7 @@ def main() -> int:
           f"no TF32) {c_lib:.4f} ms, bound {c_bound:.4f} ms ({c_by})")
 
     for bsz in BUCKETS:
-        run_k, run_p, x = runs[(True, bsz)]
+        run_k, run_p, x, _ = runs[(True, bsz)]
         f_ms = time_ms(lambda: run_k(params, x), reps=10, rounds=5)
         p_ms = time_ms(lambda: run_p(params, x), reps=10, rounds=5)
         dev_ms, split, _ = device_time(lambda: run_k(params, x))
@@ -589,8 +654,8 @@ def main() -> int:
     # conv0_0 reads the image (conv), seven im2col layers their Toeplitz
     # matrix (gemm), the five Winograd layers their stored tiles; not
     # elided: every layer reads NHWC. No kn2row layer.
-    vgg_expect = {True: (1, 7, 0, 5, 5, 5, 0, 0),
-                  False: (8, 0, 5, 0, 5, 5, 0, 0)}
+    vgg_expect = {True: (1, 7, 0, 5, 5, 5, 0, 0, 0, 0, 0, 0),
+                  False: (8, 0, 5, 0, 5, 5, 0, 0, 0, 0, 0, 0)}
     vruns = check_forwards(8, "vgg16 224", gv, vplan, vparams, 224,
                            vgg_expect)
 
@@ -709,7 +774,7 @@ def main() -> int:
               f"({l_by})")
 
     for bsz in BUCKETS:
-        run_k, run_p, x = vruns[(True, bsz)]
+        run_k, run_p, x, _ = vruns[(True, bsz)]
         f_ms = time_ms(lambda: run_k(vparams, x), reps=5, rounds=5)
         p_ms = time_ms(lambda: run_p(vparams, x), reps=5, rounds=5)
         dev_ms, split, _ = device_time(lambda: run_k(vparams, x))
@@ -834,8 +899,8 @@ def main() -> int:
     # Elided: stem/c1 reads the image (conv), 116 im2col layers their
     # Toeplitz matrix (gemm), the 16 Winograd layers their stored tiles;
     # not elided: every layer reads NHWC. Every kn2row layer reads NHWC.
-    iv4_expect = {True: (1, 116, 0, 16, 16, 16, 16, 16),
-                  False: (117, 0, 16, 0, 16, 16, 16, 16)}
+    iv4_expect = {True: (1, 116, 0, 16, 16, 16, 16, 16, 0, 0, 0, 0),
+                  False: (117, 0, 16, 0, 16, 16, 16, 16, 0, 0, 0, 0)}
     iruns = check_forwards(12, "inception_v4 299", gi, iplan, iparams, 299,
                            iv4_expect)
 
@@ -965,7 +1030,7 @@ def main() -> int:
         del p5
 
     for bsz in BUCKETS:
-        run_k, run_p, x = iruns[(True, bsz)]
+        run_k, run_p, x, _ = iruns[(True, bsz)]
         f_ms = time_ms(lambda: run_k(iparams, x), reps=5, rounds=5)
         p_ms = time_ms(lambda: run_p(iparams, x), reps=5, rounds=5)
         dev_ms, split, groups = device_time(lambda: run_k(iparams, x))
@@ -981,6 +1046,294 @@ def main() -> int:
               f"({100 * kn2_ms / dev_ms:.1f}% of device busy), dense GEMM "
               f"{dense_ms:.3f} ms ({100 * dense_ms / dev_ms:.1f}%) = {split} "
               f"(ms)")
+
+    # ---- 15. int8 kernels vs plain ---------------------------------------
+    def randi8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    def dequant_scale(n, depth):
+        """Per-channel scales that bring a depth-``depth`` int8 sum to ~1
+        (the role of in_scale · w_scale)."""
+        return ((torch.rand(n, generator=gen) * 1.5 + 0.5)
+                / (127.0 ** 2 * depth ** 0.5 / 3)).to(dev)
+
+    def i8_outputs(kern, plain, tol, epilogues=("none", "relu", "bias",
+                                                 "bias_relu")):
+        """The kernel vs its plain version under every epilogue, f32 out
+        (within ``tol``) and requantized to int8 at 0.05 (exact); returns
+        max|Δ| of each."""
+        errs = {"f32": 0.0, "int8": 0.0}
+        for ep in epilogues:
+            for out_scale in (None, 0.05):
+                got = kern(ep, out_scale)
+                torch.cuda.synchronize()
+                want = plain(ep, out_scale)
+                key = "f32" if out_scale is None else "int8"
+                errs[key] = max(errs[key], check_close(
+                    f"{ep} {key}", got, want,
+                    **(tol if out_scale is None else EXACT)))
+        return errs
+
+    i8_err = {}
+    i8_inputs = {}
+    # gemm_i8: redA/b3b's Toeplitz layer at bucket 8 (the int8 Toeplitz
+    # layer with the most MACs), the deepest int8 Toeplitz K (2880), and a
+    # ragged problem on every tile.
+    for label, m, k, n, tiles in (
+            ("redA/b3b", 8 * 35 * 35, 9 * 192, 224, ((128, 128),)),
+            ("K 2880", 8 * 8 * 8, 2880, 320, ((128, 128),)),
+            ("ragged", 333, 70, 100,
+             ((64, 64), (64, 128), (128, 64), (128, 128)))):
+        a, b = randi8(m, k), randi8(k, n)
+        scale, bias = dequant_scale(n, k), randn(n, scale=0.1)
+        err = {"f32": 0.0, "int8": 0.0}
+        for bm, bn in tiles:
+            e = i8_outputs(
+                lambda ep, os: gemm_call(a, b, bm=bm, bn=bn, epilogue=ep,
+                                         bias=bias, scale=scale,
+                                         out_scale=os),
+                lambda ep, os: gemm_i8_plain(a, b, ep, bias, scale=scale,
+                                             out_scale=os), GEMM_I8_TOL)
+            err = {key: max(err[key], e[key]) for key in err}
+        i8_err[("gemm_i8", label)] = err
+        i8_inputs[("gemm_i8", label)] = (a, b, scale, bias)
+        print(f"[15] gemm_i8 {label} M={m} K={k} N={n} tiles {list(tiles)}, "
+              f"four epilogues: max|diff| vs plain f32 {err['f32']:.3e} "
+              f"(rtol/atol 1e-5), int8 out {err['int8']:.0f} (exact)")
+    # conv_im2col_i8: stem/c1 on the image at bucket 8 (the elided path's
+    # one NHWC int8 layer), and redA/b3b on its NHWC map (the unelided
+    # path's).
+    for label, xs, ws, stride, pad in (
+            ("stem/c1", (8, 299, 299, 3), (3, 3, 3, 32), 2, "VALID"),
+            ("redA/b3b", (8, 35, 35, 192), (3, 3, 192, 224), 1, "SAME")):
+        x, w = randi8(*xs), randi8(*ws)
+        scale = dequant_scale(ws[3], ws[0] * ws[1] * ws[2])
+        bias = randn(ws[3], scale=0.1)
+        kw = dict(stride=stride, padding=pad, bias=bias, scale=scale)
+        err = i8_outputs(
+            lambda ep, os: conv_im2col_call(x, w, epilogue=ep,
+                                            out_scale=os, **kw),
+            lambda ep, os: conv_i8_plain(x, w, epilogue=ep, out_scale=os,
+                                         **kw), KERNEL_TOL)
+        i8_err[("conv_im2col_i8", label)] = err
+        i8_inputs[("conv_im2col_i8", label)] = (x, w, scale, bias, stride,
+                                                pad)
+        print(f"[15] conv_im2col_i8 {label} x{xs} w{ws} s{stride} {pad}, "
+              f"four epilogues: max|diff| vs plain f32 {err['f32']:.3e} "
+              f"(rtol/atol 1e-4), int8 out {err['int8']:.0f} (exact)")
+    # unit_conv_gemms_i8 and pad_accumulate_i32: stem/c4 and incC0/b4d at
+    # bucket 8 (int8 kn2row layers of the plan), a ragged problem on every
+    # tile.
+    for label in ("stem/c4", "incC/b4d"):
+        hw, k1, k2, stride, pad, c_in, c_out = kn2row_layers[label]
+        x, w = randi8(8, hw, hw, c_in), randi8(k1, k2, c_in, c_out)
+        scale = dequant_scale(c_out, k1 * k2 * c_in)
+        bias = randn(c_out, scale=0.1)
+        x2d, wg = x.reshape(-1, c_in), w.reshape(k1 * k2, c_in, c_out)
+        p_kern = kn2.unit_conv_gemms_call(x2d, wg)
+        torch.cuda.synchronize()
+        p_plain = kn2.unit_conv_gemms_plain(x2d, wg)
+        ucg = check_close(f"unit_conv_gemms_i8 {label}", p_kern, p_plain,
+                          **EXACT)
+        del p_kern
+        o1, o2, pt, _, pl, _ = conv_geometry(hw, hw, k1, k2, stride, pad)
+        geo = dict(k1=k1, k2=k2, o1=o1, o2=o2, stride=stride, pad_top=pt,
+                   pad_left=pl)
+        p5 = p_plain.view(k1 * k2, 8, hw, hw, c_out)
+        err = i8_outputs(
+            lambda ep, os: kn2.pad_accumulate_call(
+                p5, epilogue=ep, bias=bias, scale=scale, out_scale=os,
+                **geo),
+            lambda ep, os: kn2.pad_accumulate_plain(
+                p5, epilogue=ep, bias=bias, scale=scale, out_scale=os,
+                **geo), KERNEL_TOL)
+        i8_err[("unit_conv_gemms_i8", label)] = {"int32": ucg}
+        i8_err[("pad_accumulate_i32", label)] = err
+        i8_inputs[("kn2row_i8", label)] = (x2d, wg, p5, scale, bias, geo)
+        print(f"[15] kn2row int8 {label} b8 {hw}x{hw} {k1}x{k2} s{stride} "
+              f"{pad} {c_in}->{c_out}: unit_conv_gemms_i8 int32 p max|diff| "
+              f"{ucg:.0f} (exact); pad_accumulate_i32, four epilogues: "
+              f"f32 {err['f32']:.3e} (rtol/atol 1e-4), int8 out "
+              f"{err['int8']:.0f} (exact)")
+    a, b = randi8(333, 70), randi8(3, 70, 100)
+    want = kn2.unit_conv_gemms_plain(a, b)
+    for bm, bn in ((64, 64), (64, 128), (128, 64), (128, 128)):
+        got = kn2.unit_conv_gemms_call(a, b, bm=bm, bn=bn)
+        torch.cuda.synchronize()
+        check_close(f"unit_conv_gemms_i8 ragged tile ({bm},{bn})", got,
+                    want, **EXACT)
+    print("[15] unit_conv_gemms_i8 ragged G=3 M=333 K=70 N=100 tiles "
+          "(64|128)x(64|128): int32 p equal (exact)")
+
+    # ---- 16. the accuracy gate on the card -----------------------------
+    samples = randn(2, 299, 299, 3)
+    t0 = time.perf_counter()
+    report = plan_mixed_precision(gi, iparams, samples, tol=GATE_TOL,
+                                  hw=identify_parameters(gi, max_dim=512))
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    qplan, qscales = report.plan, report.act_scales
+    qmix = Counter((qplan.assignment[n].key, p)
+                   for n, p in qplan.precisions.items())
+    int8_errs = sorted(report.errors[n] for n, p in qplan.precisions.items()
+                       if p == "int8")
+    if max(int8_errs) > GATE_TOL:
+        raise CheckFailed(f"the gate kept an int8 layer at error "
+                          f"{max(int8_errs):.4f} > {GATE_TOL}")
+    if not (qmix[("im2col", "int8")] and qmix[("kn2row", "int8")]):
+        raise CheckFailed(f"the gated plan lacks int8 im2col or int8 "
+                          f"kn2row layers: {dict(qmix)}")
+    # The gate measures in true f32 whatever the caller's TF32 flags: with
+    # both turned on globally, its isolated errors stay the same.
+    cuda_mm, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    cuda_mm.allow_tf32 = cudnn.allow_tf32 = True
+    try:
+        tf32_errs = layer_errors(gi, iparams, samples, qscales)
+    finally:
+        cuda_mm.allow_tf32 = cudnn.allow_tf32 = False
+    tf32_diff = max(abs(tf32_errs[n] - e) for n, e in report.errors.items())
+    if sorted(tf32_errs) != sorted(report.errors) or tf32_diff > 1e-6:
+        raise CheckFailed(f"the gate's isolated errors move by {tf32_diff:.3e}"
+                          f" with TF32 on globally")
+    errs = sorted(report.errors.values())
+    print(f"[16] gate on inception_v4 299 (tol {GATE_TOL}, 2 calibration "
+          f"images, {gate_s:.2f} s): mix "
+          + ", ".join(f"{a} {p} {c}" for (a, p), c in sorted(qmix.items()))
+          + f"; demoted {len(report.demoted)} "
+          f"({[gi.nodes[n].name for n in report.demoted]}), rounds "
+          f"{report.rounds}; isolated errors of all {len(errs)} convs "
+          f"{errs[0]:.4f}-{errs[-1]:.4f} (median "
+          f"{statistics.median(errs):.4f}), max kept int8 "
+          f"{int8_errs[-1]:.4f}; with TF32 on globally the errors move by "
+          f"{tf32_diff:.3e}")
+
+    # ---- 17. the gated plan: int8 kernels vs the plain path ------------
+    qruns = check_forwards(17, "inception_v4 299 int8", gi, qplan, iparams,
+                           299, None, act_scales=qscales)
+    i8_idx = [KERNEL_NAMES.index(k) for k in (
+        "gemm_i8", "conv_im2col_i8", "unit_conv_gemms_i8",
+        "pad_accumulate_i32")]
+    for (elide, bsz), (run_k, _, x, got) in qruns.items():
+        n = expected_launches(run_k.lowering)
+        need = i8_idx if elide else i8_idx[1:]   # no Toeplitz edge: no GEMM
+        if not all(n[i] for i in need):
+            raise CheckFailed(f"int8 b{bsz} elide={elide}: an int8 kernel "
+                              f"has no launch: {launch_text(n)}")
+        f32 = iruns[(elide, bsz)][0](iparams, x)
+        rel = float((got - f32).abs().max() / f32.abs().max())
+        cos = float(F.cosine_similarity(got, f32, dim=-1).min())
+        if not (rel < INT8_VS_F32["rel"] and cos > INT8_VS_F32["cos"]):
+            raise CheckFailed(f"int8 b{bsz} elide={elide}: max|int8 - f32| "
+                              f"/ max|f32| = {rel:.3e}, cosine {cos:.4f}, "
+                              f"bounds {INT8_VS_F32}")
+        fused = len(run_k.lowering.quantized_edges)
+        print(f"[17] int8 b{bsz} elide={elide} vs the f32 plan: max|diff| / "
+              f"max|f32 logit| {rel:.3e}, least cosine similarity of an "
+              f"image's logits {cos:.4f}; fused int8 edges {fused}")
+
+    def int_mm(a, b):
+        """cuBLASLt's int8 GEMM (int8 x int8 -> int32) as one PyTorch call:
+        the function taking b row-major, else column-major, whichever
+        cuBLASLt accepts for these shapes; None if it takes neither."""
+        for layout, bb in (("row-major", b), ("column-major",
+                                               b.t().contiguous().t())):
+            try:
+                torch._int_mm(a, bb)
+                torch.cuda.synchronize()
+                return lambda: torch._int_mm(a, bb)
+            except RuntimeError as exc:
+                print(f"[17] torch._int_mm refused {tuple(a.shape)} x "
+                      f"{tuple(b.shape)} {layout}: "
+                      f"{str(exc).splitlines()[0][:160]}")
+        return None
+
+    i8_times = {}
+    a, b, scale, bias = i8_inputs[("gemm_i8", "redA/b3b")]
+    m, k = a.shape
+    n = b.shape[1]
+    lib = int_mm(a, b)
+    if lib is not None:
+        check_close("torch._int_mm gemm_i8 redA/b3b", lib(),
+                    int8_product(a, b), **EXACT)
+    i8_times["gemm_i8"] = (
+        lambda a=a, b=b, s=scale, c=bias: gemm_call(
+            a, b, epilogue="bias_relu", bias=c, scale=s),
+        lambda a=a, b=b, s=scale, c=bias: gemm_i8_plain(
+            a, b, "bias_relu", c, scale=s),
+        lib,
+        bound(2.0 * m * n * k, m * k + k * n + 8.0 * n + 4.0 * m * n,
+              PEAK_INT8_OPS), "redA/b3b")
+    x, w, scale, bias, stride, pad = i8_inputs[("conv_im2col_i8",
+                                                "stem/c1")]
+    bsz, h, w_in, c_in = x.shape
+    k1, k2, _, c_out = w.shape
+    o1, o2 = conv_geometry(h, w_in, k1, k2, stride, pad)[:2]
+    ckw = dict(stride=stride, padding=pad, epilogue="bias_relu", bias=bias,
+               scale=scale)
+    i8_times["conv_im2col_i8"] = (
+        lambda x=x, w=w, kw=ckw: conv_im2col_call(x, w, **kw),
+        lambda x=x, w=w, kw=ckw: conv_i8_plain(x, w, **kw), None,
+        bound(2.0 * bsz * o1 * o2 * c_out * k1 * k2 * c_in,
+              x.numel() + w.numel() + 8.0 * c_out
+              + 4.0 * bsz * o1 * o2 * c_out, PEAK_INT8_OPS), "stem/c1")
+    x2d, wg, p5, scale, bias, geo = i8_inputs[("kn2row_i8", "stem/c4")]
+    g_, m, c_in, c_out = wg.shape[0], x2d.shape[0], wg.shape[1], wg.shape[2]
+    w_flat = wg.permute(1, 0, 2).reshape(c_in, g_ * c_out).contiguous()
+    lib = int_mm(x2d, w_flat)
+    if lib is not None:
+        check_close("torch._int_mm unit_conv_gemms_i8 stem/c4",
+                    lib().view(m, g_, c_out).permute(1, 0, 2),
+                    p5.reshape(g_, m, c_out), **EXACT)
+    i8_times["unit_conv_gemms_i8"] = (
+        lambda x=x2d, w=wg: kn2.unit_conv_gemms_call(x, w),
+        lambda x=x2d, w=wg: kn2.unit_conv_gemms_plain(x, w), lib,
+        bound(2.0 * g_ * m * c_in * c_out,
+              m * c_in + g_ * c_in * c_out + 4.0 * g_ * m * c_out,
+              PEAK_INT8_OPS), "stem/c4")
+    pkw = dict(epilogue="bias_relu", bias=bias, scale=scale, **geo)
+    i8_times["pad_accumulate_i32"] = (
+        lambda p=p5, kw=pkw: kn2.pad_accumulate_call(p, **kw),
+        lambda p=p5, kw=pkw: kn2.pad_accumulate_plain(p, **kw), None,
+        bound(1.0 * g_ * 8 * geo["o1"] * geo["o2"] * c_out,
+              4.0 * (pad_accumulate_reads(p5, geo)
+                     + 8 * geo["o1"] * geo["o2"] * c_out) + 8.0 * c_out,
+              PEAK_INT8_OPS), "stem/c4")
+    i8_rows = {}
+    for name, (kern, plain, lib, (b_ms, b_by), label) in i8_times.items():
+        k_ms, p_ms = time_ms(kern), time_ms(plain)
+        l_ms = time_ms(lib) if lib is not None else None
+        k_dev = device_time(kern, reps=20)[0]
+        i8_rows[name] = (k_ms, p_ms, l_ms, b_ms, b_by, label)
+        lib_txt = ("torch._int_mm (cuBLASLt int8) "
+                   f"{l_ms:.4f} ms" if l_ms is not None else "library: none")
+        print(f"[17] {name} {label} b8: kernel {k_ms:.4f} ms (device "
+              f"{k_dev:.4f} ms, profiler), plain {p_ms:.4f} ms, {lib_txt}, "
+              f"bound {b_ms:.4f} ms ({b_by}; 1,979 TOPS int8, 3.35 TB/s)")
+    del i8_times, kern, plain, lib, p5, x2d, wg, w_flat
+
+    for bsz in BUCKETS:
+        run_k, run_p, x, _ = qruns[(True, bsz)]
+        run_f = iruns[(True, bsz)][0]
+        f_ms = time_ms(lambda: run_k(iparams, x), reps=5, rounds=5)
+        p_ms = time_ms(lambda: run_p(iparams, x), reps=5, rounds=5)
+        f32_ms = time_ms(lambda: run_f(iparams, x), reps=5, rounds=5)
+        dev_ms, split, groups = device_time(lambda: run_k(iparams, x))
+        i8_ms = {key: sum(v for g, v in groups.items() if g.startswith(key))
+                 for key in ("gemm_i8", "conv_im2col_i8",
+                             "unit_conv_gemms_i8", "pad_accumulate_i32")}
+        print(f"[17] inception_v4 299 int8 forward b{bsz} (elide): kernels "
+              f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms, f32 plan "
+              f"{f32_ms:.3f} ms; device busy {dev_ms:.3f} ms of the "
+              f"kernels' forward ({100 * dev_ms / f_ms:.1f}%); int8 kernels "
+              + ", ".join(f"{k} {v:.3f}" for k, v in i8_ms.items())
+              + f" = {split} (ms)")
+
+    # ---- 18. serving the gated plan --------------------------------------
+    qserve = serve_checked(18, "inception_v4 int8", gi, qplan, iparams, 299,
+                           N_IV4_I8_REQUESTS, 4,
+                           expected_launches(qruns[(True, 1)][0].lowering),
+                           qruns[(True, 1)][1], act_scales=qscales)
 
     def wino_entry(name, source, replaces, label, launches):
         k_ms, p_ms, l_ms, b_ms, b_by = wino_times[(name, label)]
@@ -1034,6 +1387,26 @@ def main() -> int:
             "max_abs_err": kn2_err[name]["stem/c4"], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms})
+    # The int8 kernels at their phase-17 shapes, bucket 8; launches from
+    # the gated plan's serving run.
+    for name, source, replaces, err in (
+            ("gemm_i8", "gemm.cu", "gemm/gemm.py:117",
+             i8_err[("gemm_i8", "redA/b3b")]["f32"]),
+            ("conv_im2col_i8", "conv_im2col.cu",
+             "conv_im2col/conv_im2col.py:89",
+             i8_err[("conv_im2col_i8", "stem/c1")]["f32"]),
+            ("unit_conv_gemms_i8", "kn2row.cu", "kn2row/kn2row.py:66",
+             i8_err[("unit_conv_gemms_i8", "stem/c4")]["int32"]),
+            ("pad_accumulate_i32", "kn2row.cu", "kn2row/kn2row.py:154",
+             i8_err[("pad_accumulate_i32", "stem/c4")]["f32"])):
+        k_ms, p_ms, l_ms, b_ms, b_by, _ = i8_rows[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": qserve[KERNEL_NAMES.index(name)],
+            "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,12 +59,19 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
                          epilogue: str = "relu",
                          tuning_batch: Optional[int] = None,
                          elide: bool = True,
+                         act_scales: Optional[Dict[int, float]] = None,
                          device="cuda") -> tuple:
     """The ``(graph hash, plan, bucket, device, options)`` identity of one
     compiled program: everything ``compile_plan`` closes over except the
-    params, which are call arguments."""
+    params, which are call arguments. The plan fingerprint carries the
+    per-layer precisions and ``act_scales`` the calibrated activation
+    scales, so an int8 plan and the bf16 plan of one architecture, or two
+    calibrations of one plan, never share a key."""
     return (graph_hash(graph), plan_fingerprint(plan), use_pallas, epilogue,
-            int(tuning_batch or 1), bool(elide), str(torch.device(device)))
+            int(tuning_batch or 1), bool(elide), str(torch.device(device)),
+            (None if act_scales is None
+             else tuple(sorted((int(n), float(s))
+                               for n, s in act_scales.items()))))
 
 
 class ExecutableCache:
@@ -156,12 +163,19 @@ def init_params(graph: Graph, seed: int = 0, device="cuda") -> Params:
 
 
 def _eval_graph(graph: Graph, lowering: Lowering, params: Params,
-                x: torch.Tensor, use_pallas: Optional[bool]) -> torch.Tensor:
+                x: torch.Tensor, use_pallas: Optional[bool],
+                conv_tap: Optional[Callable[[int, torch.Tensor], None]]
+                = None) -> torch.Tensor:
     """Walk the graph once. Inter-layer values travel in the store formats
     the ``LoweredProgram`` realized: a producer stages its edge's format
     once (conv layers fuse the conversion via ``out_layout``, non-conv
     producers materialize it here), matched consumers read it directly
-    and mismatched consumers restore to NHWC — the converting load."""
+    and mismatched consumers restore to NHWC — the converting load.
+    An int8 layer gets its precision, calibrated scales and whether its
+    input edge already carries int8 from the lowering.
+
+    ``conv_tap`` (the calibration hook) is called with ``(nid,
+    nhwc_input)`` for every conv node."""
     batched = x.ndim == 4
     store_specs: Dict[int, LayoutSpec] = getattr(lowering, "store_specs", {})
     values: Dict[int, _Staged] = {}
@@ -187,13 +201,17 @@ def _eval_graph(graph: Graph, lowering: Lowering, params: Params,
                 epi = "relu" if epi.endswith("relu") else "none"
             in_layout = getattr(low, "in_layout", None)
             out_layout = getattr(low, "out_layout", None)
+            if conv_tap is not None:
+                conv_tap(nid, values[preds[0]].nhwc())
             xin = values[preds[0]].in_layout(in_layout)
             y = overlay.apply_conv(
                 xin, params[nid]["w"], low.algo, low.dataflow, low.p1, low.p2,
                 stride=m.stride, padding=pad, use_pallas=use_pallas,
                 backend=None if low.backend == "auto" else low.backend,
                 epilogue=epi, bias=bias, in_layout=in_layout,
-                out_layout=out_layout)
+                out_layout=out_layout,
+                precision=low.precision, in_scale=low.in_scale,
+                out_scale=low.out_scale, in_quantized=low.in_quantized)
             if not epi.endswith("relu"):
                 # CONV→ReLU graph semantics; ReLU commutes with the
                 # linear-gather store formats.
@@ -241,15 +259,20 @@ def forward(graph: Graph, params: Params, x,
             use_pallas: Optional[bool] = None,
             epilogue: str = "relu",
             elide: bool = True,
+            act_scales: Optional[Dict[int, float]] = None,
+            conv_tap: Optional[Callable[[int, torch.Tensor], None]] = None,
             device="cuda") -> torch.Tensor:
     """Eager inference. ``x``: (H, W, C) single image or (B, H, W, C)
     batch. Each call re-lowers the plan — use ``compile_plan`` for the
-    serving path."""
+    serving path. ``act_scales`` supplies calibrated activation scales for
+    int8 layers; ``conv_tap(nid, nhwc_input)`` observes every conv input
+    (calibration)."""
     dev = resolve_device(device)
-    lowering = lower_plan(graph, plan, epilogue=epilogue, elide=elide)
+    lowering = lower_plan(graph, plan, epilogue=epilogue, elide=elide,
+                          act_scales=act_scales)
     with torch.inference_mode():
         return _eval_graph(graph, lowering, params, _as_input(x, dev),
-                           use_pallas)
+                           use_pallas, conv_tap)
 
 
 def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
@@ -261,6 +284,7 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                  donate: bool = False,
                  fault_hook: Optional[Callable[[], None]] = None,
                  cache: Optional[ExecutableCache] = None,
+                 act_scales: Optional[Dict[int, float]] = None,
                  device="cuda") -> Callable[[Params, object], torch.Tensor]:
     """Lower (graph, plan) once into a static overlay program.
 
@@ -274,7 +298,11 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     chains reuse the Toeplitz buffer — and ``elide=False`` compiles the
     always-NHWC-round-trip baseline. ``tuning_batch`` names the batch
     bucket the program serves, part of its cache identity. ``cache`` (an
-    ``ExecutableCache``) shares programs across callers.
+    ``ExecutableCache``) shares programs across callers. ``act_scales``
+    ({conv node id: activation scale}, from
+    ``core.quant.calibrate_act_scales``) feeds the plan's int8 layers their
+    calibrated per-tensor input scales; it enters the cache key, and a
+    plan with no int8 layer ignores it.
 
     ``mesh``, ``donate`` and ``fault_hook`` belong to later slices of the
     port and raise ``NotImplementedError`` when set."""
@@ -286,7 +314,8 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     dev = resolve_device(device)
 
     def build() -> Callable[[Params, object], torch.Tensor]:
-        lowering = lower_plan(graph, plan, epilogue=epilogue, elide=elide)
+        lowering = lower_plan(graph, plan, epilogue=epilogue, elide=elide,
+                              act_scales=act_scales)
 
         def run(params: Params, x) -> torch.Tensor:
             with torch.inference_mode():
@@ -300,5 +329,5 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
         return build()
     key = executable_cache_key(graph, plan, use_pallas=use_pallas,
                                epilogue=epilogue, tuning_batch=tuning_batch,
-                               elide=elide, device=dev)
+                               elide=elide, act_scales=act_scales, device=dev)
     return cache.get_or_compile(key, build)

@@ -18,10 +18,11 @@ Backends that cannot consume a layout directly restore to NHWC first, so
 every (backend, layout) pair computes the same function. Every path
 accepts one sample or a batch.
 
-All three algorithms are ported in f32; int8 layers on the kernel path
-raise ``NotImplementedError`` (the plain backends emulate int8) — a layer
-never falls back to another algorithm. Winograd rejects int8, as the
-reference does.
+All three algorithms are ported, and im2col and kn2row in int8 too: an
+int8 layer on the kernel path quantizes its operands and runs the int8
+kernels (their plain versions for CPU tensors), the plain backends
+emulate it with fake-quantized f32 operands — a layer never falls back
+to another algorithm. Winograd rejects int8, as the reference does.
 """
 from __future__ import annotations
 
@@ -73,10 +74,15 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
     flush and applied post-hoc on the plain paths, so every backend
     computes the same function.
 
-    ``precision="int8"`` runs the reference's fake-quant emulation
-    (quantized-then-dequantized f32 operands) on the "reference" and
-    "lax" backends, for im2col and kn2row layers; the int8 kernels are not
-    ported yet."""
+    ``precision="int8"`` (im2col and kn2row) quantizes the weights per
+    output channel and the input per tensor at the calibrated ``in_scale``
+    (skipped when ``in_quantized`` says the producer already emitted int8
+    at this scale — the fused precision edge), and runs the true int8
+    path: int32 sums, dequant · in_scale·w_scale, bias, ReLU and, with
+    ``out_scale``, the requant to int8, all in the kernel's flush. The
+    "reference" and "lax" backends run the reference's fake-quant
+    emulation instead (quantized-then-dequantized f32 operands: the same
+    quantization error)."""
     in_layout = None if is_nhwc(in_layout) else in_layout
     out_layout = None if is_nhwc(out_layout) else out_layout
     if backend is not None and backend not in ("lax", "pallas", "reference"):
@@ -88,28 +94,36 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
                          "transforms amplify quantization error")
     if backend is not None:
         use_pallas = backend == "pallas"
-    if precision == "int8" and use_pallas is not False:
-        raise NotImplementedError(
-            "int8 kernels are not ported yet; int8 layers run only on the "
-            "'reference' and 'lax' backends")
     if use_pallas and x.device.type != "cuda":
         raise ValueError("the Hopper kernels take CUDA tensors; got "
                          f"{x.device} (use backend='reference' on the CPU)")
+    quant_kw = {}
     post_requant = None
     if precision == "int8":
         if in_scale is None:
             raise ValueError("int8 precision needs a calibrated in_scale")
-        # Fake-quant emulation: dequantized f32 operands carry the
-        # identical quantization error as the true int8 path.
-        if in_quantized:
-            x = dequantize(x, in_scale)
-        else:
-            if in_layout is not None and in_layout.kind != "toeplitz":
-                x, in_layout = restore(x, in_layout), None
-            x = dequantize(quantize(x, in_scale), in_scale)
         w_scale = weight_scales(w)
-        w = dequantize(quantize(w, w_scale), w_scale)
-        post_requant = out_scale
+        if use_pallas is not False:
+            # True int8: NHWC and Toeplitz inputs hold raw activations, so
+            # quantization commutes with the layout; anything else (a
+            # Winograd store holding tiles) restores first.
+            if not in_quantized:
+                if in_layout is not None and in_layout.kind != "toeplitz":
+                    x, in_layout = restore(x, in_layout), None
+                x = quantize(x, in_scale)
+            w = quantize(w, w_scale)
+            quant_kw = dict(scale=in_scale * w_scale, out_scale=out_scale)
+        else:
+            # Fake-quant emulation: dequantized f32 operands carry the
+            # identical quantization error as the true int8 path.
+            if in_quantized:
+                x = dequantize(x, in_scale)
+            else:
+                if in_layout is not None and in_layout.kind != "toeplitz":
+                    x, in_layout = restore(x, in_layout), None
+                x = dequantize(quantize(x, in_scale), in_scale)
+            w = dequantize(quantize(w, w_scale), w_scale)
+            post_requant = out_scale
     if backend == "lax":
         y = apply_epilogue(conv_ref(restore(x, in_layout), w, stride=stride,
                                     padding=padding), epilogue, bias)
@@ -123,7 +137,8 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
             return conv_kn2row(x, w, stride=stride, padding=padding,
                                dataflow=dataflow, p1=p1, p2=p2,
                                epilogue=epilogue, bias=bias,
-                               in_layout=in_layout, out_layout=out_layout)
+                               in_layout=in_layout, out_layout=out_layout,
+                               **quant_kw)
         y = apply_epilogue(kn2row_ref(restore(x, in_layout), w,
                                       stride=stride, padding=padding),
                            epilogue, bias)
@@ -131,7 +146,8 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
         return conv_im2col(x, w, stride=stride, padding=padding,
                            dataflow=dataflow, p1=p1, p2=p2,
                            epilogue=epilogue, bias=bias,
-                           in_layout=in_layout, out_layout=out_layout)
+                           in_layout=in_layout, out_layout=out_layout,
+                           **quant_kw)
     elif in_layout is not None and in_layout.kind == "toeplitz":
         y = apply_epilogue(
             conv_from_toeplitz_ref(x, w, in_layout.o1, in_layout.o2),

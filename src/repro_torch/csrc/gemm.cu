@@ -1,5 +1,5 @@
-// Dataflow-bound tiled GEMM with the fused bias/ReLU flush, IEEE f32, and
-// its batched form.
+// Dataflow-bound tiled GEMM with the fused bias/ReLU flush, IEEE f32, its
+// batched form, and its int8 form with the fused quantized flush.
 //
 // gemm_f32 replaces src/repro/kernels/gemm/gemm.py::gemm_pallas, the TPU
 // Computing Unit on the MXU. On the main path it runs every conv whose
@@ -34,7 +34,22 @@
 // in registers before the single store; ragged M/N/K edges are masked in
 // the kernel instead of padding operands on the host. No double buffering,
 // cp.async or wgmma yet: that is later work.
+//
+// gemm_i8 is gemm_pallas's int8 path (_gemm_kernel with has_scale /
+// out_scale and its int32 scratch): int8 A and B, the sum exact in int32,
+// and the flush dequant (· scale[n], the per-channel in_scale · w_scale) →
+// bias → ReLU → optionally requantize to int8 at the consumer's
+// out_scale. On the main path (gated Inception-v4) it runs every int8
+// layer whose input edge carries its Toeplitz matrix. Bound: the same
+// tile loop on int8 operands staged as int in shared memory, IMAD in
+// place of FFMA (half the card's f32 issue rate, and no tensor cores), so
+// it is slower per MAC than gemm_f32 and far from the 1,979 TOPS of int8
+// tensor cores; its one gain on the card is a quarter of A's and B's
+// bytes. Exactness is what this first version buys: each flush step is
+// one IEEE-rounded operation in torch's order, so it equals its plain
+// version bit for bit.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "tile_gemm.cuh"
 
@@ -45,8 +60,16 @@ __global__ void __launch_bounds__(repro::kThreads)
     gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ bias, float* __restrict__ c,
                     int m, int n, int k, int relu) {
-  repro::DenseA lda(a, m, k, blockIdx.y * BM + threadIdx.x / 16);
+  repro::DenseF32 lda(a, m, k, blockIdx.y * BM + threadIdx.x / 16);
   repro::tile_gemm<BM, BN>(lda, b, bias, c, m, n, k, relu);
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    gemm_i8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
+                   repro::QuantFlush flush, int m, int n, int k) {
+  repro::DenseI8 lda(a, m, k, blockIdx.y * BM + threadIdx.x / 16);
+  repro::tile_gemm_flush<BM, BN>(lda, b, flush, m, n, k);
 }
 
 template <int BM, int BN>
@@ -57,8 +80,8 @@ __global__ void __launch_bounds__(repro::kThreads)
                             float* __restrict__ c, int m, int n, int k,
                             int relu) {
   const size_t g = blockIdx.z;
-  repro::DenseA lda(a + g * m * k, m, k,
-                    blockIdx.y * BM + threadIdx.x / 16);
+  repro::DenseF32 lda(a + g * m * k, m, k,
+                      blockIdx.y * BM + threadIdx.x / 16);
   repro::tile_gemm<BM, BN>(lda, b + g * k * n, bias, c + g * m * n, m, n, k,
                            relu);
 }
@@ -77,6 +100,28 @@ extern "C" int gemm_f32(const void* a, const void* b, const void* bias,
                       static_cast<const float*>(b),
                       static_cast<const float*>(bias), static_cast<float*>(c),
                       m, n, k, relu);
+  return (int)cudaGetLastError();
+}
+
+// C (m, n) = flush(A (m, k) · B (k, n)) with A and B int8 and the sum
+// exact in int32; the flush is v = (float)sum · scale[n] [+ bias[n]]
+// [ReLU], stored as f32, or, when requant is nonzero, as int8:
+// clamp(round-half-even(v / out_scale), ±127). scale (n) f32; bias may be
+// NULL; all contiguous, on the current device; the caller keeps
+// k · 127² < 2^31. (tile_m, tile_n) must be an instantiated tile: 64 or
+// 128 each. Returns cudaGetLastError().
+extern "C" int gemm_i8(const void* a, const void* b, const void* scale,
+                       const void* bias, void* c, int m, int n, int k,
+                       int tile_m, int tile_n, int relu, int requant,
+                       float out_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const repro::QuantFlush flush{
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      requant ? nullptr : static_cast<float*>(c),
+      requant ? static_cast<int8_t*>(c) : nullptr, out_scale, n, relu};
+  REPRO_DISPATCH_TILE(gemm_i8_kernel, tile_m, tile_n, m, n, 1, s,
+                      static_cast<const int8_t*>(a),
+                      static_cast<const int8_t*>(b), flush, m, n, k);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,13 @@
-// kn2row convolution (§2.1.2) in IEEE f32: the K1·K2 unit-conv GEMMs of
-// phase 1 and the pad-and-accumulate of phase 2 with the fused bias/ReLU
+// kn2row convolution (§2.1.2) in IEEE f32 and in int8: the K1·K2 unit-conv
+// GEMMs of phase 1 and the pad-and-accumulate of phase 2 with the fused
 // flush.
 //
 // Replaces, in src/repro/kernels/kn2row/kn2row.py:
-//   unit_conv_gemms  -> unit_conv_gemms_f32
-//   pad_accumulate   -> pad_accumulate_f32
+//   unit_conv_gemms  -> unit_conv_gemms_f32, and unit_conv_gemms_i8 for its
+//                       int8 path (exact int32 partials)
+//   pad_accumulate   -> pad_accumulate_f32, and pad_accumulate_i32 for its
+//                       int8 path (int32 sum, then dequant → bias → ReLU →
+//                       optional requant)
 // On the main path (full-width Inception-v4) they run its 16 kn2row layers:
 // the 3x3 stride-2 VALID reductions (stem/c4, stem/c5, redA/b2), the 1x1
 // redA/b3a, and the 1x3 / 3x1 SAME convs of the Inception-C blocks, each
@@ -41,7 +44,17 @@
 // and batch 8); here a row or column outside [0, H) x [0, W) of the
 // thread's own image is a predicate that adds nothing, so p is never
 // padded and a SAME pad never reads the neighbouring image of the batch.
+//
+// The int8 forms keep both designs. Phase 1 reads int8 x2d and w (a
+// quarter of the f32 bytes), sums in int32 and writes exact int32 p with
+// the f32 layout (p is as large as in f32: 597 MB at stem/c4, batch 8);
+// no scale is applied there, since the per-channel scale is the same for
+// every offset. Phase 2 sums the int32 offsets in a register (exact, so
+// any order gives the same sum) and applies the quantized flush of
+// tile_gemm.cuh before its single store, f32 or int8. On the gated
+// Inception-v4 path they run its 15 int8 kn2row layers.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "tile_gemm.cuh"
 
@@ -56,21 +69,36 @@ __global__ void __launch_bounds__(repro::kThreads)
                                float* __restrict__ p, int m, int n, int k) {
   const size_t g = blockIdx.z;
   // The same A (x2d) for every g.
-  repro::DenseA lda(x, m, k, blockIdx.y * BM + threadIdx.x / 16);
+  repro::DenseF32 lda(x, m, k, blockIdx.y * BM + threadIdx.x / 16);
   repro::tile_gemm<BM, BN>(lda, w + g * k * n, nullptr, p + g * m * n, m, n,
                            k, 0);
 }
 
-__global__ void __launch_bounds__(kAccThreads)
-    pad_accumulate_f32_kernel(const float* __restrict__ p,
-                              const float* __restrict__ bias,
-                              float* __restrict__ out, int batch, int h,
-                              int w, int c, int k1, int k2, int o1, int o2,
-                              int stride, int pad_top, int pad_left,
-                              int relu) {
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    unit_conv_gemms_i8_kernel(const int8_t* __restrict__ x,
+                              const int8_t* __restrict__ w,
+                              int* __restrict__ p, int m, int n, int k) {
+  const size_t g = blockIdx.z;
+  repro::DenseI8 lda(x, m, k, blockIdx.y * BM + threadIdx.x / 16);
+  repro::tile_gemm_flush<BM, BN>(lda, w + g * k * n,
+                                 repro::RawI32Flush{p + g * m * n, n}, m, n,
+                                 k);
+}
+
+// One output element (b, y, x, c) per thread: the sum over the K1·K2
+// offsets of p's in-map values, in the order g = 0 … G-1. Returns false
+// for a thread past the end.
+template <class T>
+__device__ __forceinline__ bool accumulate(const T* __restrict__ p, int batch,
+                                           int h, int w, int c, int k1,
+                                           int k2, int o1, int o2, int stride,
+                                           int pad_top, int pad_left,
+                                           long long* index, int* channel,
+                                           T* sum) {
   const long long total = (long long)batch * o1 * o2 * c;
   const long long i = (long long)blockIdx.x * kAccThreads + threadIdx.x;
-  if (i >= total) return;
+  if (i >= total) return false;
   const int ch = (int)(i % c);
   long long rest = i / c;
   const int ox = (int)(rest % o2);
@@ -79,8 +107,8 @@ __global__ void __launch_bounds__(kAccThreads)
   const int b = (int)(rest / o1);
 
   const size_t plane = (size_t)batch * h * w * c;  // one offset's p_g
-  const float* __restrict__ img = p + (size_t)b * h * w * c + ch;
-  float acc = 0.f;
+  const T* __restrict__ img = p + (size_t)b * h * w * c + ch;
+  T acc = T(0);
   for (int dk1 = 0; dk1 < k1; ++dk1) {
     const int row = stride * oy + dk1 - pad_top;
     if (row < 0 || row >= h) continue;
@@ -91,9 +119,43 @@ __global__ void __launch_bounds__(kAccThreads)
                  ((size_t)row * w + col) * c];
     }
   }
+  *index = i;
+  *channel = ch;
+  *sum = acc;
+  return true;
+}
+
+__global__ void __launch_bounds__(kAccThreads)
+    pad_accumulate_f32_kernel(const float* __restrict__ p,
+                              const float* __restrict__ bias,
+                              float* __restrict__ out, int batch, int h,
+                              int w, int c, int k1, int k2, int o1, int o2,
+                              int stride, int pad_top, int pad_left,
+                              int relu) {
+  long long i;
+  int ch;
+  float acc;
+  if (!accumulate(p, batch, h, w, c, k1, k2, o1, o2, stride, pad_top,
+                  pad_left, &i, &ch, &acc))
+    return;
   if (bias != nullptr) acc += bias[ch];
   if (relu) acc = acc > 0.f ? acc : 0.f;
   out[i] = acc;
+}
+
+__global__ void __launch_bounds__(kAccThreads)
+    pad_accumulate_i32_kernel(const int* __restrict__ p,
+                              repro::QuantFlush flush, int batch, int h,
+                              int w, int c, int k1, int k2, int o1, int o2,
+                              int stride, int pad_top, int pad_left) {
+  long long i;
+  int ch;
+  int acc;
+  if (!accumulate(p, batch, h, w, c, k1, k2, o1, o2, stride, pad_top,
+                  pad_left, &i, &ch, &acc))
+    return;
+  // The output viewed as (total / c, c): row i / c, channel ch.
+  flush((int)(i / c), ch, acc);
 }
 
 }  // namespace
@@ -110,6 +172,22 @@ extern "C" int unit_conv_gemms_f32(const void* x, const void* w, void* p,
                       groups, s, static_cast<const float*>(x),
                       static_cast<const float*>(w), static_cast<float*>(p),
                       m, n, k);
+  return (int)cudaGetLastError();
+}
+
+// p (groups, m, n) = x (m, k) · w[g] (k, n) for g < groups with x and w
+// int8 and p the exact int32 sums: one A shared by every g, no epilogue;
+// all contiguous, on the current device; the caller keeps k · 127² < 2^31.
+// (tile_m, tile_n) must be an instantiated tile: 64 or 128 each. Returns
+// cudaGetLastError().
+extern "C" int unit_conv_gemms_i8(const void* x, const void* w, void* p,
+                                  int groups, int m, int n, int k,
+                                  int tile_m, int tile_n, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH_TILE(unit_conv_gemms_i8_kernel, tile_m, tile_n, m, n,
+                      groups, s, static_cast<const int8_t*>(x),
+                      static_cast<const int8_t*>(w), static_cast<int*>(p), m,
+                      n, k);
   return (int)cudaGetLastError();
 }
 
@@ -130,5 +208,31 @@ extern "C" int pad_accumulate_f32(const void* p, const void* bias, void* out,
       static_cast<const float*>(p), static_cast<const float*>(bias),
       static_cast<float*>(out), batch, h, w, c, k1, k2, o1, o2, stride,
       pad_top, pad_left, relu);
+  return (int)cudaGetLastError();
+}
+
+// out (batch, o1, o2, c) = flush(Σ_g p[g, b, S·y + k1 - pad_top,
+// S·x + k2 - pad_left, c]) over g = k1·K2 + k2 < K1·K2 for int32 p
+// (K1·K2, batch, h, w, c), the sum in int32, rows and columns outside the
+// (h, w) map counting as 0; the flush is v = (float)sum · scale[c]
+// [+ bias[c]] [ReLU], stored as f32, or, when requant is nonzero, as int8:
+// clamp(round-half-even(v / out_scale), ±127). scale (c) f32; bias may be
+// NULL; all contiguous, on the current device. Returns cudaGetLastError().
+extern "C" int pad_accumulate_i32(const void* p, const void* scale,
+                                  const void* bias, void* out, int batch,
+                                  int h, int w, int c, int k1, int k2, int o1,
+                                  int o2, int stride, int pad_top,
+                                  int pad_left, int relu, int requant,
+                                  float out_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = (long long)batch * o1 * o2 * c;
+  const unsigned blocks = (unsigned)((total + kAccThreads - 1) / kAccThreads);
+  const repro::QuantFlush flush{
+      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      requant ? nullptr : static_cast<float*>(out),
+      requant ? static_cast<int8_t*>(out) : nullptr, out_scale, c, relu};
+  pad_accumulate_i32_kernel<<<blocks, kAccThreads, 0, s>>>(
+      static_cast<const int*>(p), flush, batch, h, w, c, k1, k2, o1, o2,
+      stride, pad_top, pad_left);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// One block's share of C = epilogue(A · B + bias) in IEEE f32 — the tile
-// loop the GEMM kernels share (gemm.cu's dense and batched GEMMs,
-// conv_im2col.cu, kn2row.cu's unit-conv GEMMs).
+// One block's share of C = flush(A · B) — the tile loop the GEMM kernels
+// share (gemm.cu's dense and batched GEMMs, conv_im2col.cu, kn2row.cu's
+// unit-conv GEMMs), in IEEE f32 or in int8 with exact int32 sums.
 //
 // A block of 256 threads (16 x 16) owns a BM x BN tile of C. K is walked in
 // 16-deep chunks staged through shared memory: A's chunk is stored
@@ -11,34 +11,49 @@
 // coalesced along N. Ragged M, N and K edges are masked here (loads of 0,
 // stores skipped), so callers never pad operands.
 //
+// Operand types. f32 operands are staged as float and summed with IEEE
+// fmaf. int8 operands are widened to int when they are staged (shared
+// memory holds the same 4-byte words either way), multiplied and summed
+// in int32: exact, so the K order does not matter. The caller's K bound
+// (K · 127² < 2^31) keeps the sum in range.
+//
 // Where A comes from is the caller's policy: ALoader::begin_chunk(gk) sets
 // the A column this thread loads for the chunk (gk = k0 + tid % 16), and
-// ALoader::load(r) returns A[m0 + tid / 16 + 16 r][gk], or 0 out of range.
-// gemm.cu reads a dense row-major A; conv_im2col.cu gathers A's entries
-// (the Toeplitz matrix) straight from the NHWC input.
+// ALoader::load(r) returns A[m0 + tid / 16 + 16 r][gk] widened to
+// ALoader::value_type, or 0 out of range. gemm.cu reads a dense row-major
+// A; conv_im2col.cu gathers A's entries (the Toeplitz matrix) straight
+// from the NHWC input. Where C goes is the Flush policy: flush(gm, gn, acc)
+// is called once per in-range output element after the K loop.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace repro {
 
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kBK = 16;        // depth of one shared-memory K chunk
+constexpr int kInt8Max = 127;  // symmetric int8: [-127, 127]
 
-template <int BM, int BN, class ALoader>
-__device__ __forceinline__ void tile_gemm(ALoader& lda,
-                                          const float* __restrict__ b,
-                                          const float* __restrict__ bias,
-                                          float* __restrict__ c, int m, int n,
-                                          int k, int relu) {
-  constexpr int TM = BM / 16;                // rows of the micro-tile
-  constexpr int TN = BN / 16;                // cols of the micro-tile
-  constexpr int RB = BN * kBK / kThreads;    // B entries a thread stages
+__device__ __forceinline__ float mac(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ int mac(int a, int b, int c) { return a * b + c; }
+
+template <int BM, int BN, class ALoader, class BT, class Flush>
+__device__ __forceinline__ void tile_gemm_flush(ALoader& lda,
+                                                const BT* __restrict__ b,
+                                                const Flush& flush, int m,
+                                                int n, int k) {
+  using S = typename ALoader::value_type;  // staged and summed type
+  constexpr int TM = BM / 16;              // rows of the micro-tile
+  constexpr int TN = BN / 16;              // cols of the micro-tile
+  constexpr int RB = BN * kBK / kThreads;  // B entries a thread stages
   static_assert(BM % 16 == 0 && BN % 16 == 0, "tile edges are 16-multiples");
   static_assert((BN * kBK) % kThreads == 0, "B chunk splits evenly");
 
-  __shared__ float As[kBK][BM + 4];
-  __shared__ float Bs[kBK][BN];
+  __shared__ S As[kBK][BM + 4];
+  __shared__ S Bs[kBK][BN];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -46,11 +61,11 @@ __device__ __forceinline__ void tile_gemm(ALoader& lda,
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
-  float acc[TM][TN];
+  S acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = S(0);
 
   for (int k0 = 0; k0 < k; k0 += kBK) {
     lda.begin_chunk(k0 + tx);
@@ -63,12 +78,13 @@ __device__ __forceinline__ void tile_gemm(ALoader& lda,
       const int nn = i % BN;
       const int gk = k0 + kk;
       const int gn = n0 + nn;
-      Bs[kk][nn] = (gk < k && gn < n) ? b[(size_t)gk * n + gn] : 0.f;
+      Bs[kk][nn] = (gk < k && gn < n) ? static_cast<S>(b[(size_t)gk * n + gn])
+                                      : S(0);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      float av[TM], bv[TN];
+      S av[TM], bv[TN];
 #pragma unroll
       for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + 16 * i];
 #pragma unroll
@@ -76,12 +92,12 @@ __device__ __forceinline__ void tile_gemm(ALoader& lda,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = mac(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
 
-  // Fused epilogue in registers, then the single store of C.
+  // The single flush of C, in registers.
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty + 16 * i;
@@ -90,30 +106,104 @@ __device__ __forceinline__ void tile_gemm(ALoader& lda,
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + 16 * j;
       if (gn >= n) continue;
-      float v = acc[i][j];
-      if (bias != nullptr) v += bias[gn];
-      if (relu) v = v > 0.f ? v : 0.f;
-      c[(size_t)gm * n + gn] = v;
+      flush(gm, gn, acc[i][j]);
     }
   }
 }
 
-// Dense row-major A (m, k): the ALoader of gemm.cu's GEMMs and kn2row.cu's
-// unit-conv GEMMs.
+// f32 flush: bias and ReLU, then the store.
+struct F32Flush {
+  const float* __restrict__ bias;
+  float* __restrict__ c;
+  int n, relu;
+
+  __device__ __forceinline__ void operator()(int gm, int gn, float v) const {
+    if (bias != nullptr) v += bias[gn];
+    if (relu) v = v > 0.f ? v : 0.f;
+    c[(size_t)gm * n + gn] = v;
+  }
+};
+
+// The quantized flush of an exact int32 sum, as the reference's
+// apply_epilogue orders it: v = (float)acc · scale[n], + bias[n], ReLU;
+// then either v stored as f32, or q = round-half-even(v / out_scale)
+// clamped to ±127 and stored as int8. Each step is one IEEE-rounded
+// operation (no FMA contraction, no reciprocal), as torch computes it.
+__device__ __forceinline__ float dequant_epilogue(int acc, float scale,
+                                                  const float* bias, int gn,
+                                                  int relu) {
+  float v = __fmul_rn(__int2float_rn(acc), scale);
+  if (bias != nullptr) v = __fadd_rn(v, bias[gn]);
+  if (relu) v = v > 0.f ? v : 0.f;
+  return v;
+}
+
+__device__ __forceinline__ int8_t requantize(float v, float out_scale) {
+  int q = __float2int_rn(__fdiv_rn(v, out_scale));
+  q = q < -kInt8Max ? -kInt8Max : (q > kInt8Max ? kInt8Max : q);
+  return static_cast<int8_t>(q);
+}
+
+// Quantized flush into C (m, n): f32 when out_q is null, else int8.
+struct QuantFlush {
+  const float* __restrict__ scale;
+  const float* __restrict__ bias;
+  float* __restrict__ out_f;
+  int8_t* __restrict__ out_q;
+  float out_scale;
+  int n, relu;
+
+  __device__ __forceinline__ void operator()(int gm, int gn, int acc) const {
+    const float v = dequant_epilogue(acc, scale[gn], bias, gn, relu);
+    const size_t o = (size_t)gm * n + gn;
+    if (out_q != nullptr)
+      out_q[o] = requantize(v, out_scale);
+    else
+      out_f[o] = v;
+  }
+};
+
+// The raw int32 sum into C (m, n): kn2row's phase-1 partials.
+struct RawI32Flush {
+  int* __restrict__ c;
+  int n;
+
+  __device__ __forceinline__ void operator()(int gm, int gn, int acc) const {
+    c[(size_t)gm * n + gn] = acc;
+  }
+};
+
+// The f32 GEMM with the fused bias/ReLU flush.
+template <int BM, int BN, class ALoader>
+__device__ __forceinline__ void tile_gemm(ALoader& lda,
+                                          const float* __restrict__ b,
+                                          const float* __restrict__ bias,
+                                          float* __restrict__ c, int m, int n,
+                                          int k, int relu) {
+  tile_gemm_flush<BM, BN>(lda, b, F32Flush{bias, c, n, relu}, m, n, k);
+}
+
+// Dense row-major A (m, k) of T (float or int8_t), widened to S: the
+// ALoader of gemm.cu's GEMMs and kn2row.cu's unit-conv GEMMs.
+template <class T, class S>
 struct DenseA {
-  const float* __restrict__ a;
+  using value_type = S;
+  const T* __restrict__ a;
   int m, k, row0, gk;
 
-  __device__ DenseA(const float* a_, int m_, int k_, int row0_)
+  __device__ DenseA(const T* a_, int m_, int k_, int row0_)
       : a(a_), m(m_), k(k_), row0(row0_), gk(0) {}
 
   __device__ __forceinline__ void begin_chunk(int gk_) { gk = gk_; }
 
-  __device__ __forceinline__ float load(int r) const {
+  __device__ __forceinline__ S load(int r) const {
     const int gm = row0 + 16 * r;
-    return (gm < m && gk < k) ? a[(size_t)gm * k + gk] : 0.f;
+    return (gm < m && gk < k) ? static_cast<S>(a[(size_t)gm * k + gk]) : S(0);
   }
 };
+
+using DenseF32 = DenseA<float, float>;
+using DenseI8 = DenseA<int8_t, int>;
 
 // Launch `kernel<BM, BN>` for one of the instantiated tiles on a grid of
 // (GRID_N / TILE_N) x (GRID_M / TILE_M) x GRID_G blocks (blockIdx.z picks

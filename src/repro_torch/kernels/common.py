@@ -67,7 +67,15 @@ def apply_epilogue(y: torch.Tensor, epilogue: str,
 
 
 def quantize(x: torch.Tensor, scale) -> torch.Tensor:
-    """f32 → symmetric int8 (round to nearest even, saturate at ±127)."""
+    """f32 → symmetric int8 (round to nearest even, saturate at ±127).
+
+    The division is IEEE f32 division on every device, as the int8
+    kernels' flush computes it: a Python ``scale`` becomes a 0-dim tensor
+    on ``x``'s device first, because CUDA torch divides by a host scalar
+    as a multiply by its reciprocal."""
+    if not torch.is_tensor(scale):
+        scale = torch.full((), float(scale), dtype=torch.float32,
+                           device=x.device)
     q = torch.round(x.to(torch.float32) / scale)
     return torch.clamp(q, -INT8_MAX, INT8_MAX).to(torch.int8)
 
@@ -88,6 +96,24 @@ def weight_scales(w: torch.Tensor) -> torch.Tensor:
     amax = torch.amax(torch.abs(w.to(torch.float32)),
                       dim=tuple(range(w.ndim - 1)))
     return torch.clamp_min(amax, _SCALE_EPS) / INT8_MAX
+
+
+# |sum| ≤ K·127² must fit int32: the deepest K an int8 product may have.
+INT8_MAX_K = (2 ** 31 - 1) // (INT8_MAX * INT8_MAX)
+
+
+def check_int8_depth(name: str, k: int) -> None:
+    """Raise when a K-deep int8 product could overflow its int32 sum."""
+    if k > INT8_MAX_K:
+        raise ValueError(f"{name}: K={k} exceeds {INT8_MAX_K}, the deepest "
+                         "int8 product whose int32 sum cannot overflow")
+
+
+def int8_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of int8 operands as its exact int32 sums, in plain torch:
+    CPU torch multiplies int8 in int8 (wrapping) and CUDA torch has no
+    integer matmul, so both widen to float64, exact while |sum| < 2^53."""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.int32)
 
 
 def ceil_to(x: int, m: int) -> int:

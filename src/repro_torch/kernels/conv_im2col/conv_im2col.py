@@ -7,8 +7,11 @@ chunk of it is gathered from the NHWC input straight into shared memory,
 so device memory sees the input map, the weights and the output once.
 M = B·O1·O2 output pixels, N = Cout, K = K1·K2·Cin. SAME padding (XLA's
 asymmetric split) and the window overhang are predicates in the kernel.
-``conv_im2col_call`` launches it for CUDA tensors and runs ``conv_plain``
-for CPU tensors; nothing else selects between the two.
+An int8 map and int8 weights run the int8 kernel: exact int32 sums, then
+dequant (· ``scale``) → bias → ReLU → optional requant at ``out_scale``.
+``conv_im2col_call`` launches the kernel for CUDA tensors and runs
+``conv_plain`` / ``conv_i8_plain`` for CPU tensors; nothing else selects
+between the two.
 """
 from __future__ import annotations
 
@@ -18,15 +21,21 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.build import CudaKernel
-from repro_torch.kernels.common import apply_epilogue
+from repro_torch.kernels.common import (apply_epilogue, check_int8_depth,
+                                        int8_product)
 from repro_torch.kernels.conv_im2col.ref import (conv_geometry,
-                                                 conv_via_toeplitz_ref)
-from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, check_cuda_f32,
-                                          check_epilogue, kernel_tile)
+                                                 conv_via_toeplitz_ref,
+                                                 toeplitz_ref)
+from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, check_epilogue,
+                                          check_operand, check_quant_args,
+                                          kernel_tile)
 
 CONV = CudaKernel("conv_im2col", "conv_im2col_f32",
                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
                   + [ctypes.c_void_p])
+CONV_I8 = CudaKernel("conv_im2col", "conv_im2col_i8",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
+                     + [ctypes.c_float, ctypes.c_void_p])
 
 
 def conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -40,17 +49,49 @@ def conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                           epilogue, bias)
 
 
+def conv_i8_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                  padding: str = "SAME", epilogue: str = "none",
+                  bias: Optional[torch.Tensor] = None,
+                  scale: torch.Tensor,
+                  out_scale: Optional[float] = None) -> torch.Tensor:
+    """The int8 kernel's function in plain torch: the explicit Toeplitz
+    gather of the int8 map, its exact int32 product with the int8
+    weights, then dequant · ``scale`` (Cout,), the epilogue and, with
+    ``out_scale``, the requant to int8."""
+    check_epilogue(epilogue, bias)
+    k1, k2, _, c_out = (int(d) for d in w.shape)
+    check_int8_depth("conv_im2col", k1 * k2 * int(w.shape[2]))
+    h, w_in = int(x.shape[-3]), int(x.shape[-2])
+    o1, o2 = conv_geometry(h, w_in, k1, k2, stride, padding)[:2]
+    acc = int8_product(toeplitz_ref(x, k1, k2, stride, padding),
+                       w.reshape(-1, c_out))
+    return apply_epilogue(acc.reshape(*x.shape[:-3], o1, o2, c_out),
+                          epilogue, bias, scale=scale, out_scale=out_scale)
+
+
 def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                      padding: str = "SAME", bm: int = 128, bn: int = 128,
                      epilogue: str = "none",
-                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     bias: Optional[torch.Tensor] = None,
+                     scale: Optional[torch.Tensor] = None,
+                     out_scale: Optional[float] = None) -> torch.Tensor:
     """out (B, O1, O2, Cout) = epilogue(conv(x (B, H, W, Cin), w
     (K1, K2, Cin, Cout)) [+ bias (Cout,)]).
 
+    f32 operands run ``conv_im2col_f32``. int8 ``x`` and ``w`` run
+    ``conv_im2col_i8``: the exact int32 sum is dequantized by ``scale``
+    (Cout,) before the epilogue, and ``out_scale`` requantizes the output
+    to int8 (else it is f32).
+
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, B·O1·O2, Cout)``; CPU tensors run
-    ``conv_plain``."""
+    ``conv_plain`` / ``conv_i8_plain``."""
+    quant = check_quant_args("conv_im2col", x, scale, out_scale)
     if x.device.type == "cpu":
+        if quant:
+            return conv_i8_plain(x, w, stride=stride, padding=padding,
+                                 epilogue=epilogue, bias=bias, scale=scale,
+                                 out_scale=out_scale)
         return conv_plain(x, w, stride=stride, padding=padding,
                           epilogue=epilogue, bias=bias)
     if x.device.type != "cuda":
@@ -62,12 +103,12 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                          f"{tuple(w.shape)}")
     batch, h, w_in, c_in = (int(d) for d in x.shape)
     k1, k2, _, c_out = (int(d) for d in w.shape)
-    check_cuda_f32("x", x, x.device, (batch, h, w_in, c_in))
-    check_cuda_f32("w", w, x.device, (k1, k2, c_in, c_out))
+    check_operand("x", x, x.device, (batch, h, w_in, c_in), x.dtype)
+    check_operand("w", w, x.device, (k1, k2, c_in, c_out), x.dtype)
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
     if bias is not None:
-        check_cuda_f32("bias", bias, x.device, (c_out,))
+        check_operand("bias", bias, x.device, (c_out,))
     if stride < 1:
         raise ValueError(f"conv_im2col: bad stride {stride}")
     o1, o2, pad_top, _, pad_left, _ = conv_geometry(h, w_in, k1, k2, stride,
@@ -80,12 +121,25 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     tile_m, tile_n = kernel_tile(bm, bn, m, c_out)
     if -(-m // tile_m) > _MAX_GRID_Y:
         raise ValueError(f"conv_im2col: M={m} exceeds the launch grid")
+    geom = (batch, h, w_in, c_in, k1, k2, stride, pad_top, pad_left, o1, o2,
+            c_out, tile_m, tile_n, int(relu))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if quant:
+        check_int8_depth("conv_im2col", k1 * k2 * c_in)
+        check_operand("scale", scale, x.device, (c_out,))
+        out = torch.empty((batch, o1, o2, c_out), device=x.device,
+                          dtype=torch.float32 if out_scale is None
+                          else torch.int8)
+        with torch.cuda.device(x.device):
+            CONV_I8.launch(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                           bias_ptr, out.data_ptr(), *geom,
+                           int(out_scale is not None),
+                           float(out_scale or 0.0), stream)
+        return out
     out = torch.empty((batch, o1, o2, c_out), device=x.device,
                       dtype=torch.float32)
     with torch.cuda.device(x.device):
-        CONV.launch(x.data_ptr(), w.data_ptr(),
-                    None if bias is None else bias.data_ptr(),
-                    out.data_ptr(), batch, h, w_in, c_in, k1, k2, stride,
-                    pad_top, pad_left, o1, o2, c_out, tile_m, tile_n,
-                    int(relu), torch.cuda.current_stream().cuda_stream)
+        CONV.launch(x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
+                    *geom, stream)
     return out

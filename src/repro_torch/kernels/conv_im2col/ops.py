@@ -24,7 +24,9 @@ def conv_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                 p1: int = 128, p2: int = 128,
                 epilogue: str = "none",
                 bias: Optional[torch.Tensor] = None,
-                in_layout=None, out_layout=None) -> torch.Tensor:
+                in_layout=None, out_layout=None,
+                scale: Optional[torch.Tensor] = None,
+                out_scale: Optional[float] = None) -> torch.Tensor:
     """Convolution via the im2col algorithm. x: (H, W, Cin) or
     (B, H, W, Cin), w: (K1, K2, Cin, Cout) → (…, O1, O2, Cout).
     ``epilogue`` fuses ReLU / bias into the kernel's output flush.
@@ -33,10 +35,15 @@ def conv_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     plan's store formats: a "toeplitz" ``in_layout`` means ``x`` IS the
     layer's Toeplitz matrix — the window gather was paid once at the
     producer's store, so the layer is a plain dataflow-bound GEMM; a
-    non-NHWC ``out_layout`` emits the consumer's store format."""
+    non-NHWC ``out_layout`` emits the consumer's store format.
+
+    int8 ``x`` (NHWC map or Toeplitz matrix) and ``w`` run the int8
+    kernels: ``scale`` (Cout,) dequantizes the int32 sum before the
+    epilogue and ``out_scale`` requantizes the output to int8."""
     if in_layout is not None and in_layout.kind == "toeplitz":
         out = toeplitz_gemm(x, w.reshape(-1, w.shape[-1]), in_layout,
-                            dataflow, p1, p2, epilogue=epilogue, bias=bias)
+                            dataflow, p1, p2, epilogue=epilogue, bias=bias,
+                            scale=scale, out_scale=out_scale)
         return materialize(out, out_layout)
     single = x.ndim == unbatched_rank(in_layout)
     x = restore(x, in_layout)
@@ -44,5 +51,6 @@ def conv_im2col(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     bm, bn, _ = dataflow_blocks(dataflow, p1, p2)
     out = conv_im2col_call(xb, w.contiguous(), stride=stride,
                            padding=padding, bm=bm, bn=bn,
-                           epilogue=epilogue, bias=bias)
+                           epilogue=epilogue, bias=bias, scale=scale,
+                           out_scale=out_scale)
     return materialize(out[0] if single else out, out_layout)

@@ -1,15 +1,18 @@
 """Dataflow-bound tiled GEMM — the paper's Computing Unit as a hand-written
-Hopper kernel (``csrc/gemm.cu``), dense and batched, each with its plain
-torch version beside it.
+Hopper kernel (``csrc/gemm.cu``), dense, batched and int8, each with its
+plain torch version beside it.
 
 C = epilogue(A · B [+ bias]) in IEEE f32; the batched form computes G
 independent products C[g] = epilogue(A[g] · B[g] [+ bias]) with one bias
-shared by every g (Winograd's transform-space GEMMs). The kernels mask
-ragged M/N/K edges themselves, so no operand is padded on the host, and
-apply bias/ReLU in registers before their single store. ``gemm_call`` and
-``batched_gemm_call`` launch them for CUDA tensors and run ``gemm_plain``
-/ ``batched_gemm_plain`` for CPU tensors; nothing else selects between
-the two.
+shared by every g (Winograd's transform-space GEMMs). The int8 form takes
+int8 A and B, sums exactly in int32 and flushes dequant (· ``scale``, the
+per-channel in_scale · w_scale) → bias → ReLU → optional requant at
+``out_scale`` to an int8 C. The kernels mask ragged M/N/K edges
+themselves, so no operand is padded on the host, and apply the epilogue
+in registers before their single store. ``gemm_call`` (on the operands'
+dtype) and ``batched_gemm_call`` launch them for CUDA tensors and run
+``gemm_plain`` / ``gemm_i8_plain`` / ``batched_gemm_plain`` for CPU
+tensors; nothing else selects between the two.
 """
 from __future__ import annotations
 
@@ -19,11 +22,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import CudaKernel
-from repro_torch.kernels.common import EPILOGUES, apply_epilogue, ceil_to
+from repro_torch.kernels.common import (EPILOGUES, apply_epilogue, ceil_to,
+                                        check_int8_depth, int8_product)
 
 GEMM = CudaKernel("gemm", "gemm_f32",
                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p])
+GEMM_I8 = CudaKernel("gemm", "gemm_i8",
+                     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                     + [ctypes.c_float, ctypes.c_void_p])
 BATCHED_GEMM = CudaKernel("gemm", "batched_gemm_f32",
                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                           + [ctypes.c_void_p])
@@ -54,20 +61,39 @@ def check_epilogue(epilogue: str, bias: Optional[torch.Tensor]) -> bool:
     return epilogue.endswith("relu")
 
 
-def check_cuda_f32(name: str, t: torch.Tensor, device: torch.device,
-                   shape: Tuple[int, ...]) -> None:
-    """Raise unless ``t`` is a contiguous f32 tensor of ``shape`` on the
-    CUDA ``device`` — all the kernels take."""
+def check_operand(name: str, t: torch.Tensor, device: torch.device,
+                  shape: Tuple[int, ...],
+                  dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    the CUDA ``device`` — all the kernels take."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
+    if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}; the kernel takes "
-                        "float32 only")
+                        f"{dtype} here")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def check_quant_args(name: str, x: torch.Tensor,
+                     scale: Optional[torch.Tensor],
+                     out_scale: Optional[float],
+                     quant_dtype: torch.dtype = torch.int8) -> bool:
+    """Whether ``x`` takes the quantized path: ``quant_dtype`` operands
+    (int8, or the int32 partials of kn2row's phase 2) need the dequant
+    ``scale``; f32 ones take neither ``scale`` nor ``out_scale``."""
+    if x.dtype == quant_dtype:
+        if scale is None:
+            raise ValueError(f"{name}: {quant_dtype} operands need a "
+                             "dequant scale")
+        return True
+    if scale is not None or out_scale is not None:
+        raise ValueError(f"{name}: scale/out_scale need {quant_dtype} "
+                         f"operands, got {x.dtype}")
+    return False
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, epilogue: str = "none",
@@ -79,14 +105,38 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, epilogue: str = "none",
     return apply_epilogue(a @ b, epilogue, bias)
 
 
+def gemm_i8_plain(a: torch.Tensor, b: torch.Tensor, epilogue: str = "none",
+                  bias: Optional[torch.Tensor] = None, *,
+                  scale: torch.Tensor,
+                  out_scale: Optional[float] = None) -> torch.Tensor:
+    """The int8 kernel's function in plain torch: the exact int32 sums of
+    int8 ``a @ b``, then dequant · ``scale`` (N,), the epilogue and, with
+    ``out_scale``, the requant to int8."""
+    check_epilogue(epilogue, bias)
+    check_int8_depth("gemm", int(a.shape[-1]))
+    return apply_epilogue(int8_product(a, b), epilogue, bias, scale=scale,
+                          out_scale=out_scale)
+
+
 def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
               bn: int = 128, epilogue: str = "none",
-              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bias: Optional[torch.Tensor] = None,
+              scale: Optional[torch.Tensor] = None,
+              out_scale: Optional[float] = None) -> torch.Tensor:
     """C (M, N) = epilogue(A (M, K) · B (K, N) [+ bias (N,)]).
 
+    f32 operands run ``gemm_f32``. int8 operands run ``gemm_i8``: the
+    exact int32 sum is dequantized by ``scale`` (N,) before the epilogue,
+    and ``out_scale`` requantizes C to int8 (else C is f32).
+
     CUDA tensors launch the kernel on the current stream under the tile
-    ``kernel_tile(bm, bn, M, N)``; CPU tensors run ``gemm_plain``."""
+    ``kernel_tile(bm, bn, M, N)``; CPU tensors run ``gemm_plain`` /
+    ``gemm_i8_plain``."""
+    quant = check_quant_args("gemm", a, scale, out_scale)
     if a.device.type == "cpu":
+        if quant:
+            return gemm_i8_plain(a, b, epilogue, bias, scale=scale,
+                                 out_scale=out_scale)
         return gemm_plain(a, b, epilogue, bias)
     if a.device.type != "cuda":
         raise ValueError(f"gemm: unsupported device {a.device}")
@@ -96,23 +146,35 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                          f"and {tuple(b.shape)}")
     m, k = (int(d) for d in a.shape)
     n = int(b.shape[1])
-    check_cuda_f32("a", a, a.device, (m, k))
-    check_cuda_f32("b", b, a.device, (k, n))
+    check_operand("a", a, a.device, (m, k), a.dtype)
+    check_operand("b", b, a.device, (k, n), a.dtype)
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
     if bias is not None:
-        check_cuda_f32("bias", bias, a.device, (n,))
+        check_operand("bias", bias, a.device, (n,))
     if min(m, n, k) < 1:
         raise ValueError(f"gemm: empty operand M={m} N={n} K={k}")
     tile_m, tile_n = kernel_tile(bm, bn, m, n)
     if -(-m // tile_m) > _MAX_GRID_Y:
         raise ValueError(f"gemm: M={m} exceeds the launch grid")
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if quant:
+        check_int8_depth("gemm", k)
+        check_operand("scale", scale, a.device, (n,))
+        out = torch.empty((m, n), device=a.device,
+                          dtype=torch.float32 if out_scale is None
+                          else torch.int8)
+        with torch.cuda.device(a.device):
+            GEMM_I8.launch(a.data_ptr(), b.data_ptr(), scale.data_ptr(),
+                           bias_ptr, out.data_ptr(), m, n, k, tile_m, tile_n,
+                           int(relu), int(out_scale is not None),
+                           float(out_scale or 0.0), stream)
+        return out
     out = torch.empty((m, n), device=a.device, dtype=torch.float32)
     with torch.cuda.device(a.device):
-        GEMM.launch(a.data_ptr(), b.data_ptr(),
-                    None if bias is None else bias.data_ptr(),
-                    out.data_ptr(), m, n, k, tile_m, tile_n, int(relu),
-                    torch.cuda.current_stream().cuda_stream)
+        GEMM.launch(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(), m,
+                    n, k, tile_m, tile_n, int(relu), stream)
     return out
 
 
@@ -138,12 +200,12 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     g, m, k = (int(d) for d in a.shape)
     n = int(b.shape[2])
-    check_cuda_f32("a", a, a.device, (g, m, k))
-    check_cuda_f32("b", b, a.device, (g, k, n))
+    check_operand("a", a, a.device, (g, m, k))
+    check_operand("b", b, a.device, (g, k, n))
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
     if bias is not None:
-        check_cuda_f32("bias", bias, a.device, (n,))
+        check_operand("bias", bias, a.device, (n,))
     if min(g, m, n, k) < 1:
         raise ValueError(f"batched_gemm: empty operand G={g} M={m} N={n} "
                          f"K={k}")

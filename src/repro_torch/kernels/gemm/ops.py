@@ -31,28 +31,39 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
          dataflow: Dataflow = Dataflow.NS,
          p1: int = 128, p2: int = 128,
          epilogue: str = "none",
-         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+         bias: Optional[torch.Tensor] = None,
+         scale: Optional[torch.Tensor] = None,
+         out_scale: Optional[float] = None) -> torch.Tensor:
     """C = epilogue(A @ B [+ bias]) on the dataflow-switchable Computing
     Unit; the epilogue is fused into the kernel's output flush. The
-    binding picks the kernel's tile, never the math."""
+    binding picks the kernel's tile, never the math.
+
+    Int8 operands accumulate in int32; ``scale`` ((N,) per-output-channel
+    dequant factors) and ``out_scale`` (requantize to int8) ride the same
+    fused flush as bias/relu."""
     bm, bn, _ = dataflow_blocks(dataflow, p1, p2)
-    return gemm_call(a, b, bm=bm, bn=bn, epilogue=epilogue, bias=bias)
+    return gemm_call(a, b, bm=bm, bn=bn, epilogue=epilogue, bias=bias,
+                     scale=scale, out_scale=out_scale)
 
 
 def toeplitz_gemm(t: torch.Tensor, w2d: torch.Tensor, spec,
                   dataflow: Dataflow = Dataflow.NS,
                   p1: int = 128, p2: int = 128,
                   epilogue: str = "none",
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  bias: Optional[torch.Tensor] = None,
+                  scale: Optional[torch.Tensor] = None,
+                  out_scale: Optional[float] = None) -> torch.Tensor:
     """Matched-layout conv leg: a consumer whose edge already carries its
     Toeplitz matrix (``core.layouts.LayoutSpec`` kind "toeplitz") feeds
     the GEMM unit directly — Table 2's streaming Load(n, n), no window
     re-gather. ``t``: (O1·O2, K1K2·Cin) or batched (B, …); ``w2d``:
     (K1K2·Cin, Cout) → (…, O1, O2, Cout). The weight is shared, so the
-    batch folds into M: one launch per layer per forward."""
+    batch folds into M: one launch per layer per forward. Int8 ``t`` and
+    ``w2d`` take ``scale``/``out_scale`` as ``gemm`` does."""
     lead = t.shape[:-2]
     out = gemm(t.reshape(-1, t.shape[-1]).contiguous(), w2d.contiguous(),
-               dataflow, p1, p2, epilogue=epilogue, bias=bias)
+               dataflow, p1, p2, epilogue=epilogue, bias=bias, scale=scale,
+               out_scale=out_scale)
     return out.reshape(*lead, spec.o1, spec.o2, w2d.shape[1])
 
 

@@ -12,10 +12,14 @@ S·x + k2 − pl]. The reference zero-pads p on the host first; the kernel
 takes p unpadded, and rows or columns outside one image's map count as 0.
 As the last kn2row stage it owns the fused bias/ReLU epilogue.
 
+Int8 (the reference's int8 path): phase 1 takes int8 x2d and w and
+writes the exact int32 partials p; phase 2 sums them in int32 and flushes
+dequant (· ``scale``) → bias → ReLU → optional requant at ``out_scale``.
+
 ``unit_conv_gemms_call`` and ``pad_accumulate_call`` launch the kernels
-for CUDA tensors and run ``unit_conv_gemms_plain`` /
-``pad_accumulate_plain`` for CPU tensors; nothing else selects between
-the two.
+(f32 or int8 on the operands' dtype) for CUDA tensors and run
+``unit_conv_gemms_plain`` / ``pad_accumulate_plain`` for CPU tensors;
+nothing else selects between the two.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.build import CudaKernel
-from repro_torch.kernels.common import apply_epilogue
-from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, check_cuda_f32,
-                                          check_epilogue, kernel_tile)
+from repro_torch.kernels.common import (apply_epilogue, check_int8_depth,
+                                        int8_product)
+from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, check_epilogue,
+                                          check_operand, check_quant_args,
+                                          kernel_tile)
 
 UNIT_CONV_GEMMS = CudaKernel("kn2row", "unit_conv_gemms_f32",
                              [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
@@ -36,6 +42,12 @@ UNIT_CONV_GEMMS = CudaKernel("kn2row", "unit_conv_gemms_f32",
 PAD_ACCUMULATE = CudaKernel("kn2row", "pad_accumulate_f32",
                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
                             + [ctypes.c_void_p])
+UNIT_CONV_GEMMS_I8 = CudaKernel("kn2row", "unit_conv_gemms_i8",
+                                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                                + [ctypes.c_void_p])
+PAD_ACCUMULATE_I32 = CudaKernel("kn2row", "pad_accumulate_i32",
+                                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+                                + [ctypes.c_float, ctypes.c_void_p])
 
 _INDEX_LIMIT = 2 ** 31
 
@@ -47,14 +59,19 @@ _INDEX_LIMIT = 2 ** 31
 def unit_conv_gemms_plain(x2d: torch.Tensor, w: torch.Tensor
                           ) -> torch.Tensor:
     """The kernel's function in plain torch: x2d (M, Cin) @ w (G, Cin,
-    Cout), broadcast over G → p (G, M, Cout)."""
+    Cout), broadcast over G → p (G, M, Cout); for int8 operands the exact
+    int32 sums."""
+    if x2d.dtype == torch.int8:
+        check_int8_depth("unit_conv_gemms", int(x2d.shape[-1]))
+        return int8_product(x2d, w)
     return x2d @ w
 
 
 def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
                          bm: int = 128, bn: int = 128) -> torch.Tensor:
     """p (G, M, Cout) = x2d (M, Cin) · w[g] (Cin, Cout) for every g < G,
-    in f32 and with no epilogue (phase 1 ends before the offsets' sum).
+    with no epilogue (phase 1 ends before the offsets' sum): f32 for f32
+    operands, the exact int32 sums for int8 ones.
 
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, M, Cout)``; CPU tensors run
@@ -69,8 +86,9 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
                          f"{tuple(w.shape)}")
     m, k = (int(d) for d in x2d.shape)
     g, n = int(w.shape[0]), int(w.shape[2])
-    check_cuda_f32("x2d", x2d, x2d.device, (m, k))
-    check_cuda_f32("w", w, x2d.device, (g, k, n))
+    quant = x2d.dtype == torch.int8
+    check_operand("x2d", x2d, x2d.device, (m, k), x2d.dtype)
+    check_operand("w", w, x2d.device, (g, k, n), x2d.dtype)
     if min(g, m, n, k) < 1:
         raise ValueError(f"unit_conv_gemms: empty operand G={g} M={m} N={n} "
                          f"K={k}")
@@ -81,11 +99,14 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
     if -(-m // tile_m) > _MAX_GRID_Y or g > _MAX_GRID_Y:
         raise ValueError(f"unit_conv_gemms: G={g} M={m} exceeds the launch "
                          "grid")
-    p = torch.empty((g, m, n), device=x2d.device, dtype=torch.float32)
+    if quant:
+        check_int8_depth("unit_conv_gemms", k)
+    p = torch.empty((g, m, n), device=x2d.device,
+                    dtype=torch.int32 if quant else torch.float32)
+    kernel = UNIT_CONV_GEMMS_I8 if quant else UNIT_CONV_GEMMS
     with torch.cuda.device(x2d.device):
-        UNIT_CONV_GEMMS.launch(x2d.data_ptr(), w.data_ptr(), p.data_ptr(),
-                               g, m, n, k, tile_m, tile_n,
-                               torch.cuda.current_stream().cuda_stream)
+        kernel.launch(x2d.data_ptr(), w.data_ptr(), p.data_ptr(), g, m, n, k,
+                      tile_m, tile_n, torch.cuda.current_stream().cuda_stream)
     return p
 
 
@@ -110,37 +131,46 @@ def pad_accumulate_plain(p: torch.Tensor, *, k1: int, k2: int, o1: int,
                          o2: int, stride: int = 1,
                          pad_top: int = 0, pad_left: int = 0,
                          epilogue: str = "none",
-                         bias: Optional[torch.Tensor] = None
+                         bias: Optional[torch.Tensor] = None,
+                         scale: Optional[torch.Tensor] = None,
+                         out_scale: Optional[float] = None
                          ) -> torch.Tensor:
     """The kernel's function in plain torch: zero-pad p (K1K2, B, H, W, C)
-    with ``F.pad``, sum the K1K2 strided slices in the order g = 0 … G−1,
-    then the epilogue → (B, O1, O2, C)."""
+    with ``F.pad``, sum the K1K2 strided slices in the order g = 0 … G−1
+    (in int32 for int32 p), then the epilogue (dequant · ``scale`` first
+    and requant at ``out_scale`` last for int32 p) → (B, O1, O2, C)."""
     _check_geometry(p, k1, k2, o1, o2, stride, pad_top, pad_left)
     check_epilogue(epilogue, bias)
+    check_quant_args("pad_accumulate", p, scale, out_scale, torch.int32)
     h, w = int(p.shape[2]), int(p.shape[3])
     span_r, span_c = (o1 - 1) * stride + 1, (o2 - 1) * stride + 1
     pad_bottom = max(0, span_r + k1 - 1 - pad_top - h)
     pad_right = max(0, span_c + k2 - 1 - pad_left - w)
-    pp = F.pad(p.to(torch.float32),
+    pp = F.pad(p if p.dtype == torch.int32 else p.to(torch.float32),
                (0, 0, pad_left, pad_right, pad_top, pad_bottom))
     acc = None
     for g in range(k1 * k2):
         dk1, dk2 = divmod(g, k2)
         sl = pp[g, :, dk1:dk1 + span_r:stride, dk2:dk2 + span_c:stride]
         acc = sl if acc is None else acc + sl
-    return apply_epilogue(acc, epilogue, bias)
+    return apply_epilogue(acc, epilogue, bias, scale=scale,
+                          out_scale=out_scale)
 
 
 def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
                         o2: int, stride: int = 1,
                         pad_top: int = 0, pad_left: int = 0,
                         epilogue: str = "none",
-                        bias: Optional[torch.Tensor] = None
+                        bias: Optional[torch.Tensor] = None,
+                        scale: Optional[torch.Tensor] = None,
+                        out_scale: Optional[float] = None
                         ) -> torch.Tensor:
     """out (B, O1, O2, C) = epilogue(Σ_{k1,k2} p_{k1,k2}[S·y + k1 −
     pad_top, S·x + k2 − pad_left] [+ bias (C,)]) for the unpadded unit-conv
     products p (K1K2, B, H, W, C); rows and columns outside each image's
-    (H, W) map count as 0.
+    (H, W) map count as 0. For int32 p (the int8 path) the sum is int32
+    and is dequantized by ``scale`` (C,) before the epilogue; ``out_scale``
+    requantizes the output to int8 (else it is f32).
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     ``pad_accumulate_plain``."""
@@ -148,28 +178,43 @@ def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
         return pad_accumulate_plain(p, k1=k1, k2=k2, o1=o1, o2=o2,
                                     stride=stride, pad_top=pad_top,
                                     pad_left=pad_left, epilogue=epilogue,
-                                    bias=bias)
+                                    bias=bias, scale=scale,
+                                    out_scale=out_scale)
     if p.device.type != "cuda":
         raise ValueError(f"pad_accumulate: unsupported device {p.device}")
     _check_geometry(p, k1, k2, o1, o2, stride, pad_top, pad_left)
     relu = check_epilogue(epilogue, bias)
+    quant = check_quant_args("pad_accumulate", p, scale, out_scale,
+                             torch.int32)
     _, batch, h, w, c = (int(d) for d in p.shape)
-    check_cuda_f32("p", p, p.device, (k1 * k2, batch, h, w, c))
+    check_operand("p", p, p.device, (k1 * k2, batch, h, w, c), p.dtype)
     if min(batch, c) < 1:
         raise ValueError(f"pad_accumulate: empty problem B={batch} C={c}")
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
     if bias is not None:
-        check_cuda_f32("bias", bias, p.device, (c,))
+        check_operand("bias", bias, p.device, (c,))
     if max(p.numel(), batch * o1 * o2 * c) >= _INDEX_LIMIT:
         raise ValueError("pad_accumulate: tensor too large for 32-bit "
                          "indices")
+    geom = (batch, h, w, c, k1, k2, o1, o2, stride, pad_top, pad_left,
+            int(relu))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    stream = torch.cuda.current_stream(p.device).cuda_stream
+    if quant:
+        check_operand("scale", scale, p.device, (c,))
+        out = torch.empty((batch, o1, o2, c), device=p.device,
+                          dtype=torch.float32 if out_scale is None
+                          else torch.int8)
+        with torch.cuda.device(p.device):
+            PAD_ACCUMULATE_I32.launch(p.data_ptr(), scale.data_ptr(),
+                                      bias_ptr, out.data_ptr(), *geom,
+                                      int(out_scale is not None),
+                                      float(out_scale or 0.0), stream)
+        return out
     out = torch.empty((batch, o1, o2, c), device=p.device,
                       dtype=torch.float32)
     with torch.cuda.device(p.device):
-        PAD_ACCUMULATE.launch(p.data_ptr(),
-                              None if bias is None else bias.data_ptr(),
-                              out.data_ptr(), batch, h, w, c, k1, k2, o1, o2,
-                              stride, pad_top, pad_left, int(relu),
-                              torch.cuda.current_stream().cuda_stream)
+        PAD_ACCUMULATE.launch(p.data_ptr(), bias_ptr, out.data_ptr(), *geom,
+                              stream)
     return out

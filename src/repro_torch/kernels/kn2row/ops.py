@@ -16,7 +16,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.cost_model import Dataflow
-from repro_torch.kernels.common import unbatched_rank
+from repro_torch.kernels.common import check_int8_depth, unbatched_rank
 from repro_torch.kernels.conv_im2col.ref import conv_geometry
 from repro_torch.kernels.gemm.ops import dataflow_blocks
 from repro_torch.kernels.kn2row.kn2row import (pad_accumulate_call,
@@ -30,10 +30,16 @@ def conv_kn2row(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                 p1: int = 128, p2: int = 128,
                 epilogue: str = "none",
                 bias: Optional[torch.Tensor] = None,
-                in_layout=None, out_layout=None) -> torch.Tensor:
+                in_layout=None, out_layout=None,
+                scale: Optional[torch.Tensor] = None,
+                out_scale: Optional[float] = None) -> torch.Tensor:
     """Convolution via kn2row. x: (H, W, Cin) or (B, H, W, Cin), w: (K1,
     K2, Cin, Cout) → (…, O1, O2, Cout). ``epilogue`` fuses into the final
     pad-and-accumulate.
+
+    int8 ``x`` and ``w``: phase 1 writes exact int32 partials, phase 2
+    sums them in int32 and dequantizes by ``scale`` (Cout,) before the
+    epilogue; ``out_scale`` requantizes the output to int8.
 
     kn2row's input layout IS the 3-D tensor (§3.3), so a matched
     ``in_layout`` is simply NHWC; other layouts are restored on entry
@@ -45,6 +51,8 @@ def conv_kn2row(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     batch, h, w_dim, c_in = (int(d) for d in xb.shape)
     k1, k2, _, c_out = (int(d) for d in w.shape)
     o1, o2, pt, _, pl, _ = conv_geometry(h, w_dim, k1, k2, stride, padding)
+    if xb.dtype == torch.int8:
+        check_int8_depth("conv_kn2row", k1 * k2 * c_in)   # the summed depth
 
     # Phase 1: (B·H·W, Cin) @ (K1K2, Cin, Cout) under the plan's binding.
     bm, bn, _ = dataflow_blocks(dataflow, p1, p2)
@@ -55,5 +63,6 @@ def conv_kn2row(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     out = pad_accumulate_call(p.view(k1 * k2, batch, h, w_dim, c_out),
                               k1=k1, k2=k2, o1=o1, o2=o2,
                               stride=stride, pad_top=pt, pad_left=pl,
-                              epilogue=epilogue, bias=bias)
+                              epilogue=epilogue, bias=bias, scale=scale,
+                              out_scale=out_scale)
     return materialize(out[0] if single else out, out_layout)

@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import apply_epilogue, pad_nhwc
-from repro_torch.kernels.gemm.gemm import check_cuda_f32, check_epilogue
+from repro_torch.kernels.gemm.gemm import check_operand, check_epilogue
 
 INPUT_TRANSFORM = CudaKernel(
     "winograd", "winograd_input_transform_f32",
@@ -183,7 +183,7 @@ def input_transform_call(x: torch.Tensor, *, m: int, r: int = 3,
         raise ValueError(f"input_transform wants x (B, H, W, C), got "
                          f"{tuple(x.shape)}")
     b, h, w, c = (int(d) for d in x.shape)
-    check_cuda_f32("x", x, x.device, (b, h, w, c))
+    check_operand("x", x, x.device, (b, h, w, c))
     n = b * tiles_y * tiles_x
     if min(n, c) < 1:
         raise ValueError(f"input_transform: empty problem n={n} C={c}")
@@ -232,7 +232,7 @@ def input_transform_tiles_call(tiles: torch.Tensor, *, m: int,
         raise ValueError(f"input_transform_tiles wants (n, T, T, C), got "
                          f"{tuple(tiles.shape)}")
     n, c = int(tiles.shape[0]), int(tiles.shape[3])
-    check_cuda_f32("tiles", tiles, tiles.device, (n, t, t, c))
+    check_operand("tiles", tiles, tiles.device, (n, t, t, c))
     if min(n, c) < 1:
         raise ValueError(f"input_transform_tiles: empty problem n={n} C={c}")
     if tiles.numel() >= 2 ** 31:
@@ -292,7 +292,7 @@ def output_transform_call(mm: torch.Tensor, *, m: int, r: int = 3,
         raise ValueError(f"output_transform wants M (T², n, C), got "
                          f"{tuple(mm.shape)}")
     n, c = int(mm.shape[1]), int(mm.shape[2])
-    check_cuda_f32("M", mm, mm.device, (t * t, n, c))
+    check_operand("M", mm, mm.device, (t * t, n, c))
     per_image = tiles_y * tiles_x
     if per_image < 1 or n % per_image:
         raise ValueError(f"output_transform: {n} tiles is not a whole "
@@ -303,7 +303,7 @@ def output_transform_call(mm: torch.Tensor, *, m: int, r: int = 3,
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
     if bias is not None:
-        check_cuda_f32("bias", bias, mm.device, (c,))
+        check_operand("bias", bias, mm.device, (c,))
     if mm.numel() >= 2 ** 31:
         raise ValueError("output_transform: tensor too large for 32-bit "
                          "indices")

@@ -18,9 +18,13 @@ device, and only stale slots left by a previous larger tick are
 re-zeroed. A tick blocks until the device is done
 (``torch.cuda.synchronize``) before its results are copied to the host.
 
+An int8 plan is served with its calibrated ``act_scales``
+(``core.quant.plan_mixed_precision``), which every bucket program takes;
+``stats()["precision"]`` reports the plan's precision mix.
+
 Pipelined ticks, bounded admission, deadline shedding, fault injection,
-degrade mode, meshes, tuning records, int8 calibration and plan hot-swap
-are later slices of the port: their options, and ``swap_plan``, raise
+degrade mode, meshes, tuning records and plan hot-swap are later slices
+of the port: their options, and ``swap_plan``, raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -96,6 +100,8 @@ class CNNServingEngine:
     at construction to prime the per-bucket service-time estimates.
     ``device`` is where the programs run (``"cuda"`` by default; raises
     when CUDA is absent). ``params`` must already live on that device.
+    ``act_scales`` ({conv node id: activation scale}) feeds the plan's
+    int8 layers, in every bucket program.
     """
 
     def __init__(self, graph: Graph, params, plan: Optional[ExecutionPlan],
@@ -114,8 +120,7 @@ class CNNServingEngine:
                  device="cuda") -> None:
         later = {"mesh": mesh, "max_queue": max_queue,
                  "shed_deadline": shed_deadline, "fault_plan": fault_plan,
-                 "degrade": degrade, "tuning": tuning,
-                 "act_scales": act_scales}
+                 "degrade": degrade, "tuning": tuning}
         for name, value in later.items():
             if value:
                 raise NotImplementedError(
@@ -127,6 +132,11 @@ class CNNServingEngine:
         self.graph = graph
         self.params = params
         self.plan = plan
+        # Per-layer precision map of the served plan (empty: all bf16),
+        # surfaced by stats()["precision"].
+        self.act_scales = act_scales
+        self.precisions = dict(getattr(plan, "precisions", None) or {}) \
+            if plan is not None else {}
         self.buckets = batch_buckets(batch_size)
         self.b = self.buckets[-1]              # largest bucket
         self.slo_s = slo_s
@@ -137,7 +147,8 @@ class CNNServingEngine:
         # programs accept — validate against it, never against traffic.
         src = graph.nodes[graph.source()]
         self._shape = tuple(int(d) for d in src.attrs["out_shape"])
-        self._runs = self.compile_ladder(plan, warm=False)
+        self._runs = self.compile_ladder(plan, act_scales=act_scales,
+                                         warm=False)
         # One staging buffer for the largest bucket, allocated ONCE;
         # _filled counts the leading slots the last tick staged, so only
         # slots a smaller dispatch would leak are re-zeroed.
@@ -326,6 +337,21 @@ class CNNServingEngine:
             "window": len(window),
             "latency": _agg([t.latency_s for t in window]),
             "queue_wait": _agg([t.queue_s for t in window]),
+            # The served plan's per-layer precision mix: conv counts per
+            # precision and the int8 layer ids.
+            "precision": {
+                "mix": {
+                    "int8": sum(1 for p in self.precisions.values()
+                                if p == "int8"),
+                    "bf16": (sum(1 for p in self.precisions.values()
+                                 if p != "int8")
+                             + sum(1 for n in self.graph.conv_nodes()
+                                   if n.id not in self.precisions)),
+                },
+                "int8_layers": sorted(
+                    n for n, p in self.precisions.items() if p == "int8"),
+                "calibrated": self.act_scales is not None,
+            },
             "device": str(self.device),
         }
 
@@ -336,12 +362,15 @@ class CNNServingEngine:
             "CNNServingEngine.swap_plan is not ported yet")
 
     def compile_ladder(self, plan: Optional[ExecutionPlan],
+                       act_scales: Optional[Dict[int, float]] = None,
                        warm: bool = True) -> Dict[int, Callable]:
-        """One compiled program per bucket for ``plan`` under this engine's
-        options; ``warm=True`` runs each once on an all-zeros batch."""
+        """One compiled program per bucket for ``plan`` (and its int8
+        layers' ``act_scales``) under this engine's options; ``warm=True``
+        runs each once on an all-zeros batch."""
         runs = {
             bucket: compile_plan(self.graph, plan, epilogue=EPILOGUE,
-                                 tuning_batch=bucket, device=self.device)
+                                 tuning_batch=bucket, act_scales=act_scales,
+                                 device=self.device)
             for bucket in self.buckets
         }
         if warm:

@@ -50,7 +50,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert {"kernels/winograd/winograd.py", "kernels/winograd/ops.py",
             "kernels/winograd/ref.py", "kernels/layouts.py",
             "kernels/gemm/gemm.py", "kernels/kn2row/kn2row.py",
-            "kernels/kn2row/ops.py", "kernels/kn2row/ref.py"} <= names
+            "kernels/kn2row/ops.py", "kernels/kn2row/ref.py",
+            "core/quant.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -131,10 +132,13 @@ def test_library_path_tracks_sources():
 
 
 def test_unported_algorithms_and_int8_kernels_raise():
-    """Every f32 algorithm is ported: kn2row runs on the plain backends
-    (CPU tensors) and computes the direct conv. The int8 kernels are not
-    ported and raise on the kernel path, for im2col and kn2row alike;
-    Winograd rejects int8 with the reference's ``ValueError``."""
+    """Every algorithm and every int8 kernel is ported: kn2row runs on the
+    plain backends (CPU tensors) and computes the direct conv; an int8
+    im2col or kn2row layer on CPU tensors runs the int8 kernels' plain
+    versions (true int8, equal to the fake-quant emulation at 1e-4) unless
+    the kernels themselves are asked for, which raises ``ValueError`` as
+    for f32. Winograd still rejects int8 with the reference's
+    ``ValueError``."""
     x, w = torch.zeros(8, 8, 3), torch.zeros(3, 3, 3, 4)
     xr = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (8, 8, 3)).astype(np.float32))
@@ -145,10 +149,14 @@ def test_unported_algorithms_and_int8_kernels_raise():
         got = apply_conv(xr, wr, KN2ROW, **kw)
         np.testing.assert_allclose(got.numpy(), conv_ref(xr, wr).numpy(),
                                    rtol=1e-4, atol=1e-4)
+    q = dict(precision="int8", in_scale=0.03)
     for algo in (IM2COL, KN2ROW):
-        for kw in ({}, dict(backend="pallas")):
-            with pytest.raises(NotImplementedError, match="int8"):
-                apply_conv(x, w, algo, precision="int8", in_scale=0.1, **kw)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            apply_conv(x, w, algo, backend="pallas", **q)
+        np.testing.assert_allclose(
+            apply_conv(xr, wr, algo, **q).numpy(),
+            apply_conv(xr, wr, algo, backend="lax", **q).numpy(),
+            rtol=1e-4, atol=1e-4)
     for kw in ({}, dict(backend="reference"), dict(backend="lax")):
         with pytest.raises(ValueError, match="bf16-only"):
             apply_conv(x, w, WINO_2_3, precision="int8", in_scale=0.1, **kw)
@@ -159,6 +167,8 @@ def test_unported_algorithms_and_int8_kernels_raise():
 
 
 def test_later_slice_options_raise(small):
+    """Options of later slices raise; ``act_scales=`` (the int8 slice) is
+    taken by the engine and reaches every bucket program."""
     g, params = small
     for kw in (dict(mesh=object()), dict(donate=True),
                dict(fault_hook=lambda: None)):
@@ -167,10 +177,13 @@ def test_later_slice_options_raise(small):
     for kw in (dict(pipeline_depth=2), dict(max_queue=4),
                dict(shed_deadline=True), dict(fault_plan=object()),
                dict(degrade=object()), dict(mesh=object()),
-               dict(tuning=object()), dict(act_scales={1: 0.1})):
+               dict(tuning=object())):
         with pytest.raises(NotImplementedError):
             CNNServingEngine(g, params, None, device="cpu", **kw)
-    engine = CNNServingEngine(g, params, None, batch_size=1, device="cpu")
+    scales = {n.id: 0.1 for n in g.conv_nodes()}
+    engine = CNNServingEngine(g, params, None, batch_size=1, device="cpu",
+                              act_scales=scales)
+    assert engine.stats()["precision"]["calibrated"]
     with pytest.raises(NotImplementedError, match="swap_plan"):
         engine.swap_plan(None, {})
 
