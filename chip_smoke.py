@@ -53,8 +53,14 @@ both matrix products and cuDNN:
     unit-conv GEMMs with exact int32 partials, int32 pad-and-accumulate)
     against their plain versions at Inception-v4's int8 shapes (bucket 8)
     and on a ragged G 3, M 333, K 70, N 100 over all four tiles, f32 and
-    requantized int8 outputs, all four epilogues: int32 partials and int8
-    outputs must be equal, f32 ones within 1e-5 (GEMM) / 1e-4 (convs);
+    requantized int8 outputs, all four epilogues, and the two kernels on
+    the int8 tensor cores (``csrc/tile_mma_i8.cuh``) at the edges of their
+    mma.sync loop on every tile the wrapper takes at each shape: M = K =
+    N = 1, ragged fragments, a K one k32 step past a chunk, operands 1
+    byte off alignment, +-127 at the deepest K. The GEMM and the unit-conv
+    GEMMs must equal their plain versions bit for bit, f32 outputs
+    included; the convs' f32 outputs within 1e-4, their int32 and int8
+    ones exactly;
 16. runs the accuracy gate on the card: ``plan_mixed_precision`` plans
     full-width Inception-v4 at tol 0.02 on two calibration images and
     must keep int8 im2col and int8 kn2row layers, each within tol; its
@@ -97,8 +103,7 @@ HBM_BYTES_PER_S = 3.35e12
 BUCKETS = (1, 2, 4, 8)
 FORWARD_TOL = dict(rtol=2e-2, atol=2e-3)    # the reference's whole-plan tol
 KERNEL_TOL = dict(rtol=1e-4, atol=1e-4)     # the reference's f32 kernel tol
-GEMM_I8_TOL = dict(rtol=1e-5, atol=1e-5)    # the reference's int8 tols
-EXACT = dict(rtol=0.0, atol=0.0)            # int32 partials, int8 outputs
+EXACT = dict(rtol=0.0, atol=0.0)            # int32 sums, int8 outputs
 GATE_TOL = 0.02                             # the gate's error budget
 # The gated Inception-v4's logits against the f32 plan's: max|int8 - f32| /
 # max|f32| below "rel" and every image's cosine similarity above "cos".
@@ -253,7 +258,7 @@ def main() -> int:
     from repro_torch.core.layouts import LayoutSpec
     from repro_torch.core.mapper import map_network
     from repro_torch.kernels import build
-    from repro_torch.kernels.common import int8_product, pad_nhwc
+    from repro_torch.kernels.common import INT8_MAX_K, int8_product, pad_nhwc
     from repro_torch.core.quant import layer_errors, plan_mixed_precision
     from repro_torch.kernels.conv_im2col.conv_im2col import (
         CONV, CONV_I8, conv_i8_plain, conv_im2col_call, conv_plain)
@@ -261,7 +266,8 @@ def main() -> int:
     from repro_torch.kernels.gemm.gemm import (BATCHED_GEMM, GEMM, GEMM_I8,
                                               batched_gemm_call,
                                               batched_gemm_plain, gemm_call,
-                                              gemm_i8_plain, gemm_plain)
+                                              gemm_i8_plain, gemm_plain,
+                                              kernel_tile)
     from repro_torch.kernels.kn2row import kn2row as kn2
     from repro_torch.kernels.kn2row.ops import conv_kn2row
     from repro_torch.kernels.layouts import materialize
@@ -274,8 +280,9 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
 
-    def randn(*shape, scale: float = 1.0):
-        return (torch.randn(shape, generator=gen) * scale).to(dev)
+    def randn(*shape, scale: float = 1.0, rng=None):
+        rng = gen if rng is None else rng
+        return (torch.randn(shape, generator=rng) * scale).to(dev)
 
     # Every kernel of the port; launch counts are tuples in this order.
     KERNELS = {"conv": CONV, "gemm": GEMM,
@@ -1048,14 +1055,16 @@ def main() -> int:
               f"(ms)")
 
     # ---- 15. int8 kernels vs plain ---------------------------------------
-    def randi8(*shape):
-        return torch.randint(-127, 128, shape, generator=gen,
+    def randi8(*shape, rng=None):
+        rng = gen if rng is None else rng
+        return torch.randint(-127, 128, shape, generator=rng,
                              dtype=torch.int8).to(dev)
 
-    def dequant_scale(n, depth):
+    def dequant_scale(n, depth, rng=None):
         """Per-channel scales that bring a depth-``depth`` int8 sum to ~1
         (the role of in_scale · w_scale)."""
-        return ((torch.rand(n, generator=gen) * 1.5 + 0.5)
+        rng = gen if rng is None else rng
+        return ((torch.rand(n, generator=rng) * 1.5 + 0.5)
                 / (127.0 ** 2 * depth ** 0.5 / 3)).to(dev)
 
     def i8_outputs(kern, plain, tol, epilogues=("none", "relu", "bias",
@@ -1075,32 +1084,82 @@ def main() -> int:
                     **(tol if out_scale is None else EXACT)))
         return errs
 
-    i8_err = {}
-    i8_inputs = {}
-    # gemm_i8: redA/b3b's Toeplitz layer at bucket 8 (the int8 Toeplitz
-    # layer with the most MACs), the deepest int8 Toeplitz K (2880), and a
-    # ragged problem on every tile.
-    for label, m, k, n, tiles in (
-            ("redA/b3b", 8 * 35 * 35, 9 * 192, 224, ((128, 128),)),
-            ("K 2880", 8 * 8 * 8, 2880, 320, ((128, 128),)),
-            ("ragged", 333, 70, 100,
-             ((64, 64), (64, 128), (128, 64), (128, 128)))):
-        a, b = randi8(m, k), randi8(k, n)
-        scale, bias = dequant_scale(n, k), randn(n, scale=0.1)
+    def offset_view(t):
+        """``t`` copied into a contiguous view 1 byte into a larger buffer:
+        not 16-byte aligned, so the int8 MMA loop takes its byte-wise
+        path whatever K is."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def extreme(rows, cols, period):
+        """±127 everywhere, the sign alternating every ``period`` columns:
+        every product of two such operands sums to ±127² K."""
+        sign = 1 - 2 * ((torch.arange(cols) // period) % 2)
+        return (127 * sign).to(torch.int8).expand(rows, cols).contiguous() \
+            .to(dev)
+
+    def check_gemm_i8(label, a, b, tiles, scale, bias):
+        """gemm_i8 vs its plain version, bit for bit, on every tile of
+        ``tiles`` the wrapper takes at this shape (kernel_tile clamps to
+        the problem)."""
+        (m, k), n = a.shape, b.shape[1]
         err = {"f32": 0.0, "int8": 0.0}
+        tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in tiles})
         for bm, bn in tiles:
             e = i8_outputs(
                 lambda ep, os: gemm_call(a, b, bm=bm, bn=bn, epilogue=ep,
                                          bias=bias, scale=scale,
                                          out_scale=os),
                 lambda ep, os: gemm_i8_plain(a, b, ep, bias, scale=scale,
-                                             out_scale=os), GEMM_I8_TOL)
+                                             out_scale=os), EXACT)
             err = {key: max(err[key], e[key]) for key in err}
         i8_err[("gemm_i8", label)] = err
         i8_inputs[("gemm_i8", label)] = (a, b, scale, bias)
-        print(f"[15] gemm_i8 {label} M={m} K={k} N={n} tiles {list(tiles)}, "
-              f"four epilogues: max|diff| vs plain f32 {err['f32']:.3e} "
-              f"(rtol/atol 1e-5), int8 out {err['int8']:.0f} (exact)")
+        print(f"[15] gemm_i8 {label} M={m} K={k} N={n} tiles {tiles}, four "
+              f"epilogues: max|diff| vs plain f32 {err['f32']:.3e}, int8 "
+              f"out {err['int8']:.0f} (both exact)")
+
+    all_tiles = ((64, 64), (64, 128), (128, 64), (128, 128))
+    i8_err = {}
+    i8_inputs = {}
+    # gemm_i8: redA/b3b's Toeplitz layer at bucket 8 (the int8 Toeplitz
+    # layer with the most MACs), the deepest int8 Toeplitz K (2880), and a
+    # ragged problem.
+    for label, m, k, n, tiles in (
+            ("redA/b3b", 8 * 35 * 35, 9 * 192, 224, ((128, 128),)),
+            ("K 2880", 8 * 8 * 8, 2880, 320, ((128, 128),)),
+            ("ragged", 333, 70, 100, all_tiles)):
+        a, b = randi8(m, k), randi8(k, n)
+        check_gemm_i8(label, a, b, tiles, dequant_scale(n, k),
+                      randn(n, scale=0.1))
+    # The edges of the mma.sync loop: one element, ragged fragments, a K
+    # one k32 step past a 64-deep chunk, operands 1 byte off alignment at
+    # an aligned K (the byte-wise path), and +-127 everywhere at the
+    # deepest K the wrappers take (the byte-wise path) and at the deepest
+    # multiple of 16 (cp.async). Their inputs come from a generator of
+    # their own, so the later phases draw the same inputs as without them.
+    edge = torch.Generator().manual_seed(16)
+    a128, b128 = randi8(200, 128, rng=edge), randi8(128, 96, rng=edge)
+    for label, a, b in (
+            ("1x1x1", randi8(1, 1, rng=edge), randi8(1, 1, rng=edge)),
+            ("17x33x9", randi8(17, 33, rng=edge), randi8(33, 9, rng=edge)),
+            ("K 96", randi8(64, 96, rng=edge), randi8(96, 8, rng=edge)),
+            ("aligned", a128, b128),
+            ("offset views", offset_view(a128), offset_view(b128)),
+            ("+-127 K 133144", extreme(16, INT8_MAX_K, INT8_MAX_K).mul_(-1),
+             extreme(INT8_MAX_K, 16, 3)),
+            ("+-127 K 133136", extreme(16, 133136, 133136),
+             extreme(133136, 16, 5))):
+        k, n = b.shape
+        check_gemm_i8(label, a, b, all_tiles, dequant_scale(n, k, rng=edge),
+                      randn(n, scale=0.1, rng=edge))
+    peak = int(int8_product(*i8_inputs[("gemm_i8", "+-127 K 133144")][:2])
+               .abs().max())
+    if peak != 127 ** 2 * INT8_MAX_K:
+        raise CheckFailed(f"the +-127 case sums to {peak}, not "
+                          f"{127 ** 2 * INT8_MAX_K}")
     # conv_im2col_i8: stem/c1 on the image at bucket 8 (the elided path's
     # one NHWC int8 layer), and redA/b3b on its NHWC map (the unelided
     # path's).
@@ -1156,15 +1215,23 @@ def main() -> int:
               f"{ucg:.0f} (exact); pad_accumulate_i32, four epilogues: "
               f"f32 {err['f32']:.3e} (rtol/atol 1e-4), int8 out "
               f"{err['int8']:.0f} (exact)")
-    a, b = randi8(333, 70), randi8(3, 70, 100)
-    want = kn2.unit_conv_gemms_plain(a, b)
-    for bm, bn in ((64, 64), (64, 128), (128, 64), (128, 128)):
-        got = kn2.unit_conv_gemms_call(a, b, bm=bm, bn=bn)
-        torch.cuda.synchronize()
-        check_close(f"unit_conv_gemms_i8 ragged tile ({bm},{bn})", got,
-                    want, **EXACT)
-    print("[15] unit_conv_gemms_i8 ragged G=3 M=333 K=70 N=100 tiles "
-          "(64|128)x(64|128): int32 p equal (exact)")
+    # unit_conv_gemms_i8 on every tile the wrapper takes: a ragged problem
+    # (the byte-wise path); then, drawn from ``edge``, G 9 on a ragged M
+    # (cp.async) and the same operands 1 byte off alignment (byte-wise).
+    ragged = (randi8(333, 70), randi8(3, 70, 100))
+    x9, w9 = randi8(333, 64, rng=edge), randi8(9, 64, 96, rng=edge)
+    for label, a, b in (("ragged", *ragged), ("G 9 ragged M", x9, w9),
+                        ("offset views", offset_view(x9), offset_view(w9))):
+        want = kn2.unit_conv_gemms_plain(a, b)
+        (m, k), (g, _, n) = a.shape, b.shape
+        tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in all_tiles})
+        for bm, bn in tiles:
+            got = kn2.unit_conv_gemms_call(a, b, bm=bm, bn=bn)
+            torch.cuda.synchronize()
+            check_close(f"unit_conv_gemms_i8 {label} tile ({bm},{bn})", got,
+                        want, **EXACT)
+        print(f"[15] unit_conv_gemms_i8 {label} G={g} M={m} K={k} N={n} "
+              f"tiles {tiles}: int32 p equal (exact)")
 
     # ---- 16. the accuracy gate on the card -----------------------------
     samples = randn(2, 299, 299, 3)

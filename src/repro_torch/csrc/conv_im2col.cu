@@ -37,8 +37,9 @@
 // in int32 (tile_gemm.cuh); on the gated Inception-v4 path it runs
 // stem/c1 under elision and every NHWC int8 im2col layer without it,
 // including those whose input edge already carries int8 (a producer that
-// requantized at this layer's scale). Like gemm_i8 it trades the f32
-// FFMA for IMAD and uses no tensor cores: exact first, fast later.
+// requantized at this layer's scale). It runs tile_gemm.cuh's IMAD loop,
+// without tensor cores (gemm_i8 and unit_conv_gemms_i8 run
+// tile_mma_i8.cuh's mma.sync loop): exact first, fast later.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

@@ -40,18 +40,20 @@
 // and the flush dequant (· scale[n], the per-channel in_scale · w_scale) →
 // bias → ReLU → optionally requantize to int8 at the consumer's
 // out_scale. On the main path (gated Inception-v4) it runs every int8
-// layer whose input edge carries its Toeplitz matrix. Bound: the same
-// tile loop on int8 operands staged as int in shared memory, IMAD in
-// place of FFMA (half the card's f32 issue rate, and no tensor cores), so
-// it is slower per MAC than gemm_f32 and far from the 1,979 TOPS of int8
-// tensor cores; its one gain on the card is a quarter of A's and B's
-// bytes. Exactness is what this first version buys: each flush step is
-// one IEEE-rounded operation in torch's order, so it equals its plain
-// version bit for bit.
+// layer whose input edge carries its Toeplitz matrix. Bound: bytes at
+// the main path's shapes (redA/b3b does ~290 int8 operations per byte
+// moved, below the ~590 where 1,979 TOPS of int8 tensor cores meet
+// 3.35 TB/s). Design: tile_mma_i8.cuh, the mma.sync m16n8k32 s8 loop with
+// a two-stage cp.async buffer of 64-deep K chunks, shared with
+// unit_conv_gemms_i8; no split-K or wgmma yet, so a small grid still walks
+// K serially. Exactness: the int32 sum is the same integer in any order,
+// and each flush step is one IEEE-rounded operation in torch's order, so
+// it equals its plain version bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
+#include "tile_mma_i8.cuh"
 
 namespace {
 
@@ -67,9 +69,8 @@ __global__ void __launch_bounds__(repro::kThreads)
 template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     gemm_i8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                   repro::QuantFlush flush, int m, int n, int k) {
-  repro::DenseI8 lda(a, m, k, blockIdx.y * BM + threadIdx.x / 16);
-  repro::tile_gemm_flush<BM, BN>(lda, b, flush, m, n, k);
+                   repro::QuantFlush flush, int m, int n, int k, int vec) {
+  repro::tile_mma_i8_flush<BM, BN>(a, b, flush, m, n, k, vec);
 }
 
 template <int BM, int BN>
@@ -121,7 +122,8 @@ extern "C" int gemm_i8(const void* a, const void* b, const void* scale,
       requant ? static_cast<int8_t*>(c) : nullptr, out_scale, n, relu};
   REPRO_DISPATCH_TILE(gemm_i8_kernel, tile_m, tile_n, m, n, 1, s,
                       static_cast<const int8_t*>(a),
-                      static_cast<const int8_t*>(b), flush, m, n, k);
+                      static_cast<const int8_t*>(b), flush, m, n, k,
+                      (int)repro::i8_vector_path(a, b, n, k));
   return (int)cudaGetLastError();
 }
 

@@ -45,18 +45,22 @@
 // thread's own image is a predicate that adds nothing, so p is never
 // padded and a SAME pad never reads the neighbouring image of the batch.
 //
-// The int8 forms keep both designs. Phase 1 reads int8 x2d and w (a
-// quarter of the f32 bytes), sums in int32 and writes exact int32 p with
-// the f32 layout (p is as large as in f32: 597 MB at stem/c4, batch 8);
-// no scale is applied there, since the per-channel scale is the same for
-// every offset. Phase 2 sums the int32 offsets in a register (exact, so
-// any order gives the same sum) and applies the quantized flush of
-// tile_gemm.cuh before its single store, f32 or int8. On the gated
-// Inception-v4 path they run its 15 int8 kn2row layers.
+// The int8 forms. Phase 1 runs on the int8 tensor cores through
+// tile_mma_i8.cuh (mma.sync m16n8k32 s8, cp.async double buffer), with
+// blockIdx.z = g and one A for every g as in f32: it reads int8 x2d and w
+// (a quarter of the f32 bytes), sums in int32 and writes exact int32 p
+// with the f32 layout (p is as large as in f32: 597 MB at stem/c4, batch
+// 8, so the store of p bounds it); no scale is applied there, since the
+// per-channel scale is the same for every offset. Phase 2 sums the int32
+// offsets in a register (exact, so any order gives the same sum) and
+// applies the quantized flush of tile_gemm.cuh before its single store,
+// f32 or int8. On the gated Inception-v4 path they run its 15 int8 kn2row
+// layers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
+#include "tile_mma_i8.cuh"
 
 namespace {
 
@@ -78,12 +82,13 @@ template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     unit_conv_gemms_i8_kernel(const int8_t* __restrict__ x,
                               const int8_t* __restrict__ w,
-                              int* __restrict__ p, int m, int n, int k) {
+                              int* __restrict__ p, int m, int n, int k,
+                              int vec) {
   const size_t g = blockIdx.z;
-  repro::DenseI8 lda(x, m, k, blockIdx.y * BM + threadIdx.x / 16);
-  repro::tile_gemm_flush<BM, BN>(lda, w + g * k * n,
-                                 repro::RawI32Flush{p + g * m * n, n}, m, n,
-                                 k);
+  // The same A (x2d) for every g; w and p offset by g.
+  repro::tile_mma_i8_flush<BM, BN>(x, w + g * k * n,
+                                   repro::RawI32Flush{p + g * m * n, n}, m,
+                                   n, k, vec);
 }
 
 // One output element (b, y, x, c) per thread: the sum over the K1·K2
@@ -187,7 +192,7 @@ extern "C" int unit_conv_gemms_i8(const void* x, const void* w, void* p,
   REPRO_DISPATCH_TILE(unit_conv_gemms_i8_kernel, tile_m, tile_n, m, n,
                       groups, s, static_cast<const int8_t*>(x),
                       static_cast<const int8_t*>(w), static_cast<int*>(p), m,
-                      n, k);
+                      n, k, (int)repro::i8_vector_path(x, w, n, k));
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
-// One block's share of C = flush(A · B) — the tile loop the GEMM kernels
-// share (gemm.cu's dense and batched GEMMs, conv_im2col.cu, kn2row.cu's
-// unit-conv GEMMs), in IEEE f32 or in int8 with exact int32 sums.
+// One block's share of C = flush(A · B) — the tile loop of the f32 GEMM
+// kernels (gemm.cu's dense and batched GEMMs, conv_im2col.cu, kn2row.cu's
+// unit-conv GEMMs) and of conv_im2col_i8, in IEEE f32 or in int8 with
+// exact int32 sums. gemm_i8 and unit_conv_gemms_i8 run on the int8 tensor
+// cores instead (tile_mma_i8.cuh), through the flush policies below.
 //
 // A block of 256 threads (16 x 16) owns a BM x BN tile of C. K is walked in
 // 16-deep chunks staged through shared memory: A's chunk is stored
@@ -12,9 +14,10 @@
 // stores skipped), so callers never pad operands.
 //
 // Operand types. f32 operands are staged as float and summed with IEEE
-// fmaf. int8 operands are widened to int when they are staged (shared
-// memory holds the same 4-byte words either way), multiplied and summed
-// in int32: exact, so the K order does not matter. The caller's K bound
+// fmaf. int8 operands (conv_im2col_i8's gathered Toeplitz entries) are
+// widened to int when they are staged (shared memory holds the same
+// 4-byte words either way), multiplied with IMAD and summed in int32:
+// exact, so the K order does not matter. The caller's K bound
 // (K · 127² < 2^31) keeps the sum in range.
 //
 // Where A comes from is the caller's policy: ALoader::begin_chunk(gk) sets
@@ -183,27 +186,23 @@ __device__ __forceinline__ void tile_gemm(ALoader& lda,
   tile_gemm_flush<BM, BN>(lda, b, F32Flush{bias, c, n, relu}, m, n, k);
 }
 
-// Dense row-major A (m, k) of T (float or int8_t), widened to S: the
-// ALoader of gemm.cu's GEMMs and kn2row.cu's unit-conv GEMMs.
-template <class T, class S>
-struct DenseA {
-  using value_type = S;
-  const T* __restrict__ a;
+// Dense row-major f32 A (m, k): the ALoader of gemm.cu's f32 GEMMs and
+// kn2row.cu's f32 unit-conv GEMMs.
+struct DenseF32 {
+  using value_type = float;
+  const float* __restrict__ a;
   int m, k, row0, gk;
 
-  __device__ DenseA(const T* a_, int m_, int k_, int row0_)
+  __device__ DenseF32(const float* a_, int m_, int k_, int row0_)
       : a(a_), m(m_), k(k_), row0(row0_), gk(0) {}
 
   __device__ __forceinline__ void begin_chunk(int gk_) { gk = gk_; }
 
-  __device__ __forceinline__ S load(int r) const {
+  __device__ __forceinline__ float load(int r) const {
     const int gm = row0 + 16 * r;
-    return (gm < m && gk < k) ? static_cast<S>(a[(size_t)gm * k + gk]) : S(0);
+    return (gm < m && gk < k) ? a[(size_t)gm * k + gk] : 0.f;
   }
 };
-
-using DenseF32 = DenseA<float, float>;
-using DenseI8 = DenseA<int8_t, int>;
 
 // Launch `kernel<BM, BN>` for one of the instantiated tiles on a grid of
 // (GRID_N / TILE_N) x (GRID_M / TILE_M) x GRID_G blocks (blockIdx.z picks

@@ -2,6 +2,7 @@
 entry points never fall back to the CPU or to another implementation, and
 what is not ported yet raises instead of running something else."""
 import ast
+import shutil
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -129,6 +130,19 @@ def test_library_path_tracks_sources():
     for path in paths:
         assert path.parent == build.BUILD_DIR
         assert build.BUILD_DIR.relative_to(REPO) == Path("build/kernels")
+
+
+def test_library_path_tracks_the_int8_mma_header(monkeypatch, tmp_path):
+    """An edit of tile_mma_i8.cuh, the mainloop of gemm_i8 and
+    unit_conv_gemms_i8, gives both libraries a new path, so they rebuild."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in ("gemm", "kn2row")}
+    header = csrc / "tile_mma_i8.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, path in before.items():
+        assert build.library_path(name) != path
 
 
 def test_unported_algorithms_and_int8_kernels_raise():

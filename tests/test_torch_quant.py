@@ -102,12 +102,23 @@ def assert_same(got: torch.Tensor, ref, tol) -> None:
 
 
 # ------------------------------------------------------- kernels' plain
-@pytest.mark.parametrize("out_scale", [None, OUT_SCALE])
-@pytest.mark.parametrize("epilogue", EPILOGUES)
-def test_gemm_i8_plain_matches_reference(epilogue, out_scale):
+# (M, K, N): ragged M, N and K under every epilogue; then the edges of
+# the kernel's mma.sync loop (a 1x1x1 problem, ragged fragments, a K one
+# k32 step past a 64-deep chunk) under bias_relu, f32 and requantized.
+GEMM_I8_CASES = (
+    [pytest.param((40, 70, 24), ep, os, id=f"{ep}-{os}")
+     for ep in EPILOGUES for os in (None, OUT_SCALE)]
+    + [pytest.param(mkn, "bias_relu", os,
+                    id=f"{'x'.join(map(str, mkn))}-bias_relu-{os}")
+       for mkn in ((1, 1, 1), (17, 33, 9), (64, 96, 8))
+       for os in (None, OUT_SCALE)])
+
+
+@pytest.mark.parametrize("mkn,epilogue,out_scale", GEMM_I8_CASES)
+def test_gemm_i8_plain_matches_reference(mkn, epilogue, out_scale):
     """Ragged M, N and K: the reference pads to its blocks, the port
     never pads."""
-    m, k, n = 40, 70, 24
+    m, k, n = mkn
     a, b = rnd_i8(1, m, k), rnd_i8(2, k, n)
     scale, bias = dequant_scale(3, n, k), rnd(4, n)
     use_bias = epilogue.startswith("bias")
@@ -143,12 +154,19 @@ def test_int8_wrappers_validate_their_operands():
 
 
 @pytest.mark.parametrize("gmkn", [(9, 16, 8, 16), (3, 24, 16, 8),
-                                  (1, 32, 24, 16)])
+                                  (1, 32, 24, 16), (1, 1, 1, 1),
+                                  (1, 17, 33, 9), (1, 64, 96, 8),
+                                  (9, 17, 33, 9)])
 def test_unit_conv_gemms_i8_partials_are_exact(gmkn):
+    """Ragged shapes: the reference's kernel takes operands padded to its
+    blocks (as its ops pad them), the port's unpadded ones."""
     g, m, k, n = gmkn
     x2d, w = rnd_i8(5, m, k), rnd_i8(6, g, k, n)
-    ref = jax_kn2.unit_conv_gemms(jnp.asarray(x2d), jnp.asarray(w), bm=8,
-                                  bn=8, bk=8, interpret=True)
+    dm, dk, dn = (-d % 8 for d in (m, k, n))
+    ref = jax_kn2.unit_conv_gemms(
+        jnp.asarray(np.pad(x2d, ((0, dm), (0, dk)))),
+        jnp.asarray(np.pad(w, ((0, 0), (0, dk), (0, dn)))), bm=8, bn=8,
+        bk=8, interpret=True)[:, :m, :n]
     got = kn2.unit_conv_gemms_call(t(x2d), t(w), bm=64, bn=64)
     assert got.dtype == torch.int32 and np.asarray(ref).dtype == np.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
