@@ -7,7 +7,12 @@ Run from anywhere inside a checkout: ``python3 chip_smoke.py``. It puts
 both matrix products and cuDNN:
 
 1. prints the card, its power limit, the toolchain and the build time;
-2. holds the GEMM kernel against its plain version at main-path shapes;
+2. holds the GEMM kernel against its plain version at main-path shapes
+   and at the edges of its split-K loop (``csrc/tile_gemm_async.cuh``) on
+   every tile the wrapper takes: M = K = N = 1, 17x33x9, K 70, 5b/1x1 and
+   incC's 1x1 at bucket 1 (the deepest splits), operands one float off
+   alignment, each with its number of K slices; two calls of a split
+   product must be equal bit for bit;
 3. holds the implicit-GEMM conv kernel against its plain version (the
    GoogleNet stem, a 3x3 SAME and a VALID case);
 4. runs full-width GoogleNet (224x224, scale 1.0; random weights from a
@@ -18,8 +23,9 @@ both matrix products and cuDNN:
    main path: the launch counts of that run are the ones reported) and
    checks every result against a per-image plain forward;
 6. times each kernel, its plain version and the library call at the
-   main-path shapes beside the card's bound, and the full forward per
-   bucket;
+   main-path shapes beside the card's bound (the split 5b/1x1 GEMM also by
+   queued launches: device time without host gaps), and the full forward
+   per bucket;
 7. holds the four Winograd kernels (input transform from NHWC and from
    stored tiles, batched GEMM, output transform) against their plain
    versions at VGG16 shapes, F(2,3) and F(4,3), ragged cases included, and
@@ -35,9 +41,10 @@ both matrix products and cuDNN:
     cuDNN vs this port's im2col kernel, and the VGG16 forward per bucket;
 11. holds the two kn2row kernels (unit-conv GEMMs, pad-and-accumulate)
     against their plain versions at Inception-v4 shapes (bucket 8), ragged
-    tiles, 1x3 / 3x1 SAME pads, G = 1 and all four epilogues, and whole
-    kn2row convs against ``F.conv2d`` on the reference's seven cases at
-    batch 1 and 3;
+    tiles, 1x3 / 3x1 SAME pads, G = 1 and all four epilogues, the split
+    unit-conv GEMMs (G 3 M 512 K 512 N 256, G 9 on a ragged M) on every
+    tile, bit-identical from call to call, and whole kn2row convs against
+    ``F.conv2d`` on the reference's seven cases at batch 1 and 3;
 12. runs full-width Inception-v4 (299x299, scale 1.0, 4/7/3 blocks) under
     its exact plan of 117 im2col + 16 kn2row + 16 Winograd F(4,3) layers,
     kernels vs the plain path on the card, at every bucket with layout
@@ -47,8 +54,10 @@ both matrix products and cuDNN:
     checks every result against a per-image plain forward;
 14. times the kn2row kernels at stem/c4, stem/c5 and incC0/b4d (bucket 8)
     beside their bounds and library calls, each distinct kn2row layer as
-    the two-kernel sum vs cuDNN vs this port's im2col kernel, and the
-    Inception-v4 forward per bucket;
+    the two-kernel sum vs cuDNN vs this port's im2col kernel, the
+    Inception-v4 forward per bucket, and every distinct Toeplitz GEMM of
+    its f32 lowering at buckets 1 and 8 against ``torch.matmul`` and its
+    bound (the ten slowest, and the sums weighted by launches);
 15. holds the four int8 kernels (int8 GEMM, int8 implicit-GEMM conv, int8
     unit-conv GEMMs with exact int32 partials, int32 pad-and-accumulate)
     against their plain versions at Inception-v4's int8 shapes (bucket 8)
@@ -172,9 +181,35 @@ def time_ms(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(per_call)
 
 
+def queued_ms(fn, reps: int = 10) -> float:
+    """Device time of one call in ms with no host gap in it: ``reps`` calls
+    are enqueued behind a spin kernel (``torch.cuda._sleep``), so they run
+    back to back once it ends, and CUDA events time them from its end.
+    The spin is lengthened until it outlasts the host's enqueueing (the
+    start event must still be pending when the last call is enqueued)."""
+    import torch
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    for cycles in (2 * 10 ** 7, 2 * 10 ** 8, 2 * 10 ** 9):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / reps
+    raise CheckFailed("the host enqueues slower than a 2e9-cycle spin")
+
+
 def device_time(fn, reps: int = 1):
     """(device ms summed over every kernel one call runs, that time split
-    into this port's kernels by tile or F(m,3), torch's index gathers — the
+    into this port's kernels by tile or F(m,3) (the split-K reduce kernels
+    of the f32 GEMMs under keys of their own), torch's index gathers — the
     Toeplitz and Winograd-tile layout conversions — and all other torch
     kernels, as text and as a dict of ms) from ``torch.profiler``, over
     ``reps`` calls in one profiled window, divided by ``reps``. Only the
@@ -207,7 +242,10 @@ def device_time(fn, reps: int = 1):
                              e.key)
             wino = re.search(r"\b(input_transform_tiles|input_transform|"
                              r"output_transform)_kernel<(\d+)>", e.key)
+            reduce = re.search(r"\b(gemm_f32|unit_conv_gemms_f32)_reduce_"
+                               r"kernel", e.key)
             key = (f"{gemm[1]}<{gemm[2]}x{gemm[3]}>" if gemm
+                   else f"{reduce[1]}_reduce" if reduce
                    else f"{wino[1]}<F{wino[2]}>" if wino
                    else "pad_accumulate_f32" if "pad_accumulate_f32_kernel"
                    in e.key
@@ -267,7 +305,8 @@ def main() -> int:
                                               batched_gemm_call,
                                               batched_gemm_plain, gemm_call,
                                               gemm_i8_plain, gemm_plain,
-                                              kernel_tile)
+                                              kernel_tile, sm_count, split_k)
+    from repro_torch.kernels.gemm.ops import dataflow_blocks
     from repro_torch.kernels.kn2row import kn2row as kn2
     from repro_torch.kernels.kn2row.ops import conv_kn2row
     from repro_torch.kernels.layouts import materialize
@@ -440,16 +479,48 @@ def main() -> int:
                 print(f"[1] ptxas {name}: {line.strip()}")
 
     # ---- 2. gemm kernel vs plain --------------------------------------
-    gemm_cases = [("conv2", 8 * 3136, 576, 192, ((128, 128),)),
-                  ("ragged", 49 * 8, 832, 32,
-                   ((64, 64), (64, 128), (128, 64), (128, 128)))]
+    all_tiles = ((64, 64), (64, 128), (128, 64), (128, 128))
+    sms = sm_count(dev)
+
+    def splits_of(m, n, k, tile, groups=1):
+        """The K slices the f32 wrappers run for this shape and tile."""
+        return split_k(groups * -(-m // tile[0]) * -(-n // tile[1]), k, sms)
+
+    def offset_view(t):
+        """``t`` copied into a contiguous view one element into a larger
+        buffer: not 16-byte aligned, so the f32 loop copies B 4 bytes at a
+        time and the int8 MMA loop takes its byte-wise path."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    # Main-path shapes first (conv2: 392 blocks, one slice; a narrow N on a
+    # ragged M), then the edges of the split K loop on every tile the
+    # wrapper takes at each shape: one element, ragged everything, 5b/1x1
+    # and incC's 1x1 at bucket 1 (3 and 2 blocks: the deepest splits), K 70
+    # (not split), and 5b/1x1 on operands one float off alignment. The new
+    # cases draw from a generator of their own, so the later phases draw
+    # the same inputs as without them.
+    edge_f32 = torch.Generator().manual_seed(17)
+    gemm_cases = [("conv2", 8 * 3136, 576, 192, ((128, 128),), gen),
+                  ("ragged", 49 * 8, 832, 32, all_tiles, gen),
+                  ("1x1x1", 1, 1, 1, all_tiles, edge_f32),
+                  ("17x33x9", 17, 33, 9, all_tiles, edge_f32),
+                  ("5b/1x1 b1", 49, 832, 384, all_tiles, edge_f32),
+                  ("incC 1x1 b1", 64, 1536, 256, all_tiles, edge_f32),
+                  ("K 70", 333, 70, 100, all_tiles, edge_f32),
+                  ("offset views", 49, 832, 384, all_tiles, edge_f32)]
     gemm_err = {}
     gemm_inputs = {}
-    for label, m, k, n, tiles in gemm_cases:
-        a = randn(m, k)
-        b = randn(k, n, scale=k ** -0.5)
-        bias = randn(n, scale=0.1)
+    for label, m, k, n, tiles, rng in gemm_cases:
+        a = randn(m, k, rng=rng)
+        b = randn(k, n, scale=k ** -0.5, rng=rng)
+        bias = randn(n, scale=0.1, rng=rng)
+        if label == "offset views":
+            a, b = offset_view(a), offset_view(b)
         want = gemm_plain(a, b, "bias_relu", bias)
+        tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in tiles})
         for bm, bn in tiles:
             got = gemm_call(a, b, bm=bm, bn=bn, epilogue="bias_relu",
                             bias=bias)
@@ -457,12 +528,20 @@ def main() -> int:
             err = check_close(f"gemm {label} M={m} K={k} N={n} tile "
                               f"({bm},{bn})", got, want, **KERNEL_TOL)
             gemm_err[label] = max(gemm_err.get(label, 0.0), err)
+            if splits_of(m, n, k, (bm, bn)) > 1 and not torch.equal(
+                    got, gemm_call(a, b, bm=bm, bn=bn, epilogue="bias_relu",
+                                   bias=bias)):
+                raise CheckFailed(f"gemm {label} tile ({bm},{bn}): two "
+                                  "calls of a split product differ")
         got = gemm_call(a, b, epilogue="none")
         check_close(f"gemm {label} no epilogue", got, a @ b, **KERNEL_TOL)
         gemm_inputs[label] = (a, b, bias)
-        print(f"[2] gemm {label} M={m} K={k} N={n} bias_relu tiles "
-              f"{list(tiles)}: max|diff| {gemm_err[label]:.3e} "
-              f"(rtol/atol 1e-4)")
+        print(f"[2] gemm {label} M={m} K={k} N={n} bias_relu, (tile): "
+              f"K slices " + ", ".join(f"({bm},{bn}): "
+                                       f"{splits_of(m, n, k, (bm, bn))}"
+                                       for bm, bn in tiles)
+              + f": max|diff| {gemm_err[label]:.3e} (rtol/atol 1e-4); split "
+              f"outputs equal from call to call")
 
     # ---- 3. conv kernel vs plain --------------------------------------
     conv_cases = [("stem", (8, 224, 224, 3), (7, 7, 3, 64), 2, "SAME"),
@@ -514,22 +593,34 @@ def main() -> int:
     m, k = a.shape
     n = b.shape[1]
     g_ms = time_ms(lambda: gemm_call(a, b, epilogue="bias_relu", bias=bias))
+    g_dev = queued_ms(lambda: gemm_call(a, b, epilogue="bias_relu",
+                                        bias=bias))
     g_plain = time_ms(lambda: gemm_plain(a, b, "bias_relu", bias))
     g_lib = time_ms(lambda: torch.matmul(a, b))
     g_bound, g_by = bound(2.0 * m * n * k, 4.0 * (m * k + k * n + n + m * n))
-    print(f"[6] gemm conv2 M={m} K={k} N={n}: kernel {g_ms:.4f} ms, plain "
-          f"{g_plain:.4f} ms, torch.matmul {g_lib:.4f} ms, bound "
-          f"{g_bound:.4f} ms ({g_by}; 67 TFLOP/s f32, 3.35 TB/s)")
+    print(f"[6] gemm conv2 M={m} K={k} N={n} (K slices "
+          f"{splits_of(m, n, k, kernel_tile(128, 128, m, n))}): kernel "
+          f"{g_ms:.4f} ms (queued device {g_dev:.4f}), plain {g_plain:.4f} "
+          f"ms, torch.matmul {g_lib:.4f} ms, bound {g_bound:.4f} ms ({g_by}; "
+          f"67 TFLOP/s f32, 3.35 TB/s)")
 
     # The smallest-M main-path GEMM at bucket 1: inception 5b's 1x1 conv on
-    # the 7x7 map (M = 49) runs on a grid of one tile row.
+    # the 7x7 map (M = 49) runs on a grid of one tile row, K split S ways.
+    # Two launches (GEMM and reduce) from the host take longer than the
+    # device does, so the device time comes from queued launches too.
     a5, b5 = randn(49, 832), randn(832, 384, scale=832 ** -0.5)
     s_ms = time_ms(lambda: gemm_call(a5, b5, epilogue="relu"))
+    s_dev = queued_ms(lambda: gemm_call(a5, b5, epilogue="relu"))
+    s_lib = time_ms(lambda: torch.matmul(a5, b5))
+    s_lib_dev = queued_ms(lambda: torch.matmul(a5, b5))
     s_bound, s_by = bound(2.0 * 49 * 832 * 384,
                           4.0 * (49 * 832 + 832 * 384 + 49 * 384))
-    print(f"[6] gemm inception_5b/1x1 b1 M=49 K=832 N=384 (grid "
-          f"{-(-384 // 128)}x1 blocks): kernel {s_ms:.4f} ms, bound "
-          f"{s_bound:.4f} ms ({s_by})")
+    s_tile = kernel_tile(128, 128, 49, 384)
+    print(f"[6] gemm inception_5b/1x1 b1 M=49 K=832 N=384 (tile {s_tile}, "
+          f"grid {-(-384 // s_tile[1])}x1 blocks, K slices "
+          f"{splits_of(49, 384, 832, s_tile)}): kernel {s_ms:.4f} ms "
+          f"(queued device {s_dev:.4f}), torch.matmul {s_lib:.4f} ms "
+          f"(queued device {s_lib_dev:.4f}), bound {s_bound:.4f} ms ({s_by})")
 
     x, w, cbias, stride, pad = conv_inputs["stem"]
     bsz, h, w_in, c_in = x.shape
@@ -857,6 +948,32 @@ def main() -> int:
             **KERNEL_TOL))
     print(f"[11] unit_conv_gemms ragged G=3 M=333 K=70 N=100 tiles "
           f"(64|128)x(64|128): max|diff| {ucg_ragged:.3e} (rtol/atol 1e-4)")
+    # Split K on every tile the wrapper takes: incC0/b4d's shape at bucket 8
+    # and G 9 on a ragged M and K (the last slice short), from the phase-2
+    # edge generator.
+    for label, g_, m, k, n in (("incC0/b4d", 3, 512, 512, 256),
+                               ("G 9 ragged M", 9, 333, 264, 96)):
+        a = randn(m, k, rng=edge_f32)
+        b = randn(g_, k, n, scale=k ** -0.5, rng=edge_f32)
+        want = kn2.unit_conv_gemms_plain(a, b)
+        tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in all_tiles})
+        err = 0.0
+        for bm, bn in tiles:
+            got = kn2.unit_conv_gemms_call(a, b, bm=bm, bn=bn)
+            torch.cuda.synchronize()
+            err = max(err, check_close(
+                f"unit_conv_gemms {label} tile ({bm},{bn})", got, want,
+                **KERNEL_TOL))
+            if splits_of(m, n, k, (bm, bn), g_) > 1 and not torch.equal(
+                    got, kn2.unit_conv_gemms_call(a, b, bm=bm, bn=bn)):
+                raise CheckFailed(f"unit_conv_gemms {label} tile ({bm},{bn})"
+                                  ": two calls of a split product differ")
+        print(f"[11] unit_conv_gemms {label} G={g_} M={m} K={k} N={n}, "
+              f"(tile): K slices " + ", ".join(
+                  f"({bm},{bn}): {splits_of(m, n, k, (bm, bn), g_)}"
+                  for bm, bn in tiles)
+              + f": max|diff| {err:.3e} (rtol/atol 1e-4); split outputs "
+              f"equal from call to call")
     # Whole kn2row convs against cuDNN on the reference's seven cases
     # (tests/test_kernels.py), a distinct random image in every batch slot.
     conv_cases = [(14, 14, 8, 16, 3, 3, 1, "SAME"),
@@ -983,10 +1100,14 @@ def main() -> int:
             # (over 20 calls: a single call's one kernel row can be lost).
             k_dev, p_dev, l_dev = (device_time(fn, reps=20)[0]
                                    for fn in (kern, plain, lib[1]))
-            print(f"[14] {name} {label} b{bsz}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, {lib[0]} {l_ms:.4f} ms, bound {b_ms:.4f} "
-                  f"ms ({b_by}); device time of one call (profiler): kernel "
-                  f"{k_dev:.4f}, plain {p_dev:.4f}, library {l_dev:.4f} ms")
+            tile = kernel_tile(128, 128, m, c_out)
+            slices = ("" if name != "unit_conv_gemms" else
+                      f" (K slices {splits_of(m, c_out, c_in, tile, g_)})")
+            print(f"[14] {name} {label} b{bsz}{slices}: kernel {k_ms:.4f} "
+                  f"ms, plain {p_ms:.4f} ms, {lib[0]} {l_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); device time of one call "
+                  f"(profiler): kernel {k_dev:.4f}, plain {p_dev:.4f}, "
+                  f"library {l_dev:.4f} ms")
         del p_nchw
 
     # Per distinct kn2row layer of Inception-v4 at bucket 8: the two
@@ -1045,7 +1166,7 @@ def main() -> int:
                      if k.startswith(("unit_conv_gemms_f32",
                                       "pad_accumulate_f32")))
         dense_ms = sum(v for k, v in groups.items()
-                       if k.startswith("gemm_f32<"))
+                       if k.startswith(("gemm_f32<", "gemm_f32_reduce")))
         print(f"[14] inception_v4 299 forward b{bsz} (elide): kernels "
               f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms; device busy "
               f"{dev_ms:.3f} ms of the kernels' forward "
@@ -1053,6 +1174,48 @@ def main() -> int:
               f"({100 * kn2_ms / dev_ms:.1f}% of device busy), dense GEMM "
               f"{dense_ms:.3f} ms ({100 * dense_ms / dev_ms:.1f}%) = {split} "
               f"(ms)")
+
+    # Every distinct Toeplitz GEMM of the elided f32 lowering at buckets 1
+    # and 8 (the layers gemm_f32 runs), each timed once as the forward
+    # calls it (its plan's tile, bias_relu) and as one torch.matmul, both
+    # by queued launches (device time without host gaps), beside its bound.
+    # Its inputs come from a generator of its own.
+    sweep_rng = torch.Generator().manual_seed(14)
+    for bsz in (1, 8):
+        shapes = Counter()
+        for nid, low in iruns[(True, bsz)][0].lowering.items():
+            if (low.algo.family is AlgoFamily.IM2COL
+                    and low.in_layout is not None
+                    and low.in_layout.kind == "toeplitz"):
+                conv = gi.nodes[nid].conv
+                m = bsz * conv.o1 * conv.o2
+                k, n = conv.k1 * conv.k2 * conv.c_in, conv.c_out
+                bm, bn, _ = dataflow_blocks(low.dataflow, low.p1, low.p2)
+                shapes[(m, k, n, kernel_tile(bm, bn, m, n))] += 1
+        rows = []
+        for (m, k, n, tile), count in shapes.items():
+            a = randn(m, k, rng=sweep_rng)
+            b = randn(k, n, scale=k ** -0.5, rng=sweep_rng)
+            bias = randn(n, scale=0.1, rng=sweep_rng)
+            k_ms = queued_ms(lambda: gemm_call(
+                a, b, bm=tile[0], bn=tile[1], epilogue="bias_relu",
+                bias=bias), reps=5)
+            l_ms = queued_ms(lambda: torch.matmul(a, b), reps=5)
+            b_ms = bound(2.0 * m * n * k, 4.0 * (m * k + k * n + n + m * n))[0]
+            rows.append((k_ms, l_ms, b_ms, m, k, n, tile, count))
+        rows.sort(key=lambda r: -r[0] * r[7])
+        sums = [sum(r[i] * r[7] for r in rows) for i in range(3)]
+        print(f"[14] inception_v4 Toeplitz GEMMs b{bsz}: "
+              f"{sum(shapes.values())} launches of {len(shapes)} shapes; "
+              f"weighted by launches, "
+              f"kernel {sums[0]:.4f} ms, torch.matmul {sums[1]:.4f} ms, bound "
+              f"{sums[2]:.4f} ms (queued device time); ten slowest (M x K x "
+              f"N tile S: launches x kernel / matmul / bound ms): "
+              + "; ".join(f"{m}x{k}x{n} {t[0]}x{t[1]} "
+                          f"S{splits_of(m, n, k, t)}: {c} x {km:.4f} / "
+                          f"{lm:.4f} / {bm_:.4f}"
+                          for km, lm, bm_, m, k, n, t, c in rows[:10]))
+        del rows
 
     # ---- 15. int8 kernels vs plain ---------------------------------------
     def randi8(*shape, rng=None):
@@ -1084,15 +1247,6 @@ def main() -> int:
                     **(tol if out_scale is None else EXACT)))
         return errs
 
-    def offset_view(t):
-        """``t`` copied into a contiguous view 1 byte into a larger buffer:
-        not 16-byte aligned, so the int8 MMA loop takes its byte-wise
-        path whatever K is."""
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
     def extreme(rows, cols, period):
         """±127 everywhere, the sign alternating every ``period`` columns:
         every product of two such operands sums to ±127² K."""
@@ -1121,7 +1275,6 @@ def main() -> int:
               f"epilogues: max|diff| vs plain f32 {err['f32']:.3e}, int8 "
               f"out {err['int8']:.0f} (both exact)")
 
-    all_tiles = ((64, 64), (64, 128), (128, 64), (128, 128))
     i8_err = {}
     i8_inputs = {}
     # gemm_i8: redA/b3b's Toeplitz layer at bucket 8 (the int8 Toeplitz
@@ -1389,10 +1542,14 @@ def main() -> int:
         i8_ms = {key: sum(v for g, v in groups.items() if g.startswith(key))
                  for key in ("gemm_i8", "conv_im2col_i8",
                              "unit_conv_gemms_i8", "pad_accumulate_i32")}
+        i8_ms["gemm_f32 (+ reduce)"] = sum(
+            v for g, v in groups.items()
+            if g.startswith(("gemm_f32<", "gemm_f32_reduce")))
         print(f"[17] inception_v4 299 int8 forward b{bsz} (elide): kernels "
               f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms, f32 plan "
               f"{f32_ms:.3f} ms; device busy {dev_ms:.3f} ms of the "
-              f"kernels' forward ({100 * dev_ms / f_ms:.1f}%); int8 kernels "
+              f"kernels' forward ({100 * dev_ms / f_ms:.1f}%); int8 and f32 "
+              f"GEMM kernels "
               + ", ".join(f"{k} {v:.3f}" for k, v in i8_ms.items())
               + f" = {split} (ms)")
 

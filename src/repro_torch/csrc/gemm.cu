@@ -26,14 +26,23 @@
 // (not TF32) so they match the reference at 1e-4, which rules out the
 // tensor cores.
 //
-// What the design does about it: a 128 x 128 (or 64-edge) output tile per
-// 256-thread block with an 8 x 8 register micro-tile, so each thread does
-// 64 FMAs per 16 shared-memory loads; K streams in 16-deep chunks through
-// shared memory (the TPU kernel's K grid axis and its VMEM accumulator
-// become a loop inside the block and registers); bias and ReLU are applied
-// in registers before the single store; ragged M/N/K edges are masked in
-// the kernel instead of padding operands on the host. No double buffering,
-// cp.async or wgmma yet: that is later work.
+// What the design does about it. gemm_f32 runs tile_gemm_async.cuh: a 128 x
+// 128 (or 64-edge) output tile per 256-thread block with an 8 x 8 register
+// micro-tile read from shared memory as float4, K in 16-deep chunks through
+// a two-stage cp.async buffer (the copies of chunk c+1 in flight during
+// chunk c's FMAs, one barrier per chunk); bias and ReLU are applied in
+// registers before the single store; ragged M/N/K edges are zero-filled in
+// the kernel instead of padding operands on the host. The TPU kernel
+// carries the K sum across a sequential grid axis in VMEM; here blocks run
+// in parallel and in no order, so a grid with fewer blocks than the card
+// has SMs (most main-path layers at small buckets: a 7x7 map is one tile
+// row) splits K into S slices (grid z = s, S from kernels/gemm/gemm.py::
+// split_k). Each slice writes its raw partial into the workspace
+// (S, m, n) and gemm_f32_reduce_kernel, launched by the same entry point on
+// the same stream, sums the slices in the order s = 0, 1, … and applies
+// bias and ReLU: the same bits on every call. batched_gemm_f32 still runs
+// the single-stage loop of tile_gemm.cuh (two barriers per 16-deep chunk,
+// no split). No wgmma or TF32: IEEE fmaf holds the reference's 1e-4.
 //
 // gemm_i8 is gemm_pallas's int8 path (_gemm_kernel with has_scale /
 // out_scale and its int32 scratch): int8 A and B, the sum exact in int32,
@@ -53,17 +62,39 @@
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
+#include "tile_gemm_async.cuh"
 #include "tile_mma_i8.cuh"
 
 namespace {
 
+// K slice blockIdx.z of gridDim.z: the whole product with the fused flush
+// when the grid has one slice, else the slice's raw partial into
+// work[blockIdx.z] (m, n).
 template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     const float* __restrict__ bias, float* __restrict__ c,
-                    int m, int n, int k, int relu) {
-  repro::DenseF32 lda(a, m, k, blockIdx.y * BM + threadIdx.x / 16);
-  repro::tile_gemm<BM, BN>(lda, b, bias, c, m, n, k, relu);
+                    float* __restrict__ work, int m, int n, int k, int relu,
+                    int vec) {
+  const int splits = gridDim.z;
+  if (splits == 1) {
+    repro::tile_gemm_async<BM, BN>(a, b, repro::F32Flush{bias, c, n, relu},
+                                   m, n, k, 0, k, vec);
+    return;
+  }
+  const int s = blockIdx.z;
+  const int depth = repro::slice_depth(k, splits);
+  repro::tile_gemm_async<BM, BN>(
+      a, b, repro::RawF32Flush{work + (size_t)s * m * n, n}, m, n, k,
+      s * depth, min(k, (s + 1) * depth), vec);
+}
+
+__global__ void __launch_bounds__(repro::kReduceThreads)
+    gemm_f32_reduce_kernel(const float* __restrict__ work,
+                           const float* __restrict__ bias,
+                           float* __restrict__ c, long long total, int n,
+                           int splits, int relu) {
+  repro::reduce_slices(work, bias, c, total, n, splits, relu);
 }
 
 template <int BM, int BN>
@@ -90,17 +121,29 @@ __global__ void __launch_bounds__(repro::kThreads)
 }  // namespace
 
 // C (m, n) = epilogue(A (m, k) · B (k, n) [+ bias (n)]); all f32,
-// contiguous, on the current device. bias may be NULL. (tile_m, tile_n)
-// must be an instantiated tile: 64 or 128 each. Returns cudaGetLastError().
+// contiguous, on the current device, C 16-byte aligned. bias may be NULL.
+// (tile_m, tile_n) must be an instantiated tile: 64 or 128 each. K is cut
+// into `splits` slices (slice_depth); with splits > 1, work is the f32
+// workspace (splits, m, n) and a second kernel on the same stream sums the
+// slices in order into C. vec: n % 4 == 0 and B 16-byte aligned. Returns
+// cudaGetLastError().
 extern "C" int gemm_f32(const void* a, const void* b, const void* bias,
-                        void* c, int m, int n, int k, int tile_m, int tile_n,
-                        int relu, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_TILE(gemm_f32_kernel, tile_m, tile_n, m, n, 1, s,
+                        void* c, void* work, int m, int n, int k, int tile_m,
+                        int tile_n, int relu, int splits, int vec,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH_TILE(gemm_f32_kernel, tile_m, tile_n, m, n, splits, st,
                       static_cast<const float*>(a),
                       static_cast<const float*>(b),
                       static_cast<const float*>(bias), static_cast<float*>(c),
-                      m, n, k, relu);
+                      static_cast<float*>(work), m, n, k, relu, vec);
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  const long long total = (long long)m * n;
+  gemm_f32_reduce_kernel<<<repro::reduce_blocks(total, n),
+                           repro::kReduceThreads, 0, st>>>(
+      static_cast<const float*>(work), static_cast<const float*>(bias),
+      static_cast<float*>(c), total, n, splits, relu);
   return (int)cudaGetLastError();
 }
 

@@ -28,17 +28,24 @@
 // value, and it reads G of p's values per output (a quarter of p at stride
 // 2) and writes the output once.
 //
-// What the design does about it. Phase 1 reuses tile_gemm.cuh with
-// blockIdx.z = g, as the batched GEMM does, but A's pointer is the same
-// for every g: the reference's "X block index map ignores g". Every g
-// reads the same x2d, so its tiles are served from L2 when blocks of
-// several g run together. It has no epilogue (bias and ReLU come after the
-// sum), and ragged M/N/K edges are masked: nothing is padded on the host
-// (the reference pads x2d and w to its blocks). Phase 2 runs one thread
-// per output element (b, y, x, c), channel fastest, so each warp's load of
-// one p_g row and its store are 32 consecutive floats. The TPU kernel walks
-// a grid over the offsets with the output resident in VMEM; here the loop
-// over g = 0 … G-1 runs inside the thread with the sum in a register, and
+// What the design does about it. Phase 1 runs the f32 mainloop of gemm_f32
+// (tile_gemm_async.cuh: two-stage cp.async buffer of 16-deep K chunks, one
+// barrier per chunk, float4 shared-memory reads) with one grid layer per g,
+// but A's pointer is the same for every g: the reference's "X block index
+// map ignores g". Every g reads the same x2d, so its tiles are served from
+// L2 when blocks of several g run together. It has no epilogue (bias and
+// ReLU come after the sum), and ragged M/N/K edges are zero-filled: nothing
+// is padded on the host (the reference pads x2d and w to its blocks). A
+// grid with fewer blocks than the card has SMs (the Inception-C layers: 24
+// blocks at batch 8, 3 at batch 1) splits K into S slices, grid z = g·S +
+// s, each slice's raw partial in the workspace (S, G·M, Cout); then
+// unit_conv_gemms_f32_reduce_kernel, launched by the same entry point on
+// the same stream, sums the slices in the order s = 0, 1, … into p: the
+// same bits on every call. Phase 2 runs one thread per output element (b,
+// y, x, c), channel fastest, so each warp's load of one p_g row and its
+// store are 32 consecutive floats. The TPU kernel walks a grid over the
+// offsets with the output resident in VMEM; here the loop over g = 0 …
+// G-1 runs inside the thread with the sum in a register, and
 // bias and ReLU are applied there before the single store. The reference
 // zero-pads p on the host first (another write of p, ~620 MB at stem/c4
 // and batch 8); here a row or column outside [0, H) x [0, W) of the
@@ -60,22 +67,44 @@
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
+#include "tile_gemm_async.cuh"
 #include "tile_mma_i8.cuh"
 
 namespace {
 
 constexpr int kAccThreads = 256;
 
+// Offset g = blockIdx.z / splits, K slice s = blockIdx.z % splits: the
+// whole product into p[g] when splits is 1, else the slice's raw partial
+// into work[s] (G·M, N) at rows g·M.
 template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     unit_conv_gemms_f32_kernel(const float* __restrict__ x,
                                const float* __restrict__ w,
-                               float* __restrict__ p, int m, int n, int k) {
-  const size_t g = blockIdx.z;
-  // The same A (x2d) for every g.
-  repro::DenseF32 lda(x, m, k, blockIdx.y * BM + threadIdx.x / 16);
-  repro::tile_gemm<BM, BN>(lda, w + g * k * n, nullptr, p + g * m * n, m, n,
-                           k, 0);
+                               float* __restrict__ p, float* __restrict__ work,
+                               int m, int n, int k, int splits, int vec) {
+  const size_t g = blockIdx.z / splits;
+  const int s = blockIdx.z % splits;
+  // The same A (x2d) for every g; w offset by g.
+  const float* wg = w + g * k * n;
+  if (splits == 1) {
+    repro::tile_gemm_async<BM, BN>(
+        x, wg, repro::F32Flush{nullptr, p + g * m * n, n, 0}, m, n, k, 0, k,
+        vec);
+    return;
+  }
+  const size_t groups = gridDim.z / splits;
+  const int depth = repro::slice_depth(k, splits);
+  repro::tile_gemm_async<BM, BN>(
+      x, wg, repro::RawF32Flush{work + (s * groups + g) * m * n, n}, m, n, k,
+      s * depth, min(k, (s + 1) * depth), vec);
+}
+
+__global__ void __launch_bounds__(repro::kReduceThreads)
+    unit_conv_gemms_f32_reduce_kernel(const float* __restrict__ work,
+                                      float* __restrict__ p, long long total,
+                                      int n, int splits) {
+  repro::reduce_slices(work, nullptr, p, total, n, splits, 0);
 }
 
 template <int BM, int BN>
@@ -166,17 +195,28 @@ __global__ void __launch_bounds__(kAccThreads)
 }  // namespace
 
 // p (groups, m, n) = x (m, k) · w[g] (k, n) for g < groups: one A shared by
-// every g, no epilogue; all f32, contiguous, on the current device.
-// (tile_m, tile_n) must be an instantiated tile: 64 or 128 each. Returns
-// cudaGetLastError().
+// every g, no epilogue; all f32, contiguous, on the current device, p
+// 16-byte aligned. (tile_m, tile_n) must be an instantiated tile: 64 or 128
+// each. K is cut into `splits` slices (slice_depth); with splits > 1, work
+// is the f32 workspace (splits, groups·m, n) and a second kernel on the
+// same stream sums the slices in order into p. vec: n % 4 == 0 and w
+// 16-byte aligned. Returns cudaGetLastError().
 extern "C" int unit_conv_gemms_f32(const void* x, const void* w, void* p,
-                                   int groups, int m, int n, int k,
-                                   int tile_m, int tile_n, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                   void* work, int groups, int m, int n,
+                                   int k, int tile_m, int tile_n, int splits,
+                                   int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH_TILE(unit_conv_gemms_f32_kernel, tile_m, tile_n, m, n,
-                      groups, s, static_cast<const float*>(x),
+                      groups * splits, st, static_cast<const float*>(x),
                       static_cast<const float*>(w), static_cast<float*>(p),
-                      m, n, k);
+                      static_cast<float*>(work), m, n, k, splits, vec);
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  const long long total = (long long)groups * m * n;
+  unit_conv_gemms_f32_reduce_kernel<<<repro::reduce_blocks(total, n),
+                                      repro::kReduceThreads, 0, st>>>(
+      static_cast<const float*>(work), static_cast<float*>(p), total, n,
+      splits);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
-// One block's share of C = flush(A · B) — the tile loop of the f32 GEMM
-// kernels (gemm.cu's dense and batched GEMMs, conv_im2col.cu, kn2row.cu's
-// unit-conv GEMMs) and of conv_im2col_i8, in IEEE f32 or in int8 with
-// exact int32 sums. gemm_i8 and unit_conv_gemms_i8 run on the int8 tensor
-// cores instead (tile_mma_i8.cuh), through the flush policies below.
+// One block's share of C = flush(A · B) — the single-stage tile loop of
+// batched_gemm_f32 (gemm.cu), conv_im2col_f32 and conv_im2col_i8
+// (conv_im2col.cu), in IEEE f32 or in int8 with exact int32 sums. gemm_f32
+// and unit_conv_gemms_f32 run the two-stage cp.async loop with split K of
+// tile_gemm_async.cuh, gemm_i8 and unit_conv_gemms_i8 the int8 tensor
+// cores (tile_mma_i8.cuh); both use the flush policies below.
 //
 // A block of 256 threads (16 x 16) owns a BM x BN tile of C. K is walked in
 // 16-deep chunks staged through shared memory: A's chunk is stored
@@ -23,8 +24,8 @@
 // Where A comes from is the caller's policy: ALoader::begin_chunk(gk) sets
 // the A column this thread loads for the chunk (gk = k0 + tid % 16), and
 // ALoader::load(r) returns A[m0 + tid / 16 + 16 r][gk] widened to
-// ALoader::value_type, or 0 out of range. gemm.cu reads a dense row-major
-// A; conv_im2col.cu gathers A's entries (the Toeplitz matrix) straight
+// ALoader::value_type, or 0 out of range. batched_gemm_f32 reads a dense
+// row-major A; conv_im2col.cu gathers A's entries (the Toeplitz matrix) straight
 // from the NHWC input. Where C goes is the Flush policy: flush(gm, gn, acc)
 // is called once per in-range output element after the K loop.
 #pragma once
@@ -186,8 +187,7 @@ __device__ __forceinline__ void tile_gemm(ALoader& lda,
   tile_gemm_flush<BM, BN>(lda, b, F32Flush{bias, c, n, relu}, m, n, k);
 }
 
-// Dense row-major f32 A (m, k): the ALoader of gemm.cu's f32 GEMMs and
-// kn2row.cu's f32 unit-conv GEMMs.
+// Dense row-major f32 A (m, k): the ALoader of batched_gemm_f32.
 struct DenseF32 {
   using value_type = float;
   const float* __restrict__ a;

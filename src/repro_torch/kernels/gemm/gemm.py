@@ -13,11 +13,18 @@ in registers before their single store. ``gemm_call`` (on the operands'
 dtype) and ``batched_gemm_call`` launch them for CUDA tensors and run
 ``gemm_plain`` / ``gemm_i8_plain`` / ``batched_gemm_plain`` for CPU
 tensors; nothing else selects between the two.
+
+The f32 GEMM splits K when its grid has fewer blocks than the card has
+SMs (``split_k``): each slice writes its raw partial into a workspace the
+wrapper allocates, and a second kernel of the same entry point sums the
+slices in a fixed order before the epilogue, so a shape gives the same
+bits on every call.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -26,7 +33,7 @@ from repro_torch.kernels.common import (EPILOGUES, apply_epilogue, ceil_to,
                                         check_int8_depth, int8_product)
 
 GEMM = CudaKernel("gemm", "gemm_f32",
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p])
 GEMM_I8 = CudaKernel("gemm", "gemm_i8",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
@@ -36,6 +43,53 @@ BATCHED_GEMM = CudaKernel("gemm", "batched_gemm_f32",
                           + [ctypes.c_void_p])
 
 _MAX_GRID_Y = 65535
+K_CHUNK = 16           # csrc/tile_gemm.cuh::kBK, the depth of one K chunk
+MIN_SLICE_CHUNKS = 4   # the fewest K chunks split_k leaves a slice
+
+
+def split_k(blocks: int, k: int, sms: int) -> int:
+    """How many K slices S a grid of ``blocks`` output tiles runs on a card
+    of ``sms`` SMs: 1 when the grid already fills the card, else the
+    largest S whose grid still runs in one wave (``blocks · S <= sms``: at
+    the 128 x 128 tile one block fits an SM, and a partial second wave
+    costs a whole slice), capped so that a slice keeps at least
+    ``MIN_SLICE_CHUNKS`` chunks of K, then lowered to the number of slices
+    of that depth K needs, so that no slice is empty. The slices are
+    ``k_slices(k, S)``; the shape and the SM count alone decide S."""
+    if blocks >= sms:
+        return 1
+    chunks = -(-k // K_CHUNK)
+    splits = min(sms // blocks, max(1, chunks // MIN_SLICE_CHUNKS))
+    return -(-chunks // -(-chunks // splits))
+
+
+def k_slices(k: int, splits: int) -> List[Tuple[int, int]]:
+    """The K ranges [begin, end) of ``splits`` slices, as the kernels cut
+    them (``csrc/tile_gemm_async.cuh::slice_depth``): whole chunks each,
+    only the last ragged or short."""
+    depth = -(-(-(-k // K_CHUNK)) // splits) * K_CHUNK
+    return [(s * depth, min(k, (s + 1) * depth)) for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def split_workspace(splits: int, rows: int, n: int,
+                    device: torch.device) -> Optional[torch.Tensor]:
+    """The f32 workspace (splits, rows, n) of a split product's partials,
+    or None for an unsplit one."""
+    if splits == 1:
+        return None
+    return torch.empty((splits, rows, n), device=device, dtype=torch.float32)
+
+
+def b_vector_path(b: torch.Tensor, n: int) -> int:
+    """Whether the f32 loop copies B in 16-byte pieces: n % 4 == 0 and B
+    16-byte aligned (an offset view takes the 4-byte path)."""
+    return int(n % 4 == 0 and b.data_ptr() % 16 == 0)
 
 
 def kernel_tile(bm: int, bn: int, m: int, n: int) -> Tuple[int, int]:
@@ -125,9 +179,10 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
               out_scale: Optional[float] = None) -> torch.Tensor:
     """C (M, N) = epilogue(A (M, K) · B (K, N) [+ bias (N,)]).
 
-    f32 operands run ``gemm_f32``. int8 operands run ``gemm_i8``: the
-    exact int32 sum is dequantized by ``scale`` (N,) before the epilogue,
-    and ``out_scale`` requantizes C to int8 (else C is f32).
+    f32 operands run ``gemm_f32``, with K split ``split_k`` ways on a grid
+    smaller than the card. int8 operands run ``gemm_i8``: the exact int32
+    sum is dequantized by ``scale`` (N,) before the epilogue, and
+    ``out_scale`` requantizes C to int8 (else C is f32).
 
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, M, N)``; CPU tensors run ``gemm_plain`` /
@@ -172,9 +227,14 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                            float(out_scale or 0.0), stream)
         return out
     out = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    blocks = -(-m // tile_m) * -(-n // tile_n)
+    splits = split_k(blocks, k, sm_count(a.device))
+    work = split_workspace(splits, m, n, a.device)
     with torch.cuda.device(a.device):
-        GEMM.launch(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(), m,
-                    n, k, tile_m, tile_n, int(relu), stream)
+        GEMM.launch(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
+                    None if work is None else work.data_ptr(), m, n, k,
+                    tile_m, tile_n, int(relu), splits, b_vector_path(b, n),
+                    stream)
     return out
 
 

@@ -32,12 +32,13 @@ import torch.nn.functional as F
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import (apply_epilogue, check_int8_depth,
                                         int8_product)
-from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, check_epilogue,
-                                          check_operand, check_quant_args,
-                                          kernel_tile)
+from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, b_vector_path,
+                                          check_epilogue, check_operand,
+                                          check_quant_args, kernel_tile,
+                                          sm_count, split_k, split_workspace)
 
 UNIT_CONV_GEMMS = CudaKernel("kn2row", "unit_conv_gemms_f32",
-                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                              + [ctypes.c_void_p])
 PAD_ACCUMULATE = CudaKernel("kn2row", "pad_accumulate_f32",
                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
@@ -71,7 +72,8 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
                          bm: int = 128, bn: int = 128) -> torch.Tensor:
     """p (G, M, Cout) = x2d (M, Cin) · w[g] (Cin, Cout) for every g < G,
     with no epilogue (phase 1 ends before the offsets' sum): f32 for f32
-    operands, the exact int32 sums for int8 ones.
+    operands, with K split ``split_k`` ways on a grid smaller than the
+    card, the exact int32 sums for int8 ones.
 
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, M, Cout)``; CPU tensors run
@@ -103,10 +105,20 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
         check_int8_depth("unit_conv_gemms", k)
     p = torch.empty((g, m, n), device=x2d.device,
                     dtype=torch.int32 if quant else torch.float32)
-    kernel = UNIT_CONV_GEMMS_I8 if quant else UNIT_CONV_GEMMS
     with torch.cuda.device(x2d.device):
-        kernel.launch(x2d.data_ptr(), w.data_ptr(), p.data_ptr(), g, m, n, k,
-                      tile_m, tile_n, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if quant:
+            UNIT_CONV_GEMMS_I8.launch(x2d.data_ptr(), w.data_ptr(),
+                                      p.data_ptr(), g, m, n, k, tile_m,
+                                      tile_n, stream)
+            return p
+        blocks = g * -(-m // tile_m) * -(-n // tile_n)
+        splits = split_k(blocks, k, sm_count(x2d.device))
+        work = split_workspace(splits, g * m, n, x2d.device)
+        UNIT_CONV_GEMMS.launch(x2d.data_ptr(), w.data_ptr(), p.data_ptr(),
+                               None if work is None else work.data_ptr(), g,
+                               m, n, k, tile_m, tile_n, splits,
+                               b_vector_path(w, n), stream)
     return p
 
 

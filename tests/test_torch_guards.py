@@ -145,6 +145,20 @@ def test_library_path_tracks_the_int8_mma_header(monkeypatch, tmp_path):
         assert build.library_path(name) != path
 
 
+def test_library_path_tracks_the_async_f32_header(monkeypatch, tmp_path):
+    """An edit of tile_gemm_async.cuh, the mainloop and split-K reduce of
+    gemm_f32 and unit_conv_gemms_f32, gives both libraries a new path, so
+    they rebuild."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {name: build.library_path(name) for name in ("gemm", "kn2row")}
+    header = csrc / "tile_gemm_async.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, path in before.items():
+        assert build.library_path(name) != path
+
+
 def test_unported_algorithms_and_int8_kernels_raise():
     """Every algorithm and every int8 kernel is ported: kn2row runs on the
     plain backends (CPU tensors) and computes the direct conv; an int8

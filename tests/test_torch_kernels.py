@@ -3,6 +3,8 @@ reference on the CPU. Inputs are made with numpy from a seed and fed to
 both sides; the reference's Pallas kernels run in interpret mode and the
 port runs each kernel's plain version (CPU tensors). f32 at 1e-4, the
 reference's own kernel tolerance; layout conversions are exact."""
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +28,9 @@ from repro_torch.kernels.conv_im2col.ops import conv_im2col
 from repro_torch.kernels.conv_im2col.ref import (conv_ref,
                                                  conv_via_toeplitz_ref,
                                                  toeplitz_ref)
-from repro_torch.kernels.gemm.gemm import gemm_call, gemm_plain, kernel_tile
+from repro_torch.kernels.gemm.gemm import (K_CHUNK, MIN_SLICE_CHUNKS,
+                                          gemm_call, gemm_plain, k_slices,
+                                          kernel_tile, split_k)
 from repro_torch.kernels.gemm.ops import dataflow_blocks, gemm, toeplitz_gemm
 from repro_torch.kernels.layouts import materialize, restore
 
@@ -49,7 +53,8 @@ def _spec_pair(**kw):
 # ------------------------------------------------------------------ GEMM
 @pytest.mark.parametrize("epilogue", EPILOGUES)
 @pytest.mark.parametrize("df", ["NS", "WS", "IS"])
-@pytest.mark.parametrize("mkn", [(37, 150, 45), (130, 64, 129)])
+@pytest.mark.parametrize("mkn", [(37, 150, 45), (130, 64, 129), (1, 1, 1),
+                                 (17, 33, 9), (64, 1536, 256)])
 def test_gemm_matches_reference(df, epilogue, mkn):
     m, k, n = mkn
     a, b = rnd(1, m, k), rnd(2, k, n, scale=k ** -0.5)
@@ -76,6 +81,56 @@ def test_dataflow_blocks_and_kernel_tiles():
     assert kernel_tile(128, 128, 392, 32) == (128, 64)
     assert kernel_tile(128, 128, 49, 832) == (64, 128)
     assert kernel_tile(512, 256, 4096, 4096) == (128, 128)
+
+
+# (blocks, K, SMs): grids that fill the card, the main path's small grids
+# (5b/1x1 and incC's 1x1 at bucket 1, incC0/b4d's unit-conv GEMMs at 8),
+# K within one chunk, K = 70 and ragged K, and another SM count.
+SPLIT_CASES = [(132, 576, 132), (392, 576, 132), (154, 1728, 132),
+               (3, 832, 132), (2, 1536, 132), (24, 512, 132), (38, 1568, 132),
+               (1, 1, 132), (5, 16, 132), (3, 17, 132), (9, 70, 132),
+               (27, 264, 132), (1, 2880, 132), (7, 1000, 114), (1, 64, 2)]
+
+
+@pytest.mark.parametrize("blocks,k,sms", SPLIT_CASES,
+                         ids=[f"b{b}-k{k}-sm{s}" for b, k, s in SPLIT_CASES])
+def test_split_k_slices_cover_k(blocks, k, sms):
+    """The K slices the f32 kernels run: one slice when the grid fills the
+    card or K fits one chunk; otherwise one wave (blocks · S <= SMs) of
+    non-empty slices that start on chunk boundaries, are at least
+    MIN_SLICE_CHUNKS deep but for the last, and cover [0, K) exactly."""
+    s = split_k(blocks, k, sms)
+    if blocks >= sms or k <= K_CHUNK:
+        assert s == 1
+    assert 1 <= s and (s == 1 or blocks * s <= sms)
+    slices = k_slices(k, s)
+    assert len(slices) == s
+    assert slices[0][0] == 0 and slices[-1][1] == k
+    for (b0, e0), (b1, _) in zip(slices, slices[1:]):
+        assert e0 == b1                      # disjoint and contiguous
+        assert e0 - b0 >= min(k, MIN_SLICE_CHUNKS * K_CHUNK)
+    for begin, end in slices:
+        assert begin < end and begin % K_CHUNK == 0
+    assert sum(e - b for b, e in slices) == k
+
+
+def test_k_chunk_is_the_kernels_chunk_depth():
+    """split_k and k_slices cut K in the kernels' chunks: K_CHUNK is
+    csrc/tile_gemm.cuh's kBK, and slice_depth rounds to it."""
+    csrc = Path(__file__).resolve().parents[1] / "src/repro_torch/csrc"
+    assert f"constexpr int kBK = {K_CHUNK};" in \
+        (csrc / "tile_gemm.cuh").read_text()
+    assert "return (chunks + splits - 1) / splits * kBK;" in \
+        (csrc / "tile_gemm_async.cuh").read_text()
+
+
+def test_split_k_has_no_empty_slice_at_any_depth():
+    for sms in (132, 114, 7):
+        for blocks in (1, 2, 3, 5, 24, 38, 131):
+            for k in range(1, 1200):
+                slices = k_slices(k, split_k(blocks, k, sms))
+                assert all(b < e for b, e in slices), (blocks, k, sms)
+                assert slices[-1][1] == k
 
 
 def test_gemm_call_validates_epilogue():

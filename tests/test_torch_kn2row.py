@@ -56,14 +56,20 @@ def t(a):
 
 # ------------------------------------------------------- kernels' plain
 @pytest.mark.parametrize("gmkn", [(9, 16, 8, 16), (3, 24, 16, 8),
-                                  (1, 32, 24, 16)])
+                                  (1, 32, 24, 16), (1, 1, 1, 1),
+                                  (3, 17, 33, 9), (2, 64, 1536, 256)])
 def test_unit_conv_gemms_plain_matches_reference(gmkn):
-    """On shapes that meet the reference's divisibility assert (blocks of
-    8): one x2d shared by every offset's weight."""
+    """One x2d shared by every offset's weight. The reference's kernel
+    takes operands padded to its blocks (as its ops pad them: blocks of 8,
+    or of (64, 128, 512) at incC's 1x1 depth), the port's unpadded ones."""
     g, m, k, n = gmkn
     x2d, w = rnd(1, m, k), rnd(2, g, k, n, scale=k ** -0.5)
-    ref = jax_kn2.unit_conv_gemms(jnp.asarray(x2d), jnp.asarray(w), bm=8,
-                                  bn=8, bk=8, interpret=True)
+    bm, bn, bk = (8, 8, 8) if k < 512 else (64, 128, 512)
+    dm, dk, dn = -m % bm, -k % bk, -n % bn
+    ref = jax_kn2.unit_conv_gemms(
+        jnp.asarray(np.pad(x2d, ((0, dm), (0, dk)))),
+        jnp.asarray(np.pad(w, ((0, 0), (0, dk), (0, dn)))), bm=bm, bn=bn,
+        bk=bk, interpret=True)[:, :m, :n]
     got = kn2.unit_conv_gemms_call(t(x2d), t(w), bm=64, bn=64)
     assert tuple(got.shape) == (g, m, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
