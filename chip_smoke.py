@@ -12,9 +12,15 @@ both matrix products and cuDNN:
    every tile the wrapper takes: M = K = N = 1, 17x33x9, K 70, 5b/1x1 and
    incC's 1x1 at bucket 1 (the deepest splits), operands one float off
    alignment, each with its number of K slices; two calls of a split
-   product must be equal bit for bit;
-3. holds the implicit-GEMM conv kernel against its plain version (the
-   GoogleNet stem, a 3x3 SAME and a VALID case);
+   product must be equal bit for bit; phase 1 prints each kernel's ptxas
+   registers, spills and shared memory;
+3. holds the implicit-GEMM conv kernel (the same loop, A gathered from
+   NHWC) against its plain version: the GoogleNet stem, a 3x3 SAME, a
+   VALID and a 5x5 case, then on every tile the wrapper takes K 27,
+   Inception-v4's stem/c1, a 1x1 on a 7x7 map and a 3x3 1536 -> 256 on an
+   8x8 map at batch 1 (split K), Cout 30, weights one float off
+   alignment and M = K = N = 1, each with its K slices; two calls of a
+   split conv must be equal bit for bit;
 4. runs full-width GoogleNet (224x224, scale 1.0; random weights from a
    seed) planned by the port's planner, kernels vs the plain path on the
    card, at every bucket with layout elision and once without, and checks
@@ -24,12 +30,15 @@ both matrix products and cuDNN:
    checks every result against a per-image plain forward;
 6. times each kernel, its plain version and the library call at the
    main-path shapes beside the card's bound (the split 5b/1x1 GEMM also by
-   queued launches: device time without host gaps), and the full forward
-   per bucket;
+   queued launches: device time without host gaps; the conv at the
+   GoogleNet stem, VGG16's conv0_0 and Inception-v4's stem/c1, bucket 8),
+   and the full forward per bucket;
 7. holds the four Winograd kernels (input transform from NHWC and from
    stored tiles, batched GEMM, output transform) against their plain
-   versions at VGG16 shapes, F(2,3) and F(4,3), ragged cases included, and
-   whole Winograd convs (3x3 and a 5x5 multi-round) against ``F.conv2d``;
+   versions at VGG16 shapes, F(2,3) and F(4,3), ragged cases included, the
+   batched GEMM also on every tile at G 1, M = K = N = 1, N 30, B one
+   float off alignment and Inception-v4's incA shape, and whole Winograd
+   convs (3x3 and a 5x5 multi-round) against ``F.conv2d``;
 8. runs full-width VGG16 (224x224, scale 1.0) under its exact plan of 8
    im2col + 5 Winograd F(4,3) layers, kernels vs the plain path on the
    card, at every bucket with layout elision and once without, and checks
@@ -37,8 +46,10 @@ both matrix products and cuDNN:
 9. serves distinct requests of VGG16 through ``CNNServingEngine`` and
    checks every result against a per-image plain forward;
 10. times the Winograd kernels at VGG16's conv0_1 and conv2_1 (bucket 8)
-    beside their bounds, each Winograd layer as the three-kernel sum vs
-    cuDNN vs this port's im2col kernel, and the VGG16 forward per bucket;
+    beside their bounds, the batched GEMM there and at Inception-v4's
+    incA0/b4c (buckets 1 and 8) against ``torch.bmm`` by events and by
+    queued launches, each Winograd layer as the three-kernel sum vs cuDNN
+    vs this port's im2col kernel, and the VGG16 forward per bucket;
 11. holds the two kn2row kernels (unit-conv GEMMs, pad-and-accumulate)
     against their plain versions at Inception-v4 shapes (bucket 8), ragged
     tiles, 1x3 / 3x1 SAME pads, G = 1 and all four epilogues, the split
@@ -209,9 +220,10 @@ def queued_ms(fn, reps: int = 10) -> float:
 def device_time(fn, reps: int = 1):
     """(device ms summed over every kernel one call runs, that time split
     into this port's kernels by tile or F(m,3) (the split-K reduce kernels
-    of the f32 GEMMs under keys of their own), torch's index gathers — the
-    Toeplitz and Winograd-tile layout conversions — and all other torch
-    kernels, as text and as a dict of ms) from ``torch.profiler``, over
+    of the f32 GEMMs and the f32 conv under keys of their own), torch's
+    index gathers — the Toeplitz and Winograd-tile layout conversions —
+    and all other torch kernels, as text and as a dict of ms) from
+    ``torch.profiler``, over
     ``reps`` calls in one profiled window, divided by ``reps``. Only the
     kernels' own rows are summed: an aten op's row repeats the time of the
     kernels it launched."""
@@ -242,8 +254,8 @@ def device_time(fn, reps: int = 1):
                              e.key)
             wino = re.search(r"\b(input_transform_tiles|input_transform|"
                              r"output_transform)_kernel<(\d+)>", e.key)
-            reduce = re.search(r"\b(gemm_f32|unit_conv_gemms_f32)_reduce_"
-                               r"kernel", e.key)
+            reduce = re.search(r"\b(gemm_f32|unit_conv_gemms_f32|"
+                               r"conv_im2col_f32)_reduce_kernel", e.key)
             key = (f"{gemm[1]}<{gemm[2]}x{gemm[3]}>" if gemm
                    else f"{reduce[1]}_reduce" if reduce
                    else f"{wino[1]}<F{wino[2]}>" if wino
@@ -263,6 +275,31 @@ def device_time(fn, reps: int = 1):
     split = ", ".join(f"{k} {v:.3f}" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
     return sum(groups.values()), split, groups
+
+
+def ptxas_report(log: str):
+    """[(kernel, "R registers, S B spill stores, M B smem")] from nvcc's
+    ``-Xptxas -v`` output, one per compiled kernel, the kernel named as
+    ``name<BM, BN>`` where it is a tile template."""
+    import re
+    rows, kernel, spill = [], "?", "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = re.search(r"([a-z][a-z0-9_]*_kernel)(?:ILi(\d+)E(?:Li"
+                             r"(\d+)E)?)?", entry[1])
+            args = [] if name is None else [v for v in name.groups()[1:] if v]
+            kernel = (entry[1] if name is None else name[1] + (
+                f"<{', '.join(args)}>" if args else ""))
+        stores = re.search(r"(\d+) bytes spill stores", line)
+        if stores:
+            spill = stores[1]
+        used = re.search(r"Used (\d+) registers.*?(?:(\d+) bytes smem)?$",
+                         line)
+        if used:
+            rows.append((kernel, f"{used[1]} registers, {spill} B spill "
+                                 f"stores, {used[2] or 0} B smem"))
+    return rows
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -305,7 +342,8 @@ def main() -> int:
                                               batched_gemm_call,
                                               batched_gemm_plain, gemm_call,
                                               gemm_i8_plain, gemm_plain,
-                                              kernel_tile, sm_count, split_k)
+                                              grid_splits, kernel_tile,
+                                              sm_count)
     from repro_torch.kernels.gemm.ops import dataflow_blocks
     from repro_torch.kernels.kn2row import kn2row as kn2
     from repro_torch.kernels.kn2row.ops import conv_kn2row
@@ -474,9 +512,8 @@ def main() -> int:
     print(f"[1] built {', '.join(build.SOURCES)} in {build_s:.2f} s "
           f"({build.BUILD_DIR})")
     for name, log in build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[1] ptxas {name}: {line.strip()}")
+        for kernel, info in ptxas_report(log):
+            print(f"[1] ptxas {name}: {kernel}: {info}")
 
     # ---- 2. gemm kernel vs plain --------------------------------------
     all_tiles = ((64, 64), (64, 128), (128, 64), (128, 128))
@@ -484,7 +521,7 @@ def main() -> int:
 
     def splits_of(m, n, k, tile, groups=1):
         """The K slices the f32 wrappers run for this shape and tile."""
-        return split_k(groups * -(-m // tile[0]) * -(-n // tile[1]), k, sms)
+        return grid_splits(m, n, k, tile, sms, groups)
 
     def offset_view(t):
         """``t`` copied into a contiguous view one element into a larger
@@ -544,26 +581,71 @@ def main() -> int:
               f"outputs equal from call to call")
 
     # ---- 3. conv kernel vs plain --------------------------------------
-    conv_cases = [("stem", (8, 224, 224, 3), (7, 7, 3, 64), 2, "SAME"),
-                  ("3x3", (8, 56, 56, 64), (3, 3, 64, 192), 1, "SAME"),
-                  ("valid", (4, 17, 17, 32), (3, 3, 32, 48), 2, "VALID"),
-                  ("5x5", (2, 28, 28, 16), (5, 5, 16, 32), 1, "SAME")]
+    # The first four cases on the wrapper's default tile, from the shared
+    # generator; then the edges of the gathered-A async loop on every tile
+    # the wrapper takes at each shape, from a generator of their own (the
+    # later phases draw the same inputs as without them): K 27 (one whole
+    # and one ragged chunk), Iv4 stem/c1, GoogleNet 5b's 1x1 on the 7x7 map
+    # at batch 1 (the deepest split), an 8x8 3x3 1536 -> 256 at batch 1
+    # (split), Cout 30 (the 4-byte B path), w one float off 16-byte
+    # alignment, and M = K = N = 1. Signed inputs and bias_relu throughout;
+    # two calls of a split conv must be equal bit for bit.
+    edge_conv = torch.Generator().manual_seed(18)
+    conv_cases = [("stem", (8, 224, 224, 3), (7, 7, 3, 64), 2, "SAME",
+                   ((128, 128),), gen),
+                  ("3x3", (8, 56, 56, 64), (3, 3, 64, 192), 1, "SAME",
+                   ((128, 128),), gen),
+                  ("valid", (4, 17, 17, 32), (3, 3, 32, 48), 2, "VALID",
+                   ((128, 128),), gen),
+                  ("5x5", (2, 28, 28, 16), (5, 5, 16, 32), 1, "SAME",
+                   ((128, 128),), gen),
+                  ("K 27", (2, 15, 15, 3), (3, 3, 3, 16), 1, "SAME",
+                   all_tiles, edge_conv),
+                  ("stem/c1", (8, 299, 299, 3), (3, 3, 3, 32), 2, "VALID",
+                   all_tiles, edge_conv),
+                  ("5b/1x1 b1", (1, 7, 7, 832), (1, 1, 832, 384), 1, "SAME",
+                   all_tiles, edge_conv),
+                  ("8x8 3x3 b1", (1, 8, 8, 1536), (3, 3, 1536, 256), 1,
+                   "SAME", all_tiles, edge_conv),
+                  ("Cout 30", (2, 13, 13, 5), (3, 3, 5, 30), 2, "SAME",
+                   all_tiles, edge_conv),
+                  ("w offset", (2, 14, 14, 64), (3, 3, 64, 96), 1, "SAME",
+                   all_tiles, edge_conv),
+                  ("1x1x1", (1, 1, 1, 1), (1, 1, 1, 1), 1, "SAME", all_tiles,
+                   edge_conv)]
     conv_err = {}
     conv_inputs = {}
-    for label, xs, ws, stride, pad in conv_cases:
-        x = randn(*xs)
-        w = randn(*ws, scale=(ws[0] * ws[1] * ws[2]) ** -0.5)
-        bias = randn(ws[3], scale=0.1)
+    for label, xs, ws, stride, pad, tiles, rng in conv_cases:
+        x = randn(*xs, rng=rng)
+        w = randn(*ws, scale=(ws[0] * ws[1] * ws[2]) ** -0.5, rng=rng)
+        bias = randn(ws[3], scale=0.1, rng=rng)
+        if label == "w offset":
+            w = offset_view(w)
         want = conv_plain(x, w, stride=stride, padding=pad,
                           epilogue="bias_relu", bias=bias)
-        got = conv_im2col_call(x, w, stride=stride, padding=pad,
-                               epilogue="bias_relu", bias=bias)
-        torch.cuda.synchronize()
-        conv_err[label] = check_close(f"conv {label}", got, want,
-                                      **KERNEL_TOL)
+        o1, o2 = conv_geometry(xs[1], xs[2], ws[0], ws[1], stride, pad)[:2]
+        m, k, n = xs[0] * o1 * o2, ws[0] * ws[1] * ws[2], ws[3]
+        tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in tiles})
+        for bm, bn in tiles:
+            def call():
+                return conv_im2col_call(x, w, stride=stride, padding=pad,
+                                        bm=bm, bn=bn, epilogue="bias_relu",
+                                        bias=bias)
+            got = call()
+            torch.cuda.synchronize()
+            conv_err[label] = max(conv_err.get(label, 0.0), check_close(
+                f"conv {label} tile ({bm},{bn})", got, want, **KERNEL_TOL))
+            if splits_of(m, n, k, (bm, bn)) > 1 and not torch.equal(
+                    got, call()):
+                raise CheckFailed(f"conv {label} tile ({bm},{bn}): two calls "
+                                  "of a split conv differ")
         conv_inputs[label] = (x, w, bias, stride, pad)
-        print(f"[3] conv {label} x{xs} w{ws} s{stride} {pad} bias_relu: "
-              f"max|diff| {conv_err[label]:.3e} (rtol/atol 1e-4)")
+        print(f"[3] conv {label} x{xs} w{ws} s{stride} {pad} bias_relu "
+              f"(M {m} K {k} N {n}), (tile): K slices "
+              + ", ".join(f"({bm},{bn}): {splits_of(m, n, k, (bm, bn))}"
+                          for bm, bn in tiles)
+              + f": max|diff| {conv_err[label]:.3e} (rtol/atol 1e-4); split "
+              f"outputs equal from call to call")
 
     # ---- 4. full-width GoogleNet: kernels vs plain path ---------------
     g = googlenet(res=224, scale=1.0)
@@ -622,23 +704,57 @@ def main() -> int:
           f"(queued device {s_dev:.4f}), torch.matmul {s_lib:.4f} ms "
           f"(queued device {s_lib_dev:.4f}), bound {s_bound:.4f} ms ({s_by})")
 
-    x, w, cbias, stride, pad = conv_inputs["stem"]
-    bsz, h, w_in, c_in = x.shape
-    k1, k2, _, c_out = w.shape
-    o1, o2, pt, pb, pl, pr = conv_geometry(h, w_in, k1, k2, stride, pad)
-    xp_nchw = pad_nhwc(x, pt, pb, pl, pr).permute(0, 3, 1, 2).contiguous()
-    w_oihw = w.permute(3, 2, 0, 1).contiguous()
-    c_ms = time_ms(lambda: conv_im2col_call(
-        x, w, stride=stride, padding=pad, epilogue="bias_relu", bias=cbias))
-    c_plain = time_ms(lambda: conv_plain(
-        x, w, stride=stride, padding=pad, epilogue="bias_relu", bias=cbias))
-    c_lib = time_ms(lambda: F.conv2d(xp_nchw, w_oihw, stride=stride))
-    c_flops = 2.0 * bsz * o1 * o2 * c_out * k1 * k2 * c_in
-    c_bytes = 4.0 * (x.numel() + w.numel() + c_out + bsz * o1 * o2 * c_out)
-    c_bound, c_by = bound(c_flops, c_bytes)
-    print(f"[6] conv stem x{tuple(x.shape)} w{tuple(w.shape)} s{stride}: "
-          f"kernel {c_ms:.4f} ms, plain {c_plain:.4f} ms, F.conv2d (cuDNN, "
-          f"no TF32) {c_lib:.4f} ms, bound {c_bound:.4f} ms ({c_by})")
+    # The conv at its three elided main-path launches, bucket 8: GoogleNet's
+    # stem, VGG16's conv0_0 (the one conv of its device-bound forward) and
+    # Inception-v4's stem/c1; the library call is cuDNN on the padded NCHW
+    # map, no TF32.
+    edge_time = torch.Generator().manual_seed(20)
+    conv_times = {}
+    for label, xs, ws, stride, pad in (
+            ("googlenet stem", (8, 224, 224, 3), (7, 7, 3, 64), 2, "SAME"),
+            ("vgg16 conv0_0", (8, 224, 224, 3), (3, 3, 3, 64), 1, "SAME"),
+            ("iv4 stem/c1", (8, 299, 299, 3), (3, 3, 3, 32), 2, "VALID")):
+        if label == "googlenet stem":
+            x, w, cbias = conv_inputs["stem"][:3]
+        else:
+            x = randn(*xs, rng=edge_time)
+            w = randn(*ws, scale=(ws[0] * ws[1] * ws[2]) ** -0.5,
+                      rng=edge_time)
+            cbias = randn(ws[3], scale=0.1, rng=edge_time)
+        bsz, h, w_in, c_in = x.shape
+        k1, k2, _, c_out = w.shape
+        o1, o2, pt, pb, pl, pr = conv_geometry(h, w_in, k1, k2, stride, pad)
+        xp_nchw = pad_nhwc(x, pt, pb, pl, pr).permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+        def kern():
+            return conv_im2col_call(x, w, stride=stride, padding=pad,
+                                    epilogue="bias_relu", bias=cbias)
+
+        def lib():
+            return F.conv2d(xp_nchw, w_oihw, stride=stride)
+
+        err = check_close(f"conv {label} timed", kern(), conv_plain(
+            x, w, stride=stride, padding=pad, epilogue="bias_relu",
+            bias=cbias), **KERNEL_TOL)
+        c_ms, c_dev = time_ms(kern), queued_ms(kern)
+        c_plain = time_ms(lambda: conv_plain(
+            x, w, stride=stride, padding=pad, epilogue="bias_relu",
+            bias=cbias))
+        c_lib = time_ms(lib)
+        m = bsz * o1 * o2
+        c_flops = 2.0 * m * c_out * k1 * k2 * c_in
+        c_bytes = 4.0 * (x.numel() + w.numel() + c_out + m * c_out)
+        c_bound, c_by = bound(c_flops, c_bytes)
+        tile = kernel_tile(128, 128, m, c_out)
+        conv_times[label] = (c_ms, c_plain, c_lib, c_bound, c_by, err)
+        print(f"[6] conv {label} x{tuple(x.shape)} w{tuple(w.shape)} "
+              f"s{stride} {pad} (tile {tile}, "
+              f"{-(-m // tile[0]) * -(-c_out // tile[1])} blocks, K slices "
+              f"{splits_of(m, c_out, k1 * k2 * c_in, tile)}): kernel "
+              f"{c_ms:.4f} ms (queued device {c_dev:.4f}), plain "
+              f"{c_plain:.4f} ms, F.conv2d (cuDNN, no TF32) {c_lib:.4f} ms, "
+              f"bound {c_bound:.4f} ms ({c_by}); max|diff| {err:.3e}")
 
     for bsz in BUCKETS:
         run_k, run_p, x, _ = runs[(True, bsz)]
@@ -711,20 +827,38 @@ def main() -> int:
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" (rtol/atol 1e-4); whole conv vs F.conv2d {conv_e:.3e} "
               f"(2e-3)")
-    a = randn(16, 333, 70)
-    b = randn(16, 70, 100, scale=70 ** -0.5)
-    bias = randn(100, scale=0.1)
-    want = batched_gemm_plain(a, b, "bias_relu", bias)
-    bg_ragged = 0.0
-    for bm, bn in ((64, 64), (64, 128), (128, 64), (128, 128)):
-        got = batched_gemm_call(a, b, bm=bm, bn=bn, epilogue="bias_relu",
-                                bias=bias)
-        torch.cuda.synchronize()
-        bg_ragged = max(bg_ragged, check_close(
-            f"batched_gemm ragged tile ({bm},{bn})", got, want,
-            **KERNEL_TOL))
-    print(f"[7] batched_gemm ragged G=16 M=333 K=70 N=100 bias_relu tiles "
-          f"(64|128)x(64|128): max|diff| {bg_ragged:.3e} (rtol/atol 1e-4)")
+    # The batched GEMM at the edges of the async loop on every tile the
+    # wrapper takes at each shape, bias_relu on signed inputs: the ragged
+    # G 16 case from the shared generator, then, from a generator of their
+    # own, G 1, M = K = N = 1, N 30 (the 4-byte B path and the scalar
+    # flush), B one float off 16-byte alignment, and Inception-v4's incA
+    # b4c at bucket 1 (G 36, M 81, K = N = 96: 36 blocks, K not split).
+    edge_bg = torch.Generator().manual_seed(19)
+    bg_err = {}
+    for label, g_, m, k, n, rng in (("ragged", 16, 333, 70, 100, gen),
+                                    ("G 1", 1, 200, 96, 64, edge_bg),
+                                    ("1x1x1", 3, 1, 1, 1, edge_bg),
+                                    ("N 30", 4, 70, 40, 30, edge_bg),
+                                    ("B offset", 4, 100, 64, 64, edge_bg),
+                                    ("incA b4c b1", 36, 81, 96, 96,
+                                     edge_bg)):
+        a = randn(g_, m, k, rng=rng)
+        b = randn(g_, k, n, scale=k ** -0.5, rng=rng)
+        bias = randn(n, scale=0.1, rng=rng)
+        if label == "B offset":
+            b = offset_view(b)
+        want = batched_gemm_plain(a, b, "bias_relu", bias)
+        tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in all_tiles})
+        for bm, bn in tiles:
+            got = batched_gemm_call(a, b, bm=bm, bn=bn, epilogue="bias_relu",
+                                    bias=bias)
+            torch.cuda.synchronize()
+            bg_err[label] = max(bg_err.get(label, 0.0), check_close(
+                f"batched_gemm {label} tile ({bm},{bn})", got, want,
+                **KERNEL_TOL))
+        print(f"[7] batched_gemm {label} G={g_} M={m} K={k} N={n} bias_relu "
+              f"tiles {tiles} (K slices: 1): max|diff| {bg_err[label]:.3e} "
+              f"(rtol/atol 1e-4)")
     x = randn(2, 28, 28, 16)
     w = randn(5, 5, 16, 32, scale=400 ** -0.5)
     got = conv_winograd(x, w, m=4)
@@ -807,12 +941,6 @@ def main() -> int:
                     "ti,nijc,uj->tunc", bt, tiles, bt)),
                 bound(n_tiles * c_in * TRANSFORM_FLOPS[("in", m)],
                       4.0 * tiles.numel() + v_bytes)),
-            "batched_gemm": (
-                lambda: batched_gemm_call(v_p, u),
-                lambda: batched_gemm_plain(v_p, u),
-                ("torch.bmm (no TF32)", lambda: torch.bmm(v_p, u)),
-                bound(2.0 * t * t * n_tiles * c_in * c_out,
-                      v_bytes + 4.0 * u.numel() + m_bytes)),
             "output_transform": (
                 lambda: wino.output_transform_call(mm_p, **out_geo),
                 lambda: wino.output_transform_plain(mm_p, **out_geo),
@@ -829,6 +957,41 @@ def main() -> int:
             print(f"[10] {name} {label} b{bsz} F({m},3): kernel "
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, {lib_txt}, bound "
                   f"{b_ms:.4f} ms ({b_by})")
+
+    # The batched GEMM beside torch.bmm and its bound at VGG16's conv0_1
+    # and conv2_1 (bucket 8; their rows of wino_times) and Inception-v4's
+    # incA0/b4c (35x35, 96 -> 96, F(4,3): G 36, M 81 per image) at buckets
+    # 1 and 8, by events and by queued launches (device time without host
+    # gaps).
+    edge_bgt = torch.Generator().manual_seed(21)
+    bg_shapes = [(f"{key} b8", key, *wino_inputs[key][4:7:2])
+                 for key in ("conv0_1", "conv2_1")]
+    for bsz in (1, 8):
+        bg_shapes.append((f"incA0/b4c b{bsz}", None,
+                          randn(36, 81 * bsz, 96, rng=edge_bgt),
+                          randn(36, 96, 96, scale=96 ** -0.5,
+                                rng=edge_bgt)))
+    for label, key, v, u in bg_shapes:
+        g_, m, k = v.shape
+        n = u.shape[-1]
+        check_close(f"batched_gemm {label} timed", batched_gemm_call(v, u),
+                    batched_gemm_plain(v, u), **KERNEL_TOL)
+        tile = kernel_tile(128, 128, m, n)
+        k_ms = time_ms(lambda: batched_gemm_call(v, u))
+        k_dev = queued_ms(lambda: batched_gemm_call(v, u))
+        p_ms = time_ms(lambda: batched_gemm_plain(v, u))
+        l_ms = time_ms(lambda: torch.bmm(v, u))
+        l_dev = queued_ms(lambda: torch.bmm(v, u))
+        b_ms, b_by = bound(2.0 * g_ * m * k * n,
+                           4.0 * g_ * (m * k + k * n + m * n))
+        if key is not None:
+            wino_times[("batched_gemm", key)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+        print(f"[10] batched_gemm {label} G={g_} M={m} K={k} N={n} (tile "
+              f"{tile}, {g_ * -(-m // tile[0]) * -(-n // tile[1])} blocks, "
+              f"K not split): kernel {k_ms:.4f} ms (queued device "
+              f"{k_dev:.4f}), plain {p_ms:.4f} ms, torch.bmm (no TF32) "
+              f"{l_ms:.4f} ms (queued device {l_dev:.4f}), bound "
+              f"{b_ms:.4f} ms ({b_by})")
 
     # Per Winograd layer of VGG16 at bucket 8: the three kernels of the
     # NHWC pipeline (each timed alone, summed) vs cuDNN vs this port's
@@ -1578,8 +1741,11 @@ def main() -> int:
          "source": "src/repro_torch/csrc/conv_im2col.cu",
          "replaces": "src/repro/kernels/conv_im2col/conv_im2col.py:89",
          "launches": gserve[0], "max_abs_err": conv_err["stem"],
-         "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
-         "bound_by": c_by, "library_ms": c_lib},
+         "ms": conv_times["googlenet stem"][0],
+         "plain_ms": conv_times["googlenet stem"][1],
+         "bound_ms": conv_times["googlenet stem"][3],
+         "bound_by": conv_times["googlenet stem"][4],
+         "library_ms": conv_times["googlenet stem"][2]},
         # Winograd kernels at VGG16's conv0_1, bucket 8. Launches: the
         # VGG16 serving run; the NHWC input transform is not on the elided
         # path, so its count is the unelided forward's.

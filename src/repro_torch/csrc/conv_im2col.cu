@@ -20,39 +20,81 @@
 // per byte it must move (input, weights, output), above the ~20 FLOP/byte
 // ridge of 67 TFLOP/s non-tensor-core f32 over 3.35 TB/s HBM; IEEE f32 FMA
 // (not TF32) keeps it at 1e-4 of the reference. Its own overhead is the
-// gather: every A entry costs an index computation and a predicated load.
+// gather: every A entry costs an index computation and a predicated copy.
 //
 // What the design does about it: the TPU kernel keeps the whole padded map
 // resident in VMEM; the stem's padded map (229x229x3 f32, ~629 KB) is
 // larger than the 227 KB of shared memory a block can have, so this kernel
 // does not carry that block over. It tiles output pixels instead and
-// gathers only the input windows its tile needs (neighbouring output
-// pixels read neighbouring addresses along the (dk2, ci) run, so the
-// gather coalesces); each thread decodes its rows' (b, oy, ox) once and
-// its column's (dk1, dk2, ci) once per chunk. The output is written once,
-// after bias and ReLU, with Cout unpadded.
+// copies only the input windows its tile needs. conv_im2col_f32 runs the
+// two-stage cp.async loop of tile_gemm_async.cuh (the mainloop of the f32
+// GEMMs) with A gathered from NHWC (GatherNhwcF32): once per block each of
+// a thread's BM / 32 rows decodes to the offset of its window's origin and
+// that origin's (iy0, ix0); once per chunk each of its two k columns
+// decodes to (dk1, dk2, ci) and its offset within the window; every copy
+// is then one add and two unsigned compares, 4 bytes zero-filled when the
+// row, the column, iy or ix is out of range. A warp's 8 consecutive k of
+// one row walk the contiguous (dk2, ci) run of one input row, so the
+// copies coalesce, and cp.async.ca keeps the overlapping windows in L1.
+// B, the weights as the (K1·K2·Cin, Cout) matrix, goes in 16 bytes at a
+// time when Cout % 4 == 0 and w is 16-byte aligned. The output (B, O1, O2,
+// Cout) is C (M, N) row-major, written once after bias and ReLU with Cout
+// unpadded. A grid with fewer blocks than the card has SMs (the unelided
+// 7x7 and 8x8 layers at small buckets) splits K as gemm_f32 does (S from
+// kernels/gemm/gemm.py::split_k, raw partials in a workspace (S, M, N),
+// conv_im2col_f32_reduce_kernel summing them in the order s = 0, 1, …):
+// the same bits on every call.
 //
 // The int8 form gathers the same windows from an int8 NHWC map (a
 // quarter of the bytes), widens them to int as it stages them, and sums
 // in int32 (tile_gemm.cuh); on the gated Inception-v4 path it runs
 // stem/c1 under elision and every NHWC int8 im2col layer without it,
 // including those whose input edge already carries int8 (a producer that
-// requantized at this layer's scale). It runs tile_gemm.cuh's IMAD loop,
-// without tensor cores (gemm_i8 and unit_conv_gemms_i8 run
-// tile_mma_i8.cuh's mma.sync loop): exact first, fast later.
+// requantized at this layer's scale). It runs tile_gemm.cuh's single-stage
+// IMAD loop, without tensor cores (gemm_i8 and unit_conv_gemms_i8 run
+// tile_mma_i8.cuh's mma.sync loop): exact first, fast later. Both forms
+// share ConvGeom's row and column decoding.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
+#include "tile_gemm_async.cuh"
 
 namespace {
 
+// The conv as a GEMM: row gm = (b, oy, ox) of M = B·O1·O2, column gk =
+// (dk1, dk2, ci) of K = K1·K2·Cin in the reference's (k1, k2, cin) order.
+// The wrapper keeps every offset into x below 2^31.
 struct ConvGeom {
   int h, w, c_in, k2, stride, pad_top, pad_left, o1, o2, k;
+
+  // Row gm's image offset in x and the input position (iy0, ix0) of its
+  // window's top-left tap (negative inside the top/left pad).
+  __device__ __forceinline__ void row(int gm, int& base, int& iy0,
+                                      int& ix0) const {
+    const int per_image = o1 * o2;
+    const int bi = gm / per_image;
+    const int rem = gm - bi * per_image;
+    const int oy = rem / o2;
+    const int ox = rem - oy * o2;
+    base = bi * h * w * c_in;
+    iy0 = oy * stride - pad_top;
+    ix0 = ox * stride - pad_left;
+  }
+
+  // Column gk's tap (dk1, dk2) and channel ci.
+  __device__ __forceinline__ void column(int gk, int& dk1, int& dk2,
+                                         int& ci) const {
+    const int tap = gk / c_in;
+    ci = gk - tap * c_in;
+    dk1 = tap / k2;
+    dk2 = tap - dk1 * k2;
+  }
 };
 
 // A = the Toeplitz matrix of x (B, H, W, Cin) of T, gathered on the fly
-// and widened to S.
+// and widened to S: the ALoader of tile_gemm.cuh's single-stage loop
+// (conv_im2col_i8).
 template <int R, class T, class S>
 struct GatherA {
   using value_type = S;
@@ -65,18 +107,13 @@ struct GatherA {
 
   __device__ GatherA(const T* x_, const ConvGeom& g_, int row0, int m)
       : x(x_), g(g_), dk1(0), dk2(0), ci(0), k_ok(false) {
-    const int per_image = g.o1 * g.o2;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int gm = row0 + 16 * r;
       if (gm < m) {
-        const int bi = gm / per_image;
-        const int rem = gm - bi * per_image;
-        const int oy = rem / g.o2;
-        const int ox = rem - oy * g.o2;
-        base[r] = (long long)bi * g.h * g.w * g.c_in;
-        iy0[r] = oy * g.stride - g.pad_top;
-        ix0[r] = ox * g.stride - g.pad_left;
+        int b;
+        g.row(gm, b, iy0[r], ix0[r]);
+        base[r] = b;
       } else {
         base[r] = -1;
         iy0[r] = ix0[r] = 0;
@@ -86,10 +123,7 @@ struct GatherA {
 
   __device__ __forceinline__ void begin_chunk(int gk) {
     k_ok = gk < g.k;
-    const int tap = gk / g.c_in;
-    ci = gk - tap * g.c_in;
-    dk1 = tap / g.k2;
-    dk2 = tap - dk1 * g.k2;
+    g.column(gk, dk1, dk2, ci);
   }
 
   __device__ __forceinline__ S load(int r) const {
@@ -102,16 +136,101 @@ struct GatherA {
   }
 };
 
+// Far outside any map: an iy0 or dk1 of kFar puts every iy out of range,
+// which marks a row past M or a column past the K slice.
+constexpr int kFar = -(1 << 29);
+
+// A = the Toeplitz matrix of f32 x (B, H, W, Cin) as the A source of
+// tile_gemm_async.cuh's loop. Per thread, rows m0 + row + 32 i keep the
+// offset of their window's origin, (iy0 · W + ix0) · Cin into their image,
+// and (iy0, ix0); columns col + 8 j of the chunk keep (dk1, dk2) and their
+// offset (dk1 · W + dk2) · Cin + ci within a window. Entry (i, j) is then
+// x[origin_i + tap_j], in range when 0 <= iy0_i + dk1_j < H and 0 <= ix0_i +
+// dk2_j < W: XLA's SAME split (pad_top = ph // 2) and the bottom/right
+// overhang are these predicates, as in GatherA::load.
+struct GatherNhwcF32 {
+  const float* __restrict__ x;
+  ConvGeom g;
+  int m;
+
+  template <int R>
+  struct Rows {
+    const float* __restrict__ a;  // x itself: the zero-fill's source
+    ConvGeom g;
+    int col;
+    int origin[R], iy0[R], ix0[R];  // per row (iy0 kFar: past M)
+    int tap[2], dk1[2], dk2[2];     // per column (dk1 kFar: past the slice)
+
+    __device__ __forceinline__ Rows(const GatherNhwcF32& s, int m0, int row,
+                                    int col_)
+        : a(s.x), g(s.g), col(col_) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int gm = m0 + row + 32 * i;
+        if (gm < s.m) {
+          int base;
+          g.row(gm, base, iy0[i], ix0[i]);
+          origin[i] = base + (iy0[i] * g.w + ix0[i]) * g.c_in;
+        } else {
+          origin[i] = ix0[i] = 0;
+          iy0[i] = kFar;
+        }
+      }
+    }
+
+    __device__ __forceinline__ void begin_chunk(int k0, int k_end) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int gk = k0 + col + 8 * j;
+        int ci;
+        g.column(gk, dk1[j], dk2[j], ci);
+        tap[j] = (dk1[j] * g.w + dk2[j]) * g.c_in + ci;
+        if (gk >= k_end) dk1[j] = kFar;
+      }
+    }
+
+    __device__ __forceinline__ bool in(int i, int j, int, int) const {
+      return (unsigned)(iy0[i] + dk1[j]) < (unsigned)g.h &&
+             (unsigned)(ix0[i] + dk2[j]) < (unsigned)g.w;
+    }
+
+    __device__ __forceinline__ const float* at(int i, int j, int) const {
+      return a + (origin[i] + tap[j]);
+    }
+  };
+};
+
+// K slice blockIdx.z of gridDim.z: the whole conv with the fused flush
+// when the grid has one slice, else the slice's raw partial into
+// work[blockIdx.z] (m, n).
 template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     conv_im2col_f32_kernel(const float* __restrict__ x,
                            const float* __restrict__ w,
                            const float* __restrict__ bias,
-                           float* __restrict__ out, ConvGeom g, int m, int n,
-                           int relu) {
-  GatherA<BM / 16, float, float> lda(x, g, blockIdx.y * BM + threadIdx.x / 16,
-                                     m);
-  repro::tile_gemm<BM, BN>(lda, w, bias, out, m, n, g.k, relu);
+                           float* __restrict__ out, float* __restrict__ work,
+                           ConvGeom g, int m, int n, int relu, int vec) {
+  const int splits = gridDim.z;
+  const GatherNhwcF32 src{x, g, m};
+  if (splits == 1) {
+    repro::tile_gemm_async<BM, BN>(src, w,
+                                   repro::F32Flush{bias, out, n, relu}, m, n,
+                                   0, g.k, vec);
+    return;
+  }
+  const int s = blockIdx.z;
+  const int depth = repro::slice_depth(g.k, splits);
+  repro::tile_gemm_async<BM, BN>(
+      src, w, repro::RawF32Flush{work + (size_t)s * m * n, n}, m, n,
+      s * depth, min(g.k, (s + 1) * depth), vec);
+}
+
+__global__ void __launch_bounds__(repro::kReduceThreads)
+    conv_im2col_f32_reduce_kernel(const float* __restrict__ work,
+                                  const float* __restrict__ bias,
+                                  float* __restrict__ out, long long total,
+                                  int n, int splits, int relu) {
+  repro::reduce_slices(work, bias, out, total, n, splits, relu);
 }
 
 template <int BM, int BN>
@@ -128,24 +247,37 @@ __global__ void __launch_bounds__(repro::kThreads)
 
 // out (B, O1, O2, Cout) = epilogue(conv(x (B, H, W, Cin), w) [+ bias]),
 // w (K1, K2, Cin, Cout) read as the (K1·K2·Cin, Cout) matrix; all f32,
-// contiguous, on the current device. bias may be NULL. Padding is given
-// as the top/left pad; bottom/right overhang reads as 0. (tile_m, tile_n)
-// must be an instantiated tile: 64 or 128 each. Returns cudaGetLastError().
+// contiguous, on the current device, out 16-byte aligned, every offset
+// into x below 2^31. bias may be NULL. Padding is given as the top/left
+// pad; bottom/right overhang reads as 0. (tile_m, tile_n) must be an
+// instantiated tile: 64 or 128 each. K = K1·K2·Cin is cut into `splits`
+// slices (slice_depth); with splits > 1, work is the f32 workspace
+// (splits, B·O1·O2, Cout) and a second kernel on the same stream sums the
+// slices in order into out. vec: Cout % 4 == 0 and w 16-byte aligned.
+// Returns cudaGetLastError().
 extern "C" int conv_im2col_f32(const void* x, const void* w, const void* bias,
-                               void* out, int batch, int h, int w_in,
-                               int c_in, int k1, int k2, int stride,
+                               void* out, void* work, int batch, int h,
+                               int w_in, int c_in, int k1, int k2, int stride,
                                int pad_top, int pad_left, int o1, int o2,
                                int c_out, int tile_m, int tile_n, int relu,
-                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                               int splits, int vec, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ConvGeom g{h,        w_in,     c_in, k2, stride,
                    pad_top,  pad_left, o1,   o2, k1 * k2 * c_in};
   const int m = batch * o1 * o2;
-  REPRO_DISPATCH_TILE(conv_im2col_f32_kernel, tile_m, tile_n, m, c_out, 1, s,
-                      static_cast<const float*>(x),
+  REPRO_DISPATCH_TILE(conv_im2col_f32_kernel, tile_m, tile_n, m, c_out,
+                      splits, st, static_cast<const float*>(x),
                       static_cast<const float*>(w),
                       static_cast<const float*>(bias),
-                      static_cast<float*>(out), g, m, c_out, relu);
+                      static_cast<float*>(out), static_cast<float*>(work), g,
+                      m, c_out, relu, vec);
+  const int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  const long long total = (long long)m * c_out;
+  conv_im2col_f32_reduce_kernel<<<repro::reduce_blocks(total, c_out),
+                                  repro::kReduceThreads, 0, st>>>(
+      static_cast<const float*>(work), static_cast<const float*>(bias),
+      static_cast<float*>(out), total, c_out, splits, relu);
   return (int)cudaGetLastError();
 }
 

@@ -26,23 +26,25 @@
 // (not TF32) so they match the reference at 1e-4, which rules out the
 // tensor cores.
 //
-// What the design does about it. gemm_f32 runs tile_gemm_async.cuh: a 128 x
-// 128 (or 64-edge) output tile per 256-thread block with an 8 x 8 register
-// micro-tile read from shared memory as float4, K in 16-deep chunks through
-// a two-stage cp.async buffer (the copies of chunk c+1 in flight during
-// chunk c's FMAs, one barrier per chunk); bias and ReLU are applied in
-// registers before the single store; ragged M/N/K edges are zero-filled in
-// the kernel instead of padding operands on the host. The TPU kernel
-// carries the K sum across a sequential grid axis in VMEM; here blocks run
-// in parallel and in no order, so a grid with fewer blocks than the card
-// has SMs (most main-path layers at small buckets: a 7x7 map is one tile
-// row) splits K into S slices (grid z = s, S from kernels/gemm/gemm.py::
-// split_k). Each slice writes its raw partial into the workspace
-// (S, m, n) and gemm_f32_reduce_kernel, launched by the same entry point on
-// the same stream, sums the slices in the order s = 0, 1, … and applies
-// bias and ReLU: the same bits on every call. batched_gemm_f32 still runs
-// the single-stage loop of tile_gemm.cuh (two barriers per 16-deep chunk,
-// no split). No wgmma or TF32: IEEE fmaf holds the reference's 1e-4.
+// What the design does about it. Both run tile_gemm_async.cuh with dense A
+// (DenseA): a 128 x 128 (or 64-edge) output tile per 256-thread block with
+// an 8 x 8 register micro-tile read from shared memory as float4, K in
+// 16-deep chunks through a two-stage cp.async buffer (the copies of chunk
+// c+1 in flight during chunk c's FMAs, one barrier per chunk); bias and ReLU
+// are applied in registers before the single store; ragged M/N/K edges are
+// zero-filled in the kernel instead of padding operands on the host. The TPU
+// kernel carries the K sum across a sequential grid axis in VMEM; here
+// blocks run in parallel and in no order, so a gemm_f32 grid with fewer
+// blocks than the card has SMs (most main-path layers at small buckets: a
+// 7x7 map is one tile row) splits K into S slices (grid z = s, S from
+// kernels/gemm/gemm.py::split_k). Each slice writes its raw partial into the
+// workspace (S, m, n) and gemm_f32_reduce_kernel, launched by the same entry
+// point on the same stream, sums the slices in the order s = 0, 1, … and
+// applies bias and ReLU: the same bits on every call. batched_gemm_f32 runs
+// the same loop on each g's operands and never splits K: the main path's
+// smallest batched grids (36 blocks) have 4-6 chunks of K, fewer than two
+// slices of split_k's minimum depth. No wgmma or TF32: IEEE fmaf holds the
+// reference's 1e-4.
 //
 // gemm_i8 is gemm_pallas's int8 path (_gemm_kernel with has_scale /
 // out_scale and its int32 scratch): int8 A and B, the sum exact in int32,
@@ -77,15 +79,16 @@ __global__ void __launch_bounds__(repro::kThreads)
                     float* __restrict__ work, int m, int n, int k, int relu,
                     int vec) {
   const int splits = gridDim.z;
+  const repro::DenseA src{a, m, k};
   if (splits == 1) {
-    repro::tile_gemm_async<BM, BN>(a, b, repro::F32Flush{bias, c, n, relu},
-                                   m, n, k, 0, k, vec);
+    repro::tile_gemm_async<BM, BN>(src, b, repro::F32Flush{bias, c, n, relu},
+                                   m, n, 0, k, vec);
     return;
   }
   const int s = blockIdx.z;
   const int depth = repro::slice_depth(k, splits);
   repro::tile_gemm_async<BM, BN>(
-      a, b, repro::RawF32Flush{work + (size_t)s * m * n, n}, m, n, k,
+      src, b, repro::RawF32Flush{work + (size_t)s * m * n, n}, m, n,
       s * depth, min(k, (s + 1) * depth), vec);
 }
 
@@ -104,18 +107,21 @@ __global__ void __launch_bounds__(repro::kThreads)
   repro::tile_mma_i8_flush<BM, BN>(a, b, flush, m, n, k, vec);
 }
 
+// Problem g = blockIdx.z: the async loop on A[g], B[g] and C[g]. With
+// n % 4 == 0 every g·K·N and g·M·N is a multiple of 4 floats, so when B
+// and C are 16-byte aligned so is each B[g] and C[g]: the 16-byte B copies
+// (vec) and flush4 hold for every g.
 template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     batched_gemm_f32_kernel(const float* __restrict__ a,
                             const float* __restrict__ b,
                             const float* __restrict__ bias,
                             float* __restrict__ c, int m, int n, int k,
-                            int relu) {
+                            int relu, int vec) {
   const size_t g = blockIdx.z;
-  repro::DenseF32 lda(a + g * m * k, m, k,
-                      blockIdx.y * BM + threadIdx.x / 16);
-  repro::tile_gemm<BM, BN>(lda, b + g * k * n, bias, c + g * m * n, m, n, k,
-                           relu);
+  repro::tile_gemm_async<BM, BN>(
+      repro::DenseA{a + g * m * k, m, k}, b + g * k * n,
+      repro::F32Flush{bias, c + g * m * n, n, relu}, m, n, 0, k, vec);
 }
 
 }  // namespace
@@ -172,17 +178,18 @@ extern "C" int gemm_i8(const void* a, const void* b, const void* scale,
 
 // C[g] (m, n) = epilogue(A[g] (m, k) · B[g] (k, n) [+ bias (n)]) for
 // g < groups; A (groups, m, k), B (groups, k, n), C (groups, m, n), all f32,
-// contiguous, on the current device. bias may be NULL. (tile_m, tile_n)
-// must be an instantiated tile: 64 or 128 each. Returns cudaGetLastError().
+// contiguous, on the current device, C 16-byte aligned. bias may be NULL.
+// (tile_m, tile_n) must be an instantiated tile: 64 or 128 each. vec:
+// n % 4 == 0 and B 16-byte aligned. Returns cudaGetLastError().
 extern "C" int batched_gemm_f32(const void* a, const void* b,
                                 const void* bias, void* c, int groups, int m,
                                 int n, int k, int tile_m, int tile_n,
-                                int relu, void* stream) {
+                                int relu, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   REPRO_DISPATCH_TILE(batched_gemm_f32_kernel, tile_m, tile_n, m, n, groups,
                       s, static_cast<const float*>(a),
                       static_cast<const float*>(b),
                       static_cast<const float*>(bias), static_cast<float*>(c),
-                      m, n, k, relu);
+                      m, n, k, relu, vec);
   return (int)cudaGetLastError();
 }

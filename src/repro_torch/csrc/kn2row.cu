@@ -87,16 +87,17 @@ __global__ void __launch_bounds__(repro::kThreads)
   const int s = blockIdx.z % splits;
   // The same A (x2d) for every g; w offset by g.
   const float* wg = w + g * k * n;
+  const repro::DenseA src{x, m, k};
   if (splits == 1) {
     repro::tile_gemm_async<BM, BN>(
-        x, wg, repro::F32Flush{nullptr, p + g * m * n, n, 0}, m, n, k, 0, k,
+        src, wg, repro::F32Flush{nullptr, p + g * m * n, n, 0}, m, n, 0, k,
         vec);
     return;
   }
   const size_t groups = gridDim.z / splits;
   const int depth = repro::slice_depth(k, splits);
   repro::tile_gemm_async<BM, BN>(
-      x, wg, repro::RawF32Flush{work + (s * groups + g) * m * n, n}, m, n, k,
+      src, wg, repro::RawF32Flush{work + (s * groups + g) * m * n, n}, m, n,
       s * depth, min(k, (s + 1) * depth), vec);
 }
 

@@ -1,9 +1,9 @@
-// One block's share of C = flush(A · B) — the single-stage tile loop of
-// batched_gemm_f32 (gemm.cu), conv_im2col_f32 and conv_im2col_i8
-// (conv_im2col.cu), in IEEE f32 or in int8 with exact int32 sums. gemm_f32
-// and unit_conv_gemms_f32 run the two-stage cp.async loop with split K of
-// tile_gemm_async.cuh, gemm_i8 and unit_conv_gemms_i8 the int8 tensor
-// cores (tile_mma_i8.cuh); both use the flush policies below.
+// One block's share of C = flush(A · B) for int8 A and B with exact int32
+// sums: the single-stage tile loop of conv_im2col_i8 (conv_im2col.cu). The
+// f32 kernels run the two-stage cp.async loop of tile_gemm_async.cuh,
+// gemm_i8 and unit_conv_gemms_i8 the int8 tensor cores (tile_mma_i8.cuh);
+// every loop uses the flush policies, the chunk depth kBK and the tile
+// dispatch defined here.
 //
 // A block of 256 threads (16 x 16) owns a BM x BN tile of C. K is walked in
 // 16-deep chunks staged through shared memory: A's chunk is stored
@@ -14,20 +14,19 @@
 // coalesced along N. Ragged M, N and K edges are masked here (loads of 0,
 // stores skipped), so callers never pad operands.
 //
-// Operand types. f32 operands are staged as float and summed with IEEE
-// fmaf. int8 operands (conv_im2col_i8's gathered Toeplitz entries) are
-// widened to int when they are staged (shared memory holds the same
-// 4-byte words either way), multiplied with IMAD and summed in int32:
-// exact, so the K order does not matter. The caller's K bound
+// Operand types. The int8 operands (conv_im2col_i8's gathered Toeplitz
+// entries and its weights) are widened to int when they are staged
+// (shared memory holds 4-byte words), multiplied with IMAD and summed in
+// int32: exact, so the K order does not matter. The caller's K bound
 // (K · 127² < 2^31) keeps the sum in range.
 //
 // Where A comes from is the caller's policy: ALoader::begin_chunk(gk) sets
 // the A column this thread loads for the chunk (gk = k0 + tid % 16), and
 // ALoader::load(r) returns A[m0 + tid / 16 + 16 r][gk] widened to
-// ALoader::value_type, or 0 out of range. batched_gemm_f32 reads a dense
-// row-major A; conv_im2col.cu gathers A's entries (the Toeplitz matrix) straight
-// from the NHWC input. Where C goes is the Flush policy: flush(gm, gn, acc)
-// is called once per in-range output element after the K loop.
+// ALoader::value_type, or 0 out of range; conv_im2col.cu gathers A's
+// entries (the Toeplitz matrix) straight from the NHWC input. Where C goes
+// is the Flush policy: flush(gm, gn, acc) is called once per in-range
+// output element after the K loop.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,11 +37,6 @@ namespace repro {
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kBK = 16;        // depth of one shared-memory K chunk
 constexpr int kInt8Max = 127;  // symmetric int8: [-127, 127]
-
-__device__ __forceinline__ float mac(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ int mac(int a, int b, int c) { return a * b + c; }
 
 template <int BM, int BN, class ALoader, class BT, class Flush>
 __device__ __forceinline__ void tile_gemm_flush(ALoader& lda,
@@ -96,7 +90,7 @@ __device__ __forceinline__ void tile_gemm_flush(ALoader& lda,
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = mac(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] += av[i] * bv[j];
     }
     __syncthreads();
   }
@@ -174,33 +168,6 @@ struct RawI32Flush {
 
   __device__ __forceinline__ void operator()(int gm, int gn, int acc) const {
     c[(size_t)gm * n + gn] = acc;
-  }
-};
-
-// The f32 GEMM with the fused bias/ReLU flush.
-template <int BM, int BN, class ALoader>
-__device__ __forceinline__ void tile_gemm(ALoader& lda,
-                                          const float* __restrict__ b,
-                                          const float* __restrict__ bias,
-                                          float* __restrict__ c, int m, int n,
-                                          int k, int relu) {
-  tile_gemm_flush<BM, BN>(lda, b, F32Flush{bias, c, n, relu}, m, n, k);
-}
-
-// Dense row-major f32 A (m, k): the ALoader of batched_gemm_f32.
-struct DenseF32 {
-  using value_type = float;
-  const float* __restrict__ a;
-  int m, k, row0, gk;
-
-  __device__ DenseF32(const float* a_, int m_, int k_, int row0_)
-      : a(a_), m(m_), k(k_), row0(row0_), gk(0) {}
-
-  __device__ __forceinline__ void begin_chunk(int gk_) { gk = gk_; }
-
-  __device__ __forceinline__ float load(int r) const {
-    const int gm = row0 + 16 * r;
-    return (gm < m && gk < k) ? a[(size_t)gm * k + gk] : 0.f;
   }
 };
 

@@ -1,8 +1,9 @@
 // One block's BM x BN tile of C = flush(A[:, k0:k1] · B[k0:k1, :]) for
-// [k0, k1) = [k_begin, k_end) and dense row-major f32 A (m, k) and B (k,
-// n), summed with IEEE fmaf: the mainloop of gemm.cu's gemm_f32 and
-// kn2row.cu's unit_conv_gemms_f32, and the fixed-order reduce of their K
-// slices.
+// [k0, k1) = [k_begin, k_end), f32 A (m, k) from the caller's A source and
+// dense row-major f32 B (k, n), summed with IEEE fmaf: the mainloop of
+// gemm.cu's gemm_f32 and batched_gemm_f32, kn2row.cu's unit_conv_gemms_f32
+// (dense A) and conv_im2col.cu's conv_im2col_f32 (A gathered from an NHWC
+// map), and the fixed-order reduce of their K slices.
 //
 // Threads. 256 threads (16 x 16, tx = tid % 16, ty = tid / 16) each own a
 // (BM/16) x (BN/16) register micro-tile (8 x 8 at 128 x 128) in groups of
@@ -20,11 +21,24 @@
 //
 // A is read transposed, As[k][m], and cp.async cannot transpose, so A goes
 // in as one 4-byte cp.async per element: a warp copies 8 consecutive k of 4
-// consecutive rows (32-byte runs of global memory), and the rows of As are
-// padded from BM to BM + 4 floats, so those 32 stores fall in 32 distinct
-// banks and every row still starts on 16 bytes for the float4 reads. (The
-// other layout, As[m][k] by 16-byte copies, would make the inner product
-// read A one float at a time: 8 LDS.32 for 64 FMAs instead of 2 LDS.128.)
+// consecutive rows, and the rows of As are padded from BM to BM + 4 floats,
+// so those 32 stores fall in 32 distinct banks and every row still starts
+// on 16 bytes for the float4 reads. (The other layout, As[m][k] by 16-byte
+// copies, would make the inner product read A one float at a time: 8
+// LDS.32 for 64 FMAs instead of 2 LDS.128.) Each thread copies A rows
+// m0 + row + 32 i (i < BM / 32, row = tid / 8) at chunk columns
+// k0 + col + 8 j (j < 2, col = tid % 8). Where those elements come from
+// is the A source's policy (DenseA below; conv_im2col.cu's NHWC gather):
+//   ASrc::Rows<BM / 32> rows(src, m0, row, col)  once per block: the
+//                                    thread's row state;
+//   rows.begin_chunk(k0, k_end)      once per chunk, before its copies:
+//                                    the column state;
+//   rows.in(i, j, k0, k_end)         whether element (i, j) is in A and in
+//                                    the K slice;
+//   rows.at(i, j, k0)                its address, copied only when in;
+//   rows.a                           a valid address, the source of the
+//                                    4-byte zero-fill of an element out
+//                                    of range.
 // B is (k, n) with n contiguous: 16-byte cp.async when the entry point
 // found n % 4 == 0 and B 16-byte aligned (vec), else 4-byte copies.
 // Ragged M, K and N edges are zero-filled through cp.async's src-size
@@ -118,11 +132,41 @@ __device__ __forceinline__ F32Stages<BM, BN>& f32_stages() {
   return sm;
 }
 
-template <int BM, int BN, bool kVec, class Flush>
+// Dense row-major f32 A (m, k) as the loop's A source.
+struct DenseA {
+  const float* __restrict__ a;
+  int m, k;
+
+  template <int R>
+  struct Rows {
+    const float* __restrict__ a;       // A itself: the zero-fill's source
+    const float* __restrict__ corner;  // &A[m0 + row][col]
+    int k, rows_left, col;  // row m0 + row + 32 i is in A: 32 i < rows_left
+
+    // rows_left as m - m0 - row: the association the f32 GEMMs were tuned
+    // with (ptxas allocates registers differently for m - (m0 + row)).
+    __device__ __forceinline__ Rows(const DenseA& s, int m0, int row,
+                                    int col_)
+        : a(s.a), corner(s.a + (size_t)(m0 + row) * s.k + col_), k(s.k),
+          rows_left(s.m - m0 - row), col(col_) {}
+
+    __device__ __forceinline__ void begin_chunk(int, int) {}
+
+    __device__ __forceinline__ bool in(int i, int j, int k0,
+                                       int k_end) const {
+      return 32 * i < rows_left && k0 + col + 8 * j < k_end;
+    }
+
+    __device__ __forceinline__ const float* at(int i, int j, int k0) const {
+      return corner + (size_t)(32 * i) * k + k0 + 8 * j;
+    }
+  };
+};
+
+template <int BM, int BN, bool kVec, class ASrc, class Flush>
 __device__ __forceinline__ void tile_gemm_async_loop(
-    F32Stages<BM, BN>& sm, const float* __restrict__ a,
-    const float* __restrict__ b, const Flush& flush, int m, int n, int k,
-    int k_begin, int k_end) {
+    F32Stages<BM, BN>& sm, const ASrc& asrc, const float* __restrict__ b,
+    const Flush& flush, int m, int n, int k_begin, int k_end) {
   constexpr int TM = BM / 16;                 // rows of the micro-tile
   constexpr int TN = BN / 16;                 // cols of the micro-tile
   constexpr int RA = BM * kBK / kThreads;     // A copies a thread per chunk
@@ -145,20 +189,19 @@ __device__ __forceinline__ void tile_gemm_async_loop(
   const int a_col = tid % 8;
   const int b_row = kVec ? tid / (BN / 4) : tid / BN;
   const int b_col = kVec ? 4 * (tid % (BN / 4)) : tid % BN;
-  const float* __restrict__ a_at = a + (size_t)(m0 + a_row) * k + a_col;
+  typename ASrc::template Rows<BM / 32> a_rows(asrc, m0, a_row, a_col);
   const float* __restrict__ b_at = b + (size_t)b_row * n + n0 + b_col;
-  const int a_rows_left = m - m0 - a_row;  // row a_row + 32 i is in A
   const bool b_in_n = n0 + b_col < n;      // n % 4 == 0 on the vec path
 
   auto load = [&](int stage, int k0) {
+    a_rows.begin_chunk(k0, k_end);
 #pragma unroll
     for (int r = 0; r < RA; ++r) {
       const int i = r % (BM / 32);
       const int j = r / (BM / 32);
-      const bool in = 32 * i < a_rows_left && k0 + a_col + 8 * j < k_end;
+      const bool in = a_rows.in(i, j, k0, k_end);
       cp_async4(&sm.a[stage][a_col + 8 * j][a_row + 32 * i],
-                in ? a_at + (size_t)(32 * i) * k + k0 + 8 * j : a,
-                in ? 4 : 0);
+                in ? a_rows.at(i, j, k0) : a_rows.a, in ? 4 : 0);
     }
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
@@ -242,18 +285,18 @@ __device__ __forceinline__ void tile_gemm_async_loop(
 
 // The mainloop on the B path the entry point chose (vec: n % 4 == 0 and B
 // 16-byte aligned).
-template <int BM, int BN, class Flush>
-__device__ __forceinline__ void tile_gemm_async(const float* __restrict__ a,
+template <int BM, int BN, class ASrc, class Flush>
+__device__ __forceinline__ void tile_gemm_async(const ASrc& asrc,
                                                 const float* __restrict__ b,
                                                 const Flush& flush, int m,
-                                                int n, int k, int k_begin,
-                                                int k_end, int vec) {
+                                                int n, int k_begin, int k_end,
+                                                int vec) {
   F32Stages<BM, BN>& sm = f32_stages<BM, BN>();
   if (vec)
-    tile_gemm_async_loop<BM, BN, true>(sm, a, b, flush, m, n, k, k_begin,
+    tile_gemm_async_loop<BM, BN, true>(sm, asrc, b, flush, m, n, k_begin,
                                        k_end);
   else
-    tile_gemm_async_loop<BM, BN, false>(sm, a, b, flush, m, n, k, k_begin,
+    tile_gemm_async_loop<BM, BN, false>(sm, asrc, b, flush, m, n, k_begin,
                                         k_end);
 }
 

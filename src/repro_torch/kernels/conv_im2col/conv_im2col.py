@@ -7,8 +7,11 @@ chunk of it is gathered from the NHWC input straight into shared memory,
 so device memory sees the input map, the weights and the output once.
 M = B·O1·O2 output pixels, N = Cout, K = K1·K2·Cin. SAME padding (XLA's
 asymmetric split) and the window overhang are predicates in the kernel.
-An int8 map and int8 weights run the int8 kernel: exact int32 sums, then
-dequant (· ``scale``) → bias → ReLU → optional requant at ``out_scale``.
+The f32 kernel splits K on a grid smaller than the card as the f32 GEMM
+does (``split_k``, a workspace of partials summed in a fixed order), so a
+shape gives the same bits on every call. An int8 map and int8 weights run
+the int8 kernel: exact int32 sums, then dequant (· ``scale``) → bias →
+ReLU → optional requant at ``out_scale``.
 ``conv_im2col_call`` launches the kernel for CUDA tensors and runs
 ``conv_plain`` / ``conv_i8_plain`` for CPU tensors; nothing else selects
 between the two.
@@ -26,12 +29,14 @@ from repro_torch.kernels.common import (apply_epilogue, check_int8_depth,
 from repro_torch.kernels.conv_im2col.ref import (conv_geometry,
                                                  conv_via_toeplitz_ref,
                                                  toeplitz_ref)
-from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, check_epilogue,
-                                          check_operand, check_quant_args,
-                                          kernel_tile)
+from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, b_vector_path,
+                                          check_epilogue, check_operand,
+                                          check_quant_args, grid_splits,
+                                          kernel_tile, sm_count,
+                                          split_workspace)
 
 CONV = CudaKernel("conv_im2col", "conv_im2col_f32",
-                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 17
                   + [ctypes.c_void_p])
 CONV_I8 = CudaKernel("conv_im2col", "conv_im2col_i8",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
@@ -78,8 +83,9 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     """out (B, O1, O2, Cout) = epilogue(conv(x (B, H, W, Cin), w
     (K1, K2, Cin, Cout)) [+ bias (Cout,)]).
 
-    f32 operands run ``conv_im2col_f32``. int8 ``x`` and ``w`` run
-    ``conv_im2col_i8``: the exact int32 sum is dequantized by ``scale``
+    f32 operands run ``conv_im2col_f32``, with K = K1·K2·Cin split
+    ``split_k`` ways on a grid smaller than the card. int8 ``x`` and ``w``
+    run ``conv_im2col_i8``: the exact int32 sum is dequantized by ``scale``
     (Cout,) before the epilogue, and ``out_scale`` requantizes the output
     to int8 (else it is f32).
 
@@ -139,7 +145,11 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
         return out
     out = torch.empty((batch, o1, o2, c_out), device=x.device,
                       dtype=torch.float32)
+    k = k1 * k2 * c_in
+    splits = grid_splits(m, c_out, k, (tile_m, tile_n), sm_count(x.device))
+    work = split_workspace(splits, m, c_out, x.device)
     with torch.cuda.device(x.device):
         CONV.launch(x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
-                    *geom, stream)
+                    None if work is None else work.data_ptr(), *geom, splits,
+                    b_vector_path(w, c_out), stream)
     return out

@@ -18,7 +18,8 @@ The f32 GEMM splits K when its grid has fewer blocks than the card has
 SMs (``split_k``): each slice writes its raw partial into a workspace the
 wrapper allocates, and a second kernel of the same entry point sums the
 slices in a fixed order before the epilogue, so a shape gives the same
-bits on every call.
+bits on every call. The batched GEMM never splits: ``split_k`` gives its
+main-path grids one slice (their K is 4-6 chunks deep).
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ GEMM_I8 = CudaKernel("gemm", "gemm_i8",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                      + [ctypes.c_float, ctypes.c_void_p])
 BATCHED_GEMM = CudaKernel("gemm", "batched_gemm_f32",
-                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                           + [ctypes.c_void_p])
 
 _MAX_GRID_Y = 65535
@@ -61,6 +62,14 @@ def split_k(blocks: int, k: int, sms: int) -> int:
     chunks = -(-k // K_CHUNK)
     splits = min(sms // blocks, max(1, chunks // MIN_SLICE_CHUNKS))
     return -(-chunks // -(-chunks // splits))
+
+
+def grid_splits(m: int, n: int, k: int, tile: Tuple[int, int], sms: int,
+                groups: int = 1) -> int:
+    """``split_k`` for a grid of ``groups`` x ⌈m / tile_m⌉ x ⌈n / tile_n⌉
+    output tiles: the K slices an f32 kernel runs for this shape."""
+    blocks = groups * -(-m // tile[0]) * -(-n // tile[1])
+    return split_k(blocks, k, sms)
 
 
 def k_slices(k: int, splits: int) -> List[Tuple[int, int]]:
@@ -227,8 +236,7 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                            float(out_scale or 0.0), stream)
         return out
     out = torch.empty((m, n), device=a.device, dtype=torch.float32)
-    blocks = -(-m // tile_m) * -(-n // tile_n)
-    splits = split_k(blocks, k, sm_count(a.device))
+    splits = grid_splits(m, n, k, (tile_m, tile_n), sm_count(a.device))
     work = split_workspace(splits, m, n, a.device)
     with torch.cuda.device(a.device):
         GEMM.launch(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
@@ -247,9 +255,9 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                       bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C (G, M, N) = epilogue(A (G, M, K) · B (G, K, N) [+ bias (N,)]).
 
-    CUDA tensors launch the batched kernel (one grid layer per g) on the
-    current stream under the tile ``kernel_tile(bm, bn, M, N)``; CPU
-    tensors run ``batched_gemm_plain``."""
+    CUDA tensors launch the batched kernel (one grid layer per g, K not
+    split) on the current stream under the tile ``kernel_tile(bm, bn, M,
+    N)``; CPU tensors run ``batched_gemm_plain``."""
     if a.device.type == "cpu":
         return batched_gemm_plain(a, b, epilogue, bias)
     if a.device.type != "cuda":
@@ -277,6 +285,6 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
         BATCHED_GEMM.launch(a.data_ptr(), b.data_ptr(),
                             None if bias is None else bias.data_ptr(),
                             out.data_ptr(), g, m, n, k, tile_m, tile_n,
-                            int(relu),
-                            torch.cuda.current_stream().cuda_stream)
+                            int(relu), b_vector_path(b, n),
+                            torch.cuda.current_stream(a.device).cuda_stream)
     return out

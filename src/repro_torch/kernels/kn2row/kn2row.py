@@ -34,8 +34,9 @@ from repro_torch.kernels.common import (apply_epilogue, check_int8_depth,
                                         int8_product)
 from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, b_vector_path,
                                           check_epilogue, check_operand,
-                                          check_quant_args, kernel_tile,
-                                          sm_count, split_k, split_workspace)
+                                          check_quant_args, grid_splits,
+                                          kernel_tile, sm_count,
+                                          split_workspace)
 
 UNIT_CONV_GEMMS = CudaKernel("kn2row", "unit_conv_gemms_f32",
                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
@@ -112,8 +113,8 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
                                       p.data_ptr(), g, m, n, k, tile_m,
                                       tile_n, stream)
             return p
-        blocks = g * -(-m // tile_m) * -(-n // tile_n)
-        splits = split_k(blocks, k, sm_count(x2d.device))
+        splits = grid_splits(m, n, k, (tile_m, tile_n), sm_count(x2d.device),
+                             groups=g)
         work = split_workspace(splits, g * m, n, x2d.device)
         UNIT_CONV_GEMMS.launch(x2d.data_ptr(), w.data_ptr(), p.data_ptr(),
                                None if work is None else work.data_ptr(), g,

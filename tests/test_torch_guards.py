@@ -2,6 +2,8 @@
 entry points never fall back to the CPU or to another implementation, and
 what is not ported yet raises instead of running something else."""
 import ast
+import ctypes
+import re
 import shutil
 from pathlib import Path
 
@@ -20,10 +22,14 @@ from repro_torch.core.algorithms import IM2COL, KN2ROW, WINO_2_3
 from repro_torch.kernels.conv_im2col.ref import conv_ref
 from repro_torch.core.layouts import LayoutSpec
 from repro_torch.kernels import build
+from repro_torch.kernels.conv_im2col import conv_im2col as conv_mod
 from repro_torch.kernels.conv_im2col.conv_im2col import conv_im2col_call
+from repro_torch.kernels.gemm import gemm as gemm_mod
 from repro_torch.kernels.gemm.gemm import gemm_call
+from repro_torch.kernels.kn2row import kn2row as kn2row_mod
 from repro_torch.kernels.kn2row.kn2row import (pad_accumulate_call,
                                                unit_conv_gemms_call)
+from repro_torch.kernels.winograd import winograd as winograd_mod
 from repro_torch.kernels.layouts import materialize, restore
 from repro_torch.serving.cnn_engine import CNNServingEngine
 
@@ -147,16 +153,61 @@ def test_library_path_tracks_the_int8_mma_header(monkeypatch, tmp_path):
 
 def test_library_path_tracks_the_async_f32_header(monkeypatch, tmp_path):
     """An edit of tile_gemm_async.cuh, the mainloop and split-K reduce of
-    gemm_f32 and unit_conv_gemms_f32, gives both libraries a new path, so
-    they rebuild."""
+    gemm_f32, batched_gemm_f32, unit_conv_gemms_f32 and conv_im2col_f32,
+    gives their three libraries a new path, so they rebuild; conv_im2col.cu
+    includes the header."""
+    assert '#include "tile_gemm_async.cuh"' in (
+        build.CSRC / "conv_im2col.cu").read_text()
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    before = {name: build.library_path(name) for name in ("gemm", "kn2row")}
+    before = {name: build.library_path(name)
+              for name in ("gemm", "kn2row", "conv_im2col")}
     header = csrc / "tile_gemm_async.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     for name, path in before.items():
         assert build.library_path(name) != path
+
+
+# Every C entry point the wrappers bind, by module.
+CUDA_KERNELS = [k for mod in (gemm_mod, conv_mod, kn2row_mod, winograd_mod)
+                for k in vars(mod).values() if isinstance(k, build.CudaKernel)]
+C_KINDS = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+           ctypes.c_float: "float"}
+
+
+def _c_params(source: str, symbol: str):
+    """The kinds of the parameters of ``extern "C" int symbol(...)`` in
+    csrc/<source>.cu: "pointer" for any ``T*``, else the scalar type."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    sig = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert sig, f"no extern \"C\" {symbol} in {source}.cu"
+    kinds = []
+    for param in sig[1].split(","):
+        param = " ".join(param.split())
+        kinds.append("pointer" if "*" in param else param.split()[-2])
+    return kinds
+
+
+def test_every_kernel_library_entry_is_bound():
+    """The wrappers bind twelve C entry points, and every ``extern "C"``
+    function of csrc/*.cu is one of them."""
+    bound = {(k.source, k.symbol) for k in CUDA_KERNELS}
+    assert len(CUDA_KERNELS) == len(bound) == 12
+    defined = {(path.stem, name) for path in build.CSRC.glob("*.cu")
+               for name in re.findall(r'extern "C" int (\w+)\(',
+                                      path.read_text())}
+    assert defined == bound
+
+
+@pytest.mark.parametrize("kernel", CUDA_KERNELS,
+                         ids=[k.symbol for k in CUDA_KERNELS])
+def test_kernel_argtypes_match_the_c_entry_point(kernel):
+    """ctypes passes each argument as its argtype says, so a wrapper whose
+    argtypes drift from the C parameter list corrupts arguments silently:
+    the counts and the pointer / int / float kinds must match."""
+    assert [C_KINDS[t] for t in kernel.argtypes] == \
+        _c_params(kernel.source, kernel.symbol)
 
 
 def test_unported_algorithms_and_int8_kernels_raise():

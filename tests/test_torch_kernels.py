@@ -19,7 +19,10 @@ from repro.kernels.conv_im2col.ref import toeplitz_ref as jax_toeplitz_ref
 from repro.kernels.gemm.ops import gemm as jax_gemm
 from repro.kernels.layouts import materialize as jax_materialize
 from repro_torch.cnn import layers
+from repro_torch.cnn.models import googlenet, inception_v4, vgg16
+from repro_torch.core.algorithms import AlgoFamily
 from repro_torch.core.cost_model import Dataflow
+from repro_torch.core.dse import identify_parameters
 from repro_torch.core.layouts import LayoutSpec
 from repro_torch.kernels.common import EPILOGUES
 from repro_torch.kernels.conv_im2col.conv_im2col import (conv_im2col_call,
@@ -28,9 +31,10 @@ from repro_torch.kernels.conv_im2col.ops import conv_im2col
 from repro_torch.kernels.conv_im2col.ref import (conv_ref,
                                                  conv_via_toeplitz_ref,
                                                  toeplitz_ref)
+from repro_torch.core.mapper import lower_plan, map_network
 from repro_torch.kernels.gemm.gemm import (K_CHUNK, MIN_SLICE_CHUNKS,
-                                          gemm_call, gemm_plain, k_slices,
-                                          kernel_tile, split_k)
+                                          gemm_call, gemm_plain, grid_splits,
+                                          k_slices, kernel_tile, split_k)
 from repro_torch.kernels.gemm.ops import dataflow_blocks, gemm, toeplitz_gemm
 from repro_torch.kernels.layouts import materialize, restore
 
@@ -131,6 +135,99 @@ def test_split_k_has_no_empty_slice_at_any_depth():
                 slices = k_slices(k, split_k(blocks, k, sms))
                 assert all(b < e for b, e in slices), (blocks, k, sms)
                 assert slices[-1][1] == k
+
+
+H100_SMS = 132
+MODELS = {"googlenet": googlenet, "vgg16": vgg16,
+          "inception_v4": inception_v4}
+
+
+def _lowering(model: str, elide: bool):
+    """The full-width model's exact plan, lowered as the card runs it."""
+    g = MODELS[model]()
+    plan = map_network(g, hw=identify_parameters(g, max_dim=512))
+    return g, lower_plan(g, plan, epilogue="bias_relu", elide=elide)
+
+
+def _conv_kernel_grids(model: str, elide: bool, batch: int):
+    """{layer: (M, N, K, tile)} of every conv the implicit-GEMM conv
+    kernel runs (an im2col layer reading NHWC) at ``batch``."""
+    g, low = _lowering(model, elide)
+    grids = {}
+    for nid, lw in low.items():
+        if lw.algo.family is not AlgoFamily.IM2COL or lw.in_layout:
+            continue
+        c = g.nodes[nid].conv
+        m, n = batch * c.o1 * c.o2, c.c_out
+        bm, bn, _ = dataflow_blocks(lw.dataflow, lw.p1, lw.p2)
+        grids[g.nodes[nid].name] = (m, n, c.k1 * c.k2 * c.c_in,
+                                    kernel_tile(bm, bn, m, n))
+    return grids
+
+
+@pytest.mark.parametrize("model,launches,small", [("googlenet", 57, 12),
+                                                  ("inception_v4", 117, 20)])
+def test_conv_splits_k_on_the_unelided_small_maps(model, launches, small):
+    """Without layout elision every im2col layer runs the conv kernel: 57
+    in GoogleNet, 117 in Inception-v4. At bucket 1 each of those on a 7x7
+    or 8x8 map (M 49 or 64; 12 and 20 layers) has a grid of a few blocks
+    and a K of 800-2880, so the conv splits K as gemm_f32 does, in one
+    wave of slices."""
+    grids = _conv_kernel_grids(model, elide=False, batch=1)
+    assert len(grids) == launches
+    on_small = {name: v for name, v in grids.items() if v[0] <= 64}
+    assert len(on_small) == small
+    for name, (m, n, k, tile) in on_small.items():
+        blocks = -(-m // tile[0]) * -(-n // tile[1])
+        s = grid_splits(m, n, k, tile, H100_SMS)
+        assert blocks <= 4 and 1 < s and blocks * s <= H100_SMS, name
+
+
+@pytest.mark.parametrize("model,stem,blocks", [
+    ("googlenet", (112 * 112, 64, 147), 98),
+    ("vgg16", (224 * 224, 64, 27), 392),
+    ("inception_v4", (149 * 149, 32, 27), 174)])
+def test_conv_does_not_split_the_elided_stems(model, stem, blocks):
+    """With elision the conv kernel runs once per forward, on the image:
+    GoogleNet's 7x7 stem, VGG16's conv0_0, Inception-v4's stem/c1. Their
+    grids fill the card at bucket 1 already (98 blocks for the GoogleNet
+    stem's 147-deep K: 9 chunks, too few for two slices), so no bucket
+    splits them."""
+    for batch in (1, 2, 4, 8):
+        (m, n, k, tile), = _conv_kernel_grids(model, True, batch).values()
+        assert (m, n, k) == (batch * stem[0], stem[1], stem[2])
+        if batch == 1:
+            assert -(-m // tile[0]) * -(-n // tile[1]) == blocks
+        assert grid_splits(m, n, k, tile, H100_SMS) == 1
+
+
+@pytest.mark.parametrize("model", ["vgg16", "inception_v4"])
+def test_batched_gemm_main_path_grids_are_never_split(model):
+    """Every Winograd layer's batched GEMM (G = 36 for F(4,3), M =
+    B · tiles, K = Cin, N = Cout) at buckets 1-8: split_k leaves each at
+    one slice, the grounds for a batched kernel without split K. The
+    smallest grids (Inception-v4's incA layers at bucket 1: 36 blocks)
+    have 4-6 chunks of K, below two slices of MIN_SLICE_CHUNKS."""
+    g, low = _lowering(model, elide=True)
+    smallest = None
+    for batch in (1, 2, 4, 8):
+        for nid, lw in low.items():
+            if lw.algo.family is not AlgoFamily.WINOGRAD:
+                continue
+            c, t = g.nodes[nid].conv, lw.algo.m + lw.algo.r - 1
+            m = batch * -(-c.o1 // lw.algo.m) * -(-c.o2 // lw.algo.m)
+            bm, bn, _ = dataflow_blocks(lw.dataflow, lw.p1, lw.p2)
+            tile = kernel_tile(bm, bn, m, c.c_out)
+            blocks = t * t * -(-m // tile[0]) * -(-c.c_out // tile[1])
+            assert grid_splits(m, c.c_out, c.c_in, tile, H100_SMS,
+                               groups=t * t) == 1, (g.nodes[nid].name, batch)
+            if smallest is None or blocks < smallest[0]:
+                smallest = (blocks, c.c_in, g.nodes[nid].name, batch)
+    if model == "vgg16":
+        assert smallest[:2] == (144, 256)           # conv2_x at bucket 1
+    else:
+        assert smallest[0] == 36 and smallest[3] == 1
+        assert -(-smallest[1] // K_CHUNK) < 2 * MIN_SLICE_CHUNKS
 
 
 def test_gemm_call_validates_epilogue():
