@@ -13,7 +13,7 @@ both matrix products and cuDNN:
    incC's 1x1 at bucket 1 (the deepest splits), operands one float off
    alignment, each with its number of K slices; two calls of a split
    product must be equal bit for bit; phase 1 prints each kernel's ptxas
-   registers, spills and shared memory;
+   registers, spills and shared memory, per template instantiation;
 3. holds the implicit-GEMM conv kernel (the same loop, A gathered from
    NHWC) against its plain version: the GoogleNet stem, a 3x3 SAME, a
    VALID and a 5x5 case, then on every tile the wrapper takes K 27,
@@ -48,14 +48,19 @@ both matrix products and cuDNN:
 10. times the Winograd kernels at VGG16's conv0_1 and conv2_1 (bucket 8)
     beside their bounds, the batched GEMM there and at Inception-v4's
     incA0/b4c (buckets 1 and 8) against ``torch.bmm`` by events and by
-    queued launches, each Winograd layer as the three-kernel sum vs cuDNN
-    vs this port's im2col kernel, and the VGG16 forward per bucket;
+    queued launches, the transforms and their library calls also by
+    profiler device time, each Winograd layer as the three-kernel sum vs
+    cuDNN vs this port's im2col kernel, and the VGG16 forward per bucket;
 11. holds the two kn2row kernels (unit-conv GEMMs, pad-and-accumulate)
     against their plain versions at Inception-v4 shapes (bucket 8), ragged
     tiles, 1x3 / 3x1 SAME pads, G = 1 and all four epilogues, the split
     unit-conv GEMMs (G 3 M 512 K 512 N 256, G 9 on a ragged M) on every
-    tile, bit-identical from call to call, and whole kn2row convs against
-    ``F.conv2d`` on the reference's seven cases at batch 1 and 3;
+    tile, bit-identical from call to call, pad-and-accumulate at the edges
+    of its paths (``PA_EDGE_CASES``: C 30 and p one float off alignment on
+    the one-channel path, batch 1, the generic 1x7 / 7x1 / 5x5 offsets,
+    SAME at stride 2 on an odd map; each case's path printed), and whole
+    kn2row convs against ``F.conv2d`` on the reference's seven cases at
+    batch 1 and 3;
 12. runs full-width Inception-v4 (299x299, scale 1.0, 4/7/3 blocks) under
     its exact plan of 117 im2col + 16 kn2row + 16 Winograd F(4,3) layers,
     kernels vs the plain path on the card, at every bucket with layout
@@ -63,8 +68,12 @@ both matrix products and cuDNN:
     per forward;
 13. serves distinct Inception-v4 requests through ``CNNServingEngine`` and
     checks every result against a per-image plain forward;
-14. times the kn2row kernels at stem/c4, stem/c5 and incC0/b4d (bucket 8)
-    beside their bounds and library calls, each distinct kn2row layer as
+14. times the unit-conv GEMMs at stem/c4, stem/c5 and incC0/b4d (bucket 8)
+    beside their bounds and library calls, pad-and-accumulate at every
+    distinct launch of the f32 forward at buckets 1 and 8
+    (``time_pad_accumulate``: events, queued launches and profiler device
+    time beside the bound and the grouped ``F.conv2d``, and the sums
+    weighted by launches), each distinct kn2row layer as
     the two-kernel sum vs cuDNN vs this port's im2col kernel, the
     Inception-v4 forward per bucket, and every distinct Toeplitz GEMM of
     its f32 lowering at buckets 1 and 8 against ``torch.matmul`` and its
@@ -77,7 +86,8 @@ both matrix products and cuDNN:
     the int8 tensor cores (``csrc/tile_mma_i8.cuh``) at the edges of their
     mma.sync loop on every tile the wrapper takes at each shape: M = K =
     N = 1, ragged fragments, a K one k32 step past a chunk, operands 1
-    byte off alignment, +-127 at the deepest K. The GEMM and the unit-conv
+    byte off alignment, +-127 at the deepest K, and the int32
+    pad-and-accumulate at ``PA_EDGE_CASES``. The GEMM and the unit-conv
     GEMMs must equal their plain versions bit for bit, f32 outputs
     included; the convs' f32 outputs within 1e-4, their int32 and int8
     ones exactly;
@@ -91,8 +101,9 @@ both matrix products and cuDNN:
     the launches of all twelve kernels per forward as the lowering gives
     them and the logits against the f32 plan (``INT8_VS_F32``, set from
     the JAX reference's own int8-vs-f32 reading), and times the int8
-    kernels (beside their bounds and cuBLASLt's int8 GEMM) and the
-    forward;
+    kernels (beside their bounds and cuBLASLt's int8 GEMM; the int32
+    pad-and-accumulate also at stem/c4 and stem/c5 with f32 and int8
+    outputs) and the forward;
 18. serves distinct Inception-v4 requests through ``CNNServingEngine``
     with the gate's ``act_scales`` and checks every result against a
     per-image plain forward.
@@ -277,20 +288,37 @@ def device_time(fn, reps: int = 1):
     return sum(groups.values()), split, groups
 
 
+def kernel_name(mangled: str) -> str:
+    """``name<A, B, ...>`` of a mangled kernel symbol: the nested names
+    (``_ZN<len><namespace><len><name>``, the anonymous namespace included)
+    are read by their lengths up to the one ending in ``_kernel``, then its
+    integer template arguments (``I Li3E Li3E ... E``)."""
+    import re
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while True:
+        size = re.match(r"\d+", mangled[pos:])
+        if size is None:
+            return mangled
+        start = pos + len(size[0])
+        pos = start + int(size[0])
+        ident = mangled[start:pos]
+        if ident.endswith("_kernel"):
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[pos:])
+            return ident + ("" if args is None else "<" + ", ".join(
+                re.findall(r"Li(\d+)E", args[1])) + ">")
+
+
 def ptxas_report(log: str):
     """[(kernel, "R registers, S B spill stores, M B smem")] from nvcc's
-    ``-Xptxas -v`` output, one per compiled kernel, the kernel named as
-    ``name<BM, BN>`` where it is a tile template."""
+    ``-Xptxas -v`` output, one per compiled kernel, the kernel named with
+    its integer template arguments (``name<BM, BN>`` for a tile template,
+    ``name<K1, K2, V>`` for pad-and-accumulate)."""
     import re
     rows, kernel, spill = [], "?", "?"
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
-            name = re.search(r"([a-z][a-z0-9_]*_kernel)(?:ILi(\d+)E(?:Li"
-                             r"(\d+)E)?)?", entry[1])
-            args = [] if name is None else [v for v in name.groups()[1:] if v]
-            kernel = (entry[1] if name is None else name[1] + (
-                f"<{', '.join(args)}>" if args else ""))
+            kernel = kernel_name(entry[1])
         stores = re.search(r"(\d+) bytes spill stores", line)
         if stores:
             spill = stores[1]
@@ -309,6 +337,193 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
+
+
+# Inception-v4's distinct kn2row layer shapes at full width: (map, K1, K2,
+# stride, padding, Cin, Cout).
+KN2ROW_LAYERS = {
+    "stem/c4": (147, 3, 3, 2, "VALID", 64, 96),
+    "stem/c5": (71, 3, 3, 2, "VALID", 192, 192),
+    "redA/b2": (35, 3, 3, 2, "VALID", 384, 384),
+    "redA/b3a": (35, 1, 1, 1, "SAME", 384, 192),
+    "incC/b3b": (8, 1, 3, 1, "SAME", 384, 256),
+    "incC/b3c": (8, 3, 1, 1, "SAME", 384, 256),
+    "incC/b4d": (8, 3, 1, 1, "SAME", 512, 256),
+    "incC/b4e": (8, 1, 3, 1, "SAME", 512, 256),
+}
+# The distinct pad_accumulate launches of the f32 Inception-v4 forward
+# (p's shape does not depend on Cin) and their launches per forward:
+# incC/b3b stands for the six 1x3 launches of the three Inception-C
+# blocks (b3b, b4e), incC/b4d for the six 3x1 (b3c, b4d).
+PAD_ACCUMULATE_LAUNCHES = {"stem/c4": 1, "stem/c5": 1, "redA/b2": 1,
+                           "redA/b3a": 1, "incC/b3b": 6, "incC/b4d": 6}
+
+
+def pad_accumulate_geometry(label: str):
+    """(p's shape (G, 1, H, W, C) for batch 1, the geometry keywords of
+    ``pad_accumulate_call``) of Inception-v4's kn2row layer ``label``."""
+    from repro_torch.kernels.conv_im2col.ref import conv_geometry
+    hw, k1, k2, stride, pad, _, c = KN2ROW_LAYERS[label]
+    o1, o2, pt, _, pl, _ = conv_geometry(hw, hw, k1, k2, stride, pad)
+    return (k1 * k2, 1, hw, hw, c), dict(k1=k1, k2=k2, o1=o1, o2=o2,
+                                          stride=stride, pad_top=pt,
+                                          pad_left=pl)
+
+
+def pad_accumulate_reads(p5, geo) -> int:
+    """The values of p the sum needs: for each offset, the in-map rows and
+    columns its strided window touches."""
+    _, batch, h, w, c = p5.shape
+    n = 0
+    for g in range(geo["k1"] * geo["k2"]):
+        dk1, dk2 = divmod(g, geo["k2"])
+        rows = sum(0 <= geo["stride"] * y + dk1 - geo["pad_top"] < h
+                   for y in range(geo["o1"]))
+        cols = sum(0 <= geo["stride"] * x + dk2 - geo["pad_left"] < w
+                   for x in range(geo["o2"]))
+        n += rows * cols
+    return n * batch * c
+
+
+def time_pad_accumulate(kn2, label: str, bsz: int, rng, quant=None,
+                        plain: bool = False) -> dict:
+    """One main-path pad_accumulate launch, Inception-v4's ``label`` at
+    batch ``bsz`` with the bias epilogue, p drawn on the card from the CUDA
+    generator ``rng``: f32, or, with ``quant`` "f32" or "int8", int32
+    partials flushed to that output. ``kn2`` is the kn2row wrapper module
+    of the tree under test. The kernel is held to its plain version
+    (rtol/atol 1e-4; int8 outputs exactly), then timed by CUDA events, by
+    queued launches and by profiler device time beside its bound; an f32
+    p also beside the library call, one grouped ``F.conv2d`` over p as (B,
+    C·G, H, W) with a one-hot (C, G, K1, K2) weight, groups=C (cuDNN, no
+    TF32), by events and by profiler device time. ``plain`` adds the plain
+    version's time by events. Returns the numbers as a dict."""
+    import torch
+    import torch.nn.functional as F
+    shape, geo = pad_accumulate_geometry(label)
+    g, _, hw, _, c = shape
+    dev = rng.device
+    bias = torch.randn(c, generator=rng, device=dev) * 0.1
+    kw = dict(epilogue="bias", bias=bias, **geo)
+    if quant is None:
+        p = torch.randn((g, bsz, hw, hw, c), generator=rng, device=dev)
+    else:
+        p = torch.randint(-30000, 30000, (g, bsz, hw, hw, c), generator=rng,
+                          device=dev, dtype=torch.int32)
+        kw.update(scale=(torch.rand(c, generator=rng, device=dev) + 0.5)
+                  / 3e4, out_scale=None if quant == "f32" else 0.05)
+
+    def kern():
+        return kn2.pad_accumulate_call(p, **kw)
+
+    want = kn2.pad_accumulate_plain(p, **kw)
+    row = dict(max_abs_err=check_close(
+        f"pad_accumulate {label} b{bsz} {quant or 'f32 p'} timed", kern(),
+        want, **(EXACT if quant == "int8" else KERNEL_TOL)))
+    n_out = bsz * geo["o1"] * geo["o2"] * c
+    out_bytes = 1 if quant == "int8" else 4
+    if quant is None:
+        row["bound_ms"], row["bound_by"] = bound(
+            1.0 * g * n_out, 4.0 * (pad_accumulate_reads(p, geo) + c)
+            + out_bytes * n_out)
+    else:
+        row["bound_ms"], row["bound_by"] = bound(
+            1.0 * g * n_out, 4.0 * pad_accumulate_reads(p, geo) + 8.0 * c
+            + out_bytes * n_out, PEAK_INT8_OPS)
+    row.update(ms=time_ms(kern), queued_ms=queued_ms(kern),
+               device_ms=device_time(kern, reps=20)[0])
+    if plain:
+        row["plain_ms"] = time_ms(lambda: kn2.pad_accumulate_plain(p, **kw))
+    if quant is None:
+        p_nchw = p.permute(1, 4, 0, 2, 3).reshape(bsz, c * g, hw, hw
+                                                  ).contiguous()
+        onehot = torch.zeros(c, g, geo["k1"], geo["k2"], device=dev)
+        for gg in range(g):
+            onehot[:, gg, gg // geo["k2"], gg % geo["k2"]] = 1.0
+
+        def grouped():
+            return F.conv2d(p_nchw, onehot, bias, stride=geo["stride"],
+                            padding=(geo["pad_top"], geo["pad_left"]),
+                            groups=c)
+
+        check_close(f"grouped F.conv2d pad_accumulate {label} b{bsz}",
+                    grouped().permute(0, 2, 3, 1), want, **KERNEL_TOL)
+        row.update(library_ms=time_ms(grouped),
+                   library_device_ms=device_time(grouped, reps=20)[0])
+    return row
+
+
+# The edges of the pad_accumulate kernels' paths: (label, p (G, B, H, W,
+# C), K1, K2, stride, padding). C 30 and a p one element off 16-byte
+# alignment take the one-channel path; batch 1 at redA/b2's shape, the
+# generic offsets 1x7, 7x1 and 5x5, and SAME at stride 2 on an odd map
+# (pads on both sides) the vector one.
+PA_EDGE_CASES = [("C 30", (9, 2, 13, 13, 30), 3, 3, 1, "SAME"),
+                 ("p offset", (9, 2, 13, 13, 96), 3, 3, 1, "SAME"),
+                 ("batch 1", (9, 1, 35, 35, 384), 3, 3, 2, "VALID"),
+                 ("1x7", (7, 2, 17, 17, 64), 1, 7, 1, "SAME"),
+                 ("7x1", (7, 2, 17, 17, 64), 7, 1, 1, "SAME"),
+                 ("5x5", (25, 2, 17, 17, 64), 5, 5, 1, "SAME"),
+                 ("s2 SAME odd", (9, 2, 15, 15, 64), 3, 3, 2, "SAME")]
+
+
+def check_pad_accumulate_edges(kn2, rng, quant: bool):
+    """pad_accumulate at PA_EDGE_CASES under all four epilogues against
+    its plain version, p drawn on the card from the CUDA generator
+    ``rng``: f32 p within rtol/atol 1e-4, or int32 p with f32 outputs
+    within 1e-4 and requantized int8 ones (at 0.05) exactly. Returns
+    [(case, path the wrapper took, {"f32": max|diff|, "int8": ...})]."""
+    import torch
+    from repro_torch.kernels.conv_im2col.ref import conv_geometry
+    dev = rng.device
+    rows = []
+    for label, shape, k1, k2, stride, pad in PA_EDGE_CASES:
+        _, _, h, w, c = shape
+        o1, o2, pt, _, pl, _ = conv_geometry(h, w, k1, k2, stride, pad)
+        geo = dict(k1=k1, k2=k2, o1=o1, o2=o2, stride=stride, pad_top=pt,
+                   pad_left=pl)
+        if quant:
+            p = torch.randint(-30000, 30000, shape, generator=rng,
+                              device=dev, dtype=torch.int32)
+            scale = (torch.rand(c, generator=rng, device=dev) + 0.5) / 3e4
+        else:
+            p, scale = torch.randn(shape, generator=rng, device=dev), None
+        if label == "p offset":
+            buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=dev)
+            buf[1:].copy_(p.reshape(-1))
+            p = buf[1:].view(shape)
+        bias = torch.randn(c, generator=rng, device=dev) * 0.1
+        errs = {}
+        for ep in ("none", "relu", "bias", "bias_relu"):
+            for out_scale in (None, 0.05) if quant else (None,):
+                kw = dict(epilogue=ep, bias=bias, scale=scale,
+                          out_scale=out_scale, **geo)
+                got = kn2.pad_accumulate_call(p, **kw)
+                torch.cuda.synchronize()
+                key = "f32" if out_scale is None else "int8"
+                errs[key] = max(errs.get(key, 0.0), check_close(
+                    f"pad_accumulate {label} {ep} {p.dtype} -> {key}", got,
+                    kn2.pad_accumulate_plain(p, **kw),
+                    **(KERNEL_TOL if out_scale is None else EXACT)))
+        path = ("vector" if kn2.accumulate_vector_path(p, got) else
+                "one-channel") + (" unrolled" if (k1, k2) in
+                                  kn2.UNROLLED_OFFSETS else " generic")
+        rows.append(((label, shape, k1, k2, stride, pad), path, errs))
+    return rows
+
+
+def pad_accumulate_text(label: str, bsz: int, row: dict) -> str:
+    """One line of ``time_pad_accumulate``'s numbers."""
+    lib = ("" if "library_ms" not in row else
+           f"; grouped F.conv2d (cuDNN, no TF32) {row['library_ms']:.4f} ms "
+           f"(profiler {row['library_device_ms']:.4f})")
+    plain = ("" if "plain_ms" not in row else
+             f", plain {row['plain_ms']:.4f} ms")
+    return (f"{label} b{bsz}: kernel {row['ms']:.4f} ms (queued "
+            f"{row['queued_ms']:.4f}, profiler {row['device_ms']:.4f}), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+            f"{100 * row['bound_ms'] / row['queued_ms']:.0f}% of it queued)"
+            f"{plain}{lib}; max|diff| {row['max_abs_err']:.3e}")
 
 
 def main() -> int:
@@ -951,12 +1166,16 @@ def main() -> int:
         for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
             k_ms, p_ms = time_ms(kern), time_ms(plain)
             l_ms = time_ms(lib[1]) if lib is not None else None
+            # Kernel and library also on one measure: profiler device time.
+            k_dev = device_time(kern, reps=20)[0]
             wino_times[(name, label)] = (k_ms, p_ms, l_ms, b_ms, b_by)
-            lib_txt = (f"{lib[0]} {l_ms:.4f} ms" if lib is not None
-                       else "library: none")
+            lib_txt = ("library: none" if lib is None else
+                       f"{lib[0]} {l_ms:.4f} ms (profiler "
+                       f"{device_time(lib[1], reps=20)[0]:.4f})")
             print(f"[10] {name} {label} b{bsz} F({m},3): kernel "
-                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, {lib_txt}, bound "
-                  f"{b_ms:.4f} ms ({b_by})")
+                  f"{k_ms:.4f} ms (profiler {k_dev:.4f}), plain {p_ms:.4f} "
+                  f"ms, {lib_txt}, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{100 * b_ms / k_dev:.0f}% of it by the profiler)")
 
     # The batched GEMM beside torch.bmm and its bound at VGG16's conv0_1
     # and conv2_1 (bucket 8; their rows of wino_times) and Inception-v4's
@@ -1055,22 +1274,10 @@ def main() -> int:
                 w.permute(3, 2, 0, 1).contiguous())
 
     # ---- 11. kn2row kernels vs plain -----------------------------------
-    # Inception-v4's distinct kn2row layer shapes: (map, K1, K2, stride,
-    # padding, Cin, Cout). Each runs at bucket 8 here.
-    kn2row_layers = {
-        "stem/c4": (147, 3, 3, 2, "VALID", 64, 96),
-        "stem/c5": (71, 3, 3, 2, "VALID", 192, 192),
-        "redA/b2": (35, 3, 3, 2, "VALID", 384, 384),
-        "redA/b3a": (35, 1, 1, 1, "SAME", 384, 192),
-        "incC/b3b": (8, 1, 3, 1, "SAME", 384, 256),
-        "incC/b3c": (8, 3, 1, 1, "SAME", 384, 256),
-        "incC/b4d": (8, 3, 1, 1, "SAME", 512, 256),
-        "incC/b4e": (8, 1, 3, 1, "SAME", 512, 256),
-    }
     kn2_err = {"unit_conv_gemms": {}, "pad_accumulate": {}}
     kn2_inputs = {}
     for label in ("stem/c4", "stem/c5", "incC/b4d", "incC/b4e", "redA/b3a"):
-        hw, k1, k2, stride, pad, c_in, c_out = kn2row_layers[label]
+        hw, k1, k2, stride, pad, c_in, c_out = KN2ROW_LAYERS[label]
         x = randn(8, hw, hw, c_in)
         w = randn(k1, k2, c_in, c_out, scale=(k1 * k2 * c_in) ** -0.5)
         bias = randn(c_out, scale=0.1)
@@ -1096,10 +1303,20 @@ def main() -> int:
                 **KERNEL_TOL))
         kn2_err["pad_accumulate"][label] = pa_err
         kn2_inputs[label] = (x, w, bias, x2d, wg, p5, geo)
+        path = ("vector" if kn2.accumulate_vector_path(p5, got)
+                else "one-channel")
         print(f"[11] kn2row {label} b8 {hw}x{hw} {k1}x{k2} s{stride} {pad} "
               f"{c_in}->{c_out}: max|diff| vs plain unit_conv_gemms "
               f"{kn2_err['unit_conv_gemms'][label]:.3e}, pad_accumulate "
-              f"{pa_err:.3e} (four epilogues; rtol/atol 1e-4)")
+              f"{pa_err:.3e} (four epilogues, {path} path; rtol/atol 1e-4)")
+    # pad_accumulate_f32 at the edges of its paths (p drawn on the card
+    # from a generator of its own).
+    edge_pa = torch.Generator(device=dev).manual_seed(23)
+    for (label, shape, k1, k2, stride, pad), path, errs in \
+            check_pad_accumulate_edges(kn2, edge_pa, quant=False):
+        print(f"[11] pad_accumulate_f32 {label} p{shape} {k1}x{k2} s{stride} "
+              f"{pad}, {path} path, four epilogues: max|diff| "
+              f"{errs['f32']:.3e} (rtol/atol 1e-4)")
     a, b = randn(333, 70), randn(3, 70, 100, scale=70 ** -0.5)
     want = kn2.unit_conv_gemms_plain(a, b)
     ucg_ragged = 0.0
@@ -1197,87 +1414,69 @@ def main() -> int:
                            iruns[(True, 1)][1])
 
     # ---- 14. kn2row timings ---------------------------------------------
-    def pad_accumulate_reads(p5, geo):
-        """The values of p the sum needs: for each offset, the in-map rows
-        and columns its strided window touches."""
-        _, batch, h, w, c = p5.shape
-        n = 0
-        for g in range(geo["k1"] * geo["k2"]):
-            dk1, dk2 = divmod(g, geo["k2"])
-            rows = sum(0 <= geo["stride"] * y + dk1 - geo["pad_top"]
-                       < h for y in range(geo["o1"]))
-            cols = sum(0 <= geo["stride"] * x + dk2 - geo["pad_left"]
-                       < w for x in range(geo["o2"]))
-            n += rows * cols
-        return n * batch * c
-
     kn2_times = {}
     for label in ("stem/c4", "stem/c5", "incC/b4d"):
         x, w, bias, x2d, wg, p5, geo = kn2_inputs[label]
         g_, bsz, hw, _, c_out = p5.shape
         m, c_in = x2d.shape
-        o1, o2 = geo["o1"], geo["o2"]
-        # The library call for phase 2: one grouped conv over p laid out as
-        # (B, C·G, H, W), channel c·G + g, with a one-hot (C, G, K1, K2)
-        # weight picking offset g's tap, groups=C (built outside the timing).
-        p_nchw = p5.permute(1, 4, 0, 2, 3).reshape(bsz, c_out * g_, hw, hw
-                                                   ).contiguous()
-        onehot = torch.zeros(c_out, g_, geo["k1"], geo["k2"], device=dev)
-        for g in range(g_):
-            onehot[:, g, g // geo["k2"], g % geo["k2"]] = 1.0
-
-        def grouped():
-            return F.conv2d(p_nchw, onehot, bias, stride=geo["stride"],
-                            padding=(geo["pad_top"], geo["pad_left"]),
-                            groups=c_out)
-
-        pa_kw = dict(epilogue="bias", bias=bias, **geo)
-        pa_want = kn2.pad_accumulate_plain(p5, **pa_kw)
-        check_close(f"grouped F.conv2d pad_accumulate {label}",
-                    grouped().permute(0, 2, 3, 1), pa_want, **KERNEL_TOL)
         check_close(f"torch.matmul unit_conv_gemms {label}",
                     torch.matmul(x2d, wg), p5.reshape(g_, m, c_out),
                     **KERNEL_TOL)
-        rows = {
-            "unit_conv_gemms": (
-                lambda: kn2.unit_conv_gemms_call(x2d, wg),
-                lambda: kn2.unit_conv_gemms_plain(x2d, wg),
-                ("torch.matmul (cuBLAS, no TF32)",
-                 lambda: torch.matmul(x2d, wg)),
-                bound(2.0 * g_ * m * c_in * c_out,
-                      4.0 * (m * c_in + g_ * c_in * c_out
-                             + g_ * m * c_out))),
-            "pad_accumulate": (
-                lambda: kn2.pad_accumulate_call(p5, **pa_kw),
-                lambda: kn2.pad_accumulate_plain(p5, **pa_kw),
-                ("grouped F.conv2d (cuDNN, no TF32)", grouped),
-                bound(1.0 * g_ * bsz * o1 * o2 * c_out,
-                      4.0 * (pad_accumulate_reads(p5, geo) + c_out
-                             + bsz * o1 * o2 * c_out))),
-        }
-        for name, (kern, plain, lib, (b_ms, b_by)) in rows.items():
-            k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib[1])
-            kn2_times[(name, label)] = (k_ms, p_ms, l_ms, b_ms, b_by)
-            # Back-to-back launches of a small kernel measure the host's
-            # launch rate; the profiler's kernel rows give the device time
-            # (over 20 calls: a single call's one kernel row can be lost).
-            k_dev, p_dev, l_dev = (device_time(fn, reps=20)[0]
-                                   for fn in (kern, plain, lib[1]))
-            tile = kernel_tile(128, 128, m, c_out)
-            slices = ("" if name != "unit_conv_gemms" else
-                      f" (K slices {splits_of(m, c_out, c_in, tile, g_)})")
-            print(f"[14] {name} {label} b{bsz}{slices}: kernel {k_ms:.4f} "
-                  f"ms, plain {p_ms:.4f} ms, {lib[0]} {l_ms:.4f} ms, bound "
-                  f"{b_ms:.4f} ms ({b_by}); device time of one call "
-                  f"(profiler): kernel {k_dev:.4f}, plain {p_dev:.4f}, "
-                  f"library {l_dev:.4f} ms")
-        del p_nchw
+
+        def kern():
+            return kn2.unit_conv_gemms_call(x2d, wg)
+
+        def lib():
+            return torch.matmul(x2d, wg)
+
+        k_ms, l_ms = time_ms(kern), time_ms(lib)
+        p_ms = time_ms(lambda: kn2.unit_conv_gemms_plain(x2d, wg))
+        b_ms, b_by = bound(2.0 * g_ * m * c_in * c_out,
+                           4.0 * (m * c_in + g_ * c_in * c_out
+                                  + g_ * m * c_out))
+        kn2_times[("unit_conv_gemms", label)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+        # Back-to-back launches of a small kernel measure the host's
+        # launch rate; the profiler's kernel rows give the device time
+        # (over 20 calls: a single call's one kernel row can be lost).
+        k_dev, l_dev = (device_time(fn, reps=20)[0] for fn in (kern, lib))
+        tile = kernel_tile(128, 128, m, c_out)
+        print(f"[14] unit_conv_gemms {label} b{bsz} (K slices "
+              f"{splits_of(m, c_out, c_in, tile, g_)}): kernel {k_ms:.4f} "
+              f"ms, plain {p_ms:.4f} ms, torch.matmul (cuBLAS, no TF32) "
+              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); device time of "
+              f"one call (profiler): kernel {k_dev:.4f}, library "
+              f"{l_dev:.4f} ms")
+
+    # pad_accumulate at every distinct launch of the f32 forward, buckets 1
+    # and 8 (p drawn on the card from a generator of its own), and the
+    # sums weighted by launches per forward.
+    pa_rng = torch.Generator(device=dev).manual_seed(22)
+    for bsz in (1, 8):
+        sums = dict(queued_ms=0.0, bound_ms=0.0, device_ms=0.0,
+                    library_device_ms=0.0)
+        for label, count in PAD_ACCUMULATE_LAUNCHES.items():
+            row = time_pad_accumulate(kn2, label, bsz, pa_rng,
+                                      plain=(label, bsz) == ("stem/c4", 8))
+            for key in sums:
+                sums[key] += count * row[key]
+            if (label, bsz) == ("stem/c4", 8):
+                kn2_times[("pad_accumulate", label)] = tuple(
+                    row[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by"))
+            print(f"[14] pad_accumulate_f32 x{count} "
+                  + pad_accumulate_text(label, bsz, row))
+        gap = sums["queued_ms"] - sums["bound_ms"]
+        print(f"[14] pad_accumulate_f32 b{bsz}, the 16 launches of a "
+              f"forward: queued {sums['queued_ms']:.4f} ms, bound "
+              f"{sums['bound_ms']:.4f} ms, gap {gap:.4f} ms; profiler: "
+              f"kernel {sums['device_ms']:.4f} ms, grouped F.conv2d "
+              f"{sums['library_device_ms']:.4f} ms")
 
     # Per distinct kn2row layer of Inception-v4 at bucket 8: the two
     # kernels (each timed alone, summed) vs cuDNN vs this port's im2col
     # kernel on the same layer, all with bias.
     for label, (hw, k1, k2, stride, pad, c_in, c_out) in \
-            kn2row_layers.items():
+            KN2ROW_LAYERS.items():
         x = randn(8, hw, hw, c_in)
         w = randn(k1, k2, c_in, c_out, scale=(k1 * k2 * c_in) ** -0.5)
         bias = randn(c_out, scale=0.1)
@@ -1501,7 +1700,7 @@ def main() -> int:
     # bucket 8 (int8 kn2row layers of the plan), a ragged problem on every
     # tile.
     for label in ("stem/c4", "incC/b4d"):
-        hw, k1, k2, stride, pad, c_in, c_out = kn2row_layers[label]
+        hw, k1, k2, stride, pad, c_in, c_out = KN2ROW_LAYERS[label]
         x, w = randi8(8, hw, hw, c_in), randi8(k1, k2, c_in, c_out)
         scale = dequant_scale(c_out, k1 * k2 * c_in)
         bias = randn(c_out, scale=0.1)
@@ -1525,12 +1724,18 @@ def main() -> int:
                 **geo), KERNEL_TOL)
         i8_err[("unit_conv_gemms_i8", label)] = {"int32": ucg}
         i8_err[("pad_accumulate_i32", label)] = err
-        i8_inputs[("kn2row_i8", label)] = (x2d, wg, p5, scale, bias, geo)
+        i8_inputs[("kn2row_i8", label)] = (x2d, wg, p5)
         print(f"[15] kn2row int8 {label} b8 {hw}x{hw} {k1}x{k2} s{stride} "
               f"{pad} {c_in}->{c_out}: unit_conv_gemms_i8 int32 p max|diff| "
               f"{ucg:.0f} (exact); pad_accumulate_i32, four epilogues: "
               f"f32 {err['f32']:.3e} (rtol/atol 1e-4), int8 out "
               f"{err['int8']:.0f} (exact)")
+    for (label, shape, k1, k2, stride, pad), path, errs in \
+            check_pad_accumulate_edges(kn2, edge_pa, quant=True):
+        print(f"[15] pad_accumulate_i32 {label} p{shape} {k1}x{k2} s{stride} "
+              f"{pad}, {path} path, four epilogues: max|diff| f32 out "
+              f"{errs['f32']:.3e} (rtol/atol 1e-4), int8 out "
+              f"{errs['int8']:.0f} (exact)")
     # unit_conv_gemms_i8 on every tile the wrapper takes: a ragged problem
     # (the byte-wise path); then, drawn from ``edge``, G 9 on a ragged M
     # (cp.async) and the same operands 1 byte off alignment (byte-wise).
@@ -1660,7 +1865,7 @@ def main() -> int:
         bound(2.0 * bsz * o1 * o2 * c_out * k1 * k2 * c_in,
               x.numel() + w.numel() + 8.0 * c_out
               + 4.0 * bsz * o1 * o2 * c_out, PEAK_INT8_OPS), "stem/c1")
-    x2d, wg, p5, scale, bias, geo = i8_inputs[("kn2row_i8", "stem/c4")]
+    x2d, wg, p5 = i8_inputs[("kn2row_i8", "stem/c4")]
     g_, m, c_in, c_out = wg.shape[0], x2d.shape[0], wg.shape[1], wg.shape[2]
     w_flat = wg.permute(1, 0, 2).reshape(c_in, g_ * c_out).contiguous()
     lib = int_mm(x2d, w_flat)
@@ -1674,14 +1879,6 @@ def main() -> int:
         bound(2.0 * g_ * m * c_in * c_out,
               m * c_in + g_ * c_in * c_out + 4.0 * g_ * m * c_out,
               PEAK_INT8_OPS), "stem/c4")
-    pkw = dict(epilogue="bias_relu", bias=bias, scale=scale, **geo)
-    i8_times["pad_accumulate_i32"] = (
-        lambda p=p5, kw=pkw: kn2.pad_accumulate_call(p, **kw),
-        lambda p=p5, kw=pkw: kn2.pad_accumulate_plain(p, **kw), None,
-        bound(1.0 * g_ * 8 * geo["o1"] * geo["o2"] * c_out,
-              4.0 * (pad_accumulate_reads(p5, geo)
-                     + 8 * geo["o1"] * geo["o2"] * c_out) + 8.0 * c_out,
-              PEAK_INT8_OPS), "stem/c4")
     i8_rows = {}
     for name, (kern, plain, lib, (b_ms, b_by), label) in i8_times.items():
         k_ms, p_ms = time_ms(kern), time_ms(plain)
@@ -1694,6 +1891,20 @@ def main() -> int:
               f"{k_dev:.4f} ms, profiler), plain {p_ms:.4f} ms, {lib_txt}, "
               f"bound {b_ms:.4f} ms ({b_by}; 1,979 TOPS int8, 3.35 TB/s)")
     del i8_times, kern, plain, lib, p5, x2d, wg, w_flat
+    # pad_accumulate_i32 at the gated plan's stride-2 layers, bucket 8, f32
+    # and requantized int8 outputs (p drawn on the card); stem/c4's f32 out
+    # is the kernel's row of the kernels line.
+    for label in ("stem/c4", "stem/c5"):
+        for quant in ("f32", "int8"):
+            row = time_pad_accumulate(kn2, label, 8, pa_rng, quant=quant,
+                                      plain=(label, quant) == ("stem/c4",
+                                                               "f32"))
+            if "plain_ms" in row:
+                i8_rows["pad_accumulate_i32"] = (
+                    row["ms"], row["plain_ms"], None, row["bound_ms"],
+                    row["bound_by"], label)
+            print(f"[17] pad_accumulate_i32 {quant} out "
+                  + pad_accumulate_text(label, 8, row))
 
     for bsz in BUCKETS:
         run_k, run_p, x, _ = qruns[(True, bsz)]

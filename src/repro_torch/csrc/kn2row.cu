@@ -41,16 +41,33 @@
 // s, each slice's raw partial in the workspace (S, G·M, Cout); then
 // unit_conv_gemms_f32_reduce_kernel, launched by the same entry point on
 // the same stream, sums the slices in the order s = 0, 1, … into p: the
-// same bits on every call. Phase 2 runs one thread per output element (b,
-// y, x, c), channel fastest, so each warp's load of one p_g row and its
-// store are 32 consecutive floats. The TPU kernel walks a grid over the
-// offsets with the output resident in VMEM; here the loop over g = 0 …
-// G-1 runs inside the thread with the sum in a register, and
-// bias and ReLU are applied there before the single store. The reference
-// zero-pads p on the host first (another write of p, ~620 MB at stem/c4
-// and batch 8); here a row or column outside [0, H) x [0, W) of the
-// thread's own image is a predicate that adds nothing, so p is never
-// padded and a SAME pad never reads the neighbouring image of the batch.
+// same bits on every call.
+//
+// Phase 2 streams p once and holds nothing for reuse: for one offset each
+// value of p is read by at most one output, so there is no tile for shared
+// memory or TMA to keep, and its time is the bytes it keeps in flight. A
+// thread owns V = 4 consecutive channels of one output pixel (y, x), channel
+// fastest: one 16-byte streaming load (ld.global.cs) of p per offset and one
+// 16-byte store of the output, so a warp's load of one p_g row is 512
+// consecutive bytes. For the (K1, K2) the planner gives the main paths (3x3,
+// 1x3, 3x1, 1x1) the offsets are template parameters: the taps unroll into
+// predicated loads with no branch between them, so loads run ahead of the
+// adds (at 3x3 ptxas issues three 16-byte loads before the first add, 48
+// bytes a thread, where a runtime loop with a branch per tap held one 4-byte
+// load and waited on it). Any other K1 x K2 (a 1x7, a 5x5) runs the generic
+// form, the same code with the offsets in a runtime loop; a C that is not a
+// multiple of 4, or p or out off 16-byte alignment, runs V = 1 (the wrapper
+// chooses: vec). Each thread decodes (b, y, x, channel) once in 32-bit
+// arithmetic: the wrapper keeps every index below 2^31. The TPU kernel walks
+// a grid over the offsets with the output resident in VMEM; here the loop
+// over g = 0 … G-1 runs inside the thread with the sums in registers, in the
+// plain version's order, a tap outside the map adding 0 as the plain
+// version adds F.pad's zeros (so the f32 sums are the plain version's bits),
+// and bias and ReLU are applied there before the single store. The
+// reference zero-pads p on the host first (another write of p, ~620 MB at
+// stem/c4 and batch 8); here a row or column outside [0, H) x [0, W) of the
+// thread's own image is a predicate, so p is never padded and a SAME pad
+// never reads the neighbouring image of the batch.
 //
 // The int8 forms. Phase 1 runs on the int8 tensor cores through
 // tile_mma_i8.cuh (mma.sync m16n8k32 s8, cp.async double buffer), with
@@ -59,10 +76,10 @@
 // with the f32 layout (p is as large as in f32: 597 MB at stem/c4, batch
 // 8, so the store of p bounds it); no scale is applied there, since the
 // per-channel scale is the same for every offset. Phase 2 sums the int32
-// offsets in a register (exact, so any order gives the same sum) and
-// applies the quantized flush of tile_gemm.cuh before its single store,
-// f32 or int8. On the gated Inception-v4 path they run its 15 int8 kn2row
-// layers.
+// offsets in registers (exact, so any order gives the same sum) and
+// applies tile_gemm.cuh's dequant_epilogue and requantize per lane before
+// its single store of 4 lanes, f32 (16 bytes) or int8 (4 bytes). On the
+// gated Inception-v4 path they run its 15 int8 kn2row layers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,76 +138,247 @@ __global__ void __launch_bounds__(repro::kThreads)
                                    n, k, vec);
 }
 
-// One output element (b, y, x, c) per thread: the sum over the K1·K2
-// offsets of p's in-map values, in the order g = 0 … G-1. Returns false
-// for a thread past the end.
-template <class T>
-__device__ __forceinline__ bool accumulate(const T* __restrict__ p, int batch,
-                                           int h, int w, int c, int k1,
-                                           int k2, int o1, int o2, int stride,
-                                           int pad_top, int pad_left,
-                                           long long* index, int* channel,
-                                           T* sum) {
-  const long long total = (long long)batch * o1 * o2 * c;
-  const long long i = (long long)blockIdx.x * kAccThreads + threadIdx.x;
-  if (i >= total) return false;
-  const int ch = (int)(i % c);
-  long long rest = i / c;
-  const int ox = (int)(rest % o2);
-  rest /= o2;
-  const int oy = (int)(rest % o1);
-  const int b = (int)(rest / o1);
+// The geometry of one pad-and-accumulate: p (k1·k2, batch, h, w, c), out
+// (batch, o1, o2, c). Every index into p or out is below 2^31, as the
+// wrapper checks, so the kernels index in 32 bits.
+struct AccGeom {
+  int batch, h, w, c, k1, k2, o1, o2, stride, pad_top, pad_left;
+};
 
-  const size_t plane = (size_t)batch * h * w * c;  // one offset's p_g
-  const T* __restrict__ img = p + (size_t)b * h * w * c + ch;
-  T acc = T(0);
-  for (int dk1 = 0; dk1 < k1; ++dk1) {
-    const int row = stride * oy + dk1 - pad_top;
-    if (row < 0 || row >= h) continue;
-    for (int dk2 = 0; dk2 < k2; ++dk2) {
-      const int col = stride * ox + dk2 - pad_left;
-      if (col < 0 || col >= w) continue;
-      acc += img[(size_t)(dk1 * k2 + dk2) * plane +
-                 ((size_t)row * w + col) * c];
+// V consecutive channels of p at `src`, read once (a streaming load): one
+// 16-byte load for V = 4, or 0 for a tap outside the map.
+__device__ __forceinline__ void load_lanes(const float* src, float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(src));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void load_lanes(const int* src, int (&v)[4]) {
+  const int4 q = __ldcs(reinterpret_cast<const int4*>(src));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+template <class T>
+__device__ __forceinline__ void load_lanes(const T* src, T (&v)[1]) {
+  v[0] = __ldcs(src);
+}
+
+template <class T, int V>
+__device__ __forceinline__ void tap(const T* src, bool in, T (&v)[V]) {
+  if (in) {
+    load_lanes(src, v);
+  } else {
+#pragma unroll
+    for (int l = 0; l < V; ++l) v[l] = T(0);
+  }
+}
+
+// One thread owns V consecutive channels of one output pixel, channel
+// fastest, so output element o = V · thread index. It sums p's K1·K2
+// offsets in the order g = 0 … G-1, a tap outside its own image's (h, w)
+// map adding 0, as the plain version adds F.pad's zeros, and hands the
+// sums to flush(o, first channel, acc). With K1 and K2 known (K1 > 0)
+// the taps unroll into predicated loads, all issued before the adds in
+// program order; K1 = K2 = 0 is the generic form, a loop over the
+// geometry's k1 x k2.
+template <int K1, int K2, int V, class T, class Flush>
+__device__ __forceinline__ void pad_accumulate(const T* __restrict__ p,
+                                               const AccGeom& g,
+                                               const Flush& flush) {
+  // (b, oy, ox, channel vector) of thread i: three 32-bit divisions.
+  const unsigned vecs = g.c / V;  // channel vectors per pixel
+  const unsigned i = blockIdx.x * kAccThreads + threadIdx.x;
+  const unsigned pix = i / vecs;
+  const unsigned row = pix / g.o2;  // b · o1 + oy
+  const unsigned b = row / g.o1;
+  if (b >= (unsigned)g.batch) return;
+  const unsigned ox = pix - row * g.o2;
+  const unsigned oy = row - b * g.o1;
+  const int ch = (i - pix * vecs) * V;
+  const int y0 = g.stride * (int)oy - g.pad_top;
+  const int x0 = g.stride * (int)ox - g.pad_left;
+  const int plane = g.batch * g.h * g.w * g.c;  // one offset's p_g
+  const T* __restrict__ img = p + (int)b * g.h * g.w * g.c + ch;
+
+  T acc[V];
+  if constexpr (K1 > 0) {
+    T v[K1 * K2][V];
+#pragma unroll
+    for (int dk1 = 0; dk1 < K1; ++dk1) {
+#pragma unroll
+      for (int dk2 = 0; dk2 < K2; ++dk2) {
+        const int y = y0 + dk1, x = x0 + dk2;
+        const bool in =
+            (unsigned)y < (unsigned)g.h && (unsigned)x < (unsigned)g.w;
+        tap(img + (dk1 * K2 + dk2) * plane + (in ? (y * g.w + x) * g.c : 0),
+            in, v[dk1 * K2 + dk2]);
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < V; ++l) {
+      acc[l] = v[0][l];
+#pragma unroll
+      for (int j = 1; j < K1 * K2; ++j) acc[l] += v[j][l];
+    }
+  } else {
+    for (int dk1 = 0, j = 0; dk1 < g.k1; ++dk1) {
+      for (int dk2 = 0; dk2 < g.k2; ++dk2, ++j) {
+        const int y = y0 + dk1, x = x0 + dk2;
+        const bool in =
+            (unsigned)y < (unsigned)g.h && (unsigned)x < (unsigned)g.w;
+        T v[V];
+        tap(img + j * plane + (in ? (y * g.w + x) * g.c : 0), in, v);
+#pragma unroll
+        for (int l = 0; l < V; ++l) acc[l] = j == 0 ? v[l] : acc[l] + v[l];
+      }
     }
   }
-  *index = i;
-  *channel = ch;
-  *sum = acc;
-  return true;
+  flush((int)i * V, ch, acc);
 }
 
+// f32 flush of V lanes: bias and ReLU per lane, then one store (16 bytes
+// for V = 4).
+struct F32Lanes {
+  const float* __restrict__ bias;
+  float* __restrict__ out;
+  int relu;
+
+  template <int V>
+  __device__ __forceinline__ void operator()(int o, int ch,
+                                             float (&acc)[V]) const {
+#pragma unroll
+    for (int l = 0; l < V; ++l) {
+      if (bias != nullptr) acc[l] += bias[ch + l];
+      if (relu) acc[l] = acc[l] > 0.f ? acc[l] : 0.f;
+    }
+    if constexpr (V == 4)
+      *reinterpret_cast<float4*>(out + o) =
+          make_float4(acc[0], acc[1], acc[2], acc[3]);
+    else
+      out[o] = acc[0];
+  }
+};
+
+// The quantized flush of V exact int32 sums: tile_gemm.cuh's
+// dequant_epilogue (and requantize for an int8 output) per lane, then one
+// store: a float4, or 4 bytes of int8, for V = 4.
+struct QuantLanes {
+  const float* __restrict__ scale;
+  const float* __restrict__ bias;
+  float* __restrict__ out_f;
+  int8_t* __restrict__ out_q;
+  float out_scale;
+  int relu;
+
+  template <int V>
+  __device__ __forceinline__ void operator()(int o, int ch,
+                                             const int (&acc)[V]) const {
+    float v[V];
+#pragma unroll
+    for (int l = 0; l < V; ++l)
+      v[l] = repro::dequant_epilogue(acc[l], scale[ch + l], bias, ch + l,
+                                     relu);
+    if (out_q != nullptr) {
+      if constexpr (V == 4)
+        *reinterpret_cast<char4*>(out_q + o) = make_char4(
+            repro::requantize(v[0], out_scale),
+            repro::requantize(v[1], out_scale),
+            repro::requantize(v[2], out_scale),
+            repro::requantize(v[3], out_scale));
+      else
+        out_q[o] = repro::requantize(v[0], out_scale);
+    } else {
+      if constexpr (V == 4)
+        *reinterpret_cast<float4*>(out_f + o) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      else
+        out_f[o] = v[0];
+    }
+  }
+};
+
+template <int K1, int K2, int V>
 __global__ void __launch_bounds__(kAccThreads)
-    pad_accumulate_f32_kernel(const float* __restrict__ p,
-                              const float* __restrict__ bias,
-                              float* __restrict__ out, int batch, int h,
-                              int w, int c, int k1, int k2, int o1, int o2,
-                              int stride, int pad_top, int pad_left,
-                              int relu) {
-  long long i;
-  int ch;
-  float acc;
-  if (!accumulate(p, batch, h, w, c, k1, k2, o1, o2, stride, pad_top,
-                  pad_left, &i, &ch, &acc))
-    return;
-  if (bias != nullptr) acc += bias[ch];
-  if (relu) acc = acc > 0.f ? acc : 0.f;
-  out[i] = acc;
+    pad_accumulate_f32_kernel(const float* __restrict__ p, F32Lanes flush,
+                              AccGeom g) {
+  pad_accumulate<K1, K2, V>(p, g, flush);
 }
 
+template <int K1, int K2, int V>
 __global__ void __launch_bounds__(kAccThreads)
-    pad_accumulate_i32_kernel(const int* __restrict__ p,
-                              repro::QuantFlush flush, int batch, int h,
-                              int w, int c, int k1, int k2, int o1, int o2,
-                              int stride, int pad_top, int pad_left) {
-  long long i;
-  int ch;
-  int acc;
-  if (!accumulate(p, batch, h, w, c, k1, k2, o1, o2, stride, pad_top,
-                  pad_left, &i, &ch, &acc))
-    return;
-  // The output viewed as (total / c, c): row i / c, channel ch.
-  flush((int)(i / c), ch, acc);
+    pad_accumulate_i32_kernel(const int* __restrict__ p, QuantLanes flush,
+                              AccGeom g) {
+  pad_accumulate<K1, K2, V>(p, g, flush);
+}
+
+// An entry point's launch: run<K1, K2, V>(blocks) enqueues its kernel's
+// instantiation on one thread per V channels of an output pixel.
+struct F32Launch {
+  const float* p;
+  F32Lanes flush;
+  AccGeom g;
+  cudaStream_t s;
+
+  template <int K1, int K2, int V>
+  void run(unsigned blocks) const {
+    pad_accumulate_f32_kernel<K1, K2, V><<<blocks, kAccThreads, 0, s>>>(
+        p, flush, g);
+  }
+};
+
+struct I32Launch {
+  const int* p;
+  QuantLanes flush;
+  AccGeom g;
+  cudaStream_t s;
+
+  template <int K1, int K2, int V>
+  void run(unsigned blocks) const {
+    pad_accumulate_i32_kernel<K1, K2, V><<<blocks, kAccThreads, 0, s>>>(
+        p, flush, g);
+  }
+};
+
+// The offsets unrolled: 3x3, 1x3, 3x1 and 1x1, the (K1, K2) of every
+// kn2row layer the planner gives the main paths (kernels/kn2row/kn2row.py
+// UNROLLED_OFFSETS lists the same); any other K1 x K2 runs the generic
+// form <0, 0, V>.
+template <int V, class Launch>
+void dispatch_offsets(const Launch& launch) {
+  const AccGeom& g = launch.g;
+  const long long threads = (long long)g.batch * g.o1 * g.o2 * (g.c / V);
+  const unsigned blocks =
+      (unsigned)((threads + kAccThreads - 1) / kAccThreads);
+  if (g.k1 == 3 && g.k2 == 3)
+    launch.template run<3, 3, V>(blocks);
+  else if (g.k1 == 1 && g.k2 == 3)
+    launch.template run<1, 3, V>(blocks);
+  else if (g.k1 == 3 && g.k2 == 1)
+    launch.template run<3, 1, V>(blocks);
+  else if (g.k1 == 1 && g.k2 == 1)
+    launch.template run<1, 1, V>(blocks);
+  else
+    launch.template run<0, 0, V>(blocks);
+}
+
+// V = 4 when vec is nonzero, else 1. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a vector path the operands do not allow.
+template <class Launch>
+int dispatch_accumulate(const Launch& launch, const void* out, int vec) {
+  if (vec) {
+    if (launch.g.c % 4 != 0 || reinterpret_cast<uintptr_t>(launch.p) % 16 ||
+        reinterpret_cast<uintptr_t>(out) % 16)
+      return (int)cudaErrorInvalidValue;
+    dispatch_offsets<4>(launch);
+  } else {
+    dispatch_offsets<1>(launch);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -240,21 +428,21 @@ extern "C" int unit_conv_gemms_i8(const void* x, const void* w, void* p,
 // out (batch, o1, o2, c) = epilogue(Σ_g p[g, b, S·y + k1 - pad_top,
 // S·x + k2 - pad_left, c] [+ bias (c)]) over g = k1·K2 + k2 < K1·K2, rows
 // and columns outside the (h, w) map counting as 0; p (K1·K2, batch, h, w,
-// c), all f32, contiguous, on the current device. bias may be NULL.
-// Returns cudaGetLastError().
+// c), all f32, contiguous, on the current device, every index into p and
+// out below 2^31. bias may be NULL. vec: c % 4 == 0 and p and out 16-byte
+// aligned (4 channels a thread). Returns cudaGetLastError().
 extern "C" int pad_accumulate_f32(const void* p, const void* bias, void* out,
                                   int batch, int h, int w, int c, int k1,
                                   int k2, int o1, int o2, int stride,
                                   int pad_top, int pad_left, int relu,
-                                  void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)batch * o1 * o2 * c;
-  const unsigned blocks = (unsigned)((total + kAccThreads - 1) / kAccThreads);
-  pad_accumulate_f32_kernel<<<blocks, kAccThreads, 0, s>>>(
-      static_cast<const float*>(p), static_cast<const float*>(bias),
-      static_cast<float*>(out), batch, h, w, c, k1, k2, o1, o2, stride,
-      pad_top, pad_left, relu);
-  return (int)cudaGetLastError();
+                                  int vec, void* stream) {
+  const F32Launch launch{
+      static_cast<const float*>(p),
+      F32Lanes{static_cast<const float*>(bias), static_cast<float*>(out),
+               relu},
+      AccGeom{batch, h, w, c, k1, k2, o1, o2, stride, pad_top, pad_left},
+      static_cast<cudaStream_t>(stream)};
+  return dispatch_accumulate(launch, out, vec);
 }
 
 // out (batch, o1, o2, c) = flush(Σ_g p[g, b, S·y + k1 - pad_top,
@@ -263,22 +451,23 @@ extern "C" int pad_accumulate_f32(const void* p, const void* bias, void* out,
 // (h, w) map counting as 0; the flush is v = (float)sum · scale[c]
 // [+ bias[c]] [ReLU], stored as f32, or, when requant is nonzero, as int8:
 // clamp(round-half-even(v / out_scale), ±127). scale (c) f32; bias may be
-// NULL; all contiguous, on the current device. Returns cudaGetLastError().
+// NULL; all contiguous, on the current device, every index into p and out
+// below 2^31. vec: c % 4 == 0 and p and out 16-byte aligned (4 channels a
+// thread). Returns cudaGetLastError().
 extern "C" int pad_accumulate_i32(const void* p, const void* scale,
                                   const void* bias, void* out, int batch,
                                   int h, int w, int c, int k1, int k2, int o1,
                                   int o2, int stride, int pad_top,
                                   int pad_left, int relu, int requant,
-                                  float out_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)batch * o1 * o2 * c;
-  const unsigned blocks = (unsigned)((total + kAccThreads - 1) / kAccThreads);
-  const repro::QuantFlush flush{
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      requant ? nullptr : static_cast<float*>(out),
-      requant ? static_cast<int8_t*>(out) : nullptr, out_scale, c, relu};
-  pad_accumulate_i32_kernel<<<blocks, kAccThreads, 0, s>>>(
-      static_cast<const int*>(p), flush, batch, h, w, c, k1, k2, o1, o2,
-      stride, pad_top, pad_left);
-  return (int)cudaGetLastError();
+                                  float out_scale, int vec, void* stream) {
+  const I32Launch launch{
+      static_cast<const int*>(p),
+      QuantLanes{static_cast<const float*>(scale),
+                 static_cast<const float*>(bias),
+                 requant ? nullptr : static_cast<float*>(out),
+                 requant ? static_cast<int8_t*>(out) : nullptr, out_scale,
+                 relu},
+      AccGeom{batch, h, w, c, k1, k2, o1, o2, stride, pad_top, pad_left},
+      static_cast<cudaStream_t>(stream)};
+  return dispatch_accumulate(launch, out, vec);
 }

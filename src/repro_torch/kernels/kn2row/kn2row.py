@@ -42,16 +42,20 @@ UNIT_CONV_GEMMS = CudaKernel("kn2row", "unit_conv_gemms_f32",
                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                              + [ctypes.c_void_p])
 PAD_ACCUMULATE = CudaKernel("kn2row", "pad_accumulate_f32",
-                            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+                            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
                             + [ctypes.c_void_p])
 UNIT_CONV_GEMMS_I8 = CudaKernel("kn2row", "unit_conv_gemms_i8",
                                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                                 + [ctypes.c_void_p])
 PAD_ACCUMULATE_I32 = CudaKernel("kn2row", "pad_accumulate_i32",
                                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
-                                + [ctypes.c_float, ctypes.c_void_p])
+                                + [ctypes.c_float, ctypes.c_int,
+                                   ctypes.c_void_p])
 
 _INDEX_LIMIT = 2 ** 31
+# The (K1, K2) whose offsets the pad-and-accumulate kernels unroll
+# (csrc/kn2row.cu, dispatch_offsets); any other runs their generic form.
+UNROLLED_OFFSETS = ((3, 3), (1, 3), (3, 1), (1, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +144,14 @@ def _check_geometry(p: torch.Tensor, k1: int, k2: int, o1: int, o2: int,
         raise ValueError(f"negative pad ({pad_top}, {pad_left})")
 
 
+def accumulate_vector_path(p: torch.Tensor, out: torch.Tensor) -> int:
+    """Whether pad_accumulate runs 4 channels a thread (16-byte loads of p
+    and stores of out): C % 4 == 0 and p and out 16-byte aligned (an
+    offset view takes the one-channel path)."""
+    return int(int(p.shape[-1]) % 4 == 0 and p.data_ptr() % 16 == 0
+               and out.data_ptr() % 16 == 0)
+
+
 def pad_accumulate_plain(p: torch.Tensor, *, k1: int, k2: int, o1: int,
                          o2: int, stride: int = 1,
                          pad_top: int = 0, pad_left: int = 0,
@@ -207,6 +219,8 @@ def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
         bias = None
     if bias is not None:
         check_operand("bias", bias, p.device, (c,))
+    if quant:
+        check_operand("scale", scale, p.device, (c,))
     if max(p.numel(), batch * o1 * o2 * c) >= _INDEX_LIMIT:
         raise ValueError("pad_accumulate: tensor too large for 32-bit "
                          "indices")
@@ -214,20 +228,17 @@ def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
             int(relu))
     bias_ptr = None if bias is None else bias.data_ptr()
     stream = torch.cuda.current_stream(p.device).cuda_stream
-    if quant:
-        check_operand("scale", scale, p.device, (c,))
-        out = torch.empty((batch, o1, o2, c), device=p.device,
-                          dtype=torch.float32 if out_scale is None
-                          else torch.int8)
-        with torch.cuda.device(p.device):
+    out = torch.empty((batch, o1, o2, c), device=p.device,
+                      dtype=torch.int8 if out_scale is not None
+                      else torch.float32)
+    vec = accumulate_vector_path(p, out)
+    with torch.cuda.device(p.device):
+        if quant:
             PAD_ACCUMULATE_I32.launch(p.data_ptr(), scale.data_ptr(),
                                       bias_ptr, out.data_ptr(), *geom,
                                       int(out_scale is not None),
-                                      float(out_scale or 0.0), stream)
-        return out
-    out = torch.empty((batch, o1, o2, c), device=p.device,
-                      dtype=torch.float32)
-    with torch.cuda.device(p.device):
-        PAD_ACCUMULATE.launch(p.data_ptr(), bias_ptr, out.data_ptr(), *geom,
-                              stream)
+                                      float(out_scale or 0.0), vec, stream)
+        else:
+            PAD_ACCUMULATE.launch(p.data_ptr(), bias_ptr, out.data_ptr(),
+                                  *geom, vec, stream)
     return out

@@ -210,6 +210,20 @@ def test_kernel_argtypes_match_the_c_entry_point(kernel):
         _c_params(kernel.source, kernel.symbol)
 
 
+def test_unrolled_offsets_match_the_kernels_dispatch():
+    """The wrapper's UNROLLED_OFFSETS (what the CPU tests hold the main
+    paths to) are the (K1, K2) that csrc/kn2row.cu instantiates with its
+    offsets unrolled; every other K1 x K2 takes the generic <0, 0, V>."""
+    text = (build.CSRC / "kn2row.cu").read_text()
+    body = re.search(r"void dispatch_offsets\(.*?\n}\n", text, re.S)[0]
+    pairs = re.findall(r"g\.k1 == (\d+) && g\.k2 == (\d+)\)\s*"
+                       r"launch\.template run<(\d+), (\d+), V>", body)
+    assert all((a, b) == (c, d) for a, b, c, d in pairs)
+    assert [(int(a), int(b)) for a, b, _, _ in pairs] == \
+        list(kn2row_mod.UNROLLED_OFFSETS)
+    assert "launch.template run<0, 0, V>" in body
+
+
 def test_unported_algorithms_and_int8_kernels_raise():
     """Every algorithm and every int8 kernel is ported: kn2row runs on the
     plain backends (CPU tensors) and computes the direct conv; an int8

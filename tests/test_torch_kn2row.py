@@ -32,7 +32,7 @@ from repro_torch.core.algorithms import KN2ROW, AlgoFamily
 from repro_torch.core.cost_model import Dataflow
 from repro_torch.core.dse import identify_parameters
 from repro_torch.core.layouts import LayoutSpec
-from repro_torch.core.mapper import map_network
+from repro_torch.core.mapper import lower_plan, map_network
 from repro_torch.kernels.conv_im2col.ref import conv_geometry, conv_ref
 from repro_torch.kernels.kn2row import kn2row as kn2
 from repro_torch.kernels.kn2row.ops import conv_kn2row
@@ -77,26 +77,35 @@ def test_unit_conv_gemms_plain_matches_reference(gmkn):
         got.numpy(), kn2.unit_conv_gemms_plain(t(x2d), t(w)).numpy())
 
 
-# (H, W, K1, K2, stride, padding): SAME and VALID at stride 1 and 2, the
-# one-dim pads of 1x3 and 3x1, and G = 1.
-PA_CASES = [(9, 9, 3, 3, 1, "SAME"), (9, 9, 3, 3, 1, "VALID"),
-            (10, 9, 3, 3, 2, "SAME"), (11, 11, 3, 3, 2, "VALID"),
-            (8, 8, 1, 3, 1, "SAME"), (8, 8, 3, 1, 1, "SAME"),
-            (7, 7, 1, 1, 1, "SAME")]
+# (H, W, K1, K2, stride, padding, C, batch): SAME and VALID at stride 1
+# and 2, the one-dim pads of 1x3 and 3x1, and G = 1; then the edges of the
+# card kernel's paths: C 30 (one channel a thread), batch 1, the generic
+# offsets 1x7, 7x1 and 5x5 (5x5 at stride 2), and SAME at stride 2 on an
+# odd map (pads on both sides).
+PA_CASES = [(9, 9, 3, 3, 1, "SAME", 6, 2), (9, 9, 3, 3, 1, "VALID", 6, 2),
+            (10, 9, 3, 3, 2, "SAME", 6, 2), (11, 11, 3, 3, 2, "VALID", 6, 2),
+            (8, 8, 1, 3, 1, "SAME", 6, 2), (8, 8, 3, 1, 1, "SAME", 6, 2),
+            (7, 7, 1, 1, 1, "SAME", 6, 2), (9, 9, 3, 3, 1, "SAME", 30, 2),
+            (7, 7, 3, 3, 1, "SAME", 8, 1), (10, 10, 1, 7, 1, "SAME", 8, 2),
+            (10, 10, 7, 1, 1, "SAME", 8, 2), (9, 9, 5, 5, 1, "SAME", 4, 2),
+            (11, 11, 5, 5, 2, "SAME", 4, 2), (9, 9, 3, 3, 2, "SAME", 8, 2)]
+
+
+def pa_id(case):
+    h, w, k1, k2, stride, padding, c, batch = case
+    return (f"{h}x{w}_{k1}x{k2}s{stride}{padding}"
+            + ("" if (c, batch) == (6, 2) else f"_c{c}b{batch}"))
 
 
 @pytest.mark.parametrize("epilogue", EPILOGUES)
-@pytest.mark.parametrize("case", PA_CASES,
-                         ids=[f"{c[0]}x{c[1]}_{c[2]}x{c[3]}s{c[4]}{c[5]}"
-                              for c in PA_CASES])
+@pytest.mark.parametrize("case", PA_CASES, ids=[pa_id(c) for c in PA_CASES])
 def test_pad_accumulate_plain_matches_reference(case, epilogue):
     """The port takes p unpadded, (G, B, H, W, C), and treats rows and
     columns outside each image as 0; the reference takes one image's p
     zero-padded by the caller, as its ``conv_kn2row`` pads it. The epilogue
-    is per channel, so one reference call takes both images side by side
+    is per channel, so one reference call takes the images side by side
     along C."""
-    h, w, k1, k2, stride, padding = case
-    c, batch = 6, 2
+    h, w, k1, k2, stride, padding, c, batch = case
     o1, o2, pt, _, pl, _ = conv_geometry(h, w, k1, k2, stride, padding)
     p, bias = rnd(3, k1 * k2, batch, h, w, c), rnd(4, c)
     use_bias = epilogue.startswith("bias")
@@ -113,6 +122,52 @@ def test_pad_accumulate_plain_matches_reference(case, epilogue):
         bias=jnp.asarray(np.tile(bias, batch)[None]) if use_bias else None)
     np.testing.assert_allclose(
         np.concatenate(list(got.numpy()), axis=-1), np.asarray(ref), **TOL)
+
+
+# (graph, quantize, expected launches, whether every launch has C % 4 ==
+# 0): the full-width model the card runs, width 0.25 at full depth (the
+# int8 deviation table's reduced width), and this file's reduced IV4,
+# whose widths of 19, 38, 51 and 77 channels take the one-channel path.
+PATH_CASES = [(dict(res=299, scale=1.0), False, 16, True),
+              (dict(res=299, scale=1.0), True, 16, True),
+              (dict(res=299, scale=0.25), False, 16, True),
+              (dict(res=299, scale=0.25), True, 16, True),
+              (dict(res=75, scale=0.2, n_a=1, n_b=1, n_c=1), False, 8,
+               False)]
+
+
+@pytest.mark.parametrize(
+    "graph_kw,quantize,launches,vector", PATH_CASES,
+    ids=["full-f32", "full-int8", "w0.25-f32", "w0.25-int8", "reduced-f32"])
+def test_main_path_pad_accumulate_launches_take_the_unrolled_path(
+        graph_kw, quantize, launches, vector):
+    """Every kn2row layer of Inception-v4's elided lowering (f32, or the
+    int8 plan with nothing demoted, as the gate keeps it at full width)
+    runs pad_accumulate on offsets the kernels unroll, and on the vector
+    path where C % 4 == 0: the wrapper's choice for p and out as fresh
+    allocations give them (the allocator aligns them; the kernels' p is
+    unit_conv_gemms' fresh output)."""
+    g = inception_v4(**graph_kw)
+    plan = map_network(g, hw=identify_parameters(g, max_dim=512),
+                       quantize=quantize)
+    low = lower_plan(g, plan, epilogue="bias_relu", elide=True,
+                     act_scales={n.id: 1.0 for n in g.conv_nodes()})
+    paths = collections.Counter()
+    for nid, lw in low.items():
+        if lw.algo.family is not AlgoFamily.KN2ROW:
+            continue
+        conv, i8 = g.nodes[nid].conv, lw.precision == "int8"
+        p = torch.empty((conv.k1 * conv.k2, 1, 1, 1, conv.c_out),
+                        dtype=torch.int32 if i8 else torch.float32)
+        out = torch.empty((1, 1, 1, conv.c_out),
+                          dtype=torch.int8 if i8 else torch.float32)
+        assert (conv.k1, conv.k2) in kn2.UNROLLED_OFFSETS, g.nodes[nid].name
+        assert kn2.accumulate_vector_path(p, out) == (conv.c_out % 4 == 0)
+        paths[(lw.precision, bool(kn2.accumulate_vector_path(p, out)))] += 1
+    assert sum(paths.values()) == launches
+    assert all(v == vector for _, v in paths)
+    if quantize:
+        assert paths[("int8", vector)] >= launches - 1
 
 
 def test_pad_accumulate_validates_geometry():

@@ -172,11 +172,19 @@ def test_unit_conv_gemms_i8_partials_are_exact(gmkn):
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
-# (H, W, K1, K2, stride, padding): SAME and VALID at stride 1 and 2, and
-# the one-dim pad of 1x3.
-PA_CASES = [(9, 9, 3, 3, 1, "SAME"), (9, 9, 3, 3, 1, "VALID"),
-            (10, 9, 3, 3, 2, "SAME"), (11, 11, 3, 3, 2, "VALID"),
-            (8, 8, 1, 3, 1, "SAME")]
+# (H, W, K1, K2, stride, padding, C, batch): SAME and VALID at stride 1
+# and 2, and the one-dim pad of 1x3; then the edges of the card kernel's
+# paths: C 30 (one channel a thread), batch 1, the generic offsets 1x7,
+# 7x1 and 5x5 (5x5 at stride 2), and SAME at stride 2 on an odd map (pads
+# on both sides).
+PA_CASES = [(9, 9, 3, 3, 1, "SAME", 6, 2), (9, 9, 3, 3, 1, "VALID", 6, 2),
+            (10, 9, 3, 3, 2, "SAME", 6, 2), (11, 11, 3, 3, 2, "VALID", 6, 2),
+            (8, 8, 1, 3, 1, "SAME", 6, 2), (9, 9, 3, 3, 1, "SAME", 30, 2),
+            (7, 7, 3, 3, 1, "SAME", 8, 1), (10, 10, 1, 7, 1, "SAME", 8, 2),
+            (10, 10, 7, 1, 1, "SAME", 8, 2), (9, 9, 5, 5, 1, "SAME", 4, 2),
+            (11, 11, 5, 5, 2, "SAME", 4, 2), (9, 9, 3, 3, 2, "SAME", 8, 2)]
+PA_IDS = [f"{c[0]}x{c[1]}_{c[2]}x{c[3]}s{c[4]}{c[5]}"
+          + ("" if c[6:] == (6, 2) else f"_c{c[6]}b{c[7]}") for c in PA_CASES]
 
 
 def flush_cases(cases, ids):
@@ -189,17 +197,14 @@ def flush_cases(cases, ids):
             for os in (None, OUT_SCALE)]
 
 
-@pytest.mark.parametrize(
-    "case,epilogue,out_scale",
-    flush_cases(PA_CASES, [f"{c[0]}x{c[1]}_{c[2]}x{c[3]}s{c[4]}{c[5]}"
-                           for c in PA_CASES]))
+@pytest.mark.parametrize("case,epilogue,out_scale",
+                         flush_cases(PA_CASES, PA_IDS))
 def test_pad_accumulate_i32_plain_matches_reference(case, epilogue,
                                                     out_scale):
     """int32 partials, unpadded on the port's side and zero-padded for
-    the reference's; both images side by side along C in one reference
+    the reference's; the images side by side along C in one reference
     call (the flush is per channel)."""
-    h, w, k1, k2, stride, padding = case
-    c, batch = 6, 2
+    h, w, k1, k2, stride, padding, c, batch = case
     o1, o2, pt, _, pl, _ = conv_geometry(h, w, k1, k2, stride, padding)
     p = np.random.default_rng(7).integers(
         -30000, 30000, (k1 * k2, batch, h, w, c)).astype(np.int32)
