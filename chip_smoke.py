@@ -82,15 +82,19 @@ both matrix products and cuDNN:
     unit-conv GEMMs with exact int32 partials, int32 pad-and-accumulate)
     against their plain versions at Inception-v4's int8 shapes (bucket 8)
     and on a ragged G 3, M 333, K 70, N 100 over all four tiles, f32 and
-    requantized int8 outputs, all four epilogues, and the two kernels on
+    requantized int8 outputs, all four epilogues, and the three kernels on
     the int8 tensor cores (``csrc/tile_mma_i8.cuh``) at the edges of their
-    mma.sync loop on every tile the wrapper takes at each shape: M = K =
-    N = 1, ragged fragments, a K one k32 step past a chunk, operands 1
-    byte off alignment, +-127 at the deepest K, and the int32
-    pad-and-accumulate at ``PA_EDGE_CASES``. The GEMM and the unit-conv
-    GEMMs must equal their plain versions bit for bit, f32 outputs
-    included; the convs' f32 outputs within 1e-4, their int32 and int8
-    ones exactly;
+    mma.sync loop on every tile the wrapper takes at each shape: for the
+    GEMMs M = K = N = 1, ragged fragments, a K one k32 step past a chunk,
+    operands 1 byte off alignment, +-127 at the deepest K; for the conv
+    stem/c1 and redA/b3b at bucket 8 and ``CONV_I8_EDGE_CASES`` (Cin 3,
+    8, 16 and 32, x 1 byte off alignment, Cout 30 and 7, 1x7 / 7x1 SAME,
+    SAME at stride 2 on an odd map, a 1x1x1 output, +-127 at the deepest
+    K with Cin a multiple of 16), each case's A path printed; and the int32
+    pad-and-accumulate at ``PA_EDGE_CASES``. The GEMM, the conv and the
+    unit-conv GEMMs must equal their plain versions bit for bit, f32
+    outputs included; the int32 pad-and-accumulate's f32 outputs within
+    1e-4, its int8 ones exactly;
 16. runs the accuracy gate on the card: ``plan_mixed_precision`` plans
     full-width Inception-v4 at tol 0.02 on two calibration images and
     must keep int8 im2col and int8 kn2row layers, each within tol; its
@@ -103,7 +107,10 @@ both matrix products and cuDNN:
     the JAX reference's own int8-vs-f32 reading), and times the int8
     kernels (beside their bounds and cuBLASLt's int8 GEMM; the int32
     pad-and-accumulate also at stem/c4 and stem/c5 with f32 and int8
-    outputs) and the forward;
+    outputs; the int8 conv at stem/c1 and redA/b3b by queued launches, the
+    latter beside ``gemm_i8`` on the same layer's Toeplitz matrix), the
+    unelided forward's device split at bucket 8 (the ``conv_im2col_i8``
+    group over its 85 launches) and the elided forward per bucket;
 18. serves distinct Inception-v4 requests through ``CNNServingEngine``
     with the gate's ``act_scales`` and checks every result against a
     per-image plain forward.
@@ -512,6 +519,110 @@ def check_pad_accumulate_edges(kn2, rng, quant: bool):
     return rows
 
 
+# The edges of conv_im2col_i8's two A paths (csrc/conv_im2col.cu): (label,
+# x (B, H, W, Cin), w (K1, K2, Cin, Cout), stride, padding). Cin 3 at
+# stem/c1's geometry, Cin 8, x one byte off 16-byte alignment, Cout 30 and
+# 7 and a 1x1x1 output take the byte path; Cin 16 and 32 with K one k32
+# step past a 64-deep chunk (144, 288), 1x7 / 7x1 SAME and SAME at stride 2
+# on an odd map the 16-byte gather. The last case is +-127 at the deepest
+# K the wrapper takes with Cin a multiple of 16, as a 1x1 conv.
+CONV_I8_EDGE_CASES = [
+    ("Cin 3 stem/c1 b1", (1, 299, 299, 3), (3, 3, 3, 32), 2, "VALID"),
+    ("Cin 16 K 144", (2, 13, 13, 16), (3, 3, 16, 24), 1, "SAME"),
+    ("Cin 32 K 288", (2, 11, 11, 32), (3, 3, 32, 136), 1, "SAME"),
+    ("Cin 8", (2, 9, 9, 8), (3, 3, 8, 16), 1, "SAME"),
+    ("x offset", (2, 13, 13, 16), (3, 3, 16, 24), 1, "SAME"),
+    ("Cout 30", (2, 9, 9, 16), (3, 3, 16, 30), 1, "SAME"),
+    ("Cout 7", (2, 9, 9, 16), (3, 3, 16, 7), 1, "SAME"),
+    ("1x7 SAME", (2, 17, 17, 32), (1, 7, 32, 48), 1, "SAME"),
+    ("7x1 SAME", (2, 17, 17, 32), (7, 1, 32, 80), 1, "SAME"),
+    ("s2 SAME odd", (2, 17, 17, 32), (3, 3, 32, 32), 2, "SAME"),
+    ("1x1x1 out", (1, 3, 3, 16), (3, 3, 16, 1), 1, "VALID"),
+    ("+-127 K 133136", (1, 4, 4, 133136), (1, 1, 133136, 16), 1, "VALID")]
+CONV_I8_TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+
+
+def i8_outputs(kern, plain, tol):
+    """An int8 kernel vs its plain version under every epilogue, f32 out
+    (within ``tol``) and requantized to int8 at 0.05 (exact); returns
+    max|Δ| of each."""
+    import torch
+    errs = {"f32": 0.0, "int8": 0.0}
+    for ep in ("none", "relu", "bias", "bias_relu"):
+        for out_scale in (None, 0.05):
+            got = kern(ep, out_scale)
+            torch.cuda.synchronize()
+            want = plain(ep, out_scale)
+            key = "f32" if out_scale is None else "int8"
+            errs[key] = max(errs[key], check_close(
+                f"{ep} {key}", got, want,
+                **(tol if out_scale is None else EXACT)))
+    return errs
+
+
+def check_conv_i8(conv, x, w, stride, pad, scale, bias):
+    """conv_im2col_i8 against conv_i8_plain on every tile the wrapper
+    takes at this shape (``kernel_tile`` clamps to the problem), under all
+    four epilogues, f32 and requantized int8 outputs both bit for bit (the
+    exact int32 sum, then the same single-rounded flush steps). Returns (A
+    path the entry point takes, tiles, {"f32": max|diff|, "int8": ...})."""
+    from repro_torch.kernels.conv_im2col.ref import conv_geometry
+    from repro_torch.kernels.gemm.gemm import kernel_tile
+    o1, o2 = conv_geometry(x.shape[1], x.shape[2], w.shape[0], w.shape[1],
+                           stride, pad)[:2]
+    m, n = x.shape[0] * o1 * o2, w.shape[3]
+    tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in CONV_I8_TILES})
+    errs = {"f32": 0.0, "int8": 0.0}
+    for bm, bn in tiles:
+        kw = dict(stride=stride, padding=pad, bias=bias, scale=scale)
+        e = i8_outputs(
+            lambda ep, os: conv.conv_im2col_call(
+                x, w, bm=bm, bn=bn, epilogue=ep, out_scale=os, **kw),
+            lambda ep, os: conv.conv_i8_plain(x, w, epilogue=ep,
+                                              out_scale=os, **kw), EXACT)
+        errs = {key: max(errs[key], e[key]) for key in errs}
+    path = ("16-byte gather" if conv.conv_i8_vector_path(
+        x.shape[3], n, x.data_ptr(), w.data_ptr()) else "byte")
+    return path, tiles, errs
+
+
+def check_conv_i8_edges(conv, rng, dev):
+    """``check_conv_i8`` at CONV_I8_EDGE_CASES, operands from the CPU
+    generator ``rng``. Returns [(case, path, tiles, errs)]."""
+    import torch
+    from repro_torch.kernels.common import int8_product
+    rows = []
+    for label, xs, ws, stride, pad in CONV_I8_EDGE_CASES:
+        k = ws[0] * ws[1] * ws[2]
+        if label.startswith("+-127"):
+            # Every product 127² with one sign per output: |sum| 127² K.
+            pix = 1 - 2 * (torch.arange(xs[0] * xs[1] * xs[2]) % 2)
+            x = (127 * pix).to(torch.int8)[:, None].expand(-1, xs[3])
+            col = 1 - 2 * ((torch.arange(ws[3]) // 5) % 2)
+            w = (127 * col).to(torch.int8).expand(k, -1)
+            x, w = (x.reshape(xs).contiguous().to(dev),
+                    w.reshape(ws).contiguous().to(dev))
+            peak = int(int8_product(x.view(-1, k), w.view(k, -1)).abs().max())
+            if peak != 127 ** 2 * k:
+                raise CheckFailed(f"{label} sums to {peak}, not "
+                                  f"{127 ** 2 * k}")
+        else:
+            x = torch.randint(-127, 128, xs, generator=rng,
+                              dtype=torch.int8).to(dev)
+            w = torch.randint(-127, 128, ws, generator=rng,
+                              dtype=torch.int8).to(dev)
+        if label == "x offset":
+            buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+            buf[1:].copy_(x.reshape(-1))
+            x = buf[1:].view(xs)
+        scale = ((torch.rand(ws[3], generator=rng) * 1.5 + 0.5)
+                 / (127.0 ** 2 * k ** 0.5 / 3)).to(dev)
+        bias = (torch.randn(ws[3], generator=rng) * 0.1).to(dev)
+        rows.append(((label, xs, ws, stride, pad), *check_conv_i8(
+            conv, x, w, stride, pad, scale, bias)))
+    return rows
+
+
 def pad_accumulate_text(label: str, bsz: int, row: dict) -> str:
     """One line of ``time_pad_accumulate``'s numbers."""
     lib = ("" if "library_ms" not in row else
@@ -550,6 +661,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.common import INT8_MAX_K, int8_product, pad_nhwc
     from repro_torch.core.quant import layer_errors, plan_mixed_precision
+    from repro_torch.kernels.conv_im2col import conv_im2col as conv_mod
     from repro_torch.kernels.conv_im2col.conv_im2col import (
         CONV, CONV_I8, conv_i8_plain, conv_im2col_call, conv_plain)
     from repro_torch.kernels.conv_im2col.ref import conv_geometry
@@ -1592,23 +1704,6 @@ def main() -> int:
         return ((torch.rand(n, generator=rng) * 1.5 + 0.5)
                 / (127.0 ** 2 * depth ** 0.5 / 3)).to(dev)
 
-    def i8_outputs(kern, plain, tol, epilogues=("none", "relu", "bias",
-                                                 "bias_relu")):
-        """The kernel vs its plain version under every epilogue, f32 out
-        (within ``tol``) and requantized to int8 at 0.05 (exact); returns
-        max|Δ| of each."""
-        errs = {"f32": 0.0, "int8": 0.0}
-        for ep in epilogues:
-            for out_scale in (None, 0.05):
-                got = kern(ep, out_scale)
-                torch.cuda.synchronize()
-                want = plain(ep, out_scale)
-                key = "f32" if out_scale is None else "int8"
-                errs[key] = max(errs[key], check_close(
-                    f"{ep} {key}", got, want,
-                    **(tol if out_scale is None else EXACT)))
-        return errs
-
     def extreme(rows, cols, period):
         """±127 everywhere, the sign alternating every ``period`` columns:
         every product of two such operands sums to ±127² K."""
@@ -1676,26 +1771,32 @@ def main() -> int:
         raise CheckFailed(f"the +-127 case sums to {peak}, not "
                           f"{127 ** 2 * INT8_MAX_K}")
     # conv_im2col_i8: stem/c1 on the image at bucket 8 (the elided path's
-    # one NHWC int8 layer), and redA/b3b on its NHWC map (the unelided
-    # path's).
+    # one NHWC int8 layer; the byte path), and redA/b3b on its NHWC map (the
+    # unelided path's largest; the 16-byte gather), on every tile the
+    # wrapper takes; then the edges of both paths (CONV_I8_EDGE_CASES, from
+    # a generator of their own).
     for label, xs, ws, stride, pad in (
             ("stem/c1", (8, 299, 299, 3), (3, 3, 3, 32), 2, "VALID"),
             ("redA/b3b", (8, 35, 35, 192), (3, 3, 192, 224), 1, "SAME")):
         x, w = randi8(*xs), randi8(*ws)
         scale = dequant_scale(ws[3], ws[0] * ws[1] * ws[2])
         bias = randn(ws[3], scale=0.1)
-        kw = dict(stride=stride, padding=pad, bias=bias, scale=scale)
-        err = i8_outputs(
-            lambda ep, os: conv_im2col_call(x, w, epilogue=ep,
-                                            out_scale=os, **kw),
-            lambda ep, os: conv_i8_plain(x, w, epilogue=ep, out_scale=os,
-                                         **kw), KERNEL_TOL)
+        path, tiles, err = check_conv_i8(conv_mod, x, w, stride, pad, scale,
+                                         bias)
         i8_err[("conv_im2col_i8", label)] = err
         i8_inputs[("conv_im2col_i8", label)] = (x, w, scale, bias, stride,
                                                 pad)
         print(f"[15] conv_im2col_i8 {label} x{xs} w{ws} s{stride} {pad}, "
-              f"four epilogues: max|diff| vs plain f32 {err['f32']:.3e} "
-              f"(rtol/atol 1e-4), int8 out {err['int8']:.0f} (exact)")
+              f"{path} path, tiles {tiles}, four epilogues: max|diff| vs "
+              f"plain f32 {err['f32']:.3e}, int8 out {err['int8']:.0f} "
+              f"(both exact)")
+    for (label, xs, ws, stride, pad), path, tiles, err in \
+            check_conv_i8_edges(conv_mod, torch.Generator().manual_seed(20),
+                                dev):
+        print(f"[15] conv_im2col_i8 {label} x{xs} w{ws} s{stride} {pad}, "
+              f"{path} path, tiles {tiles}, four epilogues: max|diff| vs "
+              f"plain f32 {err['f32']:.3e}, int8 out {err['int8']:.0f} "
+              f"(both exact)")
     # unit_conv_gemms_i8 and pad_accumulate_i32: stem/c4 and incC0/b4d at
     # bucket 8 (int8 kn2row layers of the plan), a ragged problem on every
     # tile.
@@ -1905,6 +2006,55 @@ def main() -> int:
                     row["bound_by"], label)
             print(f"[17] pad_accumulate_i32 {quant} out "
                   + pad_accumulate_text(label, 8, row))
+
+    # conv_im2col_i8 at stem/c1 (the byte path) and at redA/b3b on its
+    # NHWC map (the 16-byte gather; the unelided path's largest int8
+    # conv) by queued launches, beside gemm_i8 on redA/b3b's Toeplitz
+    # matrix: the same MACs with A dense instead of gathered, and the same
+    # outputs bit for bit.
+    for label in ("stem/c1", "redA/b3b"):
+        x, w, scale, bias, stride, pad = i8_inputs[("conv_im2col_i8", label)]
+        bsz, h, w_in, c_in = x.shape
+        k1, k2, _, c_out = w.shape
+        o1, o2 = conv_geometry(h, w_in, k1, k2, stride, pad)[:2]
+        m, k = bsz * o1 * o2, k1 * k2 * c_in
+        ckw = dict(stride=stride, padding=pad, epilogue="bias_relu",
+                   bias=bias, scale=scale)
+        b_ms, b_by = bound(2.0 * m * c_out * k,
+                           x.numel() + w.numel() + 8.0 * c_out
+                           + 4.0 * m * c_out, PEAK_INT8_OPS)
+        text = (f"[17] conv_im2col_i8 {label} b8: kernel queued "
+                f"{queued_ms(lambda: conv_im2col_call(x, w, **ckw)):.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by})")
+        if label == "redA/b3b":
+            a_toe = materialize(x, LayoutSpec(
+                kind="toeplitz", h=h, w=w_in, c=c_in, k1=k1, k2=k2,
+                stride=stride, padding=pad)).reshape(m, k)
+            w2d = w.reshape(k, c_out)
+            check_close("gemm_i8 on redA/b3b's Toeplitz matrix",
+                        gemm_call(a_toe, w2d, epilogue="bias_relu",
+                                  bias=bias, scale=scale),
+                        conv_im2col_call(x, w, **ckw).reshape(m, c_out),
+                        **EXACT)
+            gemm_fn = (lambda: gemm_call(a_toe, w2d, epilogue="bias_relu",
+                                         bias=bias, scale=scale))
+            text += (f"; gemm_i8 on its Toeplitz matrix queued "
+                     f"{queued_ms(gemm_fn):.4f} ms (events "
+                     f"{time_ms(gemm_fn):.4f}), the conv by events "
+                     f"{time_ms(lambda: conv_im2col_call(x, w, **ckw)):.4f}")
+            del a_toe, w2d, gemm_fn
+        print(text)
+    # The unelided gated forward at bucket 8: every NHWC int8 im2col layer
+    # runs conv_im2col_i8.
+    run_k, _, x, _ = qruns[(False, 8)]
+    dev_ms, split, groups = device_time(lambda: run_k(iparams, x))
+    n_conv = expected_launches(run_k.lowering)[
+        KERNEL_NAMES.index("conv_im2col_i8")]
+    conv_ms = sum(v for g, v in groups.items()
+                  if g.startswith("conv_im2col_i8"))
+    print(f"[17] inception_v4 299 int8 forward b8 (no elision): device busy "
+          f"{dev_ms:.3f} ms; conv_im2col_i8 group {conv_ms:.3f} ms over "
+          f"{n_conv} launches a forward = {split} (ms)")
 
     for bsz in BUCKETS:
         run_k, run_p, x, _ = qruns[(True, bsz)]

@@ -9,12 +9,12 @@
 // (224x224x3 -> 112x112x64) under layout elision, every conv without it.
 //
 // The GEMM is M = B·O1·O2 output pixels, N = Cout, K = K1·K2·Cin, with the
-// Toeplitz matrix A never stored: each 16-deep K chunk of A is gathered
-// straight from the NHWC input in global memory into shared memory. Column
-// gk of A is (dk1, dk2, ci) in the reference's (k1, k2, cin) order; row gm
-// is (b, oy, ox). SAME padding (pad_top = ph // 2, pad_left = pw // 2) and
-// the bottom/right overhang that the TPU wrapper pads explicitly become
-// predicates that load 0.
+// Toeplitz matrix A never stored: each K chunk of A (16 deep in f32, 64 in
+// int8) is gathered straight from the NHWC input in global memory into
+// shared memory. Column gk of A is (dk1, dk2, ci) in the reference's (k1,
+// k2, cin) order; row gm is (b, oy, ox). SAME padding (pad_top = ph // 2,
+// pad_left = pw // 2) and the bottom/right overhang that the TPU wrapper
+// pads explicitly become predicates that load 0.
 //
 // What bounds it on an H100: arithmetic. The stem at batch 8 does ~62 FLOP
 // per byte it must move (input, weights, output), above the ~20 FLOP/byte
@@ -45,20 +45,37 @@
 // conv_im2col_f32_reduce_kernel summing them in the order s = 0, 1, …):
 // the same bits on every call.
 //
-// The int8 form gathers the same windows from an int8 NHWC map (a
-// quarter of the bytes), widens them to int as it stages them, and sums
-// in int32 (tile_gemm.cuh); on the gated Inception-v4 path it runs
-// stem/c1 under elision and every NHWC int8 im2col layer without it,
-// including those whose input edge already carries int8 (a producer that
-// requantized at this layer's scale). It runs tile_gemm.cuh's single-stage
-// IMAD loop, without tensor cores (gemm_i8 and unit_conv_gemms_i8 run
-// tile_mma_i8.cuh's mma.sync loop): exact first, fast later. Both forms
-// share ConvGeom's row and column decoding.
+// The int8 form runs the int8 tensor-core loop of tile_mma_i8.cuh (the
+// mma.sync m16n8k32 loop of gemm_i8 and unit_conv_gemms_i8: 64-deep chunks
+// in two cp.async stages, exact int32 sums) with A gathered from the int8
+// NHWC map (GatherNhwcI8). On the gated Inception-v4 path it runs stem/c1
+// under elision and every NHWC int8 im2col layer without it, including
+// those whose input edge already carries int8 (a producer that requantized
+// at this layer's scale). What bounds it there: bytes. stem/c1 at batch 8
+// writes 22.7 MB of f32 output from a 2.1 MB image (K 27); the 3x3 layers
+// read their maps nine times over, from L2. The entry point picks one of
+// two paths (conv_i8_vector_path):
+//   16-byte gather: Cin % 16 == 0, x 16-byte aligned, Cout % 4 == 0 and w
+//     4-byte aligned (every layer of the gated path but stem/c1). Chunks
+//     start at multiples of 64 and Cin is a multiple of 16, so each 16-byte
+//     A segment of a thread lies inside one tap's channel run: one
+//     cp.async from x + origin + (dk1 · W + dk2) · Cin + ci (the nine
+//     reads of a 3x3 layer's map come from L2), zero-filled when the row
+//     is past M, the column past K or the tap outside the map. A thread's
+//     segment column is decoded once per chunk, its rows once per block.
+//   bytes: any other operand (stem/c1's Cin 3, reduced widths, offset
+//     views). A thread walks its segment's 16 columns once per chunk for
+//     all its rows, as runs of K2 · Cin contiguous bytes, one per dk1
+//     (stem/c1: three runs of 9), advancing (dk1, dk2, ci) and the offset
+//     by adds, with the same predicates per byte.
+// stem/c1's K of 27 is one chunk whose second k32 step the loop skips. The
+// flush stores a fragment's adjacent outputs as one float2 or char2.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
 #include "tile_gemm_async.cuh"
+#include "tile_mma_i8.cuh"
 
 namespace {
 
@@ -92,50 +109,6 @@ struct ConvGeom {
   }
 };
 
-// A = the Toeplitz matrix of x (B, H, W, Cin) of T, gathered on the fly
-// and widened to S: the ALoader of tile_gemm.cuh's single-stage loop
-// (conv_im2col_i8).
-template <int R, class T, class S>
-struct GatherA {
-  using value_type = S;
-  const T* __restrict__ x;
-  ConvGeom g;
-  long long base[R];  // offset of image b in x; -1 past the last row
-  int iy0[R], ix0[R];
-  int dk1, dk2, ci;
-  bool k_ok;
-
-  __device__ GatherA(const T* x_, const ConvGeom& g_, int row0, int m)
-      : x(x_), g(g_), dk1(0), dk2(0), ci(0), k_ok(false) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int gm = row0 + 16 * r;
-      if (gm < m) {
-        int b;
-        g.row(gm, b, iy0[r], ix0[r]);
-        base[r] = b;
-      } else {
-        base[r] = -1;
-        iy0[r] = ix0[r] = 0;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void begin_chunk(int gk) {
-    k_ok = gk < g.k;
-    g.column(gk, dk1, dk2, ci);
-  }
-
-  __device__ __forceinline__ S load(int r) const {
-    if (!k_ok || base[r] < 0) return S(0);
-    const int iy = iy0[r] + dk1;
-    const int ix = ix0[r] + dk2;
-    if (iy < 0 || iy >= g.h || ix < 0 || ix >= g.w) return S(0);
-    return static_cast<S>(
-        x[base[r] + ((long long)iy * g.w + ix) * g.c_in + ci]);
-  }
-};
-
 // Far outside any map: an iy0 or dk1 of kFar puts every iy out of range,
 // which marks a row past M or a column past the K slice.
 constexpr int kFar = -(1 << 29);
@@ -147,7 +120,7 @@ constexpr int kFar = -(1 << 29);
 // offset (dk1 · W + dk2) · Cin + ci within a window. Entry (i, j) is then
 // x[origin_i + tap_j], in range when 0 <= iy0_i + dk1_j < H and 0 <= ix0_i +
 // dk2_j < W: XLA's SAME split (pad_top = ph // 2) and the bottom/right
-// overhang are these predicates, as in GatherA::load.
+// overhang are these predicates.
 struct GatherNhwcF32 {
   const float* __restrict__ x;
   ConvGeom g;
@@ -200,6 +173,92 @@ struct GatherNhwcF32 {
   };
 };
 
+// A = the Toeplitz matrix of int8 x (B, H, W, Cin) as the A source of
+// tile_mma_i8.cuh's loop. Per thread, rows m0 + row + 64 r keep their
+// window origin and (iy0, ix0) as in GatherNhwcF32; the chunk's column
+// k0 + 16 seg keeps (dk1, dk2, ci), its offset within a window and how many
+// columns are left in K.
+struct GatherNhwcI8 {
+  const int8_t* __restrict__ x;
+  ConvGeom g;
+  int m;
+
+  template <int R>
+  struct Rows {
+    const int8_t* __restrict__ a;   // x itself: the zero-fill's source
+    ConvGeom g;
+    int col;
+    int origin[R], iy0[R], ix0[R];  // per row (iy0 kFar: past M)
+    int tap, dk1, dk2, ci, left;    // the column (dk1 kFar: past K)
+
+    __device__ __forceinline__ Rows(const GatherNhwcI8& s, int m0, int row,
+                                    int seg)
+        : a(s.x), g(s.g), col(16 * seg) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int gm = m0 + row + 64 * r;
+        if (gm < s.m) {
+          int base;
+          g.row(gm, base, iy0[r], ix0[r]);
+          origin[r] = base + (iy0[r] * g.w + ix0[r]) * g.c_in;
+        } else {
+          origin[r] = ix0[r] = 0;
+          iy0[r] = kFar;
+        }
+      }
+    }
+
+    __device__ __forceinline__ void begin_chunk(int k0) {
+      const int gk = k0 + col;
+      g.column(gk, dk1, dk2, ci);
+      tap = (dk1 * g.w + dk2) * g.c_in + ci;
+      left = g.k - gk;
+      if (left <= 0) dk1 = kFar;
+    }
+
+    // The 16-byte path (Cin % 16 == 0): the segment is one tap's channels.
+    __device__ __forceinline__ bool in(int r) const {
+      return (unsigned)(iy0[r] + dk1) < (unsigned)g.h &&
+             (unsigned)(ix0[r] + dk2) < (unsigned)g.w;
+    }
+
+    __device__ __forceinline__ const int8_t* at(int r) const {
+      return a + (origin[r] + tap);
+    }
+
+    // The byte path: columns k0 + col + e, e < 16, walked in K order; the
+    // offset steps by 1 along a (dk2, ci) run and by 1 + (W - K2) · Cin
+    // from one run (dk1) to the next.
+    __device__ __forceinline__ void bytes(uint32_t (&v)[R][4]) const {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) v[r][w] = 0;
+      int d1 = dk1, d2 = dk2, c = ci, off = tap;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        if (e < left) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if ((unsigned)(iy0[r] + d1) < (unsigned)g.h &&
+                (unsigned)(ix0[r] + d2) < (unsigned)g.w)
+              v[r][e / 4] |= (uint32_t)(uint8_t)a[origin[r] + off]
+                             << (8 * (e % 4));
+        }
+        ++off;
+        if (++c == g.c_in) {
+          c = 0;
+          if (++d2 == g.k2) {
+            d2 = 0;
+            ++d1;
+            off += (g.w - g.k2) * g.c_in;
+          }
+        }
+      }
+    }
+  };
+};
+
 // K slice blockIdx.z of gridDim.z: the whole conv with the fused flush
 // when the grid has one slice, else the slice's raw partial into
 // work[blockIdx.z] (m, n).
@@ -237,10 +296,19 @@ template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     conv_im2col_i8_kernel(const int8_t* __restrict__ x,
                           const int8_t* __restrict__ w,
-                          repro::QuantFlush flush, ConvGeom g, int m, int n) {
-  GatherA<BM / 16, int8_t, int> lda(x, g, blockIdx.y * BM + threadIdx.x / 16,
-                                    m);
-  repro::tile_gemm_flush<BM, BN>(lda, w, flush, m, n, g.k);
+                          repro::QuantFlush flush, ConvGeom g, int m, int n,
+                          int vec) {
+  repro::tile_mma_i8_flush<BM, BN>(GatherNhwcI8{x, g, m}, w, flush, m, n,
+                                   g.k, vec);
+}
+
+// Whether conv_im2col_i8 takes the 16-byte gather path (else the byte
+// path); kernels/conv_im2col/conv_im2col.py::I8_GATHER_RULE mirrors it.
+inline bool conv_i8_vector_path(const void* x, const void* w, int c_in,
+                                int c_out) {
+  return c_in % 16 == 0 && c_out % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 4 == 0;
 }
 
 }  // namespace
@@ -286,8 +354,9 @@ extern "C" int conv_im2col_f32(const void* x, const void* w, const void* bias,
 // v = (float)sum · scale[c] [+ bias[c]] [ReLU], stored as f32, or, when
 // requant is nonzero, as int8: clamp(round-half-even(v / out_scale),
 // ±127). scale (Cout) f32; bias may be NULL; all contiguous, on the
-// current device; the caller keeps K1·K2·Cin · 127² < 2^31. Geometry and
-// tiles as conv_im2col_f32. Returns cudaGetLastError().
+// current device, out allocated by the caller (8-byte aligned); the caller
+// keeps K1·K2·Cin · 127² < 2^31. Geometry and tiles as conv_im2col_f32;
+// the path is conv_i8_vector_path's. Returns cudaGetLastError().
 extern "C" int conv_im2col_i8(const void* x, const void* w, const void* scale,
                               const void* bias, void* out, int batch, int h,
                               int w_in, int c_in, int k1, int k2, int stride,
@@ -304,6 +373,7 @@ extern "C" int conv_im2col_i8(const void* x, const void* w, const void* scale,
       requant ? static_cast<int8_t*>(out) : nullptr, out_scale, c_out, relu};
   REPRO_DISPATCH_TILE(conv_im2col_i8_kernel, tile_m, tile_n, m, c_out, 1, s,
                       static_cast<const int8_t*>(x),
-                      static_cast<const int8_t*>(w), flush, g, m, c_out);
+                      static_cast<const int8_t*>(w), flush, g, m, c_out,
+                      (int)conv_i8_vector_path(x, w, c_in, c_out));
   return (int)cudaGetLastError();
 }

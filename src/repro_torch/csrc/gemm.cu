@@ -56,10 +56,11 @@
 // moved, below the ~590 where 1,979 TOPS of int8 tensor cores meet
 // 3.35 TB/s). Design: tile_mma_i8.cuh, the mma.sync m16n8k32 s8 loop with
 // a two-stage cp.async buffer of 64-deep K chunks, shared with
-// unit_conv_gemms_i8; no split-K or wgmma yet, so a small grid still walks
-// K serially. Exactness: the int32 sum is the same integer in any order,
-// and each flush step is one IEEE-rounded operation in torch's order, so
-// it equals its plain version bit for bit.
+// unit_conv_gemms_i8 and conv_im2col_i8 (dense A here: DenseI8); no
+// split-K or wgmma yet, so a small grid still walks K serially.
+// Exactness: the int32 sum is the same integer in any order, and each
+// flush step is one IEEE-rounded operation in torch's order, so it equals
+// its plain version bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -104,7 +105,8 @@ template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     gemm_i8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                    repro::QuantFlush flush, int m, int n, int k, int vec) {
-  repro::tile_mma_i8_flush<BM, BN>(a, b, flush, m, n, k, vec);
+  repro::tile_mma_i8_flush<BM, BN>(repro::DenseI8{a, m, k}, b, flush, m, n,
+                                   k, vec);
 }
 
 // Problem g = blockIdx.z: the async loop on A[g], B[g] and C[g]. With

@@ -133,7 +133,7 @@ __global__ void __launch_bounds__(repro::kThreads)
                               int vec) {
   const size_t g = blockIdx.z;
   // The same A (x2d) for every g; w and p offset by g.
-  repro::tile_mma_i8_flush<BM, BN>(x, w + g * k * n,
+  repro::tile_mma_i8_flush<BM, BN>(repro::DenseI8{x, m, k}, w + g * k * n,
                                    repro::RawI32Flush{p + g * m * n, n}, m,
                                    n, k, vec);
 }

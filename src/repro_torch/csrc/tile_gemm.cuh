@@ -1,32 +1,15 @@
-// One block's share of C = flush(A · B) for int8 A and B with exact int32
-// sums: the single-stage tile loop of conv_im2col_i8 (conv_im2col.cu). The
-// f32 kernels run the two-stage cp.async loop of tile_gemm_async.cuh,
-// gemm_i8 and unit_conv_gemms_i8 the int8 tensor cores (tile_mma_i8.cuh);
-// every loop uses the flush policies, the chunk depth kBK and the tile
-// dispatch defined here.
+// What every tile loop of the kernels shares: the block size kThreads, the
+// f32 loop's chunk depth kBK, the int8 range, the flush policies and the
+// tile dispatch. The loops themselves live in tile_gemm_async.cuh (every f32
+// K loop: IEEE fmaf through two cp.async stages) and tile_mma_i8.cuh (every
+// int8 K loop: mma.sync on the int8 tensor cores, exact int32 sums).
 //
-// A block of 256 threads (16 x 16) owns a BM x BN tile of C. K is walked in
-// 16-deep chunks staged through shared memory: A's chunk is stored
-// transposed (As[k][m]) so that the inner product reads one broadcast A
-// value per thread row and 16 consecutive B values per thread column.
-// Each thread accumulates a (BM/16) x (BN/16) register micro-tile whose
-// rows and columns are strided by 16, so the final store of C is
-// coalesced along N. Ragged M, N and K edges are masked here (loads of 0,
-// stores skipped), so callers never pad operands.
-//
-// Operand types. The int8 operands (conv_im2col_i8's gathered Toeplitz
-// entries and its weights) are widened to int when they are staged
-// (shared memory holds 4-byte words), multiplied with IMAD and summed in
-// int32: exact, so the K order does not matter. The caller's K bound
-// (K · 127² < 2^31) keeps the sum in range.
-//
-// Where A comes from is the caller's policy: ALoader::begin_chunk(gk) sets
-// the A column this thread loads for the chunk (gk = k0 + tid % 16), and
-// ALoader::load(r) returns A[m0 + tid / 16 + 16 r][gk] widened to
-// ALoader::value_type, or 0 out of range; conv_im2col.cu gathers A's
-// entries (the Toeplitz matrix) straight from the NHWC input. Where C goes
-// is the Flush policy: flush(gm, gn, acc) is called once per in-range
-// output element after the K loop.
+// A flush policy takes the finished sum of one output element after the K
+// loop: flush(gm, gn, acc). The int8 policies also take the adjacent pair
+// (gm, gn), (gm, gn + 1) that an mma.sync fragment holds in one thread,
+// flush.pair(gm, gn, acc0, acc1), for gn and n even: one 8-byte f32, 2-byte
+// int8 or 8-byte int32 store, each value flushed exactly as operator() would
+// flush it, so a pair store changes no output bit.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -34,80 +17,9 @@
 
 namespace repro {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kBK = 16;        // depth of one shared-memory K chunk
+constexpr int kThreads = 256;  // 16 x 16 (f32), 8 warps (int8)
+constexpr int kBK = 16;        // depth of one K chunk of the f32 loop
 constexpr int kInt8Max = 127;  // symmetric int8: [-127, 127]
-
-template <int BM, int BN, class ALoader, class BT, class Flush>
-__device__ __forceinline__ void tile_gemm_flush(ALoader& lda,
-                                                const BT* __restrict__ b,
-                                                const Flush& flush, int m,
-                                                int n, int k) {
-  using S = typename ALoader::value_type;  // staged and summed type
-  constexpr int TM = BM / 16;              // rows of the micro-tile
-  constexpr int TN = BN / 16;              // cols of the micro-tile
-  constexpr int RB = BN * kBK / kThreads;  // B entries a thread stages
-  static_assert(BM % 16 == 0 && BN % 16 == 0, "tile edges are 16-multiples");
-  static_assert((BN * kBK) % kThreads == 0, "B chunk splits evenly");
-
-  __shared__ S As[kBK][BM + 4];
-  __shared__ S Bs[kBK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  S acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = S(0);
-
-  for (int k0 = 0; k0 < k; k0 += kBK) {
-    lda.begin_chunk(k0 + tx);
-#pragma unroll
-    for (int r = 0; r < TM; ++r) As[tx][ty + 16 * r] = lda.load(r);
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      const int i = tid + r * kThreads;
-      const int kk = i / BN;
-      const int nn = i % BN;
-      const int gk = k0 + kk;
-      const int gn = n0 + nn;
-      Bs[kk][nn] = (gk < k && gn < n) ? static_cast<S>(b[(size_t)gk * n + gn])
-                                      : S(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      S av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
-  }
-
-  // The single flush of C, in registers.
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= m) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= n) continue;
-      flush(gm, gn, acc[i][j]);
-    }
-  }
-}
 
 // f32 flush: bias and ReLU, then the store.
 struct F32Flush {
@@ -159,6 +71,20 @@ struct QuantFlush {
     else
       out_f[o] = v;
   }
+
+  // gn and n even, so the f32 pair is 8-byte and the int8 pair 2-byte
+  // aligned in the outputs the wrappers allocate.
+  __device__ __forceinline__ void pair(int gm, int gn, int acc0,
+                                       int acc1) const {
+    const float v0 = dequant_epilogue(acc0, scale[gn], bias, gn, relu);
+    const float v1 = dequant_epilogue(acc1, scale[gn + 1], bias, gn + 1, relu);
+    const size_t o = (size_t)gm * n + gn;
+    if (out_q != nullptr)
+      *reinterpret_cast<char2*>(out_q + o) =
+          make_char2(requantize(v0, out_scale), requantize(v1, out_scale));
+    else
+      *reinterpret_cast<float2*>(out_f + o) = make_float2(v0, v1);
+  }
 };
 
 // The raw int32 sum into C (m, n): kn2row's phase-1 partials.
@@ -168,6 +94,11 @@ struct RawI32Flush {
 
   __device__ __forceinline__ void operator()(int gm, int gn, int acc) const {
     c[(size_t)gm * n + gn] = acc;
+  }
+
+  __device__ __forceinline__ void pair(int gm, int gn, int acc0,
+                                       int acc1) const {
+    *reinterpret_cast<int2*>(c + (size_t)gm * n + gn) = make_int2(acc0, acc1);
   }
 };
 

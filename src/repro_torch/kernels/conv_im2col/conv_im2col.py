@@ -7,11 +7,22 @@ chunk of it is gathered from the NHWC input straight into shared memory,
 so device memory sees the input map, the weights and the output once.
 M = B·O1·O2 output pixels, N = Cout, K = K1·K2·Cin. SAME padding (XLA's
 asymmetric split) and the window overhang are predicates in the kernel.
-The f32 kernel splits K on a grid smaller than the card as the f32 GEMM
-does (``split_k``, a workspace of partials summed in a fixed order), so a
-shape gives the same bits on every call. An int8 map and int8 weights run
-the int8 kernel: exact int32 sums, then dequant (· ``scale``) → bias →
-ReLU → optional requant at ``out_scale``.
+
+f32 operands run ``conv_im2col_f32`` on the f32 GEMMs' ``cp.async`` loop
+(``csrc/tile_gemm_async.cuh``), which splits K on a grid smaller than the
+card as the f32 GEMM does (``split_k``, a workspace of partials summed in
+a fixed order), so a shape gives the same bits on every call.
+
+An int8 map and int8 weights run ``conv_im2col_i8`` on the int8 GEMMs'
+tensor-core loop (``csrc/tile_mma_i8.cuh``): exact int32 sums, then
+dequant (· ``scale``) → bias → ReLU → optional requant at ``out_scale``.
+Its entry point picks the A path by ``I8_GATHER_RULE``
+(``conv_i8_vector_path``, mirrored here): Cin a multiple of 16, Cout a
+multiple of 4 and x and w aligned take 16-byte ``cp.async`` copies of one
+tap's channels; any other operand (Cin 3 at Inception-v4's stem/c1,
+reduced widths, offset views) takes the byte path, which gathers A a byte
+at a time through registers.
+
 ``conv_im2col_call`` launches the kernel for CUDA tensors and runs
 ``conv_plain`` / ``conv_i8_plain`` for CPU tensors; nothing else selects
 between the two.
@@ -41,6 +52,20 @@ CONV = CudaKernel("conv_im2col", "conv_im2col_f32",
 CONV_I8 = CudaKernel("conv_im2col", "conv_im2col_i8",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
                      + [ctypes.c_float, ctypes.c_void_p])
+
+# csrc/conv_im2col.cu::conv_i8_vector_path: conv_im2col_i8 copies A in 16
+# bytes when c_in and c_out are multiples of these and x and w are aligned
+# to these bytes; else it gathers A a byte at a time.
+I8_GATHER_RULE = {"c_in": 16, "c_out": 4, "x": 16, "w": 4}
+
+
+def conv_i8_vector_path(c_in: int, c_out: int, x_ptr: int,
+                        w_ptr: int) -> bool:
+    """Whether ``conv_im2col_i8`` takes its 16-byte gather path for a map
+    of ``c_in`` channels at address ``x_ptr`` and weights of ``c_out``
+    channels at ``w_ptr`` (the entry point decides; this mirrors it)."""
+    sizes = {"c_in": c_in, "c_out": c_out, "x": x_ptr, "w": w_ptr}
+    return all(sizes[key] % d == 0 for key, d in I8_GATHER_RULE.items())
 
 
 def conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -85,9 +110,11 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
     f32 operands run ``conv_im2col_f32``, with K = K1·K2·Cin split
     ``split_k`` ways on a grid smaller than the card. int8 ``x`` and ``w``
-    run ``conv_im2col_i8``: the exact int32 sum is dequantized by ``scale``
-    (Cout,) before the epilogue, and ``out_scale`` requantizes the output
-    to int8 (else it is f32).
+    run ``conv_im2col_i8`` on the int8 tensor cores, A by 16-byte copies
+    where ``conv_i8_vector_path`` holds and a byte at a time elsewhere: the
+    exact int32 sum is dequantized by ``scale`` (Cout,) before the
+    epilogue, and ``out_scale`` requantizes the output to int8 (else it is
+    f32).
 
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, B·O1·O2, Cout)``; CPU tensors run

@@ -16,7 +16,7 @@ from repro.cnn.overlay import apply_conv as jax_apply_conv
 from repro.core.algorithms import IM2COL as JAX_IM2COL
 from repro_torch.bridge import params_from_jax
 from repro_torch.cnn.executor import compile_plan, forward, init_params
-from repro_torch.cnn.models import googlenet
+from repro_torch.cnn.models import googlenet, inception_v4
 from repro_torch.cnn.overlay import apply_conv
 from repro_torch.core.algorithms import IM2COL, KN2ROW, WINO_2_3
 from repro_torch.kernels.conv_im2col.ref import conv_ref
@@ -139,12 +139,16 @@ def test_library_path_tracks_sources():
 
 
 def test_library_path_tracks_the_int8_mma_header(monkeypatch, tmp_path):
-    """An edit of tile_mma_i8.cuh, the mainloop of gemm_i8 and
-    unit_conv_gemms_i8, gives both libraries a new path, so they rebuild."""
+    """An edit of tile_mma_i8.cuh, the mainloop of gemm_i8,
+    unit_conv_gemms_i8 and conv_im2col_i8, gives their three libraries a
+    new path, so they rebuild; conv_im2col.cu includes the header."""
+    assert '#include "tile_mma_i8.cuh"' in (
+        build.CSRC / "conv_im2col.cu").read_text()
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", csrc)
-    before = {name: build.library_path(name) for name in ("gemm", "kn2row")}
+    before = {name: build.library_path(name)
+              for name in ("gemm", "kn2row", "conv_im2col")}
     header = csrc / "tile_mma_i8.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     for name, path in before.items():
@@ -222,6 +226,30 @@ def test_unrolled_offsets_match_the_kernels_dispatch():
     assert [(int(a), int(b)) for a, b, _, _ in pairs] == \
         list(kn2row_mod.UNROLLED_OFFSETS)
     assert "launch.template run<0, 0, V>" in body
+
+
+def test_int8_gather_rule_matches_the_kernels_dispatch():
+    """conv_im2col_i8's entry point takes the 16-byte gather path under
+    csrc/conv_im2col.cu::conv_i8_vector_path; the wrapper's I8_GATHER_RULE
+    states the same divisors, and under it every conv of full-width
+    Inception-v4 but stem/c1 (Cin 3) gathers 16 bytes at a time from
+    aligned operands, and none from a map one byte off alignment."""
+    text = (build.CSRC / "conv_im2col.cu").read_text()
+    body = re.search(r"inline bool conv_i8_vector_path\(.*?\n}\n", text,
+                     re.S)[0]
+    terms = re.findall(r"(?:reinterpret_cast<uintptr_t>\()?(\w+)\)? % (\d+) "
+                       r"== 0", body)
+    assert {name: int(d) for name, d in terms} == conv_mod.I8_GATHER_RULE
+    assert "(int)conv_i8_vector_path(x, w, c_in, c_out)" in text
+    graph = inception_v4(res=299, scale=1.0)
+    byte_path = [n.name for n in graph.conv_nodes()
+                 if not conv_mod.conv_i8_vector_path(n.conv.c_in,
+                                                     n.conv.c_out, 256, 256)]
+    assert byte_path == ["stem/c1"]
+    assert len(graph.conv_nodes()) == 149
+    assert not conv_mod.conv_i8_vector_path(192, 224, 257, 256)
+    assert not conv_mod.conv_i8_vector_path(192, 224, 256, 258)
+    assert not conv_mod.conv_i8_vector_path(192, 30, 256, 256)
 
 
 def test_unported_algorithms_and_int8_kernels_raise():

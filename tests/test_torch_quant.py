@@ -231,9 +231,9 @@ CONV_CASES = [(9, 9, 5, 7, 3, 3, 1, "SAME"), (9, 9, 5, 7, 3, 3, 1, "VALID"),
 CONV_IDS = [f"{c[4]}x{c[5]}s{c[6]}{c[7]}" for c in CONV_CASES]
 
 
-def _conv_inputs(case, seed):
+def _conv_inputs(case, seed, batch=2):
     h, w_, ci, co, k1, k2, _, _ = case
-    x, w = rnd_i8(seed, 2, h, w_, ci), rnd_i8(seed + 1, k1, k2, ci, co)
+    x, w = rnd_i8(seed, batch, h, w_, ci), rnd_i8(seed + 1, k1, k2, ci, co)
     return x, w, dequant_scale(seed + 2, co, k1 * k2 * ci), rnd(seed + 3, co)
 
 
@@ -255,15 +255,33 @@ def test_conv_kn2row_i8_plain_matches_reference(case, epilogue, out_scale):
     assert_same(got, ref, CONV_TOL)
 
 
-@pytest.mark.parametrize("toeplitz,epilogue,out_scale",
-                         flush_cases([False, True], ["nhwc", "toeplitz"]))
-def test_conv_im2col_i8_plain_matches_reference(toeplitz, epilogue,
+# (id, case, batch, Toeplitz input): the implicit-GEMM conv on an int8
+# NHWC map and the GEMM on the layer's int8 Toeplitz matrix (the elided
+# edge); then, on NHWC maps, the geometries at the edges of the int8
+# kernel's two A paths: Cin 16 (K 144, one k32 step past two 64-deep
+# chunks), stem/c1's Cin 3 (K 27, the byte path), Cin 32 at 3x3, 1x7 and
+# 7x1 SAME, SAME at stride 2 on an odd map, and batch 1 with a 1x1 output.
+CONV_I8_CASES = [
+    ("nhwc", CONV_CASES[3], 2, False), ("toeplitz", CONV_CASES[2], 2, True),
+    ("cin16", (9, 9, 16, 8, 3, 3, 1, "SAME"), 2, False),
+    ("cin3-k27", (11, 11, 3, 32, 3, 3, 2, "VALID"), 2, False),
+    ("cin32-3x3", (7, 7, 32, 12, 3, 3, 1, "SAME"), 2, False),
+    ("1x7", (8, 8, 16, 8, 1, 7, 1, "SAME"), 2, False),
+    ("7x1", (8, 8, 16, 8, 7, 1, 1, "SAME"), 2, False),
+    ("s2-odd", (9, 9, 16, 8, 3, 3, 2, "SAME"), 2, False),
+    ("batch1", (3, 3, 16, 1, 3, 3, 1, "VALID"), 1, False)]
+
+
+@pytest.mark.parametrize("geometry,epilogue,out_scale", flush_cases(
+    [c[1:] for c in CONV_I8_CASES], [c[0] for c in CONV_I8_CASES]))
+def test_conv_im2col_i8_plain_matches_reference(geometry, epilogue,
                                                 out_scale):
-    """The implicit-GEMM conv on an int8 NHWC map, and the GEMM on the
-    layer's int8 Toeplitz matrix (the elided edge)."""
-    case = CONV_CASES[2] if toeplitz else CONV_CASES[3]
+    """The int8 conv's plain path (CPU tensors) against the reference's
+    interpret-mode kernel: on NHWC maps through ``conv_im2col`` and
+    ``conv_im2col_call``, on a Toeplitz matrix through ``conv_im2col``."""
+    case, batch, toeplitz = geometry
     h, w_, ci, _, k1, k2, s, pad = case
-    x, w, scale, bias = _conv_inputs(case, 20)
+    x, w, scale, bias = _conv_inputs(case, 20, batch)
     bias = bias if epilogue.startswith("bias") else None
     kw = dict(stride=s, padding=pad, epilogue=epilogue, out_scale=out_scale)
     spec = dict(kind="toeplitz", h=h, w=w_, c=ci, k1=k1, k2=k2, stride=s,
