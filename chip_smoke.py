@@ -23,16 +23,25 @@ both matrix products and cuDNN:
    split conv must be equal bit for bit;
 4. runs full-width GoogleNet (224x224, scale 1.0; random weights from a
    seed) planned by the port's planner, kernels vs the plain path on the
-   card, at every bucket with layout elision and once without, and checks
-   the launches of every kernel per forward, as the lowering gives them;
+   card, at every bucket with layout elision and once without. Each
+   compiled program runs three times on one input — the eager warm pass,
+   the CUDA-graph capture and a replay: the launch counters must read
+   every kernel's launches per forward, as the lowering gives them, on
+   the first two and 0 on the replay, both later outputs must equal the
+   eager one bit for bit, and the profiler must find those launches,
+   kernel by kernel, in one replay;
 5. serves distinct requests through the port's ``CNNServingEngine`` (the
-   main path: the launch counts of that run are the ones reported) and
-   checks every result against a per-image plain forward;
+   main path: every count is reset before the engine is built, and its
+   warm-up's eager and capture passes are the launches reported; the
+   replayed ticks move no counter, and the profiler must find each
+   kernel's launches per tick in them) and checks every result against a
+   per-image plain forward;
 6. times each kernel, its plain version and the library call at the
    main-path shapes beside the card's bound (the split 5b/1x1 GEMM also by
    queued launches: device time without host gaps; the conv at the
    GoogleNet stem, VGG16's conv0_0 and Inception-v4's stem/c1, bucket 8),
-   and the full forward per bucket;
+   and the replayed forward per bucket: CUDA events, device busy under the
+   profiler, its share of the forward, and the memory reserved;
 7. holds the four Winograd kernels (input transform from NHWC and from
    stored tiles, batched GEMM, output transform) against their plain
    versions at VGG16 shapes, F(2,3) and F(4,3), ragged cases included, the
@@ -114,6 +123,9 @@ both matrix products and cuDNN:
 18. serves distinct Inception-v4 requests through ``CNNServingEngine``
     with the gate's ``act_scales`` and checks every result against a
     per-image plain forward.
+
+Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
+and 18 serve as phase 5 does, and every forward timed is a replay.
 
 Every check raises on failure, so the script exits nonzero without its
 final line. The line before the last is one JSON object of per-kernel
@@ -293,6 +305,55 @@ def device_time(fn, reps: int = 1):
     split = ", ".join(f"{k} {v:.3f}" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
     return sum(groups.values()), split, groups
+
+
+# The __global__ function each kernel entry point launches once per call
+# (a split product's reduce kernel aside), under the short names of the
+# launch counts (``main``'s KERNELS).
+KERNEL_SYMBOLS = {"conv": "conv_im2col_f32_kernel", "gemm": "gemm_f32_kernel",
+                  "input_transform": "input_transform_kernel",
+                  "input_transform_tiles": "input_transform_tiles_kernel",
+                  "batched_gemm": "batched_gemm_f32_kernel",
+                  "output_transform": "output_transform_kernel",
+                  "unit_conv_gemms": "unit_conv_gemms_f32_kernel",
+                  "pad_accumulate": "pad_accumulate_f32_kernel",
+                  "gemm_i8": "gemm_i8_kernel",
+                  "conv_im2col_i8": "conv_im2col_i8_kernel",
+                  "unit_conv_gemms_i8": "unit_conv_gemms_i8_kernel",
+                  "pad_accumulate_i32": "pad_accumulate_i32_kernel"}
+
+
+def profiled_launches(fn):
+    """(``fn()``'s result, {short name: rows}, kernel rows in all) from
+    ``torch.profiler``: the device rows of each ``KERNEL_SYMBOLS`` kernel
+    one call of ``fn`` ran — for a replayed CUDA graph, the kernels the
+    graph holds, which the host's launch counters never see — and of every
+    kernel (copies and fills aside). A window without any kernel row
+    (seen on the card for short windows) is taken again, up to three in
+    all, so ``fn`` must be safe to call again."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        rows, kernels = Counter(), 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or "Memcpy" in e.key \
+                    or "Memset" in e.key:
+                continue
+            kernels += e.count
+            for name, symbol in KERNEL_SYMBOLS.items():
+                if re.search(rf"\b{symbol}\b", e.key):
+                    rows[name] += e.count
+        if kernels:
+            return out, rows, kernels
+    raise CheckFailed("the profiler recorded no kernel rows in three "
+                      "windows")
 
 
 def kernel_name(mangled: str) -> str:
@@ -737,15 +798,28 @@ def main() -> int:
                 n["pad_accumulate_i32" if i8 else "pad_accumulate"] += 1
         return tuple(n[k] for k in KERNEL_NAMES)
 
+    def memory_text():
+        return (f"max_memory_reserved "
+                f"{torch.cuda.max_memory_reserved() / 2 ** 30:.2f} GiB")
+
+    def launches_by_name(rows):
+        return tuple(rows.get(k, 0) for k in KERNEL_NAMES)
+
     def check_forwards(phase, tag, graph, plan, params, res, expect,
                        act_scales=None):
         """Kernels vs the plain path on the card, at every bucket with
         layout elision and at bucket 8 without: the lowering must give the
         launches ``expect[elide]`` (ALL_KERNELS order; None: whatever it
-        derives), one forward must launch exactly those, and the logits
-        must agree at the whole-plan tolerance. Returns {(elide, bucket):
-        (run_k, run_p, x, logits)}."""
+        derives). Each kernel program runs three times on one input — the
+        eager warm pass, the CUDA-graph capture (which replays once) and a
+        replay: the counters must read the derived launches on the first
+        two and 0 on the replay, both later outputs must equal the eager
+        one bit for bit, and the profiler must find the derived launches,
+        kernel by kernel, in one more replay. The logits must agree with
+        the plain program's at the whole-plan tolerance. Returns
+        {(elide, bucket): (run_k, run_p, x, logits)}."""
         runs = {}
+        none = (0,) * len(ALL_KERNELS)
         for elide, buckets in ((True, BUCKETS), (False, (8,))):
             for bsz in buckets:
                 run_k = compile_plan(graph, plan, epilogue="bias_relu",
@@ -761,14 +835,35 @@ def main() -> int:
                         f"{tag} b{bsz} elide={elide}: the lowering gives "
                         f"{derived}, expected {expect[elide]} {KERNEL_NAMES}")
                 x = randn(bsz, res, res, 3)
-                reset_counts()
-                got = run_k(params, x)
-                torch.cuda.synchronize()
-                n = counts()
-                if n != derived:
+                outs = []
+                for stage, want_n in (("eager", derived),
+                                      ("capture", derived),
+                                      ("replay", none)):
+                    reset_counts()
+                    outs.append(run_k(params, x))
+                    torch.cuda.synchronize()
+                    n = counts()
+                    if n != want_n:
+                        raise CheckFailed(
+                            f"{tag} b{bsz} elide={elide} {stage} pass: "
+                            f"launches {n}, expected {want_n} {KERNEL_NAMES}")
+                got = outs[0]
+                for stage, out in zip(("capture", "replay"), outs[1:]):
+                    if not torch.equal(out, got):
+                        raise CheckFailed(
+                            f"{tag} b{bsz} elide={elide}: the {stage} pass's "
+                            f"logits differ from the eager pass's (max|diff| "
+                            f"{float((out - got).abs().max()):.3e})")
+                if len(run_k.captures) != 1 or None in \
+                        run_k.captures.values():
+                    raise CheckFailed(f"{tag} b{bsz} elide={elide}: not one "
+                                      f"capture after three calls")
+                _, rows, _ = profiled_launches(lambda: run_k(params, x))
+                if launches_by_name(rows) != derived:
                     raise CheckFailed(
-                        f"{tag} b{bsz} elide={elide}: launches {n}, "
-                        f"expected {derived} {KERNEL_NAMES}")
+                        f"{tag} b{bsz} elide={elide}: one replay ran "
+                        f"{launches_by_name(rows)} kernel rows, expected "
+                        f"{derived} {KERNEL_NAMES}")
                 want = run_p(params, x)
                 err = check_close(f"{tag} b{bsz} elide={elide}", got, want,
                                   **FORWARD_TOL)
@@ -776,53 +871,85 @@ def main() -> int:
                 print(f"[{phase}] {tag} b{bsz} elide={elide}: logits "
                       f"{tuple(got.shape)} max|logit| "
                       f"{float(want.abs().max()):.3e} max|diff| vs plain "
-                      f"{err:.3e} (rtol 2e-2 atol 2e-3); launches per forward "
-                      f"{launch_text(n)}")
+                      f"{err:.3e} (rtol 2e-2 atol 2e-3); capture and replay "
+                      f"equal to the eager pass bit for bit; launches on the "
+                      f"eager and the capture pass {launch_text(derived)}, "
+                      f"0 on a replay; the profiler's rows of one replay "
+                      f"equal them")
         return runs
 
     def serve_checked(phase, tag, graph, plan, params, res, n_requests,
                       seed, per_tick, run_p1, act_scales=None):
-        """Serve distinct requests through ``CNNServingEngine`` with every
-        count reset just before: each result must match a per-image plain
-        forward, and the launches must be ``per_tick`` per tick. Returns
-        the launches (ALL_KERNELS order)."""
+        """Serve distinct requests through ``CNNServingEngine``, every
+        count reset just before the engine is built — the main path's
+        run. Its warm-up dispatches each bucket three times (eager,
+        capture, replay), so the counts must read ``per_tick`` twice per
+        bucket after it; the served ticks replay, so the counts must not
+        move over them, and the profiler must find ``per_tick`` rows of
+        each kernel per tick. Each result must match a per-image plain
+        forward. Returns the launches the counters read over the whole
+        run (ALL_KERNELS order)."""
+        reset_counts()
         engine = CNNServingEngine(graph, params, plan, batch_size=8,
                                   slo_s=0.25, warmup=True,
                                   act_scales=act_scales, device=dev)
+        warm = counts()
+        if warm != tuple(2 * len(engine.buckets) * k for k in per_tick):
+            raise CheckFailed(f"{tag} warm-up launches {warm} over "
+                              f"{len(engine.buckets)} buckets, expected two "
+                              f"passes of {per_tick} each")
         rng = np.random.default_rng(seed)
         images = [rng.standard_normal((res, res, 3)).astype(np.float32)
                   for _ in range(n_requests)]
-        for rid, img in enumerate(images):
-            engine.submit(CNNRequest(rid=rid, image=img))
-        reset_counts()
-        done = engine.run_until_done()
-        torch.cuda.synchronize()
+        windows = []
+
+        def serve():
+            """Submit the images under fresh rids and serve them all;
+            returns ({image index: result}, ticks, requests served)."""
+            base = len(windows) * n_requests
+            ticks0 = sum(engine.dispatches.values())
+            served0 = engine.served_total
+            for i, img in enumerate(images):
+                engine.submit(CNNRequest(rid=base + i, image=img))
+            done = engine.run_until_done()
+            windows.append(base)
+            return ({i: done[base + i] for i in range(n_requests)
+                     if base + i in done},
+                    sum(engine.dispatches.values()) - ticks0,
+                    engine.served_total - served0)
+
+        (done, ticks, n_served), rows, _ = profiled_launches(serve)
         served = counts()
-        stats = engine.stats()
-        ticks = sum(stats["dispatches"].values())
-        if stats["served"] != n_requests or sorted(done) != list(
-                range(n_requests)):
-            raise CheckFailed(f"{tag}: served {stats['served']} of "
-                              f"{n_requests}")
-        if served != tuple(ticks * k for k in per_tick):
-            raise CheckFailed(f"{tag} serving launches {served} over {ticks} "
-                              "ticks")
+        if n_served != n_requests or sorted(done) != list(range(n_requests)):
+            raise CheckFailed(f"{tag}: served {n_served} of {n_requests}")
+        if served != warm:
+            raise CheckFailed(f"{tag}: the counters moved over the replayed "
+                              f"ticks, {warm} -> {served}")
+        if launches_by_name(rows) != tuple(ticks * k for k in per_tick):
+            raise CheckFailed(f"{tag} served kernel rows "
+                              f"{launches_by_name(rows)} over {ticks} ticks, "
+                              f"expected {per_tick} per tick")
         err = 0.0
-        for rid, img in enumerate(images):
+        for i, img in enumerate(images):
             want = run_p1(params, img[None])[0]
-            got = torch.as_tensor(done[rid], device=dev)
-            err = max(err, check_close(f"served {tag} request {rid}", got,
+            got = torch.as_tensor(done[i], device=dev)
+            err = max(err, check_close(f"served {tag} request {i}", got,
                                        want, **FORWARD_TOL))
+        stats = engine.stats()
         # A correctness check, not a latency measurement: a handful of
         # requests flushed at once, so only each tick's wall time is shown.
         tick_ms = [(t.bucket, round(t.service_s * 1e3, 3))
                    for t in {t.t_dispatch: t
                              for t in engine.request_log}.values()]
-        print(f"[{phase}] served {tag} {stats['served']}/{n_requests} "
-              f"requests in {ticks} ticks, dispatches per bucket "
-              f"{stats['dispatches']}; wall time per tick (bucket, ms) "
-              f"{tick_ms}; max|diff| vs per-image plain forward {err:.3e}; "
-              f"launches {launch_text(served)}")
+        print(f"[{phase}] served {tag} {n_requests} requests in {ticks} "
+              f"replayed ticks (profiler windows {len(windows)}), "
+              f"dispatches per bucket {stats['dispatches']} (3 warm-up "
+              f"each); wall time per tick (bucket, ms) {tick_ms}; "
+              f"max|diff| vs per-image plain forward {err:.3e}; launches "
+              f"counted over the run (warm-up eager and capture passes) "
+              f"{launch_text(warm)}, 0 over the ticks; kernel rows of the "
+              f"served ticks (profiler) {launch_text(launches_by_name(rows))}"
+              f"; {memory_text()}")
         return served
 
     # ---- 1. card and toolchain -----------------------------------------
@@ -1088,10 +1215,13 @@ def main() -> int:
         f_ms = time_ms(lambda: run_k(params, x), reps=10, rounds=5)
         p_ms = time_ms(lambda: run_p(params, x), reps=10, rounds=5)
         dev_ms, split, _ = device_time(lambda: run_k(params, x))
-        print(f"[6] googlenet 224 forward b{bsz} (elide): kernels "
+        print(f"[6] googlenet 224 forward b{bsz} (elide, replay): kernels "
               f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms; device busy "
               f"{dev_ms:.3f} ms of the kernels' forward "
-              f"({100 * dev_ms / f_ms:.1f}%) = {split} (ms)")
+              f"({100 * dev_ms / f_ms:.1f}%) = {split} (ms); "
+              f"{memory_text()}")
+    # Release GoogleNet's captured graphs and their memory pools.
+    del runs, run_k, run_p
 
     # ---- 7. Winograd kernels vs plain ----------------------------------
     # (label, batch, map, Cin, Cout, m): VGG16's conv0_1 and conv2_1 at
@@ -1370,11 +1500,14 @@ def main() -> int:
         f_ms = time_ms(lambda: run_k(vparams, x), reps=5, rounds=5)
         p_ms = time_ms(lambda: run_p(vparams, x), reps=5, rounds=5)
         dev_ms, split, _ = device_time(lambda: run_k(vparams, x))
-        print(f"[10] vgg16 224 forward b{bsz} (elide): kernels {f_ms:.3f} "
-              f"ms, plain path {p_ms:.3f} ms; device busy {dev_ms:.3f} ms "
-              f"of the kernels' forward ({100 * dev_ms / f_ms:.1f}%) = "
-              f"{split} (ms; the Winograd tile and Toeplitz gathers are "
-              f"'torch index/gather')")
+        print(f"[10] vgg16 224 forward b{bsz} (elide, replay): kernels "
+              f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms; device busy "
+              f"{dev_ms:.3f} ms of the kernels' forward "
+              f"({100 * dev_ms / f_ms:.1f}%) = {split} (ms; the Winograd "
+              f"tile and Toeplitz gathers are 'torch index/gather'); "
+              f"{memory_text()}")
+    # Release VGG16's captured graphs and their memory pools.
+    del vruns, run_k, run_p
 
     def nchw_conv_inputs(x, w, stride, padding):
         """x (B, H, W, Cin) and w (K1, K2, Cin, Cout) as ``F.conv2d`` takes
@@ -1641,13 +1774,13 @@ def main() -> int:
                                       "pad_accumulate_f32")))
         dense_ms = sum(v for k, v in groups.items()
                        if k.startswith(("gemm_f32<", "gemm_f32_reduce")))
-        print(f"[14] inception_v4 299 forward b{bsz} (elide): kernels "
-              f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms; device busy "
+        print(f"[14] inception_v4 299 forward b{bsz} (elide, replay): "
+              f"kernels {f_ms:.3f} ms, plain path {p_ms:.3f} ms; device busy "
               f"{dev_ms:.3f} ms of the kernels' forward "
               f"({100 * dev_ms / f_ms:.1f}%); kn2row kernels {kn2_ms:.3f} ms "
               f"({100 * kn2_ms / dev_ms:.1f}% of device busy), dense GEMM "
               f"{dense_ms:.3f} ms ({100 * dense_ms / dev_ms:.1f}%) = {split} "
-              f"(ms)")
+              f"(ms); {memory_text()}")
 
     # Every distinct Toeplitz GEMM of the elided f32 lowering at buckets 1
     # and 8 (the layers gemm_f32 runs), each timed once as the forward
@@ -2069,13 +2202,13 @@ def main() -> int:
         i8_ms["gemm_f32 (+ reduce)"] = sum(
             v for g, v in groups.items()
             if g.startswith(("gemm_f32<", "gemm_f32_reduce")))
-        print(f"[17] inception_v4 299 int8 forward b{bsz} (elide): kernels "
-              f"{f_ms:.3f} ms, plain path {p_ms:.3f} ms, f32 plan "
+        print(f"[17] inception_v4 299 int8 forward b{bsz} (elide, replay): "
+              f"kernels {f_ms:.3f} ms, plain path {p_ms:.3f} ms, f32 plan "
               f"{f32_ms:.3f} ms; device busy {dev_ms:.3f} ms of the "
               f"kernels' forward ({100 * dev_ms / f_ms:.1f}%); int8 and f32 "
               f"GEMM kernels "
               + ", ".join(f"{k} {v:.3f}" for k, v in i8_ms.items())
-              + f" = {split} (ms)")
+              + f" = {split} (ms); {memory_text()}")
 
     # ---- 18. serving the gated plan --------------------------------------
     qserve = serve_checked(18, "inception_v4 int8", gi, qplan, iparams, 299,

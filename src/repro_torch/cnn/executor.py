@@ -6,9 +6,13 @@ differs. Two execution modes, as in the reference:
 
 * ``forward`` — eager: lowers the plan and walks the graph per call.
 * ``compile_plan`` — lowers (graph, plan) ONCE into a static
-  ``LoweredProgram`` and returns a callable that walks it: one program per
-  (graph, plan, bucket), batched, with params as call arguments. Eager
-  torch needs no tracing; CUDA-graph capture comes in a later slice.
+  ``LoweredProgram`` and returns a ``CompiledProgram``: one program per
+  (graph, plan, bucket), batched, with params as call arguments. On a
+  CUDA device it is the counterpart of the reference's ``jax.jit``
+  executable: per input shape and params, the first call walks the
+  lowering eagerly (the warm pass), the second captures one walk into a
+  CUDA graph, and every later call replays it — no Python dispatch on
+  the hot path. On the CPU every call is the eager walk.
 
 Entry points take ``device="cuda"`` by default and raise when CUDA is
 absent; the CPU runs only when the caller passes ``device="cpu"``.
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import hashlib
 import threading
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -275,6 +279,114 @@ def forward(graph: Graph, params: Params, x,
                            use_pallas, conv_tap)
 
 
+class _Capture:
+    """One captured forward: the CUDA graph and the static input and
+    output buffers it reads and writes."""
+
+    __slots__ = ("graph", "static_in", "static_out")
+
+    def __init__(self, graph: "torch.cuda.CUDAGraph", static_in: torch.Tensor,
+                 static_out: torch.Tensor) -> None:
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+
+
+def capture_key(params: Params, x) -> Tuple[tuple, tuple]:
+    """The capture-table key of one call: ``x``'s shape and the
+    ``data_ptr()`` of every parameter tensor, in sorted node-id (then
+    name) order. A CUDA graph binds pointers, so two params dicts of
+    different tensors need two captures, and a new dict of the same
+    tensors reuses one."""
+    return (tuple(int(d) for d in x.shape),
+            tuple(t.data_ptr() for nid in sorted(params)
+                  for _, t in sorted(params[nid].items())))
+
+
+def capture_forward(graph: Graph, lowering: Lowering, params: Params,
+                    x: torch.Tensor,
+                    use_pallas: Optional[bool]) -> _Capture:
+    """Capture one ``_eval_graph`` of ``x`` into a CUDA graph, reading a
+    static copy of ``x`` and writing a static output (both in the graph's
+    memory pool with every intermediate). Nothing runs: the caller
+    replays. Every lazily built index table the walk reads must exist
+    already (an eager walk at the same shape builds them), since a copy
+    from pageable host memory cannot be captured. Raises for a tensor off
+    the card: the CPU never captures, and a failed capture raises — no
+    caller carries on with the eager walk."""
+    if x.device.type != "cuda":
+        raise ValueError(f"capture_forward: CUDA graphs capture CUDA "
+                         f"tensors only, got {x.device}")
+    static_in = torch.empty_like(x)
+    static_in.copy_(x)
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        static_out = _eval_graph(graph, lowering, params, static_in,
+                                 use_pallas)
+    return _Capture(cuda_graph, static_in, static_out)
+
+
+class CompiledProgram:
+    """``compile_plan``'s callable: ``run(params, x) -> logits`` over one
+    static lowering (``run.lowering``).
+
+    On the CPU every call walks the lowering eagerly. On a CUDA device
+    each capture key (``capture_key``: ``x``'s shape and the params'
+    pointers) goes through three stages, as the reference compiles once
+    per input shape:
+
+    1. first call: the eager walk (the warm pass: it loads the kernel
+       libraries and builds every cached index table and grid size);
+    2. second call: ``capture_forward``, then one replay;
+    3. later calls: ``x`` is copied into the static input
+       (``non_blocking``: a pinned host ``x`` must stay unchanged until
+       the device is done), the graph replays, and the static output is
+       cloned out, so a returned tensor is never overwritten by the next
+       replay.
+
+    The capture table is guarded by a lock, and each call's copy, replay
+    and clone are enqueued under it, because ``ExecutableCache`` hands one
+    program to many engines; calls that share a program must share a
+    stream. A capture is held, with its memory pool, for the program's
+    lifetime; ``captures`` maps each key to its capture (None after the
+    warm pass only)."""
+
+    def __init__(self, graph: Graph, lowering: Lowering,
+                 use_pallas: Optional[bool], device: torch.device) -> None:
+        self.graph = graph
+        self.lowering = lowering
+        self.use_pallas = use_pallas
+        self.device = device
+        self.captures: Dict[tuple, Optional[_Capture]] = {}
+        self._lock = threading.Lock()
+
+    def __call__(self, params: Params, x) -> torch.Tensor:
+        with torch.inference_mode():
+            if self.device.type != "cuda":
+                return _eval_graph(self.graph, self.lowering, params,
+                                   _as_input(x, self.device),
+                                   self.use_pallas)
+            key = capture_key(params, x)
+            with self._lock:
+                if key not in self.captures:
+                    out = _eval_graph(self.graph, self.lowering, params,
+                                      _as_input(x, self.device),
+                                      self.use_pallas)
+                    self.captures[key] = None
+                    return out
+                entry = self.captures[key]
+                if entry is None:
+                    entry = self.captures[key] = capture_forward(
+                        self.graph, self.lowering, params,
+                        _as_input(x, self.device), self.use_pallas)
+                else:
+                    entry.static_in.copy_(
+                        torch.as_tensor(x, dtype=torch.float32),
+                        non_blocking=True)
+                entry.graph.replay()
+                return entry.static_out.clone()
+
+
 def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                  use_pallas: Optional[bool] = None,
                  epilogue: str = "relu",
@@ -285,14 +397,16 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                  fault_hook: Optional[Callable[[], None]] = None,
                  cache: Optional[ExecutableCache] = None,
                  act_scales: Optional[Dict[int, float]] = None,
-                 device="cuda") -> Callable[[Params, object], torch.Tensor]:
+                 device="cuda") -> CompiledProgram:
     """Lower (graph, plan) once into a static overlay program.
 
-    Returns ``run(params, x) -> logits`` with ``x``: (H, W, C) or
-    (B, H, W, C) (numpy or tensor; moved to ``device``). The topology,
-    every per-layer algorithm and dataflow/(p1, p2) binding and every
-    edge's store format are resolved *now* by ``lower_plan``; the returned
-    callable only walks that static lowering. With ``plan=None`` every
+    Returns ``run(params, x) -> logits``, a ``CompiledProgram``, with
+    ``x``: (H, W, C) or (B, H, W, C) (numpy or tensor; moved to
+    ``device``). The topology, every per-layer algorithm and
+    dataflow/(p1, p2) binding and every edge's store format are resolved
+    *now* by ``lower_plan``; the returned callable only walks that static
+    lowering, and on a CUDA device captures the walk once per input shape
+    and params as a CUDA graph and replays it. With ``plan=None`` every
     conv is im2col under the NS (128, 128) binding. ``elide=True``
     (default) lets consumers read matching store formats directly — im2col
     chains reuse the Toeplitz buffer — and ``elide=False`` compiles the
@@ -305,7 +419,9 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     plan with no int8 layer ignores it.
 
     ``mesh``, ``donate`` and ``fault_hook`` belong to later slices of the
-    port and raise ``NotImplementedError`` when set."""
+    port and raise ``NotImplementedError`` when set (a replay already
+    reads its input from the capture's static buffer, the counterpart of
+    a donated input; the pipelined engine that asks for it comes later)."""
     for name, value in (("mesh", mesh), ("donate", donate),
                         ("fault_hook", fault_hook)):
         if value:
@@ -313,17 +429,10 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                 f"compile_plan({name}=...) is not ported yet")
     dev = resolve_device(device)
 
-    def build() -> Callable[[Params, object], torch.Tensor]:
-        lowering = lower_plan(graph, plan, epilogue=epilogue, elide=elide,
-                              act_scales=act_scales)
-
-        def run(params: Params, x) -> torch.Tensor:
-            with torch.inference_mode():
-                return _eval_graph(graph, lowering, params,
-                                   _as_input(x, dev), use_pallas)
-
-        run.lowering = lowering
-        return run
+    def build() -> CompiledProgram:
+        return CompiledProgram(graph, lower_plan(
+            graph, plan, epilogue=epilogue, elide=elide,
+            act_scales=act_scales), use_pallas, dev)
 
     if cache is None:
         return build()

@@ -13,10 +13,14 @@ One overlay program is compiled per *batch bucket* (powers of two up to
   smallest covering bucket.
 
 One host staging buffer sized for the largest bucket is allocated once
-(page-locked on a CUDA device); a dispatch copies its leading rows to the
-device, and only stale slots left by a previous larger tick are
+(page-locked on a CUDA device); a dispatch hands its leading rows to the
+bucket's program, which copies them straight into its captured graph's
+static input (``executor.CompiledProgram``: the first dispatch of a
+bucket walks the program eagerly, the second captures it, later ones
+replay), and only stale slots left by a previous larger tick are
 re-zeroed. A tick blocks until the device is done
-(``torch.cuda.synchronize``) before its results are copied to the host.
+(``torch.cuda.synchronize``) before its results are copied to the host,
+so the next tick's staging never races the previous copy.
 
 An int8 plan is served with its calibrated ``act_scales``
 (``core.quant.plan_mixed_precision``), which every bucket program takes;
@@ -96,8 +100,9 @@ class CNNServingEngine:
     ``batch_size`` caps the largest bucket of the power-of-two ladder.
     ``slo_s`` is the per-request latency objective driving the tick
     scheduler; ``clock`` injects a time source (tests and trace replays
-    pass a virtual clock). ``warmup=True`` runs two padded ticks per bucket
-    at construction to prime the per-bucket service-time estimates.
+    pass a virtual clock). ``warmup=True`` runs three all-zeros ticks per
+    bucket at construction (the eager warm pass, the capture and a
+    replay) to prime the per-bucket service-time estimates.
     ``device`` is where the programs run (``"cuda"`` by default; raises
     when CUDA is absent). ``params`` must already live on that device.
     ``act_scales`` ({conv node id: activation scale}) feeds the plan's
@@ -253,8 +258,7 @@ class CNNServingEngine:
         batch, self.queue = self.queue[:bucket], self.queue[bucket:]
         self._stage(batch)
         t_launch = time.perf_counter()
-        out = self._runs[bucket](self.params,
-                                 self._staging[:bucket].to(self.device))
+        out = self._runs[bucket](self.params, self._staging[:bucket])
         self.dispatches[bucket] += 1
         self._complete(bucket, batch, now, t_launch, out)
         return len(batch)
@@ -366,7 +370,7 @@ class CNNServingEngine:
                        warm: bool = True) -> Dict[int, Callable]:
         """One compiled program per bucket for ``plan`` (and its int8
         layers' ``act_scales``) under this engine's options; ``warm=True``
-        runs each once on an all-zeros batch."""
+        runs each once (its eager warm pass) on an all-zeros batch."""
         runs = {
             bucket: compile_plan(self.graph, plan, epilogue=EPILOGUE,
                                  tuning_batch=bucket, act_scales=act_scales,
@@ -379,17 +383,20 @@ class CNNServingEngine:
         return runs
 
     def _run_blocking(self, run: Callable, bucket: int) -> None:
-        x = torch.zeros((bucket,) + self._shape, dtype=torch.float32,
-                        device=self.device)
-        run(self.params, x)
+        """Dispatch ``run`` on an all-zeros batch from the staging buffer,
+        as a tick does, and wait for the device."""
+        self._stage([])
+        run(self.params, self._staging[:bucket])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _warmup(self) -> None:
-        """Prime the service estimates: two all-zeros dispatches per bucket,
-        the second's wall time is the estimate."""
+        """Prime the service estimates: three all-zeros dispatches per
+        bucket — the eager warm pass, the capture and a replay — and the
+        last one's wall time, a replay's as every later tick runs, is the
+        estimate."""
         for bucket in self.buckets:
-            for _ in range(2):
+            for _ in range(3):
                 t0 = time.perf_counter()
                 self._run_blocking(self._runs[bucket], bucket)
                 wall = time.perf_counter() - t0
