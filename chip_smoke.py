@@ -122,7 +122,26 @@ both matrix products and cuDNN:
     group over its 85 launches) and the elided forward per bucket;
 18. serves distinct Inception-v4 requests through ``CNNServingEngine``
     with the gate's ``act_scales`` and checks every result against a
-    per-image plain forward.
+    per-image plain forward;
+19. serves full-width GoogleNet through the pipelined and robust engine
+    (this slice's main path: every count is reset before the depth-2
+    engine is built): a 29-request burst in waves of buckets 8, 8, 4, 4,
+    2, 1, 1, 1 at pipeline depths 1, 2 and 4 must dispatch the same
+    (bucket, requests) sequence, each result bit-equal to depth 1's and
+    within rtol 2e-2 / atol 2e-3 of a per-image plain forward, at depth 2
+    and 4 with a tick in flight after every ``step()`` and one capture per
+    bucket program; a ``FaultPlan`` with a completion-surfaced and a
+    dispatch-surfaced fault that recover and one that exhausts
+    ``max_retries`` (recovered results bit-equal to a clean engine's, the
+    exhausted tick's requests ``failed``, later ticks unaffected,
+    outcomes conserved); a tick that exhausts its dispatch retries while
+    a completion-faulted tick is held in flight, whose pipeline slot the
+    next tick must take (results bit-equal to the clean engine's); an
+    overload burst under ``max_queue``,
+    ``shed_deadline`` and ``degrade`` with exact outcome counts; and
+    ``tools/bench_serving.py``'s wall-clock Poisson replays at 0.6x and
+    1.2x of saturation at depths 1 and 2, 200 requests each, whose
+    latency and throughput rows are printed, not gated.
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
 and 18 serve as phase 5 does, and every forward timed is a replay.
@@ -169,6 +188,13 @@ N_REQUESTS = 13
 N_VGG_REQUESTS = 12
 N_IV4_REQUESTS = 11
 N_IV4_I8_REQUESTS = 11
+# Phase 19: the burst's waves (29 requests; a bucket twice and thrice in a
+# row), the pipeline depths served, the faulted run's waves (35 requests,
+# 7 ticks) and the replayed rates of ``tools/bench_serving.py``.
+WAVES = (8, 8, 4, 4, 2, 1, 1, 1)
+PIPELINE_DEPTHS = (1, 2, 4)
+FAULT_WAVES = (8, 4, 8, 2, 8, 1, 4)
+N_LOAD_REQUESTS = 200
 # FLOP per (tile, channel) of the Winograd transforms as csrc/winograd.cu
 # writes them: two passes of 1-D transforms (adds and small-constant
 # FMAs), plus bias and ReLU on the m x m outputs of the output transform.
@@ -738,7 +764,12 @@ def main() -> int:
     from repro_torch.kernels.layouts import materialize
     from repro_torch.kernels.winograd import winograd as wino
     from repro_torch.kernels.winograd.ops import conv_winograd
-    from repro_torch.serving.cnn_engine import CNNRequest, CNNServingEngine
+    from repro_torch.distributed.fault import FaultPlan, TickFault
+    from repro_torch.serving.cnn_engine import (
+        OUTCOME_COMPLETED, OUTCOME_FAILED, OUTCOME_REJECTED, OUTCOME_SHED,
+        CNNRequest, CNNServingEngine, DegradeConfig)
+    sys.path.insert(0, str(SRC.parent / "tools"))
+    from bench_serving import load_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1123,6 +1154,7 @@ def main() -> int:
     # ---- 5. serving: the main path ------------------------------------
     gserve = serve_checked(5, "googlenet", g, plan, params, 224, N_REQUESTS,
                            1, googlenet_expect[True], runs[(True, 1)][1])
+    gnet = g                    # served again in phase 19; ``g`` is reused
 
     # ---- 6. timings ---------------------------------------------------
     a, b, bias = gemm_inputs["conv2"]
@@ -1382,6 +1414,24 @@ def main() -> int:
                     depthwise().reshape(bsz, c_in, t * t, -1).permute(
                         2, 0, 3, 1).reshape(t * t, n_tiles, c_in), v_p,
                     **KERNEL_TOL)
+        # The output transform's: Aᵀ M A as one einsum, then bias and
+        # ReLU, its (tile, m, m, C) result in tile order (checked against
+        # the plain version once the blocks are put in place).
+        _, _, at = wino.torch_matrices(m, 3, dev)
+        mm4 = mm_p.reshape(t, t, n_tiles, c_out)
+
+        def einsum_out():
+            return torch.relu(torch.einsum("ai,ijnc,bj->nabc", at, mm4, at)
+                              + bias)
+
+        check_close(f"einsum output transform {label}",
+                    einsum_out().reshape(
+                        bsz, geo["tiles_y"], geo["tiles_x"], m, m,
+                        c_out).permute(0, 1, 3, 2, 4, 5).reshape(
+                        bsz, geo["tiles_y"] * m, geo["tiles_x"] * m,
+                        c_out)[:, :hw, :hw],
+                    wino.output_transform_plain(mm_p, **out_geo),
+                    **KERNEL_TOL)
         rows = {
             "input_transform": (
                 lambda: wino.input_transform_call(x, pad_top=1, pad_left=1,
@@ -1401,7 +1451,7 @@ def main() -> int:
             "output_transform": (
                 lambda: wino.output_transform_call(mm_p, **out_geo),
                 lambda: wino.output_transform_plain(mm_p, **out_geo),
-                None,
+                ("torch.einsum + bias + ReLU", einsum_out),
                 bound(n_tiles * c_out * TRANSFORM_FLOPS[("out", m)],
                       m_bytes + 4.0 * (c_out + bsz * hw * hw * c_out))),
         }
@@ -2215,6 +2265,223 @@ def main() -> int:
                            N_IV4_I8_REQUESTS, 4,
                            expected_launches(qruns[(True, 1)][0].lowering),
                            qruns[(True, 1)][1], act_scales=qscales)
+
+    # ---- 19. pipelined and robust serving: this slice's main path --------
+    def serve_waves(engine, images, waves, base):
+        """Submit ``waves`` of ``images`` under rids from ``base``, one
+        ``step(flush=True)`` after each wave, then retire everything;
+        returns the in-flight count read right after each step."""
+        inflight, rid = [], base
+        for n in waves:
+            for _ in range(n):
+                engine.submit(CNNRequest(rid=rid, image=images[rid - base]))
+                rid += 1
+            engine.step(flush=True)
+            inflight.append(engine.stats()["pipeline"]["inflight"])
+        engine.run_until_done()
+        return inflight
+
+    def tick_sequence(engine, first):
+        """(bucket, requests) per completed tick, in dispatch order, from
+        the request log (ticks retire in dispatch order)."""
+        seq, last = [], None
+        for t in list(engine.request_log)[first:]:
+            if (t.t_dispatch, t.bucket) != last:
+                seq.append([t.bucket, 0])
+                last = (t.t_dispatch, t.bucket)
+            seq[-1][1] += 1
+        return [tuple(s) for s in seq]
+
+    rng19 = np.random.default_rng(19)
+    images = [rng19.standard_normal((224, 224, 3)).astype(np.float32)
+              for _ in range(sum(WAVES))]
+    run_p1 = compile_plan(gnet, plan, epilogue="bias_relu", tuning_batch=1,
+                          use_pallas=False, device=dev)
+    plain = [run_p1(params, img[None])[0] for img in images]
+    per_tick = googlenet_expect[True]
+    want_seq = [(next(b for b in BUCKETS if b >= n), n) for n in WAVES]
+    results, main19 = {}, None
+    for depth in PIPELINE_DEPTHS:
+        reset_counts()
+        engine = CNNServingEngine(gnet, params, plan, batch_size=8,
+                                  pipeline_depth=depth, warmup=True,
+                                  device=dev)
+        warm = counts()
+        if warm != tuple(2 * len(engine.buckets) * k for k in per_tick):
+            raise CheckFailed(f"depth {depth} warm-up launches {warm}")
+        bases = []
+
+        def serve():
+            # This late in the script the profiler drops the first kernel
+            # of a window (on the card: the first tick's stem conv, 7 of
+            # 8 rows, in every window; none once two kernels ran before
+            # it), so the window opens with kernels no count reads (a zero
+            # fill is a memset, not a kernel).
+            torch.ones(1, device=dev).mul_(2)
+            bases.append(len(bases) * len(images))
+            first = len(engine.request_log)
+            return first, serve_waves(engine, images, WAVES, bases[-1])
+
+        (first, inflight), rows, _ = profiled_launches(serve)
+        seq = tick_sequence(engine, first)
+        if seq != want_seq:
+            raise CheckFailed(f"depth {depth} dispatched {seq}, expected "
+                              f"{want_seq}")
+        if launches_by_name(rows) != tuple(len(seq) * k for k in per_tick):
+            raise CheckFailed(f"depth {depth} served kernel rows "
+                              f"{launches_by_name(rows)} over {len(seq)} "
+                              f"ticks, expected {per_tick} per tick")
+        if counts() != warm:
+            raise CheckFailed(f"depth {depth}: the counters moved over the "
+                              f"replayed ticks, {warm} -> {counts()}")
+        if depth == 2:
+            main19 = counts()
+        if depth > 1 and min(inflight) < 1:
+            raise CheckFailed(f"depth {depth}: in flight after each step "
+                              f"{inflight}: a tick blocked its step")
+        if any(len(run.captures) != 1 or None in run.captures.values()
+               for run in engine._runs.values()):
+            raise CheckFailed(f"depth {depth}: not one capture per bucket")
+        results[depth] = [engine.done[bases[-1] + i]
+                          for i in range(len(images))]
+        st = engine.stats()["pipeline"]
+        print(f"[19] googlenet depth {depth}: {len(seq)} ticks {seq}; in "
+              f"flight after each step {inflight}; overlap_ratio "
+              f"{st['overlap_ratio']:.4f}; one capture per bucket; launches "
+              f"counted (warm-up eager and capture passes) "
+              f"{launch_text(warm)}, 0 over the ticks; kernel rows of the "
+              f"served ticks (profiler) {launch_text(launches_by_name(rows))}")
+        del engine
+    if main19[0] == 0 or main19[1] == 0:
+        raise CheckFailed(f"the depth-2 run launched {launch_text(main19)}")
+    err = 0.0
+    for i, want in enumerate(plain):
+        for depth in PIPELINE_DEPTHS[1:]:
+            if not np.array_equal(results[depth][i], results[1][i]):
+                raise CheckFailed(f"depth {depth} request {i} differs from "
+                                  f"depth 1's")
+        err = max(err, check_close(f"pipelined request {i}", torch.as_tensor(
+            results[1][i], device=dev), want, **FORWARD_TOL))
+    print(f"[19] depths {PIPELINE_DEPTHS}: every result bit-equal to depth "
+          f"1's (bucket 8 and 4 twice, bucket 1 thrice in a row, one capture "
+          f"each); max|diff| vs per-image plain forward {err:.3e}")
+
+    def conserved(engine):
+        rb = engine.stats()["robustness"]
+        if sum(rb["outcomes"].values()) + rb["pending"] != \
+                engine.submitted_total:
+            raise CheckFailed(f"outcomes {rb['outcomes']} + pending "
+                              f"{rb['pending']} != {engine.submitted_total}")
+        return rb
+
+    fimages = [rng19.standard_normal((224, 224, 3)).astype(np.float32)
+               for _ in range(sum(FAULT_WAVES))]
+    clean = CNNServingEngine(gnet, params, plan, batch_size=8, pipeline_depth=2,
+                             warmup=True, device=dev)
+    serve_waves(clean, fimages, FAULT_WAVES, 0)
+    faults = {1: TickFault(failures=1), 3: TickFault(failures=1,
+                                                     at_dispatch=True),
+              4: TickFault(failures=3)}
+    faulty = CNNServingEngine(gnet, params, plan, batch_size=8,
+                              pipeline_depth=2, warmup=True,
+                              fault_plan=FaultPlan(faults), max_retries=2,
+                              device=dev)
+    serve_waves(faulty, fimages, FAULT_WAVES, 0)
+    rb = conserved(faulty)
+    lost = set(range(sum(FAULT_WAVES[:4]), sum(FAULT_WAVES[:5])))
+    if faulty.failed != {rid: 4 for rid in lost} or \
+            faulty.failed_ticks != 1 or faulty.retries_total != 4:
+        raise CheckFailed(f"faults: failed {faulty.failed}, failed ticks "
+                          f"{faulty.failed_ticks}, retries "
+                          f"{faulty.retries_total}")
+    if set(faulty.done) != set(range(len(fimages))) - lost or any(
+            not np.array_equal(faulty.done[r], clean.done[r])
+            for r in faulty.done):
+        raise CheckFailed("faults: a recovered or later result differs "
+                          "from the clean engine's")
+    print(f"[19] faults at depth 2 (ticks 1: completion, 3: dispatch, "
+          f"recovered; 4: exhausts max_retries 2): outcomes "
+          f"{rb['outcomes']}, retries {rb['retries']}, failed ticks "
+          f"{rb['failed_ticks']}; {len(faulty.done)} results bit-equal to "
+          f"the clean engine's")
+    # A tick that exhausts its dispatch retries gives its pipeline slot
+    # back: tick 0 (completion fault) is held in flight by the device
+    # delay, tick 1 fails at dispatch, and tick 2 must take slot 1, not
+    # tick 0's slot, whose staging buffer tick 0's replay reads again and
+    # whose host output buffer tick 0's completion reads.
+    del faulty
+    slot = CNNServingEngine(
+        gnet, params, plan, batch_size=8, pipeline_depth=2, warmup=True,
+        device_delay_s=0.2, max_retries=2, device=dev,
+        fault_plan=FaultPlan({0: TickFault(failures=1),
+                              1: TickFault(failures=3, at_dispatch=True)}))
+    rid = 0
+    for n in FAULT_WAVES[:3]:
+        for _ in range(n):
+            slot.submit(CNNRequest(rid=rid, image=fimages[rid]))
+            rid += 1
+        slot.step(flush=True)
+    held = [(t.tick_idx, t.buf_index) for t in slot._inflight]
+    slot.drain()
+    rb = conserved(slot)
+    lost = set(range(FAULT_WAVES[0], sum(FAULT_WAVES[:2])))
+    if held != [(0, 0), (2, 1)] or slot.failed != {r: 1 for r in lost} \
+            or set(slot.done) != set(range(rid)) - lost or any(
+                not np.array_equal(slot.done[r], clean.done[r])
+                for r in slot.done):
+        raise CheckFailed(f"slot reuse: (tick, slot) in flight {held}, "
+                          f"failed {slot.failed}, done {sorted(slot.done)}, "
+                          f"or a result differs from the clean engine's")
+    print(f"[19] slot reuse at depth 2 (tick 0: completion fault, held in "
+          f"flight; tick 1: dispatch retries exhausted): (tick, slot) in "
+          f"flight {held}; outcomes {rb['outcomes']}; {len(slot.done)} "
+          f"results bit-equal to the clean engine's")
+    del slot
+    slo_over = 0.25
+    over = CNNServingEngine(
+        gnet, params, plan, batch_size=8, pipeline_depth=2, warmup=True,
+        slo_s=slo_over, max_queue=16, shed_deadline=True,
+        degrade=DegradeConfig(enter_queue=12, exit_queue=4, exit_ticks=2),
+        device=dev)
+    now = time.monotonic()
+    verdicts = [over.submit(CNNRequest(rid=i, image=fimages[i],
+                                       t_submit=now - 40 * slo_over))
+                for i in range(12)]
+    verdicts += [over.submit(CNNRequest(rid=i, image=fimages[i]))
+                 for i in range(12, len(fimages))]
+    over.run_until_done()
+    rb = conserved(over)
+    # 12 hopeless requests and 4 fresh ones fill the queue of 16, the
+    # rest is rejected; the first step enters degrade (queue 16 >= 12),
+    # sheds the 12 and dispatches the 4 at once.
+    n_rejected = len(fimages) - 16
+    want_out = {OUTCOME_COMPLETED: 4, OUTCOME_REJECTED: n_rejected,
+                OUTCOME_SHED: 12, OUTCOME_FAILED: 0}
+    if rb["outcomes"] != want_out or rb["degrade"]["entries"] != 1 or \
+            verdicts.count(OUTCOME_REJECTED) != n_rejected:
+        raise CheckFailed(f"overload: outcomes {rb['outcomes']}, degrade "
+                          f"{rb['degrade']}, expected {want_out} and one "
+                          f"degrade entry")
+    for rid, got in over.done.items():
+        check_close(f"overload request {rid}", torch.as_tensor(
+            got, device=dev), run_p1(params, fimages[rid][None])[0],
+            **FORWARD_TOL)
+    print(f"[19] overload at depth 2 (max_queue 16, shed_deadline, degrade "
+          f"enter 12 / exit 4): outcomes {rb['outcomes']}, queue high water "
+          f"{rb['queue_high_water']}, degrade {rb['degrade']}; completed "
+          f"results within rtol 2e-2 atol 2e-3 of the plain forward")
+    del clean, over
+    torch.cuda.empty_cache()
+    load = load_rows(gnet, params, plan, dev, rates=("mid", "high"),
+                     n_requests=N_LOAD_REQUESTS,
+                     log=lambda text: print(f"[19] load: {text}"))
+    for row in load["rows"] + load["overload"]:
+        if not np.isfinite([row["p50_ms"], row["p99_ms"], row["max_ms"],
+                            row["throughput_rps"]]).all():
+            raise CheckFailed(f"load row {row}: non-finite numbers")
+    if any(row["served"] != N_LOAD_REQUESTS for row in load["rows"]):
+        raise CheckFailed("load: a replay did not serve every request")
+    print(f"[19] load rows (not gated): {json.dumps(load)}; {memory_text()}")
 
     def wino_entry(name, source, replaces, label, launches):
         k_ms, p_ms, l_ms, b_ms, b_by = wino_times[(name, label)]

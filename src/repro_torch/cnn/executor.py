@@ -67,8 +67,12 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
                          device="cuda") -> tuple:
     """The ``(graph hash, plan, bucket, device, options)`` identity of one
     compiled program: everything ``compile_plan`` closes over except the
-    params, which are call arguments. The plan fingerprint carries the
-    per-layer precisions and ``act_scales`` the calibrated activation
+    params, which are call arguments; ``fault_hook``, a host-side wrapper
+    applied outside the cache (so a fault-armed engine and a clean one
+    share one program and its captures); and ``donate``, which changes
+    nothing on the card (``compile_plan``), so a pipelined engine and a
+    synchronous one share one program too. The plan fingerprint carries
+    the per-layer precisions and ``act_scales`` the calibrated activation
     scales, so an int8 plan and the bf16 plan of one architecture, or two
     calibrations of one plan, never share a key."""
     return (graph_hash(graph), plan_fingerprint(plan), use_pallas, epilogue,
@@ -397,10 +401,11 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                  fault_hook: Optional[Callable[[], None]] = None,
                  cache: Optional[ExecutableCache] = None,
                  act_scales: Optional[Dict[int, float]] = None,
-                 device="cuda") -> CompiledProgram:
+                 device="cuda") -> Callable:
     """Lower (graph, plan) once into a static overlay program.
 
-    Returns ``run(params, x) -> logits``, a ``CompiledProgram``, with
+    Returns ``run(params, x) -> logits``, a ``CompiledProgram`` (wrapped
+    when ``fault_hook`` is given), with
     ``x``: (H, W, C) or (B, H, W, C) (numpy or tensor; moved to
     ``device``). The topology, every per-layer algorithm and
     dataflow/(p1, p2) binding and every edge's store format are resolved
@@ -418,15 +423,19 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     calibrated per-tensor input scales; it enters the cache key, and a
     plan with no int8 layer ignores it.
 
-    ``mesh``, ``donate`` and ``fault_hook`` belong to later slices of the
-    port and raise ``NotImplementedError`` when set (a replay already
-    reads its input from the capture's static buffer, the counterpart of
-    a donated input; the pipelined engine that asks for it comes later)."""
-    for name, value in (("mesh", mesh), ("donate", donate),
-                        ("fault_hook", fault_hook)):
-        if value:
-            raise NotImplementedError(
-                f"compile_plan({name}=...) is not ported yet")
+    ``donate=True`` is the reference's donated batched input, which its
+    pipelined engine asks for. It is taken for the reference's API and
+    changes nothing, not even the cache key: the capture's static input
+    buffer, into which each call copies ``x``, already plays the donated
+    buffer's part, so no per-call input buffer stays live.
+    ``fault_hook`` (robustness testing) is a zero-arg callable invoked
+    before each call, the outermost wrapper, applied outside the cache:
+    injected dispatch faults surface at the call, as a
+    launch error would, and a hooked and an unhooked caller share one
+    program. ``fault_hook=None`` adds no wrapper. ``mesh`` belongs to a
+    later slice of the port and raises ``NotImplementedError``."""
+    if mesh is not None:
+        raise NotImplementedError("compile_plan(mesh=...) is not ported yet")
     dev = resolve_device(device)
 
     def build() -> CompiledProgram:
@@ -435,8 +444,24 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
             act_scales=act_scales), use_pallas, dev)
 
     if cache is None:
-        return build()
+        return _with_fault_hook(build(), fault_hook)
     key = executable_cache_key(graph, plan, use_pallas=use_pallas,
                                epilogue=epilogue, tuning_batch=tuning_batch,
-                               elide=elide, act_scales=act_scales, device=dev)
-    return cache.get_or_compile(key, build)
+                               elide=elide, act_scales=act_scales,
+                               device=dev)
+    return _with_fault_hook(cache.get_or_compile(key, build), fault_hook)
+
+
+def _with_fault_hook(run: Callable, fault_hook: Optional[Callable[[], None]]
+                     ) -> Callable:
+    """Outermost wrapper: call ``fault_hook()`` before each invocation of
+    ``run``. No hook, no wrapper (the common path stays the program
+    itself)."""
+    if fault_hook is None:
+        return run
+
+    def hooked(params: Params, x) -> torch.Tensor:
+        fault_hook()
+        return run(params, x)
+
+    return hooked

@@ -142,6 +142,28 @@ def test_executable_cache_shares_programs(setup):
     assert cache.stats() == {"entries": 2, "hits": 1, "misses": 2}
 
 
+def test_donation_and_fault_hook_share_the_cached_program(setup):
+    """``donate`` changes nothing and ``fault_hook`` wraps outside the
+    cache: a pipelined, fault-armed caller and a plain one share one
+    program (on the card, one capture per bucket)."""
+    g, plan, _, _, np_params = setup
+    params = params_from_jax(np_params, "cpu")
+    cache = ExecutableCache()
+    calls = []
+    plain = compile_plan(g, plan, tuning_batch=2, cache=cache, device="cpu")
+    donated = compile_plan(g, plan, tuning_batch=2, cache=cache,
+                           device="cpu", donate=True)
+    hooked = compile_plan(g, plan, tuning_batch=2, cache=cache,
+                          device="cpu", donate=True,
+                          fault_hook=lambda: calls.append(1))
+    assert donated is plain and hooked is not plain
+    assert cache.stats() == {"entries": 1, "hits": 2, "misses": 1}
+    x = np.random.default_rng(1).standard_normal((1, 56, 56, 3)).astype(
+        np.float32)
+    assert torch.equal(hooked(params, x), plain(params, x))
+    assert calls == [1]
+
+
 def test_executable_cache_key_names_every_option(setup):
     """Structurally equal graphs share a key; each option the program
     closes over (plan, kernels or plain, epilogue, bucket, elision,

@@ -31,7 +31,9 @@ from repro_torch.kernels.kn2row.kn2row import (pad_accumulate_call,
                                                unit_conv_gemms_call)
 from repro_torch.kernels.winograd import winograd as winograd_mod
 from repro_torch.kernels.layouts import materialize, restore
-from repro_torch.serving.cnn_engine import CNNServingEngine
+from repro_torch.distributed.fault import FaultPlan
+from repro_torch.serving.cnn_engine import (CNNRequest, CNNServingEngine,
+                                            DegradeConfig)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -50,7 +52,7 @@ def _imported_roots(path: Path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tools" / "bench_serving.py"]
     assert len(files) > 15
     names = {str(f.relative_to(REPO / "src" / "repro_torch")) for f in files
              if "repro_torch" in f.parts}
@@ -288,19 +290,27 @@ def test_unported_algorithms_and_int8_kernels_raise():
 
 
 def test_later_slice_options_raise(small):
-    """Options of later slices raise; ``act_scales=`` (the int8 slice) is
-    taken by the engine and reaches every bucket program."""
+    """Options of later slices raise (the mesh path, tuning records, plan
+    hot-swap); the serving slice's options (donation, the fault hook,
+    pipelining, admission, shedding, faults, degrade) and ``act_scales=``
+    (the int8 slice) are taken."""
     g, params = small
-    for kw in (dict(mesh=object()), dict(donate=True),
-               dict(fault_hook=lambda: None)):
-        with pytest.raises(NotImplementedError):
-            compile_plan(g, device="cpu", **kw)
-    for kw in (dict(pipeline_depth=2), dict(max_queue=4),
-               dict(shed_deadline=True), dict(fault_plan=object()),
-               dict(degrade=object()), dict(mesh=object()),
-               dict(tuning=object())):
+    with pytest.raises(NotImplementedError, match="mesh"):
+        compile_plan(g, device="cpu", mesh=object())
+    calls = []
+    run = compile_plan(g, device="cpu", donate=True,
+                       fault_hook=lambda: calls.append(1))
+    assert run(params, np.zeros((1, 32, 32, 3), np.float32)).shape[0] == 1
+    assert calls == [1]
+    for kw in (dict(mesh=object()), dict(tuning=object())):
         with pytest.raises(NotImplementedError):
             CNNServingEngine(g, params, None, device="cpu", **kw)
+    engine = CNNServingEngine(
+        g, params, None, buckets=(2,), pipeline_depth=2, max_queue=4,
+        shed_deadline=True, slo_s=10.0, fault_plan=FaultPlan({}),
+        degrade=DegradeConfig(), device="cpu")
+    engine.submit(CNNRequest(rid=0, image=np.zeros((32, 32, 3))))
+    assert set(engine.run_until_done()) == {0}
     scales = {n.id: 0.1 for n in g.conv_nodes()}
     engine = CNNServingEngine(g, params, None, batch_size=1, device="cpu",
                               act_scales=scales)
