@@ -141,7 +141,29 @@ both matrix products and cuDNN:
     ``shed_deadline`` and ``degrade`` with exact outcome counts; and
     ``tools/bench_serving.py``'s wall-clock Poisson replays at 0.6x and
     1.2x of saturation at depths 1 and 2, 200 requests each, whose
-    latency and throughput rows are printed, not gated.
+    latency and throughput rows are printed, not gated;
+20. tunes full-width GoogleNet on the card (this slice's main path: every
+    count is reset before the tuning and before each tuned engine):
+    ``core.autotune.autotune_buckets`` at buckets 1, 2, 4 and 8 over the
+    four kernel tiles, kernels only, the plan's binding the hysteresis
+    baseline, each candidate timed as a CUDA-graph replay; the six kernels
+    of the candidates must have launched; every entry must be its fastest
+    candidate or the baseline kept by the 5% hysteresis, and the record
+    must reload from JSON unchanged. Programs compiled from the record at
+    buckets 1 and 8 must run every conv on a kernel, launch what their
+    lowering gives, replay bit-equal to their eager pass and match the
+    untuned program (rtol 2e-2, atol 2e-3; both forwards timed, not
+    gated). ``CNNServingEngine(tuning=record)`` serves phase 19's burst at
+    depths 1 and 2: the same ticks, bit-equal results within the whole-plan
+    tolerance of the untuned per-image plain forward, launches and kernel
+    rows per tick as each bucket's lowering gives them;
+    ``refresh_from_service``'s ratios are printed. ``tune_elision`` runs at
+    buckets 1 and 8 (57 programs each, each dropped before the next), and
+    a program with its overrides must match the all-elided one within
+    1e-4. A report tunes bucket 8 over all three backends (printed, not
+    gated), and ``tune_layer`` in int8 on Inception-v4's stem/c1 and
+    redA/b3b must time no Winograd candidate and its winner must equal
+    its plain version bit for bit.
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
 and 18 serve as phase 5 does, and every forward timed is a replay.
@@ -350,13 +372,15 @@ KERNEL_SYMBOLS = {"conv": "conv_im2col_f32_kernel", "gemm": "gemm_f32_kernel",
 
 
 def profiled_launches(fn):
-    """(``fn()``'s result, {short name: rows}, kernel rows in all) from
-    ``torch.profiler``: the device rows of each ``KERNEL_SYMBOLS`` kernel
-    one call of ``fn`` ran — for a replayed CUDA graph, the kernels the
-    graph holds, which the host's launch counters never see — and of every
-    kernel (copies and fills aside). A window without any kernel row
-    (seen on the card for short windows) is taken again, up to three in
-    all, so ``fn`` must be safe to call again."""
+    """(``fn()``'s result, {short name: rows}) from ``torch.profiler``: the
+    device rows of each ``KERNEL_SYMBOLS`` kernel one call of ``fn`` ran —
+    for a replayed CUDA graph, the kernels the graph holds, which the
+    host's launch counters never see. Each window opens with seventeen
+    small kernels no count reads: late in the script the profiler dropped
+    the first kernels of a window on the card (up to four, a served tick's
+    stem conv among them; none once sixteen ran before it). A window
+    without any kernel row (seen on the card for short windows) is taken
+    again, up to three in all, so ``fn`` must be safe to call again."""
     import re
 
     import torch
@@ -365,6 +389,9 @@ def profiled_launches(fn):
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            opener = torch.ones(1, device="cuda")
+            for _ in range(16):
+                opener.mul_(2)
             out = fn()
             torch.cuda.synchronize()
         rows, kernels = Counter(), 0
@@ -377,7 +404,7 @@ def profiled_launches(fn):
                 if re.search(rf"\b{symbol}\b", e.key):
                     rows[name] += e.count
         if kernels:
-            return out, rows, kernels
+            return out, rows
     raise CheckFailed("the profiler recorded no kernel rows in three "
                       "windows")
 
@@ -768,7 +795,16 @@ def main() -> int:
     from repro_torch.serving.cnn_engine import (
         OUTCOME_COMPLETED, OUTCOME_FAILED, OUTCOME_REJECTED, OUTCOME_SHED,
         CNNRequest, CNNServingEngine, DegradeConfig)
+    from repro_torch.cnn import overlay
+    from repro_torch.core.autotune import (BACKENDS, TuningRecord,
+                                           autotune_buckets, autotune_graph,
+                                           refresh_from_service, tune_elision,
+                                           tune_layer)
+    from repro_torch.core.cost_model import Dataflow
+    from repro_torch.kernels.common import quantize, weight_scales
+    from repro_torch.kernels.conv_im2col.ops import conv_im2col
     sys.path.insert(0, str(SRC.parent / "tools"))
+    from bench_autotune import FOUR_PAIRS, backend_report, tuning_summary
     from bench_serving import load_rows
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -889,7 +925,7 @@ def main() -> int:
                         run_k.captures.values():
                     raise CheckFailed(f"{tag} b{bsz} elide={elide}: not one "
                                       f"capture after three calls")
-                _, rows, _ = profiled_launches(lambda: run_k(params, x))
+                _, rows = profiled_launches(lambda: run_k(params, x))
                 if launches_by_name(rows) != derived:
                     raise CheckFailed(
                         f"{tag} b{bsz} elide={elide}: one replay ran "
@@ -949,7 +985,7 @@ def main() -> int:
                     sum(engine.dispatches.values()) - ticks0,
                     engine.served_total - served0)
 
-        (done, ticks, n_served), rows, _ = profiled_launches(serve)
+        (done, ticks, n_served), rows = profiled_launches(serve)
         served = counts()
         if n_served != n_requests or sorted(done) != list(range(n_requests)):
             raise CheckFailed(f"{tag}: served {n_served} of {n_requests}")
@@ -2312,17 +2348,11 @@ def main() -> int:
         bases = []
 
         def serve():
-            # This late in the script the profiler drops the first kernel
-            # of a window (on the card: the first tick's stem conv, 7 of
-            # 8 rows, in every window; none once two kernels ran before
-            # it), so the window opens with kernels no count reads (a zero
-            # fill is a memset, not a kernel).
-            torch.ones(1, device=dev).mul_(2)
             bases.append(len(bases) * len(images))
             first = len(engine.request_log)
             return first, serve_waves(engine, images, WAVES, bases[-1])
 
-        (first, inflight), rows, _ = profiled_launches(serve)
+        (first, inflight), rows = profiled_launches(serve)
         seq = tick_sequence(engine, first)
         if seq != want_seq:
             raise CheckFailed(f"depth {depth} dispatched {seq}, expected "
@@ -2482,6 +2512,264 @@ def main() -> int:
     if any(row["served"] != N_LOAD_REQUESTS for row in load["rows"]):
         raise CheckFailed("load: a replay did not serve every request")
     print(f"[19] load rows (not gated): {json.dumps(load)}; {memory_text()}")
+
+    # ---- 20. the measured autotuner: this slice's main path ------------
+    t20 = time.perf_counter()
+    torch.cuda.empty_cache()
+    TUNED = ("conv", "unit_conv_gemms", "pad_accumulate", "input_transform",
+             "batched_gemm", "output_transform")
+
+    def count_of(name):
+        return counts()[KERNEL_NAMES.index(name)]
+
+    # 20.1 Tune every signature at every bucket, kernels only, the plan's
+    # binding as the hysteresis baseline (the main path's first leg: every
+    # count reset just before it).
+    reset_counts()
+    t0 = time.perf_counter()
+    record = autotune_buckets(gnet, plan, buckets=BUCKETS,
+                              backends=("pallas",), baseline_backend="pallas",
+                              p1p2=FOUR_PAIRS, device=dev)
+    tune_s = time.perf_counter() - t0
+    tuned20 = counts()
+    if any(count_of(name) == 0 for name in TUNED):
+        raise CheckFailed(f"tuning launched {launch_text(tuned20)}: a kernel "
+                          f"of the candidates never ran")
+    print(f"[20] tuned googlenet 224 at buckets {BUCKETS} over tiles "
+          f"{FOUR_PAIRS}, kernels only, in {tune_s:.1f} s "
+          f"({sum(len(t.candidates) for t in record.entries.values())} "
+          f"candidates, each a CUDA-graph replay); launches counted (eager "
+          f"warm-ups and captures) {launch_text(tuned20)}; {memory_text()}")
+    for key, ent in record.entries.items():
+        times = [s for _, s in ent.candidates]
+        base_label, base_s = ent.candidates[0]
+        kept = (ent.binding.label() == base_label and ent.measured_s == base_s
+                and min(times[1:], default=base_s) >= base_s * 0.95)
+        if not (np.isfinite(times).all() and min(times) > 0
+                and (ent.measured_s == min(times) or kept)):
+            raise CheckFailed(f"record entry {key}: {ent.binding.label()} "
+                              f"{ent.measured_s} is neither the fastest of "
+                              f"{len(times)} candidates nor the baseline "
+                              f"kept by the 5% hysteresis")
+    for bsz in BUCKETS:
+        summ = tuning_summary(record, gnet, plan, bsz, "pallas")
+        print(f"[20] b{bsz}: {summ['moved']} of {summ['signatures']} "
+              f"signatures left the plan's binding; winners by algorithm "
+              f"{summ['by_algo']}, by kernel tile {summ['by_tile']}; winners "
+              f"{summ['winners_ms']:.4f} ms against the baselines' "
+              f"{summ['baselines_ms']:.4f} (summed over the 57 layers "
+              f"{summ['winners_layers_ms']:.4f} against "
+              f"{summ['baselines_layers_ms']:.4f})")
+    record_path = SRC.parent / "build" / "autotune" / "googlenet_b1248.json"
+    record_path.parent.mkdir(parents=True, exist_ok=True)
+    record.save(record_path)
+    if TuningRecord.load(record_path).to_json() != record.to_json():
+        raise CheckFailed("the record's JSON reload differs from it")
+
+    # 20.2 Tuned against untuned programs (replays), buckets 1 and 8.
+    tuned_runs = {}
+    for bsz in (1, 8):
+        run_t = compile_plan(gnet, plan, epilogue="bias_relu", tuning=record,
+                             tuning_batch=bsz, device=dev)
+        run_u = compile_plan(gnet, plan, epilogue="bias_relu",
+                             tuning_batch=bsz, device=dev)
+        off = {low.backend for low in run_t.lowering.values()} - {"pallas"}
+        if off:
+            raise CheckFailed(f"the tuned b{bsz} lowering runs convs on {off}")
+        x = randn(bsz, 224, 224, 3)
+        derived = expected_launches(run_t.lowering)
+        reset_counts()
+        eager = run_t(params, x)
+        if counts() != derived:
+            raise CheckFailed(f"tuned b{bsz} eager pass launched {counts()}, "
+                              f"the lowering gives {derived}")
+        run_t(params, x)                          # capture, one replay
+        got = run_t(params, x)                    # a replay
+        for _ in range(3):
+            want = run_u(params, x)               # eager, capture, replay
+        if not torch.equal(got, eager):
+            raise CheckFailed(f"tuned b{bsz}: the replay differs from the "
+                              f"eager pass")
+        err = check_close(f"tuned b{bsz} vs untuned", got, want,
+                          **FORWARD_TOL)
+        t_ms = time_ms(lambda: run_t(params, x), reps=10, rounds=5)
+        u_ms = time_ms(lambda: run_u(params, x), reps=10, rounds=5)
+        tuned_runs[bsz] = (t_ms, u_ms)
+        print(f"[20] tuned b{bsz} (replay): launches per forward "
+              f"{launch_text(derived)}; max|diff| vs untuned {err:.3e} (rtol "
+              f"2e-2 atol 2e-3); forward {t_ms:.3f} ms, untuned {u_ms:.3f} ms "
+              f"(events, not gated)")
+        del run_t, run_u
+    torch.cuda.empty_cache()
+
+    # 20.3 The tuned engine serves phase 19's burst at depths 1 and 2 (the
+    # main path's second leg: every count reset just before each engine).
+    tuned_results, seqs = {}, {}
+    for depth in (1, 2):
+        reset_counts()
+        engine = CNNServingEngine(gnet, params, plan, batch_size=8,
+                                  pipeline_depth=depth, warmup=True,
+                                  tuning=record, device=dev)
+        per_bucket = {b: expected_launches(run.lowering)
+                      for b, run in engine._runs.items()}
+        warm = counts()
+        want_warm = tuple(2 * sum(per_bucket[b][i] for b in engine.buckets)
+                          for i in range(len(ALL_KERNELS)))
+        if warm != want_warm:
+            raise CheckFailed(f"tuned depth {depth} warm-up launches {warm}, "
+                              f"expected two passes per bucket {want_warm}")
+        if any(low.backend != "pallas" for run in engine._runs.values()
+               for low in run.lowering.values()):
+            raise CheckFailed(f"tuned depth {depth}: a bucket program runs a "
+                              f"conv off the kernels")
+
+        bases = []
+
+        def serve():
+            bases.append(len(bases) * len(images))
+            first = len(engine.request_log)
+            serve_waves(engine, images, WAVES, bases[-1])
+            return first
+
+        want_rows = tuple(sum(per_bucket[b][i] for b, _ in want_seq)
+                          for i in range(len(ALL_KERNELS)))
+        first, rows = profiled_launches(serve)
+        seq = tick_sequence(engine, first)
+        if seq != want_seq:
+            raise CheckFailed(f"tuned depth {depth}: ticks {seq}, expected "
+                              f"{want_seq}")
+        if launches_by_name(rows) != want_rows:
+            raise CheckFailed(f"tuned depth {depth}: kernel rows "
+                              f"{launches_by_name(rows)}, expected "
+                              f"{want_rows}")
+        if counts() != warm:
+            raise CheckFailed(f"tuned depth {depth}: the counters moved over "
+                              f"the replayed ticks")
+        seqs[depth] = seq
+        tuned_results[depth] = [engine.done[bases[-1] + i]
+                                for i in range(len(images))]
+        svc = engine.stats()["service_ema_s"]
+        print(f"[20] tuned engine depth {depth}: {len(seq)} ticks {seq}; "
+              f"launches counted (warm-up eager and capture passes) "
+              f"{launch_text(warm)}, 0 over the ticks; kernel rows of the "
+              f"served ticks (profiler) {launch_text(launches_by_name(rows))}"
+              f"; service EMA per bucket (ms) "
+              f"{ {b: round(v * 1e3, 4) for b, v in svc.items()} }")
+        del engine
+    err = 0.0
+    for i, want in enumerate(plain):
+        if not np.array_equal(tuned_results[2][i], tuned_results[1][i]):
+            raise CheckFailed(f"tuned engine request {i}: depth 2 differs "
+                              f"from depth 1")
+        err = max(err, check_close(f"tuned engine request {i}",
+                                   torch.as_tensor(tuned_results[1][i],
+                                                   device=dev), want,
+                                   **FORWARD_TOL))
+    ratios = refresh_from_service(record, gnet, svc)
+    print(f"[20] tuned engine: depths 1 and 2 bit-equal, max|diff| vs the "
+          f"per-image untuned plain forward {err:.3e}; refresh_from_service "
+          f"ratios (service EMA / the record's conv sum, not gated) "
+          f"{ {b: round(r, 4) for b, r in ratios.items()} }; {memory_text()}")
+
+    # 20.4 Elision measured per edge, at buckets 1 and 8.
+    for bsz in (1, 8):
+        t0 = time.perf_counter()
+        ov = tune_elision(gnet, plan, batch=bsz, params=params,
+                          epilogue="bias_relu", device=dev)
+        el_s = time.perf_counter() - t0
+        x = randn(bsz, 224, 224, 3)
+        run = compile_plan(gnet, plan, epilogue="bias_relu", tuning_batch=bsz,
+                           device=dev)
+        edges = sorted(run.lowering.elided_edges)
+        for _ in range(3):
+            want = run(params, x)
+        del run
+        # The per-edge round trip that tune_elision timed, held against the
+        # all-elided program whatever it kept: the first elided edge forced
+        # back alone, every elided edge forced back at once, and the
+        # returned overrides where there are any.
+        cases = {"first edge": {edges[0]: False},
+                 "every edge": {edge: False for edge in edges}}
+        if ov:
+            cases["tuned"] = ov
+        errs = {}
+        for name, overrides in cases.items():
+            run = compile_plan(gnet, plan, epilogue="bias_relu",
+                               tuning_batch=bsz, elide_overrides=overrides,
+                               device=dev)
+            if set(run.lowering.elided_edges) != set(edges) - set(overrides):
+                raise CheckFailed(f"elision b{bsz} {name}: the lowering "
+                                  f"still elides a forced edge")
+            for _ in range(3):
+                out = run(params, x)
+            del run
+            errs[name] = check_close(f"elision b{bsz} {name} forced back",
+                                     out, want, **KERNEL_TOL)
+        print(f"[20] tune_elision b{bsz}: {len(ov)} of {len(edges)} edges "
+              f"back to the NHWC round trip {sorted(ov)} in {el_s:.1f} s "
+              f"({len(edges) + 1} programs, each dropped before the next); "
+              f"max|diff| vs all-elided with edges forced back (1e-4): "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f"; {memory_text()}")
+    torch.cuda.empty_cache()
+
+    # 20.5 Report (printed, not gated): all three backends at bucket 8.
+    t0 = time.perf_counter()
+    every = autotune_graph(gnet, plan, batch=8, backends=BACKENDS,
+                           p1p2=FOUR_PAIRS, device=dev)
+    rep = backend_report(every, gnet, 8)
+    print(f"[20] backends at b8 (the plan's binding on the plain oracles "
+          f"the baseline; {time.perf_counter() - t0:.1f} s): wins "
+          f"{rep['wins']}; the five signatures where cuDNN or the plain "
+          f"oracles beat the kernels most {json.dumps(rep['top'])}")
+
+    # 20.6 int8 spot check: Inception-v4's stem/c1 and redA/b3b at bucket 8.
+    reset_counts()
+    spot = torch.Generator(device=dev).manual_seed(206)
+    for name in ("stem/c1", "redA/b3b"):
+        conv = next(n.conv for n in gi.conv_nodes() if n.name == name)
+        tuned = tune_layer(conv, precision="int8", batch=8,
+                           backends=("pallas",), device=dev)
+        if any("winograd" in label for label, _ in tuned.candidates):
+            raise CheckFailed(f"int8 {name}: a Winograd candidate was timed")
+        b = tuned.binding
+        x = torch.randn((8, conv.h1, conv.h2, conv.c_in), generator=spot,
+                        device=dev)
+        w = torch.randn((conv.k1, conv.k2, conv.c_in, conv.c_out),
+                        generator=spot, device=dev) * 0.1
+        in_scale = 3.0 / 127.0
+        pad = "SAME" if conv.pad == "same" else "VALID"
+        got = overlay.apply_conv(
+            x, w, b.algo, Dataflow[b.dataflow], b.p1, b.p2,
+            stride=conv.stride, padding=pad, backend="pallas",
+            epilogue="relu", precision="int8", in_scale=in_scale)
+        # The winner's kernels on the operands the overlay quantized on the
+        # card, and the same wrapper on CPU copies of them: its plain
+        # version (exact int32 sums, the same flush).
+        w_scale = weight_scales(w)
+        xq, wq = quantize(x, in_scale), quantize(w, w_scale)
+        op = conv_kn2row if b.algo.family is AlgoFamily.KN2ROW \
+            else conv_im2col
+        kw = dict(stride=conv.stride, padding=pad,
+                  dataflow=Dataflow[b.dataflow], p1=b.p1, p2=b.p2,
+                  epilogue="relu")
+        kern = op(xq, wq, scale=in_scale * w_scale, **kw)
+        want = op(xq.cpu(), wq.cpu(), scale=(in_scale * w_scale).cpu(),
+                  **kw)
+        check_close(f"int8 {name} winner, overlay vs its kernels", got,
+                    kern, **EXACT)
+        check_close(f"int8 {name} winner vs its plain version", kern.cpu(),
+                    want, **EXACT)
+        print(f"[20] int8 {name} b8: {len(tuned.candidates)} candidates, no "
+              f"Winograd; winner {b.label()} {tuned.measured_s * 1e3:.4f} ms; "
+              f"its output equals the plain version bit for bit")
+    if any(count_of(name) == 0 for name in (
+            "conv_im2col_i8", "unit_conv_gemms_i8", "pad_accumulate_i32")):
+        raise CheckFailed(f"the int8 spot check launched "
+                          f"{launch_text(counts())}")
+    print(f"[20] int8 spot check launches {launch_text(counts())}")
+    print(f"[20] phase 20 took {time.perf_counter() - t20:.1f} s; "
+          f"{memory_text()}")
 
     def wino_entry(name, source, replaces, label, launches):
         k_ms, p_ms, l_ms, b_ms, b_by = wino_times[(name, label)]

@@ -20,6 +20,7 @@ absent; the CPU runs only when the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import hashlib
+import json
 import threading
 from typing import Callable, Dict, Optional, Tuple, Union
 
@@ -58,11 +59,24 @@ def graph_hash(graph: Graph) -> str:
     return h.hexdigest()[:16]
 
 
+def _tuning_fingerprint(tuning) -> Optional[str]:
+    """Content hash of a ``TuningRecord`` — records are keyed by conv
+    signature, not by graph, so the same record object (or an equal reload
+    of it) fingerprints equal and lets tenants share tuned programs."""
+    if tuning is None:
+        return None
+    blob = json.dumps(tuning.to_json(), sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
 def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
                          *, use_pallas: Optional[bool] = None,
                          epilogue: str = "relu",
+                         tuning=None,
                          tuning_batch: Optional[int] = None,
                          elide: bool = True,
+                         elide_overrides: Optional[Dict[Tuple[int, int],
+                                                        bool]] = None,
                          act_scales: Optional[Dict[int, float]] = None,
                          device="cuda") -> tuple:
     """The ``(graph hash, plan, bucket, device, options)`` identity of one
@@ -74,9 +88,14 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
     synchronous one share one program too. The plan fingerprint carries
     the per-layer precisions and ``act_scales`` the calibrated activation
     scales, so an int8 plan and the bf16 plan of one architecture, or two
-    calibrations of one plan, never share a key."""
+    calibrations of one plan, never share a key; the tuning record enters
+    by content, so a tuned and an untuned program never share one, and a
+    record and its reload from JSON do."""
     return (graph_hash(graph), plan_fingerprint(plan), use_pallas, epilogue,
-            int(tuning_batch or 1), bool(elide), str(torch.device(device)),
+            _tuning_fingerprint(tuning), int(tuning_batch or 1), bool(elide),
+            (None if elide_overrides is None
+             else tuple(sorted(elide_overrides.items()))),
+            str(torch.device(device)),
             (None if act_scales is None
              else tuple(sorted((int(n), float(s))
                                for n, s in act_scales.items()))))
@@ -266,17 +285,25 @@ def forward(graph: Graph, params: Params, x,
             plan: Optional[ExecutionPlan] = None, *,
             use_pallas: Optional[bool] = None,
             epilogue: str = "relu",
+            tuning=None,
+            tuning_batch: Optional[int] = None,
             elide: bool = True,
+            elide_overrides: Optional[Dict[Tuple[int, int], bool]] = None,
             act_scales: Optional[Dict[int, float]] = None,
             conv_tap: Optional[Callable[[int, torch.Tensor], None]] = None,
             device="cuda") -> torch.Tensor:
     """Eager inference. ``x``: (H, W, C) single image or (B, H, W, C)
     batch. Each call re-lowers the plan — use ``compile_plan`` for the
-    serving path. ``act_scales`` supplies calibrated activation scales for
-    int8 layers; ``conv_tap(nid, nhwc_input)`` observes every conv input
+    serving path. ``tuning`` (a ``core.autotune.TuningRecord``) binds each
+    conv to its winner measured at bucket ``tuning_batch``;
+    ``elide_overrides`` flips individual edges' elision. ``act_scales``
+    supplies calibrated activation scales for int8 layers;
+    ``conv_tap(nid, nhwc_input)`` observes every conv input
     (calibration)."""
     dev = resolve_device(device)
-    lowering = lower_plan(graph, plan, epilogue=epilogue, elide=elide,
+    lowering = lower_plan(graph, plan, epilogue=epilogue, tuning=tuning,
+                          batch=tuning_batch, elide=elide,
+                          elide_overrides=elide_overrides,
                           act_scales=act_scales)
     with torch.inference_mode():
         return _eval_graph(graph, lowering, params, _as_input(x, dev),
@@ -394,8 +421,10 @@ class CompiledProgram:
 def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                  use_pallas: Optional[bool] = None,
                  epilogue: str = "relu",
+                 tuning=None,
                  tuning_batch: Optional[int] = None,
                  elide: bool = True,
+                 elide_overrides: Optional[Dict[Tuple[int, int], bool]] = None,
                  mesh=None,
                  donate: bool = False,
                  fault_hook: Optional[Callable[[], None]] = None,
@@ -415,8 +444,14 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     conv is im2col under the NS (128, 128) binding. ``elide=True``
     (default) lets consumers read matching store formats directly — im2col
     chains reuse the Toeplitz buffer — and ``elide=False`` compiles the
-    always-NHWC-round-trip baseline. ``tuning_batch`` names the batch
-    bucket the program serves, part of its cache identity. ``cache`` (an
+    always-NHWC-round-trip baseline; ``elide_overrides`` (``{(src, dst):
+    False}``, from ``core.autotune.tune_elision``) flips individual edges.
+    A ``tuning`` record (``core.autotune``) replaces cost-model bindings
+    with measured winners — algorithm, dataflow, (p1, p2) and backend per
+    layer, so one program may mix the kernels, the plain oracles and
+    cuDNN; ``tuning_batch`` names the batch bucket the program serves,
+    whose winners bind it (None: bucket 1), part of its cache identity
+    with the record's content and the overrides. ``cache`` (an
     ``ExecutableCache``) shares programs across callers. ``act_scales``
     ({conv node id: activation scale}, from
     ``core.quant.calibrate_act_scales``) feeds the plan's int8 layers their
@@ -440,15 +475,17 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
 
     def build() -> CompiledProgram:
         return CompiledProgram(graph, lower_plan(
-            graph, plan, epilogue=epilogue, elide=elide,
+            graph, plan, epilogue=epilogue, tuning=tuning,
+            batch=tuning_batch, elide=elide, elide_overrides=elide_overrides,
             act_scales=act_scales), use_pallas, dev)
 
     if cache is None:
         return _with_fault_hook(build(), fault_hook)
     key = executable_cache_key(graph, plan, use_pallas=use_pallas,
-                               epilogue=epilogue, tuning_batch=tuning_batch,
-                               elide=elide, act_scales=act_scales,
-                               device=dev)
+                               epilogue=epilogue, tuning=tuning,
+                               tuning_batch=tuning_batch, elide=elide,
+                               elide_overrides=elide_overrides,
+                               act_scales=act_scales, device=dev)
     return _with_fault_hook(cache.get_or_compile(key, build), fault_hook)
 
 

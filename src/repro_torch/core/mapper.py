@@ -19,9 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+if TYPE_CHECKING:  # pragma: no cover — autotune imports mapper at runtime
+    from repro_torch.core.autotune import TuningRecord
 
 from repro_torch.core.algorithms import (Algorithm, AlgoFamily, DEFAULT_MENU,
                                    IM2COL, KN2ROW, Layout, menu_for)
@@ -353,7 +356,7 @@ def lower_plan(graph: Graph, plan: Optional[ExecutionPlan],
                default_algo: Algorithm = IM2COL, *,
                epilogue: str = "relu",
                backend: str = "auto",
-               tuning: Optional[object] = None,
+               tuning: Optional["TuningRecord"] = None,
                batch: Optional[int] = None,
                elide: bool = True,
                elide_overrides: Optional[Dict[Tuple[int, int], bool]] = None,

@@ -41,7 +41,7 @@ _MAX_ROUNDS = 8        # PBQP solves before the gate stops demoting
 
 
 @contextlib.contextmanager
-def _no_tf32() -> Iterator[None]:
+def no_tf32() -> Iterator[None]:
     """Disable TF32 for cuDNN convolutions and cuBLAS matmuls, restoring
     the caller's flags on exit."""
     conv, mm = torch.backends.cudnn, torch.backends.cuda.matmul
@@ -75,7 +75,7 @@ def _capture_conv_inputs(graph: Graph, params: Params, x
     return captured
 
 
-@_no_tf32()
+@no_tf32()
 def calibrate_act_scales(graph: Graph, params: Params,
                          samples) -> Dict[int, float]:
     """Per-tensor activation scales from sample inputs.
@@ -98,7 +98,7 @@ def _median(v: torch.Tensor) -> torch.Tensor:
     return s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2])
 
 
-@_no_tf32()
+@no_tf32()
 def layer_errors(graph: Graph, params: Params, x,
                  act_scales: Dict[int, float]) -> Dict[int, float]:
     """Isolated per-layer int8 output error vs the f32 output.

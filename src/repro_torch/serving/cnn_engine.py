@@ -69,9 +69,12 @@ shed_deadline + failed + pending == submitted``):
 All four default OFF. An int8 plan is served with its calibrated
 ``act_scales`` (``core.quant.plan_mixed_precision``), which every bucket
 program takes; ``stats()["precision"]`` reports the plan's precision
-mix. Meshes, tuning records and plan hot-swap are later slices of the
-port: ``mesh=``, ``tuning=`` and ``swap_plan`` raise
-``NotImplementedError``.
+mix. A ``tuning`` record (``core.autotune.autotune_buckets``) binds each
+bucket's program to the winners measured at that bucket
+(``compile_plan(..., tuning=record, tuning_batch=bucket)``), falling back
+to a neighbouring bucket's entry where the record has none. Meshes and
+plan hot-swap are later slices of the port: ``mesh=`` and ``swap_plan``
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -204,7 +207,8 @@ class CNNServingEngine:
     run (``"cuda"`` by default; raises when CUDA is absent). ``params``
     must already live on that device. ``act_scales`` ({conv node id:
     activation scale}) feeds the plan's int8 layers, in every bucket
-    program.
+    program; ``tuning`` (a ``core.autotune.TuningRecord``) binds each
+    bucket's program to the winners measured at that bucket.
 
     ``pipeline_depth`` >= 2 keeps up to that many ticks in flight, with
     results landing in ``done`` lazily — on later ``step()`` calls, on
@@ -236,10 +240,9 @@ class CNNServingEngine:
                  degrade: Optional[DegradeConfig] = None,
                  act_scales: Optional[Dict[int, float]] = None,
                  device="cuda") -> None:
-        for name, value in (("mesh", mesh), ("tuning", tuning)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"CNNServingEngine({name}=...) is not ported yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                "CNNServingEngine(mesh=...) is not ported yet")
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -251,6 +254,7 @@ class CNNServingEngine:
         self.graph = graph
         self.params = params
         self.plan = plan
+        self.tuning = tuning
         self.pipeline_depth = int(pipeline_depth)
         self.device_delay_s = float(device_delay_s)
         self.max_queue = max_queue
@@ -948,14 +952,16 @@ class CNNServingEngine:
                        act_scales: Optional[Dict[int, float]] = None,
                        warm: bool = True) -> Dict[int, Callable]:
         """One compiled program per bucket for ``plan`` (and its int8
-        layers' ``act_scales``) under this engine's options — donation at
-        depth >= 2 and the fault hook when a plan is armed, as the
-        reference compiles its ladder; ``warm=True`` runs each once (its
-        eager warm pass) on an all-zeros batch."""
+        layers' ``act_scales``) under this engine's options — the tuning
+        record's winners at that bucket, donation at depth >= 2 and the
+        fault hook when a plan is armed, as the reference compiles its
+        ladder (one device, so each bucket looks up its own winners);
+        ``warm=True`` runs each once (its eager warm pass) on an all-zeros
+        batch."""
         hook = self._fault_hook if self.fault_plan is not None else None
         runs = {
             bucket: compile_plan(self.graph, plan, epilogue=EPILOGUE,
-                                 tuning_batch=bucket,
+                                 tuning=self.tuning, tuning_batch=bucket,
                                  donate=self.pipeline_depth > 1,
                                  fault_hook=hook, act_scales=act_scales,
                                  device=self.device)

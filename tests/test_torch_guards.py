@@ -52,7 +52,8 @@ def _imported_roots(path: Path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "tools" / "bench_serving.py"]
+    files += [REPO / "chip_smoke.py", REPO / "tools" / "bench_serving.py",
+              REPO / "tools" / "bench_autotune.py"]
     assert len(files) > 15
     names = {str(f.relative_to(REPO / "src" / "repro_torch")) for f in files
              if "repro_torch" in f.parts}
@@ -60,7 +61,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "kernels/winograd/ref.py", "kernels/layouts.py",
             "kernels/gemm/gemm.py", "kernels/kn2row/kn2row.py",
             "kernels/kn2row/ops.py", "kernels/kn2row/ref.py",
-            "core/quant.py"} <= names
+            "core/quant.py", "core/autotune.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -290,10 +291,11 @@ def test_unported_algorithms_and_int8_kernels_raise():
 
 
 def test_later_slice_options_raise(small):
-    """Options of later slices raise (the mesh path, tuning records, plan
-    hot-swap); the serving slice's options (donation, the fault hook,
-    pipelining, admission, shedding, faults, degrade) and ``act_scales=``
-    (the int8 slice) are taken."""
+    """Options of later slices raise (the mesh path, plan hot-swap); the
+    serving slice's options (donation, the fault hook, pipelining,
+    admission, shedding, faults, degrade), ``act_scales=`` (the int8
+    slice) and ``tuning=`` (``tests/test_torch_autotune.py``) are
+    taken."""
     g, params = small
     with pytest.raises(NotImplementedError, match="mesh"):
         compile_plan(g, device="cpu", mesh=object())
@@ -302,9 +304,8 @@ def test_later_slice_options_raise(small):
                        fault_hook=lambda: calls.append(1))
     assert run(params, np.zeros((1, 32, 32, 3), np.float32)).shape[0] == 1
     assert calls == [1]
-    for kw in (dict(mesh=object()), dict(tuning=object())):
-        with pytest.raises(NotImplementedError):
-            CNNServingEngine(g, params, None, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        CNNServingEngine(g, params, None, device="cpu", mesh=object())
     engine = CNNServingEngine(
         g, params, None, buckets=(2,), pipeline_depth=2, max_queue=4,
         shed_deadline=True, slo_s=10.0, fault_plan=FaultPlan({}),
