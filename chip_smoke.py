@@ -163,7 +163,32 @@ both matrix products and cuDNN:
     1e-4. A report tunes bucket 8 over all three backends (printed, not
     gated), and ``tune_layer`` in int8 on Inception-v4's stem/c1 and
     redA/b3b must time no Winograd candidate and its winner must equal
-    its plain version bit for bit.
+    its plain version bit for bit;
+21. serves several tenants and re-plans under load (this slice's main
+    path: every count is reset before the first engine): full-width
+    GoogleNet planned for serving (``use_on_chip=False``: plan A, 41 im2col
+    + 14 kn2row + 2 Winograd F(4,3)) and re-solved under a 6x transition
+    calibration (plan B, 38 im2col + 19 kn2row). A ``MultiModelEngine``
+    with a global queue cap serves two GoogleNet tenants (seed-0 and
+    seed-1 params) and VGG16 under phase 8's plan: the second GoogleNet
+    tenant adds no cache entry and each bucket program holds one capture
+    per params; a burst of 24 requests a tenant in waves is bit-equal to
+    solo engines and within rtol 2e-2 / atol 2e-3 of a plain forward, its
+    joint ticks move no counter and run each tenant's lowering per tick
+    (profiler); scripted arrivals tick in oldest-deadline order; the cap
+    rejects into the owning tenant's ledger; swapping one tenant to plan B
+    leaves the other's ladder, captures and results unchanged. A
+    ``PlanSupervisor`` (4 ms injected device time per tick) then adopts
+    plan B and swaps exactly once, in the foreground and with the compile
+    (eager pass and capture) on a background thread while ticks are
+    served: results before the swap bit-equal to a fresh plan-A engine's,
+    after it to a fresh plan-B engine's, no tick after the swap moves a
+    counter, kernel rows per tick follow each lowering; a tick in flight
+    at a depth-2 swap retires on plan A; under an injected 0.2 s
+    regression, with the first post-swap tick failing, probation rolls
+    back once to plan A. Plans A and B are timed against phase 4's plan
+    per bucket (printed, not gated), beside capture times, the background
+    compile's seconds and the memory reserved.
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
 and 18 serve as phase 5 does, and every forward timed is a replay.
@@ -217,6 +242,20 @@ WAVES = (8, 8, 4, 4, 2, 1, 1, 1)
 PIPELINE_DEPTHS = (1, 2, 4)
 FAULT_WAVES = (8, 4, 8, 2, 8, 1, 4)
 N_LOAD_REQUESTS = 200
+# Phase 21: the burst's waves per tenant (24 requests), the global queue
+# cap (36 submitted at once, so the last tenant's 6 are rejected), the
+# scripted arrivals of the deadline check ((base time, {tenant: offset}),
+# SLOs 0.5 / 0.3 / 0.2 s: orders vgg16, gnet_b, gnet_a; gnet_a, gnet_b,
+# vgg16; gnet_b, vgg16, gnet_a) and the seven f32 entry points the path
+# launches.
+MULTI_WAVES = (8, 8, 4, 2, 1, 1)
+GLOBAL_CAP = 30
+DEADLINE_SCRIPT = ((0.0, {"gnet_a": 0.0, "gnet_b": 0.0, "vgg16": 0.0}),
+                   (10.0, {"gnet_a": 0.0, "gnet_b": 0.25, "vgg16": 0.4}),
+                   (20.0, {"gnet_a": 0.1, "gnet_b": 0.0, "vgg16": 0.35}))
+PATH21 = ("conv", "gemm", "input_transform", "input_transform_tiles",
+          "batched_gemm", "output_transform", "unit_conv_gemms",
+          "pad_accumulate")
 # FLOP per (tile, channel) of the Winograd transforms as csrc/winograd.cu
 # writes them: two passes of 1-D transforms (adds and small-constant
 # FMAs), plus bias and ReLU on the m x m outputs of the output transform.
@@ -752,6 +791,7 @@ def pad_accumulate_text(label: str, bsz: int, row: dict) -> str:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -795,6 +835,12 @@ def main() -> int:
     from repro_torch.serving.cnn_engine import (
         OUTCOME_COMPLETED, OUTCOME_FAILED, OUTCOME_REJECTED, OUTCOME_SHED,
         CNNRequest, CNNServingEngine, DegradeConfig)
+    from repro_torch.serving.multi_engine import MultiModelEngine
+    from repro_torch.serving.supervisor import (COMPILING, MONITOR,
+                                                PlanSupervisor)
+    from repro_torch.cnn.executor import ExecutableCache
+    from repro_torch.core.cost_model import TransitionCalibration
+    from repro_torch.core.mapper import plan_fingerprint, replan
     from repro_torch.cnn import overlay
     from repro_torch.core.autotune import (BACKENDS, TuningRecord,
                                            autotune_buckets, autotune_graph,
@@ -840,15 +886,16 @@ def main() -> int:
     def launch_text(n):
         return " ".join(f"{k}={v}" for k, v in zip(KERNEL_NAMES, n))
 
-    def expected_launches(lowering):
+    def expected_launches(lowering, graph):
         """Launches per forward in ALL_KERNELS order, derived from a
-        lowering: an im2col layer runs the conv kernel on NHWC and the GEMM
-        on its Toeplitz matrix; a Winograd layer the NHWC or the stored-tile
-        input transform, the batched GEMM and the output transform; a
-        kn2row layer both kn2row kernels; an int8 layer the int8 form of
-        each."""
+        lowering of ``graph``: an im2col layer runs the conv kernel on NHWC
+        and the GEMM on its Toeplitz matrix; a Winograd layer the NHWC or
+        the stored-tile input transform, the batched GEMM and the output
+        transform, once per round (a K x K kernel larger than r runs
+        ceil(K/r)^2 rounds, each from NHWC); a kn2row layer both kn2row
+        kernels; an int8 layer the int8 form of each."""
         n = Counter()
-        for low in lowering.values():
+        for nid, low in lowering.items():
             kind = "nhwc" if low.in_layout is None else low.in_layout.kind
             fam = low.algo.family
             i8 = "_i8" if low.precision == "int8" else ""
@@ -856,10 +903,12 @@ def main() -> int:
                 n[("gemm" if kind == "toeplitz"
                    else "conv_im2col" if i8 else "conv") + i8] += 1
             elif fam is AlgoFamily.WINOGRAD:
+                r = low.algo.r
+                rounds = ((graph.nodes[nid].conv.k1 + r - 1) // r) ** 2
                 n["input_transform_tiles" if kind == "winograd"
-                  else "input_transform"] += 1
-                n["batched_gemm"] += 1
-                n["output_transform"] += 1
+                  else "input_transform"] += rounds
+                n["batched_gemm"] += rounds
+                n["output_transform"] += rounds
             else:
                 n["unit_conv_gemms" + i8] += 1
                 n["pad_accumulate_i32" if i8 else "pad_accumulate"] += 1
@@ -896,7 +945,7 @@ def main() -> int:
                                      tuning_batch=bsz, elide=elide,
                                      use_pallas=False, act_scales=act_scales,
                                      device=dev)
-                derived = expected_launches(run_k.lowering)
+                derived = expected_launches(run_k.lowering, graph)
                 if expect is not None and derived != expect[elide]:
                     raise CheckFailed(
                         f"{tag} b{bsz} elide={elide}: the lowering gives "
@@ -2123,7 +2172,7 @@ def main() -> int:
         "gemm_i8", "conv_im2col_i8", "unit_conv_gemms_i8",
         "pad_accumulate_i32")]
     for (elide, bsz), (run_k, _, x, got) in qruns.items():
-        n = expected_launches(run_k.lowering)
+        n = expected_launches(run_k.lowering, gi)
         need = i8_idx if elide else i8_idx[1:]   # no Toeplitz edge: no GEMM
         if not all(n[i] for i in need):
             raise CheckFailed(f"int8 b{bsz} elide={elide}: an int8 kernel "
@@ -2267,7 +2316,7 @@ def main() -> int:
     # runs conv_im2col_i8.
     run_k, _, x, _ = qruns[(False, 8)]
     dev_ms, split, groups = device_time(lambda: run_k(iparams, x))
-    n_conv = expected_launches(run_k.lowering)[
+    n_conv = expected_launches(run_k.lowering, gi)[
         KERNEL_NAMES.index("conv_im2col_i8")]
     conv_ms = sum(v for g, v in groups.items()
                   if g.startswith("conv_im2col_i8"))
@@ -2299,7 +2348,8 @@ def main() -> int:
     # ---- 18. serving the gated plan --------------------------------------
     qserve = serve_checked(18, "inception_v4 int8", gi, qplan, iparams, 299,
                            N_IV4_I8_REQUESTS, 4,
-                           expected_launches(qruns[(True, 1)][0].lowering),
+                           expected_launches(qruns[(True, 1)][0].lowering,
+                                             gi),
                            qruns[(True, 1)][1], act_scales=qscales)
 
     # ---- 19. pipelined and robust serving: this slice's main path --------
@@ -2577,7 +2627,7 @@ def main() -> int:
         if off:
             raise CheckFailed(f"the tuned b{bsz} lowering runs convs on {off}")
         x = randn(bsz, 224, 224, 3)
-        derived = expected_launches(run_t.lowering)
+        derived = expected_launches(run_t.lowering, gnet)
         reset_counts()
         eager = run_t(params, x)
         if counts() != derived:
@@ -2610,7 +2660,7 @@ def main() -> int:
         engine = CNNServingEngine(gnet, params, plan, batch_size=8,
                                   pipeline_depth=depth, warmup=True,
                                   tuning=record, device=dev)
-        per_bucket = {b: expected_launches(run.lowering)
+        per_bucket = {b: expected_launches(run.lowering, gnet)
                       for b, run in engine._runs.items()}
         warm = counts()
         want_warm = tuple(2 * sum(per_bucket[b][i] for b in engine.buckets)
@@ -2771,6 +2821,564 @@ def main() -> int:
     print(f"[20] phase 20 took {time.perf_counter() - t20:.1f} s; "
           f"{memory_text()}")
 
+    # ---- 21. multi-tenancy and the plan supervisor: this slice's main path
+    # Full-width GoogleNet planned for serving (``use_on_chip=False``: plan
+    # A, 41 im2col + 14 kn2row + 2 Winograd F(4,3)) and re-solved with every
+    # transition priced 6x (plan B, 38 im2col + 19 kn2row); VGG16 under
+    # phase 8's plan. Every count is reset before the first engine.
+    t21 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    hw_g = identify_parameters(gnet, max_dim=512)
+    plan_a = map_network(gnet, hw=hw_g, use_on_chip=False)
+    shift = TransitionCalibration(default=6.0)
+    resolve = replan(gnet, plan_a, calibration=shift, hysteresis=0.05,
+                     hw=hw_g, use_on_chip=False)
+    plan_b = resolve.plan
+    mix_a = Counter(a.key for a in plan_a.assignment.values())
+    mix_b = Counter(a.key for a in plan_b.assignment.values())
+    fp_a, fp_b = plan_fingerprint(plan_a), plan_fingerprint(plan_b)
+    if mix_a != {"im2col": 41, "kn2row": 14, "winograd(F4x3)": 2} or \
+            not resolve.adopted or mix_b != {"im2col": 38, "kn2row": 19} or \
+            fp_b != plan_fingerprint(map_network(
+                gnet, hw=hw_g, use_on_chip=False, calibration=shift)):
+        raise CheckFailed(f"plans A {dict(mix_a)} and B {dict(mix_b)} "
+                          f"(adopted {resolve.adopted}) are not the plans "
+                          "this slice serves")
+    per_a = expected_launches(compile_plan(
+        gnet, plan_a, epilogue="bias_relu", device=dev).lowering, gnet)
+    per_b = expected_launches(compile_plan(
+        gnet, plan_b, epilogue="bias_relu", device=dev).lowering, gnet)
+    per_v = vgg_expect[True]
+    wino_names = ("input_transform", "input_transform_tiles",
+                  "batched_gemm", "output_transform")
+    if any(per_a[KERNEL_NAMES.index(k)] == 0 for k in wino_names) or any(
+            per_b[KERNEL_NAMES.index(k)] for k in wino_names) or \
+            per_b[KERNEL_NAMES.index("unit_conv_gemms")] <= \
+            per_a[KERNEL_NAMES.index("unit_conv_gemms")]:
+        raise CheckFailed(f"lowerings A {launch_text(per_a)} and B "
+                          f"{launch_text(per_b)}")
+    print(f"[21] plan A {dict(mix_a)} (modeled {resolve.deployed_cost_s * 1e3:.4f}"
+          f" ms under the 6x calibration), plan B {dict(mix_b)} "
+          f"({resolve.candidate_cost_s * 1e3:.4f} ms, adopted); launches per "
+          f"forward A {launch_text(per_a)}; B {launch_text(per_b)}")
+
+    def seeded_params(graph, seed):
+        p = init_params(graph, seed=seed, device=dev)
+        bias_gen = torch.Generator().manual_seed(1000 + seed)
+        for nid in sorted(p):
+            p[nid]["b"].copy_(torch.randn(p[nid]["b"].shape,
+                                          generator=bias_gen) * 0.05)
+        return p
+
+    def images_of(seed, n, res=224):
+        rng = np.random.default_rng(seed)
+        return [rng.standard_normal((res, res, 3)).astype(np.float32)
+                for _ in range(n)]
+
+    def conserved(engine):
+        rb = engine.stats()["robustness"]
+        if sum(rb["outcomes"].values()) + rb["pending"] != \
+                engine.submitted_total:
+            raise CheckFailed(f"outcomes {rb['outcomes']} + pending "
+                              f"{rb['pending']} != {engine.submitted_total}")
+        return rb
+
+    def solo_results(graph, p, pl, waves, images):
+        """A solo engine (programs of its own, no cache) serving ``images``
+        in ``waves``, one flush after each: {rid: logits}."""
+        solo = CNNServingEngine(graph, p, pl, batch_size=8, device=dev)
+        rid = 0
+        for n in waves:
+            for _ in range(n):
+                solo.submit(CNNRequest(rid=rid, image=images[rid]))
+                rid += 1
+            solo.run_until_done()
+        out = dict(solo.done)
+        del solo
+        return out
+
+    # 21.1 Multi-tenancy: three tenants, one cache.
+    params_b = seeded_params(gnet, 1)
+    slo21 = {"gnet_a": 0.5, "gnet_b": 0.3, "vgg16": 0.2}
+    reset_counts()
+    multi = MultiModelEngine(global_max_queue=GLOBAL_CAP)
+    t0 = time.perf_counter()
+    multi.register_model("gnet_a", gnet, params, plan_a,
+                         slo_s=slo21["gnet_a"], warmup=True, device=dev)
+    reg_s = [time.perf_counter() - t0]
+    after_a = dict(multi.cache.stats())
+    t0 = time.perf_counter()
+    multi.register_model("gnet_b", gnet, params_b, plan_a,
+                         slo_s=slo21["gnet_b"], warmup=True, device=dev)
+    reg_s.append(time.perf_counter() - t0)
+    after_b = dict(multi.cache.stats())
+    t0 = time.perf_counter()
+    multi.register_model("vgg16", gv, vparams, vplan, slo_s=slo21["vgg16"],
+                         warmup=True, device=dev)
+    reg_s.append(time.perf_counter() - t0)
+    after_v = dict(multi.cache.stats())
+    eng_a, eng_b, eng_v = (multi.engines[n] for n in slo21)
+    nb = len(BUCKETS)
+    if after_a != {"entries": nb, "hits": 0, "misses": nb} or \
+            after_b != {"entries": nb, "hits": nb, "misses": nb} or \
+            after_v != {"entries": 2 * nb, "hits": nb, "misses": 2 * nb}:
+        raise CheckFailed(f"cache after gnet_a {after_a}, gnet_b {after_b}, "
+                          f"vgg16 {after_v}")
+    for bsz in BUCKETS:
+        run = eng_a._runs[bsz]
+        if run is not eng_b._runs[bsz] or len(run.captures) != 2 or \
+                None in run.captures.values() or \
+                len(eng_v._runs[bsz].captures) != 1:
+            raise CheckFailed(f"bucket {bsz}: gnet_a and gnet_b do not "
+                              "share one program with one capture each")
+    warm = counts()
+    want = tuple(2 * nb * (2 * a + v) for a, v in zip(per_a, per_v))
+    if warm != want or any(warm[KERNEL_NAMES.index(k)] == 0
+                           for k in PATH21):
+        raise CheckFailed(f"three warm-ups launched {launch_text(warm)}, "
+                          f"expected {launch_text(want)}")
+    print(f"[21] tenants registered in {', '.join(f'{s:.2f}' for s in reg_s)}"
+          f" s; cache after gnet_a {after_a}, gnet_b {after_b} (no entry, a "
+          f"hit per bucket), vgg16 {after_v}; each GoogleNet bucket program "
+          f"shared, two captures (one per params); warm-up launches "
+          f"{launch_text(warm)}")
+
+    # Results: a mixed burst, 24 requests a tenant in waves, every joint
+    # round in the profiler, against solo engines and a plain forward.
+    burst = {"gnet_a": images_of(211, 24), "gnet_b": images_of(212, 24),
+             "vgg16": images_of(213, 24)}
+    windows = []
+
+    def serve_burst():
+        """Each wave: submit it for every tenant under fresh rids, then
+        ``run_until_done``. Returns the ticks per tenant."""
+        base = len(windows) * 24
+        windows.append(base)
+        ticks0 = {n: sum(multi.engines[n].dispatches.values())
+                  for n in slo21}
+        rid = 0
+        for n in MULTI_WAVES:
+            for name in slo21:
+                for i in range(rid, rid + n):
+                    verdict = multi.submit(name, CNNRequest(
+                        rid=base + i, image=burst[name][i]))
+                    if verdict != "queued":
+                        raise CheckFailed(f"{name} request {i}: {verdict}")
+            rid += n
+            multi.run_until_done()
+        return {n: sum(multi.engines[n].dispatches.values()) - ticks0[n]
+                for n in slo21}
+
+    ticks21, rows = profiled_launches(serve_burst)
+    base = windows[-1]
+    want_rows = tuple(ticks21["gnet_a"] * a + ticks21["gnet_b"] * a
+                      + ticks21["vgg16"] * v for a, v in zip(per_a, per_v))
+    if launches_by_name(rows) != want_rows:
+        raise CheckFailed(f"burst kernel rows {launch_text(launches_by_name(rows))}"
+                          f" over ticks {ticks21}, expected "
+                          f"{launch_text(want_rows)}")
+    if counts() != warm:
+        raise CheckFailed(f"the counters moved over the replayed joint ticks"
+                          f": {launch_text(warm)} -> {launch_text(counts())}")
+    run_pa = compile_plan(gnet, plan_a, epilogue="bias_relu",
+                          tuning_batch=1, use_pallas=False, device=dev)
+    run_pv = compile_plan(gv, vplan, epilogue="bias_relu", tuning_batch=1,
+                          use_pallas=False, device=dev)
+    err21 = {}
+    for name, p, graph, pl, run_p in (
+            ("gnet_a", params, gnet, plan_a, run_pa),
+            ("gnet_b", params_b, gnet, plan_a, run_pa),
+            ("vgg16", vparams, gv, vplan, run_pv)):
+        eng = multi.engines[name]
+        solo = solo_results(graph, p, pl, MULTI_WAVES, burst[name])
+        err21[name] = 0.0
+        for i, img in enumerate(burst[name]):
+            got = eng.done[base + i]
+            if not np.array_equal(got, solo[i]):
+                raise CheckFailed(f"{name} request {i}: differs from the "
+                                  "solo engine's")
+            err21[name] = max(err21[name], check_close(
+                f"{name} request {i}", torch.as_tensor(got, device=dev),
+                run_p(p, img[None])[0], **FORWARD_TOL))
+        conserved(eng)
+    print(f"[21] burst of {MULTI_WAVES} per tenant: ticks {ticks21}; every "
+          f"result bit-equal to a solo engine's; max|diff| vs per-image "
+          f"plain forward {', '.join(f'{k} {v:.3e}' for k, v in err21.items())}"
+          f"; kernel rows of the joint ticks (profiler) "
+          f"{launch_text(launches_by_name(rows))}, 0 launches counted")
+
+    # Deadline order: scripted arrivals, one flushed joint step each; the
+    # tenants must tick in oldest-deadline order (each later tick is
+    # stamped later by the wall time of the ones before it).
+    order_rid = 1000
+    for t_base, offsets in DEADLINE_SCRIPT:
+        for name, off in offsets.items():
+            for k in range(2):
+                multi.submit(name, CNNRequest(
+                    rid=order_rid, image=burst[name][k],
+                    t_submit=t_base + off))
+                order_rid += 1
+        deadlines = {n: multi.engines[n].oldest_deadline() for n in slo21}
+        want_order = sorted(slo21, key=lambda n: deadlines[n])
+        rank = multi._deadline_rank(t_base + 1.0)
+        multi.step(now=t_base + 1.0, flush=True)
+        stamped = {n: multi.engines[n].request_log[-1].t_dispatch
+                   for n in slo21}
+        got_order = sorted(slo21, key=lambda n: stamped[n])
+        if rank != want_order or got_order != want_order or \
+                multi.last_step["ticks"] != 3 or \
+                len(set(stamped.values())) != 3:
+            raise CheckFailed(f"deadline order: deadlines {deadlines}, rank "
+                              f"{rank}, dispatched {stamped}, last_step "
+                              f"{multi.last_step}")
+        print(f"[21] deadlines {dict((n, round(d - t_base, 3)) for n, d in deadlines.items())}"
+              f" (from t0): stepped {got_order}; last_step "
+              f"{multi.last_step}")
+    multi.run_until_done()
+
+    # The global cap: past it, submissions land in the owning tenant's
+    # ledger as rejected_full.
+    before = {n: multi.engines[n].rejected_total for n in slo21}
+    verdicts = Counter()
+    for name in slo21:
+        for i in range(12):
+            verdicts[(name, multi.submit(name, CNNRequest(
+                rid=2000 + i, image=burst[name][i])))] += 1
+    multi.run_until_done()
+    rejected = {n: multi.engines[n].rejected_total - before[n]
+                for n in slo21}
+    want_rej = {"gnet_a": 0, "gnet_b": 0, "vgg16": 36 - GLOBAL_CAP}
+    if rejected != want_rej:
+        raise CheckFailed(f"global cap {GLOBAL_CAP}: rejected {rejected}, "
+                          f"expected {want_rej}")
+    logged = sum(t.outcome == OUTCOME_REJECTED and t.rid >= 2000
+                 for t in eng_v.request_log)
+    if logged != want_rej["vgg16"]:
+        raise CheckFailed(f"vgg16's ledger holds {logged} rejections")
+    for name in slo21:
+        conserved(multi.engines[name])
+    print(f"[21] global cap {GLOBAL_CAP}: verdicts {dict(verdicts)}; "
+          f"rejected into the owning ledger {rejected}; outcomes conserved "
+          f"per tenant")
+
+    # Swap isolation: gnet_a moves to plan B; gnet_b keeps its ladder, its
+    # programs and their captures, and serves bit for bit as before.
+    b_runs = eng_b._runs
+    b_caps = {bsz: dict(run.captures) for bsz, run in b_runs.items()}
+    entries = multi.cache.stats()["entries"]
+    t0 = time.perf_counter()
+    old = multi.swap_plan("gnet_a", plan_b)
+    swap_s = time.perf_counter() - t0
+    at_swap = counts()
+    if plan_fingerprint(old[0]) != fp_a or \
+            plan_fingerprint(eng_a.plan) != fp_b or eng_b._runs is not b_runs \
+            or any(dict(run.captures) != b_caps[bsz]
+                   for bsz, run in b_runs.items()) or \
+            plan_fingerprint(eng_b.plan) != fp_a or \
+            multi.cache.stats()["entries"] != entries + nb:
+        raise CheckFailed("swap isolation: gnet_b's ladder, programs or "
+                          "captures changed, or the cache lost an entry")
+    again = {"gnet_a": images_of(214, 12), "gnet_b": burst["gnet_b"][:12]}
+    for name in again:
+        for i, img in enumerate(again[name]):
+            multi.submit(name, CNNRequest(rid=3000 + i, image=img))
+    multi.run_until_done()
+    if counts() != at_swap:
+        raise CheckFailed("a tick served after the swap moved a counter")
+    solo_b = solo_results(gnet, params_b, plan_a, (8, 4), again["gnet_b"])
+    solo_a = solo_results(gnet, params, plan_b, (8, 4), again["gnet_a"])
+    for name, solo in (("gnet_b", solo_b), ("gnet_a", solo_a)):
+        eng = multi.engines[name]
+        if any(not np.array_equal(eng.done[3000 + i], solo[i])
+               for i in range(12)):
+            raise CheckFailed(f"after the swap {name}'s results differ from "
+                              "its solo engine's")
+    print(f"[21] gnet_a swapped to plan B in {swap_s:.2f} s (compile, eager "
+          f"pass and capture per bucket): gnet_b's ladder, programs and "
+          f"captures unchanged and its results bit-equal to before; cache "
+          f"{multi.cache.stats()}; gnet_a's ticks on plan B bit-equal to a "
+          f"solo plan-B engine's, no counter moved; {memory_text()}")
+    del multi, eng_a, eng_b, eng_v, b_runs, b_caps, old, run
+
+    # 21.2 The plan supervisor on one engine: foreground, background and a
+    # rollback. 4 ms of injected device time per tick keeps the probation
+    # ratios on the injected delays, not on kernel jitter.
+    sup_waves = (8, 4, 2, 1)
+    shared = ExecutableCache()
+
+    def supervised(p, **kw):
+        engine_kw = kw.pop("engine_kw", {})
+        engine = CNNServingEngine(gnet, p, plan_a, batch_size=8, cache=shared,
+                                  warmup=True, device=dev, **engine_kw)
+        engine.device_delay_s = 0.004
+        sup = PlanSupervisor(engine, gnet,
+                             map_kwargs=dict(hw=hw_g, use_on_chip=False),
+                             calibration_source=lambda: shift, **kw)
+        return engine, sup
+
+    def drive(engine, sup, images, n_ticks, trail, rid0=0):
+        """``n_ticks`` ticks, one wave each (``sup_waves`` cycled by the
+        engine's dispatch index), each followed by ``sup.tick()``; trail gets (tick, state, swaps,
+        rollbacks, failed, probation samples, seconds in ``sup.tick()``)
+        per tick. Returns {rid: (tick index, plan fingerprint at
+        dispatch)}."""
+        placed, rid = {}, rid0
+        for _ in range(n_ticks):
+            tick = engine._tick_seq
+            n = sup_waves[tick % len(sup_waves)]
+            fp = plan_fingerprint(engine.plan)
+            for _ in range(n):
+                engine.submit(CNNRequest(rid=rid, image=images[rid % len(images)]))
+                placed[rid] = (tick, fp)
+                rid += 1
+            engine.step(flush=True)
+            t0 = time.perf_counter()
+            sup.tick()
+            last = engine.last_tick or {}
+            trail.append((tick, sup.state, sup.swaps, sup.rollbacks,
+                          bool(last.get("failed")),
+                          len(sup._probation_samples),
+                          round(time.perf_counter() - t0, 4)))
+        return placed
+
+    params_s = seeded_params(gnet, 2)
+    sup_images = images_of(215, 64)
+    reset_counts()
+    eng_s, sup_s = supervised(params_s, check_every=4, rollback_ticks=3)
+    fg_base = counts()
+    runs_a = dict(eng_s._runs)
+    swap_counts = []
+    sup_s.on_swap = lambda result: swap_counts.append(counts())
+    fg_trail = []
+    t_fg = time.perf_counter()
+    placed = drive(eng_s, sup_s, sup_images, 20, fg_trail)
+    fg_s = time.perf_counter() - t_fg
+    if sup_s.swaps != 1 or sup_s.rollbacks != 0 or sup_s.state != MONITOR \
+            or plan_fingerprint(eng_s.plan) != fp_b or \
+            eng_s.stats()["plan"] != {"swaps": 1, "rollbacks": 0}:
+        raise CheckFailed(f"foreground supervisor: swaps {sup_s.swaps}, "
+                          f"rollbacks {sup_s.rollbacks}, state {sup_s.state}"
+                          f"; trail {fg_trail}")
+    swap_row = next(row for row in fg_trail if row[2])
+    swap_tick, fg_compile_s = swap_row[0], swap_row[6]
+    # The ladder's eager passes and captures are the only launches: one of
+    # each per bucket of plan B, none in a served tick.
+    ladder = tuple(2 * nb * k for k in per_b)
+    if tuple(a - b for a, b in zip(swap_counts[0], fg_base)) != ladder or \
+            swap_counts[0] != counts():
+        raise CheckFailed(f"foreground launches: before the run "
+                          f"{launch_text(fg_base)}, at the swap "
+                          f"{launch_text(swap_counts[0])}, now "
+                          f"{launch_text(counts())}; the ladder's two passes "
+                          f"are {launch_text(ladder)}")
+    runs_b = dict(eng_s._runs)
+    fresh_a = solo_results(gnet, params_s, plan_a,
+                           [sup_waves[k % 4] for k in range(20)],
+                           [sup_images[r % 64] for r in range(len(placed))])
+    fresh_b = solo_results(gnet, params_s, plan_b,
+                           [sup_waves[k % 4] for k in range(20)],
+                           [sup_images[r % 64] for r in range(len(placed))])
+    n_before = 0
+    for rid, (tick, fp) in placed.items():
+        want_fp = fp_a if tick <= swap_tick else fp_b
+        ref = fresh_a if tick <= swap_tick else fresh_b
+        n_before += tick <= swap_tick
+        if fp != want_fp or not np.array_equal(eng_s.done[rid], ref[rid]):
+            raise CheckFailed(f"request {rid} (tick {tick}, swap after tick "
+                              f"{swap_tick}) differs from the fresh plan-"
+                              f"{'A' if tick <= swap_tick else 'B'} engine's")
+    print(f"[21] supervisor, foreground: {len(fg_trail)} ticks in {fg_s:.2f} "
+          f"s; re-solve adopted at the check after tick {swap_tick}, its "
+          f"ladder compiled, warmed and captured in {fg_compile_s:.2f} s on "
+          f"this thread and swapped in (plan B, fingerprint equal to map_network under the 6x "
+          f"calibration), probation passed, no rollback; {n_before} "
+          f"requests before the swap bit-equal to a fresh plan-A engine's, "
+          f"{len(placed) - n_before} after it to a fresh plan-B engine's; "
+          f"launches only the ladder's eager pass and capture per bucket, "
+          f"none in a served tick; stats "
+          f"{json.dumps(sup_s.stats()['last_replan'])}")
+
+    # Kernel rows per served tick before and after the swap (one wave of
+    # 8 each), against plans A's and B's lowerings.
+    def one_tick(engine, base):
+        def serve():
+            base[0] += 8
+            for i in range(8):
+                engine.submit(CNNRequest(rid=base[0] + i,
+                                         image=sup_images[i]))
+            engine.run_until_done()
+        return serve
+    base_rid = [10 ** 6]
+    _, rows_b = profiled_launches(one_tick(eng_s, base_rid))
+    probe = CNNServingEngine(gnet, params_s, plan_a, batch_size=8,
+                             cache=shared, warmup=True, device=dev)
+    _, rows_a = profiled_launches(one_tick(probe, base_rid))
+    if launches_by_name(rows_a) != per_a or launches_by_name(rows_b) != per_b:
+        raise CheckFailed(f"kernel rows per tick: plan A "
+                          f"{launch_text(launches_by_name(rows_a))} (want "
+                          f"{launch_text(per_a)}), plan B "
+                          f"{launch_text(launches_by_name(rows_b))} (want "
+                          f"{launch_text(per_b)})")
+    print(f"[21] kernel rows of one served tick (profiler): plan A "
+          f"{launch_text(launches_by_name(rows_a))}; plan B "
+          f"{launch_text(launches_by_name(rows_b))}")
+
+    # A tick in flight at the swap (depth 2) retires on plan A: the new
+    # ladder is compiled and warmed without retiring it.
+    deep = CNNServingEngine(gnet, params_s, plan_a, batch_size=8,
+                            pipeline_depth=2, cache=shared, warmup=True,
+                            device_delay_s=0.25, device=dev)
+    for i in range(8):
+        deep.submit(CNNRequest(rid=i, image=sup_images[i]))
+    deep.step(flush=True)
+    held = [t.tick_idx for t in deep._inflight]
+    deep.swap_plan(plan_b)
+    still = [t.tick_idx for t in deep._inflight]
+    for i in range(8, 16):
+        deep.submit(CNNRequest(rid=i, image=sup_images[i]))
+    deep.step(flush=True)
+    deep.drain()
+    want_b = runs_b[8](params_s, torch.as_tensor(
+        np.stack(sup_images[8:16]), device=dev)).cpu().numpy()
+    if held != [0] or still != [0] or any(
+            not np.array_equal(deep.done[i], fresh_a[i]) for i in range(8)) \
+            or any(not np.array_equal(deep.done[8 + i], want_b[i])
+                   for i in range(8)):
+        raise CheckFailed(f"depth 2: in flight before the swap {held}, after"
+                          f" it {still}, or a result differs")
+    print("[21] depth 2: the tick in flight at swap_plan (compiling its "
+          "ladder itself) stayed in flight, retired on plan A bit-equal to "
+          "the fresh plan-A engine's; the next tick bit-equal to plan B's "
+          "program")
+    del deep, probe
+
+    # Background: the compile thread compiles, runs the eager pass and
+    # captures the ladder while this thread serves; the test joins it.
+    params_g = seeded_params(gnet, 3)
+    eng_g, sup_g = supervised(params_g, check_every=4, rollback_ticks=3,
+                              background=True)
+    bg_base, bg_counts = counts(), []
+    sup_g.on_swap = lambda result: bg_counts.append(counts())
+    bg_trail = []
+    rid = 0
+    while sup_g.state != COMPILING:
+        rid = max(drive(eng_g, sup_g, sup_images, 1, bg_trail, rid)) + 1
+        if len(bg_trail) > 12:
+            raise CheckFailed(f"background: no compile started {bg_trail}")
+    t_bg = time.perf_counter()
+    thread = sup_g._compile_thread
+    served_meanwhile = 0
+    while thread.is_alive():
+        rid = max(drive(eng_g, sup_g, sup_images, 1, bg_trail, rid)) + 1
+        served_meanwhile += 1
+    thread.join()
+    bg_s = time.perf_counter() - t_bg
+    while sup_g.state == COMPILING:
+        rid = max(drive(eng_g, sup_g, sup_images, 1, bg_trail, rid)) + 1
+    drive(eng_g, sup_g, sup_images, 8, bg_trail, rid)
+    if sup_g.swaps != 1 or sup_g.rollbacks != 0 or sup_g.state != MONITOR \
+            or plan_fingerprint(eng_g.plan) != fp_b or bg_counts[0] != counts() \
+            or tuple(a - b for a, b in zip(bg_counts[0], bg_base)) != ladder:
+        raise CheckFailed(f"background supervisor: swaps {sup_g.swaps}, "
+                          f"rollbacks {sup_g.rollbacks}, state {sup_g.state},"
+                          f" counters before / at the swap / now {bg_base} / "
+                          f"{bg_counts} / {counts()}; trail {bg_trail}")
+    print(f"[21] supervisor, background: the compile thread took {bg_s:.2f} s"
+          f" (compile, eager pass and thread-local capture of 4 buckets) "
+          f"while this thread served {served_meanwhile} ticks, its launches "
+          f"those of one eager pass and one capture per bucket "
+          f"({launch_text(ladder)}); swapped once at the next tick boundary,"
+          f" probation passed; no served tick moved a counter")
+    del eng_g, sup_g
+
+    # Rollback: the first post-swap tick fails (no probation sample), then
+    # the new plan's ticks run 50x slower (0.2 s injected) and probation
+    # re-arms plan A.
+    box = {}
+
+    def regress(_result):
+        box["engine"].device_delay_s = 0.2
+    eng_r, sup_r = supervised(
+        params_s, check_every=3, rollback_ticks=3, rollback_factor=5.0,
+        cooldown_checks=2, on_swap=regress,
+        engine_kw=dict(max_retries=0,
+                       fault_plan=FaultPlan({6: TickFault(failures=5)})))
+    box["engine"] = eng_r
+    rb_trail = []
+    rid = 0
+    while not sup_r.rollbacks:
+        rid = max(drive(eng_r, sup_r, sup_images, 1, rb_trail, rid)) + 1
+        if len(rb_trail) > 20:
+            raise CheckFailed(f"rollback: none after 20 ticks {rb_trail}")
+    swap_at = next(i for i, row in enumerate(rb_trail) if row[2])
+    first_post = rb_trail[swap_at + 1]
+    if first_post[0] != 6 or sup_r.swaps != 1 or sup_r.rollbacks != 1 or \
+            plan_fingerprint(eng_r.plan) != fp_a or \
+            eng_r.stats()["plan"] != {"swaps": 1, "rollbacks": 1} or \
+            eng_r.failed_ticks != 1 or not first_post[4] or \
+            first_post[5] != 0 or sup_r.state != MONITOR:
+        raise CheckFailed(f"rollback: swaps {sup_r.swaps}, rollbacks "
+                          f"{sup_r.rollbacks}, plan A re-armed "
+                          f"{plan_fingerprint(eng_r.plan) == fp_a}, failed "
+                          f"ticks {eng_r.failed_ticks}; trail {rb_trail}")
+    eng_r.device_delay_s = 0.004
+    after = images_of(216, 8)
+    for i, img in enumerate(after):
+        eng_r.submit(CNNRequest(rid=5000 + i, image=img))
+    eng_r.run_until_done()
+    want_a = runs_a[8](params_s, torch.as_tensor(np.stack(after),
+                                                 device=dev)).cpu().numpy()
+    if any(not np.array_equal(eng_r.done[5000 + i], want_a[i])
+           for i in range(8)):
+        raise CheckFailed("after the rollback a result differs from plan "
+                          "A's program")
+    conserved(eng_r)
+    print(f"[21] rollback: trail (tick, state, swaps, rollbacks, failed, "
+          f"samples) {rb_trail}; one swap, one rollback, plan A re-armed, "
+          f"stats()['plan'] {eng_r.stats()['plan']}; the failed first "
+          f"post-swap tick gave no probation sample; results after the "
+          f"rollback bit-equal to plan A's program; {memory_text()}")
+    del eng_r, sup_r
+
+    # Printed, not gated: plans A and B beside phase 4's all-im2col plan,
+    # each bucket program replayed and timed by events, interleaved; and
+    # one capture per bucket of a fresh plan-B program.
+    run_i = {bsz: compile_plan(gnet, plan, epilogue="bias_relu",
+                               tuning_batch=bsz, device=dev)
+             for bsz in BUCKETS}
+    plan_ms = {}
+    for bsz in BUCKETS:
+        x = randn(bsz, 224, 224, 3)
+        fns = {"A": lambda: runs_a[bsz](params_s, x),
+               "B": lambda: runs_b[bsz](params_s, x),
+               "im2col": lambda: run_i[bsz](params_s, x)}
+        for order in (("A", "B", "im2col"), ("im2col", "B", "A")):
+            for name in order:
+                plan_ms.setdefault((bsz, name), []).append(time_ms(fns[name]))
+    capture_ms = {}
+    for bsz in BUCKETS:
+        fresh = compile_plan(gnet, plan_b, epilogue="bias_relu",
+                             tuning_batch=bsz, device=dev)
+        x = torch.zeros((bsz, 224, 224, 3), device=dev)
+        fresh(params_s, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh(params_s, x)
+        torch.cuda.synchronize()
+        capture_ms[bsz] = (time.perf_counter() - t0) * 1e3
+        del fresh
+    print("[21] replayed forward ms by events (A, B, all-im2col; two "
+          "interleaved readings each): " + "; ".join(
+              f"b{bsz} " + ", ".join(
+                  f"{name} " + "/".join(f"{v:.4f}" for v in plan_ms[(bsz, name)])
+                  for name in ("A", "B", "im2col")) for bsz in BUCKETS))
+    print(f"[21] capture (+ one replay) of a fresh plan-B program, ms per "
+          f"bucket {json.dumps({b: round(v, 2) for b, v in capture_ms.items()})}"
+          f"; foreground supervisor run {fg_s:.2f} s; background compile "
+          f"{bg_s:.2f} s; after both swaps {memory_text()}")
+    print(f"[21] phase 21 took {time.perf_counter() - t21:.1f} s")
+
     def wino_entry(name, source, replaces, label, launches):
         k_ms, p_ms, l_ms, b_ms, b_by = wino_times[(name, label)]
         return {"name": name, "route": "cuda", "source": source,
@@ -2846,6 +3454,7 @@ def main() -> int:
             "launches": qserve[KERNEL_NAMES.index(name)],
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+    print(f"total {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -342,16 +342,21 @@ def capture_forward(graph: Graph, lowering: Lowering, params: Params,
     memory pool with every intermediate). Nothing runs: the caller
     replays. Every lazily built index table the walk reads must exist
     already (an eager walk at the same shape builds them), since a copy
-    from pageable host memory cannot be captured. Raises for a tensor off
-    the card: the CPU never captures, and a failed capture raises — no
-    caller carries on with the eager walk."""
+    from pageable host memory cannot be captured. The capture is
+    thread-local (``capture_error_mode="thread_local"``): CUDA forbids the
+    calls that could break it (allocations, event queries, waits) to the
+    capturing thread only, so a program may be captured on a compile
+    thread while a serving thread replays other programs, queries their
+    events and allocates. Raises for a tensor off the card: the CPU never
+    captures, and a failed capture raises — no caller carries on with the
+    eager walk."""
     if x.device.type != "cuda":
         raise ValueError(f"capture_forward: CUDA graphs capture CUDA "
                          f"tensors only, got {x.device}")
     static_in = torch.empty_like(x)
     static_in.copy_(x)
     cuda_graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(cuda_graph):
+    with torch.cuda.graph(cuda_graph, capture_error_mode="thread_local"):
         static_out = _eval_graph(graph, lowering, params, static_in,
                                  use_pallas)
     return _Capture(cuda_graph, static_in, static_out)

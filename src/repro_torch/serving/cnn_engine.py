@@ -72,9 +72,17 @@ program takes; ``stats()["precision"]`` reports the plan's precision
 mix. A ``tuning`` record (``core.autotune.autotune_buckets``) binds each
 bucket's program to the winners measured at that bucket
 (``compile_plan(..., tuning=record, tuning_batch=bucket)``), falling back
-to a neighbouring bucket's entry where the record has none. Meshes and
-plan hot-swap are later slices of the port: ``mesh=`` and ``swap_plan``
-raise ``NotImplementedError``.
+to a neighbouring bucket's entry where the record has none. Meshes are
+a later slice of the port: ``mesh=`` raises ``NotImplementedError``.
+
+Plan hot-swap: ``compile_ladder(plan)`` compiles (and, warmed, captures)
+a new bucket ladder without touching the engine, so it may run on a
+background thread, and ``swap_plan`` installs it between ticks on the
+serving thread — in-flight ticks retire on the programs they were
+dispatched on, and the queue, the ledger and the service estimates carry
+over. ``cache=`` (an ``executor.ExecutableCache``) shares bucket programs
+across engines: tenants of one architecture share each program and hold
+one capture each, since a capture binds its params' pointers.
 """
 from __future__ import annotations
 
@@ -86,7 +94,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Set
 import numpy as np
 import torch
 
-from repro_torch.cnn.executor import compile_plan
+from repro_torch.cnn.executor import _with_fault_hook, compile_plan
 from repro_torch.core.graph import Graph
 from repro_torch.core.mapper import ExecutionPlan
 from repro_torch.distributed.fault import (DeviceFault, FaultPlan,
@@ -208,7 +216,9 @@ class CNNServingEngine:
     must already live on that device. ``act_scales`` ({conv node id:
     activation scale}) feeds the plan's int8 layers, in every bucket
     program; ``tuning`` (a ``core.autotune.TuningRecord``) binds each
-    bucket's program to the winners measured at that bucket.
+    bucket's program to the winners measured at that bucket. ``cache`` (an
+    ``ExecutableCache``) shares the bucket programs with every engine
+    compiling through it; the fault hook wraps outside the cached program.
 
     ``pipeline_depth`` >= 2 keeps up to that many ticks in flight, with
     results landing in ``done`` lazily — on later ``step()`` calls, on
@@ -238,6 +248,7 @@ class CNNServingEngine:
                  max_retries: int = 2,
                  retry_backoff_s: float = 0.0,
                  degrade: Optional[DegradeConfig] = None,
+                 cache=None,
                  act_scales: Optional[Dict[int, float]] = None,
                  device="cuda") -> None:
         if mesh is not None:
@@ -255,6 +266,11 @@ class CNNServingEngine:
         self.params = params
         self.plan = plan
         self.tuning = tuning
+        self.cache = cache
+        # Deployment history (stats()["plan"]): engine-lifetime, so
+        # reset() keeps it.
+        self.plan_swaps = 0
+        self.plan_rollbacks = 0
         self.pipeline_depth = int(pipeline_depth)
         self.device_delay_s = float(device_delay_s)
         self.max_queue = max_queue
@@ -455,6 +471,17 @@ class CNNServingEngine:
         bucket = self.covering_bucket(len(self.queue))
         wait = max(0.0, self.slo_s - self.service_estimate(bucket))
         return oldest.t_submit + wait
+
+    def oldest_deadline(self) -> Optional[float]:
+        """Deadline of the oldest queued request (``t_submit + slo_s``, or
+        bare ``t_submit`` with no SLO) — None when the queue is empty. The
+        multi-model scheduler steps tenants in this order."""
+        if not self.queue:
+            return None
+        oldest = self.queue[0]
+        if self.slo_s is None:
+            return oldest.t_submit
+        return oldest.t_submit + self.slo_s
 
     def dispatch_due(self, now: float) -> bool:
         """True when ``step(now)`` would dispatch rather than wait: a full
@@ -816,9 +843,9 @@ class CNNServingEngine:
     def reset(self) -> None:
         """Drop queued and served request state and the accounting (trace
         replays reuse one warmed engine). In-flight ticks are retired
-        first. Programs, buffers, the service estimates and the spike
-        history are kept; degrade mode stands down and the fault plan
-        re-applies from dispatch index 0."""
+        first. Programs, buffers, the service estimates, the spike history
+        and the plan's swap and rollback counts are kept; degrade mode
+        stands down and the fault plan re-applies from dispatch index 0."""
         self.drain()
         self.queue.clear()
         self.done.clear()
@@ -865,8 +892,8 @@ class CNNServingEngine:
         counts and service EMAs, SLO violations, latency / queue-wait
         aggregates over the completed requests of the ``request_log``
         window, the pipeline's in-flight and overlap counters, the plan's
-        precision mix and the robustness ledger. Pure read (it never
-        retires a tick)."""
+        swaps and rollbacks, its precision mix and the robustness ledger.
+        Pure read (it never retires a tick)."""
         def _agg(vals: List[float]) -> Optional[Dict[str, float]]:
             if not vals:
                 return None
@@ -903,6 +930,12 @@ class CNNServingEngine:
             },
             # A single-device engine (the mesh path is a later slice).
             "sharding": None,
+            # Hot-swaps of the served plan and rollbacks to the previous
+            # one, over the engine's lifetime.
+            "plan": {
+                "swaps": self.plan_swaps,
+                "rollbacks": self.plan_rollbacks,
+            },
             "precision": {
                 "mix": {
                     "int8": sum(1 for p in self.precisions.values()
@@ -942,35 +975,85 @@ class CNNServingEngine:
             },
         }
 
-    # ----------------------------------------------------- bucket ladder
-    def swap_plan(self, *args, **kwargs) -> None:
-        """Online plan hot-swap is a later slice of the port."""
-        raise NotImplementedError(
-            "CNNServingEngine.swap_plan is not ported yet")
-
+    # ----------------------------------------------------- plan hot-swap
     def compile_ladder(self, plan: Optional[ExecutionPlan],
                        act_scales: Optional[Dict[int, float]] = None,
                        warm: bool = True) -> Dict[int, Callable]:
         """One compiled program per bucket for ``plan`` (and its int8
         layers' ``act_scales``) under this engine's options — the tuning
-        record's winners at that bucket, donation at depth >= 2 and the
-        fault hook when a plan is armed, as the reference compiles its
-        ladder (one device, so each bucket looks up its own winners);
-        ``warm=True`` runs each once (its eager warm pass) on an all-zeros
-        batch."""
-        hook = self._fault_hook if self.fault_plan is not None else None
-        runs = {
+        record's winners at that bucket, donation at depth >= 2, the shared
+        ``cache`` and the fault hook when a plan is armed — the call the
+        constructor makes, so a ladder compiled here and swapped in serves
+        as a fresh engine on ``plan`` would.
+
+        Pure with respect to engine state: it reads the engine's options
+        and params and writes nothing of the engine's (not the queue, the
+        in-flight ticks or the staging buffers), so it may run on a
+        background thread while the serving thread ticks, and hand its
+        ladder to ``swap_plan`` there. ``warm=True`` runs each program on
+        an all-zeros batch of its own on the device, outside the fault
+        hook (a warm call is no dispatch): on the card twice, the eager
+        warm pass and the CUDA-graph capture under this engine's params,
+        so a swapped-in ladder replays from its first served tick, whose
+        wall time feeds the service estimates and a supervisor's
+        probation; on the CPU once."""
+        programs = {
             bucket: compile_plan(self.graph, plan, epilogue=EPILOGUE,
                                  tuning=self.tuning, tuning_batch=bucket,
                                  donate=self.pipeline_depth > 1,
-                                 fault_hook=hook, act_scales=act_scales,
+                                 cache=self.cache, act_scales=act_scales,
                                  device=self.device)
             for bucket in self.buckets
         }
         if warm:
-            for bucket, run in runs.items():
-                self._run_blocking(run, bucket)
-        return runs
+            passes = 2 if self.device.type == "cuda" else 1
+            for bucket, run in programs.items():
+                x = torch.zeros((bucket,) + self._shape, dtype=torch.float32,
+                                device=self.device)
+                for _ in range(passes):
+                    run(self.params, x)
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        hook = self._fault_hook if self.fault_plan is not None else None
+        return {bucket: _with_fault_hook(run, hook)
+                for bucket, run in programs.items()}
+
+    def swap_plan(self, plan: Optional[ExecutionPlan],
+                  runs: Optional[Dict[int, Callable]] = None, *,
+                  act_scales: Optional[Dict[int, float]] = None,
+                  rollback: bool = False) -> tuple:
+        """Deploy a new plan between ticks: the bucket ladder (``runs``,
+        or ``compile_ladder(plan, act_scales)`` when None) and the
+        plan-derived state (``plan``, ``precisions``, ``act_scales``) are
+        replaced in one step on the serving thread, so every dispatch
+        before this call ran on the old ladder and every one after runs on
+        the new. A ladder missing a bucket raises ``ValueError``.
+
+        Everything else is kept: the outcome ledger (a swap is no request
+        outcome), queued requests, in-flight ticks (each holds the program
+        it was dispatched on and retires on it, completion-fault replays
+        included) and the per-bucket service estimates. Returns
+        ``(old_plan, old_runs, old_act_scales)``, which re-arm the previous
+        deployment; ``rollback=True`` books the swap as a rollback."""
+        if runs is None:
+            runs = self.compile_ladder(plan, act_scales=act_scales)
+        missing = [b for b in self.buckets if b not in runs]
+        if missing:
+            raise ValueError(
+                f"swap_plan ladder is missing buckets {missing} — a "
+                "partial ladder would strand those buckets on the old "
+                "plan; compile via compile_ladder(plan)")
+        old = (self.plan, self._runs, self.act_scales)
+        self.plan = plan
+        self._runs = {b: runs[b] for b in self.buckets}
+        self.act_scales = act_scales
+        self.precisions = dict(getattr(plan, "precisions", None) or {}) \
+            if plan is not None else {}
+        if rollback:
+            self.plan_rollbacks += 1
+        else:
+            self.plan_swaps += 1
+        return old
 
     def _run_blocking(self, run: Callable, bucket: int) -> None:
         """Dispatch ``run`` on an all-zeros batch from the first slot's

@@ -107,6 +107,8 @@ def test_engine_matches_reference_engine(served):
     assert got == want == [d for _, _, d in TRACE]
     assert ours.dispatches == ref.dispatches == {1: 2, 2: 1, 4: 2}
     s, r = ours.stats(), ref.stats()
+    assert set(s) == set(r)
+    assert s["plan"] == r["plan"] == {"swaps": 0, "rollbacks": 0}
     # (SLO violations are left out: a request's latency adds its tick's
     # measured service time, which differs between the two engines.)
     for key in ("submitted", "served", "queued", "dispatches", "window"):

@@ -34,6 +34,7 @@ from repro_torch.kernels.layouts import materialize, restore
 from repro_torch.distributed.fault import FaultPlan
 from repro_torch.serving.cnn_engine import (CNNRequest, CNNServingEngine,
                                             DegradeConfig)
+from repro_torch.serving.multi_engine import MultiModelEngine
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -61,7 +62,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "kernels/winograd/ref.py", "kernels/layouts.py",
             "kernels/gemm/gemm.py", "kernels/kn2row/kn2row.py",
             "kernels/kn2row/ops.py", "kernels/kn2row/ref.py",
-            "core/quant.py", "core/autotune.py"} <= names
+            "core/quant.py", "core/autotune.py",
+            "serving/multi_engine.py", "serving/supervisor.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -86,6 +88,7 @@ def test_entry_points_with_default_device_raise_without_cuda(no_cuda,
              lambda: compile_plan(g),
              lambda: forward(g, params, x),
              lambda: CNNServingEngine(g, params, None),
+             lambda: MultiModelEngine().register_model("m", g, params, None),
              lambda: params_from_jax({0: {"w": np.zeros(3, np.float32)}})]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -291,11 +294,11 @@ def test_unported_algorithms_and_int8_kernels_raise():
 
 
 def test_later_slice_options_raise(small):
-    """Options of later slices raise (the mesh path, plan hot-swap); the
-    serving slice's options (donation, the fault hook, pipelining,
-    admission, shedding, faults, degrade), ``act_scales=`` (the int8
-    slice) and ``tuning=`` (``tests/test_torch_autotune.py``) are
-    taken."""
+    """Options of later slices raise (the mesh path); the serving slice's
+    options (donation, the fault hook, pipelining, admission, shedding,
+    faults, degrade), ``act_scales=`` (the int8 slice) and ``tuning=``
+    (``tests/test_torch_autotune.py``) are taken, and so is plan hot-swap
+    (``tests/test_torch_plan_hotswap.py``)."""
     g, params = small
     with pytest.raises(NotImplementedError, match="mesh"):
         compile_plan(g, device="cpu", mesh=object())
@@ -316,8 +319,6 @@ def test_later_slice_options_raise(small):
     engine = CNNServingEngine(g, params, None, batch_size=1, device="cpu",
                               act_scales=scales)
     assert engine.stats()["precision"]["calibrated"]
-    with pytest.raises(NotImplementedError, match="swap_plan"):
-        engine.swap_plan(None, {})
 
 
 @pytest.mark.parametrize("backend", ["reference", "lax"])

@@ -16,7 +16,7 @@ under a ``FakeClock`` with the same ``FaultPlan``, ``max_queue``,
 same values before every step and the degrade controller's spike
 threshold out of reach, so no decision reads either side's real timing.
 They must give the same per-rid outcomes, buckets and counters, the same
-``stats()`` keys (the reference's ``plan`` block aside) and results
+``stats()`` keys and results
 within rtol 2e-2 / atol 2e-3. The port's ``FaultPlan.seeded`` and
 ``robust_zscore`` equal the reference's.
 """
@@ -539,7 +539,8 @@ def test_robust_engine_matches_reference_engine(tiny, depth):
     assert len(outcomes(ours)) == n
     assert ours.dispatches == ref.dispatches
     s, r = ours.stats(), ref.stats()
-    assert set(s) == set(r) - {"plan"}
+    assert set(s) == set(r)
+    assert s["plan"] == r["plan"] == {"swaps": 0, "rollbacks": 0}
     for block in ("pipeline", "robustness"):
         assert set(s[block]) == set(r[block]), block
     assert set(s["robustness"]["degrade"]) == \
