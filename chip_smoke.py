@@ -188,7 +188,46 @@ both matrix products and cuDNN:
     regression, with the first post-swap tick failing, probation rolls
     back once to plan A. Plans A and B are timed against phase 4's plan
     per bucket (printed, not gated), beside capture times, the background
-    compile's seconds and the memory reserved.
+    compile's seconds and the memory reserved;
+22. serves data-parallel on a mesh (this slice's main path: every count is
+    reset before 22.2 and read after 22.4), full-width GoogleNet under
+    plan A. On one card a real mesh has one device, and a mesh naming
+    ``cuda:0`` k times runs the whole split path (split, per-shard
+    captures and replays, gather): it tests placement, never speed.
+    22.1 prints the cards, their power limits and ``make_data_mesh()``,
+    and ``make_data_mesh(count + 1)`` must raise. 22.2: ``make_data_mesh(1)``'s
+    program at buckets 1, 2, 4, 8 must equal the unsharded program bit for
+    bit after the eager pass, the capture and a replay, launching plan A's
+    lowering on the first two and nothing on the replay. 22.3: on 2- and
+    4-shard meshes of ``cuda:0``, at every bucket of ``batch_buckets(8,
+    k)``, each shard's rows must equal the unsharded program at the
+    per-chip batch bit for bit and the whole bucket the unsharded program
+    at rtol 2e-2 / atol 2e-3, with k captures per bucket, k times the
+    launches, and an indivisible batch raising. 22.4: engines on the
+    mesh-1 and the 2-shard mesh at depths 1 and 2 under a tuning record
+    whose per-chip buckets 1 and 2 bind different tiles (each bucket
+    program's lowering must take its per-chip entries; warm-up launches
+    two passes of every shard's lowering) serve waves of 8, 8 and 2:
+    ``stats()["sharding"]``, ``last_tick["per_chip_batch"]``, zeroed stale
+    staging rows, no counter moving over the ticks, results bit-equal to
+    an unsharded engine's (mesh-1) or within the whole-plan tolerance
+    (2-shard); two ``MultiModelEngine`` tenants on the 2-shard mesh share
+    every program with 2 x 2 captures per bucket; a foreground
+    ``swap_plan`` to plan B on a mesh-1 engine serves its next tick from a
+    replay, bit-equal to plan B's unsharded program. 22.5 times the
+    unsharded, mesh-1 and 2-shard forwards at buckets 2, 4 and 8 by events,
+    interleaved (printed, not gated). 22.6 runs 22.2-22.4 on a mesh of two
+    real cards where two are visible, and otherwise prints why it did not;
+23. runs the two user examples in-process through their ``main(argv)`` on
+    the card, every count reset before each: ``examples/quickstart_torch.py``
+    at full width, then ``examples/serve_cnn_torch.py --record <tmp>``
+    (tunes buckets 1 and 2 over cuDNN and the plain oracles and saves
+    the record), and, loading that record, ``--models 2``,
+    ``--pipeline-depth 2 --chaos --max-queue 16`` and ``--precision
+    auto``. Each must return 0 (its spot checks at rtol 2e-2 / atol 2e-3
+    and outcome conservation), its printed ledger must conserve, and the
+    kernels its lowerings run must have launched (for ``--precision
+    auto``, an int8 kernel); each run's seconds are printed.
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
 and 18 serve as phase 5 does, and every forward timed is a replay.
@@ -200,10 +239,13 @@ device, or outside a checkout, it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 from pathlib import Path
@@ -842,10 +884,15 @@ def main() -> int:
     from repro_torch.core.cost_model import TransitionCalibration
     from repro_torch.core.mapper import plan_fingerprint, replan
     from repro_torch.cnn import overlay
-    from repro_torch.core.autotune import (BACKENDS, TuningRecord,
-                                           autotune_buckets, autotune_graph,
+    from repro_torch.core.autotune import (BACKENDS, Binding, LayerTuning,
+                                           TuningRecord, autotune_buckets,
+                                           autotune_graph, record_key,
                                            refresh_from_service, tune_elision,
                                            tune_layer)
+    from repro_torch.core.cost_model import FPGA_LIKE
+    from repro_torch.distributed.sharding import data_shard_count, replicate
+    from repro_torch.launch.mesh import DataMesh, make_data_mesh
+    from repro_torch.serving.cnn_engine import batch_buckets
     from repro_torch.core.cost_model import Dataflow
     from repro_torch.kernels.common import quantize, weight_scales
     from repro_torch.kernels.conv_im2col.ops import conv_im2col
@@ -3378,6 +3425,474 @@ def main() -> int:
           f"; foreground supervisor run {fg_s:.2f} s; background compile "
           f"{bg_s:.2f} s; after both swaps {memory_text()}")
     print(f"[21] phase 21 took {time.perf_counter() - t21:.1f} s")
+
+    # ---- 22. the data-parallel mesh: this slice's main path -------------
+    # Full-width GoogleNet under plan A. On this card a real mesh has one
+    # device; "virtual" meshes name cuda:0 two and four times, which runs
+    # the whole split path (split, per-shard captures and replays, gather)
+    # and tests placement, never speed. Every count is reset before 22.2
+    # and read after 22.4; the stages' launches are read as differences.
+    t22 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_cards = torch.cuda.device_count()
+    smi_all = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    mesh_all = make_data_mesh()
+    try:
+        make_data_mesh(n_cards + 1)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise CheckFailed(f"make_data_mesh({n_cards + 1}) did not raise")
+    if mesh_all.devices != tuple(torch.device("cuda", i)
+                                 for i in range(n_cards)):
+        raise CheckFailed(f"make_data_mesh() devices {mesh_all.devices}")
+    print(f"[22] torch.cuda.device_count() {n_cards}: "
+          + "; ".join(f"cuda:{i} {torch.cuda.get_device_name(i)} ({line})"
+                      for i, line in enumerate(smi_all[:n_cards]))
+          + f"; make_data_mesh() devices "
+          f"{[str(d) for d in mesh_all.devices]}; make_data_mesh("
+          f"{n_cards + 1}) raises ValueError: {refused}")
+    none = (0,) * len(ALL_KERNELS)
+
+    def launched(fn):
+        """``fn()``'s result and the launches the counters read over it
+        (no reset: the phase's total keeps counting)."""
+        before = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tuple(a - b for a, b in zip(counts(), before))
+
+    def times(n, per):
+        return tuple(n * k for k in per)
+
+    def check_mesh_programs(tag, mesh, buckets):
+        """Plan A's program on ``mesh`` at each bucket, three calls (the
+        eager pass, the capture, a replay): the counters read every
+        shard's lowering on the first two and 0 on the replay; every shard
+        holds one capture; each shard's rows equal the unsharded program's
+        at the per-chip batch bit for bit; with more than one shard the
+        output is within the whole-plan tolerance of the unsharded program
+        at the full bucket, and a batch that does not divide raises.
+        Returns {bucket: program}."""
+        k = data_shard_count(mesh)
+        reps = replicate(params_s, mesh)
+        programs = {}
+        for bsz in buckets:
+            per = bsz // k
+            run_m = compile_plan(gnet, plan_a, epilogue="bias_relu",
+                                 tuning_batch=per, mesh=mesh, device=dev)
+            if expected_launches(run_m.lowering, gnet) != per_a:
+                raise CheckFailed(f"{tag} b{bsz}: not plan A's lowering")
+            x = randn(bsz, 224, 224, 3)
+            outs = []
+            for stage, want_n in (("eager", times(k, per_a)),
+                                  ("capture", times(k, per_a)),
+                                  ("replay", none)):
+                out, n = launched(lambda: run_m(reps, x))
+                if n != want_n:
+                    raise CheckFailed(
+                        f"{tag} b{bsz} {stage} pass: launches {n}, expected "
+                        f"{want_n} {KERNEL_NAMES}")
+                outs.append(out)
+            caps = [list(s.captures.values()) for s in run_m.shards]
+            if len(caps) != k or any(len(c) != 1 or None in c for c in caps):
+                raise CheckFailed(f"{tag} b{bsz}: captures per shard "
+                                  f"{[len(c) for c in caps]}, expected 1 each")
+            run_c = compile_plan(gnet, plan_a, epilogue="bias_relu",
+                                 tuning_batch=per, device=dev)
+            for i in range(k):
+                rows = slice(i * per, (i + 1) * per)
+                want = run_c(params_s, x[rows])
+                for stage, out in zip(("eager", "capture", "replay"), outs):
+                    if not torch.equal(out[rows], want):
+                        raise CheckFailed(
+                            f"{tag} b{bsz} {stage} pass: shard {i}'s rows "
+                            f"differ from the unsharded program at batch "
+                            f"{per} (max|diff| "
+                            f"{float((out[rows] - want).abs().max()):.3e})")
+            text = (f"each of {k} shard(s) bit-equal to the unsharded "
+                    f"program at batch {per} after the eager pass, the "
+                    f"capture and a replay")
+            if k > 1:
+                run_f = compile_plan(gnet, plan_a, epilogue="bias_relu",
+                                     tuning_batch=bsz, device=dev)
+                err = check_close(f"{tag} b{bsz} vs unsharded", outs[2],
+                                  run_f(params_s, x), **FORWARD_TOL)
+                text += (f"; max|diff| vs the unsharded program at b{bsz} "
+                         f"{err:.3e} (rtol 2e-2 atol 2e-3)")
+                del run_f
+            del run_c
+            programs[bsz] = run_m
+            print(f"[22] {tag} b{bsz}: per-chip batch {per}; launches on "
+                  f"the eager and the capture pass {k} x plan A's lowering, "
+                  f"0 on a replay; {k} capture(s); {text}")
+        if k > 1:
+            try:
+                programs[buckets[0]](reps, randn(k + 1, 224, 224, 3))
+            except ValueError as exc:
+                if "data shards" not in str(exc):
+                    raise
+            else:
+                raise CheckFailed(f"{tag}: a batch of {k + 1} did not raise")
+            print(f"[22] {tag}: a batch of {k + 1} raises ValueError")
+        return programs
+
+    # 22.2 Mesh-1 against unsharded, at every bucket.
+    reset_counts()
+    mesh1 = make_data_mesh(1)
+    if mesh1.devices != (torch.device("cuda", 0),):
+        raise CheckFailed(f"make_data_mesh(1) devices {mesh1.devices}")
+    progs22 = {1: check_mesh_programs("mesh-1", mesh1, BUCKETS)}
+    # 22.3 Virtual meshes of 2 and 4 shards on cuda:0.
+    virtual = {k: DataMesh(("cuda:0",) * k) for k in (2, 4)}
+    for k, vm in virtual.items():
+        progs = check_mesh_programs(f"virtual {k}-shard", vm,
+                                    batch_buckets(8, k))
+        if k == 2:
+            progs22[2] = progs
+        del progs
+
+    # 22.4 Engines: a tuning record whose per-chip buckets 1 and 2 bind
+    # different tiles, each engine's bucket programs taking the entries of
+    # their per-chip batch; a burst of 8, another 8 and a tick of 2.
+    rec22 = TuningRecord()
+    for node in gnet.conv_nodes():
+        algo = plan_a.assignment[node.id].key
+        for per, tile in ((1, (64, 64)), (2, (128, 64))):
+            rec22.entries.setdefault(record_key(node.conv, per), LayerTuning(
+                binding=Binding(algo, "NS", tile[0], tile[1], "pallas"),
+                measured_s=1.0, candidates=[], batch=per))
+    eng_waves = (8, 8, 2)
+    eng_images = images_of(221, sum(eng_waves))
+
+    def check_mesh_engine(tag, mesh, depth):
+        """Build a ``rec22``-tuned engine on ``mesh`` (None: unsharded) at
+        ``depth``, hold its lowerings to the per-chip entries and its
+        warm-up to two passes of every shard's lowering, serve
+        ``eng_waves`` (replays: no counter moves) and check its sharding
+        stats, ``last_tick`` and the zeroed stale staging rows. Returns
+        {rid: logits}."""
+        k = 1 if mesh is None else data_shard_count(mesh)
+        eng, n_warm = launched(lambda: CNNServingEngine(
+            gnet, params_s, plan_a, batch_size=8, tuning=rec22, mesh=mesh,
+            warmup=True, pipeline_depth=depth, device=dev))
+        want_warm = [0] * len(ALL_KERNELS)
+        for bsz in eng.buckets:
+            run = eng._runs[bsz]
+            for node in gnet.conv_nodes():
+                b = rec22.lookup(node.conv, batch=bsz // k).binding
+                low = run.lowering[node.id]
+                if (low.algo.key, low.p1, low.p2, low.backend) != \
+                        (b.algo_key, b.p1, b.p2, b.backend):
+                    raise CheckFailed(
+                        f"{tag} depth {depth} b{bsz}: conv {node.id} lowers "
+                        f"to {low.algo.key} {low.p1}x{low.p2} {low.backend}, "
+                        f"not the per-chip b{bsz // k} entry {b.label()}")
+            shards = getattr(run, "shards", (run,))
+            if len(shards) != k or any(
+                    len(s.captures) != 1 or None in s.captures.values()
+                    for s in shards):
+                raise CheckFailed(f"{tag} depth {depth} b{bsz}: not one "
+                                  f"capture on each of {k} shard(s)")
+            per_fwd = expected_launches(run.lowering, gnet)
+            want_warm = [w + 2 * k * n for w, n in zip(want_warm, per_fwd)]
+        if n_warm != tuple(want_warm):
+            raise CheckFailed(f"{tag} depth {depth}: warm-up launches "
+                              f"{n_warm}, expected {tuple(want_warm)}")
+        rid = 0
+        trail = []
+        before = dict(eng.dispatches)
+
+        def serve():
+            nonlocal rid
+            for n in eng_waves:
+                for _ in range(n):
+                    eng.submit(CNNRequest(rid=rid, image=eng_images[rid]))
+                    rid += 1
+                eng.step(flush=True)
+                trail.append(eng._last_buf_index)
+            eng.drain()
+
+        _, n_served = launched(serve)
+        if n_served != none:
+            raise CheckFailed(f"{tag} depth {depth}: the served ticks moved "
+                              f"the counters by {n_served}")
+        last = eng.last_tick
+        want_sh = None if mesh is None else {
+            "data_shards": k, "mesh_devices": k,
+            "per_chip_batch": {b: b // k for b in eng.buckets}}
+        if eng.stats()["sharding"] != want_sh or \
+                last["bucket"] != 2 or last["per_chip_batch"] != 2 // k or \
+                {b: eng.dispatches[b] - before[b] for b in (2, 8)} != \
+                {2: 1, 8: 2} or \
+                sorted(eng.done) != list(range(sum(eng_waves))):
+            raise CheckFailed(f"{tag} depth {depth}: sharding "
+                              f"{eng.stats()['sharding']}, last_tick {last}, "
+                              f"dispatches {eng.dispatches}")
+        slot = trail[-1]
+        if trail[0] != slot or bool(eng._batch_bufs[slot][2:].any()):
+            raise CheckFailed(f"{tag} depth {depth}: the tick of 2 in slot "
+                              f"{slot} (slots {trail}) left stale rows")
+        conserved(eng)
+        print(f"[22] {tag} engine depth {depth}: buckets {eng.buckets} "
+              f"(per-chip {[b // k for b in eng.buckets]}), each lowering "
+              f"on its per-chip entries; warm-up launches "
+              f"{launch_text(n_warm)}, 0 over the served ticks; "
+              f"stats()['sharding'] {eng.stats()['sharding']}; last_tick "
+              f"bucket 2 per_chip_batch {last['per_chip_batch']}; the tick "
+              f"of 2 in slot {slot} zeroed the 6 stale rows")
+        out = {r: eng.done[r] for r in eng.done}
+        del eng
+        return out
+
+    solo22 = {}
+
+    def check_engines(tag, mesh, bit_equal):
+        if not solo22:
+            solo22.update(check_mesh_engine("unsharded", None, 1))
+        solo = solo22
+        err = 0.0
+        for depth in (1, 2):
+            got = check_mesh_engine(tag, mesh, depth)
+            for r, want in solo.items():
+                if bit_equal and not np.array_equal(got[r], want):
+                    raise CheckFailed(f"{tag} depth {depth}: request {r} "
+                                      f"differs from the unsharded engine's")
+                err = max(err, check_close(
+                    f"{tag} depth {depth} request {r}",
+                    torch.as_tensor(got[r]), torch.as_tensor(want),
+                    **FORWARD_TOL))
+        print(f"[22] {tag} engines at depths 1 and 2: results "
+              + ("bit-equal to" if bit_equal else "within rtol 2e-2 atol "
+                 "2e-3 of") + f" the unsharded engine's (max|diff| "
+              f"{err:.3e})")
+
+    def check_tenants(tag, mesh):
+        """Two tenants on ``mesh``: one program per bucket shared (cache
+        hits), each shard holding one capture per params; a burst each,
+        against the unsharded program."""
+        k = data_shard_count(mesh)
+        multi22 = MultiModelEngine()
+        tenants = {"a": params_s, "b": seeded_params(gnet, 3)}
+        for name, p in tenants.items():
+            multi22.register_model(name, gnet, p, plan_a, batch_size=8,
+                                   mesh=mesh, warmup=True, device=dev)
+        ea, eb = multi22.engines["a"], multi22.engines["b"]
+        nb = len(ea.buckets)
+        if multi22.cache.stats() != {"entries": nb, "hits": nb,
+                                     "misses": nb}:
+            raise CheckFailed(f"{tag} tenants: cache "
+                              f"{multi22.cache.stats()}")
+        for bsz in ea.buckets:
+            run = ea._runs[bsz]
+            if run is not eb._runs[bsz] or len(run.shards) != k or any(
+                    len(s.captures) != 2 or None in s.captures.values()
+                    for s in run.shards):
+                raise CheckFailed(f"{tag} tenants b{bsz}: not one shared "
+                                  f"program with two captures a shard")
+        images = images_of(222, 11)
+        for name in tenants:
+            for i, img in enumerate(images):
+                multi22.submit(name, CNNRequest(rid=i, image=img))
+        done = multi22.run_until_done()
+        run_f = compile_plan(gnet, plan_a, epilogue="bias_relu",
+                             tuning_batch=8, device=dev)
+        err = 0.0
+        for name, p in tenants.items():
+            for lo in (0, 8):
+                chunk = images[lo:lo + 8]
+                want = run_f(p, torch.as_tensor(np.stack(chunk), device=dev))
+                for i in range(len(chunk)):
+                    err = max(err, check_close(
+                        f"{tag} tenant {name} request {lo + i}",
+                        torch.as_tensor(done[name][lo + i], device=dev),
+                        want[i], **FORWARD_TOL))
+            conserved(multi22.engines[name])
+        print(f"[22] {tag} tenants: cache {multi22.cache.stats()} (the "
+              f"second tenant compiled nothing); each bucket program shared, "
+              f"{k} x 2 captures; 11 requests a tenant within rtol 2e-2 "
+              f"atol 2e-3 of the unsharded program (max|diff| {err:.3e})")
+        del multi22, ea, eb, run, run_f
+
+    check_engines("mesh-1", mesh1, bit_equal=True)
+    check_engines("virtual 2-shard", virtual[2], bit_equal=False)
+    check_tenants("virtual 2-shard", virtual[2])
+    # One foreground swap to plan B on a mesh-1 engine: its next tick is a
+    # replay, bit-equal to plan B's unsharded program.
+    eng_sw = CNNServingEngine(gnet, params_s, plan_a, batch_size=8,
+                              mesh=mesh1, warmup=True, device=dev)
+    eng_sw.swap_plan(plan_b)
+    sw_images = images_of(223, 8)
+
+    def serve_swapped():
+        for i, img in enumerate(sw_images):
+            eng_sw.submit(CNNRequest(rid=i, image=img))
+        return eng_sw.run_until_done()
+
+    done_sw, n_sw = launched(serve_swapped)
+    want_sw = runs_b[8](params_s, torch.as_tensor(np.stack(sw_images),
+                                                  device=dev)).cpu().numpy()
+    if n_sw != none or eng_sw.dispatches[8] != 1 or any(
+            not np.array_equal(done_sw[i], want_sw[i]) for i in range(8)):
+        raise CheckFailed(f"mesh-1 swap to plan B: launches {n_sw}, "
+                          f"dispatches {eng_sw.dispatches}, or results "
+                          f"differ from plan B's unsharded program")
+    print(f"[22] mesh-1 engine swapped to plan B in the foreground "
+          f"(stats()['plan'] {eng_sw.stats()['plan']}): its first tick of 8 "
+          f"a replay (no counter moved), bit-equal to plan B's unsharded "
+          f"program")
+    del eng_sw
+    path22 = counts()
+    if any(path22[KERNEL_NAMES.index(k)] == 0 for k in PATH21):
+        raise CheckFailed(f"the mesh path launched {launch_text(path22)}")
+    print(f"[22] launches over 22.2-22.4 (counts reset before 22.2): "
+          f"{launch_text(path22)}")
+
+    # 22.5 Printed, not gated: replayed forwards by events, interleaved —
+    # unsharded (phase 21's plan-A programs), mesh-1 and the virtual
+    # 2-shard mesh. One card runs the shards one after another: no
+    # scaling can show here.
+    mesh_ms = {}
+    reps1 = replicate(params_s, mesh1)
+    reps2 = replicate(params_s, virtual[2])
+    for bsz in (2, 4, 8):
+        x = randn(bsz, 224, 224, 3)
+        fns = {"unsharded": lambda: runs_a[bsz](params_s, x),
+               "mesh-1": lambda: progs22[1][bsz](reps1, x),
+               "virtual 2": lambda: progs22[2][bsz](reps2, x)}
+        for order in (("unsharded", "mesh-1", "virtual 2"),
+                      ("virtual 2", "mesh-1", "unsharded")):
+            for name in order:
+                mesh_ms.setdefault((bsz, name), []).append(time_ms(fns[name]))
+    print("[22] replayed forward ms by events (unsharded, mesh-1, virtual "
+          "2-shard; two interleaved readings each): " + "; ".join(
+              f"b{bsz} " + ", ".join(
+                  f"{name} " + "/".join(f"{v:.4f}"
+                                        for v in mesh_ms[(bsz, name)])
+                  for name in ("unsharded", "mesh-1", "virtual 2"))
+              for bsz in (2, 4, 8))
+          + f"; virtual 2-shard b8 / (2 x unsharded b4) "
+          f"{min(mesh_ms[(8, 'virtual 2')]) / (2 * min(mesh_ms[(4, 'unsharded')])):.3f}"
+          f"; {memory_text()}")
+    del progs22
+
+    # 22.6 A mesh over two real cards, only where two are visible.
+    if n_cards >= 2:
+        real2 = make_data_mesh(2)
+        progs = check_mesh_programs("real 2-card", real2, batch_buckets(8, 2))
+        del progs
+        check_engines("real 2-card", real2, bit_equal=False)
+        check_tenants("real 2-card", real2)
+    else:
+        print(f"[22] 22.6 skipped: a mesh over two real cards needs two "
+              f"visible cards and this machine shows {n_cards}; the one-card "
+              f"meshes above ran every other check")
+    print(f"[22] phase 22 took {time.perf_counter() - t22:.1f} s")
+
+    # ---- 23. the two user examples, in-process through main(argv) --------
+    t23 = time.perf_counter()
+    sys.path.insert(0, str(SRC.parent / "examples"))
+    import quickstart_torch
+    import serve_cnn_torch
+
+    def run_example(tag, main_fn, argv):
+        """Run one example's ``main(argv)`` with every count reset, its
+        output kept: (output, launches, seconds). Its text lines are
+        printed; a nonzero return or a ``SystemExit`` fails the phase."""
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            try:
+                rc = main_fn(argv)
+            except SystemExit as exc:
+                rc = exc.code if exc.code is not None else 0
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = counts()
+        out = buf.getvalue()
+        head = out.split("\n{", 1)[0].splitlines()
+        for line in head:
+            print(f"[23] {tag}: {line}")
+        if rc != 0:
+            raise CheckFailed(f"{tag} ended with {rc!r}")
+        print(f"[23] {tag}: {secs:.1f} s; launches {launch_text(n)}")
+        return out, n, secs
+
+    def kernels_of(lowerings):
+        """The kernels the layers of ``lowerings`` that run on kernels
+        (backend auto or pallas, not cuDNN or the plain oracles)
+        launch."""
+        names = set()
+        for low in lowerings:
+            on_kernels = {nid: c for nid, c in low.items()
+                          if c.backend in ("auto", "pallas")}
+            names |= {k for k, v in zip(
+                KERNEL_NAMES, expected_launches(on_kernels, gnet)) if v}
+        return names
+
+    def must_launch(tag, n, names):
+        missed = sorted(k for k in names if n[KERNEL_NAMES.index(k)] == 0)
+        if missed or not names:
+            raise CheckFailed(f"{tag}: kernels {missed} of its path "
+                              f"({sorted(names)}) never launched")
+
+    def serve_stats(tag, out, n_models):
+        stats = json.loads(out[out.index("\n{") + 1:])
+        per = list(stats["models"].values()) if n_models > 1 else [stats]
+        for s in per:
+            rb = s["robustness"]
+            if sum(rb["outcomes"].values()) + rb["pending"] != \
+                    s["submitted"]:
+                raise CheckFailed(f"{tag}: outcomes {rb['outcomes']} + "
+                                  f"pending {rb['pending']} != "
+                                  f"{s['submitted']}")
+            print(f"[23] {tag}: outcomes {rb['outcomes']}, dispatches "
+                  f"{s['dispatches']}, conserved")
+        return stats
+
+    hw_q = identify_parameters(gnet, spec=FPGA_LIKE, max_dim=512,
+                               k_panel=256)
+    plan_q = map_network(gnet, hw=hw_q, spec=FPGA_LIKE)
+    _, n_q, s_q = run_example("quickstart", quickstart_torch.main, [])
+    must_launch("quickstart", n_q, kernels_of([compile_plan(
+        gnet, plan_q, epilogue="bias_relu", device=dev).lowering]))
+    ex_s = {"quickstart": s_q}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_path = str(Path(tmp) / "serve_cnn_record.json")
+        runs23 = (("serve", ["--record", rec_path], 1),
+                  ("serve --models 2", ["--record", rec_path, "--models",
+                                        "2"], 2),
+                  ("serve --pipeline-depth 2 --chaos",
+                   ["--record", rec_path, "--pipeline-depth", "2", "--chaos",
+                    "--max-queue", "16"], 1),
+                  ("serve --precision auto",
+                   ["--record", rec_path, "--precision", "auto"], 1))
+        for tag, argv, n_models in runs23:
+            out, n, secs = run_example(tag, serve_cnn_torch.main, argv)
+            ex_s[tag] = secs
+            serve_stats(tag, out, n_models)
+            if "--precision" in argv:
+                # The gated plan's int8 layers keep the plan's binding (the
+                # record holds bf16 entries only): at least one int8 kernel.
+                must_launch(tag, n, {k for k in ("gemm_i8", "conv_im2col_i8",
+                                                 "unit_conv_gemms_i8",
+                                                 "pad_accumulate_i32")
+                                     if n[KERNEL_NAMES.index(k)]})
+                continue
+            record = TuningRecord.load(rec_path)
+            must_launch(tag, n, kernels_of(
+                [compile_plan(gnet, plan, epilogue="bias_relu",
+                              device=dev).lowering]
+                + [compile_plan(gnet, plan, epilogue="bias_relu",
+                                tuning=record, tuning_batch=b,
+                                device=dev).lowering for b in BUCKETS]))
+    print(f"[23] seconds per run {json.dumps({k: round(v, 1) for k, v in ex_s.items()})}; "
+          f"phase 23 took {time.perf_counter() - t23:.1f} s")
 
     def wino_entry(name, source, replaces, label, launches):
         k_ms, p_ms, l_ms, b_ms, b_by = wino_times[(name, label)]

@@ -12,7 +12,10 @@ differs. Two execution modes, as in the reference:
   executable: per input shape and params, the first call walks the
   lowering eagerly (the warm pass), the second captures one walk into a
   CUDA graph, and every later call replays it — no Python dispatch on
-  the hot path. On the CPU every call is the eager walk.
+  the hot path. On the CPU every call is the eager walk. With a
+  ``launch.mesh.DataMesh`` it returns a ``ShardedProgram``: one
+  ``CompiledProgram`` per shard on the shard's device, the batch split
+  across them and the outputs gathered on the mesh's first device.
 
 Entry points take ``device="cuda"`` by default and raise when CUDA is
 absent; the CPU runs only when the caller passes ``device="cpu"``.
@@ -34,8 +37,11 @@ from repro_torch.core.layouts import LayoutSpec, is_nhwc
 from repro_torch.core.mapper import (ConvLowering, ExecutionPlan,
                                      LoweredProgram, lower_plan,
                                      plan_fingerprint)
-from repro_torch.kernels.common import resolve_device
+from repro_torch.distributed.sharding import (data_shard_count, replicate,
+                                              shard_batch)
+from repro_torch.kernels.common import device_guard, resolve_device
 from repro_torch.kernels.layouts import materialize, restore
+from repro_torch.launch.mesh import DataMesh
 
 Params = Dict[int, Dict[str, torch.Tensor]]
 Lowering = Union[LoweredProgram, Dict[int, ConvLowering]]
@@ -69,6 +75,14 @@ def _tuning_fingerprint(tuning) -> Optional[str]:
     return hashlib.sha256(blob.encode()).hexdigest()[:16]
 
 
+def _mesh_fingerprint(mesh: DataMesh) -> tuple:
+    """A mesh's identity: its axis names and its device list, repeats
+    included, so a one-device mesh and the unsharded program on the same
+    card key apart (the reference's ``_mesh_fingerprint`` differs from
+    ``None``) and two meshes over the same devices key alike."""
+    return (tuple(mesh.axis_names), tuple(str(d) for d in mesh.devices))
+
+
 def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
                          *, use_pallas: Optional[bool] = None,
                          epilogue: str = "relu",
@@ -78,10 +92,11 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
                          elide_overrides: Optional[Dict[Tuple[int, int],
                                                         bool]] = None,
                          act_scales: Optional[Dict[int, float]] = None,
+                         mesh: Optional[DataMesh] = None,
                          device="cuda") -> tuple:
-    """The ``(graph hash, plan, bucket, device, options)`` identity of one
-    compiled program: everything ``compile_plan`` closes over except the
-    params, which are call arguments; ``fault_hook``, a host-side wrapper
+    """The ``(graph hash, plan, bucket, device or mesh, options)`` identity
+    of one compiled program: everything ``compile_plan`` closes over except
+    the params, which are call arguments; ``fault_hook``, a host-side wrapper
     applied outside the cache (so a fault-armed engine and a clean one
     share one program and its captures); and ``donate``, which changes
     nothing on the card (``compile_plan``), so a pipelined engine and a
@@ -90,12 +105,14 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
     scales, so an int8 plan and the bf16 plan of one architecture, or two
     calibrations of one plan, never share a key; the tuning record enters
     by content, so a tuned and an untuned program never share one, and a
-    record and its reload from JSON do."""
+    record and its reload from JSON do. With a ``mesh`` the device slot
+    holds the mesh's fingerprint instead."""
     return (graph_hash(graph), plan_fingerprint(plan), use_pallas, epilogue,
             _tuning_fingerprint(tuning), int(tuning_batch or 1), bool(elide),
             (None if elide_overrides is None
              else tuple(sorted(elide_overrides.items()))),
-            str(torch.device(device)),
+            (str(torch.device(device)) if mesh is None
+             else _mesh_fingerprint(mesh)),
             (None if act_scales is None
              else tuple(sorted((int(n), float(s))
                                for n, s in act_scales.items()))))
@@ -334,6 +351,11 @@ def capture_key(params: Params, x) -> Tuple[tuple, tuple]:
                   for _, t in sorted(params[nid].items())))
 
 
+# One capture stream per card (device index -> stream), made at its first
+# capture.
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
 def capture_forward(graph: Graph, lowering: Lowering, params: Params,
                     x: torch.Tensor,
                     use_pallas: Optional[bool]) -> _Capture:
@@ -347,16 +369,24 @@ def capture_forward(graph: Graph, lowering: Lowering, params: Params,
     calls that could break it (allocations, event queries, waits) to the
     capturing thread only, so a program may be captured on a compile
     thread while a serving thread replays other programs, queries their
-    events and allocates. Raises for a tensor off the card: the CPU never
-    captures, and a failed capture raises — no caller carries on with the
-    eager walk."""
+    events and allocates. The capture stream is one of ``x``'s card
+    (``torch.cuda.graph``'s default is one stream for the process, on the
+    card of its first capture, and a shard on another card would then
+    launch into that card's legacy stream while the capture runs).
+    Raises for a tensor off the card: the CPU never captures, and a failed
+    capture raises — no caller carries on with the eager walk."""
     if x.device.type != "cuda":
         raise ValueError(f"capture_forward: CUDA graphs capture CUDA "
                          f"tensors only, got {x.device}")
+    stream = _CAPTURE_STREAMS.get(x.device.index)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[x.device.index] = torch.cuda.Stream(
+            device=x.device)
     static_in = torch.empty_like(x)
     static_in.copy_(x)
     cuda_graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(cuda_graph, capture_error_mode="thread_local"):
+    with torch.cuda.graph(cuda_graph, stream=stream,
+                          capture_error_mode="thread_local"):
         static_out = _eval_graph(graph, lowering, params, static_in,
                                  use_pallas)
     return _Capture(cuda_graph, static_in, static_out)
@@ -423,6 +453,59 @@ class CompiledProgram:
                 return entry.static_out.clone()
 
 
+class ShardedProgram:
+    """``compile_plan(mesh=...)``'s callable: ``run(params, x) -> logits``
+    over one static lowering (``run.lowering``) split across a
+    ``DataMesh`` — the reference's jitted program with its batch sharded
+    over the mesh's data axis and its params replicated.
+
+    It holds one ``CompiledProgram`` per shard (``shards``), all on the
+    same lowering, shard ``i`` on ``mesh.devices[i]``, each with its own
+    captures: each shard captures on its own device, into its own memory
+    pool, under its own capture key, so two shards on one card hold two
+    captures. ``x`` must be batched ``(B, H, W, C)`` with ``B`` a multiple
+    of ``data_shards`` (``ValueError`` otherwise). ``params`` is one params
+    tuple per shard, as ``distributed.sharding.replicate`` returns it (the
+    engine replicates once), or one dict, which is replicated on every call
+    as the reference's jit transfers unplaced params on every call.
+
+    A call first enqueues every shard, each under its device's guard: the
+    copy of its rows in, its replay (or eager pass, or capture) and the
+    clone of its output. Only then are the outputs gathered in shard order
+    on ``mesh.devices[0]``; no shard waits on another on the host. A copy
+    from another card is ordered by PyTorch after the work of both cards'
+    current streams, so the first device's stream, after the gather,
+    follows every shard's copy-in, replay and clone."""
+
+    def __init__(self, graph: Graph, lowering: Lowering,
+                 use_pallas: Optional[bool], mesh: DataMesh) -> None:
+        self.graph = graph
+        self.lowering = lowering
+        self.use_pallas = use_pallas
+        self.mesh = mesh
+        self.data_shards = data_shard_count(mesh)
+        self.device = mesh.devices[0]
+        self.shards = tuple(CompiledProgram(graph, lowering, use_pallas, d)
+                            for d in mesh.devices)
+
+    def __call__(self, params, x) -> torch.Tensor:
+        xs = shard_batch(x, self.mesh)
+        shard_params = (params if isinstance(params, tuple)
+                        else replicate(params, self.mesh))
+        if len(shard_params) != len(self.shards):
+            raise ValueError(f"{len(shard_params)} params sets for "
+                             f"{len(self.shards)} shards")
+        outs = []
+        for prog, p, xi in zip(self.shards, shard_params, xs):
+            with device_guard(prog.device):
+                outs.append(prog(p, xi))
+        if len(outs) == 1:
+            return outs[0]
+        with torch.inference_mode(), device_guard(self.device):
+            return torch.cat([o.to(self.device, non_blocking=True)
+                              for o in outs])
+
+
 def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                  use_pallas: Optional[bool] = None,
                  epilogue: str = "relu",
@@ -472,17 +555,30 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     before each call, the outermost wrapper, applied outside the cache:
     injected dispatch faults surface at the call, as a
     launch error would, and a hooked and an unhooked caller share one
-    program. ``fault_hook=None`` adds no wrapper. ``mesh`` belongs to a
-    later slice of the port and raises ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError("compile_plan(mesh=...) is not ported yet")
-    dev = resolve_device(device)
+    program. ``fault_hook=None`` adds no wrapper.
 
-    def build() -> CompiledProgram:
-        return CompiledProgram(graph, lower_plan(
+    ``mesh`` (a ``launch.mesh.DataMesh`` of ``device``'s type) returns a
+    ``ShardedProgram`` instead: the batch splits across the mesh's data
+    axis, one ``CompiledProgram`` per shard on its device, params
+    replicated, outputs gathered on the mesh's first device (``.mesh``,
+    ``.data_shards``). ``tuning_batch`` is then the per-chip batch, whose
+    winners bind every shard. Another object raises ``TypeError``."""
+    if mesh is not None and not isinstance(mesh, DataMesh):
+        raise TypeError(f"compile_plan(mesh=...) takes a launch.mesh."
+                        f"DataMesh, got {type(mesh).__name__}")
+    dev = resolve_device(device)
+    if mesh is not None and mesh.devices[0].type != dev.type:
+        raise ValueError(f"mesh devices {mesh.devices} are not of "
+                         f"device={str(dev)!r}")
+
+    def build() -> Union[CompiledProgram, ShardedProgram]:
+        lowering = lower_plan(
             graph, plan, epilogue=epilogue, tuning=tuning,
             batch=tuning_batch, elide=elide, elide_overrides=elide_overrides,
-            act_scales=act_scales), use_pallas, dev)
+            act_scales=act_scales)
+        if mesh is None:
+            return CompiledProgram(graph, lowering, use_pallas, dev)
+        return ShardedProgram(graph, lowering, use_pallas, mesh)
 
     if cache is None:
         return _with_fault_hook(build(), fault_hook)
@@ -490,14 +586,15 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                                epilogue=epilogue, tuning=tuning,
                                tuning_batch=tuning_batch, elide=elide,
                                elide_overrides=elide_overrides,
-                               act_scales=act_scales, device=dev)
+                               act_scales=act_scales, mesh=mesh, device=dev)
     return _with_fault_hook(cache.get_or_compile(key, build), fault_hook)
 
 
 def _with_fault_hook(run: Callable, fault_hook: Optional[Callable[[], None]]
                      ) -> Callable:
     """Outermost wrapper: call ``fault_hook()`` before each invocation of
-    ``run``. No hook, no wrapper (the common path stays the program
+    ``run``, keeping a sharded program's ``mesh`` and ``data_shards`` on
+    the wrapper. No hook, no wrapper (the common path stays the program
     itself)."""
     if fault_hook is None:
         return run
@@ -506,4 +603,7 @@ def _with_fault_hook(run: Callable, fault_hook: Optional[Callable[[], None]]
         fault_hook()
         return run(params, x)
 
+    for attr in ("mesh", "data_shards"):
+        if hasattr(run, attr):
+            setattr(hooked, attr, getattr(run, attr))
     return hooked

@@ -1,2 +1,2 @@
 """Distributed serving primitives: deterministic fault injection for the
-serving tick loop."""
+serving tick loop, and placement on a data-parallel mesh."""

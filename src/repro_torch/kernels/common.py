@@ -2,6 +2,7 @@
 padding and the device rule."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -32,6 +33,16 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but no CUDA device is available; "
             "pass device='cpu' to run the plain versions")
     return dev
+
+
+def device_guard(device: torch.device):
+    """``torch.cuda.device(device)`` for a CUDA device with an index, so
+    the launches, copies, replays and events entered under it go to that
+    card's current stream; a no-op for the CPU and for a bare ``"cuda"``
+    (the current card already)."""
+    if device.type == "cuda" and device.index is not None:
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def unbatched_rank(in_layout) -> int:

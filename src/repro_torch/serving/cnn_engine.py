@@ -72,8 +72,14 @@ program takes; ``stats()["precision"]`` reports the plan's precision
 mix. A ``tuning`` record (``core.autotune.autotune_buckets``) binds each
 bucket's program to the winners measured at that bucket
 (``compile_plan(..., tuning=record, tuning_batch=bucket)``), falling back
-to a neighbouring bucket's entry where the record has none. Meshes are
-a later slice of the port: ``mesh=`` raises ``NotImplementedError``.
+to a neighbouring bucket's entry where the record has none.
+
+Data-parallel serving: with ``mesh=`` (a ``launch.mesh.DataMesh``) every
+bucket program is a ``ShardedProgram`` — params are replicated on the
+mesh once, at construction, each bucket's batch splits across the mesh's
+data shards, and the ladder is built in multiples of the shard count.
+Tuning lookups key off the *per-chip* batch (``bucket // data_shards``),
+so a record tuned on one card binds a sharded engine unchanged.
 
 Plan hot-swap: ``compile_ladder(plan)`` compiles (and, warmed, captures)
 a new bucket ladder without touching the engine, so it may run on a
@@ -99,7 +105,9 @@ from repro_torch.core.graph import Graph
 from repro_torch.core.mapper import ExecutionPlan
 from repro_torch.distributed.fault import (DeviceFault, FaultPlan,
                                            robust_zscore)
-from repro_torch.kernels.common import resolve_device
+from repro_torch.distributed.sharding import data_shard_count, replicate
+from repro_torch.kernels.common import device_guard, resolve_device
+from repro_torch.launch.mesh import DataMesh
 
 # The four terminal request outcomes (RequestTrace.outcome).
 OUTCOME_COMPLETED = "completed"
@@ -114,13 +122,23 @@ EPILOGUE = "bias_relu"
 TRACE_WINDOW = 2048
 
 
-def batch_buckets(max_batch: int) -> List[int]:
+def batch_buckets(max_batch: int, shard: int = 1) -> List[int]:
     """Power-of-two bucket ladder up to ``max_batch`` (inclusive — a
-    non-power-of-two cap becomes the top bucket)."""
+    non-power-of-two cap becomes the top bucket). ``shard`` > 1 builds the
+    mesh-sharded ladder: every bucket is a multiple of the data-shard
+    count (``shard``, ``2*shard``, ``4*shard``, ...), so each bucket's
+    padded batch splits evenly across the mesh. The cap itself must
+    divide."""
     if max_batch < 1:
         raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    if shard < 1:
+        raise ValueError(f"shard must be >= 1, got {shard}")
+    if max_batch % shard:
+        raise ValueError(
+            f"max_batch {max_batch} is not a multiple of the data-shard "
+            f"count {shard}; the top bucket could not be placed on the mesh")
     out = []
-    b = 1
+    b = shard
     while b < max_batch:
         out.append(b)
         b *= 2
@@ -213,7 +231,10 @@ class CNNServingEngine:
     (the eager warm pass, the capture and a replay) to prime the
     per-bucket service-time estimates. ``device`` is where the programs
     run (``"cuda"`` by default; raises when CUDA is absent). ``params``
-    must already live on that device. ``act_scales`` ({conv node id:
+    must already live on that device. ``mesh`` (a ``launch.mesh.DataMesh``
+    of ``device``'s type) serves data-parallel, as the module docstring
+    says; the engine's device is then the mesh's first, where results are
+    gathered and read back. ``act_scales`` ({conv node id:
     activation scale}) feeds the plan's int8 layers, in every bucket
     program; ``tuning`` (a ``core.autotune.TuningRecord``) binds each
     bucket's program to the winners measured at that bucket. ``cache`` (an
@@ -251,9 +272,9 @@ class CNNServingEngine:
                  cache=None,
                  act_scales: Optional[Dict[int, float]] = None,
                  device="cuda") -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "CNNServingEngine(mesh=...) is not ported yet")
+        if mesh is not None and not isinstance(mesh, DataMesh):
+            raise TypeError(f"CNNServingEngine(mesh=...) takes a launch."
+                            f"mesh.DataMesh, got {type(mesh).__name__}")
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth must be >= 1, got {pipeline_depth}")
@@ -262,6 +283,22 @@ class CNNServingEngine:
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.devices[0].type != self.device.type:
+                raise ValueError(f"mesh devices {mesh.devices} are not of "
+                                 f"device={str(self.device)!r}")
+            self.device = mesh.devices[0]
+            self.data_shards = data_shard_count(mesh)
+            # Replicate params across the mesh ONCE: each tick's shards
+            # then read tensors already on their cards.
+            params = replicate(params, mesh)
+        else:
+            self.data_shards = 1
+        # Every card a tick runs on (distinct, mesh order): warm passes
+        # and blocking dispatches wait for each of them.
+        self._devices = (tuple(dict.fromkeys(mesh.devices))
+                         if mesh is not None else (self.device,))
         self.graph = graph
         self.params = params
         self.plan = plan
@@ -284,9 +321,15 @@ class CNNServingEngine:
         self.precisions = dict(getattr(plan, "precisions", None) or {}) \
             if plan is not None else {}
         self.buckets = (sorted(set(int(b) for b in buckets)) if buckets
-                        else batch_buckets(batch_size))
+                        else batch_buckets(batch_size, self.data_shards))
         if self.buckets[0] < 1:
             raise ValueError(f"buckets must be >= 1, got {self.buckets}")
+        bad = [b for b in self.buckets if b % self.data_shards]
+        if bad:
+            raise ValueError(
+                f"buckets {bad} are not multiples of the mesh's data-shard "
+                f"count {self.data_shards} — their padded batches could "
+                "not be placed")
         self.b = self.buckets[-1]              # largest bucket
         self.slo_s = slo_s
         self.queue: List[CNNRequest] = []
@@ -596,9 +639,13 @@ class CNNServingEngine:
             host = self._host_outs[idx] = torch.empty(
                 (self.b,) + tuple(out.shape[1:]), dtype=out.dtype,
                 pin_memory=self._pin)
-        host[:bucket].copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
+        # On the engine's card (the mesh's first, where a sharded tick's
+        # outputs were gathered): its stream already follows every shard's
+        # copy-in, so one event per tick frees the tick's staging slot too.
+        with device_guard(self.device):
+            host[:bucket].copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
         return event
 
     def _fault_hook(self) -> None:
@@ -780,7 +827,8 @@ class CNNServingEngine:
                 bucket=tick.bucket, queue_s=queue_s, service_s=service,
                 latency_s=latency_s, slo_ok=slo_ok))
         self.last_tick = {"bucket": tick.bucket, "served": len(tick.reqs),
-                          "wall_s": service, "now": tick.t_dispatch}
+                          "wall_s": service, "now": tick.t_dispatch,
+                          "per_chip_batch": tick.bucket // self.data_shards}
 
     def _observe_service(self, service: float) -> None:
         """Feed one completed tick's service time to the degrade
@@ -820,6 +868,7 @@ class CNNServingEngine:
         self.failed_total += len(tick.reqs)
         self.last_tick = {"bucket": tick.bucket, "served": 0,
                           "wall_s": wall, "now": tick.t_dispatch,
+                          "per_chip_batch": tick.bucket // self.data_shards,
                           "failed": True}
 
     def drain(self) -> Dict[int, np.ndarray]:
@@ -928,8 +977,15 @@ class CNNServingEngine:
                 "overlap_ratio": (self._overlap_s / self._device_busy_s
                                   if self._device_busy_s > 0 else 0.0),
             },
-            # A single-device engine (the mesh path is a later slice).
-            "sharding": None,
+            # How each bucket splits across the mesh (None: a single-device
+            # engine). The service EMAs above are wall times of the
+            # sharded dispatch.
+            "sharding": None if self.mesh is None else {
+                "data_shards": self.data_shards,
+                "mesh_devices": int(self.mesh.size),
+                "per_chip_batch": {b: b // self.data_shards
+                                   for b in self.buckets},
+            },
             # Hot-swaps of the served plan and rollbacks to the previous
             # one, over the engine's lifetime.
             "plan": {
@@ -981,8 +1037,9 @@ class CNNServingEngine:
                        warm: bool = True) -> Dict[int, Callable]:
         """One compiled program per bucket for ``plan`` (and its int8
         layers' ``act_scales``) under this engine's options — the tuning
-        record's winners at that bucket, donation at depth >= 2, the shared
-        ``cache`` and the fault hook when a plan is armed — the call the
+        record's winners at that bucket's per-chip batch, the mesh,
+        donation at depth >= 2, the shared ``cache`` and the fault hook
+        when a plan is armed — the call the
         constructor makes, so a ladder compiled here and swapped in serves
         as a fresh engine on ``plan`` would.
 
@@ -996,10 +1053,13 @@ class CNNServingEngine:
         warm pass and the CUDA-graph capture under this engine's params,
         so a swapped-in ladder replays from its first served tick, whose
         wall time feeds the service estimates and a supervisor's
-        probation; on the CPU once."""
+        probation; on the CPU once. Under a mesh every shard is warmed and
+        captured on its own card, and every card is waited for."""
         programs = {
             bucket: compile_plan(self.graph, plan, epilogue=EPILOGUE,
-                                 tuning=self.tuning, tuning_batch=bucket,
+                                 tuning=self.tuning,
+                                 tuning_batch=bucket // self.data_shards,
+                                 mesh=self.mesh,
                                  donate=self.pipeline_depth > 1,
                                  cache=self.cache, act_scales=act_scales,
                                  device=self.device)
@@ -1012,8 +1072,7 @@ class CNNServingEngine:
                                 device=self.device)
                 for _ in range(passes):
                     run(self.params, x)
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            self._sync_devices()
         hook = self._fault_hook if self.fault_plan is not None else None
         return {bucket: _with_fault_hook(run, hook)
                 for bucket, run in programs.items()}
@@ -1062,10 +1121,14 @@ class CNNServingEngine:
         self.drain()
         self._pack(0, [])
         run(self.params, self._stagings[0][:bucket])
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-            done.synchronize()
+        self._sync_devices()
+
+    def _sync_devices(self) -> None:
+        """Wait for the current stream of every card the engine's ticks
+        run on (nothing on the CPU)."""
+        for dev in self._devices:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
     def _warmup(self) -> None:
         """Prime the service estimates: three all-zeros dispatches per

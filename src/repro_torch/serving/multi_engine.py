@@ -12,11 +12,12 @@ scheduling. This module is that layer on top of ``CNNServingEngine``:
 * ``register_model(name, graph, params, plan, slo_s=...)`` builds one
   ``CNNServingEngine`` per tenant, all sharing this engine's clock and
   one ``ExecutableCache`` — tenants whose graphs hash equal (same
-  architecture, any params) share every ``(graph, plan, bucket)`` bucket
-  program instead of recompiling, because compiled programs take params
-  as call arguments and close over nothing model-specific. On the card
-  each tenant's params get a CUDA-graph capture of their own in the
-  shared program (a capture binds its params' pointers).
+  architecture, any params) share every ``(graph, plan, bucket, mesh)``
+  bucket program instead of recompiling, because compiled programs take
+  params as call arguments and close over nothing model-specific. On the
+  card each tenant's params get a CUDA-graph capture of their own in the
+  shared program (a capture binds its params' pointers), on every shard
+  of a mesh.
 * ``submit(model, req)`` routes to the tenant's own bounded admission
   (its ``max_queue``), after a *global* queue cap across all tenants —
   a globally rejected request still lands in the tenant's own outcome

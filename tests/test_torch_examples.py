@@ -1,0 +1,82 @@
+"""The port's two user examples, run through their ``main(argv)`` on the CPU
+at the reference's smoke sizes.
+
+``examples/quickstart_torch.py`` (DSE → PBQP → baselines → execute →
+compile) at 28², scale 0.1, and ``examples/serve_cnn_torch.py --smoke``
+alone and with ``--models 2``, ``--pipeline-depth 2 --chaos --max-queue
+4`` and ``--precision auto``. Each run must return 0 — its own checks
+(the exact plan, the spot checks at rtol 2e-2 / atol 2e-3, outcome
+conservation) raise or return nonzero otherwise — and the test reads the
+spot checks and the outcome ledger back from its output.
+"""
+import importlib.util
+import json
+import re
+from pathlib import Path
+
+import pytest
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples"
+
+
+def _load(name):
+    spec = importlib.util.spec_from_file_location(
+        name, EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _spot_errors(out: str):
+    return [float(m) for m in re.findall(
+        r"vs eager reference: max\|delta\| = (\S+)", out)]
+
+
+def _conserved(stats: dict) -> bool:
+    rb = stats["robustness"]
+    return sum(rb["outcomes"].values()) + rb["pending"] == stats["submitted"]
+
+
+def test_quickstart_runs_and_checks(capsys):
+    main = _load("quickstart_torch").main
+    assert main(["--device", "cpu", "--res", "28", "--scale", "0.1"]) == 0
+    out = capsys.readouterr().out
+    assert "PBQP optimal mapping (exact=True)" in out
+    for pol in ("im2col", "kn2row", "winograd"):
+        assert f"vs {pol}" in out
+    errs = [float(m) for m in re.findall(r"max\|Δ\| (?:vs eager )?= (\S+)",
+                                         out)]
+    assert len(errs) == 2 and max(errs) < 2e-3
+
+
+@pytest.mark.parametrize("flags, n_models", [
+    ((), 1),
+    (("--models", "2"), 2),
+    (("--pipeline-depth", "2", "--chaos", "--max-queue", "4"), 1),
+    (("--precision", "auto"), 1)])
+def test_serve_cnn_smoke(capsys, flags, n_models):
+    main = _load("serve_cnn_torch").main
+    assert main(["--device", "cpu", "--smoke", *flags]) == 0
+    out = capsys.readouterr().out
+    errs = _spot_errors(out)
+    assert len(errs) == n_models and max(errs) < 2e-3
+    stats = json.loads(out[out.index("\n{") + 1:])
+    per_model = (list(stats["models"].values()) if n_models > 1
+                 else [stats])
+    assert len(per_model) == n_models
+    for s in per_model:
+        assert _conserved(s)
+        assert s["submitted"] == (12 if n_models == 1 else 6)
+    if "--chaos" in flags:
+        s = per_model[0]
+        assert s["robustness"]["outcomes"]["rejected_full"] > 0
+        assert s["pipeline"]["depth"] == 2
+    if "--precision" in flags:
+        assert stats["precision"]["calibrated"]
+        assert stats["precision"]["mix"]["int8"] > 0
+
+
+def test_serve_cnn_refuses_multi_model_with_single_model_knobs():
+    main = _load("serve_cnn_torch").main
+    with pytest.raises(SystemExit, match="--models"):
+        main(["--device", "cpu", "--smoke", "--models", "2", "--chaos"])

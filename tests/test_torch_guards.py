@@ -35,6 +35,7 @@ from repro_torch.distributed.fault import FaultPlan
 from repro_torch.serving.cnn_engine import (CNNRequest, CNNServingEngine,
                                             DegradeConfig)
 from repro_torch.serving.multi_engine import MultiModelEngine
+from repro_torch.launch.mesh import make_data_mesh
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -53,9 +54,13 @@ def _imported_roots(path: Path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    examples = sorted((REPO / "examples").glob("*_torch.py"))
     files += [REPO / "chip_smoke.py", REPO / "tools" / "bench_serving.py",
-              REPO / "tools" / "bench_autotune.py"]
+              REPO / "tools" / "bench_autotune.py",
+              REPO / "tools" / "check_mesh.py", *examples]
     assert len(files) > 15
+    assert {f.name for f in examples} >= {"quickstart_torch.py",
+                                          "serve_cnn_torch.py"}
     names = {str(f.relative_to(REPO / "src" / "repro_torch")) for f in files
              if "repro_torch" in f.parts}
     assert {"kernels/winograd/winograd.py", "kernels/winograd/ops.py",
@@ -63,7 +68,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "kernels/gemm/gemm.py", "kernels/kn2row/kn2row.py",
             "kernels/kn2row/ops.py", "kernels/kn2row/ref.py",
             "core/quant.py", "core/autotune.py",
-            "serving/multi_engine.py", "serving/supervisor.py"} <= names
+            "serving/multi_engine.py", "serving/supervisor.py",
+            "launch/mesh.py", "distributed/sharding.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -89,7 +95,8 @@ def test_entry_points_with_default_device_raise_without_cuda(no_cuda,
              lambda: forward(g, params, x),
              lambda: CNNServingEngine(g, params, None),
              lambda: MultiModelEngine().register_model("m", g, params, None),
-             lambda: params_from_jax({0: {"w": np.zeros(3, np.float32)}})]
+             lambda: params_from_jax({0: {"w": np.zeros(3, np.float32)}}),
+             lambda: make_data_mesh()]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -294,20 +301,22 @@ def test_unported_algorithms_and_int8_kernels_raise():
 
 
 def test_later_slice_options_raise(small):
-    """Options of later slices raise (the mesh path); the serving slice's
-    options (donation, the fault hook, pipelining, admission, shedding,
-    faults, degrade), ``act_scales=`` (the int8 slice) and ``tuning=``
-    (``tests/test_torch_autotune.py``) are taken, and so is plan hot-swap
-    (``tests/test_torch_plan_hotswap.py``)."""
+    """Every option of the reference's ``compile_plan`` and engine that a
+    slice has ported is taken: the mesh (``tests/test_torch_mesh.py``),
+    which refuses anything but a ``launch.mesh.DataMesh`` with a
+    ``TypeError``; the serving slice's options (donation, the fault hook,
+    pipelining, admission, shedding, faults, degrade), ``act_scales=``
+    (the int8 slice) and ``tuning=`` (``tests/test_torch_autotune.py``),
+    and plan hot-swap (``tests/test_torch_plan_hotswap.py``)."""
     g, params = small
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         compile_plan(g, device="cpu", mesh=object())
     calls = []
     run = compile_plan(g, device="cpu", donate=True,
                        fault_hook=lambda: calls.append(1))
     assert run(params, np.zeros((1, 32, 32, 3), np.float32)).shape[0] == 1
     assert calls == [1]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         CNNServingEngine(g, params, None, device="cpu", mesh=object())
     engine = CNNServingEngine(
         g, params, None, buckets=(2,), pipeline_depth=2, max_queue=4,

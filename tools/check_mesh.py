@@ -1,0 +1,301 @@
+#!/usr/bin/env python3
+"""Check the port's data-parallel mesh path on real cards.
+
+    python3 tools/check_mesh.py --cards 2 4        # needs 4 visible cards
+    python3 tools/check_mesh.py --virtual --cards 2  # one card, cuda:0 twice
+    PYTHONPATH=src python tools/check_mesh.py --device cpu --virtual \\
+        --res 32 --scale 0.125                     # the control flow, CPU
+
+For each mesh of ``--cards`` devices (``make_data_mesh(n)``, or with
+``--virtual`` a ``DataMesh`` naming the first device n times), on
+GoogleNet (224², scale 1.0 by default) under the serving plan
+(``map_network(..., use_on_chip=False)``) with random weights from a seed:
+
+- the plan's program at every bucket of ``batch_buckets(8, n)``, called
+  three times (the eager pass, the capture, a replay): the launch counters
+  read n times the lowering's launches on the first two and 0 on the
+  replay; each shard holds one capture, on its own device; each shard's
+  rows equal the unsharded program's at the per-chip batch bit for bit,
+  and the bucket the unsharded program's at rtol 2e-2 / atol 2e-3;
+- ``CNNServingEngine(mesh=)`` at pipeline depths 1 and 2 serving waves of
+  8, 8 and 2 requests: ``stats()["sharding"]``,
+  ``last_tick["per_chip_batch"]``, the zeroed stale staging rows, no
+  counter moving over the replayed ticks, and every result within the
+  whole-plan tolerance of the unsharded program;
+- two ``MultiModelEngine`` tenants on the mesh sharing each bucket
+  program, every shard holding one capture per tenant;
+
+and prints each device's ``max_memory_reserved`` (every card of a real
+mesh must have held work). Any failed check raises. The last line is one
+JSON object: ``{"ok": true, "meshes": [...], "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+TOL = dict(rtol=2e-2, atol=2e-3)
+WAVES = (8, 8, 2)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--cards", type=int, nargs="+", default=[2])
+    ap.add_argument("--virtual", action="store_true",
+                    help="name the first device n times instead of n cards")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--res", type=int, default=224)
+    ap.add_argument("--scale", type=float, default=1.0)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(REPO / "src"))
+
+    import numpy as np
+    import torch
+
+    from repro_torch.cnn.executor import compile_plan, init_params
+    from repro_torch.cnn.models import googlenet
+    from repro_torch.core.dse import identify_parameters
+    from repro_torch.core.mapper import map_network
+    from repro_torch.distributed.sharding import replicate
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.launch.mesh import DataMesh, make_data_mesh
+    from repro_torch.serving.cnn_engine import (CNNRequest, CNNServingEngine,
+                                                batch_buckets)
+    from repro_torch.serving.multi_engine import MultiModelEngine
+
+    dev = resolve_device(args.device)
+    card = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if card:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        print(f"built {', '.join(build.SOURCES)} in "
+              f"{build.build_all():.1f} s", flush=True)
+    from repro_torch.kernels.conv_im2col.conv_im2col import CONV, CONV_I8
+    from repro_torch.kernels.gemm.gemm import BATCHED_GEMM, GEMM, GEMM_I8
+    from repro_torch.kernels.kn2row import kn2row as kn2
+    from repro_torch.kernels.winograd import winograd as wino
+    kernels = (CONV, GEMM, wino.INPUT_TRANSFORM, wino.INPUT_TRANSFORM_TILES,
+               BATCHED_GEMM, wino.OUTPUT_TRANSFORM, kn2.UNIT_CONV_GEMMS,
+               kn2.PAD_ACCUMULATE, GEMM_I8, CONV_I8, kn2.UNIT_CONV_GEMMS_I8,
+               kn2.PAD_ACCUMULATE_I32)
+
+    def counts():
+        return tuple(k.launches for k in kernels)
+
+    def launched(fn):
+        before = counts()
+        out = fn()
+        if card:
+            torch.cuda.synchronize()
+        return out, tuple(a - b for a, b in zip(counts(), before))
+
+    def sync_all():
+        if card:
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.synchronize(i)
+
+    def check(cond, msg):
+        if not cond:
+            raise AssertionError(msg)
+
+    g = googlenet(res=args.res, scale=args.scale)
+    plan = map_network(g, hw=identify_parameters(g, max_dim=512),
+                       use_on_chip=False)
+    shape = tuple(int(d) for d in g.nodes[g.source()].attrs["out_shape"])
+
+    def seeded(seed):
+        p = init_params(g, seed=seed, device=dev)
+        gen = torch.Generator().manual_seed(1000 + seed)
+        for nid in sorted(p):
+            p[nid]["b"].copy_(torch.randn(p[nid]["b"].shape,
+                                          generator=gen) * 0.05)
+        return p
+
+    params = seeded(2)
+    rng = np.random.default_rng(7)
+
+    def images(n):
+        return rng.standard_normal((n,) + shape).astype(np.float32)
+
+    def unsharded(bsz):
+        return compile_plan(g, plan, epilogue="bias_relu", tuning_batch=bsz,
+                            device=dev)
+
+    def close(got, want, what):
+        got, want = torch.as_tensor(got), torch.as_tensor(want)
+        err = float((got.cpu() - want.cpu()).abs().max())
+        check(torch.allclose(got.cpu(), want.cpu(), **TOL),
+              f"{what}: max|diff| {err:.3e} outside rtol 2e-2 atol 2e-3")
+        return err
+
+    report = []
+    for n in args.cards:
+        t0 = time.perf_counter()
+        if card:
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.reset_peak_memory_stats(i)
+        mesh = (DataMesh((torch.device(dev.type, 0),) * n) if args.virtual
+                else make_data_mesh(n, device=dev))
+        tag = f"{'virtual ' if args.virtual else ''}{n}-device mesh " \
+              f"{[str(d) for d in mesh.devices]}"
+        reps = replicate(params, mesh)
+        per_fwd = None
+        errs = []
+        for bsz in batch_buckets(8, n):
+            per = bsz // n
+            run = compile_plan(g, plan, epilogue="bias_relu",
+                               tuning_batch=per, mesh=mesh, device=dev)
+            x = torch.as_tensor(images(bsz), device=dev)
+            outs, ns = [], []
+            for _ in range(3):
+                out, k = launched(lambda: run(reps, x))
+                outs.append(out)
+                ns.append(k)
+            if card:
+                per_fwd = ns[0]
+                check(ns[0] == ns[1] and not any(ns[2]) and any(ns[0]),
+                      f"{tag} b{bsz}: launches per pass {ns}")
+                for s, d in zip(run.shards, mesh.devices):
+                    caps = list(s.captures.values())
+                    check(s.device == d and len(caps) == 1
+                          and caps[0] is not None
+                          and caps[0].static_out.device == d,
+                          f"{tag} b{bsz}: shard on {s.device} holds "
+                          f"{len(caps)} capture(s)")
+            first = mesh.devices[0]
+            check(all((o.device.type, o.device.index or 0)
+                      == (first.type, first.index) for o in outs),
+                  f"{tag} b{bsz}: output not gathered on the first device")
+            run_c = unsharded(per)
+            for i in range(n):
+                rows = slice(i * per, (i + 1) * per)
+                want = run_c(params, x[rows])
+                for stage, o in zip(("eager", "capture", "replay"), outs):
+                    check(torch.equal(o[rows], want),
+                          f"{tag} b{bsz} {stage}: shard {i} differs from the "
+                          f"unsharded program at batch {per}")
+            errs.append(close(outs[2], unsharded(bsz)(params, x),
+                              f"{tag} b{bsz}"))
+            print(f"{tag} b{bsz}: per-chip batch {per}; launches "
+                  f"{ns[0] if card else 'not counted on the CPU'} on the "
+                  f"eager pass and the capture, none on a replay; each shard "
+                  f"bit-equal to the unsharded program at batch {per}; "
+                  f"max|diff| vs the unsharded b{bsz} {errs[-1]:.3e}",
+                  flush=True)
+            del run, run_c
+
+        for depth in (1, 2):
+            eng = CNNServingEngine(g, params, plan, batch_size=8, mesh=mesh,
+                                   warmup=True, pipeline_depth=depth,
+                                   device=dev)
+            imgs = images(sum(WAVES))
+            slots = []
+
+            def serve():
+                rid = 0
+                for w in WAVES:
+                    for _ in range(w):
+                        eng.submit(CNNRequest(rid=rid, image=imgs[rid]))
+                        rid += 1
+                    eng.step(flush=True)
+                    slots.append(eng._last_buf_index)
+                eng.drain()
+
+            _, k = launched(serve)
+            check(not any(k), f"{tag} depth {depth}: ticks launched {k}")
+            want_sh = {"data_shards": n, "mesh_devices": n,
+                       "per_chip_batch": {b: b // n for b in eng.buckets}}
+            check(eng.stats()["sharding"] == want_sh,
+                  f"{tag} depth {depth}: {eng.stats()['sharding']}")
+            last = eng.covering_bucket(WAVES[-1])
+            check(eng.last_tick["bucket"] == last
+                  and eng.last_tick["per_chip_batch"] == last // n,
+                  f"{tag} depth {depth}: last_tick {eng.last_tick}")
+            check(slots[0] == slots[-1]
+                  and not eng._batch_bufs[slots[-1]][2:].any(),
+                  f"{tag} depth {depth}: stale staging rows in slot "
+                  f"{slots[-1]}")
+            run8 = unsharded(8)
+            for lo in range(0, len(imgs), 8):
+                chunk = imgs[lo:lo + 8]
+                want = run8(params, torch.as_tensor(chunk, device=dev))
+                for i in range(len(chunk)):
+                    errs.append(close(eng.done[lo + i], want[i],
+                                      f"{tag} depth {depth} request "
+                                      f"{lo + i}"))
+            rb = eng.stats()["robustness"]
+            check(sum(rb["outcomes"].values()) + rb["pending"]
+                  == eng.submitted_total, f"{tag}: outcomes do not conserve")
+            print(f"{tag} engine depth {depth}: buckets {eng.buckets}, "
+                  f"sharding {want_sh}, last_tick per_chip_batch "
+                  f"{eng.last_tick['per_chip_batch']}, stale rows zeroed, "
+                  f"no launch over the ticks, {len(imgs)} results within "
+                  f"rtol 2e-2 atol 2e-3", flush=True)
+            del eng
+
+        multi = MultiModelEngine()
+        tenants = {"a": params, "b": seeded(3)}
+        for name, p in tenants.items():
+            multi.register_model(name, g, p, plan, batch_size=8, mesh=mesh,
+                                 warmup=True, device=dev)
+        ea, eb = multi.engines["a"], multi.engines["b"]
+        nb = len(ea.buckets)
+        check(multi.cache.stats() == {"entries": nb, "hits": nb,
+                                      "misses": nb},
+              f"{tag} tenants: cache {multi.cache.stats()}")
+        for bsz in ea.buckets:
+            run = ea._runs[bsz]
+            check(run is eb._runs[bsz], f"{tag} b{bsz}: not shared")
+            if card:
+                check(all(len(s.captures) == 2 for s in run.shards),
+                      f"{tag} b{bsz}: not two captures a shard")
+        imgs = images(11)
+        for name in tenants:
+            for i, img in enumerate(imgs):
+                multi.submit(name, CNNRequest(rid=i, image=img))
+        done = multi.run_until_done()
+        run8 = unsharded(8)
+        for name, p in tenants.items():
+            for lo in (0, 8):
+                chunk = imgs[lo:lo + 8]
+                want = run8(p, torch.as_tensor(chunk, device=dev))
+                for i in range(len(chunk)):
+                    errs.append(close(done[name][lo + i], want[i],
+                                      f"{tag} tenant {name}"))
+        print(f"{tag} tenants: cache {multi.cache.stats()}, each bucket "
+              f"program shared, one capture per tenant on every shard",
+              flush=True)
+        del multi, ea, eb
+        sync_all()
+        reserved = ({str(d): round(torch.cuda.max_memory_reserved(d)
+                                   / 2 ** 30, 2)
+                     for d in dict.fromkeys(mesh.devices)} if card else {})
+        if card and not args.virtual:
+            check(all(v > 0 for v in reserved.values()),
+                  f"{tag}: a card held nothing: {reserved}")
+        secs = time.perf_counter() - t0
+        print(f"{tag}: max_memory_reserved GiB per device {reserved}; "
+              f"max|diff| {max(errs):.3e}; {secs:.1f} s", flush=True)
+        report.append({"devices": [str(d) for d in mesh.devices],
+                       "virtual": args.virtual, "max_abs_diff": max(errs),
+                       "launches_per_forward_all_shards": per_fwd,
+                       "max_memory_reserved_gib": reserved,
+                       "seconds": secs})
+    print(json.dumps({"ok": True, "meshes": report, "device": {
+        "kind": torch.cuda.get_device_name(0) if card else "cpu",
+        "count": torch.cuda.device_count() if card else 0}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
