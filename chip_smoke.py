@@ -227,10 +227,38 @@ both matrix products and cuDNN:
     auto``. Each must return 0 (its spot checks at rtol 2e-2 / atol 2e-3
     and outcome conservation), its printed ledger must conserve, and the
     kernels its lowerings run must have launched (for ``--precision
-    auto``, an int8 kernel); each run's seconds are printed.
+    auto``, an int8 kernel); each run's seconds are printed;
+24. the fused-epilogue options on the card, kernel path against plain
+    path: (a) ``layers.avg_pool(via="overlay")`` at bucket 8 on
+    Inception-v4's three pool shapes (35², 17², 8²; 3x3 s1 SAME) and a
+    3x3 s2 VALID map, one ``conv_im2col_f32`` launch each, within 1e-4 of
+    the pooling path and of its plain path, timed beside the pool and the
+    conv's bound; (b) full-width f32 Inception-v4 under its plan compiled
+    with ``avg_pool_via="overlay"`` at buckets 1 and 8: launches the
+    lowering's plus its 14 pool convs (eager and capture passes, the
+    captured graph's kernel nodes, one replay's profiler rows), logits
+    against the plain path and the pooling program, both forwards timed
+    interleaved; (c) full-width GoogleNet with no plan and
+    ``default_algo=KN2ROW`` at buckets 1 and 8: the same launch checks,
+    logits against its plain path and the all-im2col program, the
+    all-im2col, all-kn2row and phase 4 plan forwards timed (printed), and
+    ``unit_conv_gemms_f32`` / ``pad_accumulate_f32`` at conv1 (K 3, G 49)
+    and inception_3a/5x5 against their plain versions and bounds;
+25. the LM serving path at full width and depth, h2o-danube-1.8b and
+    mamba2-370m from a seeded CUDA generator: in f32, 12 token-by-token
+    ``decode_step`` calls reproduce the teacher-forced ``forward`` logits
+    at rtol/atol 2e-3; in bf16, ``launch.serve``'s defaults (6 requests,
+    batch 4, prompt 12, 8 new tokens) give every request 8 tokens in the
+    vocabulary; tokens/s, one decode step's ms by events and the memory
+    reserved are printed.
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
-and 18 serve as phase 5 does, and every forward timed is a replay.
+and 18 serve as phase 5 does, and every forward timed is a replay. Each
+of those checks counts the kernel nodes of a capture of the same walk
+through the driver API (``graph_kernel_nodes``), which must equal the
+lowering's launches; only then is a profiler window whose rows come back
+short of them (the profiler dropped rows) taken again, up to three in
+all, and every window accepted holds the exact count.
 
 Every check raises on failure, so the script exits nonzero without its
 final line. The line before the last is one JSON object of per-kernel
@@ -488,6 +516,60 @@ def profiled_launches(fn):
             return out, rows
     raise CheckFailed("the profiler recorded no kernel rows in three "
                       "windows")
+
+
+def graph_kernel_nodes(cuda_graph):
+    """{short name: kernel nodes} of a captured ``torch.cuda.CUDAGraph``
+    made with ``keep_graph=True``: the ``KERNEL_SYMBOLS`` kernels its
+    ``cudaGraph_t`` holds, read through the driver API
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
+    ``cuGraphKernelNodeGetParams_v2`` and ``cuFuncGetName`` or
+    ``cuKernelGetName``), so a count that never goes through the
+    profiler. Each replay of the graph runs each of its kernel nodes
+    once."""
+    import ctypes
+
+    class KernelNodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = [("func", ctypes.c_void_p),
+                    ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                    ("shared_mem_bytes", ctypes.c_uint),
+                    ("kernel_params", ctypes.c_void_p),
+                    ("extra", ctypes.c_void_p), ("kern", ctypes.c_void_p),
+                    ("ctx", ctypes.c_void_p)]
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def call(fn, *args):
+        err = getattr(cu, fn)(*args)
+        if err != 0:
+            raise CheckFailed(f"{fn} failed with CUresult {err}")
+
+    graph = ctypes.c_void_p(cuda_graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    call("cuGraphGetNodes", graph, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
+    rows = Counter()
+    by_symbol = {symbol: name for name, symbol in KERNEL_SYMBOLS.items()}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
+        if kind.value != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params = KernelNodeParams()
+        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+             ctypes.byref(params))
+        name = ctypes.c_char_p()
+        if params.func:
+            call("cuFuncGetName", ctypes.byref(name),
+                 ctypes.c_void_p(params.func))
+        else:
+            call("cuKernelGetName", ctypes.byref(name),
+                 ctypes.c_void_p(params.kern))
+        symbol = kernel_name(name.value.decode()).split("<")[0]
+        if symbol in by_symbol:
+            rows[by_symbol[symbol]] += 1
+    return rows
 
 
 def kernel_name(mangled: str) -> str:
@@ -968,6 +1050,75 @@ def main() -> int:
     def launches_by_name(rows):
         return tuple(rows.get(k, 0) for k in KERNEL_NAMES)
 
+    def graph_launches(graph, lowering, params, x, avg_pool_via="jnp"):
+        """The kernel nodes (ALL_KERNELS order) of one CUDA-graph capture
+        of the walk a compiled program captures (``capture_forward``'s),
+        counted in the graph itself (``graph_kernel_nodes``), not by the
+        profiler. The graph is dropped before returning."""
+        from repro_torch.cnn.executor import _eval_graph
+        static_in = x.clone()
+        cuda_graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.inference_mode(), torch.cuda.graph(cuda_graph):
+            _eval_graph(graph, lowering, params, static_in, None,
+                        avg_pool_via)
+        rows = graph_kernel_nodes(cuda_graph)
+        del cuda_graph
+        return launches_by_name(rows)
+
+    def replay_rows(tag, run, params, x, derived, nodes):
+        """The profiler's kernel rows of one replay of ``run``, which must
+        equal ``derived``. ``nodes``, the kernel nodes of the same walk's
+        capture (``graph_launches``), must equal ``derived`` first: then a
+        window whose rows come back short of it (the profiler dropped
+        rows; the graph holds them) is taken again, up to three in all,
+        and a window with rows past it fails at once."""
+        if nodes != derived:
+            raise CheckFailed(f"{tag}: the captured graph holds {nodes} "
+                              f"kernel nodes, the lowering gives {derived} "
+                              f"{KERNEL_NAMES}")
+        short = []
+        for _ in range(3):
+            _, rows = profiled_launches(lambda: run(params, x))
+            got = launches_by_name(rows)
+            if got == derived:
+                return short
+            if any(g > d for g, d in zip(got, derived)):
+                break
+            short.append(got)
+        raise CheckFailed(f"{tag}: one replay ran {got} kernel rows, "
+                          f"expected {derived} {KERNEL_NAMES} (the graph's "
+                          f"kernel nodes {nodes}; short windows before it "
+                          f"{short})")
+
+    def staged_runs(tag, run, p, x, want_n, avg_pool_via="jnp"):
+        """A compiled program's eager pass, capture and replay on one
+        input: the counters read ``want_n`` on the first two and 0 on the
+        replay, both later outputs equal the eager one bit for bit, the
+        program holds one capture, and the kernel nodes of the captured
+        walk and one more replay's profiler rows equal ``want_n``
+        (``replay_rows``). Returns (eager output, short windows
+        retaken)."""
+        outs = []
+        for stage, want_stage in (("eager", want_n), ("capture", want_n),
+                                  ("replay", (0,) * len(ALL_KERNELS))):
+            reset_counts()
+            outs.append(run(p, x))
+            torch.cuda.synchronize()
+            if counts() != want_stage:
+                raise CheckFailed(f"{tag} {stage} pass: launches {counts()}"
+                                  f", expected {want_stage} {KERNEL_NAMES}")
+        for stage, out in zip(("capture", "replay"), outs[1:]):
+            if not torch.equal(out, outs[0]):
+                raise CheckFailed(
+                    f"{tag}: the {stage} pass's logits differ from the eager "
+                    f"pass's (max|diff| "
+                    f"{float((out - outs[0]).abs().max()):.3e})")
+        if len(run.captures) != 1 or None in run.captures.values():
+            raise CheckFailed(f"{tag}: not one capture after three calls")
+        nodes = graph_launches(run.graph, run.lowering, p, x, avg_pool_via)
+        torch.cuda.empty_cache()              # the counted graph's pool
+        return outs[0], replay_rows(tag, run, p, x, want_n, nodes)
+
     def check_forwards(phase, tag, graph, plan, params, res, expect,
                        act_scales=None):
         """Kernels vs the plain path on the card, at every bucket with
@@ -977,12 +1128,12 @@ def main() -> int:
         eager warm pass, the CUDA-graph capture (which replays once) and a
         replay: the counters must read the derived launches on the first
         two and 0 on the replay, both later outputs must equal the eager
-        one bit for bit, and the profiler must find the derived launches,
-        kernel by kernel, in one more replay. The logits must agree with
+        one bit for bit, and the kernel nodes of the captured walk and the
+        profiler's rows of one more replay must equal the derived launches,
+        kernel by kernel (``staged_runs``). The logits must agree with
         the plain program's at the whole-plan tolerance. Returns
         {(elide, bucket): (run_k, run_p, x, logits)}."""
         runs = {}
-        none = (0,) * len(ALL_KERNELS)
         for elide, buckets in ((True, BUCKETS), (False, (8,))):
             for bsz in buckets:
                 run_k = compile_plan(graph, plan, epilogue="bias_relu",
@@ -998,35 +1149,10 @@ def main() -> int:
                         f"{tag} b{bsz} elide={elide}: the lowering gives "
                         f"{derived}, expected {expect[elide]} {KERNEL_NAMES}")
                 x = randn(bsz, res, res, 3)
-                outs = []
-                for stage, want_n in (("eager", derived),
-                                      ("capture", derived),
-                                      ("replay", none)):
-                    reset_counts()
-                    outs.append(run_k(params, x))
-                    torch.cuda.synchronize()
-                    n = counts()
-                    if n != want_n:
-                        raise CheckFailed(
-                            f"{tag} b{bsz} elide={elide} {stage} pass: "
-                            f"launches {n}, expected {want_n} {KERNEL_NAMES}")
-                got = outs[0]
-                for stage, out in zip(("capture", "replay"), outs[1:]):
-                    if not torch.equal(out, got):
-                        raise CheckFailed(
-                            f"{tag} b{bsz} elide={elide}: the {stage} pass's "
-                            f"logits differ from the eager pass's (max|diff| "
-                            f"{float((out - got).abs().max()):.3e})")
-                if len(run_k.captures) != 1 or None in \
-                        run_k.captures.values():
-                    raise CheckFailed(f"{tag} b{bsz} elide={elide}: not one "
-                                      f"capture after three calls")
-                _, rows = profiled_launches(lambda: run_k(params, x))
-                if launches_by_name(rows) != derived:
-                    raise CheckFailed(
-                        f"{tag} b{bsz} elide={elide}: one replay ran "
-                        f"{launches_by_name(rows)} kernel rows, expected "
-                        f"{derived} {KERNEL_NAMES}")
+                got, short = staged_runs(f"{tag} b{bsz} elide={elide}",
+                                         run_k, params, x, derived)
+                retaken = (f"; {len(short)} short profiler window(s) "
+                           f"retaken, rows {short}" if short else "")
                 want = run_p(params, x)
                 err = check_close(f"{tag} b{bsz} elide={elide}", got, want,
                                   **FORWARD_TOL)
@@ -1037,8 +1163,9 @@ def main() -> int:
                       f"{err:.3e} (rtol 2e-2 atol 2e-3); capture and replay "
                       f"equal to the eager pass bit for bit; launches on the "
                       f"eager and the capture pass {launch_text(derived)}, "
-                      f"0 on a replay; the profiler's rows of one replay "
-                      f"equal them")
+                      f"0 on a replay; the kernel nodes of the walk's "
+                      f"captured graph (driver API) and the profiler's rows "
+                      f"of one replay equal them{retaken}")
         return runs
 
     def serve_checked(phase, tag, graph, plan, params, res, n_requests,
@@ -3893,6 +4020,272 @@ def main() -> int:
                                 device=dev).lowering for b in BUCKETS]))
     print(f"[23] seconds per run {json.dumps({k: round(v, 1) for k, v in ex_s.items()})}; "
           f"phase 23 took {time.perf_counter() - t23:.1f} s")
+
+    # ---- 24. the fused-epilogue options: this slice's main path ---------
+    # (a) AvgPool as a 3x3 conv on the im2col kernel (§3.4) at bucket 8 on
+    # Inception-v4's three pool shapes and a 3x3 s2 VALID map; (b) the
+    # full-width f32 Inception-v4 under its plan with every POOL_AVG on the
+    # kernel; (c) full-width GoogleNet with no plan, every conv kn2row
+    # (``default_algo=KN2ROW``) against every conv im2col.
+    t24 = time.perf_counter()
+    torch.cuda.empty_cache()
+    from repro_torch.cnn import layers as cnn_layers
+    from repro_torch.core.algorithms import KN2ROW
+    from repro_torch.core.graph import LayerKind
+    conv_slot = KERNEL_NAMES.index("conv")
+
+    def with_convs(n, extra):
+        return tuple(v + extra * (i == conv_slot) for i, v in enumerate(n))
+
+    def interleaved_ms(progs, order, p, x, reps=10):
+        """{name: [ms, ...]} of replayed forwards by events, in ``order``
+        (each program already captured)."""
+        ms = {}
+        for name in order:
+            ms.setdefault(name, []).append(round(time_ms(
+                lambda: progs[name](p, x), reps=reps, rounds=3), 4))
+        return ms
+
+    pool_cases = (("incA/ap 35x35x384 s1 SAME", 35, 384, 1, "SAME"),
+                  ("incB/ap 17x17x1024 s1 SAME", 17, 1024, 1, "SAME"),
+                  ("incC/ap 8x8x1536 s1 SAME", 8, 1536, 1, "SAME"),
+                  ("35x35x384 s2 VALID", 35, 384, 2, "VALID"))
+    one_conv = with_convs((0,) * len(ALL_KERNELS), 1)
+    pool_rows = {}
+    for label, hw, c, stride, pad in pool_cases:
+        x = randn(8, hw, hw, c)
+
+        def overlay_pool(use_pallas=None):
+            return cnn_layers.avg_pool(x, 3, stride, pad, via="overlay",
+                                       use_pallas=use_pallas)
+
+        def jnp_pool():
+            return cnn_layers.avg_pool(x, 3, stride, pad)
+
+        reset_counts()
+        got = overlay_pool()
+        torch.cuda.synchronize()
+        if counts() != one_conv:
+            raise CheckFailed(f"overlay avg_pool {label}: launches "
+                              f"{counts()}, expected one conv_im2col_f32")
+        err = check_close(f"overlay avg_pool {label} vs the jnp pool", got,
+                          jnp_pool(), **KERNEL_TOL)
+        err_p = check_close(f"overlay avg_pool {label} vs its plain path",
+                            got, overlay_pool(False), **KERNEL_TOL)
+        o = int(got.shape[1])
+        m, k, n = 8 * o * o, 9 * c, c
+        b_ms, b_by = bound(2.0 * m * k * n, 4.0 * (8 * hw * hw * c + k * n
+                                                    + m * n + o * o))
+        pool_b_ms, pool_b_by = bound(9.0 * m * c, 4.0 * (8 * hw * hw * c
+                                                         + m * c))
+        o_ms = time_ms(overlay_pool, reps=5, rounds=3)
+        j_ms = time_ms(jnp_pool, reps=5, rounds=3)
+        pool_rows[label] = (o_ms, j_ms, b_ms)
+        print(f"[24] avg_pool 3x3 b8 {label} via overlay (conv_im2col_f32 "
+              f"M {m} K {k} N {n}, one launch): max|diff| vs the jnp pool "
+              f"{err:.3e}, vs its plain path {err_p:.3e} (rtol/atol 1e-4); "
+              f"events {o_ms:.4f} ms against the jnp pool's {j_ms:.4f} ms; "
+              f"the conv's bound {b_ms:.4f} ms ({b_by}), the pool's own "
+              f"{pool_b_ms:.4f} ms ({pool_b_by})")
+    del x
+    n_pools = sum(node.kind is LayerKind.POOL_AVG
+                  for node in gi.nodes.values())
+    for bsz in (1, 8):
+        x = randn(bsz, 299, 299, 3)
+        progs = {via: compile_plan(gi, iplan, epilogue="bias_relu",
+                                   tuning_batch=bsz, avg_pool_via=via,
+                                   device=dev)
+                 for via in ("jnp", "overlay")}
+        derived = expected_launches(progs["jnp"].lowering, gi)
+        want_o = with_convs(derived, n_pools)
+        tag = f"inception_v4 299 b{bsz} avg_pool_via=overlay"
+        got, short = staged_runs(tag, progs["overlay"], iparams, x, want_o,
+                                 "overlay")
+        plain = compile_plan(gi, iplan, epilogue="bias_relu",
+                             tuning_batch=bsz, use_pallas=False, device=dev)
+        err = check_close(f"{tag} vs the plain path", got,
+                          plain(iparams, x), **FORWARD_TOL)
+        for _ in range(3):                        # eager, capture, replay
+            jnp_out = progs["jnp"](iparams, x)
+        err_j = check_close(f"{tag} vs the jnp-pool program", got, jnp_out,
+                            **FORWARD_TOL)
+        ms = interleaved_ms(progs, ("jnp", "overlay", "overlay", "jnp"),
+                            iparams, x)
+        print(f"[24] {tag}: {n_pools} POOL_AVG nodes; launches on the eager "
+              f"and capture pass {launch_text(want_o)} (the lowering's "
+              f"{launch_text(derived)} plus {n_pools} pool convs), 0 on a "
+              f"replay; the captured graph's kernel nodes and one replay's "
+              f"profiler rows equal them"
+              + (f" ({len(short)} short window(s) retaken: {short})"
+                 if short else "")
+              + f"; max|diff| vs the plain path {err:.3e}, vs the jnp-pool "
+              f"program {err_j:.3e} (rtol 2e-2 atol 2e-3); replayed forward "
+              f"ms (events, interleaved jnp, overlay, overlay, jnp) "
+              f"{json.dumps(ms)}")
+        del progs, plain, got, jnp_out
+        torch.cuda.empty_cache()
+
+    for bsz in (1, 8):
+        x = randn(bsz, 224, 224, 3)
+        progs = {
+            "im2col": compile_plan(gnet, None, epilogue="bias_relu",
+                                   tuning_batch=bsz, device=dev),
+            "kn2row": compile_plan(gnet, None, default_algo=KN2ROW,
+                                   epilogue="bias_relu", tuning_batch=bsz,
+                                   device=dev),
+            "plan": compile_plan(gnet, plan, epilogue="bias_relu",
+                                 tuning_batch=bsz, device=dev)}
+        if {low.algo for low in progs["kn2row"].lowering.values()} != \
+                {KN2ROW}:
+            raise CheckFailed("default_algo=KN2ROW left a conv off kn2row")
+        derived = expected_launches(progs["kn2row"].lowering, gnet)
+        tag = f"googlenet 224 b{bsz} default_algo=KN2ROW"
+        got, short = staged_runs(tag, progs["kn2row"], params, x, derived)
+        plain = compile_plan(gnet, None, default_algo=KN2ROW,
+                             epilogue="bias_relu", tuning_batch=bsz,
+                             use_pallas=False, device=dev)
+        err = check_close(f"{tag} vs the plain path", got, plain(params, x),
+                          **FORWARD_TOL)
+        for name in ("im2col", "plan"):
+            for _ in range(3):
+                out = progs[name](params, x)
+            if name == "im2col":
+                err_i = check_close(f"{tag} vs the all-im2col program", got,
+                                    out, **FORWARD_TOL)
+        ms = interleaved_ms(progs, ("im2col", "kn2row", "plan", "plan",
+                                    "kn2row", "im2col"), params, x)
+        print(f"[24] {tag}: launches on the eager and capture pass "
+              f"{launch_text(derived)}, 0 on a replay; graph nodes and one "
+              f"replay's profiler rows equal them"
+              + (f" ({len(short)} short window(s) retaken: {short})"
+                 if short else "")
+              + f"; max|diff| vs the plain path {err:.3e}, vs the all-im2col "
+              f"program {err_i:.3e} (rtol 2e-2 atol 2e-3); replayed forward "
+              f"ms, printed not gated (all-im2col, all-kn2row, phase 4's "
+              f"plan; events, interleaved) {json.dumps(ms)}")
+        del progs, plain, got, out
+        torch.cuda.empty_cache()
+
+    # The kn2row kernels at shapes no plan had chosen: conv1 (7x7 s2, Cin
+    # 3: K = 3 below one 16-deep chunk, G = 49, at full input resolution)
+    # and inception_3a/5x5 (the generic 5x5 offsets).
+    kn2_new = {}
+    for label, hw, c_in, c_out, k, stride in (
+            ("conv1", 224, 3, 64, 7, 2),
+            ("inception_3a/5x5", 28, 16, 32, 5, 1)):
+        for bsz in (1, 8):
+            o1, o2, pt, _, pl, _ = conv_geometry(hw, hw, k, k, stride, "SAME")
+            g_ = k * k
+            m = bsz * hw * hw
+            x2d = randn(m, c_in)
+            wg = randn(g_, c_in, c_out, scale=(g_ * c_in) ** -0.5)
+            bias = randn(c_out, scale=0.1)
+
+            def unit():
+                return kn2.unit_conv_gemms_call(x2d, wg)
+
+            p = unit()
+            u_err = check_close(f"unit_conv_gemms {label} b{bsz}", p,
+                                kn2.unit_conv_gemms_plain(x2d, wg),
+                                **KERNEL_TOL)
+            u_bound = bound(2.0 * g_ * m * c_in * c_out,
+                            4.0 * (m * c_in + g_ * c_in * c_out
+                                   + g_ * m * c_out))
+            u_ms = time_ms(unit, reps=5, rounds=3)
+            u_lib = time_ms(lambda: torch.matmul(x2d, wg), reps=5, rounds=3)
+            p5 = p.view(g_, bsz, hw, hw, c_out)
+            geo = dict(k1=k, k2=k, o1=o1, o2=o2, stride=stride,
+                       pad_top=pt, pad_left=pl, epilogue="bias_relu",
+                       bias=bias)
+
+            def pad_acc():
+                return kn2.pad_accumulate_call(p5, **geo)
+
+            a_err = check_close(f"pad_accumulate {label} b{bsz}", pad_acc(),
+                                kn2.pad_accumulate_plain(p5, **geo),
+                                **KERNEL_TOL)
+            n_out = bsz * o1 * o2 * c_out
+            a_bound = bound(1.0 * g_ * n_out,
+                            4.0 * (pad_accumulate_reads(p5, geo) + c_out)
+                            + 4.0 * n_out)
+            a_ms = time_ms(pad_acc, reps=5, rounds=3)
+            xin = x2d.view(bsz, hw, hw, c_in).permute(0, 3, 1, 2)
+            wconv = wg.view(k, k, c_in, c_out).permute(3, 2, 0, 1)
+            lib_ms = time_ms(lambda: F.conv2d(xin, wconv, bias, stride=stride,
+                                              padding=k // 2),
+                             reps=5, rounds=3)
+            kn2_new[(label, bsz)] = (u_ms, u_bound, a_ms, a_bound, lib_ms)
+            print(f"[24] kn2row {label} b{bsz}: unit_conv_gemms_f32 G {g_} M "
+                  f"{m} K {c_in} N {c_out}: {u_ms:.4f} ms (events; max|diff| "
+                  f"{u_err:.3e}), bound {u_bound[0]:.4f} ms ({u_bound[1]}), "
+                  f"torch.matmul {u_lib:.4f} ms; pad_accumulate_f32 "
+                  f"{k}x{k} s{stride} -> {o1}x{o2}: {a_ms:.4f} ms (max|diff| "
+                  f"{a_err:.3e}), bound {a_bound[0]:.4f} ms ({a_bound[1]}); "
+                  f"the whole conv by F.conv2d (cuDNN, no TF32) {lib_ms:.4f} "
+                  f"ms")
+            del p, p5, x2d, wg
+    torch.cuda.empty_cache()
+    print(f"[24] phase 24 took {time.perf_counter() - t24:.1f} s; "
+          f"{memory_text()}")
+
+    # ---- 25. the LM serving path: this slice's main path ----------------
+    # h2o-danube-1.8b (dense, GQA, sliding window) and mamba2-370m (SSD) at
+    # full width and depth, weights from a seeded CUDA generator: (a) in
+    # f32, token-by-token decode reproduces the teacher-forced forward's
+    # logits (the reference's serving invariant); (b) in the configs' bf16,
+    # ``launch.serve``'s defaults through ``ServingEngine``.
+    t25 = time.perf_counter()
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import model as lm
+    for name in ("h2o-danube-1.8b", "mamba2-370m"):
+        cfg = get_config(name)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = lm.init_model(cfg32, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        tokens = torch.randint(0, cfg.vocab, (2, 12), device=dev,
+                               generator=torch.Generator(
+                                   device=dev).manual_seed(1))
+        hidden, _ = lm.forward(p32, tokens, cfg32)
+        ref = lm.logits_from_hidden(p32, cfg32, hidden)
+        cache = lm.init_cache(cfg32, 2, 32, dev)
+        steps = [lm.decode_step(p32, tokens[:, t:t + 1], cache, t, cfg32)[0]
+                 for t in range(12)]
+        err = check_close(f"{name} f32 decode vs forward",
+                          torch.stack(steps, 1), ref, rtol=2e-3, atol=2e-3)
+        print(f"[25] {name} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.param_count() / 1e9:.3f} B params) f32: 12 decode steps "
+              f"of batch 2 against the teacher-forced forward, logits max|"
+              f"logit| {float(ref.abs().max()):.3e} max|diff| {err:.3e} "
+              f"(rtol/atol 2e-3)")
+        del p32, cache, steps, hidden, ref
+        torch.cuda.empty_cache()
+
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = lm_serve.main(["--arch", name])
+        lines = buf.getvalue().splitlines()
+        streams = [json.loads(line.split(": ", 1)[1]) for line in lines
+                   if line.startswith("request ")]
+        if rc != 0 or len(streams) != 6 or any(
+                len(s) != 8 or not all(0 <= t < cfg.vocab for t in s)
+                for s in streams):
+            raise CheckFailed(f"{name} served {streams} (rc {rc}); expected "
+                              f"6 requests of 8 tokens in [0, {cfg.vocab})")
+        pb = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        cache = lm.init_cache(cfg, 4, 128, dev)
+        tok = torch.zeros((4, 1), dtype=torch.long, device=dev)
+        step_ms = time_ms(lambda: lm.decode_step(pb, tok, cache, 12, cfg),
+                          reps=5, rounds=3)
+        print(f"[25] {name} bf16 launch.serve defaults (6 requests, batch 4, "
+              f"prompt 12, 8 new, max_len 128): {lines[-1]}; every request "
+              f"8 tokens in [0, {cfg.vocab}); one eager decode step of batch "
+              f"4 {step_ms:.3f} ms (events); {memory_text()}")
+        del pb, cache
+        torch.cuda.empty_cache()
+    print(f"[25] phase 25 took {time.perf_counter() - t25:.1f} s")
 
     def wino_entry(name, source, replaces, label, launches):
         k_ms, p_ms, l_ms, b_ms, b_by = wino_times[(name, label)]

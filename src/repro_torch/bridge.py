@@ -5,10 +5,12 @@ The reference's ``repro.cnn.executor.init_params`` returns a pytree
 (``jax.tree_util.tree_map(np.asarray, params)``), it becomes the port's
 params here without this package ever importing JAX. Layouts are the
 same on both sides: conv ``w`` is ``(K1, K2, Cin, Cout)``, FC ``w`` is
-``(in, out)``."""
+``(in, out)``. The reference's LM parameters (``repro.models.model
+.init_model``), a nested dict of arrays, come over the same way through
+``lm_params_from_jax``."""
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
@@ -24,3 +26,23 @@ def params_from_jax(np_params: Mapping[int, Mapping[str, np.ndarray]],
     return {int(nid): {name: torch.tensor(np.asarray(arr), device=dev)
                        for name, arr in layer.items()}
             for nid, layer in np_params.items()}
+
+
+def lm_params_from_jax(np_tree: Mapping[str, Any], device="cuda"
+                       ) -> Dict[str, Any]:
+    """The reference's nested LM param dict of numpy arrays → the same
+    nesting of tensors on ``device``, dtype kept. A bf16 array (numpy's
+    ``ml_dtypes.bfloat16``, which torch cannot read) goes through f32 to
+    ``torch.bfloat16``, which is exact."""
+    dev = resolve_device(device)
+
+    def convert(node):
+        if isinstance(node, Mapping):
+            return {k: convert(v) for k, v in node.items()}
+        arr = np.asarray(node)
+        if arr.dtype.name == "bfloat16":
+            return torch.tensor(arr.astype(np.float32),
+                                device=dev).to(torch.bfloat16)
+        return torch.tensor(arr, device=dev)
+
+    return convert(np_tree)

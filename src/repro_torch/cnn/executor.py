@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.cnn import layers as L
 from repro_torch.cnn import overlay
+from repro_torch.core.algorithms import IM2COL, Algorithm
 from repro_torch.core.graph import Graph, LayerKind
 from repro_torch.core.layouts import LayoutSpec, is_nhwc
 from repro_torch.core.mapper import (ConvLowering, ExecutionPlan,
@@ -84,10 +85,12 @@ def _mesh_fingerprint(mesh: DataMesh) -> tuple:
 
 
 def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
-                         *, use_pallas: Optional[bool] = None,
+                         *, default_algo: Algorithm = IM2COL,
+                         use_pallas: Optional[bool] = None,
                          epilogue: str = "relu",
                          tuning=None,
                          tuning_batch: Optional[int] = None,
+                         avg_pool_via: str = "jnp",
                          elide: bool = True,
                          elide_overrides: Optional[Dict[Tuple[int, int],
                                                         bool]] = None,
@@ -105,10 +108,13 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
     scales, so an int8 plan and the bf16 plan of one architecture, or two
     calibrations of one plan, never share a key; the tuning record enters
     by content, so a tuned and an untuned program never share one, and a
-    record and its reload from JSON do. With a ``mesh`` the device slot
-    holds the mesh's fingerprint instead."""
-    return (graph_hash(graph), plan_fingerprint(plan), use_pallas, epilogue,
-            _tuning_fingerprint(tuning), int(tuning_batch or 1), bool(elide),
+    record and its reload from JSON do. ``default_algo`` (the algorithm of
+    every conv a plan does not assign) enters by its key and
+    ``avg_pool_via`` as given, as in the reference. With a ``mesh`` the
+    device slot holds the mesh's fingerprint instead."""
+    return (graph_hash(graph), plan_fingerprint(plan), default_algo.key,
+            use_pallas, epilogue, _tuning_fingerprint(tuning),
+            int(tuning_batch or 1), avg_pool_via, bool(elide),
             (None if elide_overrides is None
              else tuple(sorted(elide_overrides.items()))),
             (str(torch.device(device)) if mesh is None
@@ -208,6 +214,7 @@ def init_params(graph: Graph, seed: int = 0, device="cuda") -> Params:
 
 def _eval_graph(graph: Graph, lowering: Lowering, params: Params,
                 x: torch.Tensor, use_pallas: Optional[bool],
+                avg_pool_via: str = "jnp",
                 conv_tap: Optional[Callable[[int, torch.Tensor], None]]
                 = None) -> torch.Tensor:
     """Walk the graph once. Inter-layer values travel in the store formats
@@ -216,7 +223,9 @@ def _eval_graph(graph: Graph, lowering: Lowering, params: Params,
     producers materialize it here), matched consumers read it directly
     and mismatched consumers restore to NHWC — the converting load.
     An int8 layer gets its precision, calibrated scales and whether its
-    input edge already carries int8 from the lowering.
+    input edge already carries int8 from the lowering. ``avg_pool_via``
+    picks the AvgPool form (``layers.avg_pool``): ``"overlay"`` runs each
+    POOL_AVG node as a conv on the im2col kernel, as ``use_pallas`` says.
 
     ``conv_tap`` (the calibration hook) is called with ``(nid,
     nhwc_input)`` for every conv node."""
@@ -270,7 +279,8 @@ def _eval_graph(graph: Graph, lowering: Lowering, params: Params,
         elif node.kind is LayerKind.POOL_AVG:
             pad = "SAME" if node.attrs.get("pad", "same") == "same" else "VALID"
             y = L.avg_pool(ins[0], int(node.attrs["k"]),
-                           int(node.attrs["stride"]), pad)
+                           int(node.attrs["stride"]), pad, via=avg_pool_via,
+                           use_pallas=use_pallas)
         elif node.kind is LayerKind.CONCAT:
             y = torch.cat(ins, dim=-1)
         elif node.kind is LayerKind.ADD:
@@ -300,6 +310,7 @@ def _as_input(x, device: torch.device) -> torch.Tensor:
 
 def forward(graph: Graph, params: Params, x,
             plan: Optional[ExecutionPlan] = None, *,
+            default_algo: Algorithm = IM2COL,
             use_pallas: Optional[bool] = None,
             epilogue: str = "relu",
             tuning=None,
@@ -311,20 +322,23 @@ def forward(graph: Graph, params: Params, x,
             device="cuda") -> torch.Tensor:
     """Eager inference. ``x``: (H, W, C) single image or (B, H, W, C)
     batch. Each call re-lowers the plan — use ``compile_plan`` for the
-    serving path. ``tuning`` (a ``core.autotune.TuningRecord``) binds each
-    conv to its winner measured at bucket ``tuning_batch``;
+    serving path. Convs the plan does not assign (every conv when
+    ``plan=None``) run ``default_algo``; AvgPool runs the ``"jnp"`` way,
+    as in the reference's eager forward. ``tuning`` (a
+    ``core.autotune.TuningRecord``) binds each conv to its winner
+    measured at bucket ``tuning_batch``;
     ``elide_overrides`` flips individual edges' elision. ``act_scales``
     supplies calibrated activation scales for int8 layers;
     ``conv_tap(nid, nhwc_input)`` observes every conv input
     (calibration)."""
     dev = resolve_device(device)
-    lowering = lower_plan(graph, plan, epilogue=epilogue, tuning=tuning,
-                          batch=tuning_batch, elide=elide,
+    lowering = lower_plan(graph, plan, default_algo, epilogue=epilogue,
+                          tuning=tuning, batch=tuning_batch, elide=elide,
                           elide_overrides=elide_overrides,
                           act_scales=act_scales)
     with torch.inference_mode():
         return _eval_graph(graph, lowering, params, _as_input(x, dev),
-                           use_pallas, conv_tap)
+                           use_pallas, conv_tap=conv_tap)
 
 
 class _Capture:
@@ -357,8 +371,8 @@ _CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
 
 def capture_forward(graph: Graph, lowering: Lowering, params: Params,
-                    x: torch.Tensor,
-                    use_pallas: Optional[bool]) -> _Capture:
+                    x: torch.Tensor, use_pallas: Optional[bool],
+                    avg_pool_via: str = "jnp") -> _Capture:
     """Capture one ``_eval_graph`` of ``x`` into a CUDA graph, reading a
     static copy of ``x`` and writing a static output (both in the graph's
     memory pool with every intermediate). Nothing runs: the caller
@@ -388,7 +402,7 @@ def capture_forward(graph: Graph, lowering: Lowering, params: Params,
     with torch.cuda.graph(cuda_graph, stream=stream,
                           capture_error_mode="thread_local"):
         static_out = _eval_graph(graph, lowering, params, static_in,
-                                 use_pallas)
+                                 use_pallas, avg_pool_via)
     return _Capture(cuda_graph, static_in, static_out)
 
 
@@ -418,10 +432,12 @@ class CompiledProgram:
     warm pass only)."""
 
     def __init__(self, graph: Graph, lowering: Lowering,
-                 use_pallas: Optional[bool], device: torch.device) -> None:
+                 use_pallas: Optional[bool], device: torch.device,
+                 avg_pool_via: str = "jnp") -> None:
         self.graph = graph
         self.lowering = lowering
         self.use_pallas = use_pallas
+        self.avg_pool_via = avg_pool_via
         self.device = device
         self.captures: Dict[tuple, Optional[_Capture]] = {}
         self._lock = threading.Lock()
@@ -431,20 +447,21 @@ class CompiledProgram:
             if self.device.type != "cuda":
                 return _eval_graph(self.graph, self.lowering, params,
                                    _as_input(x, self.device),
-                                   self.use_pallas)
+                                   self.use_pallas, self.avg_pool_via)
             key = capture_key(params, x)
             with self._lock:
                 if key not in self.captures:
                     out = _eval_graph(self.graph, self.lowering, params,
                                       _as_input(x, self.device),
-                                      self.use_pallas)
+                                      self.use_pallas, self.avg_pool_via)
                     self.captures[key] = None
                     return out
                 entry = self.captures[key]
                 if entry is None:
                     entry = self.captures[key] = capture_forward(
                         self.graph, self.lowering, params,
-                        _as_input(x, self.device), self.use_pallas)
+                        _as_input(x, self.device), self.use_pallas,
+                        self.avg_pool_via)
                 else:
                     entry.static_in.copy_(
                         torch.as_tensor(x, dtype=torch.float32),
@@ -478,14 +495,16 @@ class ShardedProgram:
     follows every shard's copy-in, replay and clone."""
 
     def __init__(self, graph: Graph, lowering: Lowering,
-                 use_pallas: Optional[bool], mesh: DataMesh) -> None:
+                 use_pallas: Optional[bool], mesh: DataMesh,
+                 avg_pool_via: str = "jnp") -> None:
         self.graph = graph
         self.lowering = lowering
         self.use_pallas = use_pallas
         self.mesh = mesh
         self.data_shards = data_shard_count(mesh)
         self.device = mesh.devices[0]
-        self.shards = tuple(CompiledProgram(graph, lowering, use_pallas, d)
+        self.shards = tuple(CompiledProgram(graph, lowering, use_pallas, d,
+                                            avg_pool_via)
                             for d in mesh.devices)
 
     def __call__(self, params, x) -> torch.Tensor:
@@ -507,10 +526,12 @@ class ShardedProgram:
 
 
 def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
+                 default_algo: Algorithm = IM2COL,
                  use_pallas: Optional[bool] = None,
                  epilogue: str = "relu",
                  tuning=None,
                  tuning_batch: Optional[int] = None,
+                 avg_pool_via: str = "jnp",
                  elide: bool = True,
                  elide_overrides: Optional[Dict[Tuple[int, int], bool]] = None,
                  mesh=None,
@@ -529,7 +550,11 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     *now* by ``lower_plan``; the returned callable only walks that static
     lowering, and on a CUDA device captures the walk once per input shape
     and params as a CUDA graph and replays it. With ``plan=None`` every
-    conv is im2col under the NS (128, 128) binding. ``elide=True``
+    conv runs ``default_algo`` (IM2COL unless given) under the NS (128,
+    128) binding, as do convs a plan leaves out. ``avg_pool_via="overlay"``
+    runs every AvgPool as a K×K conv on the im2col kernel (§3.4,
+    ``layers.avg_pool``); the default ``"jnp"`` is the pooling path.
+    Both enter the cache key. ``elide=True``
     (default) lets consumers read matching store formats directly — im2col
     chains reuse the Toeplitz buffer — and ``elide=False`` compiles the
     always-NHWC-round-trip baseline; ``elide_overrides`` (``{(src, dst):
@@ -573,18 +598,21 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
 
     def build() -> Union[CompiledProgram, ShardedProgram]:
         lowering = lower_plan(
-            graph, plan, epilogue=epilogue, tuning=tuning,
+            graph, plan, default_algo, epilogue=epilogue, tuning=tuning,
             batch=tuning_batch, elide=elide, elide_overrides=elide_overrides,
             act_scales=act_scales)
         if mesh is None:
-            return CompiledProgram(graph, lowering, use_pallas, dev)
-        return ShardedProgram(graph, lowering, use_pallas, mesh)
+            return CompiledProgram(graph, lowering, use_pallas, dev,
+                                   avg_pool_via)
+        return ShardedProgram(graph, lowering, use_pallas, mesh, avg_pool_via)
 
     if cache is None:
         return _with_fault_hook(build(), fault_hook)
-    key = executable_cache_key(graph, plan, use_pallas=use_pallas,
+    key = executable_cache_key(graph, plan, default_algo=default_algo,
+                               use_pallas=use_pallas,
                                epilogue=epilogue, tuning=tuning,
-                               tuning_batch=tuning_batch, elide=elide,
+                               tuning_batch=tuning_batch,
+                               avg_pool_via=avg_pool_via, elide=elide,
                                elide_overrides=elide_overrides,
                                act_scales=act_scales, mesh=mesh, device=dev)
     return _with_fault_hook(cache.get_or_compile(key, build), fault_hook)

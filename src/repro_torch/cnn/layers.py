@@ -7,11 +7,15 @@ with XLA's asymmetric split, as the reference's ``reduce_window`` does.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.cnn import overlay
+from repro_torch.core.algorithms import IM2COL
 from repro_torch.kernels.common import pad_nhwc, same_pads
 
 
@@ -46,15 +50,65 @@ def max_pool(x: torch.Tensor, k: int, stride: int,
 
 
 def avg_pool(x: torch.Tensor, k: int, stride: int,
-             padding: str = "SAME") -> torch.Tensor:
-    """Mean over the *valid* (unpadded) elements of each k×k window — the
-    reference's reduce-window path. The §3.4 overlay form (an average pool
-    run as a conv on the GEMM unit) is a later slice of the port."""
+             padding: str = "SAME", *, via: str = "jnp",
+             use_pallas: Optional[bool] = None) -> torch.Tensor:
+    """§3.4: AvgPool as a K×K conv with 1/(K·K) weights, so it can route
+    through the overlay's GEMM unit.
+
+    ``via="overlay"`` runs that form: the channel-diagonal weight streamed
+    through ``overlay.apply_conv`` under IM2COL (the im2col kernel, or its
+    plain version per ``use_pallas``, like any conv layer); ``via="jnp"``
+    (the reference's name) is the reduce-window path. Both divide by the
+    number of *valid* (unpadded) window elements, so the two agree."""
+    if via == "overlay":
+        return _avg_pool_overlay(x, k, stride, padding, use_pallas)
+    if via != "jnp":
+        raise ValueError(f"unknown avg_pool via {via!r}")
     xb, single = _pool_window(x, k, stride, padding, 0.0)
     ones, _ = _pool_window(torch.ones_like(x), k, stride, padding, 0.0)
     s = F.avg_pool2d(xb, k, stride)
     n = F.avg_pool2d(ones, k, stride)
     return _to_nhwc(s / n, single)
+
+
+def _avg_pool_overlay(x: torch.Tensor, k: int, stride: int, padding: str,
+                      use_pallas: Optional[bool]) -> torch.Tensor:
+    """AvgPool on the Computing Unit: a K×K conv, weight (ci == co)/(K·K).
+
+    With SAME padding the GEMM sums zero-padded windows (÷K² everywhere)
+    while pooling divides by the valid-element count n, so the output is
+    rescaled by K²/n, as the reference does. The weight and the K²/n map
+    are built once per shape, dtype and device and kept (a CUDA graph
+    that captured this call binds their pointers): never inside a
+    capture, since the eager pass before it builds them."""
+    c, h, w = int(x.shape[-1]), int(x.shape[-3]), int(x.shape[-2])
+    y = overlay.apply_conv(x, _pool_weight(k, c, x.dtype, x.device), IM2COL,
+                           stride=stride, padding=padding,
+                           use_pallas=use_pallas)
+    if padding == "SAME":
+        y = y * _pool_rescale(h, w, k, stride, x.dtype, x.device)
+    return y
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_weight(k: int, c: int, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """(K, K, C, C) channel-diagonal 1/(K·K) weight."""
+    eye = torch.eye(c, dtype=dtype, device=device) / (k * k)
+    return eye.expand(k, k, c, c).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _pool_rescale(h: int, w: int, k: int, stride: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """(O1, O2, 1) map of K²/n, n each SAME window's valid elements."""
+    def valid(size: int) -> np.ndarray:
+        out, before, _ = same_pads(size, k, stride)
+        start = np.arange(out) * stride - before
+        return np.minimum(start + k, size) - np.maximum(start, 0)
+
+    n = valid(h)[:, None] * valid(w)[None, :]
+    return torch.as_tensor((k * k / n)[..., None], dtype=dtype, device=device)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.algorithms import Algorithm, AlgoFamily, menu_for
+from repro_torch.core.algorithms import (IM2COL, Algorithm, AlgoFamily,
+                                         menu_for)
 from repro_torch.core.cost_model import ALL_DATAFLOWS, Dataflow
 from repro_torch.core.graph import ConvMeta, Graph
 from repro_torch.core.mapper import ConvLowering, ExecutionPlan
@@ -619,6 +620,7 @@ def _program_s(run, params, x: torch.Tensor, reps: int) -> float:
 
 def tune_elision(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                  params=None, batch: Optional[int] = None,
+                 default_algo: Optional[Algorithm] = None,
                  epilogue: str = "relu",
                  tuning: Optional[TuningRecord] = None,
                  use_pallas: Optional[bool] = None,
@@ -638,7 +640,8 @@ def tune_elision(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     card: replays of its CUDA graph) and dropped, with its capture and
     memory pool, before the next is built, with TF32 off as in
     ``benchmark_binding``. ``use_pallas=None`` follows the device, as
-    ``compile_plan`` does. Returns the ``elide_overrides`` dict
+    ``compile_plan`` does; ``default_algo`` (None: IM2COL) binds the convs
+    the plan does not assign. Returns the ``elide_overrides`` dict
     for ``lower_plan``/``compile_plan``; with a ``record``, the overrides
     are also stored under ``record.meta["elision_overrides"]`` (JSON-safe
     ``[[src, dst, flag], ...]``).
@@ -646,6 +649,7 @@ def tune_elision(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     from repro_torch.cnn.executor import compile_plan, init_params  # deferred
     from repro_torch.core.mapper import lower_plan
 
+    default_algo = IM2COL if default_algo is None else default_algo
     dev = resolve_device(device)
     if params is None:
         params = init_params(graph, seed=0, device=dev)
@@ -656,7 +660,8 @@ def tune_elision(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                     .manual_seed(1), device=dev)
 
     def measure(overrides: Optional[Dict[Tuple[int, int], bool]]) -> float:
-        run = compile_plan(graph, plan, use_pallas=use_pallas,
+        run = compile_plan(graph, plan, default_algo=default_algo,
+                           use_pallas=use_pallas,
                            epilogue=epilogue, tuning=tuning,
                            tuning_batch=batch, elide_overrides=overrides,
                            device=dev)
@@ -665,8 +670,8 @@ def tune_elision(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
         with no_tf32():
             return _program_s(run, params, x, reps)
 
-    lowered = lower_plan(graph, plan, epilogue=epilogue, tuning=tuning,
-                         batch=batch)
+    lowered = lower_plan(graph, plan, default_algo, epilogue=epilogue,
+                         tuning=tuning, batch=batch)
     base_s = measure(None)
     overrides: Dict[Tuple[int, int], bool] = {}
     for edge in lowered.elided_edges:

@@ -1,0 +1,312 @@
+"""Attention: GQA/MHA with RoPE, sliding-window, chunked-softmax (flash
+style) prefill, KV-cache decode, and DeepSeek-V2 MLA (decompress-per-
+chunk prefill; absorbed-matmul decode).
+
+The chunked online softmax keeps the (Sq × Skv) score matrix out of
+memory: scores exist only per (Sq × chunk) block, one block per loop
+step, as in the reference's scan. Products the reference asks in f32
+(``preferred_element_type``) take f32 copies of their operands, which is
+exact for bf16 inputs. Decode writes the new key and value into the
+cache in place (``index_copy_`` at a position held in a tensor) and
+returns the same cache.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Params, apply_rope, init_linear, linear
+
+NEG_INF = -1e30
+
+
+def _f32_einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``einsum`` with f32 operands and result: the reference's
+    ``preferred_element_type=jnp.float32``."""
+    return torch.einsum(eq, *(o.float() for o in ops))
+
+
+# ---------------------------------------------------------------------------
+# Parameter init.
+# ---------------------------------------------------------------------------
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig,
+                   dtype=torch.bfloat16, device="cpu") -> Params:
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.mla is not None:
+        return _init_mla(gen, cfg, dtype, device)
+    kw = dict(bias=cfg.qkv_bias, dtype=dtype, device=device)
+    return {
+        "wq": init_linear(gen, d, h * hd, **kw),
+        "wk": init_linear(gen, d, kvh * hd, **kw),
+        "wv": init_linear(gen, d, kvh * hd, **kw),
+        "wo": init_linear(gen, h * hd, d, dtype=dtype, device=device),
+    }
+
+
+def _init_mla(gen: torch.Generator, cfg: ModelConfig, dtype,
+              device) -> Params:
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    q_in = m.q_lora_rank or d
+    kw = dict(dtype=dtype, device=device)
+    p: Params = {
+        # joint compressed KV + shared rope key: d → kv_lora + rope
+        "w_dkv": init_linear(gen, d, m.kv_lora_rank + m.qk_rope_dim, **kw),
+        "w_uk": init_linear(gen, m.kv_lora_rank, h * m.qk_nope_dim, **kw),
+        "w_uv": init_linear(gen, m.kv_lora_rank, h * m.v_dim, **kw),
+        "wq": init_linear(gen, q_in, h * (m.qk_nope_dim + m.qk_rope_dim),
+                          **kw),
+        "wo": init_linear(gen, h * m.v_dim, d, **kw),
+    }
+    if m.q_lora_rank:
+        p["w_dq"] = init_linear(gen, d, m.q_lora_rank, **kw)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Chunked online-softmax attention core.
+# ---------------------------------------------------------------------------
+
+def _online_softmax_step(carry, s: torch.Tensor, v: torch.Tensor):
+    """One chunk of the online softmax: scores ``s`` (B, H, Sq, C), f32,
+    masked; ``v`` (B, C, H, Dv)."""
+    m_prev, l_prev, o_prev = carry
+    m_new = torch.maximum(m_prev, s.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m_prev - m_new)
+    p = torch.exp(s - m_new)
+    l_new = l_prev * alpha + p.sum(dim=-1, keepdim=True)
+    o_new = o_prev * alpha + _f32_einsum("bhqk,bkhd->bhqd", p.to(v.dtype), v)
+    return m_new, l_new, o_new
+
+
+def _online_softmax_init(b: int, h: int, sq: int, dv: int,
+                         device: torch.device):
+    return (torch.full((b, h, sq, 1), NEG_INF, device=device),
+            torch.zeros((b, h, sq, 1), device=device),
+            torch.zeros((b, h, sq, dv), device=device))
+
+
+def _chunk_scan(q: torch.Tensor, k_chunks: torch.Tensor,
+                v_chunks: torch.Tensor, q_pos: torch.Tensor,
+                k_pos_chunks: torch.Tensor, window: int,
+                scale: float) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v_chunks: (n, B, C, KvH, Dk/Dv);
+    k_pos_chunks: (n, C). Causal (+ optional sliding window)."""
+    b, sq, h, _ = q.shape
+    n, _, _, kvh, dv = v_chunks.shape
+    rep = h // kvh
+    q32 = (q * scale).to(q.dtype)
+    carry = _online_softmax_init(b, h, sq, dv, q.device)
+    for i in range(n):
+        k_c, v_c, kp = k_chunks[i], v_chunks[i], k_pos_chunks[i]
+        if rep > 1:
+            k_c = torch.repeat_interleave(k_c, rep, dim=2)
+            v_c = torch.repeat_interleave(v_c, rep, dim=2)
+        s = _f32_einsum("bqhd,bkhd->bhqk", q32, k_c)
+        msk = kp[None, :] > q_pos[:, None]                # future → mask
+        if window > 0:
+            msk = msk | (q_pos[:, None] - kp[None, :] >= window)
+        s = torch.where(msk[None, None], NEG_INF, s)
+        carry = _online_softmax_step(carry, s, v_c)
+    _, l, o = carry
+    out = o / torch.clamp_min(l, 1e-20)
+    return out.permute(0, 2, 1, 3)                        # (B, Sq, H, Dv)
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad dim 1 of (B, S, ...) by ``pad`` at the end."""
+    if not pad:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + t.shape[2:])], 1)
+
+
+def _chunk_positions(pos: torch.Tensor, pad: int, n: int,
+                     c: int) -> torch.Tensor:
+    """(n, C) key positions, padding keys at 2**30 (always masked)."""
+    if pad:
+        pos = torch.cat([pos, torch.full((pad,), 2 ** 30, dtype=pos.dtype,
+                                         device=pos.device)])
+    return pos.reshape(n, c)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_offset: int = 0, window: int = 0,
+                      chunk: int = 1024) -> torch.Tensor:
+    """q: (B, Sq, H, D); k, v: (B, Skv, KvH, D); causal."""
+    b, sq, _, _ = q.shape
+    skv = k.shape[1]
+    c = min(chunk, skv)
+    n = -(-skv // c)
+    pad = n * c - skv
+    k, v = _pad_seq(k, pad), _pad_seq(v, pad)
+    kc = k.reshape(b, n, c, *k.shape[2:]).permute(1, 0, 2, 3, 4)
+    vc = v.reshape(b, n, c, *v.shape[2:]).permute(1, 0, 2, 3, 4)
+    kpc = _chunk_positions(torch.arange(skv, device=q.device), pad, n, c)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    scale = q.shape[-1] ** -0.5
+    return _chunk_scan(q, kc, vc, q_pos, kpc, window, scale)
+
+
+# ---------------------------------------------------------------------------
+# GQA forward (prefill) and decode.
+# ---------------------------------------------------------------------------
+
+def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                      q_offset: int = 0) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d). (The reference's ``return_cache``, which
+    no caller of the serving path sets, is left out.)"""
+    if cfg.mla is not None:
+        return _mla_forward(p, x, cfg, q_offset)
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = linear(p["wq"], x).reshape(b, s, h, hd)
+    k = linear(p["wk"], x).reshape(b, s, kvh, hd)
+    v = linear(p["wv"], x).reshape(b, s, kvh, hd)
+    pos = q_offset + torch.arange(s, device=x.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    out = chunked_attention(q, k, v, q_offset=q_offset,
+                            window=cfg.sliding_window)
+    return linear(p["wo"], out.reshape(b, s, h * hd).to(x.dtype))
+
+
+def position_tensor(pos, device: torch.device) -> torch.Tensor:
+    """The decode position (an int or a tensor of one element) as a (1,)
+    long tensor on ``device`` (the same tensor when it is one already)."""
+    return torch.as_tensor(pos, dtype=torch.long, device=device).reshape(1)
+
+
+def attention_decode(p: Params, x: torch.Tensor,
+                     cache: Dict[str, torch.Tensor], pos,
+                     cfg: ModelConfig
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token decode. x: (B, 1, d); cache k/v: (B, S, KvH, D) ring
+    buffer (S = window for SWA archs, full context otherwise), updated in
+    place; pos: count of tokens already in context."""
+    if cfg.mla is not None:
+        return _mla_decode(p, x, cache, pos, cfg)
+    b = x.shape[0]
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s_cache = cache["k"].shape[1]
+    pos = position_tensor(pos, x.device)
+    q = linear(p["wq"], x).reshape(b, 1, h, hd)
+    k_new = linear(p["wk"], x).reshape(b, 1, kvh, hd)
+    v_new = linear(p["wv"], x).reshape(b, 1, kvh, hd)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    slot = pos % s_cache                # ring buffer (wraps only for SWA)
+    k = cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    v = cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+
+    # Positions of cache slots (ring-aware): slot i holds token
+    # pos - ((slot - i) mod S) for filled slots.
+    idx = torch.arange(s_cache, device=x.device)
+    tok_pos = pos - (slot - idx) % s_cache
+    valid = tok_pos >= 0
+    if h // kvh > 1:
+        k_r = torch.repeat_interleave(k, h // kvh, dim=2)
+        v_r = torch.repeat_interleave(v, h // kvh, dim=2)
+    else:
+        k_r, v_r = k, v
+    scale = hd ** -0.5
+    s_ = _f32_einsum("bqhd,bkhd->bhqk", q * scale, k_r)
+    msk = ~valid
+    if cfg.sliding_window > 0:
+        msk = msk | (pos - tok_pos >= cfg.sliding_window)
+    s_ = torch.where(msk[None, None, None, :], NEG_INF, s_)
+    w_ = torch.softmax(s_, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", w_.to(v_r.dtype), v_r)
+    out = linear(p["wo"], o.reshape(b, 1, h * hd))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2).
+# ---------------------------------------------------------------------------
+
+def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
+           pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    m = cfg.mla
+    b, s, _ = x.shape
+    xq = linear(p["w_dq"], x) if "w_dq" in p else x
+    q = linear(p["wq"], xq).reshape(b, s, cfg.n_heads,
+                                    m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, pos, cfg.rope_theta)
+
+
+def _mla_up_weights(p: Params, cfg: ModelConfig):
+    m, h = cfg.mla, cfg.n_heads
+    return (p["w_uk"]["w"].reshape(m.kv_lora_rank, h, m.qk_nope_dim),
+            p["w_uv"]["w"].reshape(m.kv_lora_rank, h, m.v_dim))
+
+
+def _mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 q_offset: int) -> torch.Tensor:
+    """Prefill: decompress K/V per chunk (the latent cache never expands
+    to full per-head K/V in memory at once)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    pos = q_offset + torch.arange(s, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos)
+    ckv_full = linear(p["w_dkv"], x)             # (B, S, kv_lora + rope)
+    c_kv, k_rope = ckv_full[..., :m.kv_lora_rank], \
+        ckv_full[..., m.kv_lora_rank:]
+    k_rope = apply_rope(k_rope[..., None, :], pos, cfg.rope_theta)[..., 0, :]
+
+    chunk = min(1024, s)
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    c_kv_p, k_rope_p = _pad_seq(c_kv, pad), _pad_seq(k_rope, pad)
+    k_pos = _chunk_positions(pos, pad, n, chunk)
+    ckv_c = c_kv_p.reshape(b, n, chunk, -1).permute(1, 0, 2, 3)
+    krope_c = k_rope_p.reshape(b, n, chunk, -1).permute(1, 0, 2, 3)
+    w_uk, w_uv = _mla_up_weights(p, cfg)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+
+    carry = _online_softmax_init(b, h, s, m.v_dim, x.device)
+    for i in range(n):
+        ckv_i, kr_i, kp = ckv_c[i], krope_c[i], k_pos[i]
+        k_nope = torch.einsum("bkl,lhd->bkhd", ckv_i, w_uk)   # decompress
+        v_i = torch.einsum("bkl,lhd->bkhd", ckv_i, w_uv)
+        s_ = (_f32_einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+              + _f32_einsum("bqhd,bkd->bhqk", q_rope, kr_i)) * scale
+        msk = kp[None, :] > pos[:, None]
+        s_ = torch.where(msk[None, None], NEG_INF, s_)
+        carry = _online_softmax_step(carry, s_, v_i)
+    _, l, o = carry
+    out = (o / torch.clamp_min(l, 1e-20)).permute(0, 2, 1, 3)
+    return linear(p["wo"], out.reshape(b, s, h * m.v_dim).to(x.dtype))
+
+
+def _mla_decode(p: Params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
+    """Absorbed-matmul decode: scores via q̃ = W_uk^T q_nope against the
+    latent cache — the cache stays (kv_lora + rope)-wide."""
+    m = cfg.mla
+    b = x.shape[0]
+    s_cache = cache["c_kv"].shape[1]
+    pos = position_tensor(pos, x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos)
+    ckv_full = linear(p["w_dkv"], x)
+    c_new, kr_new = ckv_full[..., :m.kv_lora_rank], \
+        ckv_full[..., m.kv_lora_rank:]
+    kr_new = apply_rope(kr_new[..., None, :], pos, cfg.rope_theta)[..., 0, :]
+    c_kv = cache["c_kv"].index_copy_(1, pos, c_new.to(cache["c_kv"].dtype))
+    k_rope = cache["k_rope"].index_copy_(1, pos,
+                                         kr_new.to(cache["k_rope"].dtype))
+    w_uk, w_uv = _mla_up_weights(p, cfg)
+    q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)   # (B,1,H,kv_lora)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    s_ = (_f32_einsum("bqhl,bkl->bhqk", q_abs, c_kv)
+          + _f32_einsum("bqhd,bkd->bhqk", q_rope, k_rope)) * scale
+    valid = torch.arange(s_cache, device=x.device) <= pos
+    s_ = torch.where(~valid[None, None, None, :], NEG_INF, s_)
+    w_ = torch.softmax(s_, dim=-1)
+    o_lat = torch.einsum("bhqk,bkl->bqhl", w_.to(c_kv.dtype), c_kv)
+    o = torch.einsum("bqhl,lhd->bqhd", o_lat, w_uv)
+    out = linear(p["wo"], o.reshape(b, 1, cfg.n_heads * m.v_dim))
+    return out, cache

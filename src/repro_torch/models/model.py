@@ -1,0 +1,348 @@
+"""Model assembly: block composition, the loop over stacked layers, the
+loss, prefill and decode — one code path for all ten architectures.
+
+Layer parameters are stacked on a leading L axis, as in the reference,
+and walked one layer at a time (``scan_util.tree_at`` views). Hybrid
+(Zamba-style) stacks walk groups of ``attn_every`` mamba layers, each
+followed by ONE shared attention+MLP block whose parameters are not
+stacked; interleaved MoE stacks (Llama-4) walk groups of
+``moe_every - 1`` dense blocks and one MoE block.
+
+``forward`` and ``loss_fn`` give the values only: gradients, the
+optimizer and the train step are not part of this module. ``decode_step``
+writes each layer's cache in place and returns the same cache tree.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import BlockType, ModelConfig
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
+from repro_torch.models.layers import (Params, embed, init_embedding,
+                                       init_linear, init_mlp, init_rmsnorm,
+                                       linear, mlp, rmsnorm, unembed)
+from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.scan_util import tree_at, tree_map, tree_stack
+
+PyTree = Any
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer init / apply.
+# ---------------------------------------------------------------------------
+
+def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+                     use_moe: Optional[bool] = None) -> Params:
+    use_moe = (cfg.moe is not None) if use_moe is None else use_moe
+    p: Params = {
+        "ln_attn": init_rmsnorm(cfg.d_model, dtype, device),
+        "attn": A.init_attention(gen, cfg, dtype, device),
+        "ln_mlp": init_rmsnorm(cfg.d_model, dtype, device),
+    }
+    if use_moe:
+        p["moe"] = init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    return p
+
+
+def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                      q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, moe_aux_loss). A block is MoE iff its params carry the
+    'moe' subtree (interleaved stacks mix dense and MoE blocks)."""
+    aux = torch.zeros((), device=x.device)
+
+    def ffn(h):
+        nonlocal aux
+        if "moe" in p:
+            fo, al = moe_ffn(p["moe"], h, cfg)
+            aux = aux + al["load_balance"] * 0.01 + al["router_z"] * 1e-4
+            return fo
+        return mlp(p["mlp"], h)
+
+    h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+    ao = A.attention_forward(p["attn"], h, cfg, q_offset)
+    if cfg.parallel_block:
+        # Command-R: attention and FFN read the same normed input.
+        return x + ao + ffn(h), aux
+    x = x + ao
+    h = rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+    return x + ffn(h), aux
+
+
+def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype,
+                      device) -> Params:
+    return {"ln": init_rmsnorm(cfg.d_model, dtype, device),
+            "mamba": S.init_mamba(gen, cfg, dtype, device)}
+
+
+def _apply_mamba_block(p: Params, x: torch.Tensor,
+                       cfg: ModelConfig) -> torch.Tensor:
+    return x + S.mamba_forward(p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps),
+                               cfg)
+
+
+# ---------------------------------------------------------------------------
+# Whole-model init.
+# ---------------------------------------------------------------------------
+
+def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+               device="cuda") -> PyTree:
+    """Random parameters of ``cfg`` on ``device`` in ``cfg.dtype``, drawn
+    from ``generator`` (a ``torch.Generator`` on that device; None: one
+    seeded with 0), the reference's tree of names and stacked shapes.
+    Raises without CUDA unless the caller asks for the CPU."""
+    dev = resolve_device(device)
+    gen = generator if generator is not None else \
+        torch.Generator(device=dev).manual_seed(0)
+    dtype = _dtype(cfg)
+    params: Dict[str, PyTree] = {
+        "embed": init_embedding(gen, cfg.vocab, cfg.d_model, dtype, dev),
+        "ln_f": init_rmsnorm(cfg.d_model, dtype, dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_embedding(gen, cfg.vocab, cfg.d_model,
+                                           dtype, dev)
+    if cfg.frontend != "none":
+        params["frontend_proj"] = init_linear(gen, cfg.frontend_dim,
+                                              cfg.d_model, dtype=dtype,
+                                              device=dev)
+
+    if cfg.block_type is BlockType.MAMBA:
+        layers = [_init_mamba_block(gen, cfg, dtype, dev)
+                  for _ in range(cfg.n_layers)]
+        if cfg.attn_every:
+            ng, k = cfg.n_layers // cfg.attn_every, cfg.attn_every
+            params["layers"] = tree_stack([tree_stack(layers[i * k:(i + 1)
+                                                             * k])
+                                           for i in range(ng)])
+            params["shared_attn"] = _init_attn_block(gen, cfg, dtype, dev,
+                                                     use_moe=False)
+        else:
+            params["layers"] = tree_stack(layers)
+    elif cfg.moe is not None and cfg.moe_every > 1:
+        # Interleaved dense/MoE (Llama-4): groups of (moe_every-1) dense
+        # blocks followed by one MoE block.
+        ng = cfg.n_layers // cfg.moe_every
+        dense, moe_blocks = [], []
+        for _ in range(ng):
+            dense.append(tree_stack([
+                _init_attn_block(gen, cfg, dtype, dev, use_moe=False)
+                for _ in range(cfg.moe_every - 1)]))
+            moe_blocks.append(_init_attn_block(gen, cfg, dtype, dev,
+                                               use_moe=True))
+        params["layers"] = {"dense": tree_stack(dense),
+                            "moe": tree_stack(moe_blocks)}
+    else:
+        params["layers"] = tree_stack([_init_attn_block(gen, cfg, dtype, dev)
+                                       for _ in range(cfg.n_layers)])
+    return params
+
+
+def _n(tree: PyTree) -> int:
+    """Length of a stacked tree's leading axis."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return int(tree.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill).
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                  frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    x = embed(params["embed"], tokens)
+    if cfg.frontend != "none":
+        if frontend_embeds is None:
+            raise ValueError(f"{cfg.name} requires frontend embeddings")
+        fe = linear(params["frontend_proj"], frontend_embeds.to(x.dtype))
+        x = torch.cat([fe, x], dim=1)
+    return x
+
+
+def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S_text) → (final-normed hidden (B, S, d), moe_aux
+    scalar); ``logits_from_hidden`` maps the hidden to logits."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    aux = torch.zeros((), device=x.device)
+    layers = params["layers"]
+    if cfg.block_type is BlockType.MAMBA:
+        shared = params.get("shared_attn")
+        for g in range(_n(layers)):
+            group = tree_at(layers, g)
+            if cfg.attn_every:
+                for j in range(_n(group)):
+                    x = _apply_mamba_block(tree_at(group, j), x, cfg)
+                x, a = _apply_attn_block(shared, x, cfg)
+                aux = aux + a
+            else:
+                x = _apply_mamba_block(group, x, cfg)
+    elif cfg.moe is not None and cfg.moe_every > 1:
+        for g in range(_n(layers["moe"])):
+            dense = tree_at(layers["dense"], g)
+            for j in range(_n(dense)):
+                x, a = _apply_attn_block(tree_at(dense, j), x, cfg)
+                aux = aux + a
+            x, a = _apply_attn_block(tree_at(layers["moe"], g), x, cfg)
+            aux = aux + a
+    else:
+        for i in range(_n(layers)):
+            x, a = _apply_attn_block(tree_at(layers, i), x, cfg)
+            aux = aux + a
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+
+
+def _head(params: PyTree, cfg: ModelConfig) -> Params:
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
+
+
+def logits_from_hidden(params: PyTree, cfg: ModelConfig,
+                       x: torch.Tensor) -> torch.Tensor:
+    return unembed(_head(params, cfg), x)
+
+
+def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            ce_chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy over the text positions, plus the MoE aux
+    loss: (loss, {"ce", "aux"}). The (B, S, vocab) logits are never
+    formed at once: CE runs over sequence chunks, f32 per chunk."""
+    hidden, aux = forward(params, batch["tokens"], cfg,
+                          batch.get("frontend_embeds"))
+    n_front = cfg.frontend_tokens if cfg.frontend != "none" else 0
+    h = hidden[:, n_front:, :]
+    h_in = h[:, :-1]
+    labels = batch["tokens"][:, 1:]
+    c = min(ce_chunk, h_in.shape[1])
+    head = _head(params, cfg)
+    ce_sum = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(0, h_in.shape[1], c):
+        logits = unembed(head, h_in[:, i:i + c])          # (B, c, V) fp32
+        l_i = labels[:, i:i + c]
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, l_i.clamp_min(0)[..., None])[..., 0]
+        valid = (l_i >= 0).float()
+        ce_sum = ce_sum + torch.sum((logz - gold) * valid)
+        cnt = cnt + valid.sum()
+    ce = ce_sum / torch.clamp_min(cnt, 1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode.
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> PyTree:
+    """Decode cache, zeros. Attention archs: (L, B, S_cache, KvH, D) KV
+    (S_cache = min(max_len, sliding window) if a window is set); MLA: the
+    latent cache; SSM: conv + ssm states (f32)."""
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    s_cache = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+
+    def attn_cache(lead):
+        if cfg.mla is not None:
+            m = cfg.mla
+            shapes = {"c_kv": (batch, s_cache, m.kv_lora_rank),
+                      "k_rope": (batch, s_cache, m.qk_rope_dim)}
+        else:
+            kv = (batch, s_cache, cfg.n_kv_heads, cfg.head_dim)
+            shapes = {"k": kv, "v": kv}
+        return {k: torch.zeros(lead + s, dtype=dtype, device=dev)
+                for k, s in shapes.items()}
+
+    def mamba_cache(lead):
+        return tree_map(lambda t: t.new_zeros(lead + tuple(t.shape)),
+                        S.init_mamba_cache(cfg, batch, device=dev))
+
+    if cfg.block_type is BlockType.MAMBA and cfg.attn_every:
+        ng = cfg.n_layers // cfg.attn_every
+        return {"mamba": mamba_cache((ng, cfg.attn_every)),
+                "attn": attn_cache((ng,))}
+    if cfg.block_type is BlockType.MAMBA:
+        return {"mamba": mamba_cache((cfg.n_layers,))}
+    if cfg.moe is not None and cfg.moe_every > 1:
+        ng = cfg.n_layers // cfg.moe_every
+        return {"attn": {"dense": attn_cache((ng, cfg.moe_every - 1)),
+                         "moe": attn_cache((ng,))}}
+    return {"attn": attn_cache((cfg.n_layers,))}
+
+
+def _decode_attn_block(lp: Params, x: torch.Tensor, ac, pos,
+                       cfg: ModelConfig) -> torch.Tensor:
+    def ffn(h):
+        return mlp(lp["mlp"], h) if "mlp" in lp \
+            else moe_ffn(lp["moe"], h, cfg)[0]
+
+    h = rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
+    ao, _ = A.attention_decode(lp["attn"], h, ac, pos, cfg)
+    if cfg.parallel_block:
+        return x + ao + ffn(h)
+    x = x + ao
+    h = rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
+    return x + ffn(h)
+
+
+def _decode_mamba_block(mp: Params, x: torch.Tensor, mc,
+                        cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(mp["ln"], x, cfg.norm_eps)
+    y, _ = S.mamba_decode(mp["mamba"], h, mc, cfg)
+    return x + y
+
+
+def decode_step(params: PyTree, tokens: torch.Tensor, cache: PyTree, pos,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, PyTree]:
+    """tokens: (B, 1) — one new token per sequence; pos: count of tokens
+    already in the cache (an int or a 0-d tensor). Returns (logits
+    (B, vocab), cache), the cache updated in place."""
+    x = embed(params["embed"], tokens)
+    pos = A.position_tensor(pos, x.device)        # one copy per step
+    layers = params["layers"]
+    if cfg.block_type is BlockType.MAMBA:
+        for g in range(_n(layers)):
+            group, mc = tree_at(layers, g), tree_at(cache["mamba"], g)
+            if cfg.attn_every:
+                for j in range(_n(group)):
+                    x = _decode_mamba_block(tree_at(group, j), x,
+                                            tree_at(mc, j), cfg)
+                x = _decode_attn_block(params["shared_attn"], x,
+                                       tree_at(cache["attn"], g), pos, cfg)
+            else:
+                x = _decode_mamba_block(group, x, mc, cfg)
+    elif cfg.moe is not None and cfg.moe_every > 1:
+        ac = cache["attn"]
+        for g in range(_n(layers["moe"])):
+            dense, dc = tree_at(layers["dense"], g), tree_at(ac["dense"], g)
+            for j in range(_n(dense)):
+                x = _decode_attn_block(tree_at(dense, j), x, tree_at(dc, j),
+                                       pos, cfg)
+            x = _decode_attn_block(tree_at(layers["moe"], g), x,
+                                   tree_at(ac["moe"], g), pos, cfg)
+    else:
+        for i in range(_n(layers)):
+            x = _decode_attn_block(tree_at(layers, i), x,
+                                   tree_at(cache["attn"], i), pos, cfg)
+    x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    return unembed(_head(params, cfg), x)[:, 0], cache
+
+
+def prefill(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
+            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill forward; returns last-position logits (B, vocab) — the full
+    (B, S, vocab) tensor is never formed."""
+    hidden, _ = forward(params, tokens, cfg, frontend_embeds)
+    return logits_from_hidden(params, cfg, hidden[:, -1:, :])[:, 0]

@@ -1,0 +1,184 @@
+"""Mamba2 / SSD (state-space duality) block — arXiv:2405.21060.
+
+Chunked SSD: intra-chunk "attention" (the duality's quadratic branch)
+plus the inter-chunk state recurrence (linear branch), a loop over
+chunks. Decode is the O(1) recurrent update of (conv_state, ssm_state),
+written into the cache in place.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Params, init_linear, linear, rmsnorm
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    nh = d_in // s.head_dim
+    conv_ch = d_in + 2 * s.state_dim      # x, B, C share the causal conv
+    return s, d_in, nh, conv_ch
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
+               device="cpu") -> Params:
+    s, d_in, nh, conv_ch = _dims(cfg)
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        # z, x, B, C, dt fused input projection.
+        "in_proj": init_linear(gen, d, 2 * d_in + 2 * s.state_dim + nh,
+                               dtype=dtype, device=device),
+        "conv_w": (torch.randn((s.conv_width, conv_ch), generator=gen, **f32)
+                   * 0.2).to(dtype),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=device),
+        "a_log": torch.zeros((nh,), **f32),             # A = -exp(a_log)
+        "dt_bias": torch.zeros((nh,), **f32),
+        "d_skip": torch.ones((nh,), **f32),
+        "norm": {"scale": torch.ones((d_in,), dtype=dtype, device=device)},
+        "out_proj": init_linear(gen, d_in, d, dtype=dtype, device=device),
+    }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., Q) → (..., Q, Q) with out[q, k] = Σ_{j=k+1..q} x_j (−inf
+    above the diagonal)."""
+    cs = torch.cumsum(x, dim=-1)
+    d = cs[..., :, None] - cs[..., None, :]
+    q = x.shape[-1]
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    return torch.where(mask, d, -torch.inf)
+
+
+def ssd_chunked(xbar: torch.Tensor, da: torch.Tensor, b_in: torch.Tensor,
+                c_in: torch.Tensor, chunk: int) -> torch.Tensor:
+    """xbar: (B, L, H, P) = dt·x;  da: (B, L, H) = dt·A (negative);
+    b_in, c_in: (B, L, N). Returns y: (B, L, H, P)."""
+    bsz, l, h, p = xbar.shape
+    n = b_in.shape[-1]
+    q = min(chunk, l)
+    pad = (-l) % q
+    if pad:
+        xbar = F.pad(xbar, (0, 0, 0, 0, 0, pad))
+        da = F.pad(da, (0, 0, 0, pad))
+        b_in = F.pad(b_in, (0, 0, 0, pad))
+        c_in = F.pad(c_in, (0, 0, 0, pad))
+    nc = xbar.shape[1] // q
+    xc = xbar.reshape(bsz, nc, q, h, p)
+    dac = da.reshape(bsz, nc, q, h).permute(0, 3, 1, 2)    # (B,H,nc,Q)
+    bc = b_in.reshape(bsz, nc, q, n)
+    cc = c_in.reshape(bsz, nc, q, n)
+
+    da_cs = torch.cumsum(dac, dim=-1)                       # (B,H,nc,Q)
+    decay = torch.exp(_segsum(dac))                         # (B,H,nc,Q,Q)
+
+    # Intra-chunk (quadratic branch).
+    scores = torch.einsum("bcqn,bckn->bcqk", cc, bc)        # (B,nc,Q,Q)
+    m = torch.einsum("bcqk,bhcqk->bhcqk", scores, decay)
+    y_diag = torch.einsum("bhcqk,bckhp->bcqhp", m, xc)
+
+    # Chunk-final states.
+    decay_states = torch.exp(da_cs[..., -1:] - da_cs)       # (B,H,nc,Q)
+    states = torch.einsum("bckn,bhck,bckhp->bchnp", bc, decay_states, xc)
+
+    # Inter-chunk recurrence: the state entering each chunk.
+    chunk_decay = torch.exp(da_cs[..., -1])                 # (B,H,nc)
+    s_prev = torch.zeros((bsz, h, n, p), device=xbar.device)
+    prev_states = []
+    for c in range(nc):
+        prev_states.append(s_prev)
+        s_prev = s_prev * chunk_decay[:, :, c, None, None] \
+            + states[:, c].float()
+    prev_states = torch.stack(prev_states, dim=1)           # (B,nc,H,N,P)
+
+    # Contribution of carried state into each position.
+    state_decay = torch.exp(da_cs)                          # (B,H,nc,Q)
+    y_off = torch.einsum("bcqn,bchnp,bhcq->bcqhp", cc,
+                         prev_states.to(xc.dtype), state_decay)
+    y = (y_diag + y_off).reshape(bsz, nc * q, h, p)
+    return y[:, :l]
+
+
+def _split_proj(zxbcdt: torch.Tensor, s, d_in: int, nh: int):
+    """(z, x, B, C, dt) of the fused input projection."""
+    return torch.split(zxbcdt, [d_in, d_in, s.state_dim, s.state_dim, nh],
+                       dim=-1)
+
+
+def mamba_forward(p: Params, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d)."""
+    s, d_in, nh, _ = _dims(cfg)
+    bsz, l, _ = x.shape
+    z, xin, b_in, c_in, dt = _split_proj(linear(p["in_proj"], x), s, d_in,
+                                         nh)
+    # Causal depthwise conv over (x, B, C).
+    xbc = torch.cat([xin, b_in, c_in], dim=-1)              # (B, L, conv_ch)
+    w = p["conv_w"].float()
+    xbc_p = F.pad(xbc.float(), (0, 0, s.conv_width - 1, 0))
+    conv = sum(xbc_p[:, i:i + l] * w[i] for i in range(s.conv_width))
+    conv = F.silu(conv + p["conv_b"].float())
+    xin, b_in, c_in = torch.split(conv, [d_in, s.state_dim, s.state_dim],
+                                  dim=-1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"])              # (B,L,H)
+    a = -torch.exp(p["a_log"])                              # (H,)
+    xh = xin.reshape(bsz, l, nh, s.head_dim)
+    y = ssd_chunked((xh * dt[..., None]).float(), dt * a, b_in, c_in,
+                    s.chunk)
+    y = y + xh.float() * p["d_skip"][None, None, :, None]
+    y = y.reshape(bsz, l, d_in).to(x.dtype)
+    y = rmsnorm(p["norm"], y * F.silu(z))
+    return linear(p["out_proj"], y)
+
+
+# ---------------------------------------------------------------------------
+# Decode (recurrent) path.
+# ---------------------------------------------------------------------------
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device="cpu") -> Dict[str, torch.Tensor]:
+    s, d_in, nh, conv_ch = _dims(cfg)
+    return {
+        "conv": torch.zeros((batch, s.conv_width - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((batch, nh, s.head_dim, s.state_dim), dtype=dtype,
+                           device=device),
+    }
+
+
+def mamba_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, 1, d); O(1) state update, written into ``cache``."""
+    s, d_in, nh, _ = _dims(cfg)
+    bsz = x.shape[0]
+    z, xin, b_in, c_in, dt = _split_proj(linear(p["in_proj"], x[:, 0]), s,
+                                         d_in, nh)
+    xbc = torch.cat([xin, b_in, c_in], dim=-1)              # (B, conv_ch)
+    hist = torch.cat([cache["conv"],
+                      xbc[:, None].to(cache["conv"].dtype)], dim=1)
+    w = p["conv_w"].float()
+    conv = torch.einsum("bwc,wc->bc", hist.float(), w)
+    conv = F.silu(conv + p["conv_b"].float())
+    xin, b_in, c_in = torch.split(conv, [d_in, s.state_dim, s.state_dim],
+                                  dim=-1)
+
+    dt1 = F.softplus(dt.float() + p["dt_bias"])             # (B,H)
+    a = -torch.exp(p["a_log"])
+    da = torch.exp(dt1 * a)                                 # (B,H)
+    xh = xin.reshape(bsz, nh, s.head_dim)
+    ssm = cache["ssm"] * da[..., None, None] \
+        + torch.einsum("bhp,bn,bh->bhpn", xh, b_in, dt1)
+    y = torch.einsum("bhpn,bn->bhp", ssm, c_in) \
+        + xh * p["d_skip"][None, :, None]
+    y = y.reshape(bsz, 1, d_in).to(x.dtype)
+    y = rmsnorm(p["norm"], y * F.silu(z[:, None]))
+    out = linear(p["out_proj"], y)
+    cache["conv"].copy_(hist[:, 1:])
+    cache["ssm"].copy_(ssm)
+    return out, cache

@@ -101,6 +101,7 @@ import numpy as np
 import torch
 
 from repro_torch.cnn.executor import _with_fault_hook, compile_plan
+from repro_torch.core.algorithms import IM2COL, Algorithm
 from repro_torch.core.graph import Graph
 from repro_torch.core.mapper import ExecutionPlan
 from repro_torch.distributed.fault import (DeviceFault, FaultPlan,
@@ -237,7 +238,10 @@ class CNNServingEngine:
     gathered and read back. ``act_scales`` ({conv node id:
     activation scale}) feeds the plan's int8 layers, in every bucket
     program; ``tuning`` (a ``core.autotune.TuningRecord``) binds each
-    bucket's program to the winners measured at that bucket. ``cache`` (an
+    bucket's program to the winners measured at that bucket;
+    ``default_algo`` is the algorithm of every conv the plan does not
+    assign (all of them with ``plan=None``), in every bucket program,
+    swapped-in ladders included. ``cache`` (an
     ``ExecutableCache``) shares the bucket programs with every engine
     compiling through it; the fault hook wraps outside the cached program.
 
@@ -258,6 +262,7 @@ class CNNServingEngine:
                  buckets: Optional[Sequence[int]] = None,
                  slo_s: Optional[float] = None,
                  tuning=None,
+                 default_algo: Algorithm = IM2COL,
                  clock: Callable[[], float] = time.monotonic,
                  warmup: bool = False,
                  mesh=None,
@@ -303,6 +308,7 @@ class CNNServingEngine:
         self.params = params
         self.plan = plan
         self.tuning = tuning
+        self.default_algo = default_algo
         self.cache = cache
         # Deployment history (stats()["plan"]): engine-lifetime, so
         # reset() keeps it.
@@ -1036,8 +1042,8 @@ class CNNServingEngine:
                        act_scales: Optional[Dict[int, float]] = None,
                        warm: bool = True) -> Dict[int, Callable]:
         """One compiled program per bucket for ``plan`` (and its int8
-        layers' ``act_scales``) under this engine's options — the tuning
-        record's winners at that bucket's per-chip batch, the mesh,
+        layers' ``act_scales``) under this engine's options — the default
+        algorithm, the tuning record's winners at that bucket's per-chip batch, the mesh,
         donation at depth >= 2, the shared ``cache`` and the fault hook
         when a plan is armed — the call the
         constructor makes, so a ladder compiled here and swapped in serves
@@ -1056,8 +1062,9 @@ class CNNServingEngine:
         probation; on the CPU once. Under a mesh every shard is warmed and
         captured on its own card, and every card is waited for."""
         programs = {
-            bucket: compile_plan(self.graph, plan, epilogue=EPILOGUE,
-                                 tuning=self.tuning,
+            bucket: compile_plan(self.graph, plan,
+                                 default_algo=self.default_algo,
+                                 epilogue=EPILOGUE, tuning=self.tuning,
                                  tuning_batch=bucket // self.data_shards,
                                  mesh=self.mesh,
                                  donate=self.pipeline_depth > 1,

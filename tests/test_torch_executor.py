@@ -20,6 +20,7 @@ from repro_torch.cnn.executor import (ExecutableCache, _eval_graph,
                                       compile_plan, executable_cache_key,
                                       forward, init_params)
 from repro_torch.cnn.models import googlenet
+from repro_torch.core.algorithms import KN2ROW
 from repro_torch.core.dse import identify_parameters
 from repro_torch.core.mapper import lower_plan, map_network
 
@@ -166,8 +167,8 @@ def test_donation_and_fault_hook_share_the_cached_program(setup):
 
 def test_executable_cache_key_names_every_option(setup):
     """Structurally equal graphs share a key; each option the program
-    closes over (plan, kernels or plain, epilogue, bucket, elision,
-    device) gives a key of its own."""
+    closes over (plan, default algorithm, kernels or plain, epilogue,
+    bucket, AvgPool form, elision, device) gives a key of its own."""
     g, plan, _, _, _ = setup
     base = dict(use_pallas=None, epilogue="bias_relu", tuning_batch=2,
                 elide=True, device="cpu")
@@ -181,7 +182,8 @@ def test_executable_cache_key_names_every_option(setup):
                                      **base)]
     for name, value in (("use_pallas", False), ("epilogue", "relu"),
                         ("tuning_batch", 4), ("elide", False),
-                        ("device", "meta")):
+                        ("device", "meta"), ("default_algo", KN2ROW),
+                        ("avg_pool_via", "overlay")):
         variants.append(executable_cache_key(g, plan,
                                              **{**base, name: value}))
     assert len({key, *variants}) == len(variants) + 1

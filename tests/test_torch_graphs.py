@@ -203,16 +203,17 @@ class _CpuGraph:
     the lowering on the CPU from the static input into the static output
     (in place, as a replay writes its pool)."""
 
-    def __init__(self, g, lowering, params, use_pallas):
-        self.args = (g, lowering, params, use_pallas)
+    def __init__(self, g, lowering, params, use_pallas, avg_pool_via="jnp"):
+        self.args = (g, lowering, params, use_pallas, avg_pool_via)
         self.replays = 0
         self.entry = None
 
     def replay(self):
-        g, lowering, params, use_pallas = self.args
+        g, lowering, params, use_pallas, avg_pool_via = self.args
         self.replays += 1
         self.entry.static_out.copy_(_eval_graph(
-            g, lowering, params, self.entry.static_in, use_pallas))
+            g, lowering, params, self.entry.static_in, use_pallas,
+            avg_pool_via))
 
 
 @pytest.fixture
@@ -221,12 +222,12 @@ def fake_cuda(monkeypatch):
     captures made."""
     made = []
 
-    def fake_capture(g, lowering, params, x, use_pallas):
-        graph = _CpuGraph(g, lowering, params, use_pallas)
+    def fake_capture(g, lowering, params, x, use_pallas, avg_pool_via):
+        graph = _CpuGraph(g, lowering, params, use_pallas, avg_pool_via)
         entry = executor._Capture(graph, x.clone(), torch.empty(0))
         graph.entry = entry
         entry.static_out = _eval_graph(g, lowering, params, entry.static_in,
-                                       use_pallas).mul_(0)
+                                       use_pallas, avg_pool_via).mul_(0)
         made.append(entry)
         return entry
 

@@ -14,7 +14,7 @@ import torch
 
 from repro.cnn.overlay import apply_conv as jax_apply_conv
 from repro.core.algorithms import IM2COL as JAX_IM2COL
-from repro_torch.bridge import params_from_jax
+from repro_torch.bridge import lm_params_from_jax, params_from_jax
 from repro_torch.cnn.executor import compile_plan, forward, init_params
 from repro_torch.cnn.models import googlenet, inception_v4
 from repro_torch.cnn.overlay import apply_conv
@@ -36,6 +36,10 @@ from repro_torch.serving.cnn_engine import (CNNRequest, CNNServingEngine,
                                             DegradeConfig)
 from repro_torch.serving.multi_engine import MultiModelEngine
 from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.launch import serve
+from repro_torch.configs import get_config
+from repro_torch.models.model import init_model
+from repro_torch.serving.engine import ServingEngine
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -69,7 +73,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "kernels/kn2row/ops.py", "kernels/kn2row/ref.py",
             "core/quant.py", "core/autotune.py",
             "serving/multi_engine.py", "serving/supervisor.py",
-            "launch/mesh.py", "distributed/sharding.py"} <= names
+            "launch/mesh.py", "distributed/sharding.py", "configs/base.py",
+            "configs/googlenet.py", "core/lm_mapping.py", "models/model.py",
+            "models/attention.py", "models/ssm.py", "models/moe.py",
+            "models/layers.py", "models/scan_util.py", "serving/engine.py",
+            "launch/serve.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -96,7 +104,12 @@ def test_entry_points_with_default_device_raise_without_cuda(no_cuda,
              lambda: CNNServingEngine(g, params, None),
              lambda: MultiModelEngine().register_model("m", g, params, None),
              lambda: params_from_jax({0: {"w": np.zeros(3, np.float32)}}),
-             lambda: make_data_mesh()]
+             lambda: make_data_mesh(),
+             lambda: init_model(get_config("qwen2.5-14b", reduced=True)),
+             lambda: ServingEngine(get_config("qwen2.5-14b", reduced=True),
+                                   {}, batch_size=1),
+             lambda: lm_params_from_jax({"w": np.zeros(3, np.float32)}),
+             lambda: serve.main(["--arch", "qwen2.5-14b", "--reduced"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -302,7 +315,9 @@ def test_unported_algorithms_and_int8_kernels_raise():
 
 def test_later_slice_options_raise(small):
     """Every option of the reference's ``compile_plan`` and engine that a
-    slice has ported is taken: the mesh (``tests/test_torch_mesh.py``),
+    slice has ported is taken: the fused-epilogue options ``default_algo=``
+    and ``avg_pool_via=`` (``tests/test_torch_fused_epilogue.py``, module
+    item A), the mesh (``tests/test_torch_mesh.py``),
     which refuses anything but a ``launch.mesh.DataMesh`` with a
     ``TypeError``; the serving slice's options (donation, the fault hook,
     pipelining, admission, shedding, faults, degrade), ``act_scales=``
@@ -312,7 +327,8 @@ def test_later_slice_options_raise(small):
     with pytest.raises(TypeError, match="DataMesh"):
         compile_plan(g, device="cpu", mesh=object())
     calls = []
-    run = compile_plan(g, device="cpu", donate=True,
+    run = compile_plan(g, device="cpu", donate=True, default_algo=KN2ROW,
+                       avg_pool_via="overlay",
                        fault_hook=lambda: calls.append(1))
     assert run(params, np.zeros((1, 32, 32, 3), np.float32)).shape[0] == 1
     assert calls == [1]

@@ -477,16 +477,17 @@ class _CpuGraph:
     the lowering on the CPU from the static input into the static
     output."""
 
-    def __init__(self, g, lowering, params, use_pallas):
-        self.args = (g, lowering, params, use_pallas)
+    def __init__(self, g, lowering, params, use_pallas, avg_pool_via="jnp"):
+        self.args = (g, lowering, params, use_pallas, avg_pool_via)
         self.replays = 0
         self.entry = None
 
     def replay(self):
-        g, lowering, params, use_pallas = self.args
+        g, lowering, params, use_pallas, avg_pool_via = self.args
         self.replays += 1
         self.entry.static_out.copy_(_eval_graph(
-            g, lowering, params, self.entry.static_in, use_pallas))
+            g, lowering, params, self.entry.static_in, use_pallas,
+            avg_pool_via))
 
 
 def test_each_shard_captures_on_its_own(tiny, monkeypatch):
@@ -496,12 +497,12 @@ def test_each_shard_captures_on_its_own(tiny, monkeypatch):
     g, params, _, _ = tiny
     made = []
 
-    def fake_capture(graph, lowering, p, x, use_pallas):
-        cg = _CpuGraph(graph, lowering, p, use_pallas)
+    def fake_capture(graph, lowering, p, x, use_pallas, avg_pool_via):
+        cg = _CpuGraph(graph, lowering, p, use_pallas, avg_pool_via)
         entry = executor._Capture(cg, x.clone(), torch.empty(0))
         cg.entry = entry
         entry.static_out = _eval_graph(graph, lowering, p, entry.static_in,
-                                       use_pallas).mul_(0)
+                                       use_pallas, avg_pool_via).mul_(0)
         made.append(entry)
         return entry
 
