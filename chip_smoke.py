@@ -251,6 +251,21 @@ both matrix products and cuDNN:
     batch 4, prompt 12, 8 new tokens) give every request 8 tokens in the
     vocabulary; tokens/s, one decode step's ms by events and the memory
     reserved are printed.
+26. the LM decode step captured as one CUDA graph by ``ServingEngine``
+    (h2o-danube-1.8b, mamba2-370m, full width and depth): in f32 the
+    captured step's logits equal the eager ``decode_step``'s on a cloned
+    cache bit for bit over a 12-token prompt and 8 greedy tokens at batch
+    4; in bf16 ``launch.serve``'s defaults through the captured engine;
+    one replay's ms, kernel rows and device-busy share printed; every
+    architecture's reduced decode captured and bit-equal to eager in f32;
+27. LM training, after phases 1-25's programs are dropped and the cache
+    emptied: full-width h2o-danube-1.8b through ``launch.train.main``
+    (batch 8, seq 128, two microbatches; finite losses and grad norms),
+    then 8 ``train_step`` calls on one batch whose loss must fall by 0.5;
+    full-width mamba2-370m trained, checkpointed and resumed, the restored
+    state bit-equal to the saved one; one f32 train step at 2 layers, full
+    width, on the card against the CPU within 1e-4 of each leaf's max;
+    step ms, tokens/s, model FLOP/s, the host's share and memory printed.
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
 and 18 serve as phase 5 does, and every forward timed is a replay. Each
@@ -914,19 +929,12 @@ def pad_accumulate_text(label: str, bsz: int, row: dict) -> str:
             f"{plain}{lib}; max|diff| {row['max_abs_err']:.3e}")
 
 
-def main() -> int:
-    t_main = time.perf_counter()
+def phases_1_to_25() -> list:
+    """Phases 1-25: the kernels, the CNN programs and engines, the LM
+    serving path. Returns the per-kernel rows of the JSON line; every
+    program, engine and captured graph they made dies with this frame, so
+    the LM phases after it start from an empty pool."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this script "
-              "needs an NVIDIA GPU", file=sys.stderr)
-        return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run it from a "
-              "checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
-
     import numpy as np
     import torch.nn.functional as F
 
@@ -4362,6 +4370,418 @@ def main() -> int:
             "launches": qserve[KERNEL_NAMES.index(name)],
             "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms})
+    return kernels
+
+
+PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor cores
+
+
+def memory_line(dev) -> str:
+    import torch
+    return (f"memory_reserved {torch.cuda.memory_reserved(dev) / 2 ** 30:.2f}"
+            f" GiB, max_memory_reserved "
+            f"{torch.cuda.max_memory_reserved(dev) / 2 ** 30:.2f} GiB")
+
+
+def kernel_rows(fn):
+    """(kernel rows, device-busy ms, the five kernels of most device time
+    as text) of one call of ``fn`` under ``torch.profiler``: every CUDA
+    kernel the call ran, memcpys and memsets aside, and the sum of their
+    own device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows, busy, by_name = 0, 0.0, []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or "Memcpy" in e.key \
+                    or "Memset" in e.key:
+                continue
+            ms = getattr(e, "self_device_time_total", 0) / 1e3
+            rows += e.count
+            busy += ms
+            by_name.append((ms, e.count, e.key[:120]))
+        if rows:
+            top = "; ".join(f"{name} x{n} {ms:.2f} ms" for ms, n, name in
+                            sorted(by_name, reverse=True)[:5])
+            return rows, busy, top
+    raise CheckFailed("the profiler recorded no kernel rows in three "
+                      "windows")
+
+
+def served_streams(main_fn, argv, vocab: int):
+    """Run ``launch.serve.main(argv)`` in-process; (its token streams, its
+    last line). Fails unless it returns 0 with 6 requests of 8 tokens in
+    the vocabulary (``launch.serve``'s defaults)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    lines = buf.getvalue().splitlines()
+    streams = [json.loads(line.split(": ", 1)[1]) for line in lines
+               if line.startswith("request ")]
+    if rc != 0 or len(streams) != 6 or any(
+            len(st) != 8 or not all(0 <= t < vocab for t in st)
+            for st in streams):
+        raise CheckFailed(f"served {streams} (rc {rc}); expected 6 requests "
+                          f"of 8 tokens in [0, {vocab})")
+    return streams, lines[-1]
+
+
+def phase_26_decode_graph(dev) -> None:
+    """26. The LM decode step captured as one CUDA graph (the reference's
+    ``jax.jit(decode_step)``), h2o-danube-1.8b and mamba2-370m at full
+    width and depth: (a) in f32, the engine's captured step (warm pass,
+    capture, replays) over a 12-token prompt and 8 greedy tokens at batch
+    4 gives the eager ``decode_step``'s logits on a cloned cache bit for
+    bit, at every step; (b) in bf16, ``launch.serve``'s defaults through
+    the captured engine give 6 requests of 8 tokens; printed, not gated:
+    one replay's ms by events, its kernel rows and device-busy share under
+    the profiler, the tokens/s and the memory reserved; (c) every
+    architecture's reduced config captures and replays bit-equal to its
+    eager step in f32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCH_NAMES, get_config
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import model as lm
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+    from repro_torch.serving.engine import ServingEngine
+    t26 = time.perf_counter()
+    for name in ("h2o-danube-1.8b", "mamba2-370m"):
+        cfg = get_config(name)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = lm.init_model(cfg32, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        eng = ServingEngine(cfg32, p32, batch_size=4, max_len=128,
+                            device=dev)
+        cache = tree_map(torch.clone, eng.cache)
+        prompt = torch.randint(0, cfg.vocab, (12,), generator=torch.Generator(
+            ).manual_seed(1)).tolist()
+        slot, token, greedy = 1, prompt[0], []
+        for pos in range(20):
+            got = eng.decode_logits(slot, token, pos)
+            tokens = torch.zeros((4, 1), dtype=torch.long, device=dev)
+            tokens[slot, 0] = token
+            with torch.no_grad():
+                want, cache = lm.decode_step(p32, tokens, cache, pos, cfg32)
+            if not torch.equal(got, want):
+                raise CheckFailed(
+                    f"[26] {name} f32 step {pos} ({'replay' if pos else 'warm'}"
+                    f" pass): captured logits differ from the eager "
+                    f"decode_step's, max|diff| "
+                    f"{float((got - want).abs().max()):.3e}")
+            if pos == 0 and eng._graph is None:
+                raise CheckFailed(f"[26] {name}: no graph after the first "
+                                  f"step on the card")
+            if pos + 1 < len(prompt):
+                token = prompt[pos + 1]
+            else:
+                token = int(torch.argmax(got[slot]))
+                greedy.append(token)
+        same_cache = all(torch.equal(a, b) for a, b in
+                         zip(tree_leaves(eng.cache), tree_leaves(cache)))
+        if not same_cache:
+            raise CheckFailed(f"[26] {name}: the captured engine's cache "
+                              f"differs from the eager one's")
+        print(f"[26] {name} ({cfg.n_layers} layers, d_model {cfg.d_model}) "
+              f"f32, batch 4, max_len 128: the captured step's logits equal "
+              f"the eager decode_step's bit for bit at all 20 steps (warm "
+              f"pass, then 19 replays: 12 prompt tokens, 8 greedy "
+              f"{greedy}); caches equal")
+        del eng, p32, cache, got, want
+        torch.cuda.empty_cache()
+
+        _, last = served_streams(
+            lm_serve.main, ["--arch", name, "--device", str(dev)], cfg.vocab)
+        pb = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+        eng = ServingEngine(cfg, pb, batch_size=4, max_len=128, device=dev)
+        eng.decode_logits(0, 5, 12)                  # warm pass + capture
+        replay_ms = time_ms(eng._graph.replay, reps=20, rounds=5)
+        rows, busy, top = kernel_rows(eng._graph.replay)
+        print(f"[26] {name} bf16 launch.serve defaults through the captured "
+              f"engine: {last}; 6 requests of 8 tokens in [0, {cfg.vocab}); "
+              f"one replayed decode step of batch 4 {replay_ms:.4f} ms "
+              f"(events), {rows} kernel rows, device busy {busy:.4f} ms "
+              f"({100 * busy / replay_ms:.1f}% of the replay; most: {top}); "
+              f"{memory_line(dev)}")
+        del eng, pb
+        torch.cuda.empty_cache()
+    # Every architecture's decode path captures (no host sync, no shape
+    # that depends on data: the MLA latent cache, MoE routing and capacity,
+    # the Zamba hybrid's shared block), reduced, f32, bit-equal to eager.
+    for name in ARCH_NAMES:
+        cfg32 = dataclasses.replace(get_config(name, reduced=True),
+                                    dtype="float32")
+        p32 = lm.init_model(cfg32, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        eng = ServingEngine(cfg32, p32, batch_size=3, max_len=16, device=dev)
+        cache = tree_map(torch.clone, eng.cache)
+        for pos in range(8):
+            got = eng.decode_logits(pos % 3, 7 + pos, pos)
+            tokens = torch.zeros((3, 1), dtype=torch.long, device=dev)
+            tokens[pos % 3, 0] = 7 + pos
+            with torch.no_grad():
+                want, cache = lm.decode_step(p32, tokens, cache, pos, cfg32)
+            if not torch.equal(got, want):
+                raise CheckFailed(
+                    f"[26] reduced {name} f32 step {pos}: captured logits "
+                    f"differ from the eager decode_step's, max|diff| "
+                    f"{float((got - want).abs().max()):.3e}")
+    print(f"[26] every architecture's reduced decode step captured, 8 steps "
+          f"of batch 3 each bit-equal to the eager step in f32: "
+          f"{', '.join(ARCH_NAMES)}")
+    print(f"[26] phase 26 took {time.perf_counter() - t26:.1f} s")
+
+
+STEP_LOG = r"step\s+(\d+)\s+loss\s+(\S+)\s+gnorm\s+(\S+)\s+lr\s+(\S+)\s+dt\s+(\S+)s"
+
+
+def run_train(argv):
+    """``launch.train.main(argv)`` in-process: (its return code, its
+    standard output, its logged steps as (step, loss, gnorm, lr, dt))."""
+    import re
+
+    from repro_torch.launch import train as lm_train
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lm_train.main(argv)
+    out = buf.getvalue()
+    logged = [(int(m[1]), float(m[2]), float(m[3]), float(m[4]),
+               float(m[5])) for m in re.finditer(STEP_LOG, out)]
+    return rc, out, logged
+
+
+def phase_27_training(dev) -> None:
+    """27. LM training on the card: (a) full-width h2o-danube-1.8b (24
+    layers, d 2560; bf16 params, f32 moments) through ``launch.train.main``
+    with ``examples/train_lm.py``'s settings (batch 8, seq 128, two
+    microbatches, no checkpoint in the window): finite losses and grad
+    norms; then ``train_step`` alone, 8 steps on one repeated batch (the
+    overfit check of ``test_lm_train_loss_decreases``: batch 4, seq 64,
+    two microbatches, no warm-up; lr 1e-4, since 3e-3 diverges at full
+    width): the loss falls by at least 0.5; (b) full-width mamba2-370m, the resume flow of
+    ``test_train_driver_with_resume`` (``--steps 6 --ckpt-every 5``, then
+    ``--steps 8 --resume``, in a temporary directory): rc 0, ``resumed from
+    step 5``, the restored (params, OptState) bit-equal to the saved one;
+    (c) one f32 train step of h2o-danube-1.8b at 2 layers, full width, on
+    the card against the same step on the CPU: the loss and every updated
+    leaf within rtol 1e-4 of each leaf's max|.|. Printed, not gated: step
+    ms, tokens/s, model FLOP/s against the bf16 dense peak, the host's
+    share of a step (wall time against device busy under the profiler),
+    and the memory reserved."""
+    import dataclasses
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import model as lm
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+    from repro_torch.optim.adamw import init_opt_state
+    t27 = time.perf_counter()
+    gc.collect()
+    before = torch.cuda.memory_reserved(dev) / 2 ** 30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    print(f"[27] memory reserved {before:.2f} GiB after phases 1-26, "
+          f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB after "
+          f"empty_cache")
+
+    # (a) full-width h2o-danube-1.8b: the driver, then the overfit check.
+    cfg = get_config("h2o-danube-1.8b")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, out, logged = run_train(
+            ["--arch", cfg.name, "--steps", "4", "--batch", "8", "--seq",
+             "128", "--microbatches", "2", "--ckpt-every", "1000",
+             "--ckpt-dir", tmp, "--log-every", "1", "--device", str(dev)])
+    if rc != 0 or [row[0] for row in logged] != [0, 1, 2, 3] or not all(
+            math.isfinite(v) for row in logged for v in row[1:3]):
+        raise CheckFailed(f"[27] {cfg.name} driver: rc {rc}, logged "
+                          f"{logged}\n{out[-2000:]}")
+    n_params = cfg.param_count()
+    for step, loss, gnorm, lr, dt in logged:
+        print(f"[27] {cfg.name} launch.train (batch 8, seq 128, 2 "
+              f"microbatches) step {step}: loss {loss:.4f} gnorm "
+              f"{gnorm:.3f} lr {lr:.2e} dt {dt:.2f} s")
+    print(f"[27] {cfg.name} driver: {out.splitlines()[-1]}; "
+          f"{memory_line(dev)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # lr 1e-4, not the reduced test's 3e-3: AdamW moves every weight by
+    # about lr a step, and a d-wide layer sums d such moves, so 3e-3 at
+    # d 2560 (40x the reduced test's 64) drove the loss from 204 to 601
+    # in three steps on an H100.
+    opt_cfg = dataclasses.replace(lm_steps.make_opt_config(
+        cfg, total_steps=30), warmup_steps=0, lr=1e-4)
+    params = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    opt_state = init_opt_state(params, opt_cfg)
+    batch = make_batch(DataConfig(seed=0, global_batch=4, seq_len=64), cfg,
+                       step=0, device=dev)
+    losses, step_s = [], []
+    for _ in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = lm_steps.train_step(
+            params, opt_state, batch, cfg=cfg, opt_cfg=opt_cfg,
+            microbatches=2)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0] - 0.5:
+        raise CheckFailed(f"[27] {cfg.name} overfit: losses {losses}; "
+                          f"expected the last below the first - 0.5")
+    tokens = 4 * 64
+    med = statistics.median(step_s[1:])
+    print(f"[27] {cfg.name} train_step x8 on one batch (batch 4, seq 64, 2 "
+          f"microbatches, lr 1e-4, no warm-up): losses "
+          f"{[round(v, 4) for v in losses]} (fell by "
+          f"{losses[0] - losses[-1]:.4f}); step {med * 1e3:.1f} ms (median "
+          f"of steps 2-8, first {step_s[0] * 1e3:.1f}), "
+          f"{tokens / med:.0f} tokens/s, model "
+          f"{6 * n_params * tokens / med / 1e12:.2f} TFLOP/s = "
+          f"{100 * 6 * n_params * tokens / med / PEAK_BF16_FLOPS:.2f}% of "
+          f"the bf16 dense peak")
+
+    def one_step():
+        return lm_steps.train_step(params, opt_state, batch, cfg=cfg,
+                                   opt_cfg=opt_cfg, microbatches=2)
+
+    rows, busy, top = kernel_rows(one_step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    print(f"[27] {cfg.name} one train step: wall {wall:.1f} ms, device busy "
+          f"{busy:.1f} ms in {rows} kernel rows (profiler; most: {top}): "
+          f"host share {100 * (1 - busy / wall):.1f}%; {memory_line(dev)}")
+    del params, opt_state, m, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) full-width mamba2-370m: train, checkpoint, resume.
+    mcfg = get_config("mamba2-370m")
+    saved, restored = [], []
+
+    class Spy(ckpt_manager.CheckpointManager):
+        def save(self, step, tree, extra=None):
+            saved.append((step, [t.clone() for t in tree_leaves(tree)]))
+            super().save(step, tree, extra)
+
+        def restore(self, tree_like, step=None, shardings=None,
+                    device="cuda"):
+            out = super().restore(tree_like, step, shardings, device)
+            restored.append(tree_leaves(out[0]))
+            return out
+
+    real = lm_train.CheckpointManager
+    lm_train.CheckpointManager = Spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            base = ["--arch", mcfg.name, "--batch", "4", "--seq", "32",
+                    "--ckpt-dir", tmp, "--ckpt-every", "5", "--log-every",
+                    "5", "--device", str(dev)]
+            rc1, out1, log1 = run_train(base + ["--steps", "6"])
+            first_saves = [step for step, _ in saved]
+            state5 = saved[-1][1] if saved else []
+            saved.clear()
+            rc2, out2, log2 = run_train(base + ["--steps", "8", "--resume"])
+    finally:
+        lm_train.CheckpointManager = real
+    if rc1 != 0 or rc2 != 0 or "resumed from step 5" not in out2 \
+            or first_saves != [5] or len(restored) != 1:
+        raise CheckFailed(f"[27] {mcfg.name} resume: rc {rc1}/{rc2}, saved "
+                          f"{first_saves}, restored {len(restored)}\n"
+                          f"{out1[-1500:]}\n{out2[-1500:]}")
+    bad = [i for i, (a, b) in enumerate(zip(restored[0], state5))
+           if a.dtype != b.dtype or a.device != b.device
+           or not torch.equal(a, b)]
+    if bad or len(restored[0]) != len(state5):
+        raise CheckFailed(f"[27] {mcfg.name}: restored leaves {bad} differ "
+                          f"from the saved ones")
+    print(f"[27] {mcfg.name} ({mcfg.n_layers} layers, d_model "
+          f"{mcfg.d_model}) launch.train --steps 6 --ckpt-every 5, then "
+          f"--steps 8 --resume: {out2.splitlines()[0]}; the restored params "
+          f"and OptState ({len(state5)} leaves) equal the saved ones bit "
+          f"for bit; logged (step, loss) {[(r[0], r[1]) for r in log1]} then "
+          f"{[(r[0], r[1]) for r in log2]} (data steps from 0 again, as in "
+          f"the reference); {out2.splitlines()[-1]}")
+    del saved, restored, state5
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) one f32 step at 2 layers, full width: the card against the CPU.
+    ccfg = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    c_opt = lm_steps.make_opt_config(ccfg, total_steps=10)
+    cpu_params = lm.init_model(ccfg, torch.Generator().manual_seed(0), "cpu")
+    dcfg = DataConfig(seed=3, global_batch=2, seq_len=64)
+    results = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda t: t.to(where), cpu_params)
+        new_p, new_s, met = lm_steps.train_step(
+            p, init_opt_state(p, c_opt),
+            make_batch(dcfg, ccfg, 0, device=where), cfg=ccfg,
+            opt_cfg=c_opt)
+        results[str(where)] = ([t.cpu() for t in tree_leaves((new_p, new_s))],
+                          {k: float(v) for k, v in met.items()})
+    worst = 0.0
+    card, host = results[str(dev)], results["cpu"]
+    for i, (a, b) in enumerate(zip(card[0], host[0])):
+        if a.is_floating_point():
+            scale = max(float(b.abs().max()), 1e-30)
+            err = float((a - b).abs().max()) / scale
+        else:
+            err = 0.0 if torch.equal(a, b) else math.inf
+        if err > 1e-4:
+            raise CheckFailed(f"[27] f32 step, card vs CPU: leaf {i} off by "
+                              f"{err:.3e} of its max")
+        worst = max(worst, err)
+    for k, v in card[1].items():
+        ref = host[1][k]
+        if abs(v - ref) > 1e-4 * max(abs(ref), 1e-30):
+            raise CheckFailed(f"[27] f32 step, card vs CPU: {k} {v} vs {ref}")
+    print(f"[27] {ccfg.name} at 2 layers, full width, f32, batch 2 x 64: "
+          f"one train_step on the card against the CPU: loss "
+          f"{card[1]['loss']:.6f} / {host[1]['loss']:.6f}"
+          f", every updated param, m and v within {worst:.2e} of its leaf's "
+          f"max|.| (rtol 1e-4); {memory_line(dev)}")
+    print(f"[27] phase 27 took {time.perf_counter() - t27:.1f} s")
+
+
+def main() -> int:
+    t_main = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run it from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+
+    kernels = phases_1_to_25()
+    dev = torch.device("cuda")
+    phase_26_decode_graph(dev)
+    phase_27_training(dev)
     print(f"total {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ params here without this package ever importing JAX. Layouts are the
 same on both sides: conv ``w`` is ``(K1, K2, Cin, Cout)``, FC ``w`` is
 ``(in, out)``. The reference's LM parameters (``repro.models.model
 .init_model``), a nested dict of arrays, come over the same way through
-``lm_params_from_jax``."""
+``lm_params_from_jax``, and its optimizer state (``repro.optim.adamw
+.OptState``, its ``m`` and ``v`` trees and its step) through
+``opt_state_from_jax``."""
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
+from repro_torch.optim.adamw import OptState
 
 
 def params_from_jax(np_params: Mapping[int, Mapping[str, np.ndarray]],
@@ -46,3 +49,15 @@ def lm_params_from_jax(np_tree: Mapping[str, Any], device="cuda"
         return torch.tensor(arr, device=dev)
 
     return convert(np_tree)
+
+
+def opt_state_from_jax(np_opt_state, device="cuda"):
+    """The reference's ``OptState(m, v, step)`` of numpy arrays → the
+    port's ``optim.adamw.OptState`` on ``device``: ``m`` and ``v`` through
+    ``lm_params_from_jax``, ``step`` an int32 scalar."""
+    dev = resolve_device(device)
+    m, v, step = np_opt_state
+    return OptState(m=lm_params_from_jax(m, dev),
+                    v=lm_params_from_jax(v, dev),
+                    step=torch.tensor(np.asarray(step), dtype=torch.int32,
+                                      device=dev))

@@ -1,2 +1,3 @@
-"""Distributed serving primitives: deterministic fault injection for the
-serving tick loop, and placement on a data-parallel mesh."""
+"""Distributed primitives: deterministic fault injection for the serving
+tick loop, the train driver's retry supervisor and control-plane logic,
+and placement on a data-parallel mesh."""

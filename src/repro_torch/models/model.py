@@ -2,21 +2,26 @@
 loss, prefill and decode — one code path for all ten architectures.
 
 Layer parameters are stacked on a leading L axis, as in the reference,
-and walked one layer at a time (``scan_util.tree_at`` views). Hybrid
+and walked one layer at a time (``scan_util`` views: ``tree_unstack``'s
+in the forward, ``tree_at``'s over params and caches in decode). Hybrid
 (Zamba-style) stacks walk groups of ``attn_every`` mamba layers, each
 followed by ONE shared attention+MLP block whose parameters are not
 stacked; interleaved MoE stacks (Llama-4) walk groups of
 ``moe_every - 1`` dense blocks and one MoE block.
 
-``forward`` and ``loss_fn`` give the values only: gradients, the
-optimizer and the train step are not part of this module. ``decode_step``
-writes each layer's cache in place and returns the same cache tree.
+``forward`` and ``loss_fn`` run under autograd (``launch.steps``
+differentiates ``loss_fn``), with the reference's rematerialisation
+points (``remat=``). ``decode_step`` writes each layer's cache in place
+and returns the same cache tree; it reads the position from a tensor and
+makes no host sync, so the serving engine can capture it as one CUDA
+graph.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockType, ModelConfig
 from repro_torch.kernels.common import resolve_device
@@ -26,7 +31,8 @@ from repro_torch.models.layers import (Params, embed, init_embedding,
                                        init_linear, init_mlp, init_rmsnorm,
                                        linear, mlp, rmsnorm, unembed)
 from repro_torch.models.moe import init_moe, moe_ffn
-from repro_torch.models.scan_util import tree_at, tree_map, tree_stack
+from repro_torch.models.scan_util import (tree_at, tree_map, tree_stack,
+                                          tree_unstack)
 
 PyTree = Any
 
@@ -169,36 +175,65 @@ def _embed_inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
+def _remat(remat: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
+    autograd is recording: its activations are recomputed in the
+    backward pass instead of kept (the reference's ``jax.checkpoint``).
+    The recomputation gives the same values, so the gradients are those
+    of the plain call bit for bit."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+def _mamba_group(group: PyTree, shared: Params, x: torch.Tensor,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A hybrid stack's group: its mamba layers, then the shared block."""
+    for mp in tree_unstack(group):
+        x = _apply_mamba_block(mp, x, cfg)
+    return _apply_attn_block(shared, x, cfg)
+
+
+def _moe_pair(dense: PyTree, moe_block: Params, x: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An interleaved stack's group: its dense blocks, then the MoE one."""
+    aux = torch.zeros((), device=x.device)
+    for dp in tree_unstack(dense):
+        x, a = _apply_attn_block(dp, x, cfg)
+        aux = aux + a
+    x, a = _apply_attn_block(moe_block, x, cfg)
+    return x, aux + a
+
+
 def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
-            frontend_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            frontend_embeds: Optional[torch.Tensor] = None,
+            remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S_text) → (final-normed hidden (B, S, d), moe_aux
-    scalar); ``logits_from_hidden`` maps the hidden to logits."""
+    scalar); ``logits_from_hidden`` maps the hidden to logits. With
+    ``remat`` each layer (each group of a hybrid or interleaved stack) is
+    recomputed in the backward pass, where the reference puts
+    ``jax.checkpoint``. Stacked leaves are walked as ``unbind`` views, so
+    their gradients come back stacked, with no per-layer copy."""
     x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     aux = torch.zeros((), device=x.device)
     layers = params["layers"]
-    if cfg.block_type is BlockType.MAMBA:
-        shared = params.get("shared_attn")
-        for g in range(_n(layers)):
-            group = tree_at(layers, g)
-            if cfg.attn_every:
-                for j in range(_n(group)):
-                    x = _apply_mamba_block(tree_at(group, j), x, cfg)
-                x, a = _apply_attn_block(shared, x, cfg)
-                aux = aux + a
-            else:
-                x = _apply_mamba_block(group, x, cfg)
+    if cfg.block_type is BlockType.MAMBA and cfg.attn_every:
+        for group in tree_unstack(layers):
+            x, a = _remat(remat, _mamba_group, group, params["shared_attn"],
+                          x, cfg)
+            aux = aux + a
+    elif cfg.block_type is BlockType.MAMBA:
+        for lp in tree_unstack(layers):
+            x = _remat(remat, _apply_mamba_block, lp, x, cfg)
     elif cfg.moe is not None and cfg.moe_every > 1:
-        for g in range(_n(layers["moe"])):
-            dense = tree_at(layers["dense"], g)
-            for j in range(_n(dense)):
-                x, a = _apply_attn_block(tree_at(dense, j), x, cfg)
-                aux = aux + a
-            x, a = _apply_attn_block(tree_at(layers["moe"], g), x, cfg)
+        for dense, moe_block in zip(tree_unstack(layers["dense"]),
+                                    tree_unstack(layers["moe"])):
+            x, a = _remat(remat, _moe_pair, dense, moe_block, x, cfg)
             aux = aux + a
     else:
-        for i in range(_n(layers)):
-            x, a = _apply_attn_block(tree_at(layers, i), x, cfg)
+        for lp in tree_unstack(layers):
+            x, a = _remat(remat, _apply_attn_block, lp, x, cfg)
             aux = aux + a
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
@@ -217,7 +252,9 @@ def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy over the text positions, plus the MoE aux
     loss: (loss, {"ce", "aux"}). The (B, S, vocab) logits are never
-    formed at once: CE runs over sequence chunks, f32 per chunk."""
+    formed at once: CE runs over sequence chunks, f32 per chunk, and each
+    chunk's logits are recomputed in the backward pass instead of kept
+    (as the reference checkpoints its scan body)."""
     hidden, aux = forward(params, batch["tokens"], cfg,
                           batch.get("frontend_embeds"))
     n_front = cfg.frontend_tokens if cfg.frontend != "none" else 0
@@ -226,16 +263,21 @@ def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     labels = batch["tokens"][:, 1:]
     c = min(ce_chunk, h_in.shape[1])
     head = _head(params, cfg)
-    ce_sum = torch.zeros((), device=h.device)
-    cnt = torch.zeros((), device=h.device)
-    for i in range(0, h_in.shape[1], c):
-        logits = unembed(head, h_in[:, i:i + c])          # (B, c, V) fp32
-        l_i = labels[:, i:i + c]
+
+    def chunk_ce(h_i, l_i):
+        logits = unembed(head, h_i)                       # (B, c, V) fp32
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, l_i.clamp_min(0)[..., None])[..., 0]
         valid = (l_i >= 0).float()
-        ce_sum = ce_sum + torch.sum((logz - gold) * valid)
-        cnt = cnt + valid.sum()
+        return torch.sum((logz - gold) * valid), valid.sum()
+
+    ce_sum = torch.zeros((), device=h.device)
+    cnt = torch.zeros((), device=h.device)
+    for i in range(0, h_in.shape[1], c):
+        s_i, n_i = _remat(True, chunk_ce, h_in[:, i:i + c],
+                          labels[:, i:i + c])
+        ce_sum = ce_sum + s_i
+        cnt = cnt + n_i
     ce = ce_sum / torch.clamp_min(cnt, 1.0)
     return ce + aux, {"ce": ce, "aux": aux}
 

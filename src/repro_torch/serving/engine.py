@@ -5,7 +5,23 @@ The engine keeps a fixed-size decode batch; finished sequences free
 their slot, queued requests are admitted into a free slot and their
 prompt is fed token by token through the decode path at that slot's
 row. It is the reference's engine, admission, slot freeing and token
-stream alike. ``decode_step`` runs eagerly here; the reference jits it.
+stream alike.
+
+The reference jits ``decode_step``; here, on a CUDA device, the engine
+captures it once as a CUDA graph and replays it for every later step.
+The graph reads static buffers (the ``(B, 1)`` token tensor, a ``(1,)``
+position tensor and the cache, which ``decode_step`` writes in place)
+and writes a static logits tensor; a step fills the token and the
+position in, replays, and takes the slot's argmax outside the graph. The
+first step on the card is the warm pass: ``decode_step`` run eagerly on
+a side stream through the same buffers (it builds the lazily made
+tables the graph then reads), and its logits are that step's; the
+capture follows on the same stream of the params' card, and records
+without running. A capture that fails raises: the engine never carries
+on with the eager step on a card. On the CPU every step is the eager
+``decode_step`` through the same buffers. The graph binds the params,
+the cache and the buffers by address, so they stay the engine's for its
+lifetime.
 """
 from __future__ import annotations
 
@@ -40,7 +56,9 @@ class SlotState:
 class ServingEngine:
     """Greedy-decoding engine over a fixed decode batch. ``params`` must
     live on ``device`` (``"cuda"`` by default; raises without CUDA unless
-    the caller asks for the CPU), where the cache is made."""
+    the caller asks for the CPU), where the cache, the static buffers and,
+    on a card, the decode graph are made: one capture per engine, that is
+    per (config, batch, ``max_len``)."""
 
     def __init__(self, cfg: ModelConfig, params: PyTree, batch_size: int,
                  max_len: int = 512, device="cuda") -> None:
@@ -50,6 +68,11 @@ class ServingEngine:
         self.b = batch_size
         self.max_len = max_len
         self.cache = init_cache(cfg, batch_size, max_len, self.device)
+        self._tokens = torch.zeros((batch_size, 1), dtype=torch.long,
+                                   device=self.device)
+        self._pos = torch.zeros((1,), dtype=torch.long, device=self.device)
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._logits: Optional[torch.Tensor] = None
         self.slots = [SlotState() for _ in range(batch_size)]
         self.queue: List[Request] = []
         self.done: Dict[int, Request] = {}
@@ -78,15 +101,51 @@ class ServingEngine:
                 self._step_one(slot, int(t), emit=False)
 
     # ------------------------------------------------------------ decode
+    def _decode(self) -> torch.Tensor:
+        """The step the graph records: ``decode_step`` on the static
+        token and position buffers and the cache; (B, vocab) logits."""
+        with torch.no_grad():
+            return decode_step(self.params, self._tokens, self.cache,
+                               self._pos, self.cfg)[0]
+
+    def _capture(self) -> torch.Tensor:
+        """The warm pass, then the capture of ``_decode``; returns the
+        warm pass's logits (this step's)."""
+        stream = torch.cuda.Stream(device=self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            logits = self._decode()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            static = self._decode()
+        self._graph, self._logits = graph, static
+        return logits
+
+    def decode_logits(self, slot: int, token: int, pos: int) -> torch.Tensor:
+        """(B, vocab) logits of one decode of the whole batch with
+        ``token`` at row ``slot`` (0 elsewhere) at position ``pos``; the
+        cache is written in place. On a card, a replay of the captured
+        step (the warm pass and capture at the first call): the tensor
+        returned is the graph's static output, overwritten by the next
+        step."""
+        self._tokens.zero_()
+        self._tokens[slot, 0] = token
+        self._pos.fill_(pos)
+        if self.device.type != "cuda":
+            return self._decode()
+        if self._graph is None:
+            return self._capture()
+        self._graph.replay()
+        return self._logits
+
     def _step_one(self, slot: int, token: int, emit: bool) -> Optional[int]:
         """One decode of the whole batch with ``token`` at row ``slot``
         (0 elsewhere) at the slot's position; the slot's argmax when
         ``emit``."""
         s = self.slots[slot]
-        tokens = torch.zeros((self.b, 1), dtype=torch.long)
-        tokens[slot, 0] = token
-        logits, self.cache = decode_step(
-            self.params, tokens.to(self.device), self.cache, s.pos, self.cfg)
+        logits = self.decode_logits(slot, token, s.pos)
         s.pos += 1
         if emit:
             return int(torch.argmax(logits[slot]))

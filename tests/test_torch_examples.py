@@ -1,4 +1,4 @@
-"""The port's two user examples, run through their ``main(argv)`` on the CPU
+"""The port's user examples, run through their ``main(argv)`` on the CPU
 at the reference's smoke sizes.
 
 ``examples/quickstart_torch.py`` (DSE → PBQP → baselines → execute →
@@ -7,7 +7,10 @@ alone and with ``--models 2``, ``--pipeline-depth 2 --chaos --max-queue
 4`` and ``--precision auto``. Each run must return 0 — its own checks
 (the exact plan, the spot checks at rtol 2e-2 / atol 2e-3, outcome
 conservation) raise or return nonzero otherwise — and the test reads the
-spot checks and the outcome ledger back from its output.
+spot checks and the outcome ledger back from its output. The LM examples,
+``examples/train_lm_torch.py`` and ``examples/serve_lm_torch.py``, run
+their reduced configs: three training steps with the checkpoint directory
+in a temporary one, and the six served requests.
 """
 import importlib.util
 import json
@@ -80,3 +83,25 @@ def test_serve_cnn_refuses_multi_model_with_single_model_knobs():
     main = _load("serve_cnn_torch").main
     with pytest.raises(SystemExit, match="--models"):
         main(["--device", "cpu", "--smoke", "--models", "2", "--chaos"])
+
+
+def test_train_lm_runs_reduced(capsys, tmp_path):
+    main = _load("train_lm_torch").main
+    assert main(["--device", "cpu", "--reduced", "--steps", "3",
+                 "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    assert len(steps) == 1 and steps[0].startswith("step     0")
+    assert "on device cpu" in steps[0]
+    assert "done: {'completed': 3, 'restarts': 0}" in out
+    assert not any(tmp_path.rglob("*.COMMITTED"))    # first commit at 50
+
+
+def test_serve_lm_runs_reduced(capsys):
+    main = _load("serve_lm_torch").main
+    assert main(["--device", "cpu", "--reduced"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    streams = [json.loads(line.split(": ", 1)[1]) for line in lines
+               if line.startswith("request ")]
+    assert len(streams) == 6 and all(len(s) == 8 for s in streams)
+    assert "48 tokens" in lines[-1] and "device cpu" in lines[-1]

@@ -14,7 +14,10 @@ import torch
 
 from repro.cnn.overlay import apply_conv as jax_apply_conv
 from repro.core.algorithms import IM2COL as JAX_IM2COL
-from repro_torch.bridge import lm_params_from_jax, params_from_jax
+from repro_torch.bridge import (lm_params_from_jax, opt_state_from_jax,
+                                params_from_jax)
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.data.pipeline import DataConfig, PrefetchIterator, make_batch
 from repro_torch.cnn.executor import compile_plan, forward, init_params
 from repro_torch.cnn.models import googlenet, inception_v4
 from repro_torch.cnn.overlay import apply_conv
@@ -36,7 +39,7 @@ from repro_torch.serving.cnn_engine import (CNNRequest, CNNServingEngine,
                                             DegradeConfig)
 from repro_torch.serving.multi_engine import MultiModelEngine
 from repro_torch.launch.mesh import make_data_mesh
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.configs import get_config
 from repro_torch.models.model import init_model
 from repro_torch.serving.engine import ServingEngine
@@ -64,7 +67,9 @@ def test_port_imports_neither_jax_nor_the_reference():
               REPO / "tools" / "check_mesh.py", *examples]
     assert len(files) > 15
     assert {f.name for f in examples} >= {"quickstart_torch.py",
-                                          "serve_cnn_torch.py"}
+                                          "serve_cnn_torch.py",
+                                          "train_lm_torch.py",
+                                          "serve_lm_torch.py"}
     names = {str(f.relative_to(REPO / "src" / "repro_torch")) for f in files
              if "repro_torch" in f.parts}
     assert {"kernels/winograd/winograd.py", "kernels/winograd/ops.py",
@@ -77,7 +82,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "configs/googlenet.py", "core/lm_mapping.py", "models/model.py",
             "models/attention.py", "models/ssm.py", "models/moe.py",
             "models/layers.py", "models/scan_util.py", "serving/engine.py",
-            "launch/serve.py"} <= names
+            "launch/serve.py", "optim/adamw.py", "data/pipeline.py",
+            "checkpoint/manager.py", "distributed/fault.py",
+            "launch/steps.py", "launch/train.py", "bridge.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -95,7 +102,8 @@ def small():
 
 
 def test_entry_points_with_default_device_raise_without_cuda(no_cuda,
-                                                             small):
+                                                             small,
+                                                             tmp_path):
     g, params = small
     x = np.zeros((32, 32, 3), np.float32)
     calls = [lambda: init_params(g),
@@ -109,7 +117,17 @@ def test_entry_points_with_default_device_raise_without_cuda(no_cuda,
              lambda: ServingEngine(get_config("qwen2.5-14b", reduced=True),
                                    {}, batch_size=1),
              lambda: lm_params_from_jax({"w": np.zeros(3, np.float32)}),
-             lambda: serve.main(["--arch", "qwen2.5-14b", "--reduced"])]
+             lambda: serve.main(["--arch", "qwen2.5-14b", "--reduced"]),
+             lambda: train.main(["--arch", "mamba2-370m", "--reduced",
+                                 "--ckpt-dir", str(tmp_path)]),
+             lambda: make_batch(DataConfig(global_batch=2, seq_len=8),
+                                get_config("mamba2-370m", reduced=True), 0),
+             lambda: PrefetchIterator(DataConfig(global_batch=2, seq_len=8),
+                                      get_config("mamba2-370m",
+                                                 reduced=True)),
+             lambda: CheckpointManager(tmp_path).restore(
+                 {"a": torch.empty(3, device="meta")}),
+             lambda: opt_state_from_jax(({}, {}, np.int32(0)))]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -12,6 +12,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.core import lm_mapping as jax_lm
@@ -107,3 +108,89 @@ def test_lm_strategy_mapping_equals_the_references():
             assert res.exact == jres.exact and res.cost == jres.cost
             assert lm_mapping.transition_cost_s("a", "b", resid) == \
                 jax_lm.transition_cost_s("a", "b", resid)
+
+
+@pytest.mark.parametrize("name, overrides", [
+    ("h2o-danube-1.8b", {"sliding_window": 6}), ("mamba2-370m", {}),
+    ("deepseek-v2-236b", {}), ("zamba2-2.7b", {})])
+def test_static_buffer_step_equals_decode_step(name, overrides):
+    """The step the engine's CUDA graph records (``_decode``: the static
+    token and position buffers and the engine's cache), run eagerly on the
+    CPU through ``decode_logits``, equals ``decode_step`` on a cloned cache
+    bit for bit at every position (past a sliding window's ring); and
+    every decode of a served trace goes through it, with the reference
+    engine's token streams."""
+    from repro_torch.models.model import decode_step
+    from repro_torch.models.scan_util import tree_leaves, tree_map
+    jcfg = dataclasses.replace(jax_get_config(name, reduced=True),
+                               dtype="float32", **overrides)
+    cfg = dataclasses.replace(get_config(name, reduced=True),
+                              dtype="float32", **overrides)
+    jparams = jax_init_model(jcfg, jax.random.PRNGKey(0))
+    params = lm_params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    eng = ServingEngine(cfg, params, batch_size=3, max_len=16, device="cpu")
+    cache = tree_map(torch.clone, eng.cache)
+    rng = np.random.default_rng(4)
+    for pos in range(16):
+        slot, token = pos % 3, int(rng.integers(0, cfg.vocab))
+        got = eng.decode_logits(slot, token, pos).clone()
+        tokens = torch.zeros((3, 1), dtype=torch.long)
+        tokens[slot, 0] = token
+        want, cache = decode_step(params, tokens, cache, pos, cfg)
+        assert torch.equal(got, want), pos
+        assert torch.equal(eng._tokens, tokens)
+        assert eng._pos.tolist() == [pos]
+    for a, b in zip(tree_leaves(eng.cache), tree_leaves(cache)):
+        assert torch.equal(a, b)
+    assert eng._graph is None                 # the CPU never captures
+
+    eng = ServingEngine(cfg, params, batch_size=2, max_len=32, device="cpu")
+    want_eng = JaxServingEngine(jcfg, jparams, batch_size=2, max_len=32)
+    calls = []
+    decode = eng._decode
+    eng._decode = lambda: calls.append(1) or decode()
+    for jr, r in zip(_requests(JaxRequest, cfg.vocab, 3, 5, 3, seed=1),
+                     _requests(Request, cfg.vocab, 3, 5, 3, seed=1)):
+        want_eng.submit(jr)
+        eng.submit(r)
+    assert eng.run_until_done() == want_eng.run_until_done()
+    assert len(calls) == 3 * (5 + 3)
+
+
+def test_a_failed_capture_raises(monkeypatch):
+    """On a card the first step is the warm pass, then the capture; a
+    capture that fails raises out of ``decode_logits`` and leaves no
+    graph, and the next step tries the capture again instead of going on
+    eagerly. The card's stream and graph calls are stood in for on the
+    CPU, the capture failing as it enters."""
+    import contextlib
+    import types
+    cfg = dataclasses.replace(get_config("qwen2.5-14b", reduced=True),
+                              dtype="float32")
+    from repro_torch.models.model import init_model
+    params = init_model(cfg, device="cpu")
+    eng = ServingEngine(cfg, params, batch_size=2, max_len=16, device="cpu")
+    eng.device = torch.device("cuda")
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: stream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+
+    @contextlib.contextmanager
+    def failing_capture(graph, stream=None, capture_error_mode=None):
+        raise RuntimeError("operation not permitted when stream is "
+                           "capturing")
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", failing_capture)
+    decodes = []
+    decode = eng._decode
+    eng._decode = lambda: decodes.append(1) or decode()
+    for attempt in (1, 2):
+        with pytest.raises(RuntimeError, match="stream is capturing"):
+            eng.decode_logits(0, 3, 0)
+        assert eng._graph is None and eng._logits is None
+        assert len(decodes) == attempt           # the warm pass only
