@@ -266,6 +266,27 @@ both matrix products and cuDNN:
     state bit-equal to the saved one; one f32 train step at 2 layers, full
     width, on the card against the CPU within 1e-4 of each leaf's max;
     step ms, tokens/s, model FLOP/s, the host's share and memory printed.
+28. the LM mesh, its dry run and roofline: (a) on ``make_smoke_mesh()``
+    (NCCL, world 1) one train step (two microbatches) of h2o-danube-1.8b
+    at 2 layers, full width, f32, against the unsharded step on the same
+    weights and batch, at the full learning rate from step 1: loss and
+    every updated leaf within 1e-5 of the leaf's max (a param leaf's max
+    taken as at least 1), the deviation, bit-equality and the smallest
+    leaf's step printed (it must be over 2e-5, so that a missing update
+    would show); (b) on full-width, full-depth h2o-danube-1.8b the
+    sharded and the unsharded ``train_step`` timed on one batch (ms, the
+    host's share, memory) with no other process running, then
+    ``launch.train --mesh smoke`` checkpointed and resumed through
+    ``restore(shardings=)`` and one f32 full-depth decode step on the
+    smoke mesh with ``cache_shardings`` against the unsharded eager step
+    within 1e-5; (c) in processes of their own (CPU only, each on its
+    own fake process group), started after (b)'s timed steps and joined
+    last, the dry-run cells
+    deepseek-v2-236b × train_4k × pod, llama4-maverick-400b-a17b ×
+    decode_32k × multipod and zamba2-2.7b × long_500k × pod, and the
+    roofline of qwen2.5-14b × train_4k: per-chip parameter bytes against
+    80 GB, the temp term, FLOPs, collective bytes by op and the roofline
+    terms printed; a failed cell fails the phase.
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
 and 18 serve as phase 5 does, and every forward timed is a replay. Each
@@ -296,10 +317,15 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parent / "src"
 
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, dense int8
-# tensor cores, HBM3.
-PEAK_F32_FLOPS = 67e12
-PEAK_INT8_OPS = 1979e12
-HBM_BYTES_PER_S = 3.35e12
+# and bf16 tensor cores, HBM3 (``repro_torch/hw.py``, which the roofline
+# shares). Outside a checkout there is no such module: ``main`` then says
+# so and exits 2.
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.hw import (HBM_BYTES_PER_S, PEAK_BF16_FLOPS,
+                                PEAK_F32_FLOPS, PEAK_INT8_OPS)
+except ModuleNotFoundError:
+    HBM_BYTES_PER_S = PEAK_BF16_FLOPS = PEAK_F32_FLOPS = PEAK_INT8_OPS = None
 
 BUCKETS = (1, 2, 4, 8)
 FORWARD_TOL = dict(rtol=2e-2, atol=2e-3)    # the reference's whole-plan tol
@@ -4373,9 +4399,6 @@ def phases_1_to_25() -> list:
     return kernels
 
 
-PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 tensor cores
-
-
 def memory_line(dev) -> str:
     import torch
     return (f"memory_reserved {torch.cuda.memory_reserved(dev) / 2 ** 30:.2f}"
@@ -4765,6 +4788,222 @@ def phase_27_training(dev) -> None:
     print(f"[27] phase 27 took {time.perf_counter() - t27:.1f} s")
 
 
+DRYRUN_CELLS = (("deepseek-v2-236b", "train_4k", "pod"),
+                ("llama4-maverick-400b-a17b", "decode_32k", "multipod"),
+                ("zamba2-2.7b", "long_500k", "pod"))
+ROOFLINE_CELL = ("qwen2.5-14b", "train_4k")
+
+
+def phase_28_lm_mesh(dev) -> None:
+    """28. The LM mesh on the card (see the module docstring)."""
+    import dataclasses
+    import gc
+    import math
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.api import activation_policy, policy_from_mesh
+    from repro_torch.launch import mesh_check
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.optim.adamw import init_opt_state
+    t28 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (c) the dry runs are CPU work in processes of their own, started
+    # once (b)'s steps are timed (they would share the host's cores
+    # with them) and joined last.
+    out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    try:
+        # (a) the smoke mesh against the unsharded step, 2 layers, f32.
+        mesh = make_smoke_mesh(dev)
+        print(f"[28] make_smoke_mesh(): {mesh} on backend "
+              f"{dist.get_backend()}, world {dist.get_world_size()}")
+        ccfg = mesh_check.check_config("h2o-danube-1.8b", layers=2)
+        r = mesh_check.train_check(mesh, ccfg, dev, batch=2, seq=64,
+                                   microbatches=2)
+        if r["loss_rel"] > 1e-5 or r["max_rel"] > 1e-5:
+            raise CheckFailed(f"[28] smoke-mesh train step off the "
+                              f"unsharded one: {r}")
+        if r["min_step"] <= 2e-5:
+            raise CheckFailed(f"[28] the checked step moves a param leaf by "
+                              f"{r['min_step']:.3e} of its scale: too little "
+                              f"for the 1e-5 check to see a missing update")
+        print(f"[28] {ccfg.name} at {ccfg.n_layers} layers, d_model "
+              f"{ccfg.d_model}, f32, batch 2 x 64, 2 microbatches: the "
+              f"smoke-mesh train_step against the unsharded one on the same "
+              f"weights and batch: loss {r['loss']:.6f} / "
+              f"{r['ref_loss']:.6f}, {r['leaves']} updated leaves within "
+              f"{r['max_rel']:.3e} of their max (worst {r['worst_leaf']}; "
+              f"bit-equal: {r['bit_equal']}), at lr 3e-4 from step 1: the "
+              f"smallest leaf's step {r['min_step']:.3e} of its scale; "
+              f"{memory_line(dev)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) full depth: the sharded and the unsharded step, timed with
+        # no other process on the host's cores.
+        cfg = get_config("h2o-danube-1.8b")
+        opt_cfg = lm_steps.make_opt_config(cfg, total_steps=30)
+        batch = make_batch(DataConfig(seed=0, global_batch=8, seq_len=128),
+                           cfg, 0, device=dev)
+        step_ms = {}
+        for sharded in (False, True):
+            params = lm.init_model(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            opt_state = init_opt_state(params, opt_cfg)
+            feed = batch
+            if sharded:
+                params, opt_state = sharding.distribute(
+                    (params, opt_state),
+                    (sharding.params_shardings(params, mesh),
+                     sharding.params_shardings(opt_state, mesh)))
+                feed = sharding.distribute(
+                    batch, sharding.batch_shardings(batch, mesh))
+            policy = policy_from_mesh(mesh) if sharded else None
+
+            def one_step():
+                with activation_policy(policy):
+                    return lm_steps.train_step(
+                        params, opt_state, feed, cfg=cfg, opt_cfg=opt_cfg,
+                        microbatches=2)
+
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_step()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            rows, busy, top = kernel_rows(one_step)
+            step_ms[sharded] = statistics.median(walls[1:])
+            print(f"[28] {cfg.name} train_step (batch 8 x 128, 2 "
+                  f"microbatches) {'on the smoke mesh' if sharded else 'unsharded'}: "
+                  f"{step_ms[sharded]:.1f} ms (median of steps 2-3, first "
+                  f"{walls[0]:.1f}), device busy {busy:.1f} ms in {rows} "
+                  f"kernel rows: host share "
+                  f"{100 * (1 - busy / step_ms[sharded]):.1f}%; "
+                  f"{memory_line(dev)}")
+            del params, opt_state, feed
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"[28] sharded / unsharded step: "
+              f"{step_ms[True]:.1f} / {step_ms[False]:.1f} ms = "
+              f"{step_ms[True] / step_ms[False]:.2f}x")
+
+        procs += [(cell, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out-dir",
+             str(out_dir)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env))
+            for cell in DRYRUN_CELLS]
+        procs.append((ROOFLINE_CELL, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.roofline", "--arch",
+             ROOFLINE_CELL[0], "--shape", ROOFLINE_CELL[1], "--out-dir",
+             str(out_dir)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, env=env)))
+
+        # (b) launch.train with a checkpoint and a resume (beside (c)).
+        with tempfile.TemporaryDirectory() as tmp:
+            base = ["--arch", cfg.name, "--batch", "8", "--seq", "128",
+                    "--microbatches", "2", "--ckpt-every", "2", "--ckpt-dir",
+                    tmp, "--log-every", "1", "--device", str(dev), "--mesh",
+                    "smoke"]
+            t0 = time.perf_counter()
+            rc1, out1, log1 = run_train(base + ["--steps", "2"])
+            t1 = time.perf_counter()
+            rc2, out2, log2 = run_train(base + ["--steps", "3", "--resume"])
+            t2 = time.perf_counter()
+        if rc1 or rc2 or "resumed from step 2" not in out2 \
+                or len(log1) != 2 or len(log2) != 3 or not all(
+                    math.isfinite(v) for row in log1 + log2
+                    for v in row[1:3]):
+            raise CheckFailed(f"[28] launch.train --mesh smoke: rc "
+                              f"{rc1}/{rc2}, logged {log1} / {log2}\n"
+                              f"{out1[-1500:]}\n{out2[-1500:]}")
+        print(f"[28] {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}) launch.train --mesh smoke --steps 2 "
+              f"--ckpt-every 2 ({t1 - t0:.1f} s with the ~18 GB "
+              f"checkpoint), then --steps 3 --resume ({t2 - t1:.1f} s, "
+              f"restore(shardings=)): {out2.splitlines()[0]}; (step, loss, "
+              f"dt s) {[(r[0], r[1], r[4]) for r in log1]} then "
+              f"{[(r[0], r[1], r[4]) for r in log2]}; "
+              f"{out2.splitlines()[-1]}; {memory_line(dev)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        dcfg = dataclasses.replace(cfg, dtype="float32")
+        d = mesh_check.decode_check(mesh, dcfg, dev, batch=4, max_len=64,
+                                    steps=1)
+        if d["logits"]["max_rel"] > 1e-5 or d["cache"]["max_rel"] > 1e-5:
+            raise CheckFailed(f"[28] smoke-mesh decode off the unsharded "
+                              f"step: {d}")
+        print(f"[28] {cfg.name} full depth, f32, batch 4, cache 64: one "
+              f"decode step on the smoke mesh (cache_shardings) against the "
+              f"unsharded eager step: logits within "
+              f"{d['logits']['max_rel']:.3e} of their max (bit-equal: "
+              f"{d['logits']['bit_equal']}), caches within "
+              f"{d['cache']['max_rel']:.3e}; {memory_line(dev)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+        # (c) the dry runs and the roofline: joined whatever happened.
+        outs = {}
+        for cell, proc in procs:
+            try:
+                outs[cell] = (proc.communicate(timeout=900)[0],
+                              proc.returncode)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                outs[cell] = (proc.communicate()[0], "timeout")
+    for cell, (out, rc) in outs.items():
+        if rc != 0:
+            raise CheckFailed(f"[28] {' '.join(cell)}: rc {rc}\n"
+                              f"{out[-3000:]}")
+    for arch, shape, mesh_kind in DRYRUN_CELLS:
+        name = "multipod_2x16x16" if mesh_kind == "multipod" else "pod_16x16"
+        r = json.loads((out_dir / f"{arch}__{shape}__{name}.json")
+                       .read_text())
+        mem = r["memory_analysis"]
+        print(f"[28] dry run {arch} x {shape} x {name} ({r['n_devices']} "
+              f"fake ranks, traced in {r['compile_s']} s"
+              + (f", microbatches {r['microbatches']} from probes "
+                 f"{r['microbatches_traced']}" if r["microbatches"] else "")
+              + f"): params {r['param_bytes_per_device'] / 1e9:.3f} GB a "
+              f"chip of 80 GB ({'resident' if r['resident_weights'] else 'FSDP'}"
+              f"), arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, "
+              f"temp {mem['temp_size_in_bytes'] / 1e9:.3f} GB, FLOPs "
+              f"{r['flops_total']:.4g} a chip, HBM bytes "
+              f"{r['bytes_accessed_total']:.4g}, collective bytes "
+              f"{r['collective_bytes_total'] / 1e9:.3f} GB by op "
+              f"{ {k: round(v / 1e9, 3) for k, v in r['collective_bytes_by_op'].items() if v} } "
+              f"counts { {k: v for k, v in r['collective_op_counts'].items() if v} }")
+    r = json.loads((out_dir / f"{ROOFLINE_CELL[0]}__{ROOFLINE_CELL[1]}.json")
+                   .read_text())
+    print(f"[28] roofline {ROOFLINE_CELL[0]} x {ROOFLINE_CELL[1]} (16x16, "
+          f"H100 terms: 989 TFLOP/s, 3.35 TB/s, 50 GB/s): compute "
+          f"{r['compute_s'] * 1e3:.2f} ms, memory {r['memory_s'] * 1e3:.2f} "
+          f"ms, collective {r['collective_s'] * 1e3:.2f} ms: bound by "
+          f"{r['bound']}; per unit {r['per_unit']}, base {r['base']}, "
+          f"{r['n_units']} units; model FLOPs a chip "
+          f"{r['model_flops_per_chip']:.4g} = {r['useful_flops_ratio']:.3f} "
+          f"of the counted ({r['probe_wall_s']} s)")
+    print(f"[28] phase 28 took {time.perf_counter() - t28:.1f} s")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -4779,9 +5018,11 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
 
     kernels = phases_1_to_25()
+    print(f"phases 1-25 took {time.perf_counter() - t_main:.1f} s")
     dev = torch.device("cuda")
     phase_26_decode_graph(dev)
     phase_27_training(dev)
+    phase_28_lm_mesh(dev)
     print(f"total {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,12 @@ Fault-tolerance properties:
     not blocked (the device→host copy is taken before ``save`` returns);
   * keep_n garbage-collects old steps only after the newer one commits.
 
-Restoring onto a mesh (``shardings=``) waits for the LM mesh (ROADMAP
-item C.7) and raises.
+On an LM mesh a ``DTensor`` leaf is saved whole (``full_tensor``, a
+collective every rank takes part in; rank 0 writes the files), so the
+files stay the reference's and restore in either package; ``restore``
+with ``shardings=`` (a tree of ``distributed.sharding.NamedSharding``)
+distributes each restored leaf to its placements, the reference's
+elastic restore onto the current mesh.
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.api import is_sharded
+from repro_torch.distributed.sharding import distribute
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.scan_util import (tree_leaves,
                                           tree_leaves_with_path,
@@ -44,7 +50,10 @@ PyTree = Any
 
 def _to_storable(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A host copy of ``leaf`` as npy can hold it, and its dtype's name:
-    bf16 (which npy cannot round-trip) as its ``uint16`` bits."""
+    bf16 (which npy cannot round-trip) as its ``uint16`` bits; a
+    ``DTensor`` whole."""
+    if is_sharded(leaf):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -56,6 +65,13 @@ def _from_storable(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
     if dtype_name == "bfloat16":
         return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoint files: the only one, or
+    rank 0 of a process group (every rank gathers its shards)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -101,6 +117,8 @@ class CheckpointManager:
             self._gc()
 
         self.wait()
+        if not _writes():
+            return
         if self.async_write:
             self._pending = threading.Thread(target=write, daemon=True)
             self._pending.start()
@@ -137,15 +155,13 @@ class CheckpointManager:
         and shape. A ``tree_like`` leaf on the ``"meta"`` device (the
         port's ``ShapeDtypeStruct``) names a shape only, and its leaf goes
         to ``device`` (``"cuda"`` unless the caller asks for the CPU;
-        raises without CUDA). ``shardings`` re-shards onto a mesh: the LM
-        mesh's (ROADMAP item C.7), not ported yet, so it raises."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "CheckpointManager.restore(shardings=...): restoring onto a "
-                "mesh comes with the LM mesh (ROADMAP item C.7)")
+        raises without CUDA). ``shardings`` (a tree of ``NamedSharding``
+        of ``tree_like``'s structure) re-shards onto its mesh: each leaf
+        a ``DTensor`` with those placements."""
         flat_like = tree_leaves(tree_like)
         fallback = None
-        if any(like.device.type == "meta" for like in flat_like):
+        if shardings is None and any(like.device.type == "meta"
+                                     for like in flat_like):
             fallback = resolve_device(device)
         step = self.latest_step() if step is None else step
         if step is None:
@@ -165,6 +181,11 @@ class CheckpointManager:
                 raise ValueError(f"{final}/arrays/{i:05d}.npy has shape "
                                  f"{list(t.shape)}; the manifest says "
                                  f"{expect['shape']}")
-            leaves.append(t.to(fallback if like.device.type == "meta"
-                               else like.device))
-        return tree_unflatten(tree_like, leaves), manifest["extra"]
+            if shardings is None:
+                t = t.to(fallback if like.device.type == "meta"
+                         else like.device)
+            leaves.append(t)
+        tree = tree_unflatten(tree_like, leaves)
+        if shardings is not None:
+            tree = distribute(tree, shardings)
+        return tree, manifest["extra"]

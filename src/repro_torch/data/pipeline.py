@@ -12,15 +12,17 @@ The reference's pipeline (``data/pipeline.py``): ``_tokens_for`` and
 are the reference's bit for bit. ``make_batch`` returns tensors on
 ``device`` (``"cuda"`` unless the caller asks for the CPU; raises without
 CUDA): the token ids as int64, the type ``embed`` indexes with, the same
-values as the reference's int32. The host-sharded branch (``mesh=``)
-waits for the LM mesh and raises.
+values as the reference's int32. With ``mesh=`` (an LM ``DeviceMesh``)
+each rank draws only its own rows, as the reference's
+``make_array_from_callback`` does, and the batch is a ``DTensor``: the
+batch dim on the data axes when it divides them, else replicated.
 """
 from __future__ import annotations
 
 import dataclasses
 import queue
 import threading
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,14 +63,51 @@ def _frontend_for(cfg: DataConfig, model: ModelConfig, step: int,
     ).astype(np.float32)
 
 
-def _host_batch(cfg: DataConfig, model: ModelConfig,
-                step: int) -> Dict[str, np.ndarray]:
-    """The whole batch at ``step`` as numpy arrays."""
-    batch = {"tokens": _tokens_for(cfg, model, step, 0, cfg.global_batch)}
-    fe = _frontend_for(cfg, model, step, 0, cfg.global_batch)
+def _host_batch(cfg: DataConfig, model: ModelConfig, step: int,
+                rows: Optional[Tuple[int, int]] = None
+                ) -> Dict[str, np.ndarray]:
+    """Rows ``[lo, hi)`` (all of them by default) of the batch at
+    ``step`` as numpy arrays."""
+    lo, hi = rows or (0, cfg.global_batch)
+    batch = {"tokens": _tokens_for(cfg, model, step, lo, hi)}
+    fe = _frontend_for(cfg, model, step, lo, hi)
     if fe is not None:
         batch["frontend_embeds"] = fe
     return batch
+
+
+def _mesh_rows(cfg: DataConfig, mesh) -> Tuple[Tuple[int, int], tuple]:
+    """This rank's rows of the global batch on ``mesh`` and the batch's
+    placements: the batch dim on the data axes (pod major) when it
+    divides them, else every rank holds all rows."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    dp = [a for a in ("pod", "data") if a in names]
+    n = 1
+    for a in dp:
+        n *= mesh.size(names.index(a))
+    if cfg.global_batch % n:
+        return (0, cfg.global_batch), tuple(Replicate() for _ in names)
+    idx = 0
+    for a in dp:
+        idx = idx * mesh.size(names.index(a)) + mesh.get_local_rank(a)
+    per = cfg.global_batch // n
+    return (idx * per, (idx + 1) * per), tuple(
+        Shard(0) if a in dp else Replicate() for a in names)
+
+
+def _to_mesh(batch: Dict[str, np.ndarray], mesh,
+             pl: tuple) -> Dict[str, torch.Tensor]:
+    from torch.distributed.tensor import DTensor
+    local = _to_device(batch, torch.device(mesh.device_type,
+                                           _mesh_device_index(mesh)))
+    return {k: DTensor.from_local(v, mesh, pl, run_check=False)
+            for k, v in local.items()}
+
+
+def _mesh_device_index(mesh) -> int:
+    """The local device of this rank: the current card on CUDA."""
+    return torch.cuda.current_device() if mesh.device_type == "cuda" else 0
 
 
 def _to_device(batch: Dict[str, np.ndarray],
@@ -83,14 +122,13 @@ def _to_device(batch: Dict[str, np.ndarray],
 
 def make_batch(cfg: DataConfig, model: ModelConfig, step: int,
                mesh=None, device="cuda") -> Dict[str, torch.Tensor]:
-    """Global batch at ``step`` on ``device``. A sharded batch (``mesh=``)
-    is the LM mesh's (ROADMAP item C.7) and raises until it is ported;
-    its per-shard seeds will make a shard's rows differ from this
-    unsharded batch's."""
+    """Global batch at ``step`` on ``device``; with ``mesh=`` a ``DTensor``
+    batch on the mesh's device type, each rank holding its rows (seeded
+    per shard, as in the reference, so a sharded batch's rows differ from
+    the unsharded batch's)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "make_batch(mesh=...): the host-sharded batch comes with the LM "
-            "mesh (ROADMAP item C.7)")
+        rows, pl = _mesh_rows(cfg, mesh)
+        return _to_mesh(_host_batch(cfg, model, step, rows), mesh, pl)
     return _to_device(_host_batch(cfg, model, step), resolve_device(device))
 
 
@@ -98,17 +136,17 @@ class PrefetchIterator:
     """Background-thread prefetch of ``depth`` upcoming batches: the
     worker draws them on the host (numpy only, no CUDA call off the main
     thread) and ``__next__`` moves one to ``device``, as ``(step,
-    batch)``."""
+    batch)``; with ``mesh=`` the worker draws this rank's rows and
+    ``__next__`` gives ``make_batch(..., mesh=)``'s ``DTensor`` batch."""
 
     def __init__(self, cfg: DataConfig, model: ModelConfig,
                  mesh=None, start_step: int = 0, depth: int = 2,
                  device="cuda") -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "PrefetchIterator(mesh=...): the host-sharded batch comes "
-                "with the LM mesh (ROADMAP item C.7)")
         self.cfg = cfg
         self.model = model
+        self.mesh = mesh
+        self.rows, self.placements = (_mesh_rows(cfg, mesh) if mesh is not None
+                                      else (None, None))
         self.device = resolve_device(device)
         self.step = start_step
         self.q: "queue.Queue" = queue.Queue(maxsize=depth)
@@ -119,7 +157,7 @@ class PrefetchIterator:
     def _worker(self) -> None:
         s = self.step
         while not self._stop.is_set():
-            batch = _host_batch(self.cfg, self.model, s)
+            batch = _host_batch(self.cfg, self.model, s, self.rows)
             while not self._stop.is_set():
                 try:
                     self.q.put((s, batch), timeout=0.2)
@@ -133,6 +171,8 @@ class PrefetchIterator:
 
     def __next__(self):
         s, batch = self.q.get()
+        if self.mesh is not None:
+            return s, _to_mesh(batch, self.mesh, self.placements)
         return s, _to_device(batch, self.device)
 
     def close(self) -> None:

@@ -1,4 +1,15 @@
-"""The data-parallel mesh: the reference's ``make_data_mesh``, as a list of
+"""Meshes: the reference's ``launch/mesh.py``.
+
+``make_production_mesh`` and ``make_smoke_mesh`` are the LM meshes, each a
+``torch.distributed.device_mesh.DeviceMesh`` with the reference's shapes
+and axis names: (data 16, model 16) = 256 ranks, (pod 2, data 16,
+model 16) = 512, and the one-rank (data 1, model 1). A production mesh
+takes the process group that exists (torchrun's, or the dry run's fake
+group) and never falls back to a smaller mesh; the smoke mesh starts a
+world-1 group when there is none. Functions, not module constants, so
+importing this module touches no device and starts no group.
+
+The data-parallel mesh: the reference's ``make_data_mesh``, as a list of
 torch devices.
 
 A ``DataMesh`` is the CNN serving shape: params are replicated on every
@@ -10,7 +21,7 @@ bucket stays one program; only its batch placement changes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,3 +82,48 @@ def make_data_mesh(n_devices: Optional[int] = None,
             raise ValueError(f"n_devices={n_devices} not in [1, {count}]")
         count = n_devices
     return DataMesh(tuple(torch.device(dev.type, i) for i in range(count)))
+
+
+def make_mesh(shape: Sequence[int], axis_names: Sequence[str],
+              device="cuda"):
+    """A ``DeviceMesh`` of ``shape`` named ``axis_names`` over the default
+    process group's ranks (the reference's ``jax.make_mesh``), on
+    ``device``'s type. The group must hold exactly ``prod(shape)`` ranks:
+    any other size raises ``ValueError`` naming the size needed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dev = resolve_device(device)
+    need = 1
+    for n in shape:
+        need *= n
+    have = dist.get_world_size() if dist.is_initialized() else None
+    if have != need:
+        raise ValueError(
+            f"a {'x'.join(map(str, shape))} mesh {tuple(axis_names)} needs a "
+            f"process group of world size {need}; "
+            + ("no default group is initialised" if have is None
+               else f"the default group has {have}"))
+    return init_device_mesh(dev.type, tuple(shape),
+                            mesh_dim_names=tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """Single pod: (data=16, model=16) = 256 ranks. Multi-pod: (pod=2,
+    data=16, model=16) = 512 ranks; the pod axis composes with data for
+    gradient reduction. Needs a default group of exactly that size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, device)
+
+
+def make_smoke_mesh(device="cuda"):
+    """The one-rank mesh with the production axis names. With no default
+    process group it starts a world-1 group first (NCCL on a card, gloo
+    on the CPU), in-process, with no address to pick."""
+    import torch.distributed as dist
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return make_mesh((1, 1), ("data", "model"), dev)

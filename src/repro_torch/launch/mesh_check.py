@@ -1,0 +1,196 @@
+"""Holding the LM mesh to the unsharded step: one train step (and one
+decode step) of the same weights and batch run twice, on plain tensors
+and as ``DTensor``s on a mesh, and compared leaf by leaf.
+
+Used by ``tools/check_mesh.py --lm`` (1x2, 2x1 and 2x2 meshes of cards
+under torchrun, or gloo processes on the CPU), by ``chip_smoke.py``
+(the one-rank smoke mesh on the card) and by the CPU tests.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.distributed.api import activation_policy, policy_from_mesh
+from repro_torch.distributed.sharding import (batch_shardings,
+                                              cache_shardings, distribute,
+                                              params_shardings)
+from repro_torch.launch.steps import make_opt_config, serve_step, train_step
+from repro_torch.models.model import init_cache, init_model
+from repro_torch.models.scan_util import (tree_leaves,
+                                          tree_leaves_with_path, tree_map)
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+
+
+# The checked step runs at the full learning rate (``check_opt_config``:
+# one warm-up step), so it moves the largest element of every param leaf
+# by about lr = 3e-4: at least ~7e-5 of the leaf's scale (the embedding
+# table, whose max is 3-4), 7x the 1e-5 tolerance or more. A sharded step
+# that leaves a leaf unchanged, or updates it at half the rate, fails
+# (``train_check`` reports the smallest such move, ``min_step``). A param
+# leaf is held to its max or 1, whichever is larger (``PARAM_FLOOR``):
+# AdamW's first step moves an element by lr·g/(|g| + eps), which turns
+# the float noise of a gradient that sums to near zero into a large share
+# of a zero-initialised leaf's (a bias's, ``conv_b``'s) tiny max. The
+# check's eps is 1e-6 (the default's 1e-8 amplifies that noise by up to
+# lr/eps = 3e4, which at full lr brought a reduced deepseek-v2's ``wq``
+# near the tolerance). The gradients themselves are held strictly: the
+# moments m and v, the gradients' statistics, to their own max.
+PARAM_FLOOR = 1.0
+
+
+def check_opt_config(cfg: ModelConfig) -> AdamWConfig:
+    """The checked step's optimizer: ``make_opt_config``'s at the full
+    learning rate from step 1 (one warm-up step), eps 1e-6."""
+    return dataclasses.replace(make_opt_config(cfg, total_steps=10),
+                               warmup_steps=1, eps=1e-6)
+
+
+def check_config(arch: str = "h2o-danube-1.8b", layers: int = 2,
+                 reduced: bool = False) -> ModelConfig:
+    """``arch`` cut to ``layers`` (whole groups of a hybrid or
+    interleaved stack) at full width (or its reduced width), in f32."""
+    cfg = get_config(arch, reduced=reduced)
+    unit = cfg.attn_every or (cfg.moe_every if cfg.moe is not None else 1)
+    return dataclasses.replace(cfg, dtype="float32",
+                               n_layers=max(unit, layers // unit * unit))
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor`` gathered whole; any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def deviation(got, want, floor: float = 1e-30) -> Dict:
+    """Max over the leaves of two trees of max|got - want| / max(max|want|,
+    ``floor``) (the leaf's max), the leaf it is at, and whether every leaf
+    is bit-equal."""
+    worst, at, equal = 0.0, None, True
+    for (name, a), b in zip(tree_leaves_with_path(got), tree_leaves(want)):
+        a = whole(a)
+        equal = equal and a.dtype == b.dtype and torch.equal(a, b)
+        if a.is_floating_point():
+            scale = max(float(b.abs().max()), floor)
+            err = float((a - b).abs().max()) / scale
+        else:
+            err = 0.0 if torch.equal(a, b) else float("inf")
+        if err > worst:
+            worst, at = err, name
+    return {"max_rel": worst, "worst_leaf": at, "bit_equal": equal}
+
+
+def train_check(mesh, cfg: ModelConfig, device, batch: int = 4,
+                seq: int = 64, microbatches: int = 2,
+                seed: int = 0) -> Dict:
+    """One ``train_step`` on ``mesh`` against the unsharded step on the
+    same weights (seed ``seed``, identical on every rank) and the same
+    batch (``make_batch(mesh=)``'s, gathered whole for the unsharded
+    step), at ``check_opt_config``'s learning rate. Returns the losses
+    and the deviations of every updated param and optimizer leaf, each
+    relative to the leaf's max; a param leaf's max is taken as at least 1
+    (``PARAM_FLOOR``). ``min_step`` is the smallest move the unsharded
+    step makes to a param leaf (its largest element's), on that scale:
+    what a sharded step that left the leaf unchanged would be off by."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    opt_cfg = check_opt_config(cfg)
+    sharded_batch = make_batch(DataConfig(seed=3, global_batch=batch,
+                                          seq_len=seq), cfg, 0, mesh=mesh)
+    plain_batch = {k: whole(v) for k, v in sharded_batch.items()}
+    ref_p, ref_s, ref_m = train_step(
+        params, init_opt_state(params, opt_cfg), plain_batch, cfg=cfg,
+        opt_cfg=opt_cfg, microbatches=microbatches)
+    opt_state = init_opt_state(params, opt_cfg)
+    shardings = (params_shardings(params, mesh),
+                 params_shardings(opt_state, mesh))
+    d_p, d_s = distribute((params, opt_state), shardings)
+    with activation_policy(policy_from_mesh(mesh)):
+        new_p, new_s, met = train_step(d_p, d_s, sharded_batch, cfg=cfg,
+                                       opt_cfg=opt_cfg,
+                                       microbatches=microbatches)
+    dev_p = deviation(new_p, ref_p, PARAM_FLOOR)
+    min_step = min(deviation([old], [new], PARAM_FLOOR)["max_rel"]
+                   for old, new in zip(tree_leaves(params),
+                                       tree_leaves(ref_p)))
+    dev_s = deviation(new_s, ref_s)
+    dev_leaves = max(dev_p, dev_s, key=lambda d: d["max_rel"])
+    dev_leaves = dict(dev_leaves,
+                      bit_equal=dev_p["bit_equal"] and dev_s["bit_equal"])
+    loss, ref_loss = float(met["loss"]), float(ref_m["loss"])
+    return {"loss": loss, "ref_loss": ref_loss,
+            "loss_rel": abs(loss - ref_loss) / max(abs(ref_loss), 1e-30),
+            "leaves": len(tree_leaves((new_p, new_s))),
+            "min_step": min_step, **dev_leaves}
+
+
+def noise_floor(cfg: ModelConfig, device, batch: int = 4, seq: int = 64,
+                microbatches: int = 2, seed: int = 0) -> Dict:
+    """The unsharded step's own float noise, on ``train_check``'s scale:
+    ``train_check``'s unsharded step against the same step computed
+    another way that is exact in real arithmetic. ``rows_reversed``: the
+    rows of each microbatch in reverse order (the sums over the tokens
+    taken in another order); on a card also ``cublaslt``: every matrix
+    product through cuBLASLt instead of cuBLAS (other kernels, other
+    reduction orders, as other shapes get on a mesh). Returns each
+    probe's deviation and the largest."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    opt_cfg = check_opt_config(cfg)
+    fwd = make_batch(DataConfig(seed=3, global_batch=batch, seq_len=seq),
+                     cfg, 0, device=dev)
+    rows = torch.arange(batch, device=dev).reshape(microbatches, -1)
+    rev = {k: v[rows.flip(1).reshape(-1)] for k, v in fwd.items()}
+
+    def step(b):
+        return train_step(params, init_opt_state(params, opt_cfg), b,
+                          cfg=cfg, opt_cfg=opt_cfg,
+                          microbatches=microbatches)[:2]
+
+    def dev_of(got, ref):
+        return max(deviation(got[0], ref[0], PARAM_FLOOR),
+                   deviation(got[1], ref[1]), key=lambda d: d["max_rel"])
+
+    ref = step(fwd)
+    probes = {"rows_reversed": dev_of(step(rev), ref)}
+    if dev.type == "cuda":
+        blas = torch.backends.cuda.preferred_blas_library()
+        torch.backends.cuda.preferred_blas_library("cublaslt")
+        try:
+            probes["cublaslt"] = dev_of(step(fwd), ref)
+        finally:
+            torch.backends.cuda.preferred_blas_library(blas)
+    worst = max(probes.values(), key=lambda d: d["max_rel"])
+    return {"max_rel": worst["max_rel"], "worst_leaf": worst["worst_leaf"],
+            "probes": {k: v["max_rel"] for k, v in probes.items()}}
+
+
+def decode_check(mesh, cfg: ModelConfig, device, batch: int = 2,
+                 max_len: int = 32, steps: int = 3, seed: int = 0) -> Dict:
+    """``steps`` decode steps on ``mesh`` (params ``params_shardings``'
+    resident placement, the caches ``cache_shardings``') against the
+    unsharded eager steps: the logits of each and the caches after."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    cache = init_cache(cfg, batch, max_len, device=dev)
+    d_params = distribute(params, params_shardings(params, mesh,
+                                                   fsdp=False))
+    d_cache = distribute(tree_map(torch.clone, cache),
+                         cache_shardings(cache, mesh))
+    tokens = torch.arange(batch, device=dev)[:, None] % cfg.vocab + 1
+    d_tok = distribute({"t": tokens}, batch_shardings({"t": tokens},
+                                                      mesh))["t"]
+    got, want = [], []
+    with activation_policy(policy_from_mesh(mesh, seq_parallel=False)):
+        for pos in range(steps):
+            want.append(serve_step(params, tokens, cache, pos, cfg=cfg)[0])
+            got.append(serve_step(d_params, d_tok, d_cache, pos,
+                                  cfg=cfg)[0])
+    return {"logits": deviation(got, want), "cache": deviation(d_cache, cache)}

@@ -1,5 +1,4 @@
-"""End-to-end training driver: the reference's ``launch/train.py`` on one
-device.
+"""End-to-end training driver: the reference's ``launch/train.py``.
 
   python -m repro_torch.launch.train --arch h2o-danube-1.8b --steps 20 \
       --batch 8 --seq 128 --microbatches 2
@@ -12,14 +11,22 @@ through ``CheckpointManager`` (``--resume`` restores the latest) and the
 bounded-retry supervisor ``run_with_retries``, which restores and replays
 after a failed step. As in the reference, the supervisor counts data
 steps from 0 on every run, resumed or not, while the learning-rate
-schedule goes on from the restored optimizer step. ``--mesh smoke`` (the
-default) is one device with no sharding; ``pod`` and ``multipod`` are the
-LM mesh's (ROADMAP item C.7) and raise. Each logged line carries the
-card's name and power limit on a CUDA device.
+schedule goes on from the restored optimizer step. ``--mesh none`` (the
+default) is one device with no process group and plain tensors; the
+reference's meshes are ``smoke`` (one rank, a world-1 group started
+here), ``pod`` (16×16) and ``multipod`` (2×16×16), the last two over
+the process group torchrun starts (a group of another size raises
+``ValueError``): params and optimizer state placed by
+``params_shardings``, the batch drawn per rank (``make_batch(mesh=)``),
+a resume restored onto the same placements (``restore(shardings=)``),
+and each step under ``activation_policy(policy_from_mesh(mesh))``. Each
+logged line carries the card's name and power limit on a CUDA device;
+on a mesh only rank 0 logs.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 from typing import Optional, Sequence
@@ -29,8 +36,11 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.distributed.api import activation_policy, policy_from_mesh
 from repro_torch.distributed.fault import run_with_retries
+from repro_torch.distributed.sharding import distribute, params_shardings
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 from repro_torch.launch.serve import card_text
 from repro_torch.launch.steps import make_opt_config, train_step
 from repro_torch.models.model import init_model
@@ -45,8 +55,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--mesh", choices=["smoke", "pod", "multipod"],
-                    default="smoke")
+    ap.add_argument("--mesh", choices=["none", "smoke", "pod", "multipod"],
+                    default="none")
     ap.add_argument("--ckpt-dir", default="checkpoints")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -54,11 +64,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "smoke":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the production meshes come with the LM "
-            "mesh (ROADMAP item C.7)")
     dev = resolve_device(args.device)
+    mesh = _mesh(args.mesh, dev)
+    if dev.type == "cuda" and mesh is not None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    log = print if mesh is None or torch.distributed.get_rank() == 0 \
+        else (lambda *a, **k: None)
     card = card_text(dev)
     cfg = get_config(args.arch, reduced=args.reduced)
     opt_cfg = make_opt_config(cfg, total_steps=args.steps)
@@ -66,26 +77,34 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     opt_state = init_opt_state(params, opt_cfg)
+    shardings = None
+    if mesh is not None:
+        shardings = (params_shardings(params, mesh),
+                     params_shardings(opt_state, mesh))
+        params, opt_state = distribute((params, opt_state), shardings)
+    policy = policy_from_mesh(mesh) if mesh is not None else None
 
     mgr = CheckpointManager(Path(args.ckpt_dir) / cfg.name)
     start_step = 0
     if args.resume and mgr.latest_step() is not None:
-        (params, opt_state), extra = mgr.restore((params, opt_state))
+        (params, opt_state), extra = mgr.restore((params, opt_state),
+                                                 shardings=shardings)
         start_step = int(extra.get("step", mgr.latest_step()))
-        print(f"resumed from step {start_step}")
+        log(f"resumed from step {start_step}")
 
     state = {"params": params, "opt": opt_state}
     del params, opt_state
 
     def one_step(step: int) -> None:
-        batch = make_batch(dcfg, cfg, step, device=dev)
+        batch = make_batch(dcfg, cfg, step, mesh=mesh, device=dev)
         t0 = time.time()
-        state["params"], state["opt"], metrics = train_step(
-            state["params"], state["opt"], batch, cfg=cfg, opt_cfg=opt_cfg,
-            microbatches=args.microbatches)
+        with activation_policy(policy):
+            state["params"], state["opt"], metrics = train_step(
+                state["params"], state["opt"], batch, cfg=cfg,
+                opt_cfg=opt_cfg, microbatches=args.microbatches)
         if step % args.log_every == 0 or step == start_step:
             loss = float(metrics["loss"])
-            print(f"step {step:5d}  loss {loss:8.4f}  "
+            log(f"step {step:5d}  loss {loss:8.4f}  "
                   f"gnorm {float(metrics['grad_norm']):7.3f}  "
                   f"lr {float(metrics['lr']):.2e}  "
                   f"dt {time.time() - t0:6.2f}s  on {card}", flush=True)
@@ -96,15 +115,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     def restore() -> int:
         (state["params"], state["opt"]), extra = mgr.restore(
-            (state["params"], state["opt"]))
+            (state["params"], state["opt"]), shardings=shardings)
         return int(extra["step"])
 
     stats = run_with_retries(one_step, save, restore,
                              n_steps=args.steps,
                              checkpoint_every=args.ckpt_every)
     mgr.wait()
-    print(f"done: {stats}")
+    log(f"done: {stats}")
     return 0
+
+
+def _mesh(name: str, dev: torch.device):
+    """The ``--mesh`` named: None, the smoke mesh, or a production mesh
+    over the default process group (started from torchrun's environment
+    when it is not up yet)."""
+    if name == "none":
+        return None
+    if name == "smoke":
+        return make_smoke_mesh(dev)
+    import torch.distributed as dist
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return make_production_mesh(multi_pod=name == "multipod", device=dev)
 
 
 if __name__ == "__main__":

@@ -9,6 +9,11 @@ step, as in the reference's scan. Products the reference asks in f32
 exact for bf16 inputs. Decode writes the new key and value into the
 cache in place (``index_copy_`` at a position held in a tensor) and
 returns the same cache.
+
+On a mesh (``DTensor`` inputs) the attention cores run on local shards
+(``distributed.api``): prefill context-parallel over the model axis,
+decode on each batch shard with the cache gathered and its own shard
+written back.
 """
 from __future__ import annotations
 
@@ -17,6 +22,9 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.api import (constrain_qkv, context_parallel,
+                                         decode_local, heads_parallel,
+                                         heads_split, is_sharded)
 from repro_torch.models.layers import Params, apply_rope, init_linear, linear
 
 NEG_INF = -1e30
@@ -150,6 +158,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _chunk_scan(q, kc, vc, q_pos, kpc, window, scale)
 
 
+def kv_heads(t: torch.Tensor, h0: int, n: int, rep: int) -> torch.Tensor:
+    """The key or value heads of (B, S, KvH, D) ``t`` that query heads
+    ``h0 .. h0 + n - 1`` read (``rep`` query heads to a kv head): a slice
+    of whole groups where the query heads make whole groups, else one kv
+    head per query head."""
+    if h0 % rep == 0 and n % rep == 0:
+        return t[:, :, h0 // rep:(h0 + n) // rep]
+    idx = torch.arange(h0, h0 + n, device=t.device) // rep
+    return t.index_select(2, idx)
+
+
 # ---------------------------------------------------------------------------
 # GQA forward (prefill) and decode.
 # ---------------------------------------------------------------------------
@@ -168,8 +187,21 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     pos = q_offset + torch.arange(s, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    out = chunked_attention(q, k, v, q_offset=q_offset,
-                            window=cfg.sliding_window)
+    q, k, v = constrain_qkv(q, k, v)
+    if heads_split(q):
+        out = heads_parallel(
+            lambda h0, q_, k_, v_: chunked_attention(
+                q_, kv_heads(k_, h0, q_.shape[2], h // kvh),
+                kv_heads(v_, h0, q_.shape[2], h // kvh), q_offset=q_offset,
+                window=cfg.sliding_window), q, (k, v))
+    elif is_sharded(q):
+        out = context_parallel(
+            lambda shift, q_, k_, v_: chunked_attention(
+                q_, k_, v_, q_offset=q_offset + shift,
+                window=cfg.sliding_window), (q,), (k, v))
+    else:
+        out = chunked_attention(q, k, v, q_offset=q_offset,
+                                window=cfg.sliding_window)
     return linear(p["wo"], out.reshape(b, s, h * hd).to(x.dtype))
 
 
@@ -190,20 +222,37 @@ def attention_decode(p: Params, x: torch.Tensor,
         return _mla_decode(p, x, cache, pos, cfg)
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    s_cache = cache["k"].shape[1]
     pos = position_tensor(pos, x.device)
     q = linear(p["wq"], x).reshape(b, 1, h, hd)
     k_new = linear(p["wk"], x).reshape(b, 1, kvh, hd)
     v_new = linear(p["wv"], x).reshape(b, 1, kvh, hd)
     q = apply_rope(q, pos, cfg.rope_theta)
     k_new = apply_rope(k_new, pos, cfg.rope_theta)
+    if is_sharded(q):
+        o = decode_local(
+            lambda q_, k_, v_, ck, cv: _decode_core(q_, k_, v_, ck, cv, pos,
+                                                     cfg),
+            (q, k_new, v_new), (cache["k"], cache["v"]))
+    else:
+        o = _decode_core(q, k_new, v_new, cache["k"], cache["v"], pos, cfg)
+    out = linear(p["wo"], o.reshape(b, 1, h * hd))
+    return out, cache
+
+
+def _decode_core(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                 cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The new key and value written into the ring buffer at ``pos``
+    (in place), then q attends over it: (B, 1, H, D)."""
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    s_cache = cache_k.shape[1]
     slot = pos % s_cache                # ring buffer (wraps only for SWA)
-    k = cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
-    v = cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
+    k = cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
+    v = cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
 
     # Positions of cache slots (ring-aware): slot i holds token
     # pos - ((slot - i) mod S) for filled slots.
-    idx = torch.arange(s_cache, device=x.device)
+    idx = torch.arange(s_cache, device=q.device)
     tok_pos = pos - (slot - idx) % s_cache
     valid = tok_pos >= 0
     if h // kvh > 1:
@@ -218,9 +267,7 @@ def attention_decode(p: Params, x: torch.Tensor,
         msk = msk | (pos - tok_pos >= cfg.sliding_window)
     s_ = torch.where(msk[None, None, None, :], NEG_INF, s_)
     w_ = torch.softmax(s_, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", w_.to(v_r.dtype), v_r)
-    out = linear(p["wo"], o.reshape(b, 1, h * hd))
-    return out, cache
+    return torch.einsum("bhqk,bkhd->bqhd", w_.to(v_r.dtype), v_r)
 
 
 # ---------------------------------------------------------------------------
@@ -238,12 +285,6 @@ def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
     return q_nope, apply_rope(q_rope, pos, cfg.rope_theta)
 
 
-def _mla_up_weights(p: Params, cfg: ModelConfig):
-    m, h = cfg.mla, cfg.n_heads
-    return (p["w_uk"]["w"].reshape(m.kv_lora_rank, h, m.qk_nope_dim),
-            p["w_uv"]["w"].reshape(m.kv_lora_rank, h, m.v_dim))
-
-
 def _mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  q_offset: int) -> torch.Tensor:
     """Prefill: decompress K/V per chunk (the latent cache never expands
@@ -257,7 +298,27 @@ def _mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     c_kv, k_rope = ckv_full[..., :m.kv_lora_rank], \
         ckv_full[..., m.kv_lora_rank:]
     k_rope = apply_rope(k_rope[..., None, :], pos, cfg.rope_theta)[..., 0, :]
+    if is_sharded(q_nope):
+        out = context_parallel(
+            lambda shift, qn, qr, ck, kr, wk, wv: _mla_attend(
+                qn, qr, ck, kr, wk, wv, pos[shift:shift + qn.shape[1]], pos,
+                cfg), (q_nope, q_rope), (c_kv, k_rope),
+            (p["w_uk"]["w"], p["w_uv"]["w"]))
+    else:
+        out = _mla_attend(q_nope, q_rope, c_kv, k_rope, p["w_uk"]["w"],
+                          p["w_uv"]["w"], pos, pos, cfg)
+    return linear(p["wo"], out.reshape(b, s, h * m.v_dim).to(x.dtype))
 
+
+def _mla_attend(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv,
+                q_pos: torch.Tensor, pos: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """The chunked MLA core: queries at ``q_pos`` over the latent keys at
+    ``pos``, each chunk decompressed on the fly; (B, Sq, H, v_dim)."""
+    m = cfg.mla
+    b, sq = q_nope.shape[:2]
+    s = c_kv.shape[1]
+    h = cfg.n_heads
     chunk = min(1024, s)
     n = -(-s // chunk)
     pad = n * chunk - s
@@ -265,22 +326,22 @@ def _mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     k_pos = _chunk_positions(pos, pad, n, chunk)
     ckv_c = c_kv_p.reshape(b, n, chunk, -1).permute(1, 0, 2, 3)
     krope_c = k_rope_p.reshape(b, n, chunk, -1).permute(1, 0, 2, 3)
-    w_uk, w_uv = _mla_up_weights(p, cfg)
+    w_uk = w_uk.reshape(m.kv_lora_rank, h, m.qk_nope_dim)
+    w_uv = w_uv.reshape(m.kv_lora_rank, h, m.v_dim)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
 
-    carry = _online_softmax_init(b, h, s, m.v_dim, x.device)
+    carry = _online_softmax_init(b, h, sq, m.v_dim, q_nope.device)
     for i in range(n):
         ckv_i, kr_i, kp = ckv_c[i], krope_c[i], k_pos[i]
         k_nope = torch.einsum("bkl,lhd->bkhd", ckv_i, w_uk)   # decompress
         v_i = torch.einsum("bkl,lhd->bkhd", ckv_i, w_uv)
         s_ = (_f32_einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
               + _f32_einsum("bqhd,bkd->bhqk", q_rope, kr_i)) * scale
-        msk = kp[None, :] > pos[:, None]
+        msk = kp[None, :] > q_pos[:, None]
         s_ = torch.where(msk[None, None], NEG_INF, s_)
         carry = _online_softmax_step(carry, s_, v_i)
     _, l, o = carry
-    out = (o / torch.clamp_min(l, 1e-20)).permute(0, 2, 1, 3)
-    return linear(p["wo"], out.reshape(b, s, h * m.v_dim).to(x.dtype))
+    return (o / torch.clamp_min(l, 1e-20)).permute(0, 2, 1, 3)
 
 
 def _mla_decode(p: Params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
@@ -288,25 +349,43 @@ def _mla_decode(p: Params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
     latent cache — the cache stays (kv_lora + rope)-wide."""
     m = cfg.mla
     b = x.shape[0]
-    s_cache = cache["c_kv"].shape[1]
     pos = position_tensor(pos, x.device)
     q_nope, q_rope = _mla_q(p, x, cfg, pos)
     ckv_full = linear(p["w_dkv"], x)
     c_new, kr_new = ckv_full[..., :m.kv_lora_rank], \
         ckv_full[..., m.kv_lora_rank:]
     kr_new = apply_rope(kr_new[..., None, :], pos, cfg.rope_theta)[..., 0, :]
-    c_kv = cache["c_kv"].index_copy_(1, pos, c_new.to(cache["c_kv"].dtype))
-    k_rope = cache["k_rope"].index_copy_(1, pos,
-                                         kr_new.to(cache["k_rope"].dtype))
-    w_uk, w_uv = _mla_up_weights(p, cfg)
+    if is_sharded(q_nope):
+        o = decode_local(
+            lambda qn, qr, cn, kn, wk, wv, ck, kr: _mla_decode_core(
+                qn, qr, cn, kn, wk, wv, ck, kr, pos, cfg),
+            (q_nope, q_rope, c_new, kr_new), (cache["c_kv"], cache["k_rope"]),
+            (p["w_uk"]["w"], p["w_uv"]["w"]))
+    else:
+        o = _mla_decode_core(q_nope, q_rope, c_new, kr_new, p["w_uk"]["w"],
+                             p["w_uv"]["w"], cache["c_kv"], cache["k_rope"],
+                             pos, cfg)
+    out = linear(p["wo"], o.reshape(b, 1, cfg.n_heads * m.v_dim))
+    return out, cache
+
+
+def _mla_decode_core(q_nope, q_rope, c_new, kr_new, w_uk, w_uv, cache_c,
+                     cache_r, pos: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """The latent and rope key written at ``pos`` (in place), then the
+    absorbed-matmul attention over the latent cache: (B, 1, H, v_dim)."""
+    m = cfg.mla
+    s_cache = cache_c.shape[1]
+    c_kv = cache_c.index_copy_(1, pos, c_new.to(cache_c.dtype))
+    k_rope = cache_r.index_copy_(1, pos, kr_new.to(cache_r.dtype))
+    w_uk = w_uk.reshape(m.kv_lora_rank, cfg.n_heads, m.qk_nope_dim)
+    w_uv = w_uv.reshape(m.kv_lora_rank, cfg.n_heads, m.v_dim)
     q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)   # (B,1,H,kv_lora)
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
     s_ = (_f32_einsum("bqhl,bkl->bhqk", q_abs, c_kv)
           + _f32_einsum("bqhd,bkd->bhqk", q_rope, k_rope)) * scale
-    valid = torch.arange(s_cache, device=x.device) <= pos
+    valid = torch.arange(s_cache, device=q_nope.device) <= pos
     s_ = torch.where(~valid[None, None, None, :], NEG_INF, s_)
     w_ = torch.softmax(s_, dim=-1)
     o_lat = torch.einsum("bhqk,bkl->bqhl", w_.to(c_kv.dtype), c_kv)
-    o = torch.einsum("bqhl,lhd->bqhd", o_lat, w_uv)
-    out = linear(p["wo"], o.reshape(b, 1, cfg.n_heads * m.v_dim))
-    return out, cache
+    return torch.einsum("bqhl,lhd->bqhd", o_lat, w_uv)

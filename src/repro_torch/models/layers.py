@@ -13,6 +13,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import api
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -29,10 +31,14 @@ def init_rmsnorm(d: int, dtype=torch.bfloat16, device="cpu") -> Params:
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm over the last dim. On a mesh it runs batch-sharded with
+    the scale whole: a norm feeds projections, so a sequence-sharded
+    residual is gathered here once per norm, not once per projection."""
+    x, scale = api.batch_sharded(x), api.gathered(p["scale"])
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
-    return (out * p["scale"].float()).to(x.dtype)
+    return (out * scale.float()).to(x.dtype)
 
 
 # ----------------------------------------------------------------- linear
@@ -46,10 +52,12 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    """``x @ w (+ b)``. On a mesh the input and output are batch-sharded
+    (``distributed.api.batch_sharded``; the identity otherwise)."""
+    y = api.batch_sharded(x) @ p["w"]
     if "b" in p:
         y = y + p["b"]
-    return y
+    return api.batch_sharded(y)
 
 
 # ----------------------------------------------------------------- RoPE
@@ -98,9 +106,43 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the table for ``tokens``."""
+    if api.is_sharded(p["table"]):
+        return _embed_sharded(p["table"], tokens)
     return p["table"][tokens]
+
+
+def _embed_sharded(table, tokens):
+    """The vocab-parallel lookup: with the vocab on the model axis, each
+    model rank reads the tokens in its slice (the rest masked to zero)
+    and the ranks' rows are summed; the table is never gathered over the
+    model axis (its rows are over the data axis)."""
+    from torch.distributed.tensor import Partial, Shard
+    mesh = table.device_mesh
+    v, m = table.shape[0], api.model_size(mesh)
+    split = m > 1 and v % m == 0
+    v0 = api.model_rank(mesh) * (v // m) if split else 0
+    batch = api.batch_axes_of(mesh, tokens.shape[0]) is not None
+
+    def lookup(tab, tok):
+        if not split:
+            return tab[tok]
+        mine = (tok >= v0) & (tok < v0 + tab.shape[0])
+        rows = tab[torch.where(mine, tok - v0, 0)]
+        return rows * mine[..., None].to(rows.dtype)
+
+    vocab = Shard(0) if split else None
+    out = api.local_map(
+        lookup, mesh, (table, tokens),
+        [api.mesh_placements(mesh, False, vocab),
+         api.mesh_placements(mesh, batch)],
+        api.mesh_placements(mesh, batch, Partial() if split else None),
+        [api.weight_grads(mesh, batch, vocab), None])
+    return api.batch_sharded(out)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 for a stable softmax-CE."""
-    return x.float() @ p["table"].T.float()
+    table = api.data_gathered(p["table"])
+    return api.batch_sharded(api.batch_sharded(x).float()
+                             @ table.T.float())

@@ -24,6 +24,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockType, ModelConfig
+from repro_torch.distributed.api import (batch_sums, constrain_residual,
+                                         gather_layer_params, is_sharded)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
@@ -64,6 +66,7 @@ def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
                       q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, moe_aux_loss). A block is MoE iff its params carry the
     'moe' subtree (interleaved stacks mix dense and MoE blocks)."""
+    p = gather_layer_params(p)      # streamed-FSDP weight gather
     aux = torch.zeros((), device=x.device)
 
     def ffn(h):
@@ -92,6 +95,7 @@ def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype,
 
 def _apply_mamba_block(p: Params, x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
+    p = gather_layer_params(p)      # streamed-FSDP weight gather
     return x + S.mamba_forward(p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps),
                                cfg)
 
@@ -191,7 +195,7 @@ def _mamba_group(group: PyTree, shared: Params, x: torch.Tensor,
                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """A hybrid stack's group: its mamba layers, then the shared block."""
     for mp in tree_unstack(group):
-        x = _apply_mamba_block(mp, x, cfg)
+        x = _apply_mamba_block(mp, constrain_residual(x), cfg)
     return _apply_attn_block(shared, x, cfg)
 
 
@@ -221,19 +225,22 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.block_type is BlockType.MAMBA and cfg.attn_every:
         for group in tree_unstack(layers):
             x, a = _remat(remat, _mamba_group, group, params["shared_attn"],
-                          x, cfg)
+                          constrain_residual(x), cfg)
             aux = aux + a
     elif cfg.block_type is BlockType.MAMBA:
         for lp in tree_unstack(layers):
-            x = _remat(remat, _apply_mamba_block, lp, x, cfg)
+            x = _remat(remat, _apply_mamba_block, lp,
+                       constrain_residual(x), cfg)
     elif cfg.moe is not None and cfg.moe_every > 1:
         for dense, moe_block in zip(tree_unstack(layers["dense"]),
                                     tree_unstack(layers["moe"])):
-            x, a = _remat(remat, _moe_pair, dense, moe_block, x, cfg)
+            x, a = _remat(remat, _moe_pair, dense, moe_block,
+                          constrain_residual(x), cfg)
             aux = aux + a
     else:
         for lp in tree_unstack(layers):
-            x, a = _remat(remat, _apply_attn_block, lp, x, cfg)
+            x, a = _remat(remat, _apply_attn_block, lp,
+                          constrain_residual(x), cfg)
             aux = aux + a
     return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
@@ -245,6 +252,14 @@ def _head(params: PyTree, cfg: ModelConfig) -> Params:
 def logits_from_hidden(params: PyTree, cfg: ModelConfig,
                        x: torch.Tensor) -> torch.Tensor:
     return unembed(_head(params, cfg), x)
+
+
+def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """(summed cross entropy, count) of the valid (label >= 0) positions."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    valid = (labels >= 0).float()
+    return torch.sum((logz - gold) * valid), valid.sum()
 
 
 def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
@@ -266,10 +281,9 @@ def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     def chunk_ce(h_i, l_i):
         logits = unembed(head, h_i)                       # (B, c, V) fp32
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, l_i.clamp_min(0)[..., None])[..., 0]
-        valid = (l_i >= 0).float()
-        return torch.sum((logz - gold) * valid), valid.sum()
+        if is_sharded(logits):
+            return batch_sums(_ce_sums, (logits, l_i), 2)
+        return _ce_sums(logits, l_i)
 
     ce_sum = torch.zeros((), device=h.device)
     cnt = torch.zeros((), device=h.device)

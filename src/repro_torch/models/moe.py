@@ -16,6 +16,14 @@ Two dispatch algorithms, as in the reference:
 Top-k keeps the reference's order of ties (``jax.lax.top_k``: the lower
 expert first) by a stable descending sort, and capacity positions follow
 the same stable sort and ``cumsum``.
+
+On a mesh (``DTensor`` inputs) the sort-based dispatch runs on local
+shards (``distributed.api.local_map``): each batch shard routes its own
+rows, and each model rank runs only its experts (the experts dim is
+sharded on the model axis), so the output is a partial sum over the
+model axis. The load-balance statistics come back as partial sums
+scaled to the mean over the whole batch, so the aux loss is the
+unsharded one.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import api
 from repro_torch.models.layers import Params, init_linear, init_mlp, mlp
 
 
@@ -58,10 +67,10 @@ def _capacity(tokens: int, mo) -> int:
     return max(4, -(-cap // 4) * 4)
 
 
-def _router(p: Params, xt: torch.Tensor, mo):
+def _router(router_w: torch.Tensor, xt: torch.Tensor, mo):
     """Per-token routing: (gates (…,k), experts (…,k), probs (…,E),
     logits (…,E))."""
-    logits = xt.float() @ p["router"]["w"]
+    logits = xt.float() @ router_w
     probs = torch.softmax(logits, dim=-1)
     topg, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topg, topi = topg[..., :mo.top_k], topi[..., :mo.top_k]
@@ -69,14 +78,21 @@ def _router(p: Params, xt: torch.Tensor, mo):
     return topg, topi, probs, logits
 
 
-def _aux(probs: torch.Tensor, topi: torch.Tensor, logits: torch.Tensor,
-         mo) -> Dict[str, torch.Tensor]:
+def _aux_stats(probs: torch.Tensor, topi: torch.Tensor,
+               logits: torch.Tensor, mo):
+    """Token means of the router: (probs (E,), selections (E,), squared
+    log-partition)."""
     me = probs.reshape(-1, mo.n_experts).mean(0)
     sel = F.one_hot(topi.reshape(-1), mo.n_experts).float().mean(0) \
         * mo.top_k
-    lb = mo.n_experts * torch.sum(me * sel / mo.top_k)
     zl = torch.mean(torch.logsumexp(logits.reshape(-1, mo.n_experts),
                                     dim=-1) ** 2)
+    return me, sel, zl
+
+
+def _aux(me: torch.Tensor, sel: torch.Tensor, zl: torch.Tensor,
+         mo) -> Dict[str, torch.Tensor]:
+    lb = mo.n_experts * torch.sum(me * sel / mo.top_k)
     return {"load_balance": lb, "router_z": zl}
 
 
@@ -89,12 +105,65 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     """x: (B, S, d). Routing groups are sequence rows, so every gather
     stays within one row."""
     mo = cfg.moe
+    x = api.batch_sharded(x)        # rows whole: routing groups are rows
+    weights = (p["router"]["w"], p["w_gate"], p["w_up"], p["w_down"])
+    if api.is_sharded(x):
+        y, me, sel, zl = _moe_sharded(x, weights, mo)
+    else:
+        y, (me, sel, zl) = _dispatch(x, *weights, 0, mo)
+    y = y.to(x.dtype)
+    if "shared" in p:
+        y = y + mlp(p["shared"], x)
+    return y, _aux(me, sel, zl, mo)
+
+
+def _moe_sharded(x: torch.Tensor, weights, mo):
+    """``_dispatch`` on local shards: rows on the data axes, experts on
+    the model axis when it divides them. (y batch-sharded, and the three
+    router statistics, each a DTensor.)"""
+    from torch.distributed.tensor import Partial, Shard
+    mesh = x.device_mesh
+    batch = api.batch_axes_of(mesh, x.shape[0]) is not None
+    m = api.model_size(mesh)
+    split = m > 1 and mo.n_experts % m == 0
+    e0 = api.model_rank(mesh) * (mo.n_experts // m) if split else 0
+    # Partial wherever the work is split: the router's statistics are
+    # scaled by those dims' size, so their sum is the whole batch's mean
+    # and their gradient is a partial sum like the dispatch's.
+    part = api.weight_grads(mesh, batch, Partial() if split else None)
+    n_part = 1
+    for pl, size in zip(part, api.mesh_axes(mesh).values()):
+        n_part *= size if isinstance(pl, Partial) else 1
+    experts = Shard(0) if split else None
+    w_pl = api.mesh_placements(mesh, False, experts)
+    w_grad = api.weight_grads(mesh, batch, experts)
+
+    def core(x_, r_, g_, u_, d_):
+        y, (me, sel, zl) = _dispatch(x_, r_, g_, u_, d_, e0, mo)
+        return y, me / n_part, sel / n_part, zl / n_part
+
+    y, me, sel, zl = api.local_map(
+        core, mesh, (x, *weights),
+        [api.mesh_placements(mesh, batch), api.mesh_placements(mesh, False),
+         w_pl, w_pl, w_pl],
+        (api.mesh_placements(mesh, batch, Partial() if split else None),
+         part, part, part),
+        [api.mesh_placements(mesh, batch, Partial() if split else None),
+         part, w_grad, w_grad, w_grad])
+    return api.batch_sharded(y), me, sel, zl
+
+
+def _dispatch(x: torch.Tensor, router_w, w_gate, w_up, w_down, e0: int,
+              mo):
+    """Route every token of ``x`` (B, S, d) and run experts ``[e0, e0 +
+    E_local)`` (the leading dim of ``w_gate``): (their summed outputs
+    (B, S, d), the router statistics of ``_aux_stats``)."""
     b, s, d = x.shape
     k, e = mo.top_k, mo.n_experts
     cap = _capacity(s, mo)
     dev = x.device
 
-    topg, topi, probs, logits = _router(p, x, mo)    # (B,S,k) ×2, (B,S,E)
+    topg, topi, probs, logits = _router(router_w, x, mo)  # (B,S,k)×2, (B,S,E)
 
     # Flatten routed copies within each row: (B, S·k).
     flat_e = topi.reshape(b, s * k)
@@ -117,23 +186,22 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     tok_idx = torch.gather(st, 1, slot_c).reshape(b, e, cap)  # token ids
     gate = torch.gather(sg, 1, slot_c).reshape(b, e, cap) * valid
+    mine = slice(e0, e0 + w_gate.shape[0])                  # local experts
+    tok_idx, gate, valid = tok_idx[:, mine], gate[:, mine], valid[:, mine]
 
     rows = torch.arange(b, device=dev)
     xe = x[rows[:, None, None], tok_idx] * valid[..., None].to(x.dtype)
 
-    h = torch.einsum("becd,edf->becf", xe, p["w_gate"])
-    u = torch.einsum("becd,edf->becf", xe, p["w_up"])
-    ye = torch.einsum("becf,efd->becd", F.silu(h) * u, p["w_down"])
+    h = torch.einsum("becd,edf->becf", xe, w_gate)
+    u = torch.einsum("becd,edf->becf", xe, w_up)
+    ye = torch.einsum("becf,efd->becd", F.silu(h) * u, w_down)
     ye = ye * gate[..., None].to(ye.dtype)
 
     # Scatter-add back per row.
     y = torch.zeros((b, s, d), dtype=ye.dtype, device=dev).index_put_(
         (rows[:, None], tok_idx.reshape(b, -1)), ye.reshape(b, -1, d),
         accumulate=True)
-    y = y.to(x.dtype)
-    if "shared" in p:
-        y = y + mlp(p["shared"], x.reshape(-1, d)).reshape(b, s, d)
-    return y, _aux(probs, topi, logits, mo)
+    return y, _aux_stats(probs, topi, logits, mo)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +214,7 @@ def moe_ffn_dense(p: Params, x: torch.Tensor, cfg: ModelConfig
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
-    topg, topi, probs, logits = _router(p, xt, mo)
+    topg, topi, probs, logits = _router(p["router"]["w"], xt, mo)
     cap = _capacity(t, mo)
 
     combine = torch.zeros((t, mo.n_experts, cap), device=x.device)
@@ -172,4 +240,4 @@ def moe_ffn_dense(p: Params, x: torch.Tensor, cfg: ModelConfig
     y = y.reshape(b, s, d)
     if "shared" in p:
         y = y + mlp(p["shared"], xt).reshape(b, s, d)
-    return y, _aux(probs, topi, logits, mo)
+    return y, _aux(*_aux_stats(probs, topi, logits, mo), mo)

@@ -4,6 +4,10 @@ Chunked SSD: intra-chunk "attention" (the duality's quadratic branch)
 plus the inter-chunk state recurrence (linear branch), a loop over
 chunks. Decode is the O(1) recurrent update of (conv_state, ssm_state),
 written into the cache in place.
+
+On a mesh (``DTensor`` inputs) the block between the two projections
+runs on each batch shard (``distributed.api.batch_local`` /
+``decode_local``).
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.api import batch_local, decode_local, is_sharded
 from repro_torch.models.layers import Params, init_linear, linear, rmsnorm
 
 
@@ -109,31 +114,47 @@ def _split_proj(zxbcdt: torch.Tensor, s, d_in: int, nh: int):
                        dim=-1)
 
 
+def _inner_params(p: Params):
+    """The block's parameters between its two projections."""
+    return (p["conv_w"], p["conv_b"], p["dt_bias"], p["a_log"], p["d_skip"],
+            p["norm"]["scale"])
+
+
 def mamba_forward(p: Params, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) → (B, S, d)."""
+    zxbcdt = linear(p["in_proj"], x)
+    if is_sharded(zxbcdt):
+        y = batch_local(lambda t, *w: _mamba_inner(t, *w, cfg), (zxbcdt,),
+                        _inner_params(p))
+    else:
+        y = _mamba_inner(zxbcdt, *_inner_params(p), cfg)
+    return linear(p["out_proj"], y)
+
+
+def _mamba_inner(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Causal conv, SSD scan and gated norm: (B, S, d_in)."""
     s, d_in, nh, _ = _dims(cfg)
-    bsz, l, _ = x.shape
-    z, xin, b_in, c_in, dt = _split_proj(linear(p["in_proj"], x), s, d_in,
-                                         nh)
+    bsz, l, _ = zxbcdt.shape
+    z, xin, b_in, c_in, dt = _split_proj(zxbcdt, s, d_in, nh)
     # Causal depthwise conv over (x, B, C).
     xbc = torch.cat([xin, b_in, c_in], dim=-1)              # (B, L, conv_ch)
-    w = p["conv_w"].float()
+    w = conv_w.float()
     xbc_p = F.pad(xbc.float(), (0, 0, s.conv_width - 1, 0))
     conv = sum(xbc_p[:, i:i + l] * w[i] for i in range(s.conv_width))
-    conv = F.silu(conv + p["conv_b"].float())
+    conv = F.silu(conv + conv_b.float())
     xin, b_in, c_in = torch.split(conv, [d_in, s.state_dim, s.state_dim],
                                   dim=-1)
 
-    dt = F.softplus(dt.float() + p["dt_bias"])              # (B,L,H)
-    a = -torch.exp(p["a_log"])                              # (H,)
+    dt = F.softplus(dt.float() + dt_bias)                   # (B,L,H)
+    a = -torch.exp(a_log)                                   # (H,)
     xh = xin.reshape(bsz, l, nh, s.head_dim)
     y = ssd_chunked((xh * dt[..., None]).float(), dt * a, b_in, c_in,
                     s.chunk)
-    y = y + xh.float() * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, l, d_in).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z))
-    return linear(p["out_proj"], y)
+    y = y + xh.float() * d_skip[None, None, :, None]
+    y = y.reshape(bsz, l, d_in).to(zxbcdt.dtype)
+    return rmsnorm({"scale": norm_scale}, y * F.silu(z))
 
 
 # ---------------------------------------------------------------------------
@@ -155,30 +176,42 @@ def mamba_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
                  cfg: ModelConfig
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, 1, d); O(1) state update, written into ``cache``."""
+    zxbcdt = linear(p["in_proj"], x[:, 0])
+    if is_sharded(zxbcdt):
+        y = decode_local(
+            lambda t, *rest: _mamba_step(t, *rest, cfg), (zxbcdt,),
+            (cache["conv"], cache["ssm"]), _inner_params(p))
+    else:
+        y = _mamba_step(zxbcdt, *_inner_params(p), cache["conv"],
+                        cache["ssm"], cfg)
+    return linear(p["out_proj"], y), cache
+
+
+def _mamba_step(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale,
+                conv_state, ssm_state, cfg: ModelConfig) -> torch.Tensor:
+    """The recurrent update of both states (in place) and the gated norm:
+    (B, 1, d_in)."""
     s, d_in, nh, _ = _dims(cfg)
-    bsz = x.shape[0]
-    z, xin, b_in, c_in, dt = _split_proj(linear(p["in_proj"], x[:, 0]), s,
-                                         d_in, nh)
+    bsz = zxbcdt.shape[0]
+    z, xin, b_in, c_in, dt = _split_proj(zxbcdt, s, d_in, nh)
     xbc = torch.cat([xin, b_in, c_in], dim=-1)              # (B, conv_ch)
-    hist = torch.cat([cache["conv"],
-                      xbc[:, None].to(cache["conv"].dtype)], dim=1)
-    w = p["conv_w"].float()
+    hist = torch.cat([conv_state, xbc[:, None].to(conv_state.dtype)], dim=1)
+    w = conv_w.float()
     conv = torch.einsum("bwc,wc->bc", hist.float(), w)
-    conv = F.silu(conv + p["conv_b"].float())
+    conv = F.silu(conv + conv_b.float())
     xin, b_in, c_in = torch.split(conv, [d_in, s.state_dim, s.state_dim],
                                   dim=-1)
 
-    dt1 = F.softplus(dt.float() + p["dt_bias"])             # (B,H)
-    a = -torch.exp(p["a_log"])
+    dt1 = F.softplus(dt.float() + dt_bias)                  # (B,H)
+    a = -torch.exp(a_log)
     da = torch.exp(dt1 * a)                                 # (B,H)
     xh = xin.reshape(bsz, nh, s.head_dim)
-    ssm = cache["ssm"] * da[..., None, None] \
+    ssm = ssm_state * da[..., None, None] \
         + torch.einsum("bhp,bn,bh->bhpn", xh, b_in, dt1)
     y = torch.einsum("bhpn,bn->bhp", ssm, c_in) \
-        + xh * p["d_skip"][None, :, None]
-    y = y.reshape(bsz, 1, d_in).to(x.dtype)
-    y = rmsnorm(p["norm"], y * F.silu(z[:, None]))
-    out = linear(p["out_proj"], y)
-    cache["conv"].copy_(hist[:, 1:])
-    cache["ssm"].copy_(ssm)
-    return out, cache
+        + xh * d_skip[None, :, None]
+    y = y.reshape(bsz, 1, d_in).to(zxbcdt.dtype)
+    y = rmsnorm({"scale": norm_scale}, y * F.silu(z[:, None]))
+    conv_state.copy_(hist[:, 1:])
+    ssm_state.copy_(ssm)
+    return y

@@ -55,7 +55,12 @@ def test_quickstart_runs_and_checks(capsys):
 @pytest.mark.parametrize("flags, n_models", [
     ((), 1),
     (("--models", "2"), 2),
-    (("--pipeline-depth", "2", "--chaos", "--max-queue", "4"), 1),
+    # --chaos arms deadline shedding on the real clock: the SLO is set so
+    # far out that a host slowed by other test workers cannot shed every
+    # request before its first tick ("no request completed"); the burst
+    # still overflows --max-queue 4.
+    (("--pipeline-depth", "2", "--chaos", "--max-queue", "4",
+      "--slo-ms", "60000"), 1),
     (("--precision", "auto"), 1)])
 def test_serve_cnn_smoke(capsys, flags, n_models):
     main = _load("serve_cnn_torch").main

@@ -38,7 +38,8 @@ from repro_torch.distributed.fault import FaultPlan
 from repro_torch.serving.cnn_engine import (CNNRequest, CNNServingEngine,
                                             DegradeConfig)
 from repro_torch.serving.multi_engine import MultiModelEngine
-from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.launch.mesh import (make_data_mesh, make_production_mesh,
+                                     make_smoke_mesh)
 from repro_torch.launch import serve, train
 from repro_torch.configs import get_config
 from repro_torch.models.model import init_model
@@ -84,7 +85,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "models/layers.py", "models/scan_util.py", "serving/engine.py",
             "launch/serve.py", "optim/adamw.py", "data/pipeline.py",
             "checkpoint/manager.py", "distributed/fault.py",
-            "launch/steps.py", "launch/train.py", "bridge.py"} <= names
+            "launch/steps.py", "launch/train.py", "bridge.py",
+            "distributed/api.py", "launch/dryrun.py", "launch/roofline.py",
+            "launch/mesh_check.py", "hw.py"} <= names
     bad = {str(f.relative_to(REPO)): root for f in files
            for root in _imported_roots(f) if root in FORBIDDEN}
     assert bad == {}
@@ -113,6 +116,8 @@ def test_entry_points_with_default_device_raise_without_cuda(no_cuda,
              lambda: MultiModelEngine().register_model("m", g, params, None),
              lambda: params_from_jax({0: {"w": np.zeros(3, np.float32)}}),
              lambda: make_data_mesh(),
+             lambda: make_smoke_mesh(),
+             lambda: make_production_mesh(),
              lambda: init_model(get_config("qwen2.5-14b", reduced=True)),
              lambda: ServingEngine(get_config("qwen2.5-14b", reduced=True),
                                    {}, batch_size=1),

@@ -30,6 +30,9 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data import pipeline
 from repro_torch.distributed import fault
+from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
+                                              replicated)
+from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models.scan_util import tree_leaves
 from repro_torch.optim import adamw
 
@@ -210,10 +213,25 @@ def test_prefetch_iterator_orders_steps():
 
 
 def test_sharded_batch_waits_for_the_lm_mesh():
-    cfg = pipeline.DataConfig(global_batch=2, seq_len=8)
-    model = get_config("mamba2-370m", reduced=True)
-    with pytest.raises(NotImplementedError, match="C.7"):
-        pipeline.make_batch(cfg, model, 0, mesh=object(), device="cpu")
+    """The host-sharded batch on the LM smoke mesh (one rank: every row)
+    against the reference's ``make_batch(mesh=)`` on its one-device mesh:
+    the same tokens and frontend embeddings."""
+    cfg = pipeline.DataConfig(seed=2, global_batch=2, seq_len=32)
+    model = get_config("internvl2-2b", reduced=True)
+    jax_batch = jax_pipeline.make_batch(
+        cfg, jax_get_config("internvl2-2b", reduced=True), 4,
+        jax.make_mesh((1, 1), ("data", "model")))
+    make_smoke_mesh("cpu")
+    try:
+        mesh = make_smoke_mesh("cpu")
+        got = pipeline.make_batch(cfg, model, 4, mesh=mesh)
+        assert sorted(got) == sorted(jax_batch)
+        for k, v in got.items():
+            assert type(v).__name__ == "DTensor"
+            np.testing.assert_array_equal(v.full_tensor().numpy(),
+                                          np.asarray(jax_batch[k]))
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ------------------------------------------------------------ checkpoint
@@ -239,8 +257,18 @@ def test_checkpoint_roundtrip_and_gc(tmp_path):
     assert torch.equal(restored["b"]["c"], tree["b"]["c"])
     restored, _ = mgr.restore(tree, step=20)
     assert torch.equal(restored["a"], tree["a"])
-    with pytest.raises(NotImplementedError, match="C.7"):
-        mgr.restore(tree, shardings=tree)
+    mesh = make_smoke_mesh("cpu")        # restore onto the LM smoke mesh
+    try:
+        sh = {"a": NamedSharding(mesh, PartitionSpec("data", None)),
+              "b": {"c": replicated(mesh)}}
+        restored, _ = mgr.restore(like, shardings=sh)
+        for got, want, s in ((restored["a"], tree["a"], sh["a"]),
+                             (restored["b"]["c"], tree["b"]["c"],
+                              sh["b"]["c"])):
+            assert got.placements == s.placements
+            assert torch.equal(got.full_tensor(), want)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_checkpoint_atomicity(tmp_path):

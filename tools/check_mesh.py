@@ -1,10 +1,24 @@
 #!/usr/bin/env python3
-"""Check the port's data-parallel mesh path on real cards.
+"""Check the port's mesh paths on real cards: the CNN data-parallel mesh,
+and with ``--lm`` the LM (data, model) mesh.
 
     python3 tools/check_mesh.py --cards 2 4        # needs 4 visible cards
     python3 tools/check_mesh.py --virtual --cards 2  # one card, cuda:0 twice
     PYTHONPATH=src python tools/check_mesh.py --device cpu --virtual \\
         --res 32 --scale 0.125                     # the control flow, CPU
+    python3 tools/check_mesh.py --lm --lm-mesh 1x2 2x1 2x2   # 4 cards
+    PYTHONPATH=src python tools/check_mesh.py --lm --device cpu --reduced \\
+        --lm-mesh 2x2                              # 4 gloo processes
+
+``--lm``: for each (data, model) mesh asked for, the script launches
+itself under ``torchrun --nproc-per-node data*model`` (NCCL on the cards,
+gloo on the CPU) and runs one train step (two microbatches) of
+h2o-danube-1.8b cut to 2 layers at full width in f32 on that mesh,
+holding the loss and every updated param and optimizer leaf to the
+unsharded step on the same weights and batch (1e-5 of each leaf's max),
+then three decode steps' logits and caches likewise. With fewer cards
+than the mesh needs it says so and exits 2; it never runs a smaller mesh
+in place of the one asked for.
 
 For each mesh of ``--cards`` devices (``make_data_mesh(n)``, or with
 ``--virtual`` a ``DataMesh`` naming the first device n times), on
@@ -43,8 +57,107 @@ TOL = dict(rtol=2e-2, atol=2e-3)
 WAVES = (8, 8, 2)
 
 
+LM_TOL = 1e-5
+
+
+def lm_main(args) -> int:
+    """``--lm``: launch each mesh under torchrun, or (inside torchrun) run
+    this rank's part of one."""
+    import os
+    if "RANK" in os.environ:
+        return lm_rank(args)
+    import torch
+    if args.device == "cuda" and torch.cuda.is_available():
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip(), flush=True)
+    failed = 0
+    for shape in args.lm_mesh:
+        d, m = (int(n) for n in shape.split("x"))
+        cards = torch.cuda.device_count() if args.device == "cuda" else None
+        if cards is not None and cards < d * m:
+            print(f"the {shape} LM mesh needs {d * m} cards; "
+                  f"{cards} visible", flush=True)
+            return 2
+        argv = [a for a in sys.argv[1:]]
+        i = argv.index("--lm-mesh") if "--lm-mesh" in argv else len(argv)
+        j = i + 1
+        while j < len(argv) and not argv[j].startswith("--"):
+            j += 1
+        argv[i:j] = ["--lm-mesh", shape]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(d * m), __file__, *argv]
+        print(f"[{shape}] {' '.join(cmd[1:])}", flush=True)
+        rc = subprocess.run(cmd, timeout=args.timeout, cwd=REPO).returncode
+        if rc != 0:
+            print(f"[{shape}] failed: rc {rc}", flush=True)
+            failed = failed or rc
+    return failed
+
+
+def lm_rank(args) -> int:
+    import os
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.launch import mesh_check
+    from repro_torch.launch.mesh import make_mesh
+    d, m = (int(n) for n in args.lm_mesh[0].split("x"))
+    card = args.device == "cuda"
+    if card:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl" if card else "gloo")
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device()) if card \
+            else torch.device("cpu")
+        mesh = make_mesh((d, m), ("data", "model"), dev)
+        cfg = mesh_check.check_config(args.lm_arch, args.lm_layers,
+                                      reduced=args.reduced)
+        t0 = time.perf_counter()
+        train = mesh_check.train_check(mesh, cfg, dev, batch=args.lm_batch,
+                                       seq=args.lm_seq)
+        dec = mesh_check.decode_check(mesh, cfg, dev)
+        secs = time.perf_counter() - t0
+        noise = mesh_check.noise_floor(cfg, dev, batch=args.lm_batch,
+                                       seq=args.lm_seq)
+        worst = max(train["max_rel"], train["loss_rel"],
+                    dec["logits"]["max_rel"], dec["cache"]["max_rel"])
+        if dist.get_rank() == 0:
+            print(f"[{d}x{m}] {cfg.name} ({cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}, f32) train step: loss {train['loss']:.6f}"
+                  f" vs unsharded {train['ref_loss']:.6f}, {train['leaves']}"
+                  f" leaves within {train['max_rel']:.2e} of their max "
+                  f"(bit-equal: {train['bit_equal']}; the smallest leaf's "
+                  f"step {train['min_step']:.2e}); decode logits within "
+                  f"{dec['logits']['max_rel']:.2e}, caches "
+                  f"{dec['cache']['max_rel']:.2e}; {secs:.1f} s; the "
+                  f"unsharded step's own float noise "
+                  f"{ {k: f'{v:.2e}' for k, v in noise['probes'].items()} }"
+                  f", worst at {noise['worst_leaf']}", flush=True)
+            print(json.dumps({"ok": worst <= LM_TOL, "mesh": [d, m],
+                              "train": train, "decode": dec,
+                              "noise_floor": noise, "device": str(dev)}),
+                  flush=True)
+        return 0 if worst <= LM_TOL else 1
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--lm", action="store_true",
+                    help="check the LM (data, model) mesh instead")
+    ap.add_argument("--lm-mesh", nargs="+", default=["1x2", "2x1", "2x2"])
+    ap.add_argument("--lm-arch", default="h2o-danube-1.8b")
+    ap.add_argument("--lm-layers", type=int, default=2)
+    ap.add_argument("--lm-batch", type=int, default=4)
+    ap.add_argument("--lm-seq", type=int, default=64)
+    ap.add_argument("--reduced", action="store_true",
+                    help="--lm at the config's reduced width")
+    ap.add_argument("--timeout", type=float, default=600.0)
     ap.add_argument("--cards", type=int, nargs="+", default=[2])
     ap.add_argument("--virtual", action="store_true",
                     help="name the first device n times instead of n cards")
@@ -52,6 +165,8 @@ def main(argv=None) -> int:
     ap.add_argument("--res", type=int, default=224)
     ap.add_argument("--scale", type=float, default=1.0)
     args = ap.parse_args(argv)
+    if args.lm:
+        return lm_main(args)
     sys.path.insert(0, str(REPO / "src"))
 
     import numpy as np
