@@ -258,14 +258,23 @@ both matrix products and cuDNN:
     4; in bf16 ``launch.serve``'s defaults through the captured engine;
     one replay's ms, kernel rows and device-busy share printed; every
     architecture's reduced decode captured and bit-equal to eager in f32;
-27. LM training, after phases 1-25's programs are dropped and the cache
-    emptied: full-width h2o-danube-1.8b through ``launch.train.main``
-    (batch 8, seq 128, two microbatches; finite losses and grad norms),
-    then 8 ``train_step`` calls on one batch whose loss must fall by 0.5;
-    full-width mamba2-370m trained, checkpointed and resumed, the restored
-    state bit-equal to the saved one; one f32 train step at 2 layers, full
-    width, on the card against the CPU within 1e-4 of each leaf's max;
-    step ms, tokens/s, model FLOP/s, the host's share and memory printed.
+27. LM training through the compiled train step (``compile_train_step``:
+    two eager passes, one CUDA-graph capture, replays), after phases
+    1-25's programs are dropped and the cache emptied: full-width
+    h2o-danube-1.8b through ``launch.train.main`` (batch 8, seq 128, two
+    microbatches; finite losses and grad norms), then 8 compiled steps on
+    one batch whose loss must fall by 0.5; the compiled step against the
+    eager ``train_step`` in f32 (2-layer h2o, full-width mamba2-370m,
+    reduced deepseek-v2-236b), bit-equal or within
+    ``mesh_check.check_rule``, the graph's kernel nodes equal to one eager
+    pass's kernel rows; the eager and the replayed full-width bf16 h2o
+    step (batch 8 x 128: ms, device busy, host share, capture seconds,
+    kernel nodes, memory reserved, printed); full-width mamba2-370m
+    trained, checkpointed, resumed and recovered from a failure injected
+    after the capture, each restore bit-equal to the saved state and
+    copied into the compiled step's buffers; one f32 train step at 2
+    layers, full width, on the card against the CPU within 1e-4 of each
+    leaf's max.
 28. the LM mesh, its dry run and roofline: (a) on ``make_smoke_mesh()``
     (NCCL, world 1) one train step (two microbatches) of h2o-danube-1.8b
     at 2 layers, full width, f32, against the unsharded step on the same
@@ -561,13 +570,26 @@ def profiled_launches(fn):
 
 def graph_kernel_nodes(cuda_graph):
     """{short name: kernel nodes} of a captured ``torch.cuda.CUDAGraph``
-    made with ``keep_graph=True``: the ``KERNEL_SYMBOLS`` kernels its
-    ``cudaGraph_t`` holds, read through the driver API
+    made with ``keep_graph=True``: the ``KERNEL_SYMBOLS`` kernels among
+    ``graph_kernel_symbols``. Each replay of the graph runs each of its
+    kernel nodes once."""
+    rows = Counter()
+    by_symbol = {symbol: name for name, symbol in KERNEL_SYMBOLS.items()}
+    for symbol in graph_kernel_symbols(cuda_graph):
+        symbol = symbol.split("<")[0]
+        if symbol in by_symbol:
+            rows[by_symbol[symbol]] += 1
+    return rows
+
+
+def graph_kernel_symbols(cuda_graph):
+    """The kernel name (``kernel_name``) of every kernel node of a
+    captured ``torch.cuda.CUDAGraph`` made with ``keep_graph=True``, child
+    graphs' nodes included, read through the driver API
     (``cuGraphGetNodes``, ``cuGraphNodeGetType``,
-    ``cuGraphKernelNodeGetParams_v2`` and ``cuFuncGetName`` or
-    ``cuKernelGetName``), so a count that never goes through the
-    profiler. Each replay of the graph runs each of its kernel nodes
-    once."""
+    ``cuGraphChildGraphNodeGetGraph``, ``cuGraphKernelNodeGetParams_v2``
+    and ``cuFuncGetName`` or ``cuKernelGetName``), so a count that never
+    goes through the profiler."""
     import ctypes
 
     class KernelNodeParams(ctypes.Structure):     # CUDA_KERNEL_NODE_PARAMS_v2
@@ -585,40 +607,46 @@ def graph_kernel_nodes(cuda_graph):
         if err != 0:
             raise CheckFailed(f"{fn} failed with CUresult {err}")
 
-    graph = ctypes.c_void_p(cuda_graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    call("cuGraphGetNodes", graph, None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * n.value)()
-    call("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
-    rows = Counter()
-    by_symbol = {symbol: name for name, symbol in KERNEL_SYMBOLS.items()}
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        call("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(kind))
-        if kind.value != 0:                       # CU_GRAPH_NODE_TYPE_KERNEL
-            continue
-        params = KernelNodeParams()
-        call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
-             ctypes.byref(params))
-        name = ctypes.c_char_p()
-        if params.func:
-            call("cuFuncGetName", ctypes.byref(name),
-                 ctypes.c_void_p(params.func))
-        else:
-            call("cuKernelGetName", ctypes.byref(name),
-                 ctypes.c_void_p(params.kern))
-        symbol = kernel_name(name.value.decode()).split("<")[0]
-        if symbol in by_symbol:
-            rows[by_symbol[symbol]] += 1
-    return rows
+    def walk(graph):
+        n = ctypes.c_size_t(0)
+        call("cuGraphGetNodes", graph, None, ctypes.byref(n))
+        nodes = (ctypes.c_void_p * n.value)()
+        call("cuGraphGetNodes", graph, nodes, ctypes.byref(n))
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            call("cuGraphNodeGetType", ctypes.c_void_p(node),
+                 ctypes.byref(kind))
+            if kind.value == 4:                   # CU_GRAPH_NODE_TYPE_GRAPH
+                child = ctypes.c_void_p()
+                call("cuGraphChildGraphNodeGetGraph", ctypes.c_void_p(node),
+                     ctypes.byref(child))
+                yield from walk(child)
+            if kind.value != 0:                   # CU_GRAPH_NODE_TYPE_KERNEL
+                continue
+            params = KernelNodeParams()
+            call("cuGraphKernelNodeGetParams_v2", ctypes.c_void_p(node),
+                 ctypes.byref(params))
+            name = ctypes.c_char_p()
+            if params.func:
+                call("cuFuncGetName", ctypes.byref(name),
+                     ctypes.c_void_p(params.func))
+            else:
+                call("cuKernelGetName", ctypes.byref(name),
+                     ctypes.c_void_p(params.kern))
+            yield kernel_name(name.value.decode())
+
+    return list(walk(ctypes.c_void_p(cuda_graph.raw_cuda_graph())))
 
 
 def kernel_name(mangled: str) -> str:
     """``name<A, B, ...>`` of a mangled kernel symbol: the nested names
     (``_ZN<len><namespace><len><name>``, the anonymous namespace included)
     are read by their lengths up to the one ending in ``_kernel``, then its
-    integer template arguments (``I Li3E Li3E ... E``)."""
+    integer template arguments (``I Li3E Li3E ... E``). A name that is
+    not mangled comes back as it is."""
     import re
+    if not mangled.startswith("_Z"):
+        return mangled
     pos = 3 if mangled.startswith("_ZN") else 2
     while True:
         size = re.match(r"\d+", mangled[pos:])
@@ -4410,7 +4438,11 @@ def kernel_rows(fn):
     """(kernel rows, device-busy ms, the five kernels of most device time
     as text) of one call of ``fn`` under ``torch.profiler``: every CUDA
     kernel the call ran, memcpys and memsets aside, and the sum of their
-    own device time."""
+    own device time. Each window opens with sixteen spin kernels
+    (``torch.cuda._sleep``) that no count reads: the profiler dropped up
+    to four kernels at the start of a window on the card (an eager train
+    step's rows came back 1-4 short of its graph's kernel nodes without
+    them)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4419,12 +4451,14 @@ def kernel_rows(fn):
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(16):
+                torch.cuda._sleep(1000)
             fn()
             torch.cuda.synchronize()
         rows, busy, by_name = 0, 0.0, []
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or "Memcpy" in e.key \
-                    or "Memset" in e.key:
+                    or "Memset" in e.key or "spin_kernel" in e.key:
                 continue
             ms = getattr(e, "self_device_time_total", 0) / 1e3
             rows += e.count
@@ -4583,25 +4617,245 @@ def run_train(argv):
     return rc, out, logged
 
 
+def event_ms(fn) -> float:
+    """Milliseconds of one call of ``fn`` between two CUDA events on the
+    current stream (the call's work, and the host's gaps in it)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def clone_tree(tree):
+    from repro_torch.models.scan_util import tree_leaves, tree_unflatten
+    return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
+
+
+def train_graph_check(dev, cfg, batch: int, seq: int,
+                      microbatches: int) -> str:
+    """27 (b): ``compile_train_step``'s first calls against as many eager
+    ``train_step``s from the same weights and batches, at the mesh check's
+    learning rate (``mesh_check.check_opt_config``). Calls 1-2 are the
+    eager passes (the second under the profiler: its kernel rows), call 3
+    captures and replays. Fails unless the graph's kernel
+    nodes, every one counted, equal that eager pass's rows, and the
+    params, moments, step and every call's metrics are bit-equal to the
+    eager steps' or, where not, within ``mesh_check.check_rule`` of the
+    step's own float noise, then measured, with that rule under the
+    step's smallest param move. Returns the line to print."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import mesh_check
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models import model as lm
+    from repro_torch.models.scan_util import tree_leaves
+    from repro_torch.optim.adamw import init_opt_state
+    opt_cfg = mesh_check.check_opt_config(cfg)
+    params = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    state = init_opt_state(params, opt_cfg)
+    batches = [make_batch(DataConfig(seed=3, global_batch=batch,
+                                     seq_len=seq), cfg, i, device=dev)
+               for i in range(4)]
+    step = lm_steps.compile_train_step(
+        clone_tree(params), clone_tree(state), batches[0], cfg=cfg,
+        opt_cfg=opt_cfg, microbatches=microbatches)
+    got = []
+
+    def call():
+        got.append({k: v.clone() for k, v in
+                    step(batches[len(got)]).items()})
+
+    rows, _, _ = kernel_rows(call)
+    if len(got) != lm_steps.WARM_PASSES or step.graph is not None:
+        raise CheckFailed(f"[27] {cfg.name}: {len(got)} calls before the "
+                          f"capture (graph {step.graph}); expected "
+                          f"{lm_steps.WARM_PASSES} eager passes")
+    call()
+    if step.graph is None:
+        raise CheckFailed(f"[27] {cfg.name}: no graph after call "
+                          f"{len(got)}")
+    nodes = graph_kernel_symbols(step.graph)
+    if len(nodes) != rows:
+        raise CheckFailed(f"[27] {cfg.name}: the captured step holds "
+                          f"{len(nodes)} kernel nodes, one eager pass of "
+                          f"its body ran {rows} kernel rows")
+    worst_metric, min_step = 0.0, None
+    for i, metrics in enumerate(got):
+        new_p, new_s, want = lm_steps.train_step(
+            params, state, batches[i], cfg=cfg, opt_cfg=opt_cfg,
+            microbatches=microbatches)
+        if min_step is None:
+            min_step = min(mesh_check.deviation(
+                [old], [new], mesh_check.PARAM_FLOOR)["max_rel"]
+                for old, new in zip(tree_leaves(params),
+                                    tree_leaves(new_p)))
+        if set(metrics) != set(want):
+            raise CheckFailed(f"[27] {cfg.name}: metrics {sorted(metrics)}"
+                              f", train_step's {sorted(want)}")
+        for k, v in want.items():
+            worst_metric = max(worst_metric, float(
+                (metrics[k] - v).abs() / max(float(v.abs()), 1e-30)))
+        params, state = new_p, new_s
+    dev_p = mesh_check.deviation(step.params, params, mesh_check.PARAM_FLOOR)
+    dev_s = mesh_check.deviation(step.opt_state, state)
+    equal = dev_p["bit_equal"] and dev_s["bit_equal"] and worst_metric == 0
+    worst = max(dev_p, dev_s, key=lambda d: d["max_rel"])
+    held = "bit-equal"
+    if not equal:
+        noise = mesh_check.noise_floor(cfg, dev, batch=batch, seq=seq,
+                                       microbatches=microbatches)
+        rule = mesh_check.check_rule(noise, min_step)
+        if max(worst["max_rel"], worst_metric) > rule["tol"] \
+                or not rule["guarded"]:
+            raise CheckFailed(
+                f"[27] {cfg.name}: the compiled step is off the eager one by "
+                f"{worst['max_rel']:.3e} at {worst['worst_leaf']} (metrics "
+                f"{worst_metric:.3e}); the rule {rule}")
+        held = (f"within the rule {rule['tol']:.2e} from the noise floor "
+                f"{ {k: f'{v:.2e}' for k, v in noise['probes'].items()} }")
+    return (f"[27] {cfg.name} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}), f32, batch {batch} x {seq}, {microbatches} "
+            f"microbatches: {len(got)} calls of the compiled step (2 eager "
+            f"passes, the capture and its replay) against train_step: "
+            f"{held} (params, m, v, step: "
+            f"{max(dev_p['max_rel'], dev_s['max_rel']):.3e}; metrics "
+            f"{worst_metric:.3e}), the smallest step {min_step:.2e}; "
+            f"{len(nodes)} kernel nodes = the eager pass's {rows} kernel "
+            f"rows")
+
+
+def train_step_timing(dev) -> None:
+    """27 (c): full-width bf16 h2o-danube-1.8b, batch 8 x 128, two
+    microbatches: the eager ``train_step`` against the compiled step's
+    warm passes, capture and replays. Printed, not gated, but the graph's
+    kernel nodes must equal its second eager pass's kernel rows."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models import model as lm
+    from repro_torch.optim.adamw import init_opt_state
+    cfg = get_config("h2o-danube-1.8b")
+    opt_cfg = lm_steps.make_opt_config(cfg, total_steps=30)
+    batches = [make_batch(DataConfig(seed=0, global_batch=8, seq_len=128),
+                          cfg, i, device=dev) for i in range(8)]
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        p = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+        return p, init_opt_state(p, opt_cfg)
+
+    def gib():
+        return torch.cuda.max_memory_reserved(dev) / 2 ** 30
+
+    state = list(fresh())
+
+    def eager():
+        state[0], state[1], _ = lm_steps.train_step(
+            state[0], state[1], batches[0], cfg=cfg, opt_cfg=opt_cfg,
+            microbatches=2)
+
+    eager_ms = [event_ms(eager) for _ in range(6)]
+    e_rows, e_busy, _ = kernel_rows(eager)
+    e_med, e_mem = statistics.median(eager_ms[1:]), gib()
+    del state[:]
+    step = lm_steps.compile_train_step(*fresh(), batches[0], cfg=cfg,
+                                       opt_cfg=opt_cfg, microbatches=2)
+    call_ms = []
+
+    def call():
+        call_ms.append(event_ms(
+            lambda: step(batches[len(call_ms) % len(batches)])))
+
+    rows, _, _ = kernel_rows(call)          # the two eager passes
+    warm_mem = gib()
+    if len(call_ms) != lm_steps.WARM_PASSES or step.graph is not None:
+        raise CheckFailed(f"[27] {cfg.name} bf16: {len(call_ms)} calls "
+                          f"before the capture")
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(batches[len(call_ms)])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    call_ms.append(capture_s * 1e3)
+    capture_mem = gib()
+    nodes = graph_kernel_symbols(step.graph)
+    if len(nodes) != rows:
+        raise CheckFailed(f"[27] {cfg.name} bf16: {len(nodes)} kernel nodes "
+                          f"against the eager pass's {rows} rows")
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(5):
+        call()
+    replay_ms = call_ms[-5:]
+    r_rows, r_busy, r_top = kernel_rows(call)
+    r_med, r_mem = statistics.median(replay_ms), gib()
+    tokens = 8 * 128
+    flops = 6 * cfg.param_count() * tokens
+    print(f"[27] {cfg.name} bf16, batch 8 x 128, 2 microbatches: eager "
+          f"train_step {e_med:.1f} ms (events, median of steps 2-6: "
+          f"{[round(v, 1) for v in eager_ms]}), device busy {e_busy:.1f} ms "
+          f"in {e_rows} kernel rows, host share "
+          f"{100 * (1 - e_busy / e_med):.1f}%, max_memory_reserved "
+          f"{e_mem:.2f} GiB; the compiled step: eager passes "
+          f"{call_ms[0]:.1f} and (profiled) {call_ms[1]:.1f} ms, "
+          f"{rows} kernel rows, {warm_mem:.2f} GiB; the "
+          f"capture and its first replay {capture_s:.2f} s, "
+          f"{len(nodes)} kernel nodes, {capture_mem:.2f} GiB; a replay "
+          f"{r_med:.1f} ms (events, median of "
+          f"{[round(v, 1) for v in replay_ms]}), device busy {r_busy:.1f} "
+          f"ms in {r_rows} kernel rows, host share "
+          f"{100 * (1 - r_busy / r_med):.1f}%, {tokens / r_med * 1e3:.0f} "
+          f"tokens/s, model {flops / r_med / 1e9:.2f} TFLOP/s = "
+          f"{100 * flops / r_med * 1e3 / PEAK_BF16_FLOPS:.2f}% of the bf16 "
+          f"dense peak, {r_mem:.2f} GiB; replay / eager "
+          f"{r_med / e_med:.3f}; most: {r_top}")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_27_training(dev) -> None:
-    """27. LM training on the card: (a) full-width h2o-danube-1.8b (24
-    layers, d 2560; bf16 params, f32 moments) through ``launch.train.main``
-    with ``examples/train_lm.py``'s settings (batch 8, seq 128, two
+    """27. LM training on the card, through the compiled train step
+    (``compile_train_step``: two eager passes, one CUDA-graph capture,
+    then replays): (a) full-width h2o-danube-1.8b (24 layers, d 2560;
+    bf16 params, f32 moments) through ``launch.train.main`` with
+    ``examples/train_lm.py``'s settings (batch 8, seq 128, two
     microbatches, no checkpoint in the window): finite losses and grad
-    norms; then ``train_step`` alone, 8 steps on one repeated batch (the
-    overfit check of ``test_lm_train_loss_decreases``: batch 4, seq 64,
-    two microbatches, no warm-up; lr 1e-4, since 3e-3 diverges at full
-    width): the loss falls by at least 0.5; (b) full-width mamba2-370m, the resume flow of
-    ``test_train_driver_with_resume`` (``--steps 6 --ckpt-every 5``, then
-    ``--steps 8 --resume``, in a temporary directory): rc 0, ``resumed from
-    step 5``, the restored (params, OptState) bit-equal to the saved one;
-    (c) one f32 train step of h2o-danube-1.8b at 2 layers, full width, on
-    the card against the same step on the CPU: the loss and every updated
-    leaf within rtol 1e-4 of each leaf's max|.|. Printed, not gated: step
-    ms, tokens/s, model FLOP/s against the bf16 dense peak, the host's
-    share of a step (wall time against device busy under the profiler),
-    and the memory reserved."""
+    norms; then the compiled step alone, 8 steps on one repeated batch
+    (the overfit check of ``test_lm_train_loss_decreases``: batch 4, seq
+    64, two microbatches, no warm-up; lr 1e-4, since 3e-3 diverges at full
+    width): the loss falls by at least 0.5; (b) the compiled step against
+    the eager ``train_step`` (``train_graph_check``) in f32: h2o at 2
+    layers, full width, batch 2 x 64; full-width mamba2-370m, batch 2 x
+    64; reduced deepseek-v2-236b (MLA, MoE), batch 4 x 32; (c) the timing
+    of full-width bf16 h2o (``train_step_timing``); (d) full-width
+    mamba2-370m, the resume flow of ``test_train_driver_with_resume``
+    (``--steps 6 --ckpt-every 5``, then ``--steps 8 --resume``, in a
+    temporary directory) with a failure injected at data step 6 of the
+    second run, after the capture: rc 0, ``resumed from step 5``, the
+    restored (params, OptState) bit-equal to the saved one, and both
+    restores (the resume, before the first step, and the recovery, into
+    the captured graph's buffers) copied into the compiled step bit for
+    bit, its graph kept; (e) one f32 train step of h2o-danube-1.8b at 2
+    layers, full width, on the card against the same step on the CPU:
+    the loss and every updated leaf within rtol 1e-4 of each leaf's
+    max|.|."""
     import dataclasses
+    import functools
     import gc
     import math
 
@@ -4610,6 +4864,7 @@ def phase_27_training(dev) -> None:
     from repro_torch.checkpoint import manager as ckpt_manager
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed import fault
     from repro_torch.launch import steps as lm_steps
     from repro_torch.launch import train as lm_train
     from repro_torch.models import model as lm
@@ -4638,8 +4893,10 @@ def phase_27_training(dev) -> None:
     n_params = cfg.param_count()
     for step, loss, gnorm, lr, dt in logged:
         print(f"[27] {cfg.name} launch.train (batch 8, seq 128, 2 "
-              f"microbatches) step {step}: loss {loss:.4f} gnorm "
-              f"{gnorm:.3f} lr {lr:.2e} dt {dt:.2f} s")
+              f"microbatches; the compiled step: "
+              f"{'eager pass' if step < lm_steps.WARM_PASSES else 'capture and replay' if step == lm_steps.WARM_PASSES else 'replay'}"
+              f") step {step}: loss {loss:.4f} gnorm {gnorm:.3f} lr "
+              f"{lr:.2e} dt {dt:.2f} s")
     print(f"[27] {cfg.name} driver: {out.splitlines()[-1]}; "
           f"{memory_line(dev)}")
     gc.collect()
@@ -4653,55 +4910,64 @@ def phase_27_training(dev) -> None:
         cfg, total_steps=30), warmup_steps=0, lr=1e-4)
     params = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
                            dev)
-    opt_state = init_opt_state(params, opt_cfg)
     batch = make_batch(DataConfig(seed=0, global_batch=4, seq_len=64), cfg,
                        step=0, device=dev)
+    step_fn = lm_steps.compile_train_step(
+        params, init_opt_state(params, opt_cfg), batch, cfg=cfg,
+        opt_cfg=opt_cfg, microbatches=2)
+    del params
     losses, step_s = [], []
     for _ in range(8):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt_state, m = lm_steps.train_step(
-            params, opt_state, batch, cfg=cfg, opt_cfg=opt_cfg,
-            microbatches=2)
-        losses.append(float(m["loss"]))
+        losses.append(float(step_fn(batch)["loss"]))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-    if not all(math.isfinite(v) for v in losses) \
+    if step_fn.graph is None or not all(math.isfinite(v) for v in losses) \
             or not losses[-1] < losses[0] - 0.5:
-        raise CheckFailed(f"[27] {cfg.name} overfit: losses {losses}; "
-                          f"expected the last below the first - 0.5")
+        raise CheckFailed(f"[27] {cfg.name} overfit: losses {losses} "
+                          f"(graph {step_fn.graph}); expected the last "
+                          f"below the first - 0.5")
     tokens = 4 * 64
-    med = statistics.median(step_s[1:])
-    print(f"[27] {cfg.name} train_step x8 on one batch (batch 4, seq 64, 2 "
-          f"microbatches, lr 1e-4, no warm-up): losses "
+    med = statistics.median(step_s[lm_steps.WARM_PASSES + 1:])
+    print(f"[27] {cfg.name} the compiled step x8 on one batch (batch 4, seq "
+          f"64, 2 microbatches, lr 1e-4, no warm-up): losses "
           f"{[round(v, 4) for v in losses]} (fell by "
-          f"{losses[0] - losses[-1]:.4f}); step {med * 1e3:.1f} ms (median "
-          f"of steps 2-8, first {step_s[0] * 1e3:.1f}), "
-          f"{tokens / med:.0f} tokens/s, model "
-          f"{6 * n_params * tokens / med / 1e12:.2f} TFLOP/s = "
+          f"{losses[0] - losses[-1]:.4f}); a replayed step "
+          f"{med * 1e3:.1f} ms (median of steps 4-8; eager passes "
+          f"{step_s[0] * 1e3:.1f}, {step_s[1] * 1e3:.1f}, capture and "
+          f"replay {step_s[2] * 1e3:.1f}), {tokens / med:.0f} tokens/s, "
+          f"model {6 * n_params * tokens / med / 1e12:.2f} TFLOP/s = "
           f"{100 * 6 * n_params * tokens / med / PEAK_BF16_FLOPS:.2f}% of "
           f"the bf16 dense peak")
-
-    def one_step():
-        return lm_steps.train_step(params, opt_state, batch, cfg=cfg,
-                                   opt_cfg=opt_cfg, microbatches=2)
-
-    rows, busy, top = kernel_rows(one_step)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    print(f"[27] {cfg.name} one train step: wall {wall:.1f} ms, device busy "
-          f"{busy:.1f} ms in {rows} kernel rows (profiler; most: {top}): "
-          f"host share {100 * (1 - busy / wall):.1f}%; {memory_line(dev)}")
-    del params, opt_state, m, batch
+    del step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"[27] (a) took {time.perf_counter() - t27:.1f} s")
 
-    # (b) full-width mamba2-370m: train, checkpoint, resume.
+    # (b) the compiled step against the eager one, f32.
+    for ccfg, bsz, seq in (
+            (dataclasses.replace(cfg, dtype="float32", n_layers=2), 2, 64),
+            (dataclasses.replace(get_config("mamba2-370m"),
+                                 dtype="float32"), 2, 64),
+            (dataclasses.replace(get_config("deepseek-v2-236b",
+                                            reduced=True),
+                                 dtype="float32"), 4, 32)):
+        t0 = time.perf_counter()
+        line = train_graph_check(dev, ccfg, bsz, seq, microbatches=2)
+        print(f"{line}; {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the eager and the replayed step at full width.
+    t0 = time.perf_counter()
+    train_step_timing(dev)
+    print(f"[27] (c) took {time.perf_counter() - t0:.1f} s")
+
+    # (d) full-width mamba2-370m: train, checkpoint, resume, recover.
+    t0 = time.perf_counter()
     mcfg = get_config("mamba2-370m")
-    saved, restored = [], []
+    saved, restored, loads = [], [], []
 
     class Spy(ckpt_manager.CheckpointManager):
         def save(self, step, tree, extra=None):
@@ -4714,8 +4980,36 @@ def phase_27_training(dev) -> None:
             restored.append(tree_leaves(out[0]))
             return out
 
-    real = lm_train.CheckpointManager
+    def spy_compile(*args, **kw):
+        step_obj = lm_steps.compile_train_step(*args, **kw)
+        real_load = step_obj.load_state
+        owned = tree_leaves((step_obj.params, step_obj.opt_state))
+
+        def load_state(params, opt_state):
+            graph = step_obj.graph
+            real_load(params, opt_state)
+            now = tree_leaves((step_obj.params, step_obj.opt_state))
+            loads.append({
+                "captured": graph is not None,
+                "graph_kept": step_obj.graph is graph,
+                "same_buffers": all(a is b for a, b in zip(now, owned)),
+                "bit_equal": all(torch.equal(a, b) for a, b in zip(
+                    now, tree_leaves((params, opt_state))))})
+
+        step_obj.load_state = load_state
+        return step_obj
+
+    failed = []
+
+    def inject(step):
+        if step == 6 and not failed:
+            failed.append(step)
+            raise RuntimeError("injected failure after the capture")
+
+    real = (lm_train.CheckpointManager, lm_train.compile_train_step,
+            lm_train.run_with_retries)
     lm_train.CheckpointManager = Spy
+    lm_train.compile_train_step = spy_compile
     try:
         with tempfile.TemporaryDirectory() as tmp:
             base = ["--arch", mcfg.name, "--batch", "4", "--seq", "32",
@@ -4725,32 +5019,51 @@ def phase_27_training(dev) -> None:
             first_saves = [step for step, _ in saved]
             state5 = saved[-1][1] if saved else []
             saved.clear()
+            lm_train.run_with_retries = functools.partial(
+                fault.run_with_retries, failure_injector=inject)
             rc2, out2, log2 = run_train(base + ["--steps", "8", "--resume"])
     finally:
-        lm_train.CheckpointManager = real
+        (lm_train.CheckpointManager, lm_train.compile_train_step,
+         lm_train.run_with_retries) = real
     if rc1 != 0 or rc2 != 0 or "resumed from step 5" not in out2 \
-            or first_saves != [5] or len(restored) != 1:
+            or first_saves != [5] or len(restored) != 2 or failed != [6] \
+            or "'restarts': 1" not in out2:
         raise CheckFailed(f"[27] {mcfg.name} resume: rc {rc1}/{rc2}, saved "
-                          f"{first_saves}, restored {len(restored)}\n"
-                          f"{out1[-1500:]}\n{out2[-1500:]}")
+                          f"{first_saves}, restored {len(restored)}, "
+                          f"failed {failed}\n{out1[-1500:]}\n{out2[-1500:]}")
     bad = [i for i, (a, b) in enumerate(zip(restored[0], state5))
            if a.dtype != b.dtype or a.device != b.device
            or not torch.equal(a, b)]
-    if bad or len(restored[0]) != len(state5):
-        raise CheckFailed(f"[27] {mcfg.name}: restored leaves {bad} differ "
-                          f"from the saved ones")
+    again = [i for i, (a, b) in enumerate(zip(restored[1], saved[-1][1]))
+             if not torch.equal(a, b)]
+    if bad or again or len(restored[0]) != len(state5):
+        raise CheckFailed(f"[27] {mcfg.name}: restored leaves {bad} / "
+                          f"{again} differ from the saved ones")
+    want = [{"captured": False, "graph_kept": True, "same_buffers": True,
+             "bit_equal": True},
+            {"captured": True, "graph_kept": True, "same_buffers": True,
+             "bit_equal": True}]
+    if loads != want:
+        raise CheckFailed(f"[27] {mcfg.name}: the restores into the "
+                          f"compiled step: {loads}; expected {want}")
     print(f"[27] {mcfg.name} ({mcfg.n_layers} layers, d_model "
           f"{mcfg.d_model}) launch.train --steps 6 --ckpt-every 5, then "
-          f"--steps 8 --resume: {out2.splitlines()[0]}; the restored params "
-          f"and OptState ({len(state5)} leaves) equal the saved ones bit "
-          f"for bit; logged (step, loss) {[(r[0], r[1]) for r in log1]} then "
+          f"--steps 8 --resume with a failure injected at data step 6 "
+          f"(after the capture at step {lm_steps.WARM_PASSES}): "
+          f"{out2.splitlines()[0]}; the restored params and OptState "
+          f"({len(state5)} leaves) equal the saved ones bit for bit, at the "
+          f"resume and at the recovery (step {saved[-1][0]}'s checkpoint); "
+          f"both copied into the compiled step's own buffers bit for bit, "
+          f"the second into the captured graph's, which replayed on; "
+          f"logged (step, loss) {[(r[0], r[1]) for r in log1]} then "
           f"{[(r[0], r[1]) for r in log2]} (data steps from 0 again, as in "
-          f"the reference); {out2.splitlines()[-1]}")
+          f"the reference); {out2.splitlines()[-1]}; "
+          f"{time.perf_counter() - t0:.1f} s")
     del saved, restored, state5
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) one f32 step at 2 layers, full width: the card against the CPU.
+    # (e) one f32 step at 2 layers, full width: the card against the CPU.
     ccfg = dataclasses.replace(cfg, dtype="float32", n_layers=2)
     c_opt = lm_steps.make_opt_config(ccfg, total_steps=10)
     cpu_params = lm.init_model(ccfg, torch.Generator().manual_seed(0), "cpu")

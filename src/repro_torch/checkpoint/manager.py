@@ -17,7 +17,11 @@ Fault-tolerance properties:
     placed last → a crash mid-write never corrupts a restorable state;
   * async mode runs the file I/O on a worker thread so the train loop is
     not blocked (the device→host copy is taken before ``save`` returns);
-  * keep_n garbage-collects old steps only after the newer one commits.
+  * keep_n garbage-collects old steps only after the newer one commits;
+  * a step saved again (a resumed run counts data steps from 0, so it
+    saves its first steps over the earlier run's) loses its marker before
+    its directory is replaced, and ``restore`` waits for a pending write
+    first, so a restore after a failure reads the last commit whole.
 
 On an LM mesh a ``DTensor`` leaf is saved whole (``full_tensor``, a
 collective every rank takes part in; rank 0 writes the files), so the
@@ -110,7 +114,8 @@ class CheckpointManager:
             for i, (name, arr, _dn) in enumerate(host_leaves):
                 np.save(tmp / "arrays" / f"{i:05d}.npy", arr)
             (tmp / "manifest.json").write_text(json.dumps(manifest))
-            if final.exists():
+            if final.exists():                  # a step saved again
+                marker.unlink(missing_ok=True)  # unpublished first
                 shutil.rmtree(final)
             os.rename(tmp, final)
             marker.touch()                      # atomic publish
@@ -157,7 +162,9 @@ class CheckpointManager:
         to ``device`` (``"cuda"`` unless the caller asks for the CPU;
         raises without CUDA). ``shardings`` (a tree of ``NamedSharding``
         of ``tree_like``'s structure) re-shards onto its mesh: each leaf
-        a ``DTensor`` with those placements."""
+        a ``DTensor`` with those placements. A pending async write is
+        joined first."""
+        self.wait()
         flat_like = tree_leaves(tree_like)
         fallback = None
         if shardings is None and any(like.device.type == "meta"

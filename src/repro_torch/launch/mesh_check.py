@@ -4,7 +4,9 @@ and as ``DTensor``s on a mesh, and compared leaf by leaf.
 
 Used by ``tools/check_mesh.py --lm`` (1x2, 2x1 and 2x2 meshes of cards
 under torchrun, or gloo processes on the CPU), by ``chip_smoke.py``
-(the one-rank smoke mesh on the card) and by the CPU tests.
+(the one-rank smoke mesh on the card, and the compiled train step
+against the eager one under the same ``check_rule``) and by the CPU
+tests.
 """
 from __future__ import annotations
 
@@ -42,6 +44,15 @@ from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 # near the tolerance). The gradients themselves are held strictly: the
 # moments m and v, the gradients' statistics, to their own max.
 PARAM_FLOOR = 1.0
+
+# The rule a checked step's deviations are held to (``check_rule``): 1e-5
+# of each leaf's max, or twice the unsharded step's own float noise
+# measured in the same run where that is larger. On the card at full
+# width the noise from kernel choice alone reached 2.25e-5 (cuBLASLt
+# against cuBLAS), over 1e-5, so a fixed 1e-5 failed steps that are
+# right; the noise is taken from ``noise_floor``'s probes, each exact in
+# real arithmetic.
+BASE_TOL = 1e-5
 
 
 def check_opt_config(cfg: ModelConfig) -> AdamWConfig:
@@ -169,6 +180,18 @@ def noise_floor(cfg: ModelConfig, device, batch: int = 4, seq: int = 64,
     worst = max(probes.values(), key=lambda d: d["max_rel"])
     return {"max_rel": worst["max_rel"], "worst_leaf": worst["worst_leaf"],
             "probes": {k: v["max_rel"] for k, v in probes.items()}}
+
+
+def check_rule(noise: Dict, min_step: float) -> Dict:
+    """The rule of a check in this run: ``tol`` = max(``BASE_TOL``, 2 x
+    ``noise``'s largest probe, ``noise_floor``'s ``max_rel``), and
+    whether it is ``guarded``: below ``min_step``, the move of the
+    checked step's least-moved param leaf. A rule at or above
+    ``min_step`` would pass a step that left that leaf unchanged, so the
+    check then fails whatever the deviations."""
+    tol = max(BASE_TOL, 2 * noise["max_rel"])
+    return {"tol": tol, "noise": noise["max_rel"], "min_step": min_step,
+            "guarded": tol < min_step}
 
 
 def decode_check(mesh, cfg: ModelConfig, device, batch: int = 2,

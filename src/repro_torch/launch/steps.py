@@ -1,20 +1,30 @@
 """Train / serve step functions: the reference's ``launch/steps.py``
 under autograd.
 
-``train_step`` differentiates ``loss_fn`` eagerly (``torch.autograd``;
-no graph capture of the whole step yet) and applies one AdamW update;
-the state is functional, as in the reference: new (params, opt_state)
-trees come back and the inputs are left as they are. With params,
-optimizer state and batch as ``DTensor``s (``distributed.sharding``'s
-rules) and an activation policy installed, the same step runs sharded on
-an LM mesh. ``input_specs`` / ``model_shapes`` / ``opt_shapes`` are the
-reference's ``ShapeDtypeStruct`` trees as tensors on the ``meta`` device:
-shapes and dtypes, nothing allocated.
+``compile_train_step`` is the counterpart of the reference's
+``jax.jit(train_step, donate_argnums=(0, 1))``: a ``CompiledTrainStep``
+owns the params and optimizer state it is given, reads static batch
+buffers and updates its state in place (``optim.adamw.apply_updates_``).
+On a CUDA device its first ``WARM_PASSES`` calls run the step eagerly
+through those buffers, the next captures it once as a CUDA graph, and
+every call from then on is one replay; on the CPU every call runs the
+same body eagerly. ``launch.train`` runs it with ``--mesh none``.
+
+``train_step`` differentiates ``loss_fn`` eagerly (``torch.autograd``)
+and applies one AdamW update; its state is functional, as in the
+reference: new (params, opt_state) trees come back and the inputs are
+left as they are. With params, optimizer state and batch as
+``DTensor``s (``distributed.sharding``'s rules) and an activation policy
+installed, the same step runs sharded on an LM mesh (eagerly: the
+compiled step refuses ``DTensor`` leaves). ``input_specs`` /
+``model_shapes`` / ``opt_shapes`` are the reference's
+``ShapeDtypeStruct`` trees as tensors on the ``meta`` device: shapes and
+dtypes, nothing allocated.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -24,7 +34,7 @@ from repro_torch.models.model import (decode_step, init_cache, init_model,
                                       loss_fn, prefill)
 from repro_torch.models.scan_util import tree_leaves, tree_unflatten
 from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates,
-                                     init_opt_state)
+                                     apply_updates_, init_opt_state)
 
 PyTree = Any
 
@@ -86,14 +96,30 @@ def train_step(params: PyTree, opt_state: OptState,
 
 
 def _train_step(params, opt_state, batch, cfg, opt_cfg, microbatches):
+    metrics, grads = _loss_and_grads(params, batch, cfg, opt_cfg,
+                                     microbatches)
+    params, opt_state, opt_metrics = apply_updates(
+        params, grads, opt_state, opt_cfg)
+    return params, opt_state, dict(metrics, **opt_metrics)
+
+
+def _loss_and_grads(params, batch, cfg, opt_cfg, microbatches,
+                    acc_g: Optional[List[torch.Tensor]] = None):
+    """(metrics, gradient tree) of one step's batch. Over microbatches
+    the gradients accumulate into ``acc_g`` (zeroed here; new zeros in
+    ``opt_cfg.state_dtype`` when None), each divided by
+    ``microbatches``."""
     if microbatches <= 1:
         loss, metrics, grads = _value_and_grad(params, batch, cfg)
-        params, opt_state, opt_metrics = apply_updates(
-            params, grads, opt_state, opt_cfg)
-        return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
+        return dict(metrics, loss=loss), grads
 
-    acc_dt = getattr(torch, opt_cfg.state_dtype)
-    acc_g = [torch.zeros_like(p, dtype=acc_dt) for p in tree_leaves(params)]
+    if acc_g is None:
+        acc_dt = getattr(torch, opt_cfg.state_dtype)
+        acc_g = [torch.zeros_like(p, dtype=acc_dt)
+                 for p in tree_leaves(params)]
+    else:
+        for a in acc_g:
+            a.zero_()
     first = tree_leaves(params)[0]
     acc_loss = torch.zeros((), device=first.device)
     acc_ce = torch.zeros((), device=first.device)
@@ -110,9 +136,7 @@ def _train_step(params, opt_state, batch, cfg, opt_cfg, microbatches):
         del grads
         acc_loss = acc_loss + loss / microbatches
         acc_ce = acc_ce + metrics["ce"] / microbatches
-    params, opt_state, opt_metrics = apply_updates(
-        params, tree_unflatten(params, acc_g), opt_state, opt_cfg)
-    return params, opt_state, dict(loss=acc_loss, ce=acc_ce, **opt_metrics)
+    return dict(loss=acc_loss, ce=acc_ce), tree_unflatten(params, acc_g)
 
 
 def _microbatch(whole: Dict[str, torch.Tensor],
@@ -136,6 +160,168 @@ def _microbatch(whole: Dict[str, torch.Tensor],
                                       ).redistribute(mesh, v.placements)
         out[k] = rows
     return out
+
+
+# ---------------------------------------------------------------------------
+# The compiled train step: donated state, static buffers, one CUDA graph.
+# ---------------------------------------------------------------------------
+
+# Eager passes on a card before the capture. The first makes what a
+# capture cannot: autograd's device thread, cuBLAS's handle and workspace
+# for the capture stream, the static metrics. The second runs the body
+# with nothing left to make, so its kernels are the ones the graph
+# records (``chip_smoke.py`` counts both); PyTorch's whole-network
+# capture example likewise warms up over a few iterations on a side
+# stream. Each pass is a real step on its own batch.
+WARM_PASSES = 2
+
+
+class CompiledTrainStep:
+    """``compile_train_step``'s callable: ``step(batch) -> metrics``.
+
+    It owns (is donated) the params and ``OptState`` trees it was made
+    with: the caller reads them back through ``.params`` / ``.opt_state``
+    and writes them through ``load_state``, since a captured graph binds
+    every buffer by address. Each call copies ``batch`` into static
+    buffers (``tokens`` as int64, ``frontend_embeds`` for the frontend
+    architectures), runs the step (``_loss_and_grads`` over views of the
+    static batch, the gradients accumulated in owned f32 buffers, then
+    ``apply_updates_``) and returns the static metrics, ``train_step``'s
+    keys, overwritten by the next call. On a card the first
+    ``WARM_PASSES`` calls run eagerly on the capture stream, the next
+    captures the body (which records without running) and replays it,
+    and every later call is one ``replay()``; a capture or replay that
+    fails raises. On the CPU every call runs the body eagerly."""
+
+    def __init__(self, params: PyTree, opt_state: OptState,
+                 batch_like: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 opt_cfg: AdamWConfig, microbatches: int = 1) -> None:
+        if is_sharded(*tree_leaves((params, opt_state))):
+            raise ValueError(
+                "compile_train_step: the params or optimizer state hold "
+                "DTensor leaves; the train step captured on a mesh is a "
+                "later item, and a mesh runs the eager train_step")
+        self.cfg, self.opt_cfg = cfg, opt_cfg
+        self.microbatches = microbatches
+        self._params, self._opt_state = params, opt_state
+        self.device = tree_leaves(params)[0].device
+        self._batch = {
+            k: torch.empty(tuple(v.shape), dtype=torch.long
+                           if k == "tokens" else v.dtype, device=self.device)
+            for k, v in batch_like.items()}
+        self._acc = None
+        if microbatches > 1:
+            acc_dt = getattr(torch, opt_cfg.state_dtype)
+            self._acc = [torch.zeros_like(p, dtype=acc_dt)
+                         for p in tree_leaves(params)]
+        self._metrics: Optional[Dict[str, torch.Tensor]] = None
+        self._stream: Optional["torch.cuda.Stream"] = None
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.calls = 0
+
+    @property
+    def params(self) -> PyTree:
+        return self._params
+
+    @property
+    def opt_state(self) -> OptState:
+        return self._opt_state
+
+    @torch.no_grad()
+    def load_state(self, params: PyTree, opt_state: OptState) -> None:
+        """Copy a (params, ``OptState``) tree of the same structure,
+        shapes and dtypes into the owned buffers (a restore)."""
+        src = tree_leaves((params, opt_state))
+        dst = tree_leaves((self._params, self._opt_state))
+        if len(src) != len(dst):
+            raise ValueError(f"load_state: {len(src)} leaves; the compiled "
+                             f"step holds {len(dst)}")
+        for i, (s, d) in enumerate(zip(src, dst)):
+            if s.shape != d.shape or s.dtype != d.dtype:
+                raise ValueError(
+                    f"load_state: leaf {i} is {s.dtype} {tuple(s.shape)}; "
+                    f"the compiled step holds {d.dtype} {tuple(d.shape)}")
+            d.copy_(s)
+
+    def _load_batch(self, batch: Dict[str, torch.Tensor]) -> None:
+        if set(batch) != set(self._batch):
+            raise ValueError(f"batch has {sorted(batch)}; the compiled step "
+                             f"reads {sorted(self._batch)}")
+        for k, buf in self._batch.items():
+            if tuple(batch[k].shape) != tuple(buf.shape):
+                raise ValueError(f"batch[{k!r}] is {tuple(batch[k].shape)}; "
+                                 f"the compiled step reads "
+                                 f"{tuple(buf.shape)}")
+            buf.copy_(batch[k])
+
+    def _body(self) -> None:
+        """The step the graph records: gradients of the static batch,
+        the in-place update, the metrics copied into their static
+        tensors."""
+        metrics, grads = _loss_and_grads(
+            self._params, self._batch, self.cfg, self.opt_cfg,
+            self.microbatches, self._acc)
+        metrics.update(apply_updates_(self._params, grads,
+                                      self._opt_state, self.opt_cfg))
+        del grads
+        if self._metrics is None:
+            self._metrics = {k: torch.empty_like(v)
+                             for k, v in metrics.items()}
+        with torch.no_grad():
+            for k, v in metrics.items():
+                self._metrics[k].copy_(v)
+
+    def __call__(self, batch: Dict[str, torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        self._load_batch(batch)
+        if self.device.type != "cuda":
+            self._body()
+        elif self.graph is not None:
+            self.graph.replay()
+        elif self.calls < WARM_PASSES:
+            self._warm_pass()
+        else:
+            self._capture()
+            self.graph.replay()
+        self.calls += 1
+        return self._metrics
+
+    def _warm_pass(self) -> None:
+        """One eager pass of ``_body`` on the capture stream, ordered
+        after the batch copy and before whatever the caller runs next."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            self._body()
+        current.wait_stream(self._stream)
+
+    def _capture(self) -> None:
+        """Record ``_body`` on the capture stream (``thread_local``: CUDA
+        forbids the calls that could break it to this thread only);
+        nothing runs. The ``cudaGraph_t`` is kept beside its instance
+        (``raw_cuda_graph``: ``chip_smoke.py`` counts its kernel nodes)."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            self._body()
+        graph.instantiate()
+        self.graph = graph
+
+
+def compile_train_step(params: PyTree, opt_state: OptState,
+                       batch_like: Dict[str, torch.Tensor], *,
+                       cfg: ModelConfig, opt_cfg: AdamWConfig,
+                       microbatches: int = 1) -> CompiledTrainStep:
+    """The reference's ``jax.jit(train_step, donate_argnums=(0, 1))``:
+    a ``CompiledTrainStep`` that owns ``params`` and ``opt_state`` (plain
+    tensors on one device; ``DTensor`` leaves raise ``ValueError``) and
+    reads batches shaped like ``batch_like`` (tensors, ``meta`` ones
+    included). Each call takes one optimizer step, as ``train_step`` does
+    on the same state and batch, bit for bit."""
+    return CompiledTrainStep(params, opt_state, batch_like, cfg, opt_cfg,
+                             microbatches)
 
 
 def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor], *,

@@ -5,11 +5,19 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-14b \
       --reduced --steps 50 --batch 8 --seq 128 --device cpu
 
-Random weights from seed 0, the deterministic data pipeline, eager
-``train_step`` under autograd, checkpoints every ``--ckpt-every`` steps
-through ``CheckpointManager`` (``--resume`` restores the latest) and the
+Random weights from seed 0, the deterministic data pipeline, the train
+step, checkpoints every ``--ckpt-every`` steps through
+``CheckpointManager`` (``--resume`` restores the latest) and the
 bounded-retry supervisor ``run_with_retries``, which restores and replays
-after a failed step. As in the reference, the supervisor counts data
+after a failed step. With ``--mesh none`` the step is
+``compile_train_step``'s, as the reference always jits it: it owns the
+params and optimizer state, on a card runs its first two steps eagerly,
+captures the third as one CUDA graph and replays it from then on;
+checkpoints read its buffers (the device→host copy is taken before
+``save`` returns, so the next replay cannot change what is written) and
+restores, ``--resume`` included, are copied into them
+(``load_state``). A mesh runs the eager ``train_step`` under autograd.
+As in the reference, the supervisor counts data
 steps from 0 on every run, resumed or not, while the learning-rate
 schedule goes on from the restored optimizer step. ``--mesh none`` (the
 default) is one device with no process group and plain tensors; the
@@ -42,7 +50,8 @@ from repro_torch.distributed.sharding import distribute, params_shardings
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 from repro_torch.launch.serve import card_text
-from repro_torch.launch.steps import make_opt_config, train_step
+from repro_torch.launch.steps import (compile_train_step, make_opt_config,
+                                     train_step)
 from repro_torch.models.model import init_model
 from repro_torch.optim.adamw import init_opt_state
 
@@ -83,25 +92,45 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      params_shardings(opt_state, mesh))
         params, opt_state = distribute((params, opt_state), shardings)
     policy = policy_from_mesh(mesh) if mesh is not None else None
-
-    mgr = CheckpointManager(Path(args.ckpt_dir) / cfg.name)
-    start_step = 0
-    if args.resume and mgr.latest_step() is not None:
-        (params, opt_state), extra = mgr.restore((params, opt_state),
-                                                 shardings=shardings)
-        start_step = int(extra.get("step", mgr.latest_step()))
-        log(f"resumed from step {start_step}")
-
+    compiled = None
+    if mesh is None:
+        compiled = compile_train_step(
+            params, opt_state, make_batch(dcfg, cfg, 0, device=dev), cfg=cfg,
+            opt_cfg=opt_cfg, microbatches=args.microbatches)
     state = {"params": params, "opt": opt_state}
     del params, opt_state
+
+    def current():
+        """The (params, OptState) the next step starts from."""
+        if compiled is not None:
+            return compiled.params, compiled.opt_state
+        return state["params"], state["opt"]
+
+    mgr = CheckpointManager(Path(args.ckpt_dir) / cfg.name)
+
+    def restore_latest() -> dict:
+        tree, extra = mgr.restore(current(), shardings=shardings)
+        if compiled is not None:
+            compiled.load_state(*tree)
+        else:
+            state["params"], state["opt"] = tree
+        return extra
+
+    start_step = 0
+    if args.resume and mgr.latest_step() is not None:
+        start_step = int(restore_latest().get("step", mgr.latest_step()))
+        log(f"resumed from step {start_step}")
 
     def one_step(step: int) -> None:
         batch = make_batch(dcfg, cfg, step, mesh=mesh, device=dev)
         t0 = time.time()
-        with activation_policy(policy):
-            state["params"], state["opt"], metrics = train_step(
-                state["params"], state["opt"], batch, cfg=cfg,
-                opt_cfg=opt_cfg, microbatches=args.microbatches)
+        if compiled is not None:
+            metrics = compiled(batch)
+        else:
+            with activation_policy(policy):
+                state["params"], state["opt"], metrics = train_step(
+                    state["params"], state["opt"], batch, cfg=cfg,
+                    opt_cfg=opt_cfg, microbatches=args.microbatches)
         if step % args.log_every == 0 or step == start_step:
             loss = float(metrics["loss"])
             log(f"step {step:5d}  loss {loss:8.4f}  "
@@ -110,13 +139,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                   f"dt {time.time() - t0:6.2f}s  on {card}", flush=True)
 
     def save(step: int) -> None:
-        mgr.save(step, (state["params"], state["opt"]),
-                 extra={"step": step})
+        mgr.save(step, current(), extra={"step": step})
 
     def restore() -> int:
-        (state["params"], state["opt"]), extra = mgr.restore(
-            (state["params"], state["opt"]), shardings=shardings)
-        return int(extra["step"])
+        return int(restore_latest()["step"])
 
     stats = run_with_retries(one_step, save, restore,
                              n_steps=args.steps,

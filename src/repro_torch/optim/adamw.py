@@ -8,7 +8,10 @@ fills the other's, and the same arithmetic in the same order (the update
 in f32, cast back to each parameter's dtype; ``m`` and ``v`` kept in
 ``state_dtype``). ``torch.optim.AdamW`` orders it differently and has
 neither the clip nor the schedule. Nothing here builds an autograd
-graph: the update runs under ``torch.no_grad``.
+graph: the update runs under ``torch.no_grad``. ``apply_updates`` is
+functional (the eager ``train_step``'s); ``apply_updates_`` writes the
+same values into the params and state it is given (the compiled step's,
+whose CUDA graph binds those buffers).
 """
 from __future__ import annotations
 
@@ -76,39 +79,73 @@ def global_norm(tree: PyTree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _clip_and_schedule(grads: PyTree, step: torch.Tensor, cfg: AdamWConfig):
+    """(grad norm, clip scale, lr, bias corrections 1 and 2) of the step
+    numbered ``step`` (a device tensor, already incremented)."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
+    lr = schedule(step, cfg)
+    bc1 = 1 - cfg.beta1 ** step.to(torch.float32)
+    bc2 = 1 - cfg.beta2 ** step.to(torch.float32)
+    return gnorm, scale, lr, bc1, bc2
+
+
+def _update(p, g, m, v, scale, lr, bc1, bc2, cfg: AdamWConfig):
+    """One leaf's AdamW update in f32: (new p, new m, new v), each in its
+    own dtype."""
+    b1, b2 = cfg.beta1, cfg.beta2
+    g32 = g.to(torch.float32) * scale
+    m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
+    v32 = b2 * v.to(torch.float32) + (1 - b2) * g32 * g32
+    mhat = m32 / bc1
+    vhat = v32 / bc2
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
+        + cfg.weight_decay * p.to(torch.float32)
+    p_new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+    return p_new, m32.to(m.dtype), v32.to(v.dtype)
+
+
 @torch.no_grad()
 def apply_updates(params: PyTree, grads: PyTree, state: OptState,
                   cfg: AdamWConfig
                   ) -> Tuple[PyTree, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step: new (params, state) trees and
     ``{"grad_norm", "lr"}``; the inputs are left as they are."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp_max(cfg.clip_norm / (gnorm + 1e-9), 1.0)
     step = state.step + 1
-    lr = schedule(step, cfg)
-    b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1 - b1 ** step.to(torch.float32)
-    bc2 = 1 - b2 ** step.to(torch.float32)
-
-    def upd(p, g, m, v):
-        g32 = g.to(torch.float32) * scale
-        m32 = b1 * m.to(torch.float32) + (1 - b1) * g32
-        v32 = b2 * v.to(torch.float32) + (1 - b2) * g32 * g32
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
-            + cfg.weight_decay * p.to(torch.float32)
-        p_new = (p.to(torch.float32) - lr * delta).to(p.dtype)
-        return p_new, m32.to(m.dtype), v32.to(v.dtype)
-
-    out = [upd(p, g, m, v) for p, g, m, v in
+    gnorm, *coef = _clip_and_schedule(grads, step, cfg)
+    out = [_update(p, g, m, v, *coef, cfg) for p, g, m, v in
            zip(tree_leaves(params), tree_leaves(grads),
                tree_leaves(state.m), tree_leaves(state.v))]
     new_p = tree_unflatten(params, [o[0] for o in out])
     new_m = tree_unflatten(params, [o[1] for o in out])
     new_v = tree_unflatten(params, [o[2] for o in out])
     return new_p, OptState(new_m, new_v, step), \
-        {"grad_norm": gnorm, "lr": lr}
+        {"grad_norm": gnorm, "lr": coef[1]}
+
+
+@torch.no_grad()
+def apply_updates_(params: PyTree, grads: PyTree, state: OptState,
+                   cfg: AdamWConfig) -> Dict[str, torch.Tensor]:
+    """``apply_updates`` in place, the counterpart of the reference's
+    update on donated buffers: the same arithmetic in the same order, each
+    leaf's new ``p``, ``m`` and ``v`` written into its own storage, leaf
+    by leaf (one leaf's f32 temporaries alive at a time), and
+    ``state.step`` incremented on the device. Returns ``{"grad_norm",
+    "lr"}`` as device tensors. Nothing reads the host, so a CUDA graph
+    can record it."""
+    state.step.add_(1)
+    gnorm, *coef = _clip_and_schedule(grads, state.step, cfg)
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state.m), tree_leaves(state.v)):
+        _update_(p, g, m, v, coef, cfg)
+    return {"grad_norm": gnorm, "lr": coef[1]}
+
+
+def _update_(p, g, m, v, coef, cfg: AdamWConfig) -> None:
+    p_new, m_new, v_new = _update(p, g, m, v, *coef, cfg)
+    p.copy_(p_new)
+    m.copy_(m_new)
+    v.copy_(v_new)
 
 
 # ---------------------------------------------------------------------------

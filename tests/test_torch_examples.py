@@ -11,7 +11,13 @@ spot checks and the outcome ledger back from its output. The LM examples,
 ``examples/train_lm_torch.py`` and ``examples/serve_lm_torch.py``, run
 their reduced configs: three training steps with the checkpoint directory
 in a temporary one, and the six served requests.
+``examples/algorithm_mapping_tour_torch.py`` (the planner only) prints
+each family's line as the reference's ``examples/algorithm_mapping_tour.py``
+does, and each is held to the reference's: convs, reductions and the
+exact flag equal, OPT µs and the greedy gain within 1e-6 relative, the
+same algorithm mix.
 """
+import ast
 import importlib.util
 import json
 import re
@@ -110,3 +116,29 @@ def test_serve_lm_runs_reduced(capsys):
                if line.startswith("request ")]
     assert len(streams) == 6 and all(len(s) == 8 for s in streams)
     assert "48 tokens" in lines[-1] and "device cpu" in lines[-1]
+
+
+TOUR_LINE = re.compile(r"^(\S+)\s+convs=\s*(\d+) reductions=\s*(\d+) "
+                       r"exact=(True|False)\s+OPT=\s*(\S+)µs\s+greedy "
+                       r"\+\s*(\S+)%\s+mix=(\{.*\})$")
+
+
+def _tour(out: str):
+    rows = [TOUR_LINE.match(line) for line in out.splitlines()]
+    assert rows and all(rows), out
+    return [(m[1], int(m[2]), int(m[3]), m[4], float(m[5]), float(m[6]),
+             ast.literal_eval(m[7])) for m in rows]
+
+
+def test_algorithm_mapping_tour_matches_the_reference(capsys):
+    _load("algorithm_mapping_tour").main()
+    want = _tour(capsys.readouterr().out)
+    assert _load("algorithm_mapping_tour_torch").main([]) == 0
+    got = _tour(capsys.readouterr().out)
+    assert [row[0] for row in got] == [row[0] for row in want] == [
+        "googlenet", "inception_v4", "vgg16", "alexnet", "resnet18"]
+    for g, w in zip(got, want):
+        assert g[1:4] == w[1:4], g[0]                 # convs, reductions, exact
+        assert g[4] == pytest.approx(w[4], rel=1e-6)  # OPT µs
+        assert g[5] == pytest.approx(w[5], rel=1e-6)  # greedy gain %
+        assert g[6] == w[6], g[0]                     # the mix

@@ -65,12 +65,14 @@ def test_port_imports_neither_jax_nor_the_reference():
     examples = sorted((REPO / "examples").glob("*_torch.py"))
     files += [REPO / "chip_smoke.py", REPO / "tools" / "bench_serving.py",
               REPO / "tools" / "bench_autotune.py",
-              REPO / "tools" / "check_mesh.py", *examples]
+              REPO / "tools" / "check_mesh.py",
+              REPO / "tools" / "check_train_graph.py", *examples]
     assert len(files) > 15
     assert {f.name for f in examples} >= {"quickstart_torch.py",
                                           "serve_cnn_torch.py",
                                           "train_lm_torch.py",
-                                          "serve_lm_torch.py"}
+                                          "serve_lm_torch.py",
+                                          "algorithm_mapping_tour_torch.py"}
     names = {str(f.relative_to(REPO / "src" / "repro_torch")) for f in files
              if "repro_torch" in f.parts}
     assert {"kernels/winograd/winograd.py", "kernels/winograd/ops.py",

@@ -300,6 +300,21 @@ def test_train_check_catches_a_wrong_update(smoke, monkeypatch, fault):
     assert r["max_rel"] > 3 * TOL and not r["worst_leaf"].startswith(".")
 
 
+@pytest.mark.parametrize("noise, min_step, tol, guarded", [
+    (7.3e-7, 7.3e-5, 1e-5, True),          # the CPU's noise: 1e-5 holds
+    (2.25e-5, 7.3e-5, 4.5e-5, True),       # the card's cuBLASLt probe
+    (4e-5, 7.3e-5, 8e-5, False),           # the rule would pass no update
+    (0.0, 1e-5, 1e-5, False)])
+def test_check_rule_is_the_measured_noise_under_min_step(noise, min_step,
+                                                        tol, guarded):
+    """``check_rule``: max(1e-5, twice the noise floor's largest probe),
+    guarded only while it stays under the step's smallest param move."""
+    rule = mesh_check.check_rule({"max_rel": noise}, min_step)
+    assert rule["tol"] == pytest.approx(tol, rel=1e-12)
+    assert rule["guarded"] is guarded
+    assert rule["noise"] == noise and rule["min_step"] == min_step
+
+
 @pytest.mark.parametrize("h,kvh,m", [(4, 2, 2), (32, 8, 16), (40, 8, 8),
                                      (16, 16, 16), (6, 2, 3)])
 def test_kv_heads_are_those_the_query_heads_read(h, kvh, m):
@@ -429,6 +444,10 @@ def check_two_by_two(arch: str, attn_shard: str) -> None:
     result = json.loads([line for line in proc.stdout.splitlines()
                          if line.startswith("{")][-1])
     assert result["ok"] and result["mesh"] == [2, 2]
+    rule = result["rule"]
+    assert rule["tol"] == max(mesh_check.BASE_TOL,
+                              2 * result["noise_floor"]["max_rel"])
+    assert rule["guarded"] and rule["min_step"] == result["train"]["min_step"]
     assert result["train"]["loss_rel"] <= TOL
     assert result["train"]["max_rel"] <= TOL
     assert result["train"]["min_step"] > 5 * TOL

@@ -151,14 +151,17 @@ def test_remat_gives_bit_equal_gradients(name):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("how", ["eager", "compiled"])
 @pytest.mark.parametrize("name, microbatches", [
     ("h2o-danube-1.8b", 1), ("h2o-danube-1.8b", 2), ("mamba2-370m", 1),
     ("mamba2-370m", 2)])
-def test_train_step_equals_the_references(name, microbatches):
-    """Two steps of ``train_step`` against the reference's jitted one on
-    the same batches; the second starts both from the reference's state
-    after the first (``bridge.opt_state_from_jax``), so each step is
-    compared from one state."""
+def test_train_step_equals_the_references(name, microbatches, how):
+    """Two steps of ``train_step`` (``eager``) or of the compiled step
+    (``compiled``: ``compile_train_step``, each step's state copied in by
+    ``load_state``) against the reference's jitted one on the same
+    batches; the second starts both from the reference's state after the
+    first (``bridge.opt_state_from_jax``), so each step is compared from
+    one state."""
     jcfg, tcfg, jp, tp = pair(name)
     opt = dataclasses.replace(steps.make_opt_config(tcfg, total_steps=20),
                               warmup_steps=2, lr=1e-3)
@@ -168,11 +171,22 @@ def test_train_step_equals_the_references(name, microbatches):
                                       microbatches=microbatches))
     js = jax_adamw.init_opt_state(jp, jopt)
     ts = adamw.init_opt_state(tp, opt)
+    compiled = None
     for seed in (1, 2):
         jb, tb = batches(tcfg, seed, b=4)
         jp2, js2, jm = jstep(jp, js, jb)
-        tp2, ts2, tm = steps.train_step(tp, ts, tb, cfg=tcfg, opt_cfg=opt,
-                                        microbatches=microbatches)
+        if how == "eager":
+            tp2, ts2, tm = steps.train_step(tp, ts, tb, cfg=tcfg,
+                                            opt_cfg=opt,
+                                            microbatches=microbatches)
+        else:
+            if compiled is None:
+                compiled = steps.compile_train_step(
+                    tp, ts, tb, cfg=tcfg, opt_cfg=opt,
+                    microbatches=microbatches)
+            compiled.load_state(tp, ts)
+            tm = compiled(tb)
+            tp2, ts2 = compiled.params, compiled.opt_state
         assert set(tm) == set(jm)
         assert ("aux" in tm) == (microbatches == 1)
         for k in jm:

@@ -15,8 +15,13 @@ itself under ``torchrun --nproc-per-node data*model`` (NCCL on the cards,
 gloo on the CPU) and runs one train step (two microbatches) of
 h2o-danube-1.8b cut to 2 layers at full width in f32 on that mesh,
 holding the loss and every updated param and optimizer leaf to the
-unsharded step on the same weights and batch (1e-5 of each leaf's max),
-then three decode steps' logits and caches likewise. With fewer cards
+unsharded step on the same weights and batch, then three decode steps'
+logits and caches likewise, each within ``mesh_check.check_rule``'s
+tolerance of the leaf's max: 1e-5, or twice the unsharded step's own
+float noise (``mesh_check.noise_floor``, measured in the same run)
+where that is larger. The mesh fails where that tolerance reaches the
+step's smallest param move (``min_step``), since a missing update
+could then pass. With fewer cards
 than the mesh needs it says so and exits 2; it never runs a smaller mesh
 in place of the one asked for.
 
@@ -55,9 +60,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=2e-2, atol=2e-3)
 WAVES = (8, 8, 2)
-
-
-LM_TOL = 1e-5
 
 
 def lm_main(args) -> int:
@@ -125,6 +127,8 @@ def lm_rank(args) -> int:
                                        seq=args.lm_seq)
         worst = max(train["max_rel"], train["loss_rel"],
                     dec["logits"]["max_rel"], dec["cache"]["max_rel"])
+        rule = mesh_check.check_rule(noise, train["min_step"])
+        ok = worst <= rule["tol"] and rule["guarded"]
         if dist.get_rank() == 0:
             print(f"[{d}x{m}] {cfg.name} ({cfg.n_layers} layers, d_model "
                   f"{cfg.d_model}, f32) train step: loss {train['loss']:.6f}"
@@ -136,12 +140,15 @@ def lm_rank(args) -> int:
                   f"{dec['cache']['max_rel']:.2e}; {secs:.1f} s; the "
                   f"unsharded step's own float noise "
                   f"{ {k: f'{v:.2e}' for k, v in noise['probes'].items()} }"
-                  f", worst at {noise['worst_leaf']}", flush=True)
-            print(json.dumps({"ok": worst <= LM_TOL, "mesh": [d, m],
+                  f", worst at {noise['worst_leaf']}; the rule "
+                  f"{rule['tol']:.2e} (max of 1e-5 and twice the noise), "
+                  f"{'under' if rule['guarded'] else 'NOT under'} the "
+                  f"smallest step: {'pass' if ok else 'FAIL'}", flush=True)
+            print(json.dumps({"ok": ok, "mesh": [d, m], "rule": rule,
                               "train": train, "decode": dec,
                               "noise_floor": noise, "device": str(dev)}),
                   flush=True)
-        return 0 if worst <= LM_TOL else 1
+        return 0 if ok else 1
     finally:
         dist.destroy_process_group()
 
