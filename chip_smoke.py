@@ -282,15 +282,25 @@ both matrix products and cuDNN:
     every updated leaf within 1e-5 of the leaf's max (a param leaf's max
     taken as at least 1), the deviation, bit-equality and the smallest
     leaf's step printed (it must be over 2e-5, so that a missing update
-    would show); (b) on full-width, full-depth h2o-danube-1.8b the
-    sharded and the unsharded ``train_step`` timed on one batch (ms, the
-    host's share, memory) with no other process running, then
-    ``launch.train --mesh smoke`` checkpointed and resumed through
+    would show); then the train step compiled on the smoke mesh
+    (``compile_train_step`` on ``DTensor`` state: two eager passes, the
+    capture, its replay) against three eager sharded steps in f32, on
+    that configuration and on reduced deepseek-v2-236b (MLA, MoE):
+    bit-equal, or within ``mesh_check.check_rule`` of the step's float
+    noise measured then (the line says which); (b) on full-width,
+    full-depth h2o-danube-1.8b the sharded and the unsharded eager
+    ``train_step`` timed on one batch (ms, the host's share, memory) with
+    no other process running, then the same sharded step compiled on the
+    mesh: its eager passes, the capture (seconds; its kernel nodes must
+    equal one eager pass's kernel rows) and five replays (events, median),
+    device busy, host share and ``max_memory_reserved`` per stage, against
+    the eager sharded step; then ``launch.train --mesh smoke`` (every
+    step through the compiled mesh step) checkpointed and resumed through
     ``restore(shardings=)`` and one f32 full-depth decode step on the
     smoke mesh with ``cache_shardings`` against the unsharded eager step
     within 1e-5; (c) in processes of their own (CPU only, each on its
-    own fake process group), started after (b)'s timed steps and joined
-    last, the dry-run cells
+    own fake process group), started once (b)'s steps are timed (the
+    compiled mesh checks of (a) run beside them) and joined last, the dry-run cells
     deepseek-v2-236b × train_4k × pod, llama4-maverick-400b-a17b ×
     decode_32k × multipod and zamba2-2.7b × long_500k × pod, and the
     roofline of qwen2.5-14b × train_4k: per-chip parameter bytes against
@@ -5101,6 +5111,150 @@ def phase_27_training(dev) -> None:
     print(f"[27] phase 27 took {time.perf_counter() - t27:.1f} s")
 
 
+def mesh_graph_check(dev, mesh, cfg, batch: int, seq: int,
+                     ref=None) -> str:
+    """28 (a): the train step compiled on the smoke mesh
+    (``mesh_check.compiled_check``: two eager passes, the capture and its
+    replay) against three eager sharded ``train_step`` calls, in f32,
+    after ``train_check`` has held one sharded step of ``cfg`` to the
+    unsharded one (``ref``, run here when not given; its ``min_step``
+    guards the rule). Fails unless a
+    graph was captured, the owned leaves kept their placements and
+    addresses, and every leaf and metric is bit-equal or, where not,
+    within ``mesh_check.check_rule`` of the unsharded step's float noise
+    measured here. Returns the line to print."""
+    from repro_torch.launch import mesh_check
+    if ref is None:
+        ref = mesh_check.train_check(mesh, cfg, dev, batch=batch, seq=seq,
+                                     microbatches=2)
+    if ref["max_rel"] > 1e-5 or ref["loss_rel"] > 1e-5:
+        raise CheckFailed(f"[28] {cfg.name}: the smoke-mesh step off the "
+                          f"unsharded one: {ref}")
+    r = mesh_check.compiled_check(mesh, cfg, dev, batch=batch, seq=seq)
+    if not r["captured"] or not r["layout_kept"]:
+        raise CheckFailed(f"[28] {cfg.name}: the compiled mesh step {r}")
+    held = "bit-equal"
+    if not r["bit_equal"]:
+        noise = mesh_check.noise_floor(cfg, dev, batch=batch, seq=seq)
+        rule = mesh_check.check_rule(noise, ref["min_step"])
+        if max(r["max_rel"], r["metrics_rel"]) > rule["tol"] \
+                or not rule["guarded"]:
+            raise CheckFailed(
+                f"[28] {cfg.name}: the compiled mesh step is off the eager "
+                f"sharded one by {r['max_rel']:.3e} at {r['worst_leaf']} "
+                f"(metrics {r['metrics_rel']:.3e}); the rule {rule}")
+        held = (f"NOT bit-equal: within {r['max_rel']:.3e} (worst "
+                f"{r['worst_leaf']}; metrics {r['metrics_rel']:.3e}), under "
+                f"the rule {rule['tol']:.2e}")
+    return (f"[28] {cfg.name} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}), f32, batch {batch} x {seq}, 2 microbatches, "
+            f"on the smoke mesh: the sharded step against the unsharded "
+            f"one within {ref['max_rel']:.3e} (the smallest step "
+            f"{ref['min_step']:.2e}); {r['calls']} calls of the compiled "
+            f"mesh step (2 eager passes, the capture and its replay) "
+            f"against as many eager sharded train_steps: {held}; "
+            f"{r['leaves']} leaves kept their placements and addresses; "
+            f"{memory_line(dev)}")
+
+
+def mesh_graph_timing(dev, mesh, cfg, opt_cfg, batch, eager_ms: float,
+                      eager_busy: float, eager_rows: int) -> float:
+    """28 (b): the full-width step compiled on the smoke mesh, from the
+    same weights as the eager sharded step timed before it: two eager
+    passes (the second under the profiler: its kernel rows), the capture
+    (seconds) and five replays (events, median) with one replay's device
+    busy and host share, ``max_memory_reserved`` over each stage, beside
+    the eager sharded step's ``eager_ms`` / ``eager_busy``. Fails unless
+    the graph's kernel nodes equal an eager pass's kernel rows: a window
+    that comes back short of them is read again on up to three more
+    eager passes of the body, one that holds more fails at once. Returns
+    the replay's median ms."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.api import activation_policy, policy_from_mesh
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models import model as lm
+    from repro_torch.optim.adamw import init_opt_state
+
+    def gib():
+        return torch.cuda.max_memory_reserved(dev) / 2 ** 30
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    opt_state = init_opt_state(params, opt_cfg)
+    state = sharding.distribute(
+        (params, opt_state), (sharding.params_shardings(params, mesh),
+                              sharding.params_shardings(opt_state, mesh)))
+    del params, opt_state
+    feed = sharding.distribute(batch, sharding.batch_shardings(batch, mesh))
+    with activation_policy(policy_from_mesh(mesh)):
+        step = lm_steps.compile_train_step(*state, feed, cfg=cfg,
+                                           opt_cfg=opt_cfg, microbatches=2)
+    del state
+    call_ms = []
+
+    def call():
+        call_ms.append(event_ms(lambda: step(feed)))
+
+    rows, _, _ = kernel_rows(call)          # the two eager passes
+    warm_mem = gib()
+    if len(call_ms) != lm_steps.WARM_PASSES or step.graph is not None:
+        raise CheckFailed(f"[28] {cfg.name}: {len(call_ms)} calls of the "
+                          f"compiled mesh step before the capture")
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(feed)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    capture_mem = gib()
+    nodes = graph_kernel_symbols(step.graph)
+    seen = [rows]
+    while seen[-1] < len(nodes) and len(seen) < 4:
+        # A window short of the graph's nodes: the profiler dropped some
+        # of a 2-3 s DTensor pass's kernels (8 of 16,546 on the card).
+        # Another eager pass of the same body (a real step) is read.
+        seen.append(kernel_rows(step._warm_pass)[0])
+    rows = seen[-1]
+    if len(nodes) != rows:
+        raise CheckFailed(f"[28] {cfg.name}: the compiled mesh step's graph "
+                          f"holds {len(nodes)} kernel nodes, its eager "
+                          f"passes ran {seen} kernel rows")
+    torch.cuda.reset_peak_memory_stats(dev)
+    replay_ms = [event_ms(lambda: step(feed)) for _ in range(5)]
+    r_rows, r_busy, r_top = kernel_rows(lambda: step(feed))
+    r_med, r_mem = statistics.median(replay_ms), gib()
+    loss = float(step(feed)["loss"])
+    if not math.isfinite(loss):
+        raise CheckFailed(f"[28] {cfg.name}: the replayed loss is {loss}")
+    print(f"[28] {cfg.name} train step compiled on the smoke mesh (batch "
+          f"8 x 128, 2 microbatches, bf16): eager passes "
+          f"{call_ms[0]:.1f} and (profiled) {call_ms[1]:.1f} ms, {rows} "
+          f"kernel rows, {warm_mem:.2f} GiB; the capture and its first "
+          f"replay {capture_s:.2f} s, {len(nodes)} kernel nodes = the eager "
+          f"pass's rows (windows read: {seen}), {capture_mem:.2f} GiB; a "
+          f"replay {r_med:.1f} ms "
+          f"(events, median of {[round(v, 1) for v in replay_ms]}), device "
+          f"busy {r_busy:.1f} ms in {r_rows} kernel rows, host share "
+          f"{100 * (1 - r_busy / r_med):.1f}%, {r_mem:.2f} GiB over the "
+          f"replays; against the eager sharded step {eager_ms:.1f} ms "
+          f"(device busy {eager_busy:.1f} ms in {eager_rows} rows, host "
+          f"share {100 * (1 - eager_busy / eager_ms):.1f}%): replay / eager "
+          f"{r_med / eager_ms:.3f}, busy {r_busy / eager_busy:.3f}; loss "
+          f"{loss:.4f}; most: {r_top}")
+    del step, feed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r_med
+
+
 DRYRUN_CELLS = (("deepseek-v2-236b", "train_4k", "pod"),
                 ("llama4-maverick-400b-a17b", "decode_32k", "multipod"),
                 ("zamba2-2.7b", "long_500k", "pod"))
@@ -5132,8 +5286,8 @@ def phase_28_lm_mesh(dev) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
 
     # (c) the dry runs are CPU work in processes of their own, started
-    # once (b)'s steps are timed (they would share the host's cores
-    # with them) and joined last.
+    # once (b)'s steps are timed (they would share the host's cores with
+    # them) and joined last.
     out_dir = Path(tempfile.mkdtemp(prefix="dryrun_"))
     env = dict(os.environ, PYTHONPATH=str(SRC))
     procs = []
@@ -5163,14 +5317,13 @@ def phase_28_lm_mesh(dev) -> None:
               f"{memory_line(dev)}")
         gc.collect()
         torch.cuda.empty_cache()
-
         # (b) full depth: the sharded and the unsharded step, timed with
         # no other process on the host's cores.
         cfg = get_config("h2o-danube-1.8b")
         opt_cfg = lm_steps.make_opt_config(cfg, total_steps=30)
         batch = make_batch(DataConfig(seed=0, global_batch=8, seq_len=128),
                            cfg, 0, device=dev)
-        step_ms = {}
+        step_ms, busy_of, rows_of = {}, {}, {}
         for sharded in (False, True):
             params = lm.init_model(
                 cfg, torch.Generator(device=dev).manual_seed(0), dev)
@@ -5200,6 +5353,7 @@ def phase_28_lm_mesh(dev) -> None:
                 walls.append((time.perf_counter() - t0) * 1e3)
             rows, busy, top = kernel_rows(one_step)
             step_ms[sharded] = statistics.median(walls[1:])
+            busy_of[sharded], rows_of[sharded] = busy, rows
             print(f"[28] {cfg.name} train_step (batch 8 x 128, 2 "
                   f"microbatches) {'on the smoke mesh' if sharded else 'unsharded'}: "
                   f"{step_ms[sharded]:.1f} ms (median of steps 2-3, first "
@@ -5213,6 +5367,12 @@ def phase_28_lm_mesh(dev) -> None:
         print(f"[28] sharded / unsharded step: "
               f"{step_ms[True]:.1f} / {step_ms[False]:.1f} ms = "
               f"{step_ms[True] / step_ms[False]:.2f}x")
+        replay = mesh_graph_timing(dev, mesh, cfg, opt_cfg, batch,
+                                   step_ms[True], busy_of[True],
+                                   rows_of[True])
+        print(f"[28] the replayed mesh step / the eager sharded step / the "
+              f"eager unsharded step: {replay:.1f} / {step_ms[True]:.1f} / "
+              f"{step_ms[False]:.1f} ms")
 
         procs += [(cell, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -5226,7 +5386,17 @@ def phase_28_lm_mesh(dev) -> None:
              str(out_dir)], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, env=env)))
 
+        # (a) the train step compiled on the smoke mesh against the eager
+        # sharded step, f32: 2-layer full-width h2o, reduced deepseek-v2
+        # (beside (c): nothing here reads a clock or the profiler).
+        print(mesh_graph_check(dev, mesh, ccfg, 2, 64, ref=r))
+        print(mesh_graph_check(dev, mesh, mesh_check.check_config(
+            "deepseek-v2-236b", layers=2, reduced=True), 4, 32))
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # (b) launch.train with a checkpoint and a resume (beside (c)).
+        torch.cuda.reset_peak_memory_stats(dev)
         with tempfile.TemporaryDirectory() as tmp:
             base = ["--arch", cfg.name, "--batch", "8", "--seq", "128",
                     "--microbatches", "2", "--ckpt-every", "2", "--ckpt-dir",
@@ -5245,7 +5415,9 @@ def phase_28_lm_mesh(dev) -> None:
                               f"{rc1}/{rc2}, logged {log1} / {log2}\n"
                               f"{out1[-1500:]}\n{out2[-1500:]}")
         print(f"[28] {cfg.name} ({cfg.n_layers} layers, d_model "
-              f"{cfg.d_model}) launch.train --mesh smoke --steps 2 "
+              f"{cfg.d_model}) launch.train --mesh smoke (the step "
+              f"compiled on the mesh: 2 eager passes, then the capture in "
+              f"the resumed run's third step) --steps 2 "
               f"--ckpt-every 2 ({t1 - t0:.1f} s with the ~18 GB "
               f"checkpoint), then --steps 3 --resume ({t2 - t1:.1f} s, "
               f"restore(shardings=)): {out2.splitlines()[0]}; (step, loss, "

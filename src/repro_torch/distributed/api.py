@@ -53,6 +53,11 @@ def set_activation_policy(policy: Optional[ActivationPolicy]) -> None:
     _POLICY = policy
 
 
+def current_policy() -> Optional[ActivationPolicy]:
+    """The installed activation policy (None when there is none)."""
+    return _POLICY
+
+
 def policy_from_mesh(mesh, seq_parallel: bool = True) -> ActivationPolicy:
     sizes = mesh_axes(mesh)
     batch_axes = tuple(a for a in ("pod", "data") if a in sizes)

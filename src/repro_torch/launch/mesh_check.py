@@ -2,11 +2,14 @@
 decode step) of the same weights and batch run twice, on plain tensors
 and as ``DTensor``s on a mesh, and compared leaf by leaf.
 
-Used by ``tools/check_mesh.py --lm`` (1x2, 2x1 and 2x2 meshes of cards
-under torchrun, or gloo processes on the CPU), by ``chip_smoke.py``
-(the one-rank smoke mesh on the card, and the compiled train step
-against the eager one under the same ``check_rule``) and by the CPU
-tests.
+``compiled_check`` holds the train step compiled on a mesh
+(``compile_train_step`` on ``DTensor`` state: on a card two eager passes,
+one CUDA graph, replays) to the eager sharded ``train_step``, call for
+call. Used by ``tools/check_mesh.py --lm`` (1x2, 2x1 and 2x2 meshes of
+cards under torchrun, or gloo processes on the CPU), by
+``chip_smoke.py`` (the one-rank smoke mesh on the card, and the compiled
+train step against the eager one under the same ``check_rule``) and by
+the CPU tests.
 """
 from __future__ import annotations
 
@@ -22,10 +25,12 @@ from repro_torch.distributed.api import activation_policy, policy_from_mesh
 from repro_torch.distributed.sharding import (batch_shardings,
                                               cache_shardings, distribute,
                                               params_shardings)
-from repro_torch.launch.steps import make_opt_config, serve_step, train_step
+from repro_torch.launch.steps import (compile_train_step, make_opt_config,
+                                     serve_step, train_step)
 from repro_torch.models.model import init_cache, init_model
 from repro_torch.models.scan_util import (tree_leaves,
-                                          tree_leaves_with_path, tree_map)
+                                          tree_leaves_with_path, tree_map,
+                                          tree_unflatten)
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
 
@@ -138,6 +143,70 @@ def train_check(mesh, cfg: ModelConfig, device, batch: int = 4,
             "loss_rel": abs(loss - ref_loss) / max(abs(ref_loss), 1e-30),
             "leaves": len(tree_leaves((new_p, new_s))),
             "min_step": min_step, **dev_leaves}
+
+
+def compiled_check(mesh, cfg: ModelConfig, device, batch: int = 4,
+                   seq: int = 64, microbatches: int = 2, calls: int = 3,
+                   seed: int = 0) -> Dict:
+    """``compile_train_step`` on ``train_check``'s sharded state (the
+    same weights, ``check_opt_config``, the step made under
+    ``policy_from_mesh(mesh)``) for ``calls`` calls on the batches of
+    data steps 0, 1, ... (``make_batch(mesh=)``), against as many eager
+    sharded ``train_step`` calls from the same state on the same batches.
+    On a card the first two calls are the eager passes and the third
+    captures and replays. Returns the deviations of every param and
+    optimizer leaf after the last call (``deviation``: a param leaf's max
+    taken as at least ``PARAM_FLOOR``) and of every call's metrics
+    (relative to each metric's magnitude), whether all are bit-equal,
+    whether a graph was captured, and whether the owned leaves kept
+    their placements and the addresses of their local shards."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    opt_cfg = check_opt_config(cfg)
+    opt_state = init_opt_state(params, opt_cfg)
+    shardings = (params_shardings(params, mesh),
+                 params_shardings(opt_state, mesh))
+    batches = [make_batch(DataConfig(seed=3, global_batch=batch,
+                                     seq_len=seq), cfg, i, mesh=mesh)
+               for i in range(calls)]
+    policy = policy_from_mesh(mesh)
+    # The step owns its state: clones, since a DTensor of a one-rank
+    # mesh may share storage with the tensor it was distributed from.
+    owned = distribute(tree_unflatten((params, opt_state), [
+        t.clone() for t in tree_leaves((params, opt_state))]), shardings)
+    with activation_policy(policy):
+        step = compile_train_step(*owned, batches[0], cfg=cfg,
+                                  opt_cfg=opt_cfg, microbatches=microbatches)
+
+    def layout():
+        return [(t.placements, t.to_local().data_ptr()) for t in
+                tree_leaves((step.params, step.opt_state))]
+
+    before = layout()
+    got = [{k: v.clone() for k, v in step(b).items()} for b in batches]
+    kept = layout() == before
+    p, s = distribute((params, opt_state), shardings)
+    metric_rel, metric_equal = 0.0, True
+    for b, g in zip(batches, got):
+        with activation_policy(policy):
+            p, s, want = train_step(p, s, b, cfg=cfg, opt_cfg=opt_cfg,
+                                    microbatches=microbatches)
+        metric_equal = metric_equal and set(g) == set(want) and all(
+            torch.equal(g[k], want[k]) for k in want)
+        metric_rel = max([metric_rel] + [
+            float((g[k] - v).abs()) / max(float(v.abs()), 1e-30)
+            for k, v in want.items()])
+    dev_p = deviation(step.params, [whole(t) for t in tree_leaves(p)],
+                      PARAM_FLOOR)
+    dev_s = deviation(step.opt_state, [whole(t) for t in tree_leaves(s)])
+    worst = max(dev_p, dev_s, key=lambda d: d["max_rel"])
+    return {"calls": calls, "leaves": len(before),
+            "max_rel": worst["max_rel"], "worst_leaf": worst["worst_leaf"],
+            "metrics_rel": metric_rel,
+            "bit_equal": dev_p["bit_equal"] and dev_s["bit_equal"]
+            and metric_equal,
+            "captured": step.graph is not None, "layout_kept": kept}
 
 
 def noise_floor(cfg: ModelConfig, device, batch: int = 4, seq: int = 64,

@@ -8,15 +8,19 @@ buffers and updates its state in place (``optim.adamw.apply_updates_``).
 On a CUDA device its first ``WARM_PASSES`` calls run the step eagerly
 through those buffers, the next captures it once as a CUDA graph, and
 every call from then on is one replay; on the CPU every call runs the
-same body eagerly. ``launch.train`` runs it with ``--mesh none``.
+same body eagerly. With ``DTensor`` params, state and batch it is the
+reference's jitted step on a mesh (``in_shardings`` / ``out_shardings``
+the leaves' placements): the graph then also records the step's
+collectives. ``launch.train`` runs every step through it, on any
+``--mesh``.
 
 ``train_step`` differentiates ``loss_fn`` eagerly (``torch.autograd``)
 and applies one AdamW update; its state is functional, as in the
 reference: new (params, opt_state) trees come back and the inputs are
 left as they are. With params, optimizer state and batch as
 ``DTensor``s (``distributed.sharding``'s rules) and an activation policy
-installed, the same step runs sharded on an LM mesh (eagerly: the
-compiled step refuses ``DTensor`` leaves). ``input_specs`` /
+installed, the same step runs sharded on an LM mesh
+(``compile_train_step`` captures that sharded step too). ``input_specs`` /
 ``model_shapes`` / ``opt_shapes`` are the reference's
 ``ShapeDtypeStruct`` trees as tensors on the ``meta`` device: shapes and
 dtypes, nothing allocated.
@@ -29,7 +33,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.distributed.api import is_sharded
+from repro_torch.distributed.api import (activation_policy, current_policy,
+                                         is_sharded)
 from repro_torch.models.model import (decode_step, init_cache, init_model,
                                       loss_fn, prefill)
 from repro_torch.models.scan_util import tree_leaves, tree_unflatten
@@ -168,7 +173,9 @@ def _microbatch(whole: Dict[str, torch.Tensor],
 
 # Eager passes on a card before the capture. The first makes what a
 # capture cannot: autograd's device thread, cuBLAS's handle and workspace
-# for the capture stream, the static metrics. The second runs the body
+# for the capture stream, the static metrics and, on a mesh, the NCCL
+# communicator of every group the body's collectives use (each made at
+# its group's first collective). The second runs the body
 # with nothing left to make, so its kernels are the ones the graph
 # records (``chip_smoke.py`` counts both); PyTorch's whole-network
 # capture example likewise warms up over a few iterations on a side
@@ -191,24 +198,35 @@ class CompiledTrainStep:
     ``WARM_PASSES`` calls run eagerly on the capture stream, the next
     captures the body (which records without running) and replays it,
     and every later call is one ``replay()``; a capture or replay that
-    fails raises. On the CPU every call runs the body eagerly."""
+    fails raises. On the CPU every call runs the body eagerly.
+
+    On a mesh every leaf of the state is a ``DTensor`` (a tree that mixes
+    them with plain tensors raises). The batch buffers and accumulators
+    are ``DTensor``s with the placements of ``batch_like`` and of the
+    params, a call copies only this rank's shard of the batch (whose
+    placements must be ``batch_like``'s), the metrics come back whole on
+    every rank, and the body runs under ``_on_mesh`` and the activation
+    policy installed when the step was made. The warm passes make every
+    communicator the body's collectives use, so the capture records
+    those collectives and creates nothing."""
 
     def __init__(self, params: PyTree, opt_state: OptState,
                  batch_like: Dict[str, torch.Tensor], cfg: ModelConfig,
                  opt_cfg: AdamWConfig, microbatches: int = 1) -> None:
-        if is_sharded(*tree_leaves((params, opt_state))):
+        leaves = tree_leaves((params, opt_state))
+        self.sharded = is_sharded(*leaves)
+        if self.sharded and not all(is_sharded(t) for t in leaves):
             raise ValueError(
-                "compile_train_step: the params or optimizer state hold "
-                "DTensor leaves; the train step captured on a mesh is a "
-                "later item, and a mesh runs the eager train_step")
+                "compile_train_step: the params and optimizer state mix "
+                "DTensor and plain leaves; place every leaf on the mesh "
+                "(distribute) or none")
         self.cfg, self.opt_cfg = cfg, opt_cfg
         self.microbatches = microbatches
+        self.policy = current_policy()
         self._params, self._opt_state = params, opt_state
-        self.device = tree_leaves(params)[0].device
-        self._batch = {
-            k: torch.empty(tuple(v.shape), dtype=torch.long
-                           if k == "tokens" else v.dtype, device=self.device)
-            for k, v in batch_like.items()}
+        self.device = leaves[0].device
+        self._batch = {k: self._static_like(k, v)
+                       for k, v in batch_like.items()}
         self._acc = None
         if microbatches > 1:
             acc_dt = getattr(torch, opt_cfg.state_dtype)
@@ -218,6 +236,24 @@ class CompiledTrainStep:
         self._stream: Optional["torch.cuda.Stream"] = None
         self.graph: Optional["torch.cuda.CUDAGraph"] = None
         self.calls = 0
+
+    def _static_like(self, key: str, like: torch.Tensor) -> torch.Tensor:
+        """The static buffer of batch leaf ``key``: ``like``'s shape (and
+        on a mesh its placements), int64 tokens."""
+        dtype = torch.long if key == "tokens" else like.dtype
+        if is_sharded(like) != self.sharded:
+            raise ValueError(
+                f"batch[{key!r}] is {_kind(like)}; the compiled step's "
+                f"state is {'on a mesh' if self.sharded else 'plain'}")
+        if not self.sharded:
+            return torch.empty(tuple(like.shape), dtype=dtype,
+                               device=self.device)
+        from torch.distributed.tensor import DTensor
+        local = like.to_local()
+        return DTensor.from_local(
+            torch.empty(tuple(local.shape), dtype=dtype, device=self.device),
+            like.device_mesh, like.placements, run_check=False,
+            shape=like.shape, stride=like.stride())
 
     @property
     def params(self) -> PyTree:
@@ -230,40 +266,53 @@ class CompiledTrainStep:
     @torch.no_grad()
     def load_state(self, params: PyTree, opt_state: OptState) -> None:
         """Copy a (params, ``OptState``) tree of the same structure,
-        shapes and dtypes into the owned buffers (a restore)."""
+        shapes and dtypes into the owned buffers (a restore). On a mesh
+        each source leaf, a ``DTensor``, is redistributed to the owned
+        leaf's placements and its local shard copied
+        (``CheckpointManager.restore(..., shardings=)``'s tree)."""
         src = tree_leaves((params, opt_state))
         dst = tree_leaves((self._params, self._opt_state))
         if len(src) != len(dst):
             raise ValueError(f"load_state: {len(src)} leaves; the compiled "
                              f"step holds {len(dst)}")
         for i, (s, d) in enumerate(zip(src, dst)):
-            if s.shape != d.shape or s.dtype != d.dtype:
+            if s.shape != d.shape or s.dtype != d.dtype \
+                    or is_sharded(s) != self.sharded:
                 raise ValueError(
-                    f"load_state: leaf {i} is {s.dtype} {tuple(s.shape)}; "
-                    f"the compiled step holds {d.dtype} {tuple(d.shape)}")
-            d.copy_(s)
+                    f"load_state: leaf {i} is {_kind(s)} {s.dtype} "
+                    f"{tuple(s.shape)}; the compiled step holds {_kind(d)} "
+                    f"{d.dtype} {tuple(d.shape)}")
+            if self.sharded:
+                s = s.redistribute(d.device_mesh, d.placements)
+            _local(d).copy_(_local(s))
 
+    @torch.no_grad()
     def _load_batch(self, batch: Dict[str, torch.Tensor]) -> None:
         if set(batch) != set(self._batch):
             raise ValueError(f"batch has {sorted(batch)}; the compiled step "
                              f"reads {sorted(self._batch)}")
         for k, buf in self._batch.items():
-            if tuple(batch[k].shape) != tuple(buf.shape):
-                raise ValueError(f"batch[{k!r}] is {tuple(batch[k].shape)}; "
-                                 f"the compiled step reads "
-                                 f"{tuple(buf.shape)}")
-            buf.copy_(batch[k])
+            v = batch[k]
+            if tuple(v.shape) != tuple(buf.shape) \
+                    or _layout(v) != _layout(buf):
+                raise ValueError(
+                    f"batch[{k!r}] is {_kind(v)} {tuple(v.shape)} "
+                    f"{_layout(v)}; the compiled step reads {_kind(buf)} "
+                    f"{tuple(buf.shape)} {_layout(buf)}")
+            _local(buf).copy_(_local(v))
 
     def _body(self) -> None:
         """The step the graph records: gradients of the static batch,
-        the in-place update, the metrics copied into their static
+        the in-place update, the metrics (whole) copied into their static
         tensors."""
-        metrics, grads = _loss_and_grads(
-            self._params, self._batch, self.cfg, self.opt_cfg,
-            self.microbatches, self._acc)
-        metrics.update(apply_updates_(self._params, grads,
-                                      self._opt_state, self.opt_cfg))
-        del grads
+        with _on_mesh(self._params), activation_policy(self.policy):
+            metrics, grads = _loss_and_grads(
+                self._params, self._batch, self.cfg, self.opt_cfg,
+                self.microbatches, self._acc)
+            metrics.update(apply_updates_(self._params, grads,
+                                          self._opt_state, self.opt_cfg))
+            del grads
+            metrics = _whole(metrics)
         if self._metrics is None:
             self._metrics = {k: torch.empty_like(v)
                              for k, v in metrics.items()}
@@ -290,6 +339,11 @@ class CompiledTrainStep:
         """One eager pass of ``_body`` on the capture stream, ordered
         after the batch copy and before whatever the caller runs next."""
         if self._stream is None:
+            # The passes allocate on a stream of their own, which cannot
+            # reuse the blocks freed on the caller's stream (the trees
+            # that ``distribute`` or a restore replaced, as large as the
+            # state): release those first, as the capture does.
+            torch.cuda.empty_cache()
             self._stream = torch.cuda.Stream(device=self.device)
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
@@ -299,8 +353,9 @@ class CompiledTrainStep:
 
     def _capture(self) -> None:
         """Record ``_body`` on the capture stream (``thread_local``: CUDA
-        forbids the calls that could break it to this thread only);
-        nothing runs. The ``cudaGraph_t`` is kept beside its instance
+        forbids the calls that could break it to this thread only, so the
+        process group's watchdog may go on querying its events); nothing
+        runs. The ``cudaGraph_t`` is kept beside its instance
         (``raw_cuda_graph``: ``chip_smoke.py`` counts its kernel nodes)."""
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(graph, stream=self._stream,
@@ -310,16 +365,34 @@ class CompiledTrainStep:
         self.graph = graph
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A ``DTensor``'s local shard, which a copy into writes the
+    ``DTensor``; any other tensor as it is."""
+    return t.to_local() if is_sharded(t) else t
+
+
+def _kind(t: torch.Tensor) -> str:
+    return "a DTensor" if is_sharded(t) else "a tensor"
+
+
+def _layout(t: torch.Tensor):
+    """A ``DTensor``'s (mesh, placements); None for a plain tensor."""
+    return (t.device_mesh, tuple(t.placements)) if is_sharded(t) else None
+
+
 def compile_train_step(params: PyTree, opt_state: OptState,
                        batch_like: Dict[str, torch.Tensor], *,
                        cfg: ModelConfig, opt_cfg: AdamWConfig,
                        microbatches: int = 1) -> CompiledTrainStep:
-    """The reference's ``jax.jit(train_step, donate_argnums=(0, 1))``:
-    a ``CompiledTrainStep`` that owns ``params`` and ``opt_state`` (plain
-    tensors on one device; ``DTensor`` leaves raise ``ValueError``) and
-    reads batches shaped like ``batch_like`` (tensors, ``meta`` ones
-    included). Each call takes one optimizer step, as ``train_step`` does
-    on the same state and batch, bit for bit."""
+    """The reference's ``jax.jit(train_step, in_shardings=...,
+    out_shardings=..., donate_argnums=(0, 1))``: a ``CompiledTrainStep``
+    that owns ``params`` and ``opt_state`` (plain tensors on one device,
+    or every leaf a ``DTensor`` on an LM mesh) and reads batches shaped
+    and placed like ``batch_like`` (tensors, ``meta`` ones included, or
+    ``make_batch(mesh=)``'s ``DTensor``s). Call it under the activation
+    policy its steps run in (``activation_policy``): the step keeps the
+    one installed when it is made. Each call takes one optimizer step, as
+    ``train_step`` does on the same state and batch, bit for bit."""
     return CompiledTrainStep(params, opt_state, batch_like, cfg, opt_cfg,
                              microbatches)
 

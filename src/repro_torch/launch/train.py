@@ -9,15 +9,15 @@ Random weights from seed 0, the deterministic data pipeline, the train
 step, checkpoints every ``--ckpt-every`` steps through
 ``CheckpointManager`` (``--resume`` restores the latest) and the
 bounded-retry supervisor ``run_with_retries``, which restores and replays
-after a failed step. With ``--mesh none`` the step is
-``compile_train_step``'s, as the reference always jits it: it owns the
-params and optimizer state, on a card runs its first two steps eagerly,
-captures the third as one CUDA graph and replays it from then on;
-checkpoints read its buffers (the device→host copy is taken before
-``save`` returns, so the next replay cannot change what is written) and
-restores, ``--resume`` included, are copied into them
-(``load_state``). A mesh runs the eager ``train_step`` under autograd.
-As in the reference, the supervisor counts data
+after a failed step. Every step is ``compile_train_step``'s, as the
+reference always jits it (on a mesh with the params' and optimizer
+state's shardings): it owns the params and optimizer state, on a card
+runs its first two steps eagerly, captures the third as one CUDA graph
+(on a mesh with its collectives) and replays it from then on; a capture
+that fails raises. Checkpoints read its buffers (the device→host copy is
+taken before ``save`` returns, so the next replay cannot change what is
+written) and restores, ``--resume`` included, are copied into them
+(``load_state``). As in the reference, the supervisor counts data
 steps from 0 on every run, resumed or not, while the learning-rate
 schedule goes on from the restored optimizer step. ``--mesh none`` (the
 default) is one device with no process group and plain tensors; the
@@ -27,9 +27,9 @@ the process group torchrun starts (a group of another size raises
 ``ValueError``): params and optimizer state placed by
 ``params_shardings``, the batch drawn per rank (``make_batch(mesh=)``),
 a resume restored onto the same placements (``restore(shardings=)``),
-and each step under ``activation_policy(policy_from_mesh(mesh))``. Each
-logged line carries the card's name and power limit on a CUDA device;
-on a mesh only rank 0 logs.
+and the step made under ``activation_policy(policy_from_mesh(mesh))``.
+Each logged line carries the card's name and power limit on a CUDA
+device; on a mesh only rank 0 logs.
 """
 from __future__ import annotations
 
@@ -50,8 +50,7 @@ from repro_torch.distributed.sharding import distribute, params_shardings
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 from repro_torch.launch.serve import card_text
-from repro_torch.launch.steps import (compile_train_step, make_opt_config,
-                                     train_step)
+from repro_torch.launch.steps import compile_train_step, make_opt_config
 from repro_torch.models.model import init_model
 from repro_torch.optim.adamw import init_opt_state
 
@@ -92,28 +91,22 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                      params_shardings(opt_state, mesh))
         params, opt_state = distribute((params, opt_state), shardings)
     policy = policy_from_mesh(mesh) if mesh is not None else None
-    compiled = None
-    if mesh is None:
+    with activation_policy(policy):
         compiled = compile_train_step(
-            params, opt_state, make_batch(dcfg, cfg, 0, device=dev), cfg=cfg,
-            opt_cfg=opt_cfg, microbatches=args.microbatches)
-    state = {"params": params, "opt": opt_state}
+            params, opt_state, make_batch(dcfg, cfg, 0, mesh=mesh,
+                                          device=dev),
+            cfg=cfg, opt_cfg=opt_cfg, microbatches=args.microbatches)
     del params, opt_state
 
     def current():
         """The (params, OptState) the next step starts from."""
-        if compiled is not None:
-            return compiled.params, compiled.opt_state
-        return state["params"], state["opt"]
+        return compiled.params, compiled.opt_state
 
     mgr = CheckpointManager(Path(args.ckpt_dir) / cfg.name)
 
     def restore_latest() -> dict:
         tree, extra = mgr.restore(current(), shardings=shardings)
-        if compiled is not None:
-            compiled.load_state(*tree)
-        else:
-            state["params"], state["opt"] = tree
+        compiled.load_state(*tree)
         return extra
 
     start_step = 0
@@ -124,13 +117,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     def one_step(step: int) -> None:
         batch = make_batch(dcfg, cfg, step, mesh=mesh, device=dev)
         t0 = time.time()
-        if compiled is not None:
-            metrics = compiled(batch)
-        else:
-            with activation_policy(policy):
-                state["params"], state["opt"], metrics = train_step(
-                    state["params"], state["opt"], batch, cfg=cfg,
-                    opt_cfg=opt_cfg, microbatches=args.microbatches)
+        metrics = compiled(batch)
         if step % args.log_every == 0 or step == start_step:
             loss = float(metrics["loss"])
             log(f"step {step:5d}  loss {loss:8.4f}  "

@@ -23,7 +23,10 @@ CPU.
   taken as at least 1, the step at the full learning rate so that every
   leaf moves by 10x that or more: ``mesh_check.PARAM_FLOOR`` says why;
   the moments, the gradients' statistics, against their own max). A
-  planted fault in the sharded update fails the same check.
+  planted fault in the sharded update fails the same check. On the 2×2
+  mesh the train step compiled on the mesh equals the eager sharded step
+  bit for bit (``tests/test_torch_mesh_graph.py`` holds it on the smoke
+  mesh), and ``launch.train --mesh smoke`` runs every step through it.
 """
 import dataclasses
 import functools
@@ -382,7 +385,32 @@ def test_sharded_batch_prefetch_and_restore(smoke, tmp_path):
                zip(tree_leaves(plain), tree_leaves(params)))
 
 
-def test_train_driver_on_the_smoke_mesh_resumes(smoke, tmp_path, capsys):
+def test_train_driver_on_the_smoke_mesh_resumes(smoke, tmp_path, capsys,
+                                                monkeypatch):
+    """``launch.train --mesh smoke``: every step through the step it
+    compiles on the mesh (``DTensor`` state), train then resume. The
+    resumed run's first step (data step 0 again, as in the reference,
+    from the checkpoint of step 2) has the loss of an eager sharded
+    ``train_step`` from that state, bit for bit."""
+    built, losses = [], []
+
+    def spy_compile(*a, **kw):
+        step = steps.compile_train_step(*a, **kw)
+        built.append(step)
+        real = step.__call__
+
+        class Spy:
+            def __getattr__(self, name):
+                return getattr(step, name)
+
+            def __call__(self, batch):
+                metrics = real(batch)
+                losses.append((len(built), metrics["loss"].clone()))
+                return metrics
+
+        return Spy()
+
+    monkeypatch.setattr(train, "compile_train_step", spy_compile)
     base = ["--arch", "mamba2-370m", "--reduced", "--batch", "4", "--seq",
             "32", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2",
             "--log-every", "1", "--device", "cpu", "--mesh", "smoke"]
@@ -393,9 +421,28 @@ def test_train_driver_on_the_smoke_mesh_resumes(smoke, tmp_path, capsys):
     assert "done: {'completed': 3, 'restarts': 0}" in first
     assert "resumed from step 2" in second
     assert "done: {'completed': 4, 'restarts': 0}" in second
-    losses = [float(line.split()[3]) for line in (first + second).splitlines()
+    logged = [float(line.split()[3]) for line in (first + second).splitlines()
               if line.startswith("step ")]
-    assert len(losses) == 7 and all(np.isfinite(losses))
+    assert len(logged) == 7 and all(np.isfinite(logged))
+    assert len(built) == 2 and all(
+        isinstance(b, steps.CompiledTrainStep) and b.sharded
+        and b.calls == n for b, n in zip(built, (3, 4)))
+    assert [run for run, _ in losses] == [1] * 3 + [2] * 4
+
+    cfg = get_config("mamba2-370m", reduced=True)
+    dcfg = DataConfig(global_batch=4, seq_len=32)
+    params = init_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    opt_cfg = steps.make_opt_config(cfg, total_steps=3)
+    p, s = sharding.distribute(
+        (params, init_opt_state(params, opt_cfg)),
+        (sharding.params_shardings(params, smoke),
+         sharding.params_shardings(init_opt_state(params, opt_cfg), smoke)))
+    with api.activation_policy(api.policy_from_mesh(smoke)):
+        for data_step in (0, 1, 0):
+            p, s, want = steps.train_step(
+                p, s, make_batch(dcfg, cfg, data_step, mesh=smoke), cfg=cfg,
+                opt_cfg=opt_cfg)
+    assert torch.equal(losses[3][1], want["loss"])
 
 
 def test_production_meshes_need_their_world_size():
@@ -421,7 +468,9 @@ def test_two_by_two_mesh_matches_the_unsharded_step(arch):
     """Four gloo processes (torchrun, spawned by ``tools/check_mesh.py
     --lm``) on a (data 2, model 2) mesh: one train step of the reduced
     config at 2 layers, f32, two microbatches, and three decode steps,
-    against the unsharded steps on the same weights and batch."""
+    against the unsharded steps on the same weights and batch; then three
+    calls of the train step compiled on the mesh against three eager
+    sharded steps."""
     check_two_by_two(arch, "seq")
 
 
@@ -429,6 +478,12 @@ def test_two_by_two_mesh_heads_strategy():
     """The same on the 2×2 mesh under ``REPRO_ATTN_SHARD=heads``: each
     model rank attends with its two of the four query heads."""
     check_two_by_two("h2o-danube-1.8b", "heads")
+
+
+def test_two_by_two_mesh_heads_strategy_mla_moe():
+    """deepseek-v2-236b (MLA, MoE) on the 2×2 mesh under
+    ``REPRO_ATTN_SHARD=heads``, the compiled step included."""
+    check_two_by_two("deepseek-v2-236b", "heads")
 
 
 def check_two_by_two(arch: str, attn_shard: str) -> None:
@@ -453,3 +508,9 @@ def check_two_by_two(arch: str, attn_shard: str) -> None:
     assert result["train"]["min_step"] > 5 * TOL
     assert result["decode"]["logits"]["max_rel"] <= TOL
     assert result["decode"]["cache"]["max_rel"] <= TOL
+    # The step compiled on the mesh (eager on the CPU) against three eager
+    # sharded steps, bit for bit, its owned leaves where they were.
+    compiled = result["compiled"]
+    assert compiled["bit_equal"] and compiled["calls"] == 3
+    assert compiled["layout_kept"] and not compiled["captured"]
+    assert result["times"] is None

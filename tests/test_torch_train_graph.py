@@ -21,10 +21,12 @@ the tests hold that body:
   running, then replays) with the capture faked by a graph whose replay
   runs the body, so the stage order shows in the state it leaves;
 * ``launch.train`` recovers from an injected failure by restoring into
-  the compiled step's buffers, a checkpoint holds the state of the step
-  it was taken at, whatever steps follow, and a restore waits for a
-  pending save of the same step;
-* a ``DTensor`` tree is refused (a world-1 gloo group);
+  the compiled step's buffers, with plain tensors and on the smoke mesh
+  (a world-1 gloo group), a checkpoint holds the state of the step it
+  was taken at, whatever steps follow, and a restore waits for a pending
+  save of the same step;
+* a tree that mixes ``DTensor`` and plain leaves is refused
+  (``tests/test_torch_mesh_graph.py`` holds the step on the mesh);
 * ``tools/check_train_graph.py`` runs its sweep on the CPU.
 """
 import contextlib
@@ -43,7 +45,7 @@ from repro_torch.checkpoint import manager as ckpt_manager
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
-from repro_torch.distributed import fault, sharding
+from repro_torch.distributed import api, fault, sharding
 from repro_torch.launch import steps, train
 from repro_torch.launch.mesh import make_smoke_mesh
 from repro_torch.models import model as M
@@ -255,6 +257,28 @@ def test_launch_train_recovers_into_the_compiled_step(tmp_path, monkeypatch):
     supervisor restores into the compiled step's buffers (the same
     tensors, ``load_state``) and replays steps 3-5, and the checkpoint at
     step 6 equals an uninterrupted run's bit for bit."""
+    recover_into_the_compiled_step(tmp_path, monkeypatch, "none")
+
+
+def test_launch_train_recovers_into_the_compiled_step_on_the_smoke_mesh(
+        tmp_path, monkeypatch):
+    """The same with ``--mesh smoke`` (a world-1 gloo group): the step the
+    driver compiles owns ``DTensor`` state, and the recovery restores
+    onto its placements (``restore(shardings=)``) and into its local
+    shards."""
+    assert not dist.is_initialized()
+    try:
+        recover_into_the_compiled_step(tmp_path, monkeypatch, "smoke")
+    finally:
+        dist.destroy_process_group()
+
+
+def local(t):
+    """A ``DTensor``'s local shard; any other tensor as it is."""
+    return t.to_local() if api.is_sharded(t) else t
+
+
+def recover_into_the_compiled_step(tmp_path, monkeypatch, mesh: str):
     runs, compiled = [], []
 
     class Spy(ckpt_manager.CheckpointManager):
@@ -263,13 +287,13 @@ def test_launch_train_recovers_into_the_compiled_step(tmp_path, monkeypatch):
             runs.append({})
 
         def save(self, step, tree, extra=None):
-            runs[-1][step] = clone(tree)
+            runs[-1][step] = [local(t).clone() for t in tree_leaves(tree)]
             super().save(step, tree, extra)
 
     def spy_compile(*a, **kw):
         step = steps.compile_train_step(*a, **kw)
         step.loads = []
-        step.ptrs = [t.data_ptr() for t in
+        step.ptrs = [local(t).data_ptr() for t in
                      tree_leaves((step.params, step.opt_state))]
         real = step.load_state
         step.load_state = lambda *t: (step.loads.append(1), real(*t))[1]
@@ -280,7 +304,8 @@ def test_launch_train_recovers_into_the_compiled_step(tmp_path, monkeypatch):
     monkeypatch.setattr(train, "compile_train_step", spy_compile)
     base = ["--arch", "h2o-danube-1.8b", "--reduced", "--batch", "4",
             "--seq", "32", "--microbatches", "2", "--steps", "6",
-            "--ckpt-every", "3", "--log-every", "10", "--device", "cpu"]
+            "--ckpt-every", "3", "--log-every", "10", "--device", "cpu",
+            "--mesh", mesh]
     assert train.main(base + ["--ckpt-dir", str(tmp_path / "a")]) == 0
     failed = []
 
@@ -296,10 +321,11 @@ def test_launch_train_recovers_into_the_compiled_step(tmp_path, monkeypatch):
     clean, hit = runs
     assert sorted(clean) == sorted(hit) == [3, 6]
     assert_same(hit[6], clean[6])
-    assert int(hit[6][1].step) == 6
+    assert int(hit[6][-1]) == 6                      # OptState.step
     assert compiled[0].loads == [] and compiled[1].loads == [1]
     for step in compiled:
-        assert step.ptrs == [t.data_ptr() for t in
+        assert step.sharded == (mesh != "none")
+        assert step.ptrs == [local(t).data_ptr() for t in
                              tree_leaves((step.params, step.opt_state))]
 
 
@@ -349,19 +375,22 @@ def test_restore_waits_for_a_step_saved_again(tmp_path, monkeypatch):
 
 
 def test_dtensor_tree_is_refused():
-    """The compiled step takes plain tensors only: params and state
-    placed on the smoke mesh (a world-1 gloo group) raise, naming the
-    eager step a mesh runs."""
+    """A mixed tree is refused: the compiled step owns plain tensors on
+    one device or ``DTensor``s on a mesh, never both. Params placed on
+    the smoke mesh (a world-1 gloo group) beside a plain optimizer state,
+    or the other way round, raise."""
     assert not dist.is_initialized()
     mesh = make_smoke_mesh("cpu")
     try:
         cfg, opt, params, state = setup("h2o-danube-1.8b")
         d_p, d_s = sharding.distribute(
-            (params, state), (sharding.params_shardings(params, mesh),
-                              sharding.params_shardings(state, mesh)))
-        with pytest.raises(ValueError, match="DTensor.*train_step"):
-            steps.compile_train_step(d_p, d_s, batch_at(cfg, 0), cfg=cfg,
-                                     opt_cfg=opt)
+            (clone(params), clone(state)),
+            (sharding.params_shardings(params, mesh),
+             sharding.params_shardings(state, mesh)))
+        for p, s in ((d_p, state), (params, d_s)):
+            with pytest.raises(ValueError, match="mix DTensor and plain"):
+                steps.compile_train_step(p, s, batch_at(cfg, 0), cfg=cfg,
+                                         opt_cfg=opt)
     finally:
         dist.destroy_process_group()
 

@@ -21,7 +21,14 @@ tolerance of the leaf's max: 1e-5, or twice the unsharded step's own
 float noise (``mesh_check.noise_floor``, measured in the same run)
 where that is larger. The mesh fails where that tolerance reaches the
 step's smallest param move (``min_step``), since a missing update
-could then pass. With fewer cards
+could then pass. Then the train step compiled on the mesh
+(``mesh_check.compiled_check``: on the cards two eager passes, one CUDA
+graph with the step's collectives, a replay) against three eager sharded
+steps: bit-equal, or within the same rule (the line says which). On the
+cards it times the eager sharded step and the replayed one (CUDA events,
+median of 5) and reads each one's compute and NCCL kernel time (the
+profiler's; an NCCL kernel's holds its wait for the other ranks) and
+host share (1 - compute / step). With fewer cards
 than the mesh needs it says so and exits 2; it never runs a smaller mesh
 in place of the one asked for.
 
@@ -98,6 +105,106 @@ def lm_main(args) -> int:
     return failed
 
 
+def device_busy_ms(fn):
+    """(compute, NCCL) kernel time in ms of one call of ``fn`` under
+    ``torch.profiler``, memcpys and memsets aside. NCCL's kernels are
+    counted apart: each runs from its launch until every rank has joined,
+    so its time holds the wait for the slowest rank's host, on a stream
+    beside the compute kernels. The window opens with sixteen spin
+    kernels that are not counted: the profiler has dropped the first
+    kernels of a window on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(16):
+            torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    busy = {False: 0.0, True: 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and not any(
+                w in e.key for w in ("Memcpy", "Memset", "spin_kernel")):
+            busy["nccl" in e.key.lower()] += getattr(
+                e, "self_device_time_total", 0) / 1e3
+    return busy[False], busy[True]
+
+
+def step_times(mesh, cfg, dev, batch: int, seq: int, reps: int = 5):
+    """The eager sharded ``train_step`` against the step compiled on
+    ``mesh`` (two eager passes, the capture, then replays), both at two
+    microbatches from the same weights: each one's ms (CUDA events,
+    median of ``reps`` calls after the first ones), compute kernels' and
+    NCCL kernels' time (``device_busy_ms``), the host share (1 - compute
+    / ms), and the compiled step's capture seconds."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed.api import (activation_policy,
+                                             policy_from_mesh)
+    from repro_torch.distributed.sharding import distribute, params_shardings
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_model
+    from repro_torch.optim.adamw import init_opt_state
+    opt_cfg = steps.make_opt_config(cfg, total_steps=30)
+    policy = policy_from_mesh(mesh)
+    feed = make_batch(DataConfig(seed=0, global_batch=batch, seq_len=seq),
+                      cfg, 0, mesh=mesh)
+
+    def state():
+        params = init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+        opt_state = init_opt_state(params, opt_cfg)
+        return distribute((params, opt_state),
+                          (params_shardings(params, mesh),
+                           params_shardings(opt_state, mesh)))
+
+    def ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    held = list(state())
+
+    def eager():
+        with activation_policy(policy):
+            held[0], held[1], _ = steps.train_step(
+                held[0], held[1], feed, cfg=cfg, opt_cfg=opt_cfg,
+                microbatches=2)
+
+    eager_ms = [ms(eager) for _ in range(reps + 1)][1:]
+    eager_busy, eager_nccl = device_busy_ms(eager)
+    del held[:]
+    with activation_policy(policy):
+        step = steps.compile_train_step(*state(), feed, cfg=cfg,
+                                        opt_cfg=opt_cfg, microbatches=2)
+    for _ in range(steps.WARM_PASSES):
+        ms(lambda: step(feed))
+    capture_s = ms(lambda: step(feed)) / 1e3
+    if step.graph is None:
+        raise RuntimeError("the compiled mesh step holds no graph after "
+                           f"{step.calls} calls")
+    replay_ms = [ms(lambda: step(feed)) for _ in range(reps)]
+    replay_busy, replay_nccl = device_busy_ms(lambda: step(feed))
+    out = {"eager_ms": statistics.median(eager_ms),
+           "replay_ms": statistics.median(replay_ms),
+           "eager_busy_ms": eager_busy, "replay_busy_ms": replay_busy,
+           "eager_nccl_ms": eager_nccl, "replay_nccl_ms": replay_nccl,
+           "capture_s": capture_s}
+    out["eager_host_share"] = 1 - eager_busy / out["eager_ms"]
+    out["replay_host_share"] = 1 - replay_busy / out["replay_ms"]
+    return out
+
+
 def lm_rank(args) -> int:
     import os
 
@@ -122,13 +229,19 @@ def lm_rank(args) -> int:
         train = mesh_check.train_check(mesh, cfg, dev, batch=args.lm_batch,
                                        seq=args.lm_seq)
         dec = mesh_check.decode_check(mesh, cfg, dev)
+        comp = mesh_check.compiled_check(mesh, cfg, dev, batch=args.lm_batch,
+                                         seq=args.lm_seq)
         secs = time.perf_counter() - t0
         noise = mesh_check.noise_floor(cfg, dev, batch=args.lm_batch,
                                        seq=args.lm_seq)
         worst = max(train["max_rel"], train["loss_rel"],
-                    dec["logits"]["max_rel"], dec["cache"]["max_rel"])
+                    dec["logits"]["max_rel"], dec["cache"]["max_rel"],
+                    comp["max_rel"], comp["metrics_rel"])
         rule = mesh_check.check_rule(noise, train["min_step"])
-        ok = worst <= rule["tol"] and rule["guarded"]
+        ok = worst <= rule["tol"] and rule["guarded"] \
+            and comp["layout_kept"] and comp["captured"] == card
+        times = step_times(mesh, cfg, dev, args.lm_batch, args.lm_seq) \
+            if card else None
         if dist.get_rank() == 0:
             print(f"[{d}x{m}] {cfg.name} ({cfg.n_layers} layers, d_model "
                   f"{cfg.d_model}, f32) train step: loss {train['loss']:.6f}"
@@ -144,8 +257,32 @@ def lm_rank(args) -> int:
                   f"{rule['tol']:.2e} (max of 1e-5 and twice the noise), "
                   f"{'under' if rule['guarded'] else 'NOT under'} the "
                   f"smallest step: {'pass' if ok else 'FAIL'}", flush=True)
+            how = ("two eager passes, one CUDA graph, a replay" if card
+                   else "eagerly: no capture on the CPU")
+            print(f"[{d}x{m}] the train step compiled on the mesh ({how}) "
+                  f"against {comp['calls']} eager sharded steps: "
+                  + ("bit-equal" if comp["bit_equal"] else
+                     f"within {comp['max_rel']:.2e} (metrics "
+                     f"{comp['metrics_rel']:.2e}) of the leaves' max, the "
+                     f"rule {rule['tol']:.2e}")
+                  + f"; placements and local addresses kept: "
+                  f"{comp['layout_kept']}", flush=True)
+            if times:
+                print(f"[{d}x{m}] step ms (events, median of 5; batch "
+                      f"{args.lm_batch} x {args.lm_seq}, 2 microbatches): "
+                      f"eager sharded {times['eager_ms']:.2f}, compute "
+                      f"kernels {times['eager_busy_ms']:.2f}, NCCL kernels "
+                      f"{times['eager_nccl_ms']:.2f}, host share "
+                      f"{100 * times['eager_host_share']:.1f}%; replayed "
+                      f"{times['replay_ms']:.2f}, compute kernels "
+                      f"{times['replay_busy_ms']:.2f}, NCCL kernels "
+                      f"{times['replay_nccl_ms']:.2f}, host share "
+                      f"{100 * times['replay_host_share']:.1f}%; replay / "
+                      f"eager {times['replay_ms'] / times['eager_ms']:.3f}; "
+                      f"capture {times['capture_s']:.2f} s", flush=True)
             print(json.dumps({"ok": ok, "mesh": [d, m], "rule": rule,
                               "train": train, "decode": dec,
+                              "compiled": comp, "times": times,
                               "noise_floor": noise, "device": str(dev)}),
                   flush=True)
         return 0 if ok else 1
