@@ -287,7 +287,8 @@ both matrix products and cuDNN:
     capture, its replay) against three eager sharded steps in f32, on
     that configuration and on reduced deepseek-v2-236b (MLA, MoE):
     bit-equal, or within ``mesh_check.check_rule`` of the step's float
-    noise measured then (the line says which); (b) on full-width,
+    noise measured then (the line says which); the activation plan's
+    head-parallel attention core must have run; (b) on full-width,
     full-depth h2o-danube-1.8b the sharded and the unsharded eager
     ``train_step`` timed on one batch (ms, the host's share, memory) with
     no other process running, then the same sharded step compiled on the
@@ -295,8 +296,11 @@ both matrix products and cuDNN:
     equal one eager pass's kernel rows) and five replays (events, median),
     device busy, host share and ``max_memory_reserved`` per stage, against
     the eager sharded step; then ``launch.train --mesh smoke`` (every
-    step through the compiled mesh step) checkpointed and resumed through
-    ``restore(shardings=)`` and one f32 full-depth decode step on the
+    step through the compiled mesh step) checkpointed and resumed into
+    the compiled step's own shards (``load_state`` of the checkpoint
+    mapped on the host), then the same checkpoint resumed with ``--mesh
+    none``, each resumed run's ``max_memory_reserved`` held to
+    ``RESUME_PEAK_GIB``; and one f32 full-depth decode step on the
     smoke mesh with ``cache_shardings`` against the unsharded eager step
     within 1e-5; (c) in processes of their own (CPU only, each on its
     own fake process group), started once (b)'s steps are timed (the
@@ -4692,10 +4696,20 @@ def train_graph_check(dev, cfg, batch: int, seq: int,
         raise CheckFailed(f"[27] {cfg.name}: no graph after call "
                           f"{len(got)}")
     nodes = graph_kernel_symbols(step.graph)
-    if len(nodes) != rows:
+    seen = [rows]
+    while seen[-1] < len(nodes) and len(seen) < 4:
+        # A window short of the graph's nodes: the profiler dropped rows
+        # (2924 of 2925 once on the card), as phase 28's
+        # mesh_graph_timing finds. Another eager pass of the body is read;
+        # it is a real step, so the owned state is put back after it.
+        saved = clone_tree((step.params, step.opt_state))
+        seen.append(kernel_rows(step._warm_pass)[0])
+        step.load_state(*saved)
+        del saved
+    if len(nodes) != seen[-1]:
         raise CheckFailed(f"[27] {cfg.name}: the captured step holds "
-                          f"{len(nodes)} kernel nodes, one eager pass of "
-                          f"its body ran {rows} kernel rows")
+                          f"{len(nodes)} kernel nodes, eager passes of "
+                          f"its body ran {seen} kernel rows")
     worst_metric, min_step = 0.0, None
     for i, metrics in enumerate(got):
         new_p, new_s, want = lm_steps.train_step(
@@ -4737,8 +4751,8 @@ def train_graph_check(dev, cfg, batch: int, seq: int,
             f"{held} (params, m, v, step: "
             f"{max(dev_p['max_rel'], dev_s['max_rel']):.3e}; metrics "
             f"{worst_metric:.3e}), the smallest step {min_step:.2e}; "
-            f"{len(nodes)} kernel nodes = the eager pass's {rows} kernel "
-            f"rows")
+            f"{len(nodes)} kernel nodes = the eager pass's {seen[-1]} "
+            f"kernel rows (windows read: {seen})")
 
 
 def train_step_timing(dev) -> None:
@@ -4859,11 +4873,11 @@ def phase_27_training(dev) -> None:
     second run, after the capture: rc 0, ``resumed from step 5``, the
     restored (params, OptState) bit-equal to the saved one, and both
     restores (the resume, before the first step, and the recovery, into
-    the captured graph's buffers) copied into the compiled step bit for
-    bit, its graph kept; (e) one f32 train step of h2o-danube-1.8b at 2
-    layers, full width, on the card against the same step on the CPU:
-    the loss and every updated leaf within rtol 1e-4 of each leaf's
-    max|.|."""
+    the captured graph's buffers) read leaf by leaf from the host into
+    the compiled step bit for bit, its graph kept; (e) one f32 train step
+    of h2o-danube-1.8b at 2 layers, full width, on the card against the
+    same step on the CPU: the loss and every updated leaf within rtol
+    1e-4 of each leaf's max|.|."""
     import dataclasses
     import functools
     import gc
@@ -4986,8 +5000,11 @@ def phase_27_training(dev) -> None:
 
         def restore(self, tree_like, step=None, shardings=None,
                     device="cuda"):
+            # The driver restores to the host (files mapped) and its step
+            # reads each leaf into its own buffer; the check copies the
+            # leaves to the card once more, to compare them there.
             out = super().restore(tree_like, step, shardings, device)
-            restored.append(tree_leaves(out[0]))
+            restored.append([t.to(dev) for t in tree_leaves(out[0])])
             return out
 
     def spy_compile(*args, **kw):
@@ -5003,8 +5020,9 @@ def phase_27_training(dev) -> None:
                 "captured": graph is not None,
                 "graph_kept": step_obj.graph is graph,
                 "same_buffers": all(a is b for a, b in zip(now, owned)),
-                "bit_equal": all(torch.equal(a, b) for a, b in zip(
-                    now, tree_leaves((params, opt_state))))})
+                "bit_equal": all(torch.equal(a, b.to(a.device)) for a, b
+                                 in zip(now, tree_leaves(
+                                     (params, opt_state))))})
 
         step_obj.load_state = load_state
         return step_obj
@@ -5255,6 +5273,11 @@ def mesh_graph_timing(dev, mesh, cfg, opt_cfg, batch, eager_ms: float,
     return r_med
 
 
+# The resumed full-width h2o-danube-1.8b driver's peak: the compiled
+# step's own state and one replay's working set (a replay holds 47.40-
+# 50.07 GiB), with the restore read into the owned leaves leaf by leaf.
+RESUME_PEAK_GIB = 54.0
+
 DRYRUN_CELLS = (("deepseek-v2-236b", "train_4k", "pod"),
                 ("llama4-maverick-400b-a17b", "decode_32k", "multipod"),
                 ("zamba2-2.7b", "long_500k", "pod"))
@@ -5314,7 +5337,10 @@ def phase_28_lm_mesh(dev) -> None:
               f"{r['max_rel']:.3e} of their max (worst {r['worst_leaf']}; "
               f"bit-equal: {r['bit_equal']}), at lr 3e-4 from step 1: the "
               f"smallest leaf's step {r['min_step']:.3e} of its scale; "
-              f"{memory_line(dev)}")
+              f"attention cores run: {r['cores']}; {memory_line(dev)}")
+        if not r["cores"]["heads_parallel"]:
+            raise CheckFailed(f"[28] the smoke mesh's step ran no head-"
+                              f"parallel attention core: {r['cores']}")
         gc.collect()
         torch.cuda.empty_cache()
         # (b) full depth: the sharded and the unsharded step, timed with
@@ -5395,35 +5421,61 @@ def phase_28_lm_mesh(dev) -> None:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (b) launch.train with a checkpoint and a resume (beside (c)).
+        # (b) launch.train with a checkpoint and a resume (beside (c)),
+        # then the same checkpoint resumed with --mesh none; each resumed
+        # run's peak (read into its own buffers: never twice on the card).
         torch.cuda.reset_peak_memory_stats(dev)
+        peaks = {}
         with tempfile.TemporaryDirectory() as tmp:
             base = ["--arch", cfg.name, "--batch", "8", "--seq", "128",
                     "--microbatches", "2", "--ckpt-every", "2", "--ckpt-dir",
-                    tmp, "--log-every", "1", "--device", str(dev), "--mesh",
-                    "smoke"]
+                    tmp, "--log-every", "1", "--device", str(dev)]
             t0 = time.perf_counter()
-            rc1, out1, log1 = run_train(base + ["--steps", "2"])
+            rc1, out1, log1 = run_train(base + ["--mesh", "smoke",
+                                                "--steps", "2"])
             t1 = time.perf_counter()
-            rc2, out2, log2 = run_train(base + ["--steps", "3", "--resume"])
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            rc2, out2, log2 = run_train(base + ["--mesh", "smoke", "--steps",
+                                                "3", "--resume"])
             t2 = time.perf_counter()
-        if rc1 or rc2 or "resumed from step 2" not in out2 \
-                or len(log1) != 2 or len(log2) != 3 or not all(
-                    math.isfinite(v) for row in log1 + log2
-                    for v in row[1:3]):
-            raise CheckFailed(f"[28] launch.train --mesh smoke: rc "
-                              f"{rc1}/{rc2}, logged {log1} / {log2}\n"
-                              f"{out1[-1500:]}\n{out2[-1500:]}")
+            peaks["smoke"] = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            rc3, out3, log3 = run_train(base + ["--mesh", "none", "--steps",
+                                                "3", "--resume"])
+            t3 = time.perf_counter()
+            peaks["none"] = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+        if rc1 or rc2 or rc3 or "resumed from step 2" not in out2 \
+                or "resumed from step 2" not in out3 \
+                or len(log1) != 2 or len(log2) != 3 or len(log3) != 3 \
+                or not all(math.isfinite(v) for row in log1 + log2 + log3
+                           for v in row[1:3]):
+            raise CheckFailed(f"[28] launch.train --mesh smoke / none: rc "
+                              f"{rc1}/{rc2}/{rc3}, logged {log1} / {log2} / "
+                              f"{log3}\n{out1[-1500:]}\n{out2[-1500:]}\n"
+                              f"{out3[-1500:]}")
         print(f"[28] {cfg.name} ({cfg.n_layers} layers, d_model "
               f"{cfg.d_model}) launch.train --mesh smoke (the step "
               f"compiled on the mesh: 2 eager passes, then the capture in "
               f"the resumed run's third step) --steps 2 "
               f"--ckpt-every 2 ({t1 - t0:.1f} s with the ~18 GB "
               f"checkpoint), then --steps 3 --resume ({t2 - t1:.1f} s, "
-              f"restore(shardings=)): {out2.splitlines()[0]}; (step, loss, "
-              f"dt s) {[(r[0], r[1], r[4]) for r in log1]} then "
+              f"read from the host into the step's shards): "
+              f"{out2.splitlines()[0]}; (step, loss, dt s) "
+              f"{[(r[0], r[1], r[4]) for r in log1]} then "
               f"{[(r[0], r[1], r[4]) for r in log2]}; "
-              f"{out2.splitlines()[-1]}; {memory_line(dev)}")
+              f"{out2.splitlines()[-1]}")
+        print(f"[28] {cfg.name} resumed launch.train peaks "
+              f"(max_memory_reserved over the run): --mesh smoke "
+              f"{peaks['smoke']:.2f} GiB, --mesh none {peaks['none']:.2f} GiB "
+              f"({t3 - t2:.1f} s; the limit {RESUME_PEAK_GIB} GiB); steps "
+              f"{[(r[0], r[1]) for r in log3]}")
+        if max(peaks.values()) > RESUME_PEAK_GIB:
+            raise CheckFailed(f"[28] a resumed launch.train peaked at "
+                              f"{peaks} GiB, over {RESUME_PEAK_GIB}")
         gc.collect()
         torch.cuda.empty_cache()
 

@@ -27,8 +27,11 @@ On an LM mesh a ``DTensor`` leaf is saved whole (``full_tensor``, a
 collective every rank takes part in; rank 0 writes the files), so the
 files stay the reference's and restore in either package; ``restore``
 with ``shardings=`` (a tree of ``distributed.sharding.NamedSharding``)
-distributes each restored leaf to its placements, the reference's
-elastic restore onto the current mesh.
+places each restored leaf on its placements, each rank reading only its
+shard of the file, the reference's elastic restore onto the current
+mesh. A leaf restored to the CPU is mapped from its file, which the
+train driver's restores read, leaf by leaf, into the compiled step's own
+buffers (``CompiledTrainStep.load_state``).
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.api import is_sharded
-from repro_torch.distributed.sharding import distribute
+from repro_torch.distributed.sharding import from_shard, shard_slices
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models.scan_util import (tree_leaves,
                                           tree_leaves_with_path,
@@ -160,10 +163,15 @@ class CheckpointManager:
         and shape. A ``tree_like`` leaf on the ``"meta"`` device (the
         port's ``ShapeDtypeStruct``) names a shape only, and its leaf goes
         to ``device`` (``"cuda"`` unless the caller asks for the CPU;
-        raises without CUDA). ``shardings`` (a tree of ``NamedSharding``
-        of ``tree_like``'s structure) re-shards onto its mesh: each leaf
-        a ``DTensor`` with those placements. A pending async write is
-        joined first."""
+        raises without CUDA). A leaf restored to the CPU is mapped from
+        its file (copy-on-write), so nothing is read until it is used:
+        ``CompiledTrainStep.load_state`` then reads each leaf, on a mesh
+        only each rank's shard of it, straight into its own buffers.
+        ``shardings`` (a tree of ``NamedSharding`` of ``tree_like``'s
+        structure) re-shards onto its mesh: each leaf a ``DTensor`` with
+        those placements, each rank reading only its own shard of the
+        file (the reference's ``device_put`` of a host array). A pending
+        async write is joined first."""
         self.wait()
         flat_like = tree_leaves(tree_like)
         fallback = None
@@ -179,20 +187,21 @@ class CheckpointManager:
             raise ValueError(
                 f"checkpoint {final} holds {len(manifest['leaves'])} leaves; "
                 f"the tree to restore into has {len(flat_like)}")
+        flat_sh = tree_leaves(shardings) if shardings is not None \
+            else [None] * len(flat_like)
         leaves = []
-        for i, like in enumerate(flat_like):
+        for i, (like, sh) in enumerate(zip(flat_like, flat_sh)):
             expect = manifest["leaves"][i]
-            t = _from_storable(np.load(final / "arrays" / f"{i:05d}.npy"),
-                               expect["dtype"])
-            if list(t.shape) != expect["shape"]:
+            arr = np.load(final / "arrays" / f"{i:05d}.npy", mmap_mode="c")
+            if list(arr.shape) != expect["shape"]:
                 raise ValueError(f"{final}/arrays/{i:05d}.npy has shape "
-                                 f"{list(t.shape)}; the manifest says "
+                                 f"{list(arr.shape)}; the manifest says "
                                  f"{expect['shape']}")
-            if shardings is None:
-                t = t.to(fallback if like.device.type == "meta"
-                         else like.device)
-            leaves.append(t)
-        tree = tree_unflatten(tree_like, leaves)
-        if shardings is not None:
-            tree = distribute(tree, shardings)
-        return tree, manifest["extra"]
+            if sh is not None:
+                local = arr[shard_slices(arr.shape, sh.placements, sh.mesh)]
+                leaves.append(from_shard(_from_storable(
+                    np.array(local), expect["dtype"]), arr.shape, sh))
+            else:
+                leaves.append(_from_storable(arr, expect["dtype"]).to(
+                    fallback if like.device.type == "meta" else like.device))
+        return tree_unflatten(tree_like, leaves), manifest["extra"]

@@ -12,16 +12,25 @@ identity when no policy is installed or its input is not a ``DTensor``,
 so an unsharded step runs exactly the ops it ran before.
 
 GSPMD repartitions any op; DTensor raises on a view that splits or
-merges a sharded dim and has no rule for some ops. So the model keeps
-its activations batch-sharded between ops (``batch_sharded``: the batch
-dim on the data axes, every other dim whole; the reference's
-sequence-sharded residual is kept between blocks and gathered at the
-next projection, as Megatron's sequence parallelism does), and runs the
-blocks DTensor has no rule for on local shards (``local_map``: the
-attention and MLA cores context-parallel over the model axis, or the
-attention core head-parallel under ``REPRO_ATTN_SHARD=heads``, the SSD
-scan and the decode cores per batch shard, the MoE dispatch
-expert-parallel over the model axis).
+merges a sharded dim and has no rule for some ops. So the model states
+the reference's activation plan (read from its compiled HLO on a 2×2
+mesh) in these pieces:
+
+* the residual stream sequence-sharded over the model axis
+  (``constrain_residual``); row-wise ops (the norms) run on it as it is;
+* one gather per norm of that residual, whole over the model axis
+  (``model_whole``), read by the column-parallel products that follow
+  (``sharded_linear``: the output kept sharded on its last dim);
+* row-parallel products on those outputs, whose model-axis partial sums
+  are reduce-scattered back onto the residual's layout
+  (``residual_out``);
+* the vocab-parallel cross entropy (``vocab_ce_sums``): per-rank max,
+  sum of exponentials and target logit, reduced over the model axis;
+* blocks DTensor has no rule for on local shards (``local_map``): the
+  attention and MLA cores on each rank's heads (``heads_parallel``), or
+  context-parallel where the heads do not split (``context_parallel``),
+  the SSD block on each rank's heads (``models.ssm``), the decode cores
+  per batch shard, the MoE dispatch expert-parallel over the model axis.
 """
 from __future__ import annotations
 
@@ -160,15 +169,19 @@ def constrain_residual(x: torch.Tensor) -> torch.Tensor:
 def constrain_qkv(q, k, v):
     """Attention-strategy switch (``REPRO_ATTN_SHARD``):
 
-    * "seq" (default): q/k/v inherit the sequence-sharded residual —
-      context-parallel attention (``context_parallel``);
-    * "heads": shard q on the head dim over the model axis, replicate k/v
-      heads — attention becomes local per shard (``heads_parallel``);
-      only the output projection's partial sum remains. Where the heads
-      do not split evenly over the model axis q/k/v are left as they
-      are and the "seq" strategy runs (the reference keeps its baseline
-      where GSPMD rejects the uneven split; the port's local blocks take
-      even shards only).
+    * "seq" (default): q/k/v as their column-parallel products leave
+      them, heads on the model axis: the core runs per head shard with
+      each rank's own key and value heads (``heads_parallel``), or
+      context-parallel where the heads do not split (the reference's
+      GSPMD runs the context-parallel core here, gathering K and V over
+      the sequence);
+    * "heads": q sharded on the head dim over the model axis, k/v heads
+      replicated, as the reference's "heads" strategy: the core per head
+      shard reads the kv heads of its query heads. Where the heads do
+      not split evenly over the model axis q/k/v are left as they are
+      and the "seq" strategy runs (the reference keeps its baseline
+      where GSPMD rejects the uneven split; the port's local blocks
+      take even shards only).
     """
     pol = _POLICY
     mode = os.environ.get("REPRO_ATTN_SHARD", "seq")
@@ -230,16 +243,198 @@ def gathered(x):
     return _constrain(x, P())
 
 
-def data_gathered(x):
-    """``x`` whole over the data axes, its model-axis placement kept: the
-    FSDP gather of a weight read outside a layer (the unembedding)."""
+def _model_pl(x):
+    """``x``'s placement on the model axis (None off the mesh or on a
+    mesh without one)."""
     if not _is_dtensor(x):
-        return x
+        return None
+    axes = list(mesh_axes(x.device_mesh))
+    return x.placements[axes.index("model")] if "model" in axes else None
+
+
+def last_dim_on_model(x) -> bool:
+    """Whether ``x``'s last dim is sharded on the model axis: the output
+    of a column-parallel product, the input of a row-parallel one."""
+    from torch.distributed.tensor import Shard
+    pl = _model_pl(x)
+    return isinstance(pl, Shard) and pl.dim in (-1, x.ndim - 1)
+
+
+def model_whole(x):
+    """``x`` whole on the model axis, its data-axis placements kept: the
+    one gather of the sequence-sharded residual (after a norm) that the
+    column-parallel products of a block share, Megatron's sequence
+    parallelism. Its backward reduce-scatters the products' partial
+    input gradients. The identity off the mesh and on a tensor already
+    whole there."""
     from torch.distributed.tensor import Replicate
+    pl = _model_pl(x)
+    if pl is None or isinstance(pl, Replicate):
+        return x
     mesh = x.device_mesh
     return x.redistribute(mesh, tuple(
-        pl if a == "model" else Replicate()
-        for a, pl in zip(mesh_axes(mesh), x.placements)))
+        Replicate() if a == "model" else p
+        for a, p in zip(mesh_axes(mesh), x.placements)))
+
+
+def _on_model(w, dim: Optional[int]):
+    """Weight ``w`` whole on the data axes, with tensor dim ``dim`` on
+    the model axis (whole there when ``dim`` is None)."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = w.device_mesh
+    target = tuple(Shard(dim) if a == "model" and dim is not None
+                   else Replicate() for a in mesh_axes(mesh))
+    return w if tuple(w.placements) == target else \
+        w.redistribute(mesh, target)
+
+
+def sharded_linear(x, w, b=None, whole: bool = False):
+    """``x @ w (+ b)`` on the mesh, the product chosen by where ``x`` and
+    ``w`` lie on the model axis:
+
+    * row-parallel where ``x``'s last dim is on it (a column-parallel
+      group's output): ``w`` read with its in-dim on the model axis (the
+      rules put a ``/w``'s out-dim there, so this is a per-layer
+      redistribution of the weight's bytes over the model size); the
+      output is a partial sum over the model axis, which
+      ``residual_out`` reduce-scatters;
+    * sequence-parallel where ``x`` is sharded on another dim there (the
+      context-parallel attention's rows): ``w`` gathered whole, the
+      output sharded as ``x`` is;
+    * column-parallel otherwise: ``x`` whole on the model axis
+      (``model_whole``: the identity when the caller gathered it once
+      for its group), ``w``'s out-dim kept on the model axis where the
+      rules put it (else ``w`` gathered whole), the output sharded as
+      that out-dim. ``whole`` gathers ``w`` instead, so the output is
+      whole (a small latent that every rank's heads read)."""
+    from torch.distributed.tensor import Shard
+    last = w.ndim - 1
+    xpl, wpl = _model_pl(x), _model_pl(w)
+    m = model_size(x.device_mesh)
+    if last_dim_on_model(x) and w.shape[-2] % m == 0:
+        y = x @ _on_model(w, last - 1)
+        if b is not None:
+            y = batch_sharded(y) + gathered(b)
+        return y
+    col = False
+    if isinstance(xpl, Shard) and not whole:
+        y = _rows_product(x, _on_model(w, None))
+    else:
+        col = isinstance(wpl, Shard) and wpl.dim == last and not whole
+        y = model_whole(x) @ (w if col else _on_model(w, None))
+    if b is not None:        # the bias laid out as the output's last dim
+        y = y + _on_model(b, 0 if col else None)
+    return y
+
+
+def _rows_product(x, w):
+    """``x @ w`` on local shards for an ``x`` sharded on its rows (batch
+    and sequence) and a whole ``w``: the output sharded as ``x`` is, the
+    weight's gradient a partial sum over every mesh dim that splits
+    ``x``'s rows (DTensor refuses to flatten a sharded sequence dim)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    return local_map(lambda a, b: a @ b, mesh, (x, w),
+                     [x.placements, w.placements], x.placements,
+                     [None, tuple(Partial() if isinstance(p, Shard)
+                                  else Replicate() for p in x.placements)])
+
+
+def residual_out(y):
+    """A block's (B, S, d) output in the residual stream's layout: the
+    row-parallel products' model-axis partial sums reduce-scattered onto
+    ``constrain_residual``'s sequence-sharded placement (all-reduced
+    where the sequence does not split: decode, one row of a chunk); an
+    output already whole or sharded on the model axis is moved there
+    too. The identity off the mesh."""
+    if not _is_dtensor(y):
+        return y
+    pol = _POLICY
+    b, s = y.shape[0], y.shape[1]
+    s_ax = pol.seq_axis if (pol is not None and pol.seq_axis
+                            and s % pol.seq_divisor == 0 and s > 1) \
+        else None
+    return _constrain(y, P(batch_axes_of(y.device_mesh, b), s_ax,
+                           *([None] * (y.ndim - 2))))
+
+
+def norm_scale(scale, x):
+    """A norm's scale as ``x`` needs it: sharded on the model axis as
+    ``x``'s last dim is (the SSD block's gated norm over this rank's
+    heads), else whole. The identity off the mesh."""
+    if not _is_dtensor(scale):
+        return scale
+    return _on_model(scale, 0) if last_dim_on_model(x) else gathered(scale)
+
+
+def row_mean(t):
+    """``torch.mean(t, dim=-1, keepdim=True)``; where ``t``'s last dim is
+    on the model axis, each rank's row sums (a local op, so the gradient
+    stays sharded as ``t`` is) all-reduced over the model axis."""
+    if not last_dim_on_model(t):
+        return torch.mean(t, dim=-1, keepdim=True)
+    from torch.distributed.tensor import Partial
+    mesh = t.device_mesh
+    n = t.shape[-1]
+    batch = batch_axes_of(mesh, t.shape[0]) is not None
+    s = local_map(lambda a: a.sum(-1, keepdim=True) / n, mesh, (t,),
+                  [t.placements], mesh_placements(mesh, batch, Partial()))
+    return s.redistribute(mesh, mesh_placements(mesh, batch))
+
+
+def split_heads(t, n: int):
+    """(..., n·D) → (..., n, D). A column-parallel output keeps its
+    columns on the model axis as heads where ``n`` divides over it, and
+    is gathered whole first where it does not."""
+    if last_dim_on_model(t) and n % model_size(t.device_mesh):
+        t = model_whole(t)
+    return t.reshape(*t.shape[:-1], n, t.shape[-1] // n)
+
+
+def vocab_table(table):
+    """The (vocab, d) unembedding read once per step's microbatch: whole
+    over the data axes (the FSDP gather, hoisted out of the CE chunks so
+    each chunk's gradient accumulates into one reduce-scatter), its
+    vocab kept on the model axis where the rules put it there, else
+    whole. The identity off the mesh."""
+    from torch.distributed.tensor import Shard
+    if not _is_dtensor(table):
+        return table
+    pl = _model_pl(table)
+    vocab = isinstance(pl, Shard) and pl.dim == 0
+    return _on_model(table, 0 if vocab else None)
+
+
+def vocab_ce_sums(logits, labels):
+    """``models.model._ce_sums`` on logits whose vocab (last) dim is on
+    the model axis, Megatron's vocab-parallel cross entropy: each rank's
+    max and sum of exponentials over its vocab slice are reduced over the
+    model axis ((B, c) values each), and the target logit is taken on
+    the rank whose slice holds it and summed there; the logits are never
+    gathered. Returns (summed CE of the valid positions, their count),
+    partial sums over the data axes as ``batch_sums``'s."""
+    from torch.distributed.tensor import Partial, Shard
+    mesh = logits.device_mesh
+    batch = batch_axes_of(mesh, logits.shape[0]) is not None
+    rows = mesh_placements(mesh, batch)
+    v_loc = logits.shape[-1] // model_size(mesh)
+    v0 = model_rank(mesh) * v_loc
+    mx = logits.detach().amax(-1, keepdim=True).redistribute(mesh, rows)
+    logz = (logits - mx).exp().sum(-1).redistribute(mesh, rows).log() \
+        + mx[..., 0]
+
+    def pick(lg, lab):
+        mine = (lab >= v0) & (lab < v0 + lg.shape[-1])
+        gold = torch.gather(lg, -1, torch.where(mine, lab - v0, 0)[..., None])
+        return gold[..., 0] * mine
+
+    gold = local_map(pick, mesh, (logits, labels),
+                     [mesh_placements(mesh, batch, Shard(logits.ndim - 1)),
+                      rows], mesh_placements(mesh, batch, Partial()))
+    gold = gold.redistribute(mesh, rows)
+    valid = (labels >= 0).float()
+    return batch_sums(lambda per, val: (torch.sum(per * val), val.sum()),
+                      (logz - gold, valid), 2)
 
 
 def model_size(mesh) -> int:
@@ -335,41 +530,48 @@ def context_parallel(core, q_args, kv_args, w_args=()):
 
 def heads_split(q) -> bool:
     """Whether ``q`` (B, S, H, D) has its heads (dim 2) on the model axis:
-    ``constrain_qkv``'s "heads" strategy placed it so."""
+    a column-parallel product's heads, or ``constrain_qkv``'s "heads"
+    strategy placed it so."""
     from torch.distributed.tensor import Shard
-    if not _is_dtensor(q) or "model" not in mesh_axes(q.device_mesh):
-        return False
-    axis = list(mesh_axes(q.device_mesh)).index("model")
-    return q.placements[axis] == Shard(2)
+    return _model_pl(q) == Shard(2)
 
 
-def heads_parallel(core, q, kv_args):
-    """``core(h0, q, *kv_args)`` on this rank's query heads (the
-    reference's "heads" attention strategy): q's head dim (2) split over
-    the model axis, the keys and values whole, their heads replicated,
-    each batch-sharded. ``h0`` is this rank's first query head; no query
-    row reads another rank's heads, so the core needs no collective. The
-    output is sharded as q is; the keys' and values' gradients are
-    partial sums over the model axis (each rank's heads read their own
-    share of the key and value heads)."""
+def heads_parallel(core, q, kv_args, w_args=(), kv_split=False):
+    """``core(h0, *q, *kv_args, *w_args)`` on this rank's query heads
+    (``q`` a tensor or a tuple of them, each (B, S, H, ·) with its head
+    dim on the model axis). The keys and values come whole, their heads
+    replicated (``core`` slices the kv heads its query heads read), or,
+    with ``kv_split``, as their own column-parallel products left them,
+    each rank's kv heads those of its query heads; ``w_args`` are
+    per-head weights with their out-dim on the model axis (the MLA
+    decompressions). Everything is batch-sharded. ``h0`` is this rank's
+    first query head; no query row reads another rank's heads, so the
+    core needs no collective. The output is sharded as q is; whole keys'
+    and values' gradients are partial sums over the model axis."""
     from torch.distributed.tensor import Partial, Shard
-    mesh = q.device_mesh
-    batch = batch_axes_of(mesh, q.shape[0]) is not None
+    qs = q if isinstance(q, tuple) else (q,)
+    mesh = qs[0].device_mesh
+    batch = batch_axes_of(mesh, qs[0].shape[0]) is not None
     m = model_size(mesh)
-    h0 = model_rank(mesh) * (q.shape[2] // m)
+    h0 = model_rank(mesh) * (qs[0].shape[2] // m)
     q_pl = mesh_placements(mesh, batch, Shard(2))
-    kv_pl = mesh_placements(mesh, batch)
-    kv_grad = mesh_placements(mesh, batch, Partial() if m > 1 else None)
-    return local_map(lambda q_, *kv: core(h0, q_, *kv), mesh,
-                     (q, *kv_args), [q_pl] + [kv_pl] * len(kv_args), q_pl,
-                     [None] + [kv_grad] * len(kv_args))
+    kv_pl = q_pl if kv_split else mesh_placements(mesh, batch)
+    kv_grad = None if kv_split else \
+        mesh_placements(mesh, batch, Partial() if m > 1 else None)
+    w_pl = mesh_placements(mesh, False, Shard(1))
+    return local_map(lambda *t: core(h0, *t), mesh,
+                     (*qs, *kv_args, *w_args),
+                     [q_pl] * len(qs) + [kv_pl] * len(kv_args)
+                     + [w_pl] * len(w_args), q_pl,
+                     [None] * len(qs) + [kv_grad] * len(kv_args)
+                     + [weight_grads(mesh, batch, Shard(1))] * len(w_args))
 
 
 def batch_local(core, args, w_args=()):
     """``core(*args, *w_args)`` on each batch shard: ``args`` (and the
     output) batch-sharded, ``w_args`` whole; the model axis repeats the
-    work (the SSD scan, whose heads and state the reference's
-    partitioner may split, runs whole on every model rank)."""
+    work (the SSD block where its heads do not split over the model
+    axis)."""
     mesh = args[0].device_mesh
     batch = batch_axes_of(mesh, args[0].shape[0]) is not None
     pl = mesh_placements(mesh, batch)

@@ -305,19 +305,72 @@ def replicated(mesh) -> NamedSharding:
     return NamedSharding(mesh, PartitionSpec())
 
 
+def shard_slices(shape: Sequence[int], pl: Sequence, mesh) -> tuple:
+    """This rank's shard of a tensor of ``shape`` under placements ``pl``
+    on ``mesh``, as one ``slice`` per dim: the mesh dims in order, each
+    ``Shard(d)`` taking this rank's ``torch.chunk`` of what dim ``d``
+    still spans (DTensor's own split). Applies to a host array as well
+    as to a tensor, so a rank can read its shard alone."""
+    from torch.distributed.tensor import Shard
+    start, size = [0] * len(shape), list(shape)
+    for c, p, n in zip(mesh.get_coordinate(), pl, mesh.shape):
+        if isinstance(p, Shard):
+            d = p.dim % len(shape)
+            chunk = -(-size[d] // n)
+            lo = min(c * chunk, size[d])
+            start[d] += lo
+            size[d] = min(chunk, size[d] - lo)
+    return tuple(slice(a, a + n) for a, n in zip(start, size))
+
+
+def _contiguous_strides(shape: Sequence[int]) -> tuple:
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= n
+    return tuple(reversed(out))
+
+
+def from_shard(local: torch.Tensor, shape: Sequence[int],
+               sh: NamedSharding):
+    """A ``DTensor`` of global ``shape`` with placements ``sh`` from this
+    rank's shard ``local`` (a host tensor, copied to the mesh's device
+    here)."""
+    from torch.distributed.tensor import DTensor
+    dev = torch.device(sh.mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    local = local.to(dev, copy=True, memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, sh.mesh, sh.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_strides(shape))
+
+
+@torch.no_grad()
+def load_shard(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy the whole tensor ``src`` (on the host, or any device) into
+    ``dst``; a ``DTensor`` ``dst`` takes only its own shard of it (by its
+    placements), which is all that is read of ``src``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(dst, DTensor):
+        src = src[shard_slices(src.shape, dst.placements, dst.device_mesh)]
+        dst = dst.to_local()
+    dst.copy_(src)
+
+
 def distribute(tree: PyTree, shardings: PyTree) -> PyTree:
     """The reference's ``jax.device_put(tree, shardings)``: each leaf a
-    ``DTensor`` on its sharding's ``DeviceMesh`` (``distribute_tensor``:
-    every rank passes the whole tensor and keeps its shard)."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
+    ``DTensor`` on its sharding's ``DeviceMesh``, each rank taking its own
+    shard of the whole tensor it holds (a slice, copied alone to the
+    device: the whole leaf never goes there); a ``DTensor`` leaf is
+    redistributed."""
+    from torch.distributed.tensor import DTensor
 
     def place(t: torch.Tensor, sh: NamedSharding):
         if isinstance(t, DTensor):
             return t.redistribute(sh.mesh, sh.placements)
-        dev = torch.device(sh.mesh.device_type)
-        if dev.type == "cuda":
-            dev = torch.device("cuda", torch.cuda.current_device())
-        return distribute_tensor(t.to(dev), sh.mesh, sh.placements)
+        return from_shard(t[shard_slices(t.shape, sh.placements, sh.mesh)],
+                          t.shape, sh)
     return tree_unflatten(tree, [place(t, sh) for t, sh in
                                  zip(tree_leaves(tree),
                                      tree_leaves(shardings))])

@@ -8,8 +8,10 @@ on torch: no card and no memory needed.
       --shape train_4k --mesh pod
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
 
-A cell runs the port's own step (``launch.steps``: ``train_step`` with the
-reference's microbatch count, ``prefill_step`` or ``serve_step``) once
+A cell runs the port's own step (``launch.steps``: ``train_step_``, the
+train step with its update in place as the driver's compiled step makes
+it, with the reference's microbatch count, ``prefill_step`` or
+``serve_step``) once
 as rank 0 of a ``"fake"`` process group (``FakeStore``: every collective
 returns at once), its params, optimizer state, batch and caches
 ``DTensor``s placed by ``distributed.sharding``'s rules over local shards
@@ -19,7 +21,10 @@ products (``torch.utils.flop_counter``'s formulas, per chip: counted
 below DTensor, which would report the whole product), the bytes every
 op that makes a new tensor reads and writes, the operand bytes of each
 collective under the reference's five names, and the peak of the bytes
-it holds live. The fake group is started inside ``run_cell`` and torn
+it holds live (the reference's ``temp_size_in_bytes``: what the step
+makes, its arguments aside; with the functional update the peak was the
+new tree's, set after every activation was freed, whatever the sequence
+length). The fake group is started inside ``run_cell`` and torn
 down after it; it refuses to start next to a real default group. Results
 go to ``experiments/dryrun_torch/`` (gitignored), one JSON per cell with
 the reference's keys: ``compile_s`` holds the trace's seconds (there is
@@ -52,7 +57,7 @@ from repro_torch.hw import HBM_BYTES
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.steps import (input_specs, make_opt_config,
                                       model_shapes, opt_shapes, prefill_step,
-                                      serve_step, train_step)
+                                      serve_step, train_step_)
 from repro_torch.models.scan_util import tree_leaves, tree_unflatten
 
 RESULT_DIR = Path(__file__).resolve().parents[3] / "experiments" / \
@@ -103,7 +108,11 @@ class TraceCounter(torch.utils._python_dispatch.TorchDispatchMode):
     tensor of the program (``track``ed, or made by a counted op) are
     counted. So a tensor made from nothing (``zeros``, ``arange``) counts
     from the first op that combines it with the program's: positions and
-    masks are left out, and a buffer's bytes count once it is written."""
+    masks are left out, and a buffer's bytes count once it is written.
+    A storage's bytes are live from the op that made it until the last
+    tensor on it dies (autograd's saved tensors and views included);
+    ``coll_log`` lists each collective with its operands' local
+    shapes."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -111,6 +120,7 @@ class TraceCounter(torch.utils._python_dispatch.TorchDispatchMode):
         self.bytes = 0
         self.coll = {c: 0 for c in COLLECTIVES}
         self.coll_counts = {c: 0 for c in COLLECTIVES}
+        self.coll_log: list = []     # (op, operand shapes), in order
         self.live = 0
         self.peak = 0
         self._ours: Dict[int, weakref.ref] = {}
@@ -151,6 +161,8 @@ class TraceCounter(torch.utils._python_dispatch.TorchDispatchMode):
             if op is not None:
                 self.coll[op] += sum(_nbytes(t) for t in ins)
                 self.coll_counts[op] += 1
+                self.coll_log.append((op, tuple(tuple(t.shape)
+                                                for t in ins)))
             return out
         flop = flop_registry.get(func._overloadpacket)
         if flop is not None:
@@ -286,8 +298,8 @@ def _trace(cfg: ModelConfig, shape: ShapeSpec, mesh, p_sh,
     with counter, activation_policy(policy_from_mesh(
             mesh, seq_parallel=shape.kind != "decode")):
         if shape.kind == "train":
-            train_step(*args, cfg=cfg, opt_cfg=make_opt_config(cfg),
-                       microbatches=microbatches)
+            train_step_(*args, cfg=cfg, opt_cfg=make_opt_config(cfg),
+                        microbatches=microbatches)
         elif shape.kind == "prefill":
             prefill_step(*args, cfg=cfg)
         else:

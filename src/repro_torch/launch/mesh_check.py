@@ -2,6 +2,12 @@
 decode step) of the same weights and batch run twice, on plain tensors
 and as ``DTensor``s on a mesh, and compared leaf by leaf.
 
+``train_check`` also counts which attention core the sharded step ran
+(``attention_cores``), and ``restore_check`` restores a checkpoint of
+the sharded state as the train driver does (mapped on the host, each
+rank copying only its shards), each rank's shard against the saved
+array's slice, bit for bit.
+
 ``compiled_check`` holds the train step compiled on a mesh
 (``compile_train_step`` on ``DTensor`` state: on a card two eager passes,
 one CUDA graph, replays) to the eager sharded ``train_step``, call for
@@ -13,7 +19,9 @@ the CPU tests.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from pathlib import Path
 from typing import Dict
 
 import torch
@@ -68,13 +76,16 @@ def check_opt_config(cfg: ModelConfig) -> AdamWConfig:
 
 
 def check_config(arch: str = "h2o-danube-1.8b", layers: int = 2,
-                 reduced: bool = False) -> ModelConfig:
+                 reduced: bool = False, **overrides) -> ModelConfig:
     """``arch`` cut to ``layers`` (whole groups of a hybrid or
-    interleaved stack) at full width (or its reduced width), in f32."""
+    interleaved stack) at full width (or its reduced width), in f32, with
+    any other fields in ``overrides`` (``n_heads=3``: query heads that do
+    not split over the model axis)."""
     cfg = get_config(arch, reduced=reduced)
     unit = cfg.attn_every or (cfg.moe_every if cfg.moe is not None else 1)
     return dataclasses.replace(cfg, dtype="float32",
-                               n_layers=max(unit, layers // unit * unit))
+                               n_layers=max(unit, layers // unit * unit),
+                               **overrides)
 
 
 def whole(t: torch.Tensor) -> torch.Tensor:
@@ -98,6 +109,30 @@ def deviation(got, want, floor: float = 1e-30) -> Dict:
         if err > worst:
             worst, at = err, name
     return {"max_rel": worst, "worst_leaf": at, "bit_equal": equal}
+
+
+@contextlib.contextmanager
+def attention_cores():
+    """Counts of the attention cores the model runs meanwhile: a dict
+    ``{"heads_parallel": n, "context_parallel": n}`` filled as
+    ``models.attention`` calls them."""
+    from repro_torch.models import attention
+    counts = {"heads_parallel": 0, "context_parallel": 0}
+    real = {k: getattr(attention, k) for k in counts}
+
+    def spy(name):
+        def run(*args):
+            counts[name] += 1
+            return real[name](*args)
+        return run
+
+    for k in counts:
+        setattr(attention, k, spy(k))
+    try:
+        yield counts
+    finally:
+        for k, f in real.items():
+            setattr(attention, k, f)
 
 
 def train_check(mesh, cfg: ModelConfig, device, batch: int = 4,
@@ -126,7 +161,8 @@ def train_check(mesh, cfg: ModelConfig, device, batch: int = 4,
     shardings = (params_shardings(params, mesh),
                  params_shardings(opt_state, mesh))
     d_p, d_s = distribute((params, opt_state), shardings)
-    with activation_policy(policy_from_mesh(mesh)):
+    with activation_policy(policy_from_mesh(mesh)), \
+            attention_cores() as cores:
         new_p, new_s, met = train_step(d_p, d_s, sharded_batch, cfg=cfg,
                                        opt_cfg=opt_cfg,
                                        microbatches=microbatches)
@@ -142,7 +178,7 @@ def train_check(mesh, cfg: ModelConfig, device, batch: int = 4,
     return {"loss": loss, "ref_loss": ref_loss,
             "loss_rel": abs(loss - ref_loss) / max(abs(ref_loss), 1e-30),
             "leaves": len(tree_leaves((new_p, new_s))),
-            "min_step": min_step, **dev_leaves}
+            "min_step": min_step, "cores": dict(cores), **dev_leaves}
 
 
 def compiled_check(mesh, cfg: ModelConfig, device, batch: int = 4,
@@ -286,3 +322,74 @@ def decode_check(mesh, cfg: ModelConfig, device, batch: int = 2,
             got.append(serve_step(d_params, d_tok, d_cache, pos,
                                   cfg=cfg)[0])
     return {"logits": deviation(got, want), "cache": deviation(d_cache, cache)}
+
+
+def restore_check(mesh, cfg: ModelConfig, device, directory,
+                  seed: int = 0) -> Dict:
+    """A checkpoint of the sharded (params, optimizer state) of ``cfg``
+    written to ``directory`` (every rank at the same path; rank 0 writes)
+    and restored as the train driver restores it: to the host, mapped
+    from the files (``restore(..., device="cpu")``), then each leaf's
+    shard copied into a zeroed tree of the same placements
+    (``sharding.load_shard``, what ``CompiledTrainStep.load_state`` runs).
+    Holds every rank's local shard to its slice of the saved array bit
+    for bit, and records every new storage an op made meanwhile:
+    ``whole_made`` counts those the size of a sharded leaf whole (0: each
+    rank read its shards alone)."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.distributed.sharding import load_shard, shard_slices
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    opt_state = init_opt_state(params, check_opt_config(cfg))
+    state = distribute((params, opt_state),
+                       (params_shardings(params, mesh),
+                        params_shardings(opt_state, mesh)))
+    mgr = CheckpointManager(Path(directory), async_write=False)
+    mgr.save(1, state, extra={"step": 1})
+    dist.barrier()
+    leaves = tree_leaves(state)
+    dst = [DTensor.from_local(torch.zeros_like(t.to_local()), t.device_mesh,
+                              t.placements, run_check=False, shape=t.shape,
+                              stride=t.stride()) for t in leaves]
+    made = []
+
+    class NewStorages(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = {a.untyped_storage()._cdata for a in args
+                   if isinstance(a, torch.Tensor)}
+            for t in out if isinstance(out, (list, tuple)) else [out]:
+                if isinstance(t, torch.Tensor) and \
+                        t.untyped_storage()._cdata not in ins:
+                    made.append(t.numel())
+            return out
+
+    meta = tree_unflatten(state, [torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta")
+                                  for t in leaves])
+    with NewStorages():
+        host, extra = mgr.restore(meta, device="cpu")
+        for d, h in zip(dst, tree_leaves(host)):
+            load_shard(d, h)
+    final = Path(directory) / "step_000000001" / "arrays"
+    equal = True
+    for i, t in enumerate(dst):
+        want = np.load(final / f"{i:05d}.npy")[shard_slices(
+            t.shape, t.placements, t.device_mesh)]
+        got = t.to_local().detach().cpu()
+        if got.dtype == torch.bfloat16:
+            got = got.view(torch.int16).numpy().view(np.uint16)
+        equal &= bool(np.array_equal(np.asarray(got), want))
+    sizes = {t.numel() for t in dst if t.to_local().numel() != t.numel()}
+    return {"leaves": len(dst),
+            "sharded_leaves": sum(t.to_local().numel() != t.numel()
+                                  for t in dst),
+            "bit_equal": equal, "extra": extra,
+            "whole_made": sum(n in sizes for n in made),
+            "made": len(made)}

@@ -35,6 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed.api import (activation_policy, current_policy,
                                          is_sharded)
+from repro_torch.distributed.sharding import load_shard
 from repro_torch.models.model import (decode_step, init_cache, init_model,
                                       loss_fn, prefill)
 from repro_torch.models.scan_util import tree_leaves, tree_unflatten
@@ -100,6 +101,21 @@ def train_step(params: PyTree, opt_state: OptState,
     return params, opt_state, _whole(metrics)
 
 
+def train_step_(params: PyTree, opt_state: OptState,
+                batch: Dict[str, torch.Tensor], *, cfg: ModelConfig,
+                opt_cfg: AdamWConfig, microbatches: int = 1
+                ) -> Dict[str, torch.Tensor]:
+    """``train_step`` with the update in place (``apply_updates_``): the
+    new params and state written into the leaves given, as the compiled
+    step (and the reference's update on donated buffers) does, so no
+    second copy of the tree is ever live. Returns the metrics (whole)."""
+    with _on_mesh(params):
+        metrics, grads = _loss_and_grads(params, batch, cfg, opt_cfg,
+                                         microbatches)
+        metrics.update(apply_updates_(params, grads, opt_state, opt_cfg))
+    return _whole(metrics)
+
+
 def _train_step(params, opt_state, batch, cfg, opt_cfg, microbatches):
     metrics, grads = _loss_and_grads(params, batch, cfg, opt_cfg,
                                      microbatches)
@@ -116,7 +132,7 @@ def _loss_and_grads(params, batch, cfg, opt_cfg, microbatches,
     ``microbatches``."""
     if microbatches <= 1:
         loss, metrics, grads = _value_and_grad(params, batch, cfg)
-        return dict(metrics, loss=loss), grads
+        return dict(metrics, loss=loss), _placed_like(grads, params)
 
     if acc_g is None:
         acc_dt = getattr(torch, opt_cfg.state_dtype)
@@ -142,6 +158,16 @@ def _loss_and_grads(params, batch, cfg, opt_cfg, microbatches,
         acc_loss = acc_loss + loss / microbatches
         acc_ce = acc_ce + metrics["ce"] / microbatches
     return dict(loss=acc_loss, ce=acc_ce), tree_unflatten(params, acc_g)
+
+
+def _placed_like(grads: PyTree, params: PyTree) -> PyTree:
+    """Each ``DTensor`` gradient on its param's placements (a product on
+    the mesh leaves a replicated bias's gradient sharded as the product's
+    output was), as the accumulators over microbatches hold them."""
+    out = [g.redistribute(p.device_mesh, p.placements)
+           if is_sharded(g) and g.placements != p.placements else g
+           for g, p in zip(tree_leaves(grads), tree_leaves(params))]
+    return tree_unflatten(grads, out)
 
 
 def _microbatch(whole: Dict[str, torch.Tensor],
@@ -267,9 +293,13 @@ class CompiledTrainStep:
     def load_state(self, params: PyTree, opt_state: OptState) -> None:
         """Copy a (params, ``OptState``) tree of the same structure,
         shapes and dtypes into the owned buffers (a restore). On a mesh
-        each source leaf, a ``DTensor``, is redistributed to the owned
-        leaf's placements and its local shard copied
-        (``CheckpointManager.restore(..., shardings=)``'s tree)."""
+        a ``DTensor`` source leaf is redistributed to the owned leaf's
+        placements and its local shard copied
+        (``CheckpointManager.restore(..., shardings=)``'s tree); a plain
+        source leaf is whole (a checkpoint restored to the host, mapped
+        from its file), and each rank copies only its shard of it
+        (``distributed.sharding.load_shard``), so the state never exists
+        twice on the card."""
         src = tree_leaves((params, opt_state))
         dst = tree_leaves((self._params, self._opt_state))
         if len(src) != len(dst):
@@ -277,14 +307,16 @@ class CompiledTrainStep:
                              f"step holds {len(dst)}")
         for i, (s, d) in enumerate(zip(src, dst)):
             if s.shape != d.shape or s.dtype != d.dtype \
-                    or is_sharded(s) != self.sharded:
+                    or is_sharded(s) and not self.sharded:
                 raise ValueError(
                     f"load_state: leaf {i} is {_kind(s)} {s.dtype} "
                     f"{tuple(s.shape)}; the compiled step holds {_kind(d)} "
                     f"{d.dtype} {tuple(d.shape)}")
-            if self.sharded:
+            if is_sharded(s):
                 s = s.redistribute(d.device_mesh, d.placements)
-            _local(d).copy_(_local(s))
+                _local(d).copy_(_local(s))
+            else:
+                load_shard(d, s)
 
     @torch.no_grad()
     def _load_batch(self, batch: Dict[str, torch.Tensor]) -> None:

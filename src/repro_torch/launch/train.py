@@ -16,17 +16,20 @@ runs its first two steps eagerly, captures the third as one CUDA graph
 (on a mesh with its collectives) and replays it from then on; a capture
 that fails raises. Checkpoints read its buffers (the device→host copy is
 taken before ``save`` returns, so the next replay cannot change what is
-written) and restores, ``--resume`` included, are copied into them
-(``load_state``). As in the reference, the supervisor counts data
-steps from 0 on every run, resumed or not, while the learning-rate
-schedule goes on from the restored optimizer step. ``--mesh none`` (the
+written) and restores, ``--resume`` included, are read into them
+leaf by leaf from the host (``restore(..., device="cpu")`` maps the
+files; ``load_state`` copies each leaf, on a mesh each rank's shard of
+it), so the state never exists twice on the card. As in the reference,
+the supervisor counts data steps from 0 on every run, resumed or not,
+while the learning-rate schedule goes on from the restored optimizer
+step. ``--mesh none`` (the
 default) is one device with no process group and plain tensors; the
 reference's meshes are ``smoke`` (one rank, a world-1 group started
 here), ``pod`` (16×16) and ``multipod`` (2×16×16), the last two over
 the process group torchrun starts (a group of another size raises
 ``ValueError``): params and optimizer state placed by
 ``params_shardings``, the batch drawn per rank (``make_batch(mesh=)``),
-a resume restored onto the same placements (``restore(shardings=)``),
+a resume restored into the step's own shards,
 and the step made under ``activation_policy(policy_from_mesh(mesh))``.
 Each logged line carries the card's name and power limit on a CUDA
 device; on a mesh only rank 0 logs.
@@ -52,6 +55,7 @@ from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 from repro_torch.launch.serve import card_text
 from repro_torch.launch.steps import compile_train_step, make_opt_config
 from repro_torch.models.model import init_model
+from repro_torch.models.scan_util import tree_leaves, tree_unflatten
 from repro_torch.optim.adamw import init_opt_state
 
 
@@ -85,11 +89,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     opt_state = init_opt_state(params, opt_cfg)
-    shardings = None
     if mesh is not None:
-        shardings = (params_shardings(params, mesh),
-                     params_shardings(opt_state, mesh))
-        params, opt_state = distribute((params, opt_state), shardings)
+        params, opt_state = distribute(
+            (params, opt_state), (params_shardings(params, mesh),
+                                  params_shardings(opt_state, mesh)))
     policy = policy_from_mesh(mesh) if mesh is not None else None
     with activation_policy(policy):
         compiled = compile_train_step(
@@ -105,7 +108,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     mgr = CheckpointManager(Path(args.ckpt_dir) / cfg.name)
 
     def restore_latest() -> dict:
-        tree, extra = mgr.restore(current(), shardings=shardings)
+        # To the host, mapped from the files: each rank reads only its
+        # shards, straight into the step's own buffers.
+        tree, extra = mgr.restore(tree_unflatten(current(), [
+            torch.empty(t.shape, dtype=t.dtype, device="meta")
+            for t in tree_leaves(current())]), device="cpu")
         compiled.load_state(*tree)
         return extra
 

@@ -10,10 +10,13 @@ exact for bf16 inputs. Decode writes the new key and value into the
 cache in place (``index_copy_`` at a position held in a tensor) and
 returns the same cache.
 
-On a mesh (``DTensor`` inputs) the attention cores run on local shards
-(``distributed.api``): prefill context-parallel over the model axis,
-decode on each batch shard with the cache gathered and its own shard
-written back.
+On a mesh (``DTensor`` inputs) q, k and v (and MLA's queries and
+per-head decompressions) are column-parallel products, their heads on
+the model axis, the attention cores run on each rank's heads
+(``distributed.api.heads_parallel``; context-parallel over the model
+axis where the heads do not split), and the output projection is
+row-parallel. Decode runs on each batch shard with the cache gathered and
+its own shard written back.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.api import (constrain_qkv, context_parallel,
                                          decode_local, heads_parallel,
-                                         heads_split, is_sharded)
+                                         heads_split, is_sharded,
+                                         last_dim_on_model, model_whole,
+                                         split_heads)
 from repro_torch.models.layers import Params, apply_rope, init_linear, linear
 
 NEG_INF = -1e30
@@ -181,24 +186,29 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         return _mla_forward(p, x, cfg, q_offset)
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(p["wq"], x).reshape(b, s, h, hd)
-    k = linear(p["wk"], x).reshape(b, s, kvh, hd)
-    v = linear(p["wv"], x).reshape(b, s, kvh, hd)
+    q = split_heads(linear(p["wq"], x), h)
+    k = split_heads(linear(p["wk"], x), kvh)
+    v = split_heads(linear(p["wv"], x), kvh)
     pos = q_offset + torch.arange(s, device=x.device)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     q, k, v = constrain_qkv(q, k, v)
     if heads_split(q):
-        out = heads_parallel(
-            lambda h0, q_, k_, v_: chunked_attention(
-                q_, kv_heads(k_, h0, q_.shape[2], h // kvh),
-                kv_heads(v_, h0, q_.shape[2], h // kvh), q_offset=q_offset,
-                window=cfg.sliding_window), q, (k, v))
+        kv_split = heads_split(k)      # each rank's kv heads its own
+
+        def core(h0, q_, k_, v_):
+            if not kv_split:
+                k_, v_ = (kv_heads(t, h0, q_.shape[2], h // kvh)
+                          for t in (k_, v_))
+            return chunked_attention(q_, k_, v_, q_offset=q_offset,
+                                     window=cfg.sliding_window)
+        out = heads_parallel(core, q, (k, v), (), kv_split)
     elif is_sharded(q):
         out = context_parallel(
             lambda shift, q_, k_, v_: chunked_attention(
                 q_, k_, v_, q_offset=q_offset + shift,
-                window=cfg.sliding_window), (q,), (k, v))
+                window=cfg.sliding_window),
+            (model_whole(q),), (model_whole(k), model_whole(v)))
     else:
         out = chunked_attention(q, k, v, q_offset=q_offset,
                                 window=cfg.sliding_window)
@@ -223,9 +233,9 @@ def attention_decode(p: Params, x: torch.Tensor,
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pos = position_tensor(pos, x.device)
-    q = linear(p["wq"], x).reshape(b, 1, h, hd)
-    k_new = linear(p["wk"], x).reshape(b, 1, kvh, hd)
-    v_new = linear(p["wv"], x).reshape(b, 1, kvh, hd)
+    q = split_heads(linear(p["wq"], x), h)
+    k_new = split_heads(linear(p["wk"], x), kvh)
+    v_new = split_heads(linear(p["wv"], x), kvh)
     q = apply_rope(q, pos, cfg.rope_theta)
     k_new = apply_rope(k_new, pos, cfg.rope_theta)
     if is_sharded(q):
@@ -278,9 +288,8 @@ def _mla_q(p: Params, x: torch.Tensor, cfg: ModelConfig,
            pos: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     m = cfg.mla
     b, s, _ = x.shape
-    xq = linear(p["w_dq"], x) if "w_dq" in p else x
-    q = linear(p["wq"], xq).reshape(b, s, cfg.n_heads,
-                                    m.qk_nope_dim + m.qk_rope_dim)
+    xq = linear(p["w_dq"], x, whole=True) if "w_dq" in p else x
+    q = split_heads(linear(p["wq"], xq), cfg.n_heads)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     return q_nope, apply_rope(q_rope, pos, cfg.rope_theta)
 
@@ -294,19 +303,26 @@ def _mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
     h = cfg.n_heads
     pos = q_offset + torch.arange(s, device=x.device)
     q_nope, q_rope = _mla_q(p, x, cfg, pos)
-    ckv_full = linear(p["w_dkv"], x)             # (B, S, kv_lora + rope)
+    ckv_full = linear(p["w_dkv"], x, whole=True)  # (B, S, kv_lora + rope)
     c_kv, k_rope = ckv_full[..., :m.kv_lora_rank], \
         ckv_full[..., m.kv_lora_rank:]
     k_rope = apply_rope(k_rope[..., None, :], pos, cfg.rope_theta)[..., 0, :]
-    if is_sharded(q_nope):
+    w_uk, w_uv = p["w_uk"]["w"], p["w_uv"]["w"]
+    if heads_split(q_nope) and last_dim_on_model(w_uk) \
+            and last_dim_on_model(w_uv):
+        out = heads_parallel(
+            lambda h0, qn, qr, ck, kr, wk, wv: _mla_attend(
+                qn, qr, ck, kr, wk, wv, pos, pos, cfg),
+            (q_nope, q_rope), (c_kv, k_rope), (w_uk, w_uv))
+    elif is_sharded(q_nope):
         out = context_parallel(
             lambda shift, qn, qr, ck, kr, wk, wv: _mla_attend(
                 qn, qr, ck, kr, wk, wv, pos[shift:shift + qn.shape[1]], pos,
-                cfg), (q_nope, q_rope), (c_kv, k_rope),
-            (p["w_uk"]["w"], p["w_uv"]["w"]))
+                cfg), (model_whole(q_nope), model_whole(q_rope)),
+            (c_kv, k_rope), (w_uk, w_uv))
     else:
-        out = _mla_attend(q_nope, q_rope, c_kv, k_rope, p["w_uk"]["w"],
-                          p["w_uv"]["w"], pos, pos, cfg)
+        out = _mla_attend(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, pos,
+                          pos, cfg)
     return linear(p["wo"], out.reshape(b, s, h * m.v_dim).to(x.dtype))
 
 
@@ -314,11 +330,12 @@ def _mla_attend(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv,
                 q_pos: torch.Tensor, pos: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     """The chunked MLA core: queries at ``q_pos`` over the latent keys at
-    ``pos``, each chunk decompressed on the fly; (B, Sq, H, v_dim)."""
+    ``pos``, each chunk decompressed on the fly; (B, Sq, H, v_dim) for
+    the H heads of ``q_nope`` (on a mesh, a rank's share of the heads and
+    of ``w_uk``'s and ``w_uv``'s columns)."""
     m = cfg.mla
-    b, sq = q_nope.shape[:2]
+    b, sq, h = q_nope.shape[:3]
     s = c_kv.shape[1]
-    h = cfg.n_heads
     chunk = min(1024, s)
     n = -(-s // chunk)
     pad = n * chunk - s
@@ -351,7 +368,7 @@ def _mla_decode(p: Params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
     b = x.shape[0]
     pos = position_tensor(pos, x.device)
     q_nope, q_rope = _mla_q(p, x, cfg, pos)
-    ckv_full = linear(p["w_dkv"], x)
+    ckv_full = linear(p["w_dkv"], x, whole=True)
     c_new, kr_new = ckv_full[..., :m.kv_lora_rank], \
         ckv_full[..., m.kv_lora_rank:]
     kr_new = apply_rope(kr_new[..., None, :], pos, cfg.rope_theta)[..., 0, :]

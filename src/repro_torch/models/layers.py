@@ -31,12 +31,14 @@ def init_rmsnorm(d: int, dtype=torch.bfloat16, device="cpu") -> Params:
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMS norm over the last dim. On a mesh it runs batch-sharded with
-    the scale whole: a norm feeds projections, so a sequence-sharded
-    residual is gathered here once per norm, not once per projection."""
-    x, scale = api.batch_sharded(x), api.gathered(p["scale"])
+    """RMS norm over the last dim. It is row-wise, so on a mesh it runs
+    on the sequence-sharded residual as it is (the column-parallel
+    products after it gather its output once); where the last dim is on
+    the model axis (the SSD block's gated norm) the scale is sharded as
+    it is and the mean of squares is reduced over the model axis."""
+    scale = api.norm_scale(p["scale"], x)
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    var = api.row_mean(x32 * x32)
     out = x32 * torch.rsqrt(var + eps)
     return (out * scale.float()).to(x.dtype)
 
@@ -51,13 +53,19 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
     return p
 
 
-def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w (+ b)``. On a mesh the input and output are batch-sharded
-    (``distributed.api.batch_sharded``; the identity otherwise)."""
-    y = api.batch_sharded(x) @ p["w"]
+def linear(p: Params, x: torch.Tensor, whole: bool = False) -> torch.Tensor:
+    """``x @ w (+ b)``. On a mesh the placements of ``x`` and ``w`` on the
+    model axis pick the product (``distributed.api.sharded_linear``):
+    column-parallel on a whole input (the output's last dim stays on the
+    model axis), row-parallel on a column-parallel output (a partial sum
+    over the model axis), or with ``whole`` the weight gathered and the
+    output whole."""
+    if api.is_sharded(x):
+        return api.sharded_linear(x, p["w"], p.get("b"), whole)
+    y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
-    return api.batch_sharded(y)
+    return y
 
 
 # ----------------------------------------------------------------- RoPE
@@ -94,7 +102,9 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int, dtype=torch.bfloat16,
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (the default for all assigned archs)."""
+    """SwiGLU (the default for all assigned archs). On a mesh gate and up
+    are column-parallel and down row-parallel: the output is a partial
+    sum over the model axis (``api.residual_out`` reduces it)."""
     return linear(p["down"], F.silu(linear(p["gate"], x))
                   * linear(p["up"], x))
 
@@ -142,7 +152,8 @@ def _embed_sharded(table, tokens):
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32 for a stable softmax-CE."""
-    table = api.data_gathered(p["table"])
-    return api.batch_sharded(api.batch_sharded(x).float()
-                             @ table.T.float())
+    """Logits in fp32 for a stable softmax-CE. On a mesh they are
+    vocab-sharded over the model axis where the table's vocab is
+    (``api.vocab_table``), from ``x`` whole there."""
+    table = api.vocab_table(p["table"])
+    return api.model_whole(x).float() @ table.T.float()

@@ -24,8 +24,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockType, ModelConfig
-from repro_torch.distributed.api import (batch_sums, constrain_residual,
-                                         gather_layer_params, is_sharded)
+from repro_torch.distributed.api import (batch_sharded, batch_sums,
+                                         constrain_residual,
+                                         gather_layer_params, is_sharded,
+                                         last_dim_on_model, model_whole,
+                                         residual_out, vocab_ce_sums,
+                                         vocab_table)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as S
@@ -77,14 +81,16 @@ def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
             return fo
         return mlp(p["mlp"], h)
 
-    h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
-    ao = A.attention_forward(p["attn"], h, cfg, q_offset)
+    # On a mesh each norm's output is gathered once for the products that
+    # read it, and each branch's partial sums are reduce-scattered back.
+    h = model_whole(rmsnorm(p["ln_attn"], x, cfg.norm_eps))
+    ao = residual_out(A.attention_forward(p["attn"], h, cfg, q_offset))
     if cfg.parallel_block:
         # Command-R: attention and FFN read the same normed input.
-        return x + ao + ffn(h), aux
+        return x + ao + residual_out(ffn(h)), aux
     x = x + ao
-    h = rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
-    return x + ffn(h), aux
+    h = model_whole(rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+    return x + residual_out(ffn(h)), aux
 
 
 def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -96,8 +102,8 @@ def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype,
 def _apply_mamba_block(p: Params, x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
     p = gather_layer_params(p)      # streamed-FSDP weight gather
-    return x + S.mamba_forward(p["mamba"], rmsnorm(p["ln"], x, cfg.norm_eps),
-                               cfg)
+    h = model_whole(rmsnorm(p["ln"], x, cfg.norm_eps))
+    return x + residual_out(S.mamba_forward(p["mamba"], h, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -174,7 +180,8 @@ def _embed_inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.frontend != "none":
         if frontend_embeds is None:
             raise ValueError(f"{cfg.name} requires frontend embeddings")
-        fe = linear(params["frontend_proj"], frontend_embeds.to(x.dtype))
+        fe = batch_sharded(linear(params["frontend_proj"],
+                                  frontend_embeds.to(x.dtype)))
         x = torch.cat([fe, x], dim=1)
     return x
 
@@ -214,7 +221,9 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
             frontend_embeds: Optional[torch.Tensor] = None,
             remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S_text) → (final-normed hidden (B, S, d), moe_aux
-    scalar); ``logits_from_hidden`` maps the hidden to logits. With
+    scalar; on a mesh the hidden is whole over the model axis, gathered
+    once from the sequence-sharded residual); ``logits_from_hidden`` maps
+    the hidden to logits. With
     ``remat`` each layer (each group of a hybrid or interleaved stack) is
     recomputed in the backward pass, where the reference puts
     ``jax.checkpoint``. Stacked leaves are walked as ``unbind`` views, so
@@ -242,7 +251,7 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
             x, a = _remat(remat, _apply_attn_block, lp,
                           constrain_residual(x), cfg)
             aux = aux + a
-    return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
+    return model_whole(rmsnorm(params["ln_f"], x, cfg.norm_eps)), aux
 
 
 def _head(params: PyTree, cfg: ModelConfig) -> Params:
@@ -251,7 +260,8 @@ def _head(params: PyTree, cfg: ModelConfig) -> Params:
 
 def logits_from_hidden(params: PyTree, cfg: ModelConfig,
                        x: torch.Tensor) -> torch.Tensor:
-    return unembed(_head(params, cfg), x)
+    """Logits of ``x`` (on a mesh batch-sharded, the vocab whole)."""
+    return batch_sharded(unembed(_head(params, cfg), x))
 
 
 def _ce_sums(logits: torch.Tensor, labels: torch.Tensor):
@@ -277,10 +287,12 @@ def loss_fn(params: PyTree, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     h_in = h[:, :-1]
     labels = batch["tokens"][:, 1:]
     c = min(ce_chunk, h_in.shape[1])
-    head = _head(params, cfg)
+    head = {"table": vocab_table(_head(params, cfg)["table"])}
 
     def chunk_ce(h_i, l_i):
         logits = unembed(head, h_i)                       # (B, c, V) fp32
+        if last_dim_on_model(logits):                     # vocab-parallel
+            return vocab_ce_sums(logits, l_i)
         if is_sharded(logits):
             return batch_sums(_ce_sums, (logits, l_i), 2)
         return _ce_sums(logits, l_i)
@@ -345,19 +357,19 @@ def _decode_attn_block(lp: Params, x: torch.Tensor, ac, pos,
             else moe_ffn(lp["moe"], h, cfg)[0]
 
     h = rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
-    ao, _ = A.attention_decode(lp["attn"], h, ac, pos, cfg)
+    ao = residual_out(A.attention_decode(lp["attn"], h, ac, pos, cfg)[0])
     if cfg.parallel_block:
-        return x + ao + ffn(h)
+        return x + ao + residual_out(ffn(h))
     x = x + ao
     h = rmsnorm(lp["ln_mlp"], x, cfg.norm_eps)
-    return x + ffn(h)
+    return x + residual_out(ffn(h))
 
 
 def _decode_mamba_block(mp: Params, x: torch.Tensor, mc,
                         cfg: ModelConfig) -> torch.Tensor:
     h = rmsnorm(mp["ln"], x, cfg.norm_eps)
     y, _ = S.mamba_decode(mp["mamba"], h, mc, cfg)
-    return x + y
+    return x + residual_out(y)
 
 
 def decode_step(params: PyTree, tokens: torch.Tensor, cache: PyTree, pos,
@@ -393,7 +405,7 @@ def decode_step(params: PyTree, tokens: torch.Tensor, cache: PyTree, pos,
             x = _decode_attn_block(tree_at(layers, i), x,
                                    tree_at(cache["attn"], i), pos, cfg)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return unembed(_head(params, cfg), x)[:, 0], cache
+    return logits_from_hidden(params, cfg, x)[:, 0], cache
 
 
 def prefill(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,

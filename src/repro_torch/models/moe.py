@@ -21,9 +21,10 @@ On a mesh (``DTensor`` inputs) the sort-based dispatch runs on local
 shards (``distributed.api.local_map``): each batch shard routes its own
 rows, and each model rank runs only its experts (the experts dim is
 sharded on the model axis), so the output is a partial sum over the
-model axis. The load-balance statistics come back as partial sums
-scaled to the mean over the whole batch, so the aux loss is the
-unsharded one.
+model axis; the shared experts' row-parallel MLP adds its own, and the
+block reduces the sum once (``api.residual_out``). The load-balance
+statistics come back as partial sums scaled to the mean over the whole
+batch, so the aux loss is the unsharded one.
 """
 from __future__ import annotations
 
@@ -119,8 +120,9 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
 
 def _moe_sharded(x: torch.Tensor, weights, mo):
     """``_dispatch`` on local shards: rows on the data axes, experts on
-    the model axis when it divides them. (y batch-sharded, and the three
-    router statistics, each a DTensor.)"""
+    the model axis when it divides them. (y, a partial sum over the model
+    axis where the experts split, and the three router statistics, each
+    a DTensor.)"""
     from torch.distributed.tensor import Partial, Shard
     mesh = x.device_mesh
     batch = api.batch_axes_of(mesh, x.shape[0]) is not None
@@ -150,7 +152,7 @@ def _moe_sharded(x: torch.Tensor, weights, mo):
          part, part, part),
         [api.mesh_placements(mesh, batch, Partial() if split else None),
          part, w_grad, w_grad, w_grad])
-    return api.batch_sharded(y), me, sel, zl
+    return y, me, sel, zl
 
 
 def _dispatch(x: torch.Tensor, router_w, w_gate, w_up, w_down, e0: int,

@@ -5,9 +5,16 @@ plus the inter-chunk state recurrence (linear branch), a loop over
 chunks. Decode is the O(1) recurrent update of (conv_state, ssm_state),
 written into the cache in place.
 
-On a mesh (``DTensor`` inputs) the block between the two projections
-runs on each batch shard (``distributed.api.batch_local`` /
-``decode_local``).
+On a mesh (``DTensor`` inputs) the SSD heads lie on the model axis: each
+rank takes the fused input projection's z, x and dt columns of its heads
+and B and C whole (the rules shard that projection's out-dim
+contiguously, which does not align with the head groups, so its weight
+is gathered whole and sliced), runs the causal conv on its channels and
+``ssd_chunked`` on its heads, and the gated RMS norm over d_in reduces
+its mean of squares over the model axis; ``out_proj`` is row-parallel.
+Where the heads do not split over the model axis, and in decode, the
+block between the two projections runs on each batch shard
+(``distributed.api.batch_local`` / ``decode_local``).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import api
 from repro_torch.distributed.api import batch_local, decode_local, is_sharded
 from repro_torch.models.layers import Params, init_linear, linear, rmsnorm
 
@@ -123,7 +131,10 @@ def _inner_params(p: Params):
 def mamba_forward(p: Params, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) → (B, S, d)."""
-    zxbcdt = linear(p["in_proj"], x)
+    _, _, nh, _ = _dims(cfg)
+    if is_sharded(x) and nh % api.model_size(x.device_mesh) == 0:
+        return _mamba_heads(p, x, cfg)
+    zxbcdt = linear(p["in_proj"], x, whole=True)
     if is_sharded(zxbcdt):
         y = batch_local(lambda t, *w: _mamba_inner(t, *w, cfg), (zxbcdt,),
                         _inner_params(p))
@@ -136,6 +147,15 @@ def _mamba_inner(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale,
                  cfg: ModelConfig) -> torch.Tensor:
     """Causal conv, SSD scan and gated norm: (B, S, d_in)."""
     s, d_in, nh, _ = _dims(cfg)
+    y, z = _mamba_scan(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, s,
+                       d_in, nh)
+    return rmsnorm({"scale": norm_scale}, y * F.silu(z))
+
+
+def _mamba_scan(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, s,
+                d_in: int, nh: int):
+    """Causal conv and SSD scan over ``nh`` heads of ``d_in`` channels:
+    the pre-norm output and the gate z, each (B, S, d_in)."""
     bsz, l, _ = zxbcdt.shape
     z, xin, b_in, c_in, dt = _split_proj(zxbcdt, s, d_in, nh)
     # Causal depthwise conv over (x, B, C).
@@ -153,8 +173,45 @@ def _mamba_inner(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale,
     y = ssd_chunked((xh * dt[..., None]).float(), dt * a, b_in, c_in,
                     s.chunk)
     y = y + xh.float() * d_skip[None, None, :, None]
-    y = y.reshape(bsz, l, d_in).to(zxbcdt.dtype)
-    return rmsnorm({"scale": norm_scale}, y * F.silu(z))
+    return y.reshape(bsz, l, d_in).to(zxbcdt.dtype), z
+
+
+def _mamba_heads(p: Params, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """The block with its SSD heads on the model axis (``x`` on a mesh
+    whose model size divides the heads): each rank's heads' z, x and dt
+    columns and B and C whole from the gathered ``in_proj``, its
+    channels' conv, its heads' scan, then the gated norm over the
+    sharded d_in and the row-parallel ``out_proj``."""
+    from torch.distributed.tensor import Partial, Shard
+    s, d_in, nh, _ = _dims(cfg)
+    mesh = x.device_mesh
+    m, r = api.model_size(mesh), api.model_rank(mesh)
+    dl, hl, n = d_in // m, nh // m, s.state_dim
+    batch = api.batch_axes_of(mesh, x.shape[0]) is not None
+
+    def core(x_, w_in, conv_w, conv_b, dt_bias, a_log, d_skip):
+        xs = slice(d_in + r * dl, d_in + (r + 1) * dl)     # its x channels
+        bc = slice(2 * d_in, 2 * d_in + 2 * n)               # B and C
+        dts = slice(2 * d_in + 2 * n + r * hl, 2 * d_in + 2 * n + (r + 1) * hl)
+        w_loc = torch.cat([w_in[:, r * dl:(r + 1) * dl], w_in[:, xs],
+                           w_in[:, bc], w_in[:, dts]], dim=1)
+        ch = [slice(r * dl, (r + 1) * dl), slice(d_in, d_in + 2 * n)]
+        return _mamba_scan(
+            x_ @ w_loc, torch.cat([conv_w[:, c] for c in ch], dim=1),
+            torch.cat([conv_b[c] for c in ch]), dt_bias[r * hl:(r + 1) * hl],
+            a_log[r * hl:(r + 1) * hl], d_skip[r * hl:(r + 1) * hl], s, dl,
+            hl)
+
+    whole = api.mesh_placements(mesh, False)
+    rows = api.mesh_placements(mesh, batch)
+    grads = api.weight_grads(mesh, batch, Partial())
+    y, z = api.local_map(
+        core, mesh, (api.model_whole(x), p["in_proj"]["w"], *(
+            _inner_params(p)[:5])), [rows] + [whole] * 6,
+        (api.mesh_placements(mesh, batch, Shard(2)),) * 2,
+        [api.mesh_placements(mesh, batch, Partial())] + [grads] * 6)
+    return linear(p["out_proj"], rmsnorm(p["norm"], y * F.silu(z)))
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     files += [REPO / "chip_smoke.py", REPO / "tools" / "bench_serving.py",
               REPO / "tools" / "bench_autotune.py",
               REPO / "tools" / "check_mesh.py",
-              REPO / "tools" / "check_train_graph.py", *examples]
+              REPO / "tools" / "check_train_graph.py",
+              *(REPO / "tools" / f"time_{t}.py"
+                for t in ("graphs", "f32_loops", "pad_accumulate",
+                          "i8_conv")), *examples]
     assert len(files) > 15
     assert {f.name for f in examples} >= {"quickstart_torch.py",
                                           "serve_cnn_torch.py",

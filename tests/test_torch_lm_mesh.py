@@ -476,8 +476,11 @@ def test_two_by_two_mesh_matches_the_unsharded_step(arch):
 
 def test_two_by_two_mesh_heads_strategy():
     """The same on the 2×2 mesh under ``REPRO_ATTN_SHARD=heads``: each
-    model rank attends with its two of the four query heads."""
-    check_two_by_two("h2o-danube-1.8b", "heads")
+    model rank attends with its two of the four query heads, and the
+    head-parallel core is the one that ran (``train["cores"]``)."""
+    result = check_two_by_two("h2o-danube-1.8b", "heads")
+    assert result["train"]["cores"]["heads_parallel"] > 0
+    assert result["train"]["cores"]["context_parallel"] == 0
 
 
 def test_two_by_two_mesh_heads_strategy_mla_moe():
@@ -486,7 +489,7 @@ def test_two_by_two_mesh_heads_strategy_mla_moe():
     check_two_by_two("deepseek-v2-236b", "heads")
 
 
-def check_two_by_two(arch: str, attn_shard: str) -> None:
+def check_two_by_two(arch: str, attn_shard: str) -> dict:
     import os
     proc = subprocess.run(
         [sys.executable, str(REPO / "tools" / "check_mesh.py"), "--lm",
@@ -514,3 +517,4 @@ def check_two_by_two(arch: str, attn_shard: str) -> None:
     assert compiled["bit_equal"] and compiled["calls"] == 3
     assert compiled["layout_kept"] and not compiled["captured"]
     assert result["times"] is None
+    return result

@@ -18,7 +18,9 @@ records eagerly; the tests hold that body:
 * ``load_state`` from a sharded ``CheckpointManager.restore`` gives the
   same next step;
 * a batch of other placements or shapes, a plain batch, a tree that mixes
-  ``DTensor`` and plain leaves and a plain tree into ``load_state`` raise;
+  ``DTensor`` and plain leaves and a plain tree of another shape into
+  ``load_state`` raise (a plain tree of the right shapes is a host tree,
+  of which each rank loads its shards: the driver's restore);
 * one case per architecture family against the JAX package's own
   unsharded jitted ``train_step`` on the same weights
   (``bridge.lm_params_from_jax``) and batch, at
@@ -237,8 +239,9 @@ def test_other_placements_and_mixed_trees_raise(smoke):
         step({k: v.full_tensor() for k, v in b.items()})
     with pytest.raises(ValueError, match=r"\(2, 32\)"):
         step(batch_at(cfg, smoke, 0, b=2))
+    wrong = tree_unflatten(params, [torch.zeros(3)] + tree_leaves(params)[1:])
     with pytest.raises(ValueError, match="leaf 0 is a tensor"):
-        step.load_state(params, state)
+        step.load_state(wrong, state)
     d_p, _ = placed(smoke, params, state)
     with pytest.raises(ValueError, match="mix DTensor and plain"):
         steps.compile_train_step(d_p, state, b, cfg=cfg, opt_cfg=opt)

@@ -61,6 +61,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,14 +96,49 @@ def lm_main(args) -> int:
         while j < len(argv) and not argv[j].startswith("--"):
             j += 1
         argv[i:j] = ["--lm-mesh", shape]
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               "--nproc-per-node", str(d * m), __file__, *argv]
-        print(f"[{shape}] {' '.join(cmd[1:])}", flush=True)
-        rc = subprocess.run(cmd, timeout=args.timeout, cwd=REPO).returncode
+        print(f"[{shape}] " + dryrun_line(args, d, m), flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc-per-node", str(d * m), __file__,
+                   *argv, "--restore-dir", tmp]
+            print(f"[{shape}] {' '.join(cmd[1:])}", flush=True)
+            rc = subprocess.run(cmd, timeout=args.timeout,
+                                cwd=REPO).returncode
         if rc != 0:
             print(f"[{shape}] failed: rc {rc}", flush=True)
             failed = failed or rc
     return failed
+
+
+def lm_config(args):
+    """The checked config: ``--lm-arch`` at ``--lm-layers`` (reduced with
+    ``--reduced``), f32, with ``--lm-heads``' head counts."""
+    from repro_torch.launch import mesh_check
+    heads = dict(zip(("n_heads", "n_kv_heads"), args.lm_heads or ()))
+    return mesh_check.check_config(args.lm_arch, args.lm_layers,
+                                   reduced=args.reduced, **heads)
+
+
+def dryrun_line(args, d: int, m: int) -> str:
+    """The dry run's counts of the checked step on a fake (d, m) group
+    (``launch.dryrun.trace_step``: no card), this process being rank 0:
+    collective bytes per rank by op, their counts, and the peak."""
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    cfg = lm_config(args)
+    with dryrun.fake_world(d * m):
+        c = dryrun.trace_step(
+            cfg, ShapeSpec("check", args.lm_seq, args.lm_batch, "train"),
+            make_mesh((d, m), ("data", "model"), "cpu"),
+            microbatches=2)["counts"]
+    return (f"dry run of this step ({cfg.name}, {cfg.n_layers} layers, "
+            f"batch {args.lm_batch} x {args.lm_seq}, counts, per rank): "
+            f"collective bytes {sum(c.coll.values()):.6g} by op "
+            f"{ {k: v for k, v in c.coll.items() if v} }, op counts "
+            f"{ {k: v for k, v in c.coll_counts.items() if v} }, peak "
+            f"{c.peak:.6g} B")
 
 
 def device_busy_ms(fn):
@@ -151,6 +187,8 @@ def step_times(mesh, cfg, dev, batch: int, seq: int, reps: int = 5):
     from repro_torch.models.model import init_model
     from repro_torch.optim.adamw import init_opt_state
     opt_cfg = steps.make_opt_config(cfg, total_steps=30)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     policy = policy_from_mesh(mesh)
     feed = make_batch(DataConfig(seed=0, global_batch=batch, seq_len=seq),
                       cfg, 0, mesh=mesh)
@@ -202,6 +240,7 @@ def step_times(mesh, cfg, dev, batch: int, seq: int, reps: int = 5):
            "capture_s": capture_s}
     out["eager_host_share"] = 1 - eager_busy / out["eager_ms"]
     out["replay_host_share"] = 1 - replay_busy / out["replay_ms"]
+    out["max_reserved_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
     return out
 
 
@@ -223,8 +262,7 @@ def lm_rank(args) -> int:
         dev = torch.device("cuda", torch.cuda.current_device()) if card \
             else torch.device("cpu")
         mesh = make_mesh((d, m), ("data", "model"), dev)
-        cfg = mesh_check.check_config(args.lm_arch, args.lm_layers,
-                                      reduced=args.reduced)
+        cfg = lm_config(args)
         t0 = time.perf_counter()
         train = mesh_check.train_check(mesh, cfg, dev, batch=args.lm_batch,
                                        seq=args.lm_seq)
@@ -232,6 +270,8 @@ def lm_rank(args) -> int:
         comp = mesh_check.compiled_check(mesh, cfg, dev, batch=args.lm_batch,
                                          seq=args.lm_seq)
         secs = time.perf_counter() - t0
+        restore = mesh_check.restore_check(mesh, cfg, dev, args.restore_dir) \
+            if args.restore_dir else None
         noise = mesh_check.noise_floor(cfg, dev, batch=args.lm_batch,
                                        seq=args.lm_seq)
         worst = max(train["max_rel"], train["loss_rel"],
@@ -239,9 +279,15 @@ def lm_rank(args) -> int:
                     comp["max_rel"], comp["metrics_rel"])
         rule = mesh_check.check_rule(noise, train["min_step"])
         ok = worst <= rule["tol"] and rule["guarded"] \
-            and comp["layout_kept"] and comp["captured"] == card
+            and comp["layout_kept"] and comp["captured"] == card \
+            and (restore is None or (restore["bit_equal"]
+                                     and not restore["whole_made"]))
         times = step_times(mesh, cfg, dev, args.lm_batch, args.lm_seq) \
             if card else None
+        mem = None
+        if times:       # every rank's peak, gathered on every rank
+            mem = [None] * dist.get_world_size()
+            dist.all_gather_object(mem, round(times["max_reserved_gib"], 2))
         if dist.get_rank() == 0:
             print(f"[{d}x{m}] {cfg.name} ({cfg.n_layers} layers, d_model "
                   f"{cfg.d_model}, f32) train step: loss {train['loss']:.6f}"
@@ -267,6 +313,16 @@ def lm_rank(args) -> int:
                      f"rule {rule['tol']:.2e}")
                   + f"; placements and local addresses kept: "
                   f"{comp['layout_kept']}", flush=True)
+            print(f"[{d}x{m}] attention cores the sharded step ran: "
+                  f"{train['cores']}", flush=True)
+            if restore:
+                print(f"[{d}x{m}] a checkpoint read leaf by leaf into a "
+                      f"zeroed sharded tree: {restore['leaves']} leaves "
+                      f"({restore['sharded_leaves']} sharded), each rank's "
+                      f"shards equal to the saved arrays' slices bit for "
+                      f"bit: {restore['bit_equal']}; new tensors the size "
+                      f"of a sharded leaf on rank 0: "
+                      f"{restore['whole_made']}", flush=True)
             if times:
                 print(f"[{d}x{m}] step ms (events, median of 5; batch "
                       f"{args.lm_batch} x {args.lm_seq}, 2 microbatches): "
@@ -280,9 +336,14 @@ def lm_rank(args) -> int:
                       f"{100 * times['replay_host_share']:.1f}%; replay / "
                       f"eager {times['replay_ms'] / times['eager_ms']:.3f}; "
                       f"capture {times['capture_s']:.2f} s", flush=True)
+            if times:
+                print(f"[{d}x{m}] max_memory_reserved per rank over the "
+                      f"timed eager and replayed steps (GiB): {mem}",
+                      flush=True)
             print(json.dumps({"ok": ok, "mesh": [d, m], "rule": rule,
                               "train": train, "decode": dec,
                               "compiled": comp, "times": times,
+                              "restore": restore,
                               "noise_floor": noise, "device": str(dev)}),
                   flush=True)
         return 0 if ok else 1
@@ -298,7 +359,15 @@ def main(argv=None) -> int:
     ap.add_argument("--lm-arch", default="h2o-danube-1.8b")
     ap.add_argument("--lm-layers", type=int, default=2)
     ap.add_argument("--lm-batch", type=int, default=4)
-    ap.add_argument("--lm-seq", type=int, default=64)
+    ap.add_argument("--lm-seq", "--seq", type=int, default=64,
+                    help="tokens per row of the LM check's batch")
+    ap.add_argument("--lm-heads", type=int, nargs=2, default=None,
+                    metavar=("Q", "KV"),
+                    help="query and key/value heads of the checked config "
+                         "(heads that do not split over the model axis run "
+                         "the context-parallel core)")
+    ap.add_argument("--restore-dir", default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument("--reduced", action="store_true",
                     help="--lm at the config's reduced width")
     ap.add_argument("--timeout", type=float, default=600.0)
