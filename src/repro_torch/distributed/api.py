@@ -29,8 +29,19 @@ mesh) in these pieces:
 * blocks DTensor has no rule for on local shards (``local_map``): the
   attention and MLA cores on each rank's heads (``heads_parallel``), or
   context-parallel where the heads do not split (``context_parallel``),
-  the SSD block on each rank's heads (``models.ssm``), the decode cores
-  per batch shard, the MoE dispatch expert-parallel over the model axis.
+  the SSD block on each rank's heads (``models.ssm``), the MoE dispatch
+  expert-parallel over the model axis.
+
+Decode (``decode_plan``, entered by ``models.model.decode_step``) runs
+the reference's compiled ``serve_step`` plan with the weights resident:
+every product reads its weight where it lies (``resident_linear``:
+column-parallel on a whole input, a column output gathered first, a row
+each), and each attention core attends its caches on their own shards
+(``decode_attend``, ``CacheShard``): each rank scores its slots, and the
+softmax's partial max, sums and outputs are all-reduced over the model
+axis, as the reference's MLA plan does (its GQA plan re-lays the cache
+onto head shards by all-to-all instead); the new token is written by
+the rank that holds its slot. No cache leaf is made whole.
 """
 from __future__ import annotations
 
@@ -90,6 +101,30 @@ def activation_policy(policy: Optional[ActivationPolicy]):
         yield
     finally:
         _POLICY = prev
+
+
+_DECODE = False
+
+
+@contextlib.contextmanager
+def decode_plan():
+    """Decode's plan for the products meanwhile (``models.model.
+    decode_step`` enters it): the weights are resident and never move,
+    so a product whose input a column-parallel product left split
+    gathers that input (one token a row) instead of redistributing its
+    weight, and ``whole`` gathers the output."""
+    global _DECODE
+    prev = _DECODE
+    _DECODE = True
+    try:
+        yield
+    finally:
+        _DECODE = prev
+
+
+def in_decode() -> bool:
+    """Whether ``decode_plan`` is in force."""
+    return _DECODE
 
 
 _DTENSOR = None
@@ -195,19 +230,6 @@ def constrain_qkv(q, k, v):
             _constrain(v, P(b_ax, None, None, None)))
 
 
-def constrain_decode_q(q):
-    """Decode attention: align q's head_dim sharding with a head_dim-
-    sharded KV cache, so the scores contract per shard and only the small
-    partial scores are reduced."""
-    pol = _POLICY
-    if pol is None or not _is_dtensor(q) or q.ndim != 4 or q.shape[1] != 1:
-        return q
-    if q.shape[-1] % pol.model_divisor:
-        return q
-    return _constrain(q, P(_batch_axes(pol, q.shape[0]), None, None,
-                           "model"))
-
-
 # ---------------------------------------------------------------------------
 # Batch-sharded activations and blocks on local shards.
 # ---------------------------------------------------------------------------
@@ -306,8 +328,12 @@ def sharded_linear(x, w, b=None, whole: bool = False):
       for its group), ``w``'s out-dim kept on the model axis where the
       rules put it (else ``w`` gathered whole), the output sharded as
       that out-dim. ``whole`` gathers ``w`` instead, so the output is
-      whole (a small latent that every rank's heads read)."""
+      whole (a small latent that every rank's heads read).
+
+    Under ``decode_plan`` ``w`` stays as it lies: ``resident_linear``."""
     from torch.distributed.tensor import Shard
+    if _DECODE:
+        return resident_linear(x, w, b, whole)
     last = w.ndim - 1
     xpl, wpl = _model_pl(x), _model_pl(w)
     m = model_size(x.device_mesh)
@@ -325,6 +351,31 @@ def sharded_linear(x, w, b=None, whole: bool = False):
     if b is not None:        # the bias laid out as the output's last dim
         y = y + _on_model(b, 0 if col else None)
     return y
+
+
+def resident_linear(x, w, b=None, whole: bool = False):
+    """``x @ w (+ b)`` on a resident weight, decode's product: ``x``
+    whole on the model axis (gathered where a column-parallel product
+    left its last dim there: a few rows of one token each), ``w`` read
+    where it lies. Its out-dim on the model axis gives the output
+    sharded there; its in-dim there a partial sum, all-reduced (``x``'s
+    columns split locally to match); whole, a whole output. ``whole``
+    gathers the output."""
+    from torch.distributed.tensor import Partial, Shard
+    x = model_whole(x)
+    wpl = _model_pl(w)
+    if isinstance(wpl, Shard) and wpl.dim % w.ndim == w.ndim - 2:
+        mesh = x.device_mesh
+        x = x.redistribute(mesh, tuple(
+            Shard(x.ndim - 1) if a == "model" else p
+            for a, p in zip(mesh_axes(mesh), x.placements)))
+    y = x @ w
+    if any(isinstance(p, Partial) for p in y.placements):
+        y = batch_sharded(y)
+    if b is not None:        # the bias laid out as the output's last dim
+        out = _model_pl(y)
+        y = y + _on_model(b, 0 if isinstance(out, Shard) else None)
+    return model_whole(y) if whole else y
 
 
 def _rows_product(x, w):
@@ -594,23 +645,152 @@ def batch_sums(core, args, n_out: int):
                      (weight_grads(mesh, batch),) * n_out)
 
 
-def decode_local(core, args, caches, w_args=()):
-    """A decode block on local shards: ``core(*args, *w_args, *caches)``
-    with ``args`` batch-sharded, ``w_args`` whole and each cache leaf
-    gathered whole on its batch shard (the reference's partitioner
-    gathers a sequence-sharded cache the same way); ``core`` updates the
-    caches in place, and each
-    leaf's own shard is written back. Returns ``core``'s output,
-    batch-sharded. Runs under ``no_grad`` (decode has no backward)."""
-    from torch.distributed.tensor import DTensor
+@dataclasses.dataclass(frozen=True)
+class CacheShard:
+    """What a decode core reads of one cache leaf (B, S, ..., F) on this
+    rank, and how it combines over the model axis. ``split`` is what
+    that axis splits: "seq", this rank's slots ``lo`` .. of the ring's
+    ``slots``; "features", the last dim's ``f0`` .. ``f1``; None, nothing
+    (``WHOLE``: the plain core, every method the identity or the plain
+    op). ``seq`` is the layer's route: every leaf of the layer on its
+    slots, so the core scores only its own slots and combines its
+    softmax over the model axis (``attend``: the partial max, then the
+    partial sums and outputs, each one all-reduce). Otherwise the scores
+    are made whole (``scores``: a features split's partial sums
+    all-reduced, a slots split's gathered) and the softmax runs whole."""
+    split: Optional[str] = None
+    lo: int = 0
+    slots: int = 0               # 0: the leaf's own
+    f0: int = 0
+    f1: Optional[int] = None
+    mesh: object = None          # whose model axis splits the leaf
+    seq: bool = False
+
+    def ring(self, n: int) -> int:
+        """The ring's slots, for a leaf with ``n`` here."""
+        return self.slots or n
+
+    def slot_index(self, n: int, device) -> torch.Tensor:
+        """The ring slots the core's scores stand for."""
+        if self.seq:
+            return self.lo + torch.arange(n, device=device)
+        return torch.arange(self.ring(n), device=device)
+
+    def local(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s last dim cut to this shard's features."""
+        return t[..., self.f0:self.f1] if self.split == "features" else t
+
+    def write(self, cache: torch.Tensor, slot: torch.Tensor,
+              new: torch.Tensor) -> torch.Tensor:
+        """``new`` (B, 1, ..., F) written into ``cache`` at ring slot
+        ``slot`` (a (1,) tensor), in place: its features here, and on a
+        slots split only on the rank that holds the slot (the others
+        rewrite a slot of their own with what it holds: no host sync)."""
+        new = self.local(new).to(cache.dtype)
+        if self.split != "seq":
+            return cache.index_copy_(1, slot, new)
+        at = slot - self.lo
+        mine = ((at >= 0) & (at < cache.shape[1])).reshape(())
+        at = at.clamp(0, cache.shape[1] - 1)
+        return cache.index_copy_(1, at, torch.where(
+            mine, new, cache.index_select(1, at)))
+
+    def scores(self, s: torch.Tensor) -> torch.Tensor:
+        """Scores (B, heads.., 1, n) of this leaf's slots made whole where
+        the softmax runs whole."""
+        if self.seq or self.split is None:
+            return s
+        if self.split == "features":
+            return _over_model(s, self.mesh, "sum")
+        return _over_model(s, self.mesh, gather=s.ndim - 1)
+
+    def attend(self, s: torch.Tensor, v: torch.Tensor,
+               eq: str) -> torch.Tensor:
+        """``einsum(eq, softmax(s), v)`` over the ring, for the value leaf
+        ``v`` here and scores ``s`` (B, heads.., 1, slots); the output
+        (B, 1, heads.., F) whole on the model axis."""
+        if not self.seq:
+            w = torch.softmax(s, dim=-1)
+            if self.split == "seq":
+                w = w[..., self.lo:self.lo + v.shape[1]]
+            o = torch.einsum(eq, w.to(v.dtype), v)
+            if self.split == "seq":
+                return _over_model(o, self.mesh, "sum")
+            if self.split == "features":
+                return _over_model(o, self.mesh, gather=o.ndim - 1)
+            return o
+        # The softmax split over the ranks' slots.
+        m = _over_model(s.amax(dim=-1, keepdim=True), self.mesh, "max")
+        p = torch.exp(s - m)
+        o = torch.einsum(eq, p.to(v.dtype), v).float()
+        l = p.sum(dim=-1, keepdim=True).movedim(-2, 1)       # (B, 1, H.., 1)
+        ol = _over_model(torch.cat([o, l], dim=-1), self.mesh, "sum")
+        return (ol[..., :-1] / ol[..., -1:]).to(v.dtype)
+
+
+WHOLE = CacheShard()
+
+
+def _over_model(t: torch.Tensor, mesh, op: str = "sum",
+                gather: Optional[int] = None) -> torch.Tensor:
+    """A local ``t`` all-reduced (``op``) over ``mesh``'s model axis, or
+    with ``gather`` all-gathered there along that dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    src = Partial(op) if gather is None else Shard(gather)
+    return DTensor.from_local(
+        t, mesh, tuple(src if a == "model" else Replicate()
+                       for a in mesh_axes(mesh)), run_check=False) \
+        .redistribute(mesh, mesh_placements(mesh, False)).to_local()
+
+
+def cache_shards(caches) -> tuple:
+    """Each cache leaf's ``CacheShard`` on this rank, from its placement
+    on the model axis (``sharding.cache_shardings``: the slots, or the
+    last dim where that is the longest)."""
+    from torch.distributed.tensor import Shard
+    mesh = caches[0].device_mesh
+    m, r = model_size(mesh), model_rank(mesh)
+    out = []
+    for c in caches:
+        pl = _model_pl(c)
+        if m == 1 or not isinstance(pl, Shard):
+            out.append(WHOLE)
+            continue
+        d = pl.dim % c.ndim
+        n = c.shape[d] // m
+        if d == 1:
+            out.append(CacheShard("seq", lo=r * n, slots=c.shape[1],
+                                  mesh=mesh))
+        elif d == c.ndim - 1:
+            out.append(CacheShard("features", f0=r * n, f1=(r + 1) * n,
+                                  mesh=mesh))
+        else:
+            raise NotImplementedError(
+                f"a decode cache of shape {tuple(c.shape)} sharded on dim "
+                f"{d} over the model axis")
+    if all(s.split == "seq" for s in out):
+        out = [dataclasses.replace(s, seq=True) for s in out]
+    return tuple(out)
+
+
+def decode_attend(core, args, caches, w_args=()):
+    """A decode attention core on the caches' own shards:
+    ``core(*args, *w_args, *caches, shards)`` with ``args`` (the new
+    token's queries, keys and values: a few rows each) batch-sharded and
+    whole on the model axis, ``w_args`` whole, each cache leaf its local
+    shard as it lies (never moved) and ``shards`` their ``cache_shards``.
+    ``core`` writes the new token into its shards in place and combines
+    over the model axis through them (a split softmax where the caches
+    lie on their slots, the reference's MLA plan). Returns ``core``'s
+    output, batch-sharded and whole on the model axis. Decode has no
+    backward."""
     mesh = caches[0].device_mesh
     batch = batch_axes_of(mesh, args[0].shape[0]) is not None
     pl = mesh_placements(mesh, batch)
-    full = [c.redistribute(mesh, pl).to_local() for c in caches]
-    out = local_map(lambda *t: core(*t, *full), mesh, (*args, *w_args),
-                    [pl] * len(args)
-                    + [mesh_placements(mesh, False)] * len(w_args), pl)
-    for c, f in zip(caches, full):
-        c.to_local().copy_(DTensor.from_local(f, mesh, pl, run_check=False)
-                           .redistribute(mesh, c.placements).to_local())
-    return out
+    whole = mesh_placements(mesh, False)
+    local = [a.redistribute(mesh, pl).to_local() for a in args] + [
+        w.redistribute(mesh, whole).to_local() for w in w_args]
+    from torch.distributed.tensor import DTensor
+    out = core(*local, *(c.to_local() for c in caches),
+               cache_shards(caches))
+    return DTensor.from_local(out, mesh, pl, run_check=False)

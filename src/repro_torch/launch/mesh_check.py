@@ -11,7 +11,10 @@ array's slice, bit for bit.
 ``compiled_check`` holds the train step compiled on a mesh
 (``compile_train_step`` on ``DTensor`` state: on a card two eager passes,
 one CUDA graph, replays) to the eager sharded ``train_step``, call for
-call. Used by ``tools/check_mesh.py --lm`` (1x2, 2x1 and 2x2 meshes of
+call; ``compiled_decode_check`` holds ``compile_serve_step`` on a mesh
+to the eager sharded ``serve_step`` the same way, and to the unsharded
+decode within ``check_rule`` of its own noise (``decode_noise``). Used
+by ``tools/check_mesh.py --lm`` (1x2, 2x1 and 2x2 meshes of
 cards under torchrun, or gloo processes on the CPU), by
 ``chip_smoke.py`` (the one-rank smoke mesh on the card, and the compiled
 train step against the eager one under the same ``check_rule``) and by
@@ -33,8 +36,8 @@ from repro_torch.distributed.api import activation_policy, policy_from_mesh
 from repro_torch.distributed.sharding import (batch_shardings,
                                               cache_shardings, distribute,
                                               params_shardings)
-from repro_torch.launch.steps import (compile_train_step, make_opt_config,
-                                     serve_step, train_step)
+from repro_torch.launch.steps import (compile_serve_step, compile_train_step,
+                                     make_opt_config, serve_step, train_step)
 from repro_torch.models.model import init_cache, init_model
 from repro_torch.models.scan_util import (tree_leaves,
                                           tree_leaves_with_path, tree_map,
@@ -300,10 +303,14 @@ def check_rule(noise: Dict, min_step: float) -> Dict:
 
 
 def decode_check(mesh, cfg: ModelConfig, device, batch: int = 2,
-                 max_len: int = 32, steps: int = 3, seed: int = 0) -> Dict:
-    """``steps`` decode steps on ``mesh`` (params ``params_shardings``'
-    resident placement, the caches ``cache_shardings``') against the
-    unsharded eager steps: the logits of each and the caches after."""
+                 max_len: int = 32, steps: int = 3, seed: int = 0,
+                 start: int = 0) -> Dict:
+    """``steps`` decode steps at positions ``start``, ``start + 1``, ...
+    on ``mesh`` (params ``params_shardings``' resident placement, the
+    caches ``cache_shardings``') against the unsharded eager steps: the
+    logits of each and the caches after. A ``start`` past the ring's
+    slots wraps it (a sliding window); the slots before ``start`` hold
+    zeros on both sides."""
     dev = torch.device(device)
     params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
                         dev)
@@ -312,16 +319,121 @@ def decode_check(mesh, cfg: ModelConfig, device, batch: int = 2,
                                                    fsdp=False))
     d_cache = distribute(tree_map(torch.clone, cache),
                          cache_shardings(cache, mesh))
-    tokens = torch.arange(batch, device=dev)[:, None] % cfg.vocab + 1
-    d_tok = distribute({"t": tokens}, batch_shardings({"t": tokens},
-                                                      mesh))["t"]
     got, want = [], []
     with activation_policy(policy_from_mesh(mesh, seq_parallel=False)):
-        for pos in range(steps):
+        for pos in range(start, start + steps):
+            tokens = decode_tokens(cfg, batch, pos, dev)
+            d_tok = tokens_on(mesh, tokens)
             want.append(serve_step(params, tokens, cache, pos, cfg=cfg)[0])
             got.append(serve_step(d_params, d_tok, d_cache, pos,
                                   cfg=cfg)[0])
     return {"logits": deviation(got, want), "cache": deviation(d_cache, cache)}
+
+
+def decode_tokens(cfg: ModelConfig, batch: int, pos: int,
+                  device) -> torch.Tensor:
+    """The (B, 1) tokens of a checked decode step at ``pos``: a different
+    token in each row and step."""
+    return (torch.arange(batch, device=device)[:, None] * 7 + pos * 3
+            + 1) % cfg.vocab
+
+
+def tokens_on(mesh, tokens: torch.Tensor):
+    """``tokens`` as ``batch_shardings`` places them on ``mesh``."""
+    return distribute({"t": tokens}, batch_shardings({"t": tokens},
+                                                     mesh))["t"]
+
+
+def decode_noise(cfg: ModelConfig, device, batch: int = 4,
+                 max_len: int = 64, steps: int = 3, seed: int = 0) -> Dict:
+    """The unsharded decode's own float noise, on ``decode_check``'s
+    scale: ``steps`` unsharded steps against the same steps with the
+    batch rows reversed (``rows_reversed``; every row's arithmetic is its
+    own, so this is exact in real arithmetic) and on a card through
+    cuBLASLt (``cublaslt``). Returns ``noise_floor``'s keys."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+
+    def run(flip: bool):
+        cache = init_cache(cfg, batch, max_len, device=dev)
+        out = []
+        for pos in range(steps):
+            tokens = decode_tokens(cfg, batch, pos, dev)
+            if flip:
+                tokens = tokens.flip(0)
+            logits = serve_step(params, tokens, cache, pos, cfg=cfg)[0]
+            out.append(logits.flip(0) if flip else logits)
+        return out
+
+    ref = run(False)
+    probes = {"rows_reversed": deviation(run(True), ref)}
+    if dev.type == "cuda":
+        blas = torch.backends.cuda.preferred_blas_library()
+        torch.backends.cuda.preferred_blas_library("cublaslt")
+        try:
+            probes["cublaslt"] = deviation(run(False), ref)
+        finally:
+            torch.backends.cuda.preferred_blas_library(blas)
+    worst = max(probes.values(), key=lambda d: d["max_rel"])
+    return {"max_rel": worst["max_rel"], "worst_leaf": worst["worst_leaf"],
+            "probes": {k: v["max_rel"] for k, v in probes.items()}}
+
+
+def compiled_decode_check(mesh, cfg: ModelConfig, device, batch: int = 4,
+                          max_len: int = 64, calls: int = 3, seed: int = 0,
+                          start: int = 0) -> Dict:
+    """``compile_serve_step`` on ``mesh`` (the params resident, the
+    caches ``cache_shardings``', a (1,) position; made under
+    ``policy_from_mesh(mesh, seq_parallel=False)``) for ``calls`` calls
+    at positions ``start``, ``start + 1``, ..., against as many eager
+    sharded ``serve_step`` calls from the same params and caches, and
+    against the unsharded eager steps. On a card the first two calls are
+    the eager passes and the third captures and replays. Returns whether
+    every call's logits and the caches after are bit-equal to the eager
+    sharded steps' (``bit_equal``), their deviation from the unsharded
+    steps' (``deviation``: ``logits`` and ``cache``), whether a graph was
+    captured, and whether the owned leaves kept their placements and the
+    addresses of their local shards."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    cache = init_cache(cfg, batch, max_len, device=dev)
+    p_sh = params_shardings(params, mesh, fsdp=False)
+    c_sh = cache_shardings(cache, mesh)
+    policy = policy_from_mesh(mesh, seq_parallel=False)
+    owned = distribute((params, cache), (p_sh, c_sh))    # copies
+    feed = [(t, tokens_on(mesh, t)) for t in (
+        decode_tokens(cfg, batch, pos, dev)
+        for pos in range(start, start + calls))]
+    with activation_policy(policy):
+        step = compile_serve_step(*owned, feed[0][1], cfg=cfg)
+
+    def layout():
+        return [(t.placements, t.to_local().data_ptr()) for t in
+                tree_leaves((step.params, step.cache))]
+
+    before = layout()
+    got = [whole(step(d_tok, pos)).clone()
+           for pos, (_, d_tok) in zip(range(start, start + calls), feed)]
+    kept = layout() == before
+    got_cache = [whole(t).clone() for t in tree_leaves(step.cache)]
+    captured = step.graph is not None
+    del step, owned             # room for the eager sharded params
+    d_params = distribute(params, p_sh)
+    d_cache = distribute(tree_map(torch.clone, cache), c_sh)
+    eager, plain = [], []
+    with activation_policy(policy):
+        for pos, (tok, d_tok) in zip(range(start, start + calls), feed):
+            eager.append(whole(serve_step(d_params, d_tok, d_cache, pos,
+                                          cfg=cfg)[0]))
+            plain.append(serve_step(params, tok, cache, pos, cfg=cfg)[0])
+    equal = deviation(got, eager)["bit_equal"] and deviation(
+        got_cache, [whole(t) for t in tree_leaves(d_cache)])["bit_equal"]
+    return {"calls": calls, "bit_equal": equal,
+            "deviation": {"logits": deviation(got, plain),
+                          "cache": deviation(got_cache, tree_leaves(cache))},
+            "captured": captured, "layout_kept": kept}
 
 
 def restore_check(mesh, cfg: ModelConfig, device, directory,

@@ -12,7 +12,10 @@ same body eagerly. With ``DTensor`` params, state and batch it is the
 reference's jitted step on a mesh (``in_shardings`` / ``out_shardings``
 the leaves' placements): the graph then also records the step's
 collectives. ``launch.train`` runs every step through it, on any
-``--mesh``.
+``--mesh``. ``compile_serve_step`` is the reference's jitted
+``serve_step`` the same way: a ``CompiledServeStep`` owns the params and
+the cache, reads a static token and position, and on a card replays one
+CUDA graph of the decode step (on a mesh, with its collectives).
 
 ``train_step`` differentiates ``loss_fn`` eagerly (``torch.autograd``)
 and applies one AdamW update; its state is functional, as in the
@@ -209,7 +212,109 @@ def _microbatch(whole: Dict[str, torch.Tensor],
 WARM_PASSES = 2
 
 
-class CompiledTrainStep:
+class _CapturedStep:
+    """What a compiled step does with its ``_body`` on a card: the first
+    ``WARM_PASSES`` calls run it eagerly on a stream of its own, the
+    next captures it once as a CUDA graph (which records without
+    running) and replays it, and every later call is one ``replay()``;
+    a capture or replay that fails raises. On the CPU every call runs
+    the body eagerly."""
+
+    device: torch.device
+
+    def _init_capture(self) -> None:
+        self._stream: Optional["torch.cuda.Stream"] = None
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.calls = 0
+
+    def _body(self) -> None:
+        raise NotImplementedError
+
+    def _run(self) -> None:
+        if self.device.type != "cuda":
+            self._body()
+        elif self.graph is not None:
+            self.graph.replay()
+        elif self.calls < WARM_PASSES:
+            self._warm_pass()
+        else:
+            self._capture()
+            self.graph.replay()
+        self.calls += 1
+
+    def _warm_pass(self) -> None:
+        """One eager pass of ``_body`` on the capture stream, ordered
+        after the inputs' copy and before whatever the caller runs next."""
+        if self._stream is None:
+            # The passes allocate on a stream of their own, which cannot
+            # reuse the blocks freed on the caller's stream (the trees
+            # that ``distribute`` or a restore replaced, as large as the
+            # state): release those first, as the capture does.
+            torch.cuda.empty_cache()
+            self._stream = torch.cuda.Stream(device=self.device)
+        current = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            self._body()
+        current.wait_stream(self._stream)
+
+    def _capture(self) -> None:
+        """Record ``_body`` on the capture stream (``thread_local``: CUDA
+        forbids the calls that could break it to this thread only, so the
+        process group's watchdog may go on querying its events); nothing
+        runs. The ``cudaGraph_t`` is kept beside its instance
+        (``raw_cuda_graph``: ``chip_smoke.py`` counts its kernel nodes)."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, stream=self._stream,
+                              capture_error_mode="thread_local"):
+            self._body()
+        graph.instantiate()
+        self.graph = graph
+
+    def _static_like(self, like: torch.Tensor, what: str,
+                     dtype=None) -> torch.Tensor:
+        """The static buffer of input ``what``: ``like``'s shape (and on a
+        mesh its placements), in ``dtype`` (default ``like``'s)."""
+        dtype = dtype or like.dtype
+        if is_sharded(like) != self.sharded:
+            raise ValueError(
+                f"{what} is {_kind(like)}; the compiled step's state is "
+                f"{'on a mesh' if self.sharded else 'plain'}")
+        if not self.sharded:
+            return torch.empty(tuple(like.shape), dtype=dtype,
+                               device=self.device)
+        from torch.distributed.tensor import DTensor
+        local = like.to_local()
+        return DTensor.from_local(
+            torch.empty(tuple(local.shape), dtype=dtype, device=self.device),
+            like.device_mesh, like.placements, run_check=False,
+            shape=like.shape, stride=like.stride())
+
+    @staticmethod
+    def _load(buf: torch.Tensor, v: torch.Tensor, what: str) -> None:
+        """Copy input ``v`` into its static buffer (this rank's shard on a
+        mesh), which it must match in shape and placements."""
+        if tuple(v.shape) != tuple(buf.shape) or _layout(v) != _layout(buf):
+            raise ValueError(
+                f"{what} is {_kind(v)} {tuple(v.shape)} {_layout(v)}; the "
+                f"compiled step reads {_kind(buf)} {tuple(buf.shape)} "
+                f"{_layout(buf)}")
+        _local(buf).copy_(_local(v))
+
+
+def _owned(tree: PyTree, what: str) -> bool:
+    """Whether ``tree``'s leaves are ``DTensor``s; a tree that mixes them
+    with plain tensors raises."""
+    leaves = tree_leaves(tree)
+    sharded = is_sharded(*leaves)
+    if sharded and not all(is_sharded(t) for t in leaves):
+        raise ValueError(
+            f"{what} mix DTensor and plain leaves; place every leaf on the "
+            f"mesh (distribute) or none")
+    return sharded
+
+
+class CompiledTrainStep(_CapturedStep):
     """``compile_train_step``'s callable: ``step(batch) -> metrics``.
 
     It owns (is donated) the params and ``OptState`` trees it was made
@@ -239,47 +344,23 @@ class CompiledTrainStep:
     def __init__(self, params: PyTree, opt_state: OptState,
                  batch_like: Dict[str, torch.Tensor], cfg: ModelConfig,
                  opt_cfg: AdamWConfig, microbatches: int = 1) -> None:
-        leaves = tree_leaves((params, opt_state))
-        self.sharded = is_sharded(*leaves)
-        if self.sharded and not all(is_sharded(t) for t in leaves):
-            raise ValueError(
-                "compile_train_step: the params and optimizer state mix "
-                "DTensor and plain leaves; place every leaf on the mesh "
-                "(distribute) or none")
+        self.sharded = _owned((params, opt_state), "compile_train_step: "
+                              "the params and optimizer state")
         self.cfg, self.opt_cfg = cfg, opt_cfg
         self.microbatches = microbatches
         self.policy = current_policy()
         self._params, self._opt_state = params, opt_state
-        self.device = leaves[0].device
-        self._batch = {k: self._static_like(k, v)
-                       for k, v in batch_like.items()}
+        self.device = tree_leaves(params)[0].device
+        self._batch = {k: self._static_like(
+            v, f"batch[{k!r}]", torch.long if k == "tokens" else None)
+            for k, v in batch_like.items()}
         self._acc = None
         if microbatches > 1:
             acc_dt = getattr(torch, opt_cfg.state_dtype)
             self._acc = [torch.zeros_like(p, dtype=acc_dt)
                          for p in tree_leaves(params)]
         self._metrics: Optional[Dict[str, torch.Tensor]] = None
-        self._stream: Optional["torch.cuda.Stream"] = None
-        self.graph: Optional["torch.cuda.CUDAGraph"] = None
-        self.calls = 0
-
-    def _static_like(self, key: str, like: torch.Tensor) -> torch.Tensor:
-        """The static buffer of batch leaf ``key``: ``like``'s shape (and
-        on a mesh its placements), int64 tokens."""
-        dtype = torch.long if key == "tokens" else like.dtype
-        if is_sharded(like) != self.sharded:
-            raise ValueError(
-                f"batch[{key!r}] is {_kind(like)}; the compiled step's "
-                f"state is {'on a mesh' if self.sharded else 'plain'}")
-        if not self.sharded:
-            return torch.empty(tuple(like.shape), dtype=dtype,
-                               device=self.device)
-        from torch.distributed.tensor import DTensor
-        local = like.to_local()
-        return DTensor.from_local(
-            torch.empty(tuple(local.shape), dtype=dtype, device=self.device),
-            like.device_mesh, like.placements, run_check=False,
-            shape=like.shape, stride=like.stride())
+        self._init_capture()
 
     @property
     def params(self) -> PyTree:
@@ -324,14 +405,7 @@ class CompiledTrainStep:
             raise ValueError(f"batch has {sorted(batch)}; the compiled step "
                              f"reads {sorted(self._batch)}")
         for k, buf in self._batch.items():
-            v = batch[k]
-            if tuple(v.shape) != tuple(buf.shape) \
-                    or _layout(v) != _layout(buf):
-                raise ValueError(
-                    f"batch[{k!r}] is {_kind(v)} {tuple(v.shape)} "
-                    f"{_layout(v)}; the compiled step reads {_kind(buf)} "
-                    f"{tuple(buf.shape)} {_layout(buf)}")
-            _local(buf).copy_(_local(v))
+            self._load(buf, batch[k], f"batch[{k!r}]")
 
     def _body(self) -> None:
         """The step the graph records: gradients of the static batch,
@@ -355,46 +429,8 @@ class CompiledTrainStep:
     def __call__(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
         self._load_batch(batch)
-        if self.device.type != "cuda":
-            self._body()
-        elif self.graph is not None:
-            self.graph.replay()
-        elif self.calls < WARM_PASSES:
-            self._warm_pass()
-        else:
-            self._capture()
-            self.graph.replay()
-        self.calls += 1
+        self._run()
         return self._metrics
-
-    def _warm_pass(self) -> None:
-        """One eager pass of ``_body`` on the capture stream, ordered
-        after the batch copy and before whatever the caller runs next."""
-        if self._stream is None:
-            # The passes allocate on a stream of their own, which cannot
-            # reuse the blocks freed on the caller's stream (the trees
-            # that ``distribute`` or a restore replaced, as large as the
-            # state): release those first, as the capture does.
-            torch.cuda.empty_cache()
-            self._stream = torch.cuda.Stream(device=self.device)
-        current = torch.cuda.current_stream(self.device)
-        self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
-            self._body()
-        current.wait_stream(self._stream)
-
-    def _capture(self) -> None:
-        """Record ``_body`` on the capture stream (``thread_local``: CUDA
-        forbids the calls that could break it to this thread only, so the
-        process group's watchdog may go on querying its events); nothing
-        runs. The ``cudaGraph_t`` is kept beside its instance
-        (``raw_cuda_graph``: ``chip_smoke.py`` counts its kernel nodes)."""
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph, stream=self._stream,
-                              capture_error_mode="thread_local"):
-            self._body()
-        graph.instantiate()
-        self.graph = graph
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -441,6 +477,76 @@ def serve_step(params: PyTree, tokens: torch.Tensor, cache: PyTree,
     """One decode step: new token for every sequence in the batch."""
     with torch.no_grad(), _on_mesh(params):
         return decode_step(params, tokens, cache, pos, cfg)
+
+
+class CompiledServeStep(_CapturedStep):
+    """``compile_serve_step``'s callable: ``step(tokens, pos) -> logits``.
+
+    It owns the params and the cache it was made with (``.params``,
+    ``.cache``): each call copies ``tokens`` (B, 1) into a static buffer
+    and ``pos`` into a static (1,) position, runs ``serve_step``, which
+    writes the new token into the cache in place, and returns the static
+    (B, vocab) logits, overwritten by the next call. On a card the calls
+    go as ``_CapturedStep`` says. On a mesh every leaf is a ``DTensor``
+    (the params resident, the cache as ``cache_shardings`` places it),
+    the token buffer has the placements of ``tokens_like``, the position
+    is a plain tensor on the rank's card, the logits come back as
+    ``serve_step``'s (batch-sharded), and the body runs under the
+    activation policy installed when the step was made; the warm passes
+    make every communicator the collectives use."""
+
+    def __init__(self, params: PyTree, cache: PyTree,
+                 tokens_like: torch.Tensor, cfg: ModelConfig) -> None:
+        self.sharded = _owned((params, cache),
+                              "compile_serve_step: the params and cache")
+        self.cfg = cfg
+        self.policy = current_policy()
+        self._params, self._cache = params, cache
+        self.device = tree_leaves(params)[0].device
+        self._tokens = self._static_like(tokens_like, "tokens", torch.long)
+        self._pos = torch.zeros((1,), dtype=torch.long, device=self.device)
+        self._logits: Optional[torch.Tensor] = None
+        self._init_capture()
+
+    @property
+    def params(self) -> PyTree:
+        return self._params
+
+    @property
+    def cache(self) -> PyTree:
+        return self._cache
+
+    def _body(self) -> None:
+        """The step the graph records: ``serve_step`` on the static token
+        and position buffers, its logits copied into their static
+        tensor."""
+        with activation_policy(self.policy):
+            logits, _ = serve_step(self._params, self._tokens, self._cache,
+                                   self._pos, cfg=self.cfg)
+        if self._logits is None:
+            self._logits = torch.empty_like(logits)
+        with torch.no_grad():
+            _local(self._logits).copy_(_local(logits))
+
+    @torch.no_grad()
+    def __call__(self, tokens: torch.Tensor, pos) -> torch.Tensor:
+        self._load(self._tokens, tokens, "tokens")
+        self._pos.copy_(torch.as_tensor(pos, dtype=torch.long).reshape(1))
+        self._run()
+        return self._logits
+
+
+def compile_serve_step(params: PyTree, cache: PyTree,
+                       tokens_like: torch.Tensor, *,
+                       cfg: ModelConfig) -> CompiledServeStep:
+    """The reference's ``jax.jit(serve_step, in_shardings=...,
+    out_shardings=...)``: a ``CompiledServeStep`` that owns ``params``
+    and ``cache`` (plain tensors on one device, or every leaf a
+    ``DTensor`` on an LM mesh) and reads tokens shaped and placed like
+    ``tokens_like``. Call it under the activation policy its steps run
+    in: the step keeps the one installed when it is made. Each call is
+    one ``serve_step`` on the owned cache, bit for bit."""
+    return CompiledServeStep(params, cache, tokens_like, cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,12 @@ per-head decompressions) are column-parallel products, their heads on
 the model axis, the attention cores run on each rank's heads
 (``distributed.api.heads_parallel``; context-parallel over the model
 axis where the heads do not split), and the output projection is
-row-parallel. Decode runs on each batch shard with the cache gathered and
-its own shard written back.
+row-parallel. Decode (``distributed.api.decode_plan``) reads every weight
+where it lies and attends each cache on its own shards
+(``distributed.api.decode_attend``): ``_decode_core`` and
+``_mla_latent_attend`` take each leaf's ``CacheShard``, whose ops are the
+plain ones off the mesh; MLA's absorbed products run on each rank's heads
+(``heads_parallel``) around it.
 """
 from __future__ import annotations
 
@@ -25,11 +29,11 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.api import (constrain_qkv, context_parallel,
-                                         decode_local, heads_parallel,
-                                         heads_split, is_sharded,
-                                         last_dim_on_model, model_whole,
-                                         split_heads)
+from repro_torch.distributed.api import (WHOLE, constrain_qkv,
+                                         context_parallel, decode_attend,
+                                         heads_parallel, heads_split,
+                                         is_sharded, last_dim_on_model,
+                                         model_whole, split_heads)
 from repro_torch.models.layers import Params, apply_rope, init_linear, linear
 
 NEG_INF = -1e30
@@ -239,9 +243,9 @@ def attention_decode(p: Params, x: torch.Tensor,
     q = apply_rope(q, pos, cfg.rope_theta)
     k_new = apply_rope(k_new, pos, cfg.rope_theta)
     if is_sharded(q):
-        o = decode_local(
-            lambda q_, k_, v_, ck, cv: _decode_core(q_, k_, v_, ck, cv, pos,
-                                                     cfg),
+        o = decode_attend(
+            lambda q_, k_, v_, ck, cv, parts: _decode_core(
+                q_, k_, v_, ck, cv, pos, cfg, parts),
             (q, k_new, v_new), (cache["k"], cache["v"]))
     else:
         o = _decode_core(q, k_new, v_new, cache["k"], cache["v"], pos, cfg)
@@ -251,33 +255,35 @@ def attention_decode(p: Params, x: torch.Tensor,
 
 def _decode_core(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
                  cache_k: torch.Tensor, cache_v: torch.Tensor,
-                 pos: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                 pos: torch.Tensor, cfg: ModelConfig,
+                 parts=(WHOLE, WHOLE)) -> torch.Tensor:
     """The new key and value written into the ring buffer at ``pos``
-    (in place), then q attends over it: (B, 1, H, D)."""
+    (in place), then q attends over it: (B, 1, H, D). ``parts`` are the
+    caches' ``CacheShard``s: on a mesh each rank's shards of the ring,
+    whose ops combine over the model axis (``distributed.api.
+    decode_attend``); whole, the plain ops."""
+    pk, pv = parts
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    s_cache = cache_k.shape[1]
+    s_cache = pk.ring(cache_k.shape[1])
     slot = pos % s_cache                # ring buffer (wraps only for SWA)
-    k = cache_k.index_copy_(1, slot, k_new.to(cache_k.dtype))
-    v = cache_v.index_copy_(1, slot, v_new.to(cache_v.dtype))
+    k = pk.write(cache_k, slot, k_new)
+    v = pv.write(cache_v, slot, v_new)
 
     # Positions of cache slots (ring-aware): slot i holds token
     # pos - ((slot - i) mod S) for filled slots.
-    idx = torch.arange(s_cache, device=q.device)
+    idx = pk.slot_index(cache_k.shape[1], q.device)
     tok_pos = pos - (slot - idx) % s_cache
     valid = tok_pos >= 0
-    if h // kvh > 1:
-        k_r = torch.repeat_interleave(k, h // kvh, dim=2)
-        v_r = torch.repeat_interleave(v, h // kvh, dim=2)
-    else:
-        k_r, v_r = k, v
+    # Each kv head's query heads as a group: the keys and values are read
+    # as they lie, never repeated per query head.
     scale = hd ** -0.5
-    s_ = _f32_einsum("bqhd,bkhd->bhqk", q * scale, k_r)
+    qg = (pk.local(q) * scale).unflatten(2, (kvh, h // kvh))
+    s_ = pk.scores(_f32_einsum("bqgrd,bkgd->bgrqk", qg, k))
     msk = ~valid
     if cfg.sliding_window > 0:
         msk = msk | (pos - tok_pos >= cfg.sliding_window)
-    s_ = torch.where(msk[None, None, None, :], NEG_INF, s_)
-    w_ = torch.softmax(s_, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", w_.to(v_r.dtype), v_r)
+    s_ = torch.where(msk, NEG_INF, s_)
+    return pv.attend(s_, v, "bgrqk,bkgd->bqgrd").flatten(2, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -372,37 +378,76 @@ def _mla_decode(p: Params, x: torch.Tensor, cache, pos, cfg: ModelConfig):
     c_new, kr_new = ckv_full[..., :m.kv_lora_rank], \
         ckv_full[..., m.kv_lora_rank:]
     kr_new = apply_rope(kr_new[..., None, :], pos, cfg.rope_theta)[..., 0, :]
-    if is_sharded(q_nope):
-        o = decode_local(
-            lambda qn, qr, cn, kn, wk, wv, ck, kr: _mla_decode_core(
-                qn, qr, cn, kn, wk, wv, ck, kr, pos, cfg),
-            (q_nope, q_rope, c_new, kr_new), (cache["c_kv"], cache["k_rope"]),
-            (p["w_uk"]["w"], p["w_uv"]["w"]))
+    caches = (cache["c_kv"], cache["k_rope"])
+    w_uk, w_uv = p["w_uk"]["w"], p["w_uv"]["w"]
+    if is_sharded(q_nope) and heads_split(q_nope) \
+            and last_dim_on_model(w_uk) and last_dim_on_model(w_uv):
+        # Each rank's heads through its columns of the decompressions;
+        # every head against each rank's slots of the latent cache.
+        q_abs = heads_parallel(lambda h0, qn, wk: _mla_absorb(qn, wk, cfg),
+                               q_nope, (), (w_uk,))
+        o_lat = decode_attend(
+            lambda qa, qr, cn, kn, cc, cr, parts: _mla_latent_attend(
+                qa, qr, cn, kn, cc, cr, pos, cfg, parts),
+            (q_abs, q_rope, c_new, kr_new), caches)
+        o = heads_parallel(lambda h0, ol, wv: _mla_expand(ol, wv, cfg),
+                           o_lat, (), (w_uv,))
+    elif is_sharded(q_nope):
+        # Heads that do not split over the model axis: the
+        # decompressions read whole.
+        o = decode_attend(
+            lambda qn, qr, cn, kn, wk, wv, cc, cr, parts: _mla_decode_core(
+                qn, qr, cn, kn, wk, wv, cc, cr, pos, cfg, parts),
+            (q_nope, q_rope, c_new, kr_new), caches, (w_uk, w_uv))
     else:
-        o = _mla_decode_core(q_nope, q_rope, c_new, kr_new, p["w_uk"]["w"],
-                             p["w_uv"]["w"], cache["c_kv"], cache["k_rope"],
-                             pos, cfg)
+        o = _mla_decode_core(q_nope, q_rope, c_new, kr_new, w_uk, w_uv,
+                             *caches, pos, cfg)
     out = linear(p["wo"], o.reshape(b, 1, cfg.n_heads * m.v_dim))
     return out, cache
 
 
 def _mla_decode_core(q_nope, q_rope, c_new, kr_new, w_uk, w_uv, cache_c,
-                     cache_r, pos: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cache_r, pos: torch.Tensor, cfg: ModelConfig,
+                     parts=(WHOLE, WHOLE)) -> torch.Tensor:
     """The latent and rope key written at ``pos`` (in place), then the
-    absorbed-matmul attention over the latent cache: (B, 1, H, v_dim)."""
+    absorbed-matmul attention over the latent cache: (B, 1, H, v_dim).
+    ``parts`` as ``_decode_core``'s."""
+    q_abs = _mla_absorb(q_nope, w_uk, cfg)                # (B,1,H,kv_lora)
+    o_lat = _mla_latent_attend(q_abs, q_rope, c_new, kr_new, cache_c,
+                               cache_r, pos, cfg, parts)
+    return _mla_expand(o_lat, w_uv, cfg)
+
+
+def _mla_absorb(q_nope, w_uk, cfg: ModelConfig) -> torch.Tensor:
+    """q̃ = W_uk^T q_nope for the heads of ``q_nope`` (``w_uk``'s columns
+    of those heads): (B, 1, H, kv_lora)."""
     m = cfg.mla
-    s_cache = cache_c.shape[1]
-    c_kv = cache_c.index_copy_(1, pos, c_new.to(cache_c.dtype))
-    k_rope = cache_r.index_copy_(1, pos, kr_new.to(cache_r.dtype))
-    w_uk = w_uk.reshape(m.kv_lora_rank, cfg.n_heads, m.qk_nope_dim)
-    w_uv = w_uv.reshape(m.kv_lora_rank, cfg.n_heads, m.v_dim)
-    q_abs = torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)   # (B,1,H,kv_lora)
-    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
-    s_ = (_f32_einsum("bqhl,bkl->bhqk", q_abs, c_kv)
-          + _f32_einsum("bqhd,bkd->bhqk", q_rope, k_rope)) * scale
-    valid = torch.arange(s_cache, device=q_nope.device) <= pos
-    s_ = torch.where(~valid[None, None, None, :], NEG_INF, s_)
-    w_ = torch.softmax(s_, dim=-1)
-    o_lat = torch.einsum("bhqk,bkl->bqhl", w_.to(c_kv.dtype), c_kv)
+    w_uk = w_uk.reshape(m.kv_lora_rank, -1, m.qk_nope_dim)
+    return torch.einsum("bqhd,lhd->bqhl", q_nope, w_uk)
+
+
+def _mla_expand(o_lat, w_uv, cfg: ModelConfig) -> torch.Tensor:
+    """The latent outputs (B, 1, H, kv_lora) through ``w_uv``'s columns of
+    the same heads: (B, 1, H, v_dim)."""
+    m = cfg.mla
+    w_uv = w_uv.reshape(m.kv_lora_rank, -1, m.v_dim)
     return torch.einsum("bqhl,lhd->bqhd", o_lat, w_uv)
+
+
+def _mla_latent_attend(q_abs, q_rope, c_new, kr_new, cache_c, cache_r,
+                       pos: torch.Tensor, cfg: ModelConfig,
+                       parts=(WHOLE, WHOLE)) -> torch.Tensor:
+    """The latent and rope key written at ``pos`` (in place), then every
+    head of ``q_abs`` and ``q_rope`` over the latent cache: (B, 1, H,
+    kv_lora)."""
+    m = cfg.mla
+    pc, pr = parts
+    c_kv = pc.write(cache_c, pos, c_new)
+    k_rope = pr.write(cache_r, pos, kr_new)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    s_ = (pc.scores(_f32_einsum("bqhl,bkl->bhqk", pc.local(q_abs), c_kv))
+          + pr.scores(_f32_einsum("bqhd,bkd->bhqk", pr.local(q_rope),
+                                  k_rope))) * scale
+    valid = pc.slot_index(cache_c.shape[1], q_abs.device) <= pos
+    s_ = torch.where(~valid[None, None, None, :], NEG_INF, s_)
+    return pc.attend(s_, c_kv, "bhqk,bkl->bqhl")

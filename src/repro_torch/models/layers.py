@@ -126,7 +126,8 @@ def _embed_sharded(table, tokens):
     """The vocab-parallel lookup: with the vocab on the model axis, each
     model rank reads the tokens in its slice (the rest masked to zero)
     and the ranks' rows are summed; the table is never gathered over the
-    model axis (its rows are over the data axis)."""
+    model axis (its rows are over the data axis). In decode a table whose
+    d lies there (a vocab that does not divide) is read on its columns."""
     from torch.distributed.tensor import Partial, Shard
     mesh = table.device_mesh
     v, m = table.shape[0], api.model_size(mesh)
@@ -142,6 +143,14 @@ def _embed_sharded(table, tokens):
         return rows * mine[..., None].to(rows.dtype)
 
     vocab = Shard(0) if split else None
+    if not split and api.in_decode() and api.last_dim_on_model(table):
+        # Decode: each rank's columns of the rows, gathered (a row a
+        # token), never the resident table.
+        out = api.local_map(lambda tab, tok: tab[tok], mesh, (table, tokens),
+                            [api.mesh_placements(mesh, False, Shard(1)),
+                             api.mesh_placements(mesh, batch)],
+                            api.mesh_placements(mesh, batch, Shard(2)))
+        return api.batch_sharded(out)
     out = api.local_map(
         lookup, mesh, (table, tokens),
         [api.mesh_placements(mesh, False, vocab),
@@ -155,5 +164,9 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 for a stable softmax-CE. On a mesh they are
     vocab-sharded over the model axis where the table's vocab is
     (``api.vocab_table``), from ``x`` whole there."""
+    if api.is_sharded(x) and api.in_decode():
+        # The resident table as it lies: its vocab or its d on the model
+        # axis (a vocab that does not divide), never gathered.
+        return api.resident_linear(x.float(), p["table"].T.float())
     table = api.vocab_table(p["table"])
     return api.model_whole(x).float() @ table.T.float()

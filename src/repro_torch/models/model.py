@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockType, ModelConfig
 from repro_torch.distributed.api import (batch_sharded, batch_sums,
-                                         constrain_residual,
+                                         constrain_residual, decode_plan,
                                          gather_layer_params, is_sharded,
                                          last_dim_on_model, model_whole,
                                          residual_out, vocab_ce_sums,
@@ -354,7 +354,7 @@ def _decode_attn_block(lp: Params, x: torch.Tensor, ac, pos,
                        cfg: ModelConfig) -> torch.Tensor:
     def ffn(h):
         return mlp(lp["mlp"], h) if "mlp" in lp \
-            else moe_ffn(lp["moe"], h, cfg)[0]
+            else moe_ffn(lp["moe"], h, cfg, aux=False)[0]
 
     h = rmsnorm(lp["ln_attn"], x, cfg.norm_eps)
     ao = residual_out(A.attention_decode(lp["attn"], h, ac, pos, cfg)[0])
@@ -376,7 +376,15 @@ def decode_step(params: PyTree, tokens: torch.Tensor, cache: PyTree, pos,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, PyTree]:
     """tokens: (B, 1) — one new token per sequence; pos: count of tokens
     already in the cache (an int or a 0-d tensor). Returns (logits
-    (B, vocab), cache), the cache updated in place."""
+    (B, vocab), cache), the cache updated in place. On a mesh the weights
+    stay where they lie (``distributed.api.decode_plan``) and each layer
+    attends its caches on their own shards."""
+    with decode_plan():
+        return _decode_step(params, tokens, cache, pos, cfg)
+
+
+def _decode_step(params: PyTree, tokens: torch.Tensor, cache: PyTree, pos,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, PyTree]:
     x = embed(params["embed"], tokens)
     pos = A.position_tensor(pos, x.device)        # one copy per step
     layers = params["layers"]

@@ -72,11 +72,17 @@ def _router(router_w: torch.Tensor, xt: torch.Tensor, mo):
     """Per-token routing: (gates (…,k), experts (…,k), probs (…,E),
     logits (…,E))."""
     logits = xt.float() @ router_w
+    return (*_route(logits, mo), logits)
+
+
+def _route(logits: torch.Tensor, mo):
+    """Top-k of the router's ``logits``: (gates (…,k), experts (…,k),
+    probs (…,E))."""
     probs = torch.softmax(logits, dim=-1)
     topg, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topg, topi = topg[..., :mo.top_k], topi[..., :mo.top_k]
     topg = topg / torch.clamp_min(topg.sum(-1, keepdim=True), 1e-9)
-    return topg, topi, probs, logits
+    return topg, topi, probs
 
 
 def _aux_stats(probs: torch.Tensor, topi: torch.Tensor,
@@ -101,10 +107,11 @@ def _aux(me: torch.Tensor, sel: torch.Tensor, zl: torch.Tensor,
 # Sort-based dispatch (default).
 # ---------------------------------------------------------------------------
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, aux: bool = True
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d). Routing groups are sequence rows, so every gather
-    stays within one row."""
+    stays within one row. ``aux=False`` (decode) skips the aux losses:
+    ``{}`` in their place."""
     mo = cfg.moe
     x = api.batch_sharded(x)        # rows whole: routing groups are rows
     weights = (p["router"]["w"], p["w_gate"], p["w_up"], p["w_down"])
@@ -115,14 +122,16 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
     y = y.to(x.dtype)
     if "shared" in p:
         y = y + mlp(p["shared"], x)
-    return y, _aux(me, sel, zl, mo)
+    return y, (_aux(me, sel, zl, mo) if aux else {})
 
 
 def _moe_sharded(x: torch.Tensor, weights, mo):
     """``_dispatch`` on local shards: rows on the data axes, experts on
     the model axis when it divides them. (y, a partial sum over the model
     axis where the experts split, and the three router statistics, each
-    a DTensor.)"""
+    a DTensor.) In decode (``api.decode_plan``) the router's logits are
+    its resident product, gathered (a few rows of E each), so the
+    router's weight is never moved."""
     from torch.distributed.tensor import Partial, Shard
     mesh = x.device_mesh
     batch = api.batch_axes_of(mesh, x.shape[0]) is not None
@@ -139,15 +148,22 @@ def _moe_sharded(x: torch.Tensor, weights, mo):
     experts = Shard(0) if split else None
     w_pl = api.mesh_placements(mesh, False, experts)
     w_grad = api.weight_grads(mesh, batch, experts)
+    rows = api.mesh_placements(mesh, batch)
+    decode = api.in_decode()
+    if decode:
+        route = api.resident_linear(x.float(), weights[0], whole=True)
+        route_pl = rows
+    else:
+        route, route_pl = weights[0], api.mesh_placements(mesh, False)
 
     def core(x_, r_, g_, u_, d_):
-        y, (me, sel, zl) = _dispatch(x_, r_, g_, u_, d_, e0, mo)
+        y, (me, sel, zl) = _dispatch(x_, None if decode else r_, g_, u_, d_,
+                                     e0, mo, logits=r_ if decode else None)
         return y, me / n_part, sel / n_part, zl / n_part
 
     y, me, sel, zl = api.local_map(
-        core, mesh, (x, *weights),
-        [api.mesh_placements(mesh, batch), api.mesh_placements(mesh, False),
-         w_pl, w_pl, w_pl],
+        core, mesh, (x, route, *weights[1:]),
+        [rows, route_pl, w_pl, w_pl, w_pl],
         (api.mesh_placements(mesh, batch, Partial() if split else None),
          part, part, part),
         [api.mesh_placements(mesh, batch, Partial() if split else None),
@@ -156,16 +172,20 @@ def _moe_sharded(x: torch.Tensor, weights, mo):
 
 
 def _dispatch(x: torch.Tensor, router_w, w_gate, w_up, w_down, e0: int,
-              mo):
-    """Route every token of ``x`` (B, S, d) and run experts ``[e0, e0 +
-    E_local)`` (the leading dim of ``w_gate``): (their summed outputs
+              mo, logits=None):
+    """Route every token of ``x`` (B, S, d) (by ``router_w``, or by the
+    router's ``logits`` where they are given) and run experts ``[e0, e0
+    + E_local)`` (the leading dim of ``w_gate``): (their summed outputs
     (B, S, d), the router statistics of ``_aux_stats``)."""
     b, s, d = x.shape
     k, e = mo.top_k, mo.n_experts
     cap = _capacity(s, mo)
     dev = x.device
 
-    topg, topi, probs, logits = _router(router_w, x, mo)  # (B,S,k)×2, (B,S,E)
+    if logits is None:                    # (B,S,k)×2, (B,S,E)×2
+        topg, topi, probs, logits = _router(router_w, x, mo)
+    else:
+        topg, topi, probs = _route(logits, mo)
 
     # Flatten routed copies within each row: (B, S·k).
     flat_e = topi.reshape(b, s * k)

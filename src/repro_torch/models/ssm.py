@@ -12,9 +12,12 @@ contiguously, which does not align with the head groups, so its weight
 is gathered whole and sliced), runs the causal conv on its channels and
 ``ssd_chunked`` on its heads, and the gated RMS norm over d_in reduces
 its mean of squares over the model axis; ``out_proj`` is row-parallel.
-Where the heads do not split over the model axis, and in decode, the
-block between the two projections runs on each batch shard
-(``distributed.api.batch_local`` / ``decode_local``).
+Where the heads do not split over the model axis the block between the
+two projections runs on each batch shard (``distributed.api.
+batch_local``). Decode (``_mamba_step_sharded``) updates each state on
+the shards ``cache_shardings`` gives it, with the inner params as they
+lie: ``_conv_step`` on the rank's channels, ``_ssm_step`` on its shard of
+the SSD state, its read-out C·h reduced over the model axis.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import api
-from repro_torch.distributed.api import batch_local, decode_local, is_sharded
+from repro_torch.distributed.api import batch_local, is_sharded
+from repro_torch.distributed.sharding import shard_slices
 from repro_torch.models.layers import Params, init_linear, linear, rmsnorm
 
 
@@ -235,9 +239,7 @@ def mamba_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
     """x: (B, 1, d); O(1) state update, written into ``cache``."""
     zxbcdt = linear(p["in_proj"], x[:, 0])
     if is_sharded(zxbcdt):
-        y = decode_local(
-            lambda t, *rest: _mamba_step(t, *rest, cfg), (zxbcdt,),
-            (cache["conv"], cache["ssm"]), _inner_params(p))
+        y = _mamba_step_sharded(p, zxbcdt, cache["conv"], cache["ssm"], cfg)
     else:
         y = _mamba_step(zxbcdt, *_inner_params(p), cache["conv"],
                         cache["ssm"], cfg)
@@ -251,24 +253,109 @@ def _mamba_step(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale,
     s, d_in, nh, _ = _dims(cfg)
     bsz = zxbcdt.shape[0]
     z, xin, b_in, c_in, dt = _split_proj(zxbcdt, s, d_in, nh)
-    xbc = torch.cat([xin, b_in, c_in], dim=-1)              # (B, conv_ch)
+    conv = _conv_step(torch.cat([xin, b_in, c_in], dim=-1), conv_state,
+                      conv_w, conv_b)
+    xin, b_in, c_in = torch.split(conv, [d_in, s.state_dim, s.state_dim],
+                                  dim=-1)
+    xh = xin.reshape(bsz, nh, s.head_dim)
+    y = _ssm_step(xh, b_in, c_in, dt, dt_bias, a_log, ssm_state) \
+        + xh * d_skip[None, :, None]
+    y = y.reshape(bsz, 1, d_in).to(zxbcdt.dtype)
+    return rmsnorm({"scale": norm_scale}, y * F.silu(z[:, None]))
+
+
+def _conv_step(xbc, conv_state, conv_w, conv_b) -> torch.Tensor:
+    """The causal conv's step over the channels of ``xbc`` (B, ch): the
+    window ``conv_state`` (B, W - 1, ch) shifted by ``xbc`` in place, and
+    the conv's silu'd output (B, ch), f32."""
     hist = torch.cat([conv_state, xbc[:, None].to(conv_state.dtype)], dim=1)
     w = conv_w.float()
     conv = torch.einsum("bwc,wc->bc", hist.float(), w)
-    conv = F.silu(conv + conv_b.float())
-    xin, b_in, c_in = torch.split(conv, [d_in, s.state_dim, s.state_dim],
-                                  dim=-1)
+    conv_state.copy_(hist[:, 1:])
+    return F.silu(conv + conv_b.float())
 
+
+def _ssm_step(xh, b_in, c_in, dt, dt_bias, a_log, ssm_state) -> torch.Tensor:
+    """The SSD state (B, H, P, N) advanced by one token in place (``xh``
+    (B, H, P), ``b_in``/``c_in`` (B, N), ``dt`` (B, H) before its bias),
+    and its read-out C·h (B, H, P), without the skip."""
     dt1 = F.softplus(dt.float() + dt_bias)                  # (B,H)
     a = -torch.exp(a_log)
     da = torch.exp(dt1 * a)                                 # (B,H)
-    xh = xin.reshape(bsz, nh, s.head_dim)
     ssm = ssm_state * da[..., None, None] \
         + torch.einsum("bhp,bn,bh->bhpn", xh, b_in, dt1)
-    y = torch.einsum("bhpn,bn->bhp", ssm, c_in) \
-        + xh * d_skip[None, :, None]
-    y = y.reshape(bsz, 1, d_in).to(zxbcdt.dtype)
-    y = rmsnorm({"scale": norm_scale}, y * F.silu(z[:, None]))
-    conv_state.copy_(hist[:, 1:])
     ssm_state.copy_(ssm)
-    return y
+    return torch.einsum("bhpn,bn->bhp", ssm, c_in)
+
+
+def _mamba_step_sharded(p: Params, zxbcdt, conv_state, ssm_state,
+                        cfg: ModelConfig):
+    """``_mamba_step`` on the states' own shards (``sharding.
+    cache_shardings``: the conv window on its channels over the model
+    axis, the SSD state on its longest dim there) and the inner params
+    as they lie: ``zxbcdt`` (the in-projection's column-parallel output,
+    a few rows) gathered whole; each rank's conv over its channels;
+    those outputs gathered whole (over the rows the SSD shard holds);
+    the SSD shard's update, its read-out C·h a partial sum where the
+    state dim is split, reduced over the model axis; the gated norm over
+    the norm scale's shards (its row sums all-reduced). Returns the
+    (B, 1, d_in) input of the out-projection, batch-sharded."""
+    from torch.distributed.tensor import DTensor, Partial, Shard
+    s, d_in, nh, _ = _dims(cfg)
+    n = s.state_dim
+    mesh = zxbcdt.device_mesh
+    bsz = zxbcdt.shape[0]
+    batch = api.batch_axes_of(mesh, bsz) is not None
+    rows = api.mesh_placements(mesh, batch)
+    z, xin, b_in, c_in, dt = _split_proj(
+        zxbcdt.redistribute(mesh, rows).to_local(), s, d_in, nh)
+    ch = shard_slices(conv_state.shape, conv_state.placements, mesh)[-1]
+    conv = _conv_step(torch.cat([xin, b_in, c_in], dim=-1)[:, ch],
+                      conv_state.to_local(), _param_piece(p["conv_w"], ch),
+                      _param_piece(p["conv_b"], ch))
+    split = ch.stop - ch.start < conv_state.shape[-1]
+    conv = DTensor.from_local(conv, mesh, api.mesh_placements(
+        mesh, batch, Shard(1) if split else None), run_check=False) \
+        .redistribute(mesh, rows)
+    # The rows the SSD shard holds: from this rank's batch shard where
+    # it holds them, else from every row.
+    sl = shard_slices(ssm_state.shape, ssm_state.placements, mesh)
+    act = shard_slices((bsz,), rows, mesh)[0]
+    conv_r, dt_r, off = conv.to_local(), dt, act.start
+    if not act.start <= sl[0].start <= sl[0].stop <= act.stop:
+        whole = api.mesh_placements(mesh, False)
+        conv_r = conv.redistribute(mesh, whole).to_local()
+        dt_r = DTensor.from_local(dt, mesh, rows, run_check=False) \
+            .redistribute(mesh, whole).to_local()
+        off = 0
+    r = slice(sl[0].start - off, sl[0].stop - off)
+    conv_r, dt_r = conv_r[r], dt_r[r]
+    xs, bs, cs = torch.split(conv_r, [d_in, n, n], dim=-1)
+    xh = xs.reshape(xs.shape[0], nh, s.head_dim)[:, sl[1], sl[2]]
+    y = _ssm_step(xh, bs[:, sl[3]], cs[:, sl[3]], dt_r[:, sl[1]],
+                  _param_piece(p["dt_bias"], sl[1]),
+                  _param_piece(p["a_log"], sl[1]), ssm_state.to_local())
+    y = DTensor.from_local(y, mesh, tuple(
+        Partial() if isinstance(pl, Shard) and pl.dim == 3 else pl
+        for pl in ssm_state.placements), run_check=False) \
+        .redistribute(mesh, rows).to_local()
+    xin = conv.to_local()[:, :d_in].reshape(-1, nh, s.head_dim)
+    y = y + xin * _param_piece(p["d_skip"], slice(0, nh))[None, :, None]
+    y = y.reshape(-1, 1, d_in).to(zxbcdt.dtype) * F.silu(z[:, None])
+    y = DTensor.from_local(y, mesh, rows, run_check=False)
+    scale = p["norm"]["scale"]
+    if api.last_dim_on_model(scale):
+        y = y.redistribute(mesh, api.mesh_placements(mesh, batch,
+                                                     Shard(2)))
+    return rmsnorm(p["norm"], y)
+
+
+def _param_piece(w, sl: slice) -> torch.Tensor:
+    """Columns ``sl`` (of the whole last dim) of a resident param,
+    read from this rank's shard, which must hold them."""
+    lo = shard_slices(w.shape, w.placements, w.device_mesh)[-1].start
+    if sl.start < lo or sl.stop - lo > w.to_local().shape[-1]:
+        raise NotImplementedError(
+            f"columns {sl.start}:{sl.stop} of a param of shape "
+            f"{tuple(w.shape)} lie outside this rank's shard")
+    return w.to_local()[..., sl.start - lo:sl.stop - lo]

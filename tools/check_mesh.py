@@ -9,6 +9,8 @@ and with ``--lm`` the LM (data, model) mesh.
     python3 tools/check_mesh.py --lm --lm-mesh 1x2 2x1 2x2   # 4 cards
     PYTHONPATH=src python tools/check_mesh.py --lm --device cpu --reduced \\
         --lm-mesh 2x2                              # 4 gloo processes
+    python3 tools/check_mesh.py --lm --lm-decode-only --lm-mesh 1x2 2x2 \\
+        --lm-decode h2o-danube-1.8b:4096:4094 deepseek-v2-236b:32768
 
 ``--lm``: for each (data, model) mesh asked for, the script launches
 itself under ``torchrun --nproc-per-node data*model`` (NCCL on the cards,
@@ -28,7 +30,18 @@ steps: bit-equal, or within the same rule (the line says which). On the
 cards it times the eager sharded step and the replayed one (CUDA events,
 median of 5) and reads each one's compute and NCCL kernel time (the
 profiler's; an NCCL kernel's holds its wait for the other ranks) and
-host share (1 - compute / step). With fewer cards
+host share (1 - compute / step). ``--lm-decode arch:cache[:start]``
+adds, per mesh, the decode step of each ``arch`` (f32, ``--lm-layers``,
+batch ``--lm-batch``, a cache of ``cache`` slots; ``decode_report``):
+``serve_step`` compiled on the mesh (``mesh_check.
+compiled_decode_check``: on the cards one CUDA graph with the step's
+collectives) bit-equal to the eager sharded decode over three steps
+from ``start``, and within ``check_rule`` of the unsharded decode's own
+float noise; on the cards the eager and the replayed step's ms (events,
+median of 5), compute and NCCL kernel ms and every rank's
+``max_memory_reserved``. ``--lm-decode-only`` skips the train step;
+``--src`` imports another source tree (a parent's: only timed, as is
+every tree under ``--times-only``). With fewer cards
 than the mesh needs it says so and exits 2; it never runs a smaller mesh
 in place of the one asked for.
 
@@ -96,7 +109,8 @@ def lm_main(args) -> int:
         while j < len(argv) and not argv[j].startswith("--"):
             j += 1
         argv[i:j] = ["--lm-mesh", shape]
-        print(f"[{shape}] " + dryrun_line(args, d, m), flush=True)
+        if not args.lm_decode_only:
+            print(f"[{shape}] " + dryrun_line(args, d, m), flush=True)
         with tempfile.TemporaryDirectory() as tmp:
             cmd = [sys.executable, "-m", "torch.distributed.run",
                    "--standalone", "--nproc-per-node", str(d * m), __file__,
@@ -123,7 +137,7 @@ def dryrun_line(args, d: int, m: int) -> str:
     """The dry run's counts of the checked step on a fake (d, m) group
     (``launch.dryrun.trace_step``: no card), this process being rank 0:
     collective bytes per rank by op, their counts, and the peak."""
-    sys.path.insert(0, str(REPO / "src"))
+    sys.path.insert(0, str(args.src))
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
@@ -249,8 +263,7 @@ def lm_rank(args) -> int:
 
     import torch
     import torch.distributed as dist
-    sys.path.insert(0, str(REPO / "src"))
-    from repro_torch.launch import mesh_check
+    sys.path.insert(0, str(args.src))
     from repro_torch.launch.mesh import make_mesh
     d, m = (int(n) for n in args.lm_mesh[0].split("x"))
     card = args.device == "cuda"
@@ -262,93 +275,250 @@ def lm_rank(args) -> int:
         dev = torch.device("cuda", torch.cuda.current_device()) if card \
             else torch.device("cpu")
         mesh = make_mesh((d, m), ("data", "model"), dev)
-        cfg = lm_config(args)
-        t0 = time.perf_counter()
-        train = mesh_check.train_check(mesh, cfg, dev, batch=args.lm_batch,
-                                       seq=args.lm_seq)
-        dec = mesh_check.decode_check(mesh, cfg, dev)
-        comp = mesh_check.compiled_check(mesh, cfg, dev, batch=args.lm_batch,
-                                         seq=args.lm_seq)
-        secs = time.perf_counter() - t0
-        restore = mesh_check.restore_check(mesh, cfg, dev, args.restore_dir) \
-            if args.restore_dir else None
-        noise = mesh_check.noise_floor(cfg, dev, batch=args.lm_batch,
-                                       seq=args.lm_seq)
-        worst = max(train["max_rel"], train["loss_rel"],
-                    dec["logits"]["max_rel"], dec["cache"]["max_rel"],
-                    comp["max_rel"], comp["metrics_rel"])
-        rule = mesh_check.check_rule(noise, train["min_step"])
-        ok = worst <= rule["tol"] and rule["guarded"] \
-            and comp["layout_kept"] and comp["captured"] == card \
-            and (restore is None or (restore["bit_equal"]
-                                     and not restore["whole_made"]))
-        times = step_times(mesh, cfg, dev, args.lm_batch, args.lm_seq) \
-            if card else None
-        mem = None
-        if times:       # every rank's peak, gathered on every rank
-            mem = [None] * dist.get_world_size()
-            dist.all_gather_object(mem, round(times["max_reserved_gib"], 2))
-        if dist.get_rank() == 0:
-            print(f"[{d}x{m}] {cfg.name} ({cfg.n_layers} layers, d_model "
-                  f"{cfg.d_model}, f32) train step: loss {train['loss']:.6f}"
-                  f" vs unsharded {train['ref_loss']:.6f}, {train['leaves']}"
-                  f" leaves within {train['max_rel']:.2e} of their max "
-                  f"(bit-equal: {train['bit_equal']}; the smallest leaf's "
-                  f"step {train['min_step']:.2e}); decode logits within "
-                  f"{dec['logits']['max_rel']:.2e}, caches "
-                  f"{dec['cache']['max_rel']:.2e}; {secs:.1f} s; the "
-                  f"unsharded step's own float noise "
-                  f"{ {k: f'{v:.2e}' for k, v in noise['probes'].items()} }"
-                  f", worst at {noise['worst_leaf']}; the rule "
-                  f"{rule['tol']:.2e} (max of 1e-5 and twice the noise), "
-                  f"{'under' if rule['guarded'] else 'NOT under'} the "
-                  f"smallest step: {'pass' if ok else 'FAIL'}", flush=True)
-            how = ("two eager passes, one CUDA graph, a replay" if card
-                   else "eagerly: no capture on the CPU")
-            print(f"[{d}x{m}] the train step compiled on the mesh ({how}) "
-                  f"against {comp['calls']} eager sharded steps: "
-                  + ("bit-equal" if comp["bit_equal"] else
-                     f"within {comp['max_rel']:.2e} (metrics "
-                     f"{comp['metrics_rel']:.2e}) of the leaves' max, the "
-                     f"rule {rule['tol']:.2e}")
-                  + f"; placements and local addresses kept: "
-                  f"{comp['layout_kept']}", flush=True)
-            print(f"[{d}x{m}] attention cores the sharded step ran: "
-                  f"{train['cores']}", flush=True)
-            if restore:
-                print(f"[{d}x{m}] a checkpoint read leaf by leaf into a "
-                      f"zeroed sharded tree: {restore['leaves']} leaves "
-                      f"({restore['sharded_leaves']} sharded), each rank's "
-                      f"shards equal to the saved arrays' slices bit for "
-                      f"bit: {restore['bit_equal']}; new tensors the size "
-                      f"of a sharded leaf on rank 0: "
-                      f"{restore['whole_made']}", flush=True)
-            if times:
-                print(f"[{d}x{m}] step ms (events, median of 5; batch "
-                      f"{args.lm_batch} x {args.lm_seq}, 2 microbatches): "
-                      f"eager sharded {times['eager_ms']:.2f}, compute "
-                      f"kernels {times['eager_busy_ms']:.2f}, NCCL kernels "
-                      f"{times['eager_nccl_ms']:.2f}, host share "
-                      f"{100 * times['eager_host_share']:.1f}%; replayed "
-                      f"{times['replay_ms']:.2f}, compute kernels "
-                      f"{times['replay_busy_ms']:.2f}, NCCL kernels "
-                      f"{times['replay_nccl_ms']:.2f}, host share "
-                      f"{100 * times['replay_host_share']:.1f}%; replay / "
-                      f"eager {times['replay_ms'] / times['eager_ms']:.3f}; "
-                      f"capture {times['capture_s']:.2f} s", flush=True)
-            if times:
-                print(f"[{d}x{m}] max_memory_reserved per rank over the "
-                      f"timed eager and replayed steps (GiB): {mem}",
-                      flush=True)
-            print(json.dumps({"ok": ok, "mesh": [d, m], "rule": rule,
-                              "train": train, "decode": dec,
-                              "compiled": comp, "times": times,
-                              "restore": restore,
-                              "noise_floor": noise, "device": str(dev)}),
-                  flush=True)
+        ok = True
+        if not args.lm_decode_only:
+            ok = train_report(args, mesh, dev, d, m, card)
+        for spec in args.lm_decode:
+            ok = decode_report(args, mesh, dev, d, m, card, spec) and ok
         return 0 if ok else 1
     finally:
         dist.destroy_process_group()
+
+
+def train_report(args, mesh, dev, d: int, m: int, card: bool) -> bool:
+    """The train step's checks and times on this mesh (rank 0 prints)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh_check
+    cfg = lm_config(args)
+    t0 = time.perf_counter()
+    train = mesh_check.train_check(mesh, cfg, dev, batch=args.lm_batch,
+                                   seq=args.lm_seq)
+    dec = mesh_check.decode_check(mesh, cfg, dev)
+    comp = mesh_check.compiled_check(mesh, cfg, dev, batch=args.lm_batch,
+                                     seq=args.lm_seq)
+    secs = time.perf_counter() - t0
+    restore = mesh_check.restore_check(mesh, cfg, dev, args.restore_dir) \
+        if args.restore_dir else None
+    noise = mesh_check.noise_floor(cfg, dev, batch=args.lm_batch,
+                                   seq=args.lm_seq)
+    worst = max(train["max_rel"], train["loss_rel"],
+                dec["logits"]["max_rel"], dec["cache"]["max_rel"],
+                comp["max_rel"], comp["metrics_rel"])
+    rule = mesh_check.check_rule(noise, train["min_step"])
+    ok = worst <= rule["tol"] and rule["guarded"] \
+        and comp["layout_kept"] and comp["captured"] == card \
+        and (restore is None or (restore["bit_equal"]
+                                 and not restore["whole_made"]))
+    times = step_times(mesh, cfg, dev, args.lm_batch, args.lm_seq) \
+        if card else None
+    mem = None
+    if times:       # every rank's peak, gathered on every rank
+        mem = [None] * dist.get_world_size()
+        dist.all_gather_object(mem, round(times["max_reserved_gib"], 2))
+    if dist.get_rank() == 0:
+        print(f"[{d}x{m}] {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, f32) train step: loss {train['loss']:.6f}"
+              f" vs unsharded {train['ref_loss']:.6f}, {train['leaves']}"
+              f" leaves within {train['max_rel']:.2e} of their max "
+              f"(bit-equal: {train['bit_equal']}; the smallest leaf's "
+              f"step {train['min_step']:.2e}); decode logits within "
+              f"{dec['logits']['max_rel']:.2e}, caches "
+              f"{dec['cache']['max_rel']:.2e}; {secs:.1f} s; the "
+              f"unsharded step's own float noise "
+              f"{ {k: f'{v:.2e}' for k, v in noise['probes'].items()} }"
+              f", worst at {noise['worst_leaf']}; the rule "
+              f"{rule['tol']:.2e} (max of 1e-5 and twice the noise), "
+              f"{'under' if rule['guarded'] else 'NOT under'} the "
+              f"smallest step: {'pass' if ok else 'FAIL'}", flush=True)
+        how = ("two eager passes, one CUDA graph, a replay" if card
+               else "eagerly: no capture on the CPU")
+        print(f"[{d}x{m}] the train step compiled on the mesh ({how}) "
+              f"against {comp['calls']} eager sharded steps: "
+              + ("bit-equal" if comp["bit_equal"] else
+                 f"within {comp['max_rel']:.2e} (metrics "
+                 f"{comp['metrics_rel']:.2e}) of the leaves' max, the "
+                 f"rule {rule['tol']:.2e}")
+              + f"; placements and local addresses kept: "
+              f"{comp['layout_kept']}", flush=True)
+        print(f"[{d}x{m}] attention cores the sharded step ran: "
+              f"{train['cores']}", flush=True)
+        if restore:
+            print(f"[{d}x{m}] a checkpoint read leaf by leaf into a "
+                  f"zeroed sharded tree: {restore['leaves']} leaves "
+                  f"({restore['sharded_leaves']} sharded), each rank's "
+                  f"shards equal to the saved arrays' slices bit for "
+                  f"bit: {restore['bit_equal']}; new tensors the size "
+                  f"of a sharded leaf on rank 0: "
+                  f"{restore['whole_made']}", flush=True)
+        if times:
+            print(f"[{d}x{m}] step ms (events, median of 5; batch "
+                  f"{args.lm_batch} x {args.lm_seq}, 2 microbatches): "
+                  f"eager sharded {times['eager_ms']:.2f}, compute "
+                  f"kernels {times['eager_busy_ms']:.2f}, NCCL kernels "
+                  f"{times['eager_nccl_ms']:.2f}, host share "
+                  f"{100 * times['eager_host_share']:.1f}%; replayed "
+                  f"{times['replay_ms']:.2f}, compute kernels "
+                  f"{times['replay_busy_ms']:.2f}, NCCL kernels "
+                  f"{times['replay_nccl_ms']:.2f}, host share "
+                  f"{100 * times['replay_host_share']:.1f}%; replay / "
+                  f"eager {times['replay_ms'] / times['eager_ms']:.3f}; "
+                  f"capture {times['capture_s']:.2f} s", flush=True)
+        if times:
+            print(f"[{d}x{m}] max_memory_reserved per rank over the "
+                  f"timed eager and replayed steps (GiB): {mem}",
+                  flush=True)
+        print(json.dumps({"ok": ok, "mesh": [d, m], "rule": rule,
+                          "train": train, "decode": dec,
+                          "compiled": comp, "times": times,
+                          "restore": restore,
+                          "noise_floor": noise, "device": str(dev)}),
+              flush=True)
+    return ok
+
+
+def decode_report(args, mesh, dev, d: int, m: int, card: bool,
+                  spec: str) -> bool:
+    """``--lm-decode arch:cache[:start]`` on this mesh: ``arch`` at
+    ``--lm-layers`` (f32, full width or ``--reduced``), batch
+    ``--lm-batch``, a cache of ``cache`` slots. Where the source tree has
+    it, ``mesh_check.compiled_decode_check`` (three calls from position
+    ``start``: on the cards two eager passes, one CUDA graph with the
+    step's collectives, a replay) against the eager sharded decode, bit
+    for bit, and against the unsharded decode within ``check_rule`` of
+    its own float noise (``mesh_check.decode_noise``), unless
+    ``--times-only``. On the cards the step's times (``decode_times``)
+    and every rank's ``max_memory_reserved``. Rank 0 prints; returns
+    whether it passed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh_check
+    arch, cache, *rest = spec.split(":")
+    cache, start = int(cache), int(rest[0]) if rest else 0
+    cfg = mesh_check.check_config(arch, args.lm_layers, reduced=args.reduced)
+    tag = f"[{d}x{m}] {cfg.name} decode ({cfg.n_layers} layers, d_model " \
+          f"{cfg.d_model}, f32, batch {args.lm_batch}, cache {cache})"
+    ok, result = True, {"arch": arch, "cache": cache, "start": start}
+    if hasattr(mesh_check, "compiled_decode_check") and not args.times_only:
+        comp = mesh_check.compiled_decode_check(
+            mesh, cfg, dev, batch=args.lm_batch, max_len=cache, start=start)
+        noise = mesh_check.decode_noise(cfg, dev, batch=args.lm_batch,
+                                        max_len=cache)
+        rule = mesh_check.check_rule(noise, float("inf"))
+        dev_u = comp["deviation"]
+        worst = max(dev_u["logits"]["max_rel"], dev_u["cache"]["max_rel"])
+        ok = comp["bit_equal"] and comp["layout_kept"] \
+            and comp["captured"] == card and worst <= rule["tol"]
+        result.update(compiled=comp, noise=noise, rule=rule)
+        if dist.get_rank() == 0:
+            how = ("two eager passes, one CUDA graph, a replay" if card
+                   else "eagerly: no capture on the CPU")
+            print(f"{tag}: serve_step compiled on the mesh ({how}), "
+                  f"{comp['calls']} calls from position {start}, against "
+                  f"the eager sharded decode: "
+                  f"{'bit-equal' if comp['bit_equal'] else 'NOT bit-equal'}"
+                  f"; against the unsharded decode: logits within "
+                  f"{dev_u['logits']['max_rel']:.2e}, caches "
+                  f"{dev_u['cache']['max_rel']:.2e} of their max, the rule "
+                  f"{rule['tol']:.2e} (the unsharded decode's own noise "
+                  f"{ {k: f'{v:.2e}' for k, v in noise['probes'].items()} })"
+                  f"; placements and local addresses kept: "
+                  f"{comp['layout_kept']}: {'pass' if ok else 'FAIL'}",
+                  flush=True)
+    if card:
+        times = decode_times(mesh, cfg, dev, args.lm_batch, cache)
+        mem = [None] * dist.get_world_size()
+        dist.all_gather_object(mem, round(times["max_reserved_gib"], 2))
+        times["max_reserved_gib_per_rank"] = mem
+        result["times"] = times
+        if dist.get_rank() == 0:
+            print(f"{tag} ms (events, median of 5, position {cache - 1}): "
+                  f"eager sharded {times['eager_ms']:.3f}, compute kernels "
+                  f"{times['eager_busy_ms']:.3f}, NCCL kernels "
+                  f"{times['eager_nccl_ms']:.3f}; replayed "
+                  f"{times['replay_ms']:.3f}, compute kernels "
+                  f"{times['replay_busy_ms']:.3f}, NCCL kernels "
+                  f"{times['replay_nccl_ms']:.3f}; max_memory_reserved per "
+                  f"rank (GiB) {mem}", flush=True)
+    if dist.get_rank() == 0:
+        print(json.dumps({"ok": ok, "mesh": [d, m], "decode": result,
+                          "src": str(args.src), "device": str(dev)}),
+              flush=True)
+    return ok
+
+
+def decode_times(mesh, cfg, dev, batch: int, cache: int, reps: int = 5):
+    """The eager sharded ``serve_step`` at position ``cache - 1`` (every
+    slot filled) against the same step captured as one CUDA graph (two
+    eager passes on a side stream, the capture, then replays; the token
+    and position in static buffers), from the same resident params and
+    caches: each one's ms (CUDA events, median of ``reps`` calls after
+    the first), compute and NCCL kernel time (``device_busy_ms``), and
+    ``max_memory_reserved``. Uses only what every source tree with
+    ``serve_step`` on a mesh has, so parent and change are timed
+    alike."""
+    import statistics
+
+    import torch
+
+    from repro_torch.distributed.api import (activation_policy,
+                                             policy_from_mesh)
+    from repro_torch.distributed.sharding import (batch_shardings,
+                                                  cache_shardings,
+                                                  distribute,
+                                                  params_shardings)
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_cache, init_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    d_params = distribute(params, params_shardings(params, mesh, fsdp=False))
+    del params
+    whole_cache = init_cache(cfg, batch, cache, device=dev)
+    d_cache = distribute(whole_cache, cache_shardings(whole_cache, mesh))
+    del whole_cache
+    tokens = torch.arange(batch, device=dev)[:, None] % cfg.vocab + 1
+    tok = distribute({"t": tokens}, batch_shardings({"t": tokens},
+                                                    mesh))["t"]
+    pos = torch.full((1,), cache - 1, dtype=torch.long, device=dev)
+    policy = policy_from_mesh(mesh, seq_parallel=False)
+
+    def step():
+        with activation_policy(policy):
+            return steps.serve_step(d_params, tok, d_cache, pos, cfg=cfg)[0]
+
+    def ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    eager_ms = [ms(step) for _ in range(reps + 1)][1:]
+    eager_busy, eager_nccl = device_busy_ms(step)
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            step()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        step()
+    replay_ms = [ms(graph.replay) for _ in range(reps + 1)][1:]
+    replay_busy, replay_nccl = device_busy_ms(graph.replay)
+    out = {"eager_ms": statistics.median(eager_ms),
+           "replay_ms": statistics.median(replay_ms),
+           "eager_busy_ms": eager_busy, "eager_nccl_ms": eager_nccl,
+           "replay_busy_ms": replay_busy, "replay_nccl_ms": replay_nccl,
+           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+    del graph
+    return out
 
 
 def main(argv=None) -> int:
@@ -366,6 +536,20 @@ def main(argv=None) -> int:
                     help="query and key/value heads of the checked config "
                          "(heads that do not split over the model axis run "
                          "the context-parallel core)")
+    ap.add_argument("--lm-decode", nargs="+", default=[],
+                    metavar="ARCH:CACHE[:START]",
+                    help="--lm: also check (and on cards time) the decode "
+                         "step of ARCH with a cache of CACHE slots on each "
+                         "mesh, from position START")
+    ap.add_argument("--lm-decode-only", action="store_true",
+                    help="--lm: the --lm-decode checks alone")
+    ap.add_argument("--src", type=Path, default=REPO / "src",
+                    help="the source tree to import (a parent's, to time "
+                         "it beside this one)")
+    ap.add_argument("--times-only", action="store_true",
+                    help="--lm-decode: time the decode step, check "
+                         "nothing (a tree without compiled_decode_check "
+                         "is only timed)")
     ap.add_argument("--restore-dir", default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--reduced", action="store_true",
