@@ -307,8 +307,15 @@ both matrix products and cuDNN:
     a replay) on 2-layer h2o-danube-1.8b (its 4096-slot window wrapping),
     reduced deepseek-v2-236b and 2-layer mamba2-370m, f32: bit-equal to
     the eager sharded decode, logits and caches, and within 1e-5 of the
-    unsharded decode; (c) in processes of their own (CPU only, each on its
-    own fake process group), started once (b)'s steps are timed (the
+    unsharded decode; and ``prefill_step`` compiled on the smoke mesh
+    (``mesh_check.compiled_prefill_check``: two eager passes, the
+    capture, three replays on fresh tokens) on 2-layer h2o-danube-1.8b
+    (2 x 2048), reduced deepseek-v2-236b, 2-layer mamba2-370m (2 x 2048)
+    and reduced internvl2-2b (its front end), f32: every call bit-equal
+    to the eager sharded prefill and replicated, within
+    ``mesh_check.check_rule`` of the unsharded prefill's own noise
+    (``mesh_check.prefill_noise``); (c) in processes of their own (CPU
+    only, each on its own fake process group), started once (b)'s steps are timed (the
     compiled mesh checks of (a) run beside them) and joined last, the dry-run cells
     deepseek-v2-236b × train_4k × pod, llama4-maverick-400b-a17b ×
     decode_32k × multipod and zamba2-2.7b × long_500k × pod, and the
@@ -5534,6 +5541,42 @@ def phase_28_lm_mesh(dev) -> None:
                   f"({time.perf_counter() - t0:.1f} s; {memory_line(dev)})")
             gc.collect()
             torch.cuda.empty_cache()
+
+        # (a) prefill_step compiled on the smoke mesh (two eager passes,
+        # then one CUDA graph replayed three times) against the eager
+        # sharded prefill, f32: 2-layer h2o, reduced deepseek-v2 (MLA,
+        # MoE), 2-layer mamba2-370m, reduced internvl2-2b (its front end).
+        t_pre = time.perf_counter()
+        for pcfg, pbatch, pseq in (
+                (ccfg, 2, 2048),
+                (mesh_check.check_config("deepseek-v2-236b", layers=2,
+                                         reduced=True), 4, 256),
+                (mesh_check.check_config("mamba2-370m", layers=2), 2, 2048),
+                (mesh_check.check_config("internvl2-2b", layers=2,
+                                         reduced=True), 4, 256)):
+            t0 = time.perf_counter()
+            c = mesh_check.compiled_prefill_check(mesh, pcfg, dev,
+                                                  batch=pbatch, seq=pseq)
+            rule = mesh_check.check_rule(mesh_check.prefill_noise(
+                pcfg, dev, batch=pbatch, seq=pseq), float("inf"))
+            worst = c["deviation"]["max_rel"]
+            if not (c["captured"] and c["bit_equal"] and c["replicated"]
+                    and c["layout_kept"]) or worst > rule["tol"]:
+                raise CheckFailed(f"[28] {pcfg.name}: prefill_step compiled "
+                                  f"on the smoke mesh: {c}, rule {rule}")
+            print(f"[28] {pcfg.name} ({pcfg.n_layers} layers, d_model "
+                  f"{pcfg.d_model}, f32, batch {pbatch} x {pseq}): "
+                  f"prefill_step compiled on the smoke mesh (2 eager "
+                  f"passes, one CUDA graph, {c['calls'] - 2} replays on "
+                  f"fresh tokens) bit-equal to the eager sharded prefill, "
+                  f"logits replicated; within {worst:.3e} of the unsharded "
+                  f"prefill's max (rule {rule['tol']:.1e}); attention cores "
+                  f"{c['cores']}; placements and addresses kept "
+                  f"({time.perf_counter() - t0:.1f} s; {memory_line(dev)})")
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"[28] the four compiled prefill checks took "
+              f"{time.perf_counter() - t_pre:.1f} s")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

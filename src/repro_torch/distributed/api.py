@@ -42,6 +42,17 @@ softmax's partial max, sums and outputs are all-reduced over the model
 axis, as the reference's MLA plan does (its GQA plan re-lays the cache
 onto head shards by all-to-all instead); the new token is written by
 the rank that holds its slot. No cache leaf is made whole.
+
+Prefill (``prefill_plan``, entered by ``models.model.prefill``) runs the
+reference's compiled ``prefill_step`` plan: the residual stays on each
+rank's rows of the sequence from the embedding to the last row. Every
+weight is gathered whole (``sharded_linear``'s product on row shards);
+the only activations that move are the keys and values (the
+context-parallel core), the MoE's rows (its routing groups are whole
+rows), the SSD block's conv halo and carried state (``SeqRows``), the
+last row (``last_row``: one row a sequence, from the rank that holds
+it), and the logits, made replicated. The embedding table is gathered
+whole, as the reference's HLO does, so no (B, S, d) partial sum moves.
 """
 from __future__ import annotations
 
@@ -125,6 +136,30 @@ def decode_plan():
 def in_decode() -> bool:
     """Whether ``decode_plan`` is in force."""
     return _DECODE
+
+
+_PREFILL = False
+
+
+@contextlib.contextmanager
+def prefill_plan():
+    """Prefill's plan meanwhile (``models.model.prefill`` enters it):
+    the residual stays on each rank's rows of the sequence, so a block's
+    normed input is not gathered (``block_input``), every product on it
+    reads its weight whole and keeps the rows (``whole`` products too),
+    and the embedding table is gathered whole for the lookup."""
+    global _PREFILL
+    prev = _PREFILL
+    _PREFILL = True
+    try:
+        yield
+    finally:
+        _PREFILL = prev
+
+
+def in_prefill() -> bool:
+    """Whether ``prefill_plan`` is in force."""
+    return _PREFILL
 
 
 _DTENSOR = None
@@ -299,6 +334,36 @@ def model_whole(x):
         for a, p in zip(mesh_axes(mesh), x.placements)))
 
 
+def block_input(h):
+    """A block's normed input as its products read it: whole on the
+    model axis (``model_whole``, the train and decode plans' one gather
+    per norm), or under ``prefill_plan`` on this rank's rows as the
+    residual lies (each product then reads its weight whole)."""
+    return h if _PREFILL else model_whole(h)
+
+
+def rows_split(x) -> bool:
+    """Whether ``x`` (B, S, ...) has its rows (dim 1) on the model axis:
+    the sequence-sharded residual and what a row product made of it."""
+    from torch.distributed.tensor import Shard
+    return _model_pl(x) == Shard(1)
+
+
+def last_row(x):
+    """``x[:, -1:]`` of a (B, S, d) tensor. With its rows on the model
+    axis, only the rank that holds the last row gives it: each rank's
+    last row (one a sequence) is gathered over the model axis and the
+    last rank's kept, so the sequence is never made whole; the result is
+    batch-sharded and whole on the model axis."""
+    if not rows_split(x):
+        return x[:, -1:, :]
+    mesh = x.device_mesh
+    batch = batch_axes_of(mesh, x.shape[0]) is not None
+    return local_map(
+        lambda t: _over_model(t[:, -1:].contiguous(), mesh, gather=1)[:, -1:],
+        mesh, (x,), [x.placements], mesh_placements(mesh, batch))
+
+
 def _on_model(w, dim: Optional[int]):
     """Weight ``w`` whole on the data axes, with tensor dim ``dim`` on
     the model axis (whole there when ``dim`` is None)."""
@@ -330,7 +395,9 @@ def sharded_linear(x, w, b=None, whole: bool = False):
       that out-dim. ``whole`` gathers ``w`` instead, so the output is
       whole (a small latent that every rank's heads read).
 
-    Under ``decode_plan`` ``w`` stays as it lies: ``resident_linear``."""
+    Under ``decode_plan`` ``w`` stays as it lies: ``resident_linear``.
+    Under ``prefill_plan`` an ``x`` on its rows keeps them with ``whole``
+    too (the output's features are whole either way)."""
     from torch.distributed.tensor import Shard
     if _DECODE:
         return resident_linear(x, w, b, whole)
@@ -343,7 +410,7 @@ def sharded_linear(x, w, b=None, whole: bool = False):
             y = batch_sharded(y) + gathered(b)
         return y
     col = False
-    if isinstance(xpl, Shard) and not whole:
+    if isinstance(xpl, Shard) and (not whole or _PREFILL):
         y = _rows_product(x, _on_model(w, None))
     else:
         col = isinstance(wpl, Shard) and wpl.dim == last and not whole
@@ -729,6 +796,48 @@ class CacheShard:
 
 
 WHOLE = CacheShard()
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqRows:
+    """What a sequence scan run on this rank's rows (prefill's SSD block,
+    ``models.ssm``) reads of the rows before them, on ``mesh``'s model
+    axis: the conv's halo and the state the scan carries in. Each is one
+    small gather over the model axis; the first rank's is zeros."""
+    mesh: object
+
+    def halo(self, t: torch.Tensor, n: int) -> torch.Tensor:
+        """The ``n`` rows of the sequence just before this rank's ``t``
+        (B, L, F), L >= n: the last ``n`` rows of the rank before."""
+        if t.shape[1] < n:
+            raise NotImplementedError(
+                f"a rank's {t.shape[1]} rows are fewer than the {n} rows "
+                f"of the conv's halo")
+        r = model_rank(self.mesh)
+        tails = _over_model(t[:, t.shape[1] - n:].contiguous(), self.mesh,
+                            gather=1)
+        if r == 0:
+            return torch.zeros_like(tails[:, :n])
+        return tails[:, (r - 1) * n:r * n]
+
+    def carry(self, states: torch.Tensor,
+              decay: torch.Tensor) -> torch.Tensor:
+        """The state (B, H, N, P) entering this rank's rows, from its
+        chunks' final states ``states`` (B, nc, H, N, P; each from a zero
+        state) and decays ``decay`` (B, H, nc): every rank's last state
+        and whole decay are gathered over the model axis and folded, in
+        order, over the ranks before this one."""
+        s = torch.zeros_like(states[:, 0], dtype=torch.float32)
+        total = torch.ones_like(decay[..., 0])
+        for c in range(states.shape[1]):
+            s = s * decay[:, :, c, None, None] + states[:, c].float()
+            total = total * decay[:, :, c]
+        s_all = _over_model(s[None], self.mesh, gather=0)
+        d_all = _over_model(total[None], self.mesh, gather=0)
+        out = torch.zeros_like(s)
+        for j in range(model_rank(self.mesh)):
+            out = out * d_all[j, :, :, None, None] + s_all[j]
+        return out
 
 
 def _over_model(t: torch.Tensor, mesh, op: str = "sum",

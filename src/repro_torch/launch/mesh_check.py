@@ -13,7 +13,11 @@ array's slice, bit for bit.
 one CUDA graph, replays) to the eager sharded ``train_step``, call for
 call; ``compiled_decode_check`` holds ``compile_serve_step`` on a mesh
 to the eager sharded ``serve_step`` the same way, and to the unsharded
-decode within ``check_rule`` of its own noise (``decode_noise``). Used
+decode within ``check_rule`` of its own noise (``decode_noise``);
+``prefill_check`` holds the sharded prefill to the unsharded one, and
+``compiled_prefill_check`` holds ``compile_prefill_step`` on a mesh to
+the eager sharded ``prefill_step`` call for call and to the unsharded
+prefill within ``check_rule`` of its own noise (``prefill_noise``). Used
 by ``tools/check_mesh.py --lm`` (1x2, 2x1 and 2x2 meshes of
 cards under torchrun, or gloo processes on the CPU), by
 ``chip_smoke.py`` (the one-rank smoke mesh on the card, and the compiled
@@ -36,8 +40,10 @@ from repro_torch.distributed.api import activation_policy, policy_from_mesh
 from repro_torch.distributed.sharding import (batch_shardings,
                                               cache_shardings, distribute,
                                               params_shardings)
-from repro_torch.launch.steps import (compile_serve_step, compile_train_step,
-                                     make_opt_config, serve_step, train_step)
+from repro_torch.launch.steps import (WARM_PASSES, compile_prefill_step,
+                                     compile_serve_step, compile_train_step,
+                                     make_opt_config, prefill_step,
+                                     serve_step, train_step)
 from repro_torch.models.model import init_cache, init_model
 from repro_torch.models.scan_util import (tree_leaves,
                                           tree_leaves_with_path, tree_map,
@@ -434,6 +440,131 @@ def compiled_decode_check(mesh, cfg: ModelConfig, device, batch: int = 4,
             "deviation": {"logits": deviation(got, plain),
                           "cache": deviation(got_cache, tree_leaves(cache))},
             "captured": captured, "layout_kept": kept}
+
+
+def prefill_batches(mesh, cfg: ModelConfig, batch: int, seq: int,
+                    calls: int = 1):
+    """The (sharded, plain) batches of a checked prefill at data steps 0,
+    1, ...: ``make_batch(mesh=)``'s ``DTensor`` tokens (and
+    ``frontend_embeds`` where ``cfg`` has a front end), and the same
+    gathered whole."""
+    out = []
+    for i in range(calls):
+        b = make_batch(DataConfig(seed=5, global_batch=batch, seq_len=seq),
+                       cfg, i, mesh=mesh)
+        out.append((b, {k: whole(v) for k, v in b.items()}))
+    return out
+
+
+def replicated(t) -> bool:
+    """Whether ``t`` is a ``DTensor`` whole on every mesh dim."""
+    from torch.distributed.tensor import Replicate
+    return hasattr(t, "placements") and all(
+        isinstance(p, Replicate) for p in t.placements)
+
+
+def prefill_check(mesh, cfg: ModelConfig, device, batch: int = 4,
+                  seq: int = 64, seed: int = 0) -> Dict:
+    """One ``prefill_step`` on ``mesh`` (the params under
+    ``params_shardings``' FSDP rules, the batch ``batch_shardings``',
+    under ``policy_from_mesh(mesh)``) against the unsharded prefill on
+    the same weights and tokens: the logits' deviation (``deviation``),
+    whether they came back replicated, and the attention cores run."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    (d_batch, plain), = prefill_batches(mesh, cfg, batch, seq)
+    want = prefill_step(params, plain, cfg=cfg)
+    d_params = distribute(params, params_shardings(params, mesh))
+    del params
+    with activation_policy(policy_from_mesh(mesh)), \
+            attention_cores() as cores:
+        got = prefill_step(d_params, d_batch, cfg=cfg)
+    return {"logits": deviation([got], [want]),
+            "replicated": replicated(got), "cores": dict(cores)}
+
+
+def prefill_noise(cfg: ModelConfig, device, batch: int = 4, seq: int = 64,
+                  seed: int = 0) -> Dict:
+    """The unsharded prefill's own float noise, on ``prefill_check``'s
+    scale: one unsharded prefill (data step 0) against the same with the
+    batch rows reversed (``rows_reversed``: each row's arithmetic is its
+    own, exact in real arithmetic) and on a card through cuBLASLt
+    (``cublaslt``). Returns ``noise_floor``'s keys."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    feed = make_batch(DataConfig(seed=5, global_batch=batch, seq_len=seq),
+                      cfg, 0, device=dev)
+
+    def run(flip: bool):
+        if flip:
+            return [prefill_step(params, {k: v.flip(0) for k, v in
+                                          feed.items()}, cfg=cfg).flip(0)]
+        return [prefill_step(params, feed, cfg=cfg)]
+
+    ref = run(False)
+    probes = {"rows_reversed": deviation(run(True), ref)}
+    if dev.type == "cuda":
+        blas = torch.backends.cuda.preferred_blas_library()
+        torch.backends.cuda.preferred_blas_library("cublaslt")
+        try:
+            probes["cublaslt"] = deviation(run(False), ref)
+        finally:
+            torch.backends.cuda.preferred_blas_library(blas)
+    worst = max(probes.values(), key=lambda d: d["max_rel"])
+    return {"max_rel": worst["max_rel"], "worst_leaf": worst["worst_leaf"],
+            "probes": {k: v["max_rel"] for k, v in probes.items()}}
+
+
+def compiled_prefill_check(mesh, cfg: ModelConfig, device, batch: int = 4,
+                           seq: int = 64, seed: int = 0) -> Dict:
+    """``compile_prefill_step`` on ``mesh`` (the params under the FSDP
+    rules, static token buffers placed as ``batch_shardings`` places
+    them; made under ``policy_from_mesh(mesh)``) for ``WARM_PASSES + 3``
+    calls on the batches of data steps 0, 1, ... (on a card the first
+    ``WARM_PASSES`` are the eager passes, the next captures and replays,
+    then two more replays), each against the eager sharded
+    ``prefill_step`` on the same params and batch and against the
+    unsharded prefill. Returns whether every call's logits are bit-equal
+    to the eager sharded ones (``bit_equal``) and came back replicated,
+    their deviation from the unsharded ones (``deviation``), the
+    attention cores the eager sharded prefills ran, whether a graph was
+    captured, and whether the owned params kept their placements and the
+    addresses of their local shards."""
+    dev = torch.device(device)
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(seed),
+                        dev)
+    calls = WARM_PASSES + 3
+    feed = prefill_batches(mesh, cfg, batch, seq, calls)
+    plain = [prefill_step(params, p, cfg=cfg) for _, p in feed]
+    d_params = distribute(params, params_shardings(params, mesh))   # copies
+    del params
+    policy = policy_from_mesh(mesh)
+    with activation_policy(policy):
+        step = compile_prefill_step(d_params, feed[0][0], cfg=cfg)
+
+    def layout():
+        return [(t.placements, t.to_local().data_ptr())
+                for t in tree_leaves(step.params)]
+
+    before = layout()
+    got, rep = [], True
+    for b, _ in feed:
+        out = step(b)
+        rep = rep and replicated(out)
+        got.append(whole(out).clone())
+    kept = layout() == before
+    captured = step.graph is not None
+    eager = []
+    with activation_policy(policy), attention_cores() as cores:
+        for b, _ in feed:
+            out = prefill_step(step.params, b, cfg=cfg)
+            rep = rep and replicated(out)
+            eager.append(whole(out))
+    return {"calls": calls, "bit_equal": deviation(got, eager)["bit_equal"],
+            "replicated": rep, "deviation": deviation(got, plain),
+            "cores": dict(cores), "captured": captured, "layout_kept": kept}
 
 
 def restore_check(mesh, cfg: ModelConfig, device, directory,

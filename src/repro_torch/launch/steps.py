@@ -16,6 +16,10 @@ collectives. ``launch.train`` runs every step through it, on any
 ``serve_step`` the same way: a ``CompiledServeStep`` owns the params and
 the cache, reads a static token and position, and on a card replays one
 CUDA graph of the decode step (on a mesh, with its collectives).
+``compile_prefill_step`` is the reference's jitted ``prefill_step`` (its
+``out_shardings=replicated(mesh)``): a ``CompiledPrefillStep`` owns the
+params, reads static token buffers and returns the static logits,
+replicated on a mesh.
 
 ``train_step`` differentiates ``loss_fn`` eagerly (``torch.autograd``)
 and applies one AdamW update; its state is functional, as in the
@@ -290,6 +294,15 @@ class _CapturedStep:
             like.device_mesh, like.placements, run_check=False,
             shape=like.shape, stride=like.stride())
 
+    @torch.no_grad()
+    def _load_batch(self, batch: Dict[str, torch.Tensor]) -> None:
+        """Copy ``batch`` into the static batch buffers ``_batch``."""
+        if set(batch) != set(self._batch):
+            raise ValueError(f"batch has {sorted(batch)}; the compiled step "
+                             f"reads {sorted(self._batch)}")
+        for k, buf in self._batch.items():
+            self._load(buf, batch[k], f"batch[{k!r}]")
+
     @staticmethod
     def _load(buf: torch.Tensor, v: torch.Tensor, what: str) -> None:
         """Copy input ``v`` into its static buffer (this rank's shard on a
@@ -399,14 +412,6 @@ class CompiledTrainStep(_CapturedStep):
             else:
                 load_shard(d, s)
 
-    @torch.no_grad()
-    def _load_batch(self, batch: Dict[str, torch.Tensor]) -> None:
-        if set(batch) != set(self._batch):
-            raise ValueError(f"batch has {sorted(batch)}; the compiled step "
-                             f"reads {sorted(self._batch)}")
-        for k, buf in self._batch.items():
-            self._load(buf, batch[k], f"batch[{k!r}]")
-
     def _body(self) -> None:
         """The step the graph records: gradients of the static batch,
         the in-place update, the metrics (whole) copied into their static
@@ -467,9 +472,70 @@ def compile_train_step(params: PyTree, opt_state: OptState,
 
 def prefill_step(params: PyTree, batch: Dict[str, torch.Tensor], *,
                  cfg: ModelConfig) -> torch.Tensor:
+    """Last-position logits (B, vocab) of ``batch``'s tokens (and
+    ``frontend_embeds``); on a mesh replicated on every rank."""
     with torch.no_grad(), _on_mesh(params):
         return prefill(params, batch["tokens"], cfg,
                        batch.get("frontend_embeds"))
+
+
+class CompiledPrefillStep(_CapturedStep):
+    """``compile_prefill_step``'s callable: ``step(batch) -> logits``.
+
+    It owns the params it was made with (``.params``): each call copies
+    ``batch`` into static buffers (``tokens`` as int64, and
+    ``frontend_embeds`` for the front-end architectures), runs
+    ``prefill_step`` and returns the static (B, vocab) logits, overwritten
+    by the next call. On a card the calls go as ``_CapturedStep`` says.
+    On a mesh every param leaf is a ``DTensor`` (the FSDP rules), the
+    buffers have the placements of ``batch_like`` (a call copies this
+    rank's shard), the logits come back replicated on every rank, and
+    the body runs under the activation policy installed when the step was
+    made; the warm passes make every communicator the collectives use."""
+
+    def __init__(self, params: PyTree, batch_like: Dict[str, torch.Tensor],
+                 cfg: ModelConfig) -> None:
+        self.sharded = _owned(params, "compile_prefill_step: the params")
+        self.cfg = cfg
+        self.policy = current_policy()
+        self._params = params
+        self.device = tree_leaves(params)[0].device
+        self._batch = {k: self._static_like(
+            v, f"batch[{k!r}]", torch.long if k == "tokens" else None)
+            for k, v in batch_like.items()}
+        self._logits: Optional[torch.Tensor] = None
+        self._init_capture()
+
+    @property
+    def params(self) -> PyTree:
+        return self._params
+
+    def _body(self) -> None:
+        """The step the graph records: ``prefill_step`` on the static
+        buffers, its logits copied into their static tensor."""
+        with activation_policy(self.policy):
+            logits = prefill_step(self._params, self._batch, cfg=self.cfg)
+        if self._logits is None:
+            self._logits = torch.empty_like(logits)
+        with torch.no_grad():
+            _local(self._logits).copy_(_local(logits))
+
+    def __call__(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        self._load_batch(batch)
+        self._run()
+        return self._logits
+
+
+def compile_prefill_step(params: PyTree, batch_like: Dict[str, torch.Tensor],
+                         *, cfg: ModelConfig) -> CompiledPrefillStep:
+    """The reference's ``jax.jit(prefill_step, in_shardings=(p_sh, b_sh),
+    out_shardings=replicated(mesh))``: a ``CompiledPrefillStep`` that owns
+    ``params`` (plain tensors on one device, or every leaf a ``DTensor``
+    on an LM mesh) and reads batches shaped and placed like
+    ``batch_like``. Call it under the activation policy its steps run in:
+    the step keeps the one installed when it is made. Each call is one
+    ``prefill_step``, bit for bit."""
+    return CompiledPrefillStep(params, batch_like, cfg)
 
 
 def serve_step(params: PyTree, tokens: torch.Tensor, cache: PyTree,

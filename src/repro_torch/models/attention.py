@@ -212,7 +212,7 @@ def attention_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
             lambda shift, q_, k_, v_: chunked_attention(
                 q_, k_, v_, q_offset=q_offset + shift,
                 window=cfg.sliding_window),
-            (model_whole(q),), (model_whole(k), model_whole(v)))
+            (q,), (model_whole(k), model_whole(v)))
     else:
         out = chunked_attention(q, k, v, q_offset=q_offset,
                                 window=cfg.sliding_window)
@@ -324,7 +324,7 @@ def _mla_forward(p: Params, x: torch.Tensor, cfg: ModelConfig,
         out = context_parallel(
             lambda shift, qn, qr, ck, kr, wk, wv: _mla_attend(
                 qn, qr, ck, kr, wk, wv, pos[shift:shift + qn.shape[1]], pos,
-                cfg), (model_whole(q_nope), model_whole(q_rope)),
+                cfg), (q_nope, q_rope),
             (c_kv, k_rope), (w_uk, w_uv))
     else:
         out = _mla_attend(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, pos,

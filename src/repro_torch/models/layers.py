@@ -127,11 +127,14 @@ def _embed_sharded(table, tokens):
     model rank reads the tokens in its slice (the rest masked to zero)
     and the ranks' rows are summed; the table is never gathered over the
     model axis (its rows are over the data axis). In decode a table whose
-    d lies there (a vocab that does not divide) is read on its columns."""
+    d lies there (a vocab that does not divide) is read on its columns.
+    Under ``api.prefill_plan`` the table is gathered whole for the lookup,
+    as the reference's compiled prefill does: no (B, S, d) partial sum is
+    reduced."""
     from torch.distributed.tensor import Partial, Shard
     mesh = table.device_mesh
     v, m = table.shape[0], api.model_size(mesh)
-    split = m > 1 and v % m == 0
+    split = m > 1 and v % m == 0 and not api.in_prefill()
     v0 = api.model_rank(mesh) * (v // m) if split else 0
     batch = api.batch_axes_of(mesh, tokens.shape[0]) is not None
 
@@ -163,8 +166,12 @@ def _embed_sharded(table, tokens):
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32 for a stable softmax-CE. On a mesh they are
     vocab-sharded over the model axis where the table's vocab is
-    (``api.vocab_table``), from ``x`` whole there."""
-    if api.is_sharded(x) and api.in_decode():
+    (``api.vocab_table``), from ``x`` whole there. Under
+    ``api.prefill_plan`` a table whose d lies there (a vocab that does
+    not divide) is read on its columns as decode reads it: the logits'
+    partial sums are reduced, the table never gathered."""
+    if api.is_sharded(x) and (api.in_decode() or api.in_prefill()
+                              and api.last_dim_on_model(p["table"])):
         # The resident table as it lies: its vocab or its d on the model
         # axis (a vocab that does not divide), never gathered.
         return api.resident_linear(x.float(), p["table"].T.float())

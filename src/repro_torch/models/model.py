@@ -25,9 +25,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockType, ModelConfig
 from repro_torch.distributed.api import (batch_sharded, batch_sums,
-                                         constrain_residual, decode_plan,
-                                         gather_layer_params, is_sharded,
-                                         last_dim_on_model, model_whole,
+                                         block_input, constrain_residual,
+                                         decode_plan, gather_layer_params,
+                                         gathered, in_prefill, is_sharded,
+                                         last_dim_on_model, last_row,
+                                         model_whole, prefill_plan,
                                          residual_out, vocab_ce_sums,
                                          vocab_table)
 from repro_torch.kernels.common import resolve_device
@@ -75,21 +77,24 @@ def _apply_attn_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
     def ffn(h):
         nonlocal aux
-        if "moe" in p:
-            fo, al = moe_ffn(p["moe"], h, cfg)
-            aux = aux + al["load_balance"] * 0.01 + al["router_z"] * 1e-4
+        if "moe" in p:      # prefill discards the aux loss: not made
+            fo, al = moe_ffn(p["moe"], h, cfg, aux=not in_prefill())
+            if al:
+                aux = aux + al["load_balance"] * 0.01 \
+                    + al["router_z"] * 1e-4
             return fo
         return mlp(p["mlp"], h)
 
     # On a mesh each norm's output is gathered once for the products that
-    # read it, and each branch's partial sums are reduce-scattered back.
-    h = model_whole(rmsnorm(p["ln_attn"], x, cfg.norm_eps))
+    # read it, and each branch's partial sums are reduce-scattered back
+    # (in prefill it stays on the rank's rows: ``block_input``).
+    h = block_input(rmsnorm(p["ln_attn"], x, cfg.norm_eps))
     ao = residual_out(A.attention_forward(p["attn"], h, cfg, q_offset))
     if cfg.parallel_block:
         # Command-R: attention and FFN read the same normed input.
         return x + ao + residual_out(ffn(h)), aux
     x = x + ao
-    h = model_whole(rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
+    h = block_input(rmsnorm(p["ln_mlp"], x, cfg.norm_eps))
     return x + residual_out(ffn(h)), aux
 
 
@@ -102,7 +107,7 @@ def _init_mamba_block(gen: torch.Generator, cfg: ModelConfig, dtype,
 def _apply_mamba_block(p: Params, x: torch.Tensor,
                        cfg: ModelConfig) -> torch.Tensor:
     p = gather_layer_params(p)      # streamed-FSDP weight gather
-    h = model_whole(rmsnorm(p["ln"], x, cfg.norm_eps))
+    h = block_input(rmsnorm(p["ln"], x, cfg.norm_eps))
     return x + residual_out(S.mamba_forward(p["mamba"], h, cfg))
 
 
@@ -228,6 +233,15 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
     recomputed in the backward pass, where the reference puts
     ``jax.checkpoint``. Stacked leaves are walked as ``unbind`` views, so
     their gradients come back stacked, with no per-layer copy."""
+    hidden, aux = _normed_hidden(params, tokens, cfg, frontend_embeds, remat)
+    return model_whole(hidden), aux
+
+
+def _normed_hidden(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
+                   frontend_embeds: Optional[torch.Tensor],
+                   remat: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``forward``'s final-normed hidden as the residual lies (on a mesh
+    sequence-sharded, each rank's rows), and moe_aux."""
     x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     aux = torch.zeros((), device=x.device)
     layers = params["layers"]
@@ -251,7 +265,7 @@ def forward(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
             x, a = _remat(remat, _apply_attn_block, lp,
                           constrain_residual(x), cfg)
             aux = aux + a
-    return model_whole(rmsnorm(params["ln_f"], x, cfg.norm_eps)), aux
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), aux
 
 
 def _head(params: PyTree, cfg: ModelConfig) -> Params:
@@ -419,6 +433,13 @@ def _decode_step(params: PyTree, tokens: torch.Tensor, cache: PyTree, pos,
 def prefill(params: PyTree, tokens: torch.Tensor, cfg: ModelConfig,
             frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prefill forward; returns last-position logits (B, vocab) — the full
-    (B, S, vocab) tensor is never formed."""
-    hidden, _ = forward(params, tokens, cfg, frontend_embeds)
-    return logits_from_hidden(params, cfg, hidden[:, -1:, :])[:, 0]
+    (B, S, vocab) tensor is never formed. On a mesh it runs
+    ``distributed.api.prefill_plan`` (the reference's compiled
+    ``prefill_step``): the hidden stays on each rank's rows, only the
+    last row moves (``last_row``), and the logits come back replicated,
+    as the reference's ``out_shardings=replicated(mesh)``."""
+    with prefill_plan():
+        hidden, _ = _normed_hidden(params, tokens, cfg, frontend_embeds,
+                                   remat=True)
+        logits = logits_from_hidden(params, cfg, last_row(hidden))[:, 0]
+    return gathered(logits)

@@ -17,7 +17,11 @@ two projections runs on each batch shard (``distributed.api.
 batch_local``). Decode (``_mamba_step_sharded``) updates each state on
 the shards ``cache_shardings`` gives it, with the inner params as they
 lie: ``_conv_step`` on the rank's channels, ``_ssm_step`` on its shard of
-the SSD state, its read-out C·h reduced over the model axis.
+the SSD state, its read-out C·h reduced over the model axis. Prefill
+(``distributed.api.prefill_plan``) runs the block on each rank's rows of
+the sequence (``_mamba_rows``): the conv reads the rank before's last
+rows, and the scan starts from the state the ranks before carry in
+(``distributed.api.SeqRows``).
 """
 from __future__ import annotations
 
@@ -72,9 +76,11 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def ssd_chunked(xbar: torch.Tensor, da: torch.Tensor, b_in: torch.Tensor,
-                c_in: torch.Tensor, chunk: int) -> torch.Tensor:
+                c_in: torch.Tensor, chunk: int, carry=None) -> torch.Tensor:
     """xbar: (B, L, H, P) = dt·x;  da: (B, L, H) = dt·A (negative);
-    b_in, c_in: (B, L, N). Returns y: (B, L, H, P)."""
+    b_in, c_in: (B, L, N). Returns y: (B, L, H, P). ``carry`` (rows of a
+    longer sequence: ``SeqRows.carry``) maps the chunks' final states
+    and decays to the state entering the rows; by default zeros."""
     bsz, l, h, p = xbar.shape
     n = b_in.shape[-1]
     q = min(chunk, l)
@@ -105,6 +111,8 @@ def ssd_chunked(xbar: torch.Tensor, da: torch.Tensor, b_in: torch.Tensor,
     # Inter-chunk recurrence: the state entering each chunk.
     chunk_decay = torch.exp(da_cs[..., -1])                 # (B,H,nc)
     s_prev = torch.zeros((bsz, h, n, p), device=xbar.device)
+    if carry is not None:
+        s_prev = carry(states, chunk_decay)
     prev_states = []
     for c in range(nc):
         prev_states.append(s_prev)
@@ -136,6 +144,8 @@ def mamba_forward(p: Params, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, d) → (B, S, d)."""
     _, _, nh, _ = _dims(cfg)
+    if api.in_prefill() and api.rows_split(x):
+        return _mamba_rows(p, x, cfg)
     if is_sharded(x) and nh % api.model_size(x.device_mesh) == 0:
         return _mamba_heads(p, x, cfg)
     zxbcdt = linear(p["in_proj"], x, whole=True)
@@ -148,24 +158,31 @@ def mamba_forward(p: Params, x: torch.Tensor,
 
 
 def _mamba_inner(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, norm_scale,
-                 cfg: ModelConfig) -> torch.Tensor:
-    """Causal conv, SSD scan and gated norm: (B, S, d_in)."""
+                 cfg: ModelConfig, rows=None) -> torch.Tensor:
+    """Causal conv, SSD scan and gated norm: (B, S, d_in). ``rows``
+    (``SeqRows``): ``zxbcdt`` is this rank's rows of the sequence."""
     s, d_in, nh, _ = _dims(cfg)
     y, z = _mamba_scan(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, s,
-                       d_in, nh)
+                       d_in, nh, rows)
     return rmsnorm({"scale": norm_scale}, y * F.silu(z))
 
 
 def _mamba_scan(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, s,
-                d_in: int, nh: int):
+                d_in: int, nh: int, rows=None):
     """Causal conv and SSD scan over ``nh`` heads of ``d_in`` channels:
-    the pre-norm output and the gate z, each (B, S, d_in)."""
+    the pre-norm output and the gate z, each (B, S, d_in). With ``rows``
+    the conv's first rows read the halo and the scan starts from the
+    carried state."""
     bsz, l, _ = zxbcdt.shape
     z, xin, b_in, c_in, dt = _split_proj(zxbcdt, s, d_in, nh)
     # Causal depthwise conv over (x, B, C).
     xbc = torch.cat([xin, b_in, c_in], dim=-1)              # (B, L, conv_ch)
     w = conv_w.float()
-    xbc_p = F.pad(xbc.float(), (0, 0, s.conv_width - 1, 0))
+    if rows is None:
+        xbc_p = F.pad(xbc.float(), (0, 0, s.conv_width - 1, 0))
+    else:
+        xbc_p = torch.cat([rows.halo(xbc.float(), s.conv_width - 1),
+                           xbc.float()], dim=1)
     conv = sum(xbc_p[:, i:i + l] * w[i] for i in range(s.conv_width))
     conv = F.silu(conv + conv_b.float())
     xin, b_in, c_in = torch.split(conv, [d_in, s.state_dim, s.state_dim],
@@ -175,9 +192,28 @@ def _mamba_scan(zxbcdt, conv_w, conv_b, dt_bias, a_log, d_skip, s,
     a = -torch.exp(a_log)                                   # (H,)
     xh = xin.reshape(bsz, l, nh, s.head_dim)
     y = ssd_chunked((xh * dt[..., None]).float(), dt * a, b_in, c_in,
-                    s.chunk)
+                    s.chunk, None if rows is None else rows.carry)
     y = y + xh.float() * d_skip[None, None, :, None]
     return y.reshape(bsz, l, d_in).to(zxbcdt.dtype), z
+
+
+def _mamba_rows(p: Params, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Prefill's block on this rank's rows of the sequence (``x`` with
+    its rows on the model axis): both projections read their weights
+    whole and keep the rows, and the conv, the scan and the gated norm
+    run on the rows, the conv's halo and the scan's entering state from
+    the ranks before (``SeqRows``)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    batch = api.batch_axes_of(mesh, x.shape[0]) is not None
+    rows = api.mesh_placements(mesh, batch, Shard(1))
+    seq = api.SeqRows(mesh)
+    y = api.local_map(
+        lambda t, *w: _mamba_inner(t, *w, cfg, seq), mesh,
+        (linear(p["in_proj"], x, whole=True), *_inner_params(p)),
+        [rows] + [api.mesh_placements(mesh, False)] * 6, rows)
+    return linear(p["out_proj"], y)
 
 
 def _mamba_heads(p: Params, x: torch.Tensor,

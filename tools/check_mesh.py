@@ -11,6 +11,8 @@ and with ``--lm`` the LM (data, model) mesh.
         --lm-mesh 2x2                              # 4 gloo processes
     python3 tools/check_mesh.py --lm --lm-decode-only --lm-mesh 1x2 2x2 \\
         --lm-decode h2o-danube-1.8b:4096:4094 deepseek-v2-236b:32768
+    python3 tools/check_mesh.py --lm --lm-prefill-only \\
+        --lm-prefill h2o-danube-1.8b:2:32768 mamba2-370m:2:32768
 
 ``--lm``: for each (data, model) mesh asked for, the script launches
 itself under ``torchrun --nproc-per-node data*model`` (NCCL on the cards,
@@ -39,7 +41,18 @@ collectives) bit-equal to the eager sharded decode over three steps
 from ``start``, and within ``check_rule`` of the unsharded decode's own
 float noise; on the cards the eager and the replayed step's ms (events,
 median of 5), compute and NCCL kernel ms and every rank's
-``max_memory_reserved``. ``--lm-decode-only`` skips the train step;
+``max_memory_reserved``. ``--lm-prefill arch:batch:seq[:vocab]``
+adds, per mesh, the prefill step of each ``arch`` (f32, ``--lm-layers``,
+``batch`` rows of ``seq`` tokens; ``prefill_report``): ``prefill_step``
+compiled on the mesh (``mesh_check.compiled_prefill_check``: on the
+cards two eager passes, then one CUDA graph with the step's collectives
+replayed three times) bit-equal to the eager sharded prefill on every
+call, its logits replicated, and within ``check_rule`` of the unsharded
+prefill's own float noise (``mesh_check.prefill_noise``); on the cards
+the replayed step's ms (events, median of 5; beside it the second eager
+pass's), its compute and NCCL kernel ms and host share, and every rank's
+``max_memory_reserved``.
+``--lm-decode-only`` and ``--lm-prefill-only`` skip the train step;
 ``--src`` imports another source tree (a parent's: only timed, as is
 every tree under ``--times-only``). With fewer cards
 than the mesh needs it says so and exits 2; it never runs a smaller mesh
@@ -109,7 +122,7 @@ def lm_main(args) -> int:
         while j < len(argv) and not argv[j].startswith("--"):
             j += 1
         argv[i:j] = ["--lm-mesh", shape]
-        if not args.lm_decode_only:
+        if not (args.lm_decode_only or args.lm_prefill_only):
             print(f"[{shape}] " + dryrun_line(args, d, m), flush=True)
         with tempfile.TemporaryDirectory() as tmp:
             cmd = [sys.executable, "-m", "torch.distributed.run",
@@ -276,10 +289,12 @@ def lm_rank(args) -> int:
             else torch.device("cpu")
         mesh = make_mesh((d, m), ("data", "model"), dev)
         ok = True
-        if not args.lm_decode_only:
+        if not (args.lm_decode_only or args.lm_prefill_only):
             ok = train_report(args, mesh, dev, d, m, card)
         for spec in args.lm_decode:
             ok = decode_report(args, mesh, dev, d, m, card, spec) and ok
+        for spec in args.lm_prefill:
+            ok = prefill_report(args, mesh, dev, d, m, card, spec) and ok
         return 0 if ok else 1
     finally:
         dist.destroy_process_group()
@@ -521,6 +536,144 @@ def decode_times(mesh, cfg, dev, batch: int, cache: int, reps: int = 5):
     return out
 
 
+def prefill_report(args, mesh, dev, d: int, m: int, card: bool,
+                   spec: str) -> bool:
+    """``--lm-prefill arch:batch:seq[:vocab]`` on this mesh: ``arch`` at
+    ``--lm-layers`` (f32, full width or ``--reduced``; its vocab
+    ``vocab`` where given) on ``batch`` rows of ``seq`` tokens. Where
+    the source tree has it, ``mesh_check.compiled_prefill_check`` (on
+    the cards two eager passes, then one CUDA graph with the step's
+    collectives, replayed three times) against the eager sharded
+    prefill, bit for bit, its logits replicated, and against the
+    unsharded prefill within ``check_rule`` of its own float noise
+    (``mesh_check.prefill_noise``), unless ``--times-only``. On the
+    cards the step's times (``prefill_times``) and every rank's
+    ``max_memory_reserved``. Rank 0 prints; returns whether it
+    passed."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh_check
+    arch, batch, seq, *vocab = spec.split(":")
+    batch, seq = int(batch), int(seq)
+    cfg = mesh_check.check_config(arch, args.lm_layers, reduced=args.reduced,
+                                  **({"vocab": int(vocab[0])} if vocab
+                                     else {}))
+    tag = f"[{d}x{m}] {cfg.name} prefill ({cfg.n_layers} layers, d_model " \
+          f"{cfg.d_model}, f32, batch {batch} x {seq})"
+    ok, result = True, {"arch": arch, "batch": batch, "seq": seq,
+                        "vocab": cfg.vocab}
+    if hasattr(mesh_check, "compiled_prefill_check") and not args.times_only:
+        t0 = time.perf_counter()
+        comp = mesh_check.compiled_prefill_check(mesh, cfg, dev, batch=batch,
+                                                 seq=seq)
+        noise = mesh_check.prefill_noise(cfg, dev, batch=batch, seq=seq)
+        rule = mesh_check.check_rule(noise, float("inf"))
+        dev_u = comp["deviation"]["max_rel"]
+        ok = comp["bit_equal"] and comp["replicated"] \
+            and comp["layout_kept"] and comp["captured"] == card \
+            and dev_u <= rule["tol"]
+        result.update(compiled=comp, noise=noise, rule=rule,
+                      check_s=time.perf_counter() - t0)
+        if dist.get_rank() == 0:
+            how = ("two eager passes, then one CUDA graph replayed "
+                   f"{comp['calls'] - 2} times" if card
+                   else "eagerly: no capture on the CPU")
+            print(f"{tag}: prefill_step compiled on the mesh ({how}), "
+                  f"{comp['calls']} calls on fresh tokens, against the "
+                  f"eager sharded prefill: "
+                  f"{'bit-equal' if comp['bit_equal'] else 'NOT bit-equal'}"
+                  f", replicated: {comp['replicated']}; against the "
+                  f"unsharded prefill: logits within {dev_u:.2e} of their "
+                  f"max, the rule {rule['tol']:.2e} (the unsharded "
+                  f"prefill's own noise "
+                  f"{ {k: f'{v:.2e}' for k, v in noise['probes'].items()} })"
+                  f"; attention cores {comp['cores']}; placements and "
+                  f"local addresses kept: {comp['layout_kept']}: "
+                  f"{'pass' if ok else 'FAIL'} "
+                  f"({result['check_s']:.1f} s)", flush=True)
+    if card:
+        times = prefill_times(mesh, cfg, dev, batch, seq)
+        mem = [None] * dist.get_world_size()
+        dist.all_gather_object(mem, round(times["max_reserved_gib"], 2))
+        times["max_reserved_gib_per_rank"] = mem
+        result["times"] = times
+        if dist.get_rank() == 0:
+            print(f"{tag} ms (events): the second eager sharded pass "
+                  f"{times['eager_ms']:.3f}; replayed (median of 5) "
+                  f"{times['replay_ms']:.3f}, compute kernels "
+                  f"{times['replay_busy_ms']:.3f}, NCCL kernels "
+                  f"{times['replay_nccl_ms']:.3f}, host share "
+                  f"{100 * times['replay_host_share']:.1f}%; "
+                  f"max_memory_reserved per rank (GiB) {mem}", flush=True)
+    if dist.get_rank() == 0:
+        print(json.dumps({"ok": ok, "mesh": [d, m], "prefill": result,
+                          "src": str(args.src), "device": str(dev)}),
+              flush=True)
+    return ok
+
+
+def prefill_times(mesh, cfg, dev, batch: int, seq: int, reps: int = 5):
+    """The eager sharded ``prefill_step`` captured as one CUDA graph (two
+    eager passes on a side stream, the capture, then replays) on one
+    batch, from FSDP-sharded params: the second eager pass's ms and the
+    replay's (CUDA events, median of ``reps`` replays after the first),
+    the replay's compute and NCCL kernel time (``device_busy_ms``) and
+    host share, and ``max_memory_reserved`` from the set-up's end (the
+    whole tree is drawn and sliced before it, C.12). Uses only what every
+    source tree with ``prefill_step`` on a mesh has, so parent and change
+    are timed alike."""
+    import statistics
+
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.distributed.api import (activation_policy,
+                                             policy_from_mesh)
+    from repro_torch.distributed.sharding import distribute, params_shardings
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_model
+    params = init_model(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    d_params = distribute(params, params_shardings(params, mesh))
+    del params
+    feed = make_batch(DataConfig(seed=0, global_batch=batch, seq_len=seq),
+                      cfg, 0, mesh=mesh)
+    policy = policy_from_mesh(mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        with activation_policy(policy):
+            return steps.prefill_step(d_params, feed, cfg=cfg)
+
+    def ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    stream = torch.cuda.Stream(device=dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        warm_ms = [ms(step) for _ in range(2)]
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        step()
+    replay_ms = [ms(graph.replay) for _ in range(reps + 1)][1:]
+    busy, nccl = device_busy_ms(graph.replay)
+    out = {"eager_ms": warm_ms[1], "replay_ms": statistics.median(replay_ms),
+           "replay_busy_ms": busy, "replay_nccl_ms": nccl,
+           "max_reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
+    out["replay_host_share"] = 1 - busy / out["replay_ms"]
+    del graph
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lm", action="store_true",
@@ -543,12 +696,21 @@ def main(argv=None) -> int:
                          "mesh, from position START")
     ap.add_argument("--lm-decode-only", action="store_true",
                     help="--lm: the --lm-decode checks alone")
+    ap.add_argument("--lm-prefill", nargs="+", default=[],
+                    metavar="ARCH:BATCH:SEQ[:VOCAB]",
+                    help="--lm: also check (and on cards time) the prefill "
+                         "step of ARCH on BATCH rows of SEQ tokens on each "
+                         "mesh")
+    ap.add_argument("--lm-prefill-only", action="store_true",
+                    help="--lm: the --lm-prefill (and --lm-decode) checks, "
+                         "no train step")
     ap.add_argument("--src", type=Path, default=REPO / "src",
                     help="the source tree to import (a parent's, to time "
                          "it beside this one)")
     ap.add_argument("--times-only", action="store_true",
-                    help="--lm-decode: time the decode step, check "
-                         "nothing (a tree without compiled_decode_check "
+                    help="--lm-decode / --lm-prefill: time the step, "
+                         "check nothing (a tree without "
+                         "compiled_decode_check or compiled_prefill_check "
                          "is only timed)")
     ap.add_argument("--restore-dir", default=None,
                     help=argparse.SUPPRESS)
