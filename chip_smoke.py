@@ -322,6 +322,32 @@ both matrix products and cuDNN:
     roofline of qwen2.5-14b × train_4k: per-chip parameter bytes against
     80 GB, the temp term, FLOPs, collective bytes by op and the roofline
     terms printed; a failed cell fails the phase.
+29. the CNN path in bf16 (``init_params(dtype=torch.bfloat16)``, the
+    engine's ``dtype=``): (a) ptxas registers, spills and shared memory
+    of each bf16 instantiation (``gemm_bf16``, ``conv_im2col_bf16`` and
+    the bf16 stores of the f32 GEMMs); (b) ``gemm_bf16`` on every tile at
+    M = K = N = 1, 17x33x9, K 70, B one element off alignment, 5b/1x1 at
+    bucket 1 and conv2 at bucket 8, and ``conv_im2col_bf16`` at the
+    GoogleNet stem (its element path), a 3x3 SAME with Cin % 8 == 0, a
+    VALID stride 2, a 5x5, Cout 30 and a 1x1x1, each within one bf16 ulp
+    of its plain version (rtol 2^-7, atol 1e-4 of the output's max; the
+    largest deviation printed) and equal bit for bit from call to call;
+    ``out_dtype`` both ways; (c) full-width GoogleNet with bf16 params at
+    every bucket, elided (1 conv + 56 GEMM launches) and not (57 conv):
+    kernels against the plain path on the card within 5e-2 of its
+    largest logit, eager, capture and replay bit-equal, the counters, the
+    captured graph's kernel nodes and a replay's profiler rows (a short
+    window retaken, as phase 4 does) equal to the lowering's launches (and
+    no other kernel launched), and within
+    5e-2 of the f32 forward of the same weights widened; (d)
+    ``CNNServingEngine(dtype=torch.bfloat16)`` serving 13 distinct
+    requests at depths 1 and 2, every count reset just before each engine
+    is built (depth 1's run gives the JSON line's launches), each result
+    an f32 row within 5e-2 of a plain bf16 forward of its image; (e)
+    printed, not gated: both kernels against their bounds (989 TFLOP/s
+    bf16, 3.35 TB/s), ``torch.matmul`` at conv2 and ``F.conv2d`` at the
+    stem in bf16 (bucket 8), and the replayed bf16 forward per bucket
+    beside the f32 one with ``max_memory_reserved``.
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
 and 18 serve as phase 5 does, and every forward timed is a replay. Each
@@ -513,8 +539,8 @@ def device_time(fn, reps: int = 1):
                 continue
             gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32|"
                              r"unit_conv_gemms_f32|gemm_i8|conv_im2col_i8|"
-                             r"unit_conv_gemms_i8)_kernel<(\d+), (\d+)>",
-                             e.key)
+                             r"unit_conv_gemms_i8|gemm_bf16|conv_im2col_bf16)"
+                             r"_kernel<(\d+), (\d+)>", e.key)
             wino = re.search(r"\b(input_transform_tiles|input_transform|"
                              r"output_transform)_kernel<(\d+)>", e.key)
             reduce = re.search(r"\b(gemm_f32|unit_conv_gemms_f32|"
@@ -553,7 +579,9 @@ KERNEL_SYMBOLS = {"conv": "conv_im2col_f32_kernel", "gemm": "gemm_f32_kernel",
                   "gemm_i8": "gemm_i8_kernel",
                   "conv_im2col_i8": "conv_im2col_i8_kernel",
                   "unit_conv_gemms_i8": "unit_conv_gemms_i8_kernel",
-                  "pad_accumulate_i32": "pad_accumulate_i32_kernel"}
+                  "pad_accumulate_i32": "pad_accumulate_i32_kernel",
+                  "conv_im2col_bf16": "conv_im2col_bf16_kernel",
+                  "gemm_bf16": "gemm_bf16_kernel"}
 
 
 def profiled_launches(fn):
@@ -5625,6 +5653,463 @@ def phase_28_lm_mesh(dev) -> None:
     print(f"[28] phase 28 took {time.perf_counter() - t28:.1f} s")
 
 
+# Phase 29: the bf16 CNN path. One bf16 ulp: rtol 2^-7, atol at most 1e-4
+# of the output's max; a whole forward within the reference's bf16
+# tolerance (tests/test_kernels.py:41) of the plain forward's max.
+BF16_ULP = 2.0 ** -7
+BF16_ATOL_SHARE = 1e-4
+BF16_FORWARD_REL = 5e-2
+N_BF16_REQUESTS = 13
+
+
+def bf16_close(name: str, got, want) -> float:
+    """Raise unless ``got`` lies within one bf16 ulp of ``want`` (rtol
+    2^-7, atol 1e-4 of max|want|), both of one dtype; returns max|diff|."""
+    if got.dtype != want.dtype:
+        raise CheckFailed(f"{name}: dtype {got.dtype} != {want.dtype}")
+    atol = BF16_ATOL_SHARE * float(want.float().abs().max())
+    return check_close(name, got.float(), want.float(), BF16_ULP, atol)
+
+
+def rel_dev(got, want) -> float:
+    """max|got - want| / max|want|, in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_29_bf16(dev) -> list:
+    """29. The CNN path in bf16: (a) ptxas of each bf16 instantiation; (b)
+    gemm_bf16 and conv_im2col_bf16 against their plain versions within one
+    bf16 ulp, two calls bit-equal, and ``out_dtype`` both ways; (c)
+    full-width GoogleNet with bf16 params at every bucket, elided and not:
+    kernels against the plain path on the card, eager, capture and replay
+    bit-equal, the counters, the captured graph's kernel nodes and a
+    replay's profiler rows equal to the lowering's launches, and against
+    the f32 forward of the same weights widened; (d)
+    ``CNNServingEngine(dtype=bf16)`` at depths 1 and 2, every count reset
+    just before each engine is built (depth 1's is the main path's run),
+    each result against a plain bf16 forward of its image; (e) printed, not
+    gated: each kernel against its bound and its library call, and the
+    replayed bf16 forward per bucket beside the f32 one. Returns the two
+    kernels' rows of the JSON line."""
+    import re
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.cnn.executor import _eval_graph, compile_plan, init_params
+    from repro_torch.cnn.models import googlenet
+    from repro_torch.core.algorithms import AlgoFamily
+    from repro_torch.core.dse import identify_parameters
+    from repro_torch.core.mapper import map_network
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import pad_nhwc
+    from repro_torch.kernels.conv_im2col import conv_im2col as conv_mod
+    from repro_torch.kernels.conv_im2col.ref import conv_geometry
+    from repro_torch.kernels.gemm import gemm as gemm_mod
+    from repro_torch.kernels.kn2row import kn2row as kn2_mod
+    from repro_torch.kernels.winograd import winograd as wino_mod
+    from repro_torch.serving.cnn_engine import CNNRequest, CNNServingEngine
+
+    t29 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    bf = torch.bfloat16
+    gemm_call, gemm_plain = gemm_mod.gemm_call, gemm_mod.gemm_plain
+    conv_call, conv_plain = conv_mod.conv_im2col_call, conv_mod.conv_plain
+    # Every kernel of the port: a bf16 run launches the two bf16 kernels
+    # and none of the others.
+    every = [k for mod in (gemm_mod, conv_mod, kn2_mod, wino_mod)
+             for k in vars(mod).values() if isinstance(k, build.CudaKernel)]
+    names = ("conv_im2col_bf16", "gemm_bf16")
+    bf16_kernels = (conv_mod.CONV_BF16, gemm_mod.GEMM_BF16)
+
+    def reset_counts():
+        for kern in every:
+            kern.launches = 0
+
+    def counts():
+        """(conv_im2col_bf16, gemm_bf16) launches; raises if any other
+        kernel launched."""
+        others = {k.symbol: k.launches for k in every
+                  if k not in bf16_kernels and k.launches}
+        if others:
+            raise CheckFailed(f"a bf16 run launched other kernels {others}")
+        return tuple(k.launches for k in bf16_kernels)
+
+    gen = torch.Generator().manual_seed(29)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    def offset_view(t):
+        """``t`` in a contiguous view one element into a larger buffer:
+        B's word loads fall off alignment, so the element path runs."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    # ---- (a) ptxas of each bf16 instantiation --------------------------
+    if not build.BUILD_LOG:
+        build.build_all()
+    for source in ("gemm", "conv_im2col"):
+        for kernel, info in ptxas_report(build.BUILD_LOG.get(source, "")):
+            if "bf16" in kernel:
+                print(f"[29] ptxas {source}: {kernel}: {info}")
+
+    # ---- (b) each kernel vs its plain version --------------------------
+    all_tiles = ((64, 64), (64, 128), (128, 64), (128, 128))
+    err, inputs = {}, {}
+    for label, m, k, n, tiles in (
+            ("1x1x1", 1, 1, 1, all_tiles), ("17x33x9", 17, 33, 9, all_tiles),
+            ("K 70", 333, 70, 100, all_tiles),
+            ("B off alignment", 49, 832, 384, all_tiles),
+            ("5b/1x1 b1", 49, 832, 384, all_tiles),
+            ("conv2 b8", 8 * 3136, 576, 192, ((128, 128),))):
+        a = randn(m, k)
+        b = randn(k, n, scale=k ** -0.5)
+        bias = randn(n, scale=0.1)
+        if label == "B off alignment":
+            b = offset_view(b)
+        want = gemm_plain(a, b, "bias_relu", bias)
+        used = sorted({gemm_mod.kernel_tile(bm, bn, m, n)
+                       for bm, bn in tiles})
+        for bm, bn in used:
+            got = gemm_call(a, b, bm=bm, bn=bn, epilogue="bias_relu",
+                            bias=bias)
+            again = gemm_call(a, b, bm=bm, bn=bn, epilogue="bias_relu",
+                              bias=bias)
+            torch.cuda.synchronize()
+            e = bf16_close(f"gemm_bf16 {label} tile ({bm},{bn})", got, want)
+            err[("gemm", label)] = max(err.get(("gemm", label), 0.0), e)
+            if not torch.equal(got, again):
+                raise CheckFailed(f"gemm_bf16 {label} tile ({bm},{bn}): two "
+                                  "calls differ")
+        bf16_close(f"gemm_bf16 {label} no epilogue", gemm_call(a, b),
+                   gemm_plain(a, b))
+        inputs[("gemm", label)] = (a, b, bias)
+        vec = n % 2 == 0 and k % 8 == 0 and b.data_ptr() % 4 == 0
+        print(f"[29] gemm_bf16 {label} M={m} K={k} N={n} bias_relu, tiles "
+              f"{used} ({'vector' if vec else 'element'} path): max|diff| "
+              f"{err[('gemm', label)]:.3e} (rtol 2^-7, atol 1e-4 of max|out| "
+              f"{float(want.float().abs().max()):.3e}); two calls equal bit "
+              f"for bit; no epilogue within one ulp too")
+    # out_dtype, a store of the flush: gemm_bf16's f32 sum stored as f32,
+    # and the f32 kernels storing bf16 (split K and not, the batched GEMM).
+    a, b, bias = inputs[("gemm", "5b/1x1 b1")]
+    want = gemm_plain(a, b, "bias_relu", bias, torch.float32)
+    e_f32 = check_close("gemm_bf16 out_dtype=f32", gemm_call(
+        a, b, epilogue="bias_relu", bias=bias, out_dtype=torch.float32),
+        want, 1e-4, 1e-4 * float(want.abs().max()))
+    e_out = []
+    for label, (m, k, n) in (("split", (49, 832, 384)),
+                             ("unsplit", (333, 70, 100))):
+        a32 = randn(m, k, dtype=torch.float32)
+        b32 = randn(k, n, scale=k ** -0.5, dtype=torch.float32)
+        bias32 = randn(n, scale=0.1, dtype=torch.float32)
+        e_out.append(bf16_close(
+            f"gemm_f32 out_dtype=bf16 {label}",
+            gemm_call(a32, b32, epilogue="bias_relu", bias=bias32,
+                      out_dtype=bf),
+            gemm_plain(a32, b32, "bias_relu", bias32, bf)))
+    ab = randn(4, 100, 64, dtype=torch.float32)
+    bb = randn(4, 64, 48, scale=0.125, dtype=torch.float32)
+    e_out.append(bf16_close(
+        "batched_gemm_f32 out_dtype=bf16",
+        gemm_mod.batched_gemm_call(ab, bb, out_dtype=bf),
+        gemm_mod.batched_gemm_plain(ab, bb, out_dtype=bf)))
+    print(f"[29] out_dtype: gemm_bf16 to f32 max|diff| {e_f32:.3e} (rtol "
+          f"1e-4); gemm_f32 split, unsplit and batched_gemm_f32 to bf16 "
+          f"max|diff| {', '.join(f'{e:.3e}' for e in e_out)} (one bf16 ulp)")
+
+    for label, xs, ws, stride, pad in (
+            ("stem b8", (8, 224, 224, 3), (7, 7, 3, 64), 2, "SAME"),
+            ("3x3 SAME", (2, 28, 28, 96), (3, 3, 96, 128), 1, "SAME"),
+            ("VALID s2", (2, 17, 17, 64), (3, 3, 64, 96), 2, "VALID"),
+            ("5x5", (2, 28, 28, 16), (5, 5, 16, 32), 1, "SAME"),
+            ("Cout 30", (2, 14, 14, 32), (3, 3, 32, 30), 1, "SAME"),
+            ("1x1x1", (1, 1, 1, 1), (1, 1, 1, 1), 1, "SAME")):
+        x = randn(*xs)
+        w = randn(*ws, scale=(ws[0] * ws[1] * ws[2]) ** -0.5)
+        cbias = randn(ws[3], scale=0.1)
+        want = conv_plain(x, w, stride=stride, padding=pad,
+                          epilogue="bias_relu", bias=cbias)
+        o1, o2 = conv_geometry(xs[1], xs[2], ws[0], ws[1], stride, pad)[:2]
+        tiles = ((128, 128),) if label == "stem b8" else all_tiles
+        used = sorted({gemm_mod.kernel_tile(bm, bn, xs[0] * o1 * o2, ws[3])
+                       for bm, bn in tiles})
+        for bm, bn in used:
+            got = conv_call(x, w, stride=stride, padding=pad, bm=bm, bn=bn,
+                            epilogue="bias_relu", bias=cbias)
+            again = conv_call(x, w, stride=stride, padding=pad, bm=bm,
+                              bn=bn, epilogue="bias_relu", bias=cbias)
+            torch.cuda.synchronize()
+            e = bf16_close(f"conv_im2col_bf16 {label} tile ({bm},{bn})",
+                           got, want)
+            err[("conv", label)] = max(err.get(("conv", label), 0.0), e)
+            if not torch.equal(got, again):
+                raise CheckFailed(f"conv_im2col_bf16 {label} tile ({bm},"
+                                  f"{bn}): two calls differ")
+        bf16_close(f"conv_im2col_bf16 {label} no epilogue",
+                   conv_call(x, w, stride=stride, padding=pad),
+                   conv_plain(x, w, stride=stride, padding=pad))
+        inputs[("conv", label)] = (x, w, cbias, stride, pad)
+        path = ("16-byte gather" if conv_mod.conv_bf16_vector_path(
+            ws[2], ws[3], x.data_ptr(), w.data_ptr()) else "element")
+        print(f"[29] conv_im2col_bf16 {label} x{xs} w{ws} s{stride} {pad}, "
+              f"tiles {used} ({path} path): max|diff| "
+              f"{err[('conv', label)]:.3e} (one bf16 ulp); two calls equal "
+              f"bit for bit; no epilogue within one ulp too")
+
+    # ---- (c) full-width GoogleNet in bf16 ------------------------------
+    g = googlenet(res=224, scale=1.0)
+    plan = map_network(g, hw=identify_parameters(g, max_dim=512))
+    if any(a.family is not AlgoFamily.IM2COL
+           for a in plan.assignment.values()):
+        raise CheckFailed("the GoogleNet plan is not all im2col")
+    p16 = init_params(g, seed=0, device=dev, dtype=bf)
+    for nid in sorted(p16):
+        p16[nid]["b"].copy_(randn(*p16[nid]["b"].shape, scale=0.05))
+    p32 = {nid: {k: t.float() for k, t in layer.items()}
+           for nid, layer in p16.items()}
+
+    def derived(lowering):
+        """(conv_im2col_bf16, gemm_bf16) launches per forward: a conv
+        whose input edge carries its Toeplitz matrix runs the GEMM."""
+        n = Counter()
+        for low in lowering.values():
+            toeplitz = (low.in_layout is not None
+                        and low.in_layout.kind == "toeplitz")
+            n["gemm_bf16" if toeplitz else "conv_im2col_bf16"] += 1
+        return tuple(n[k] for k in names)
+
+    def window_rows(fn):
+        """The two kernels' device rows of one call of ``fn`` under
+        ``torch.profiler``, the window opened by 256 spin kernels that no
+        count reads: after the LM phases the profiler dropped the first
+        25 kernels of a window on the card (``profiled_launches`` opens
+        with 17)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(256):
+                torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        rows = Counter()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                for name in names:
+                    if re.search(rf"\b{KERNEL_SYMBOLS[name]}\b", e.key):
+                        rows[name] += e.count
+        return tuple(rows[k] for k in names)
+
+    def graph_nodes(run, x):
+        """The two kernels' nodes in a capture of the walk ``run``
+        captures (``graph_kernel_nodes``)."""
+        static_in = x.clone()
+        cuda_graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.inference_mode(), torch.cuda.graph(cuda_graph):
+            _eval_graph(run.graph, run.lowering, p16, static_in, None)
+        rows = graph_kernel_nodes(cuda_graph)
+        del cuda_graph
+        torch.cuda.empty_cache()
+        return tuple(rows.get(k, 0) for k in names)
+
+    expect = {True: (1, 56), False: (57, 0)}
+    fwd = {}
+    for elide in (True, False):
+        for bsz in BUCKETS:
+            tag = f"googlenet 224 bf16 b{bsz} elide={elide}"
+            run_k, run_p, run_32 = (
+                compile_plan(g, plan, epilogue="bias_relu", tuning_batch=bsz,
+                             elide=elide, dtype=dtype, use_pallas=kernels,
+                             device=dev)
+                for dtype, kernels in ((bf, None), (bf, False),
+                                       (torch.float32, None)))
+            want_n = derived(run_k.lowering)
+            if want_n != expect[elide]:
+                raise CheckFailed(f"{tag}: the lowering gives {want_n}, "
+                                  f"expected {expect[elide]} {names}")
+            x = randn(bsz, 224, 224, 3)
+            outs = []
+            for stage, want_stage in (("eager", want_n), ("capture", want_n),
+                                      ("replay", (0, 0))):
+                reset_counts()
+                outs.append(run_k(p16, x))
+                torch.cuda.synchronize()
+                if counts() != want_stage:
+                    raise CheckFailed(f"{tag} {stage}: launches {counts()}, "
+                                      f"expected {want_stage} {names}")
+            if outs[0].dtype != bf or not all(torch.equal(o, outs[0])
+                                               for o in outs[1:]):
+                raise CheckFailed(f"{tag}: capture or replay differs from "
+                                  "the eager pass")
+            # The captured graph's kernel nodes must equal the lowering's;
+            # only then is a profiler window whose rows come back short of
+            # them (the profiler dropped rows) taken again, up to three in
+            # all, as phase 4's ``replay_rows`` does.
+            nodes = graph_nodes(run_k, x)
+            if nodes != want_n:
+                raise CheckFailed(f"{tag}: graph nodes {nodes}, expected "
+                                  f"{want_n} {names}")
+            short = []
+            for _ in range(3):
+                replayed = window_rows(lambda: run_k(p16, x))
+                if replayed == want_n or any(
+                        r > w for r, w in zip(replayed, want_n)):
+                    break
+                short.append(replayed)
+            if replayed != want_n:
+                raise CheckFailed(f"{tag}: one replay ran {replayed} kernel "
+                                  f"rows, expected {want_n} {names} (short "
+                                  f"windows before it {short})")
+            rel = rel_dev(outs[0], run_p(p16, x))
+            rel32 = rel_dev(outs[0], run_32(p32, x.float()))
+            if not (rel <= BF16_FORWARD_REL and rel32 <= BF16_FORWARD_REL):
+                raise CheckFailed(f"{tag}: max|diff| / max|want| {rel:.3e} "
+                                  f"vs plain, {rel32:.3e} vs f32 (limit "
+                                  f"{BF16_FORWARD_REL})")
+            fwd[(elide, bsz)] = (run_k, run_32, x)
+            print(f"[29] {tag}: bf16 logits {tuple(outs[0].shape)}; "
+                  f"max|diff| / max|plain| {rel:.3e}, vs the f32 forward of "
+                  f"the weights widened {rel32:.3e} (limit 5e-2); capture "
+                  f"and replay bit-equal to eager; launches "
+                  f"{dict(zip(names, want_n))} on eager and capture, 0 on a "
+                  f"replay, equal to the captured graph's kernel nodes and "
+                  f"a replay's profiler rows"
+                  + (f" ({len(short)} short window(s) retaken, rows {short})"
+                     if short else ""))
+            del run_p
+
+    # ---- (d) the engine in bf16: the main path -------------------------
+    run_p1 = compile_plan(g, plan, epilogue="bias_relu", tuning_batch=1,
+                          dtype=bf, use_pallas=False, device=dev)
+    rng = np.random.default_rng(29)
+    images = [rng.standard_normal((224, 224, 3)).astype(np.float32)
+              for _ in range(N_BF16_REQUESTS)]
+    served = {}
+    for depth in (1, 2):
+        reset_counts()
+        engine = CNNServingEngine(g, p16, plan, batch_size=8, slo_s=0.25,
+                                  warmup=True, pipeline_depth=depth,
+                                  dtype=bf, device=dev)
+        warm = counts()
+        per_warmup = tuple(2 * len(engine.buckets) * v
+                           for v in expect[True])
+        if warm != per_warmup:
+            raise CheckFailed(f"bf16 engine depth {depth}: warm-up launches "
+                              f"{warm}, expected {per_warmup} {names}")
+        for i, img in enumerate(images):
+            engine.submit(CNNRequest(rid=i, image=img))
+        done = engine.run_until_done()
+        if counts() != warm or sorted(done) != list(range(len(images))):
+            raise CheckFailed(f"bf16 engine depth {depth}: served "
+                              f"{len(done)} of {len(images)}, launches "
+                              f"{counts()} after {warm}")
+        worst = 0.0
+        for i, img in enumerate(images):
+            if done[i].dtype != np.float32:
+                raise CheckFailed(f"bf16 engine result of {done[i].dtype}")
+            want = run_p1(p16, torch.as_tensor(img[None]).to(dev, bf))[0]
+            rel = rel_dev(torch.as_tensor(done[i], device=dev), want)
+            worst = max(worst, rel)
+            if rel > BF16_FORWARD_REL:
+                raise CheckFailed(f"bf16 engine depth {depth} request {i}: "
+                                  f"max|diff| / max|plain| {rel:.3e}")
+        served[depth] = warm
+        print(f"[29] bf16 engine depth {depth}: {len(images)} requests, "
+              f"dispatches {engine.stats()['dispatches']}; worst max|diff| / "
+              f"max|plain| per image {worst:.3e} (limit 5e-2); launches "
+              f"counted over the run (warm-up eager and capture passes) "
+              f"{dict(zip(names, warm))}, 0 over the replayed ticks; "
+              f"{memory_line(dev)}")
+        del engine
+
+    # ---- (e) timings, printed ------------------------------------------
+    a, b, bias = inputs[("gemm", "conv2 b8")]
+    m, k = a.shape
+    n = b.shape[1]
+    g_ms = time_ms(lambda: gemm_call(a, b, epilogue="bias_relu", bias=bias))
+    g_plain = time_ms(lambda: gemm_plain(a, b, "bias_relu", bias))
+    g_lib = time_ms(lambda: torch.matmul(a, b))
+    g_bound, g_by = bound(2.0 * m * n * k, 2.0 * (m * k + k * n + n + m * n),
+                          PEAK_BF16_FLOPS)
+    print(f"[29] gemm_bf16 conv2 b8 M={m} K={k} N={n}: kernel {g_ms:.4f} ms, "
+          f"plain {g_plain:.4f} ms, torch.matmul bf16 {g_lib:.4f} ms, bound "
+          f"{g_bound:.4f} ms ({g_by}; 989 TFLOP/s bf16, 3.35 TB/s): "
+          f"{100 * g_bound / g_ms:.1f}% of the bound; {smi}")
+    x, w, cbias, stride, pad = inputs[("conv", "stem b8")]
+    bsz, h, w_in, c_in = x.shape
+    k1, k2, _, c_out = w.shape
+    o1, o2, pt, pb, pl, pr = conv_geometry(h, w_in, k1, k2, stride, pad)
+    xp = pad_nhwc(x, pt, pb, pl, pr).permute(0, 3, 1, 2).contiguous()
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    c_ms = time_ms(lambda: conv_call(x, w, stride=stride, padding=pad,
+                                     epilogue="bias_relu", bias=cbias))
+    c_plain = time_ms(lambda: conv_plain(x, w, stride=stride, padding=pad,
+                                         epilogue="bias_relu", bias=cbias))
+    c_lib = time_ms(lambda: F.conv2d(xp, w_oihw, stride=stride))
+    m = bsz * o1 * o2
+    c_bound, c_by = bound(2.0 * m * c_out * k1 * k2 * c_in,
+                          2.0 * (x.numel() + w.numel() + c_out + m * c_out),
+                          PEAK_BF16_FLOPS)
+    print(f"[29] conv_im2col_bf16 stem b8 x{tuple(x.shape)} w{tuple(w.shape)}"
+          f" s2 SAME: kernel {c_ms:.4f} ms, plain {c_plain:.4f} ms, F.conv2d "
+          f"bf16 (cuDNN) {c_lib:.4f} ms, bound {c_bound:.4f} ms ({c_by}): "
+          f"{100 * c_bound / c_ms:.1f}% of the bound; {smi}")
+    # The smallest-M GEMM of the bucket-1 forward, inception 5b's 1x1 on
+    # the 7x7 map: gemm_bf16 walks K serially on 3 blocks, where gemm_f32
+    # splits it 13 ways.
+    a, b, bias = inputs[("gemm", "5b/1x1 b1")]
+    a32, b32, bias32 = a.float(), b.float(), bias.float()
+    s16 = queued_ms(lambda: gemm_call(a, b, epilogue="bias_relu", bias=bias))
+    s32 = queued_ms(lambda: gemm_call(a32, b32, epilogue="bias_relu",
+                                      bias=bias32))
+    s_lib = queued_ms(lambda: torch.matmul(a, b))
+    print(f"[29] 5b/1x1 b1 M=49 K=832 N=384 queued: gemm_bf16 {s16:.4f} ms, "
+          f"gemm_f32 (K split) {s32:.4f} ms, torch.matmul bf16 {s_lib:.4f} "
+          f"ms; {smi}")
+    torch.cuda.reset_peak_memory_stats()
+    for bsz in BUCKETS:
+        run_k, run_32, x = fwd[(True, bsz)]
+        x32 = x.float()
+        for _ in range(2):                 # the f32 capture and a replay
+            run_32(p32, x32)
+        b16 = time_ms(lambda: run_k(p16, x), reps=10, rounds=5)
+        f32 = time_ms(lambda: run_32(p32, x32), reps=10, rounds=5)
+        busy16, split16, _ = device_time(lambda: run_k(p16, x))
+        busy32, _, _ = device_time(lambda: run_32(p32, x32))
+        print(f"[29] googlenet 224 forward b{bsz} (elide, replay): bf16 "
+              f"{b16:.3f} ms, f32 {f32:.3f} ms ({f32 / b16:.2f}x); device "
+              f"busy bf16 {busy16:.3f} ms = {split16} (ms), f32 "
+              f"{busy32:.3f} ms; {memory_line(dev)}; {smi}")
+    del fwd
+    torch.cuda.empty_cache()
+    print(f"[29] phase 29 took {time.perf_counter() - t29:.1f} s")
+    return [{"name": "conv_im2col_bf16", "route": "cuda",
+             "source": "src/repro_torch/csrc/conv_im2col.cu",
+             "replaces": "src/repro/kernels/conv_im2col/conv_im2col.py:89",
+             "launches": served[1][0],
+             "max_abs_err": err[("conv", "stem b8")],
+             "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
+             "bound_by": c_by, "library_ms": c_lib},
+            {"name": "gemm_bf16", "route": "cuda",
+             "source": "src/repro_torch/csrc/gemm.cu",
+             "replaces": "src/repro/kernels/gemm/gemm.py:117",
+             "launches": served[1][1],
+             "max_abs_err": err[("gemm", "conv2 b8")],
+             "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
+             "bound_by": g_by, "library_ms": g_lib}]
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -5644,6 +6129,7 @@ def main() -> int:
     phase_26_decode_graph(dev)
     phase_27_training(dev)
     phase_28_lm_mesh(dev)
+    kernels += phase_29_bf16(dev)
     print(f"total {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,12 +21,25 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.optim.adamw import OptState
 
 
+def _tensor(arr, dev: torch.device) -> torch.Tensor:
+    """One array as a tensor on ``dev``, dtype kept. A bf16 array (numpy's
+    ``ml_dtypes.bfloat16``, which torch cannot read) goes through f32 to
+    ``torch.bfloat16``, which is exact."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32),
+                            device=dev).to(torch.bfloat16)
+    return torch.tensor(arr, device=dev)
+
+
 def params_from_jax(np_params: Mapping[int, Mapping[str, np.ndarray]],
                     device="cuda") -> Dict[int, Dict[str, torch.Tensor]]:
     """``{nid: {name: ndarray}}`` → ``{nid: {name: tensor}}`` on
-    ``device``, dtype kept."""
+    ``device``, dtype kept: the reference's bf16 params
+    (``init_params(..., dtype=jnp.bfloat16)``) become ``torch.bfloat16``
+    tensors of the same values."""
     dev = resolve_device(device)
-    return {int(nid): {name: torch.tensor(np.asarray(arr), device=dev)
+    return {int(nid): {name: _tensor(arr, dev)
                        for name, arr in layer.items()}
             for nid, layer in np_params.items()}
 
@@ -34,19 +47,14 @@ def params_from_jax(np_params: Mapping[int, Mapping[str, np.ndarray]],
 def lm_params_from_jax(np_tree: Mapping[str, Any], device="cuda"
                        ) -> Dict[str, Any]:
     """The reference's nested LM param dict of numpy arrays → the same
-    nesting of tensors on ``device``, dtype kept. A bf16 array (numpy's
-    ``ml_dtypes.bfloat16``, which torch cannot read) goes through f32 to
-    ``torch.bfloat16``, which is exact."""
+    nesting of tensors on ``device``, dtype kept (bf16 as
+    ``params_from_jax`` takes it)."""
     dev = resolve_device(device)
 
     def convert(node):
         if isinstance(node, Mapping):
             return {k: convert(v) for k, v in node.items()}
-        arr = np.asarray(node)
-        if arr.dtype.name == "bfloat16":
-            return torch.tensor(arr.astype(np.float32),
-                                device=dev).to(torch.bfloat16)
-        return torch.tensor(arr, device=dev)
+        return _tensor(node, dev)
 
     return convert(np_tree)
 

@@ -96,7 +96,8 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
                                                         bool]] = None,
                          act_scales: Optional[Dict[int, float]] = None,
                          mesh: Optional[DataMesh] = None,
-                         device="cuda") -> tuple:
+                         device="cuda",
+                         dtype: torch.dtype = torch.float32) -> tuple:
     """The ``(graph hash, plan, bucket, device or mesh, options)`` identity
     of one compiled program: everything ``compile_plan`` closes over except
     the params, which are call arguments; ``fault_hook``, a host-side wrapper
@@ -111,7 +112,10 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
     record and its reload from JSON do. ``default_algo`` (the algorithm of
     every conv a plan does not assign) enters by its key and
     ``avg_pool_via`` as given, as in the reference. With a ``mesh`` the
-    device slot holds the mesh's fingerprint instead."""
+    device slot holds the mesh's fingerprint instead. ``dtype`` (f32 or
+    bf16: the params' and inputs' dtype the program takes) closes the key,
+    so the f32 and the bf16 ladder of one model never share a program or
+    its captures."""
     return (graph_hash(graph), plan_fingerprint(plan), default_algo.key,
             use_pallas, epilogue, _tuning_fingerprint(tuning),
             int(tuning_batch or 1), avg_pool_via, bool(elide),
@@ -121,7 +125,8 @@ def executable_cache_key(graph: Graph, plan: Optional[ExecutionPlan] = None,
              else _mesh_fingerprint(mesh)),
             (None if act_scales is None
              else tuple(sorted((int(n), float(s))
-                               for n, s in act_scales.items()))))
+                               for n, s in act_scales.items()))),
+            str(check_dtype(dtype)))
 
 
 class ExecutableCache:
@@ -186,12 +191,41 @@ class _Staged:
         return materialize(self.nhwc(), spec)
 
 
-def init_params(graph: Graph, seed: int = 0, device="cuda") -> Params:
-    """Per-layer f32 parameters ``{nid: {"w", "b"}}``: He-style normal
-    weights from a ``torch.Generator`` seeded with ``seed`` (drawn on the
-    CPU, so the same seed gives the same weights on every device) and zero
-    biases. Conv weights are ``(K1, K2, Cin, Cout)``, FC ``(in, out)``."""
+# The dtypes a CNN program runs in: its params, its input and every
+# activation (f32, or bf16 as the reference runs it with bf16 params).
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtype(dtype) -> torch.dtype:
+    """``dtype`` if a CNN program runs in it (``DTYPES``), else
+    ``TypeError``."""
+    if dtype not in DTYPES:
+        raise TypeError(f"CNN programs run in {DTYPES}, got {dtype}")
+    return dtype
+
+
+def params_dtype(params: Params) -> torch.dtype:
+    """The one dtype of every tensor in ``params`` (``DTYPES``); mixed or
+    other dtypes raise ``TypeError``."""
+    dtypes = {t.dtype for layer in params.values() for t in layer.values()}
+    if len(dtypes) != 1:
+        raise TypeError(f"params mix dtypes {sorted(map(str, dtypes))}")
+    return check_dtype(dtypes.pop())
+
+
+def init_params(graph: Graph, seed: int = 0, device="cuda", *,
+                dtype: torch.dtype = torch.float32,
+                conv_bias: bool = True) -> Params:
+    """Per-layer parameters ``{nid: {"w", "b"}}`` in ``dtype`` (f32 or
+    bf16): He-style normal weights drawn in f32 from a ``torch.Generator``
+    seeded with ``seed`` (on the CPU, so the same seed gives the same
+    weights on every device, and the bf16 weights are the f32 ones
+    rounded) and zero biases. Conv weights are ``(K1, K2, Cin, Cout)``, FC
+    ``(in, out)``. ``conv_bias=False`` leaves the convs without ``"b"``
+    (the reference's bias-free layout): a ``bias`` epilogue then lowers to
+    its bias-free form."""
     dev = resolve_device(device)
+    check_dtype(dtype)
     gen = torch.Generator().manual_seed(int(seed))
     params: Params = {}
     for nid in graph.topo_order():
@@ -201,14 +235,17 @@ def init_params(graph: Graph, seed: int = 0, device="cuda") -> Params:
             fan_in = m.k1 * m.k2 * m.c_in
             w = torch.randn((m.k1, m.k2, m.c_in, m.c_out),
                             generator=gen) / float(np.sqrt(fan_in))
-            params[nid] = {"w": w.to(dev),
-                           "b": torch.zeros((m.c_out,), device=dev)}
+            params[nid] = {"w": w.to(dev, dtype)}
+            if conv_bias:
+                params[nid]["b"] = torch.zeros((m.c_out,), device=dev,
+                                               dtype=dtype)
         elif node.kind is LayerKind.FC:
             fin = int(node.attrs["in_features"])
             fout = int(node.attrs["out_features"])
             w = torch.randn((fin, fout), generator=gen) / float(np.sqrt(fin))
-            params[nid] = {"w": w.to(dev),
-                           "b": torch.zeros((fout,), device=dev)}
+            params[nid] = {"w": w.to(dev, dtype),
+                           "b": torch.zeros((fout,), device=dev,
+                                            dtype=dtype)}
     return params
 
 
@@ -303,9 +340,23 @@ def _eval_graph(graph: Graph, lowering: Lowering, params: Params,
     return values[graph.sink()].nhwc()
 
 
-def _as_input(x, device: torch.device) -> torch.Tensor:
-    """A numpy array or tensor as an f32 tensor on ``device``."""
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+def _as_input(x, device: Optional[torch.device]) -> torch.Tensor:
+    """A numpy array or tensor as a tensor on ``device`` (None: where it
+    lies): f32, or bf16 for a bf16 tensor (numpy holds no bf16 here)."""
+    if not (torch.is_tensor(x) and x.dtype == torch.bfloat16):
+        x = torch.as_tensor(x, dtype=torch.float32)
+    return x if device is None else x.to(device)
+
+
+def _typed_input(x, device: Optional[torch.device],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """``_as_input`` in the params' ``dtype``: a tensor in one of
+    ``DTYPES`` must already be of it (``TypeError`` otherwise); numpy
+    arrays and other tensors are converted, rounding to nearest even into
+    bf16."""
+    if torch.is_tensor(x) and x.dtype in DTYPES and x.dtype != dtype:
+        raise TypeError(f"input of dtype {x.dtype} for params of {dtype}")
+    return _as_input(x, device).to(dtype)
 
 
 def forward(graph: Graph, params: Params, x,
@@ -337,7 +388,8 @@ def forward(graph: Graph, params: Params, x,
                           elide_overrides=elide_overrides,
                           act_scales=act_scales)
     with torch.inference_mode():
-        return _eval_graph(graph, lowering, params, _as_input(x, dev),
+        return _eval_graph(graph, lowering, params,
+                           _typed_input(x, dev, params_dtype(params)),
                            use_pallas, conv_tap=conv_tap)
 
 
@@ -354,13 +406,14 @@ class _Capture:
         self.static_out = static_out
 
 
-def capture_key(params: Params, x) -> Tuple[tuple, tuple]:
-    """The capture-table key of one call: ``x``'s shape and the
-    ``data_ptr()`` of every parameter tensor, in sorted node-id (then
-    name) order. A CUDA graph binds pointers, so two params dicts of
-    different tensors need two captures, and a new dict of the same
-    tensors reuses one."""
-    return (tuple(int(d) for d in x.shape),
+def capture_key(params: Params, x) -> Tuple[tuple, str, tuple]:
+    """The capture-table key of one call: ``x``'s shape, the params'
+    dtype (the input's, ``params_dtype``) and the ``data_ptr()`` of every
+    parameter tensor, in sorted node-id (then name) order. A CUDA graph
+    binds pointers and dtypes, so two params dicts of different tensors
+    need two captures, a new dict of the same tensors reuses one, and an
+    f32 and a bf16 walk never share one."""
+    return (tuple(int(d) for d in x.shape), str(params_dtype(params)),
             tuple(t.data_ptr() for nid in sorted(params)
                   for _, t in sorted(params[nid].items())))
 
@@ -429,30 +482,41 @@ class CompiledProgram:
     program to many engines; calls that share a program must share a
     stream. A capture is held, with its memory pool, for the program's
     lifetime; ``captures`` maps each key to its capture (None after the
-    warm pass only)."""
+    warm pass only).
+
+    ``dtype`` (f32 or bf16) is the program's: its params must all be of
+    it and its input is taken in it (``_typed_input``: a tensor of the other
+    of the two raises ``TypeError``; numpy arrays are converted), so every
+    activation and the logits are of it too."""
 
     def __init__(self, graph: Graph, lowering: Lowering,
                  use_pallas: Optional[bool], device: torch.device,
-                 avg_pool_via: str = "jnp") -> None:
+                 avg_pool_via: str = "jnp",
+                 dtype: torch.dtype = torch.float32) -> None:
         self.graph = graph
         self.lowering = lowering
         self.use_pallas = use_pallas
         self.avg_pool_via = avg_pool_via
         self.device = device
+        self.dtype = check_dtype(dtype)
         self.captures: Dict[tuple, Optional[_Capture]] = {}
         self._lock = threading.Lock()
 
     def __call__(self, params: Params, x) -> torch.Tensor:
+        dtype = params_dtype(params)
+        if dtype != self.dtype:
+            raise TypeError(f"params of {dtype} for a program compiled for "
+                            f"{self.dtype}")
         with torch.inference_mode():
             if self.device.type != "cuda":
                 return _eval_graph(self.graph, self.lowering, params,
-                                   _as_input(x, self.device),
+                                   _typed_input(x, self.device, self.dtype),
                                    self.use_pallas, self.avg_pool_via)
             key = capture_key(params, x)
             with self._lock:
                 if key not in self.captures:
                     out = _eval_graph(self.graph, self.lowering, params,
-                                      _as_input(x, self.device),
+                                      _typed_input(x, self.device, self.dtype),
                                       self.use_pallas, self.avg_pool_via)
                     self.captures[key] = None
                     return out
@@ -460,12 +524,11 @@ class CompiledProgram:
                 if entry is None:
                     entry = self.captures[key] = capture_forward(
                         self.graph, self.lowering, params,
-                        _as_input(x, self.device), self.use_pallas,
-                        self.avg_pool_via)
+                        _typed_input(x, self.device, self.dtype),
+                        self.use_pallas, self.avg_pool_via)
                 else:
-                    entry.static_in.copy_(
-                        torch.as_tensor(x, dtype=torch.float32),
-                        non_blocking=True)
+                    entry.static_in.copy_(_typed_input(x, None, self.dtype),
+                                          non_blocking=True)
                 entry.graph.replay()
                 return entry.static_out.clone()
 
@@ -496,18 +559,22 @@ class ShardedProgram:
 
     def __init__(self, graph: Graph, lowering: Lowering,
                  use_pallas: Optional[bool], mesh: DataMesh,
-                 avg_pool_via: str = "jnp") -> None:
+                 avg_pool_via: str = "jnp",
+                 dtype: torch.dtype = torch.float32) -> None:
         self.graph = graph
         self.lowering = lowering
         self.use_pallas = use_pallas
         self.mesh = mesh
         self.data_shards = data_shard_count(mesh)
         self.device = mesh.devices[0]
+        self.dtype = check_dtype(dtype)
         self.shards = tuple(CompiledProgram(graph, lowering, use_pallas, d,
-                                            avg_pool_via)
+                                            avg_pool_via, dtype)
                             for d in mesh.devices)
 
     def __call__(self, params, x) -> torch.Tensor:
+        if isinstance(x, np.ndarray):
+            x = torch.as_tensor(x, dtype=self.dtype)
         xs = shard_batch(x, self.mesh)
         shard_params = (params if isinstance(params, tuple)
                         else replicate(params, self.mesh))
@@ -539,7 +606,8 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                  fault_hook: Optional[Callable[[], None]] = None,
                  cache: Optional[ExecutableCache] = None,
                  act_scales: Optional[Dict[int, float]] = None,
-                 device="cuda") -> Callable:
+                 device="cuda",
+                 dtype: torch.dtype = torch.float32) -> Callable:
     """Lower (graph, plan) once into a static overlay program.
 
     Returns ``run(params, x) -> logits``, a ``CompiledProgram`` (wrapped
@@ -587,7 +655,13 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
     axis, one ``CompiledProgram`` per shard on its device, params
     replicated, outputs gathered on the mesh's first device (``.mesh``,
     ``.data_shards``). ``tuning_batch`` is then the per-chip batch, whose
-    winners bind every shard. Another object raises ``TypeError``."""
+    winners bind every shard. Another object raises ``TypeError``.
+
+    ``dtype`` (f32 or bf16) is the program's (``CompiledProgram``): bf16
+    params (``init_params(dtype=torch.bfloat16)``) run the reference's
+    bf16 path, every im2col conv on the bf16 kernels, which sum in f32
+    and round once per layer; kn2row and Winograd layers have no bf16
+    kernel yet and raise. It enters the cache key."""
     if mesh is not None and not isinstance(mesh, DataMesh):
         raise TypeError(f"compile_plan(mesh=...) takes a launch.mesh."
                         f"DataMesh, got {type(mesh).__name__}")
@@ -603,8 +677,9 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
             act_scales=act_scales)
         if mesh is None:
             return CompiledProgram(graph, lowering, use_pallas, dev,
-                                   avg_pool_via)
-        return ShardedProgram(graph, lowering, use_pallas, mesh, avg_pool_via)
+                                   avg_pool_via, dtype)
+        return ShardedProgram(graph, lowering, use_pallas, mesh, avg_pool_via,
+                              dtype)
 
     if cache is None:
         return _with_fault_hook(build(), fault_hook)
@@ -614,7 +689,8 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
                                tuning_batch=tuning_batch,
                                avg_pool_via=avg_pool_via, elide=elide,
                                elide_overrides=elide_overrides,
-                               act_scales=act_scales, mesh=mesh, device=dev)
+                               act_scales=act_scales, mesh=mesh, device=dev,
+                               dtype=dtype)
     return _with_fault_hook(cache.get_or_compile(key, build), fault_hook)
 
 

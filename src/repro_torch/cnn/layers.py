@@ -112,8 +112,9 @@ def _pool_rescale(h: int, w: int, k: int, stride: int, dtype: torch.dtype,
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
-    """(…, H, W, C) → (…, C)."""
-    return torch.mean(x, dim=(-3, -2))
+    """(…, H, W, C) → (…, C): the mean taken in f32 and cast back to
+    ``x``'s dtype, as the reference's ``jnp.mean`` widens bf16."""
+    return torch.mean(x, dim=(-3, -2), dtype=torch.float32).to(x.dtype)
 
 
 def fc(x: torch.Tensor, w: torch.Tensor,

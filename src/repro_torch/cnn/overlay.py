@@ -23,9 +23,19 @@ int8 layer on the kernel path quantizes its operands and runs the int8
 kernels (their plain versions for CPU tensors), the plain backends
 emulate it with fake-quantized f32 operands — a layer never falls back
 to another algorithm. Winograd rejects int8, as the reference does.
+
+bf16 operands (the reference's bf16 path: ``init_params(dtype=bf16)``)
+run im2col on the bf16 kernels, whose f32 sums round once per layer.
+kn2row and Winograd have no bf16 kernel yet, nor does an int8 layer of a
+bf16 model: those raise ``TypeError`` on the kernel path rather than run
+anything else. The plain backends take bf16 as the reference's do.
+
+Tests that monkeypatch ``apply_conv`` with a plain NHWC oracle wrap it
+with ``nhwc_conv`` so it honors the layout contract.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -46,6 +56,19 @@ from repro_torch.kernels.layouts import materialize, restore
 from repro_torch.kernels.winograd.ops import conv_winograd
 from repro_torch.kernels.winograd.ref import (winograd_from_tiles_ref,
                                               winograd_ref)
+
+
+def nhwc_conv(fn):
+    """Adapt a plain NHWC conv ``fn(x, w, ...)`` to the overlay's
+    layout-carrying call contract: restore a non-NHWC input, materialize a
+    requested output format. Reference executors (and tests that
+    monkeypatch ``apply_conv`` with an oracle) wrap with this so a
+    layout-aware compiled plan can still be replayed against them."""
+    @functools.wraps(fn)
+    def wrapper(x, w, *args, in_layout=None, out_layout=None, **kw):
+        y = fn(restore(x, in_layout), w, *args, **kw)
+        return materialize(y, out_layout)
+    return wrapper
 
 
 def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
@@ -97,6 +120,8 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
     if use_pallas and x.device.type != "cuda":
         raise ValueError("the Hopper kernels take CUDA tensors; got "
                          f"{x.device} (use backend='reference' on the CPU)")
+    if torch.bfloat16 in (x.dtype, w.dtype):
+        _check_bf16(x, w, algo, precision, use_pallas is not False)
     quant_kw = {}
     post_requant = None
     if precision == "int8":
@@ -158,6 +183,22 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
                                   padding=padding), epilogue, bias)
     y = materialize(y, out_layout)
     return requantize(y, post_requant) if post_requant else y
+
+
+def _check_bf16(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
+                precision: str, kernels: bool) -> None:
+    """A bf16 layer takes bf16 ``x`` and ``w`` and, on the kernel path,
+    im2col at bf16 precision: the layers with no bf16 kernel raise
+    ``TypeError``."""
+    if x.dtype != w.dtype:
+        raise TypeError(f"bf16 conv with x of {x.dtype} and w of {w.dtype}")
+    if not kernels:
+        return
+    if algo.family is not AlgoFamily.IM2COL:
+        raise TypeError(f"{algo.key} has no bf16 kernel yet; a bf16 model "
+                        "runs im2col layers only on the kernel path")
+    if precision == "int8":
+        raise TypeError("an int8 layer of a bf16 model has no kernel yet")
 
 
 def _winograd(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,

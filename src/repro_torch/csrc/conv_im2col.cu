@@ -70,11 +70,34 @@
 //     by adds, with the same predicates per byte.
 // stem/c1's K of 27 is one chunk whose second k32 step the loop skips. The
 // flush stores a fragment's adjacent outputs as one float2 or char2.
+//
+// conv_im2col_bf16 is the reference kernel's bf16 path (bf16 map and
+// weights, the f32 accumulator, bias and ReLU in f32 and one cast to bf16
+// at the flush, conv_im2col.py:52-60). On the main path (GoogleNet served
+// in bf16) it runs the 7x7 stride-2 stem under elision and every conv
+// without it. It runs the bf16 tensor-core loop of tile_mma_bf16.cuh
+// (mma.sync m16n8k16, 32-deep chunks in two cp.async stages, f32 sums)
+// with A gathered from the bf16 NHWC map (GatherNhwcBf16), on one of two
+// paths (conv_bf16_vector_path):
+//   16-byte gather: Cin % 8 == 0, x 16-byte aligned, Cout % 2 == 0 and w
+//     4-byte aligned (every GoogleNet conv but the stem). A thread's
+//     8-element segment starts on a multiple of 8 and so lies inside one
+//     tap's channel run: one cp.async from x + origin + (dk1 · W + dk2) ·
+//     Cin + ci, zero-filled when the row is past M, the column past K or
+//     the tap outside the map.
+//   elements: any other operand (the stem's Cin 3, reduced widths, offset
+//     views): the segment's 8 columns walked in K order as runs of K2 · Cin
+//     contiguous elements, two to a word, through registers.
+// What bounds it: at the stem (batch 8: 2.4 MB of map, 12.8 MB of bf16
+// output, 1.9 GFLOP) bytes and the gather's index work; the unelided 3x3
+// layers read their maps nine times over, from L2.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
 #include "tile_gemm_async.cuh"
+#include "tile_mma_bf16.cuh"
 #include "tile_mma_i8.cuh"
 
 namespace {
@@ -259,6 +282,91 @@ struct GatherNhwcI8 {
   };
 };
 
+// A = the Toeplitz matrix of bf16 x (B, H, W, Cin), elements as 16-bit
+// patterns, as the A source of tile_mma_bf16.cuh's loop: GatherNhwcI8 with
+// elements for bytes. Per thread, rows m0 + row + 64 r keep their window
+// origin and (iy0, ix0); the chunk's column k0 + 8 seg keeps (dk1, dk2, ci),
+// its offset within a window and how many columns are left in K.
+struct GatherNhwcBf16 {
+  const uint16_t* __restrict__ x;
+  ConvGeom g;
+  int m;
+
+  template <int R>
+  struct Rows {
+    const uint16_t* __restrict__ a;  // x itself: the zero-fill's source
+    ConvGeom g;
+    int col;
+    int origin[R], iy0[R], ix0[R];   // per row (iy0 kFar: past M)
+    int tap, dk1, dk2, ci, left;     // the column (dk1 kFar: past K)
+
+    __device__ __forceinline__ Rows(const GatherNhwcBf16& s, int m0, int row,
+                                    int seg)
+        : a(s.x), g(s.g), col(8 * seg) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int gm = m0 + row + 64 * r;
+        if (gm < s.m) {
+          int base;
+          g.row(gm, base, iy0[r], ix0[r]);
+          origin[r] = base + (iy0[r] * g.w + ix0[r]) * g.c_in;
+        } else {
+          origin[r] = ix0[r] = 0;
+          iy0[r] = kFar;
+        }
+      }
+    }
+
+    __device__ __forceinline__ void begin_chunk(int k0) {
+      const int gk = k0 + col;
+      g.column(gk, dk1, dk2, ci);
+      tap = (dk1 * g.w + dk2) * g.c_in + ci;
+      left = g.k - gk;
+      if (left <= 0) dk1 = kFar;
+    }
+
+    // The 16-byte path (Cin % 8 == 0): the segment is one tap's channels.
+    __device__ __forceinline__ bool in(int r) const {
+      return (unsigned)(iy0[r] + dk1) < (unsigned)g.h &&
+             (unsigned)(ix0[r] + dk2) < (unsigned)g.w;
+    }
+
+    __device__ __forceinline__ const uint16_t* at(int r) const {
+      return a + (origin[r] + tap);
+    }
+
+    // The element path: columns k0 + col + e, e < 8, walked in K order; the
+    // offset steps by 1 along a (dk2, ci) run and by 1 + (W - K2) · Cin
+    // from one run (dk1) to the next.
+    __device__ __forceinline__ void elems(uint32_t (&v)[R][4]) const {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int w = 0; w < 4; ++w) v[r][w] = 0;
+      int d1 = dk1, d2 = dk2, c = ci, off = tap;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (e < left) {
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if ((unsigned)(iy0[r] + d1) < (unsigned)g.h &&
+                (unsigned)(ix0[r] + d2) < (unsigned)g.w)
+              v[r][e / 2] |= (uint32_t)a[origin[r] + off] << (16 * (e % 2));
+        }
+        ++off;
+        if (++c == g.c_in) {
+          c = 0;
+          if (++d2 == g.k2) {
+            d2 = 0;
+            ++d1;
+            off += (g.w - g.k2) * g.c_in;
+          }
+        }
+      }
+    }
+  };
+};
+
 // K slice blockIdx.z of gridDim.z: the whole conv with the fused flush
 // when the grid has one slice, else the slice's raw partial into
 // work[blockIdx.z] (m, n).
@@ -300,6 +408,28 @@ __global__ void __launch_bounds__(repro::kThreads)
                           int vec) {
   repro::tile_mma_i8_flush<BM, BN>(GatherNhwcI8{x, g, m}, w, flush, m, n,
                                    g.k, vec);
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    conv_im2col_bf16_kernel(const uint16_t* __restrict__ x,
+                            const uint16_t* __restrict__ w,
+                            const __nv_bfloat16* __restrict__ bias,
+                            __nv_bfloat16* __restrict__ out, ConvGeom g,
+                            int m, int n, int relu, int vec) {
+  repro::tile_mma_bf16_flush<BM, BN>(
+      GatherNhwcBf16{x, g, m}, w,
+      repro::CastFlush<__nv_bfloat16, __nv_bfloat16>{bias, out, n, relu}, m,
+      n, g.k, vec);
+}
+
+// Whether conv_im2col_bf16 takes the 16-byte gather path (else the element
+// path); kernels/conv_im2col/conv_im2col.py::BF16_GATHER_RULE mirrors it.
+inline bool conv_bf16_vector_path(const void* x, const void* w, int c_in,
+                                  int c_out) {
+  return c_in % 8 == 0 && c_out % 2 == 0 &&
+         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(w) % 4 == 0;
 }
 
 // Whether conv_im2col_i8 takes the 16-byte gather path (else the byte
@@ -375,5 +505,30 @@ extern "C" int conv_im2col_i8(const void* x, const void* w, const void* scale,
                       static_cast<const int8_t*>(x),
                       static_cast<const int8_t*>(w), flush, g, m, c_out,
                       (int)conv_i8_vector_path(x, w, c_in, c_out));
+  return (int)cudaGetLastError();
+}
+
+// out (B, O1, O2, Cout) = epilogue(conv(x (B, H, W, Cin), w) [+ bias]) with
+// x, w (K1, K2, Cin, Cout), bias and out bf16, the sum in f32 on the
+// tensor cores and bias and ReLU in f32 before one round-to-nearest-even
+// store; all contiguous, on the current device, every offset into x below
+// 2^31. bias may be NULL. Geometry and tiles as conv_im2col_f32; the path
+// is conv_bf16_vector_path's. Returns cudaGetLastError().
+extern "C" int conv_im2col_bf16(const void* x, const void* w, const void* bias,
+                                void* out, int batch, int h, int w_in,
+                                int c_in, int k1, int k2, int stride,
+                                int pad_top, int pad_left, int o1, int o2,
+                                int c_out, int tile_m, int tile_n, int relu,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ConvGeom g{h,        w_in,     c_in, k2, stride,
+                   pad_top,  pad_left, o1,   o2, k1 * k2 * c_in};
+  const int m = batch * o1 * o2;
+  REPRO_DISPATCH_TILE(conv_im2col_bf16_kernel, tile_m, tile_n, m, c_out, 1, s,
+                      static_cast<const uint16_t*>(x),
+                      static_cast<const uint16_t*>(w),
+                      static_cast<const __nv_bfloat16*>(bias),
+                      static_cast<__nv_bfloat16*>(out), g, m, c_out, relu,
+                      (int)conv_bf16_vector_path(x, w, c_in, c_out));
   return (int)cudaGetLastError();
 }

@@ -61,29 +61,47 @@
 // Exactness: the int32 sum is the same integer in any order, and each
 // flush step is one IEEE-rounded operation in torch's order, so it equals
 // its plain version bit for bit.
+//
+// gemm_bf16 is gemm_pallas's bf16 path (bf16 A and B, the f32 VMEM
+// accumulator, the flush's bias add and ReLU in f32 and one cast to the
+// output dtype, gemm.py:96-99). On the main path (GoogleNet served in
+// bf16) it runs every conv whose input edge carries its Toeplitz matrix:
+// 56 of the 57 convs under elision. Bound: operations at the large
+// layers (conv2 at batch 8, M = 25088, K = 576, N = 192, does ~150 FLOP
+// per byte moved, against the ~295 where 989 TFLOP/s of bf16 tensor
+// cores meet 3.35 TB/s, so bytes there too; the 7x7 layers at small
+// buckets are bytes- and latency-bound). Design: tile_mma_bf16.cuh, the
+// int8 loop's two-stage cp.async buffer and warp grid with
+// mma.sync m16n8k16 bf16 (f32 accumulators) in 32-deep chunks (dense A
+// here: DenseBf16), and CastFlush's single round-to-nearest-even store of
+// bf16 (or f32 with out_f32, the reference's out_dtype); no split K or
+// wgmma yet. The f32 kernels take a bf16 C the same way (out_bf16:
+// CastFlush<float, bf16> in the flush and in the split-K reduce), a store
+// of the flush and never a second pass.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
 #include "tile_gemm_async.cuh"
+#include "tile_mma_bf16.cuh"
 #include "tile_mma_i8.cuh"
 
 namespace {
 
-// K slice blockIdx.z of gridDim.z: the whole product with the fused flush
+// K slice blockIdx.z of gridDim.z: the whole product through `flush`
 // when the grid has one slice, else the slice's raw partial into
 // work[blockIdx.z] (m, n).
-template <int BM, int BN>
-__global__ void __launch_bounds__(repro::kThreads)
-    gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    const float* __restrict__ bias, float* __restrict__ c,
-                    float* __restrict__ work, int m, int n, int k, int relu,
-                    int vec) {
+template <int BM, int BN, class Flush>
+__device__ __forceinline__ void gemm_f32_tile(const float* __restrict__ a,
+                                              const float* __restrict__ b,
+                                              const Flush& flush,
+                                              float* __restrict__ work, int m,
+                                              int n, int k, int vec) {
   const int splits = gridDim.z;
   const repro::DenseA src{a, m, k};
   if (splits == 1) {
-    repro::tile_gemm_async<BM, BN>(src, b, repro::F32Flush{bias, c, n, relu},
-                                   m, n, 0, k, vec);
+    repro::tile_gemm_async<BM, BN>(src, b, flush, m, n, 0, k, vec);
     return;
   }
   const int s = blockIdx.z;
@@ -93,12 +111,47 @@ __global__ void __launch_bounds__(repro::kThreads)
       s * depth, min(k, (s + 1) * depth), vec);
 }
 
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    const float* __restrict__ bias, float* __restrict__ c,
+                    float* __restrict__ work, int m, int n, int k, int relu,
+                    int vec) {
+  gemm_f32_tile<BM, BN>(a, b, repro::F32Flush{bias, c, n, relu}, work, m, n,
+                        k, vec);
+}
+
+// The same with a bf16 C (out_dtype=bf16).
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    gemm_f32_out_bf16_kernel(const float* __restrict__ a,
+                             const float* __restrict__ b,
+                             const float* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ c,
+                             float* __restrict__ work, int m, int n, int k,
+                             int relu, int vec) {
+  gemm_f32_tile<BM, BN>(
+      a, b, repro::CastFlush<float, __nv_bfloat16>{bias, c, n, relu}, work,
+      m, n, k, vec);
+}
+
 __global__ void __launch_bounds__(repro::kReduceThreads)
     gemm_f32_reduce_kernel(const float* __restrict__ work,
                            const float* __restrict__ bias,
                            float* __restrict__ c, long long total, int n,
                            int splits, int relu) {
   repro::reduce_slices(work, bias, c, total, n, splits, relu);
+}
+
+__global__ void __launch_bounds__(repro::kReduceThreads)
+    gemm_f32_out_bf16_reduce_kernel(const float* __restrict__ work,
+                                    const float* __restrict__ bias,
+                                    __nv_bfloat16* __restrict__ c,
+                                    long long total, int n, int splits,
+                                    int relu) {
+  repro::reduce_slices_into(
+      work, repro::CastFlush<float, __nv_bfloat16>{bias, c, n, relu}, total,
+      n, splits);
 }
 
 template <int BM, int BN>
@@ -110,9 +163,18 @@ __global__ void __launch_bounds__(repro::kThreads)
 }
 
 // Problem g = blockIdx.z: the async loop on A[g], B[g] and C[g]. With
-// n % 4 == 0 every g·K·N and g·M·N is a multiple of 4 floats, so when B
-// and C are 16-byte aligned so is each B[g] and C[g]: the 16-byte B copies
-// (vec) and flush4 hold for every g.
+// n % 4 == 0 every g·K·N and g·M·N is a multiple of 4 elements, so when B
+// and C are aligned so is each B[g] and C[g]: the 16-byte B copies (vec)
+// and flush4 hold for every g.
+template <int BM, int BN, class Flush>
+__device__ __forceinline__ void batched_gemm_f32_tile(
+    const float* __restrict__ a, const float* __restrict__ b,
+    const Flush& flush, int m, int n, int k, int vec) {
+  const size_t g = blockIdx.z;
+  repro::tile_gemm_async<BM, BN>(repro::DenseA{a + g * m * k, m, k},
+                                 b + g * k * n, flush, m, n, 0, k, vec);
+}
+
 template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     batched_gemm_f32_kernel(const float* __restrict__ a,
@@ -120,15 +182,56 @@ __global__ void __launch_bounds__(repro::kThreads)
                             const float* __restrict__ bias,
                             float* __restrict__ c, int m, int n, int k,
                             int relu, int vec) {
-  const size_t g = blockIdx.z;
-  repro::tile_gemm_async<BM, BN>(
-      repro::DenseA{a + g * m * k, m, k}, b + g * k * n,
-      repro::F32Flush{bias, c + g * m * n, n, relu}, m, n, 0, k, vec);
+  batched_gemm_f32_tile<BM, BN>(
+      a, b, repro::F32Flush{bias, c + (size_t)blockIdx.z * m * n, n, relu},
+      m, n, k, vec);
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    batched_gemm_f32_out_bf16_kernel(const float* __restrict__ a,
+                                     const float* __restrict__ b,
+                                     const float* __restrict__ bias,
+                                     __nv_bfloat16* __restrict__ c, int m,
+                                     int n, int k, int relu, int vec) {
+  batched_gemm_f32_tile<BM, BN>(
+      a, b,
+      repro::CastFlush<float, __nv_bfloat16>{
+          bias, c + (size_t)blockIdx.z * m * n, n, relu},
+      m, n, k, vec);
+}
+
+// The bf16 tensor-core product: bf16 A and B, f32 sums, the flush into a
+// bf16 C (gemm_bf16_kernel) or an f32 one (out_dtype=f32).
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    gemm_bf16_kernel(const uint16_t* __restrict__ a,
+                     const uint16_t* __restrict__ b,
+                     const __nv_bfloat16* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ c, int m, int n, int k,
+                     int relu, int vec) {
+  repro::tile_mma_bf16_flush<BM, BN>(
+      repro::DenseBf16{a, m, k}, b,
+      repro::CastFlush<__nv_bfloat16, __nv_bfloat16>{bias, c, n, relu}, m, n,
+      k, vec);
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    gemm_bf16_out_f32_kernel(const uint16_t* __restrict__ a,
+                             const uint16_t* __restrict__ b,
+                             const __nv_bfloat16* __restrict__ bias,
+                             float* __restrict__ c, int m, int n, int k,
+                             int relu, int vec) {
+  repro::tile_mma_bf16_flush<BM, BN>(
+      repro::DenseBf16{a, m, k}, b,
+      repro::CastFlush<__nv_bfloat16, float>{bias, c, n, relu}, m, n, k, vec);
 }
 
 }  // namespace
 
-// C (m, n) = epilogue(A (m, k) · B (k, n) [+ bias (n)]); all f32,
+// C (m, n) = epilogue(A (m, k) · B (k, n) [+ bias (n)]); A, B and bias
+// f32, C f32 or, with out_bf16, bf16 (rounded once, in the flush); all
 // contiguous, on the current device, C 16-byte aligned. bias may be NULL.
 // (tile_m, tile_n) must be an instantiated tile: 64 or 128 each. K is cut
 // into `splits` slices (slice_depth); with splits > 1, work is the f32
@@ -138,20 +241,56 @@ __global__ void __launch_bounds__(repro::kThreads)
 extern "C" int gemm_f32(const void* a, const void* b, const void* bias,
                         void* c, void* work, int m, int n, int k, int tile_m,
                         int tile_n, int relu, int splits, int vec,
-                        void* stream) {
+                        int out_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_TILE(gemm_f32_kernel, tile_m, tile_n, m, n, splits, st,
-                      static_cast<const float*>(a),
-                      static_cast<const float*>(b),
-                      static_cast<const float*>(bias), static_cast<float*>(c),
-                      static_cast<float*>(work), m, n, k, relu, vec);
+  const float* fa = static_cast<const float*>(a);
+  const float* fb = static_cast<const float*>(b);
+  const float* fbias = static_cast<const float*>(bias);
+  float* fwork = static_cast<float*>(work);
+  if (out_bf16)
+    REPRO_DISPATCH_TILE(gemm_f32_out_bf16_kernel, tile_m, tile_n, m, n,
+                        splits, st, fa, fb, fbias,
+                        static_cast<__nv_bfloat16*>(c), fwork, m, n, k, relu,
+                        vec);
+  else
+    REPRO_DISPATCH_TILE(gemm_f32_kernel, tile_m, tile_n, m, n, splits, st, fa,
+                        fb, fbias, static_cast<float*>(c), fwork, m, n, k,
+                        relu, vec);
   const int err = (int)cudaGetLastError();
   if (err != 0 || splits == 1) return err;
   const long long total = (long long)m * n;
-  gemm_f32_reduce_kernel<<<repro::reduce_blocks(total, n),
-                           repro::kReduceThreads, 0, st>>>(
-      static_cast<const float*>(work), static_cast<const float*>(bias),
-      static_cast<float*>(c), total, n, splits, relu);
+  const unsigned blocks = repro::reduce_blocks(total, n);
+  if (out_bf16)
+    gemm_f32_out_bf16_reduce_kernel<<<blocks, repro::kReduceThreads, 0, st>>>(
+        fwork, fbias, static_cast<__nv_bfloat16*>(c), total, n, splits, relu);
+  else
+    gemm_f32_reduce_kernel<<<blocks, repro::kReduceThreads, 0, st>>>(
+        fwork, fbias, static_cast<float*>(c), total, n, splits, relu);
+  return (int)cudaGetLastError();
+}
+
+// C (m, n) = epilogue(A (m, k) · B (k, n) [+ bias (n)]) with A, B and bias
+// bf16, the sum in f32 on the tensor cores, bias and ReLU in f32, and C
+// bf16 or, with out_f32, f32 (one round-to-nearest-even store); all
+// contiguous, on the current device. bias may be NULL. (tile_m, tile_n)
+// must be an instantiated tile: 64 or 128 each. The path is
+// bf16_vector_path's. Returns cudaGetLastError().
+extern "C" int gemm_bf16(const void* a, const void* b, const void* bias,
+                         void* c, int m, int n, int k, int tile_m, int tile_n,
+                         int relu, int out_f32, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint16_t* ha = static_cast<const uint16_t*>(a);
+  const uint16_t* hb = static_cast<const uint16_t*>(b);
+  const __nv_bfloat16* hbias = static_cast<const __nv_bfloat16*>(bias);
+  const int vec = (int)repro::bf16_vector_path(a, b, n, k);
+  if (out_f32)
+    REPRO_DISPATCH_TILE(gemm_bf16_out_f32_kernel, tile_m, tile_n, m, n, 1, st,
+                        ha, hb, hbias, static_cast<float*>(c), m, n, k, relu,
+                        vec);
+  else
+    REPRO_DISPATCH_TILE(gemm_bf16_kernel, tile_m, tile_n, m, n, 1, st, ha, hb,
+                        hbias, static_cast<__nv_bfloat16*>(c), m, n, k, relu,
+                        vec);
   return (int)cudaGetLastError();
 }
 
@@ -179,19 +318,27 @@ extern "C" int gemm_i8(const void* a, const void* b, const void* scale,
 }
 
 // C[g] (m, n) = epilogue(A[g] (m, k) · B[g] (k, n) [+ bias (n)]) for
-// g < groups; A (groups, m, k), B (groups, k, n), C (groups, m, n), all f32,
-// contiguous, on the current device, C 16-byte aligned. bias may be NULL.
-// (tile_m, tile_n) must be an instantiated tile: 64 or 128 each. vec:
-// n % 4 == 0 and B 16-byte aligned. Returns cudaGetLastError().
+// g < groups; A (groups, m, k), B (groups, k, n) and bias f32, C (groups,
+// m, n) f32 or, with out_bf16, bf16; all contiguous, on the current device,
+// C 16-byte aligned. bias may be NULL. (tile_m, tile_n) must be an
+// instantiated tile: 64 or 128 each. vec: n % 4 == 0 and B 16-byte
+// aligned. Returns cudaGetLastError().
 extern "C" int batched_gemm_f32(const void* a, const void* b,
                                 const void* bias, void* c, int groups, int m,
                                 int n, int k, int tile_m, int tile_n,
-                                int relu, int vec, void* stream) {
+                                int relu, int vec, int out_bf16,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  REPRO_DISPATCH_TILE(batched_gemm_f32_kernel, tile_m, tile_n, m, n, groups,
-                      s, static_cast<const float*>(a),
-                      static_cast<const float*>(b),
-                      static_cast<const float*>(bias), static_cast<float*>(c),
-                      m, n, k, relu, vec);
+  const float* fa = static_cast<const float*>(a);
+  const float* fb = static_cast<const float*>(b);
+  const float* fbias = static_cast<const float*>(bias);
+  if (out_bf16)
+    REPRO_DISPATCH_TILE(batched_gemm_f32_out_bf16_kernel, tile_m, tile_n, m,
+                        n, groups, s, fa, fb, fbias,
+                        static_cast<__nv_bfloat16*>(c), m, n, k, relu, vec);
+  else
+    REPRO_DISPATCH_TILE(batched_gemm_f32_kernel, tile_m, tile_n, m, n, groups,
+                        s, fa, fb, fbias, static_cast<float*>(c), m, n, k,
+                        relu, vec);
   return (int)cudaGetLastError();
 }

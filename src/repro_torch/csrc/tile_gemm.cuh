@@ -1,8 +1,10 @@
 // What every tile loop of the kernels shares: the block size kThreads, the
 // f32 loop's chunk depth kBK, the int8 range, the flush policies and the
 // tile dispatch. The loops themselves live in tile_gemm_async.cuh (every f32
-// K loop: IEEE fmaf through two cp.async stages) and tile_mma_i8.cuh (every
-// int8 K loop: mma.sync on the int8 tensor cores, exact int32 sums).
+// K loop: IEEE fmaf through two cp.async stages), tile_mma_i8.cuh (every
+// int8 K loop: mma.sync on the int8 tensor cores, exact int32 sums) and
+// tile_mma_bf16.cuh (every bf16 K loop: mma.sync on the bf16 tensor cores,
+// f32 sums).
 //
 // A flush policy takes the finished sum of one output element after the K
 // loop: flush(gm, gn, acc). The int8 policies also take the adjacent pair
@@ -12,6 +14,7 @@
 // flush it, so a pair store changes no output bit.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,6 +34,55 @@ struct F32Flush {
     if (bias != nullptr) v += bias[gn];
     if (relu) v = v > 0.f ? v : 0.f;
     c[(size_t)gm * n + gn] = v;
+  }
+};
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// Two adjacent outputs in one 8-byte (f32) or 4-byte (bf16) store.
+__device__ __forceinline__ void store_pair(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float v0,
+                                           float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// The flush of an f32 sum into C (m, n) of Out (f32 or bf16), as the
+// reference's kernels flush their f32 accumulator: + bias[n] widened to
+// f32 (a Bias array: f32 or bf16, or none), ReLU, then one
+// round-to-nearest-even store in Out (o_ref[...] = acc.astype(dtype)).
+// The bf16 kernels flush through it, and the f32 loop with a bf16 C
+// (out_dtype=bf16); an f32 C of the f32 loop keeps F32Flush.
+template <class Bias, class Out>
+struct CastFlush {
+  const Bias* __restrict__ bias;
+  Out* __restrict__ c;
+  int n, relu;
+
+  __device__ __forceinline__ float value(int gn, float v) const {
+    if (bias != nullptr) v = __fadd_rn(v, widen(bias[gn]));
+    if (relu) v = v > 0.f ? v : 0.f;
+    return v;
+  }
+
+  __device__ __forceinline__ void operator()(int gm, int gn, float v) const {
+    store_as(c + (size_t)gm * n + gn, value(gn, v));
+  }
+
+  // gn and n even: the pair is aligned to its two elements in the
+  // outputs the wrappers allocate.
+  __device__ __forceinline__ void pair(int gm, int gn, float v0,
+                                       float v1) const {
+    store_pair(c + (size_t)gm * n + gn, value(gn, v0), value(gn + 1, v1));
   }
 };
 

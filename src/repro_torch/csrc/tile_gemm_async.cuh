@@ -54,7 +54,8 @@
 //
 // The flush goes through the caller's policy: flush(gm, gn, v) per element,
 // or flush4(flush, gm, gn, v) for four columns when n % 4 == 0, which needs
-// C 16-byte aligned (the wrappers allocate every output).
+// C aligned to four elements (the wrappers allocate every output): F32Flush
+// and RawF32Flush store f32, CastFlush<float, bf16> a bf16 C (out_dtype).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,6 +108,18 @@ __device__ __forceinline__ void flush4(const F32Flush& f, int gm, int gn,
 __device__ __forceinline__ void flush4(const RawF32Flush& f, int gm, int gn,
                                        float4 v) {
   *reinterpret_cast<float4*>(f.c + (size_t)gm * f.n + gn) = v;
+}
+
+// A bf16 C (out_dtype=bf16): four values rounded once, in one 8-byte store.
+__device__ __forceinline__ void flush4(const CastFlush<float, __nv_bfloat16>& f,
+                                       int gm, int gn, float4 v) {
+  const __nv_bfloat162 lo =
+      __floats2bfloat162_rn(f.value(gn, v.x), f.value(gn + 1, v.y));
+  const __nv_bfloat162 hi =
+      __floats2bfloat162_rn(f.value(gn + 2, v.z), f.value(gn + 3, v.w));
+  *reinterpret_cast<uint2*>(f.c + (size_t)gm * f.n + gn) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                 *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // 4 bytes global -> shared; zero when src_bytes is 0.
@@ -300,18 +313,17 @@ __device__ __forceinline__ void tile_gemm_async(const ASrc& asrc,
                                         k_end);
 }
 
-// out (total / n, n) = epilogue(Σ_{s < splits} work[s]) for the workspace
+// out (total / n, n) = flush(Σ_{s < splits} work[s]) for the workspace
 // work (splits, total / n, n): the K slices' partials summed in the fixed
-// order s = 0, 1, …, then bias and ReLU as F32Flush applies them. One
-// thread per float4 when n % 4 == 0 (work and out 16-byte aligned), else
-// per float; launched on reduce_blocks(total, n) blocks of kReduceThreads.
-__device__ __forceinline__ void reduce_slices(const float* __restrict__ work,
-                                              const float* __restrict__ bias,
-                                              float* __restrict__ out,
-                                              long long total, int n,
-                                              int splits, int relu) {
+// order s = 0, 1, …, then the caller's flush (bias and ReLU, and the store
+// in C's dtype). One thread per float4 when n % 4 == 0 (work and out
+// aligned to four elements), else per float; launched on
+// reduce_blocks(total, n) blocks of kReduceThreads.
+template <class Flush>
+__device__ __forceinline__ void reduce_slices_into(
+    const float* __restrict__ work, const Flush& flush, long long total,
+    int n, int splits) {
   const long long t = (long long)blockIdx.x * kReduceThreads + threadIdx.x;
-  const F32Flush flush{bias, out, n, relu};
   if (n % 4 == 0) {
     const long long i = 4 * t;
     if (i >= total) return;
@@ -331,6 +343,15 @@ __device__ __forceinline__ void reduce_slices(const float* __restrict__ work,
     for (int s = 1; s < splits; ++s) v += work[(size_t)s * total + t];
     flush((int)(t / n), (int)(t % n), v);
   }
+}
+
+// reduce_slices_into an f32 out through F32Flush's bias and ReLU.
+__device__ __forceinline__ void reduce_slices(const float* __restrict__ work,
+                                              const float* __restrict__ bias,
+                                              float* __restrict__ out,
+                                              long long total, int n,
+                                              int splits, int relu) {
+  reduce_slices_into(work, F32Flush{bias, out, n, relu}, total, n, splits);
 }
 
 inline unsigned reduce_blocks(long long total, int n) {

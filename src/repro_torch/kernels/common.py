@@ -22,6 +22,32 @@ _SCALE_EPS = 1e-12
 # Per-layer precisions the mapper can assign. Winograd is bf16-only.
 PRECISIONS = ("bf16", "int8")
 
+# The operand dtypes each kernel wrapper takes (the dtype of its first
+# operand): a wrapper raises ``TypeError`` for any other, on every device,
+# before it picks the kernel or its plain version, so no operand of
+# another dtype ever reaches a kernel's buffers. The bf16 forms of the
+# Winograd and kn2row kernels are not written yet.
+KERNEL_DTYPES = {
+    "gemm": (torch.float32, torch.bfloat16, torch.int8),
+    "conv_im2col": (torch.float32, torch.bfloat16, torch.int8),
+    "batched_gemm": (torch.float32,),
+    "unit_conv_gemms": (torch.float32, torch.int8),
+    "pad_accumulate": (torch.float32, torch.int32),
+    "input_transform": (torch.float32,),
+    "input_transform_tiles": (torch.float32,),
+    "output_transform": (torch.float32,),
+}
+
+
+def check_kernel_dtype(kernel: str, t: torch.Tensor) -> None:
+    """Raise ``TypeError`` unless ``t``'s dtype is one ``kernel`` takes
+    (``KERNEL_DTYPES``)."""
+    allowed = KERNEL_DTYPES[kernel]
+    if t.dtype not in allowed:
+        names = ", ".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"{kernel}: operands of dtype {t.dtype} have no "
+                        f"kernel; it takes {names}")
+
 
 def resolve_device(device) -> torch.device:
     """The device rule of every entry point: a CUDA device is used only
@@ -61,9 +87,15 @@ def apply_epilogue(y: torch.Tensor, epilogue: str,
 
     Quantized variants: ``scale`` dequantizes an integer accumulator to
     f32 *before* bias/relu; ``out_scale`` requantizes the result to int8
-    *after* bias/relu."""
+    *after* bias/relu. A bf16 ``y`` is worked in f32 (bias widened, ReLU)
+    and cast back once, rounding to nearest even, as the reference's
+    kernels flush their f32 accumulator (``.astype(o_ref.dtype)``)."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; want {EPILOGUES}")
+    if y.dtype == torch.bfloat16 and scale is None:
+        out = apply_epilogue(y.to(torch.float32), epilogue, bias,
+                             out_scale=out_scale)
+        return out if out_scale is not None else out.to(torch.bfloat16)
     if scale is not None:
         y = y.to(torch.float32) * scale
     if epilogue.startswith("bias"):

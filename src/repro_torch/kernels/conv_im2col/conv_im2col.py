@@ -23,6 +23,14 @@ tap's channels; any other operand (Cin 3 at Inception-v4's stem/c1,
 reduced widths, offset views) takes the byte path, which gathers A a byte
 at a time through registers.
 
+A bf16 map and bf16 weights (and bias) run ``conv_im2col_bf16`` on the
+bf16 GEMM's tensor-core loop (``csrc/tile_mma_bf16.cuh``): f32 sums, bias
+and ReLU in f32, one round-to-nearest-even store of the bf16 output, as
+the reference's kernel flushes its f32 accumulator. Its A path follows
+``BF16_GATHER_RULE``: Cin a multiple of 8 (one tap's channels in 16-byte
+copies), else the element path (Cin 3 at GoogleNet's stem). Any other
+operand dtype raises ``TypeError`` (``KERNEL_DTYPES``).
+
 ``conv_im2col_call`` launches the kernel for CUDA tensors and runs
 ``conv_plain`` / ``conv_i8_plain`` for CPU tensors; nothing else selects
 between the two.
@@ -36,7 +44,7 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import (apply_epilogue, check_int8_depth,
-                                        int8_product)
+                                        check_kernel_dtype, int8_product)
 from repro_torch.kernels.conv_im2col.ref import (conv_geometry,
                                                  conv_via_toeplitz_ref,
                                                  toeplitz_ref)
@@ -52,20 +60,33 @@ CONV = CudaKernel("conv_im2col", "conv_im2col_f32",
 CONV_I8 = CudaKernel("conv_im2col", "conv_im2col_i8",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 16
                      + [ctypes.c_float, ctypes.c_void_p])
+CONV_BF16 = CudaKernel("conv_im2col", "conv_im2col_bf16",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
+                       + [ctypes.c_void_p])
 
 # csrc/conv_im2col.cu::conv_i8_vector_path: conv_im2col_i8 copies A in 16
 # bytes when c_in and c_out are multiples of these and x and w are aligned
 # to these bytes; else it gathers A a byte at a time.
 I8_GATHER_RULE = {"c_in": 16, "c_out": 4, "x": 16, "w": 4}
+# csrc/conv_im2col.cu::conv_bf16_vector_path, the same for conv_im2col_bf16
+# (else it gathers A an element at a time).
+BF16_GATHER_RULE = {"c_in": 8, "c_out": 2, "x": 16, "w": 4}
 
 
 def conv_i8_vector_path(c_in: int, c_out: int, x_ptr: int,
-                        w_ptr: int) -> bool:
+                        w_ptr: int, rule=I8_GATHER_RULE) -> bool:
     """Whether ``conv_im2col_i8`` takes its 16-byte gather path for a map
     of ``c_in`` channels at address ``x_ptr`` and weights of ``c_out``
     channels at ``w_ptr`` (the entry point decides; this mirrors it)."""
     sizes = {"c_in": c_in, "c_out": c_out, "x": x_ptr, "w": w_ptr}
-    return all(sizes[key] % d == 0 for key, d in I8_GATHER_RULE.items())
+    return all(sizes[key] % d == 0 for key, d in rule.items())
+
+
+def conv_bf16_vector_path(c_in: int, c_out: int, x_ptr: int,
+                          w_ptr: int) -> bool:
+    """Whether ``conv_im2col_bf16`` takes its 16-byte gather path (else
+    its element path), as ``conv_i8_vector_path`` says for int8."""
+    return conv_i8_vector_path(c_in, c_out, x_ptr, w_ptr, BF16_GATHER_RULE)
 
 
 def conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -73,8 +94,13 @@ def conv_plain(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The kernel's function in plain torch: an explicit Toeplitz gather,
     then ``@`` and the epilogue. x (B, H, W, Cin), w (K1, K2, Cin, Cout)
-    → (B, O1, O2, Cout)."""
+    → (B, O1, O2, Cout). A bf16 conv is computed in f32 and its epilogue's
+    result rounded once to bf16, as the kernel rounds."""
     check_epilogue(epilogue, bias)
+    if x.dtype == torch.bfloat16:
+        y = conv_via_toeplitz_ref(x.to(torch.float32), w.to(torch.float32),
+                                  stride, padding)
+        return apply_epilogue(y, epilogue, bias).to(torch.bfloat16)
     return apply_epilogue(conv_via_toeplitz_ref(x, w, stride, padding),
                           epilogue, bias)
 
@@ -109,7 +135,9 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     (K1, K2, Cin, Cout)) [+ bias (Cout,)]).
 
     f32 operands run ``conv_im2col_f32``, with K = K1·K2·Cin split
-    ``split_k`` ways on a grid smaller than the card. int8 ``x`` and ``w``
+    ``split_k`` ways on a grid smaller than the card. bf16 ``x``, ``w``
+    and bias run ``conv_im2col_bf16`` on the tensor cores (a bf16 output,
+    rounded once). int8 ``x`` and ``w``
     run ``conv_im2col_i8`` on the int8 tensor cores, A by 16-byte copies
     where ``conv_i8_vector_path`` holds and a byte at a time elsewhere: the
     exact int32 sum is dequantized by ``scale`` (Cout,) before the
@@ -118,7 +146,9 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, B·O1·O2, Cout)``; CPU tensors run
-    ``conv_plain`` / ``conv_i8_plain``."""
+    ``conv_plain`` / ``conv_i8_plain``. Any other dtype raises
+    ``TypeError``."""
+    check_kernel_dtype("conv_im2col", x)
     quant = check_quant_args("conv_im2col", x, scale, out_scale)
     if x.device.type == "cpu":
         if quant:
@@ -140,8 +170,10 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     check_operand("w", w, x.device, (k1, k2, c_in, c_out), x.dtype)
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
+    bf16 = x.dtype == torch.bfloat16
     if bias is not None:
-        check_operand("bias", bias, x.device, (c_out,))
+        check_operand("bias", bias, x.device, (c_out,),
+                      torch.bfloat16 if bf16 else torch.float32)
     if stride < 1:
         raise ValueError(f"conv_im2col: bad stride {stride}")
     o1, o2, pad_top, _, pad_left, _ = conv_geometry(h, w_in, k1, k2, stride,
@@ -169,6 +201,13 @@ def conv_im2col_call(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                            bias_ptr, out.data_ptr(), *geom,
                            int(out_scale is not None),
                            float(out_scale or 0.0), stream)
+        return out
+    if bf16:
+        out = torch.empty((batch, o1, o2, c_out), device=x.device,
+                          dtype=torch.bfloat16)
+        with torch.cuda.device(x.device):
+            CONV_BF16.launch(x.data_ptr(), w.data_ptr(), bias_ptr,
+                             out.data_ptr(), *geom, stream)
         return out
     out = torch.empty((batch, o1, o2, c_out), device=x.device,
                       dtype=torch.float32)

@@ -1,6 +1,6 @@
 """Dataflow-bound tiled GEMM — the paper's Computing Unit as a hand-written
-Hopper kernel (``csrc/gemm.cu``), dense, batched and int8, each with its
-plain torch version beside it.
+Hopper kernel (``csrc/gemm.cu``), dense, batched, int8 and bf16, each with
+its plain torch version beside it.
 
 C = epilogue(A · B [+ bias]) in IEEE f32; the batched form computes G
 independent products C[g] = epilogue(A[g] · B[g] [+ bias]) with one bias
@@ -9,8 +9,13 @@ int8 A and B, sums exactly in int32 and flushes dequant (· ``scale``, the
 per-channel in_scale · w_scale) → bias → ReLU → optional requant at
 ``out_scale`` to an int8 C. The kernels mask ragged M/N/K edges
 themselves, so no operand is padded on the host, and apply the epilogue
-in registers before their single store. ``gemm_call`` (on the operands'
-dtype) and ``batched_gemm_call`` launch them for CUDA tensors and run
+in registers before their single store. The bf16 form takes bf16 A, B
+and bias, sums in f32 on the tensor cores, applies bias and ReLU in f32
+and rounds once to the output dtype (bf16 unless ``out_dtype`` asks for
+f32), as the reference's kernel flushes its f32 accumulator; the f32
+forms store a bf16 C the same way under ``out_dtype=bf16``.
+``gemm_call`` (on the operands' dtype, which ``KERNEL_DTYPES`` bounds)
+and ``batched_gemm_call`` launch them for CUDA tensors and run
 ``gemm_plain`` / ``gemm_i8_plain`` / ``batched_gemm_plain`` for CPU
 tensors; nothing else selects between the two.
 
@@ -31,16 +36,20 @@ import torch
 
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import (EPILOGUES, apply_epilogue, ceil_to,
-                                        check_int8_depth, int8_product)
+                                        check_int8_depth, check_kernel_dtype,
+                                        int8_product)
 
 GEMM = CudaKernel("gemm", "gemm_f32",
-                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                   + [ctypes.c_void_p])
 GEMM_I8 = CudaKernel("gemm", "gemm_i8",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                      + [ctypes.c_float, ctypes.c_void_p])
+GEMM_BF16 = CudaKernel("gemm", "gemm_bf16",
+                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p])
 BATCHED_GEMM = CudaKernel("gemm", "batched_gemm_f32",
-                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p])
 
 _MAX_GRID_Y = 65535
@@ -159,13 +168,38 @@ def check_quant_args(name: str, x: torch.Tensor,
     return False
 
 
+def gemm_out_dtype(dtype: torch.dtype, out_dtype: Optional[torch.dtype],
+                   out_scale: Optional[float] = None) -> torch.dtype:
+    """C's dtype for operands of ``dtype``: the reference's default (int8
+    under ``out_scale``, f32 for other int8 operands, else the operands'
+    dtype) when ``out_dtype`` is None or names it; f32 and bf16 operands
+    also take the other of the two, a store of the flush. Any other
+    ``out_dtype`` raises ``ValueError``."""
+    default = (torch.int8 if out_scale is not None
+               else torch.float32 if dtype == torch.int8 else dtype)
+    if out_dtype is None or out_dtype == default:
+        return default
+    if dtype == torch.int8 or out_dtype not in (torch.float32,
+                                                torch.bfloat16):
+        raise ValueError(f"out_dtype={out_dtype} is not taken for {dtype} "
+                         f"operands; want None, {default} or, for f32 and "
+                         "bf16 operands, the other of the two")
+    return out_dtype
+
+
 def gemm_plain(a: torch.Tensor, b: torch.Tensor, epilogue: str = "none",
-               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The kernel's function in plain torch: ``a @ b`` plus the epilogue
     (for (G, M, K) × (G, K, N) operands, the batched kernel's: the bias
-    (N,) is shared across G)."""
+    (N,) is shared across G), in C's dtype (``gemm_out_dtype``). bf16
+    operands are multiplied in f32 and the epilogue's result is rounded
+    once, as the kernel rounds."""
     check_epilogue(epilogue, bias)
-    return apply_epilogue(a @ b, epilogue, bias)
+    out_dtype = gemm_out_dtype(a.dtype, out_dtype)
+    if a.dtype == torch.bfloat16:
+        a, b = a.to(torch.float32), b.to(torch.float32)
+    return apply_epilogue(a @ b, epilogue, bias).to(out_dtype)
 
 
 def gemm_i8_plain(a: torch.Tensor, b: torch.Tensor, epilogue: str = "none",
@@ -185,23 +219,30 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
               bn: int = 128, epilogue: str = "none",
               bias: Optional[torch.Tensor] = None,
               scale: Optional[torch.Tensor] = None,
-              out_scale: Optional[float] = None) -> torch.Tensor:
+              out_scale: Optional[float] = None,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C (M, N) = epilogue(A (M, K) · B (K, N) [+ bias (N,)]).
 
     f32 operands run ``gemm_f32``, with K split ``split_k`` ways on a grid
-    smaller than the card. int8 operands run ``gemm_i8``: the exact int32
-    sum is dequantized by ``scale`` (N,) before the epilogue, and
-    ``out_scale`` requantizes C to int8 (else C is f32).
+    smaller than the card. bf16 operands (and a bf16 bias) run
+    ``gemm_bf16`` on the tensor cores, f32 sums and one rounding at the
+    flush. int8 operands run ``gemm_i8``: the exact int32 sum is
+    dequantized by ``scale`` (N,) before the epilogue, and ``out_scale``
+    requantizes C to int8 (else C is f32). ``out_dtype`` (f32 or bf16,
+    ``gemm_out_dtype``) is the dtype C is stored in by the flush; any
+    other operand dtype raises ``TypeError``.
 
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, M, N)``; CPU tensors run ``gemm_plain`` /
     ``gemm_i8_plain``."""
+    check_kernel_dtype("gemm", a)
     quant = check_quant_args("gemm", a, scale, out_scale)
+    out_dtype = gemm_out_dtype(a.dtype, out_dtype, out_scale)
     if a.device.type == "cpu":
         if quant:
             return gemm_i8_plain(a, b, epilogue, bias, scale=scale,
                                  out_scale=out_scale)
-        return gemm_plain(a, b, epilogue, bias)
+        return gemm_plain(a, b, epilogue, bias, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"gemm: unsupported device {a.device}")
     relu = check_epilogue(epilogue, bias)
@@ -215,7 +256,9 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
     if bias is not None:
-        check_operand("bias", bias, a.device, (n,))
+        check_operand("bias", bias, a.device, (n,),
+                      torch.bfloat16 if a.dtype == torch.bfloat16
+                      else torch.float32)
     if min(m, n, k) < 1:
         raise ValueError(f"gemm: empty operand M={m} N={n} K={k}")
     tile_m, tile_n = kernel_tile(bm, bn, m, n)
@@ -235,14 +278,21 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                            int(relu), int(out_scale is not None),
                            float(out_scale or 0.0), stream)
         return out
-    out = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    out = torch.empty((m, n), device=a.device, dtype=out_dtype)
+    if a.dtype == torch.bfloat16:
+        with torch.cuda.device(a.device):
+            GEMM_BF16.launch(a.data_ptr(), b.data_ptr(), bias_ptr,
+                             out.data_ptr(), m, n, k, tile_m, tile_n,
+                             int(relu), int(out_dtype == torch.float32),
+                             stream)
+        return out
     splits = grid_splits(m, n, k, (tile_m, tile_n), sm_count(a.device))
     work = split_workspace(splits, m, n, a.device)
     with torch.cuda.device(a.device):
         GEMM.launch(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
                     None if work is None else work.data_ptr(), m, n, k,
                     tile_m, tile_n, int(relu), splits, b_vector_path(b, n),
-                    stream)
+                    int(out_dtype == torch.bfloat16), stream)
     return out
 
 
@@ -252,14 +302,20 @@ batched_gemm_plain = gemm_plain
 
 def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                       bn: int = 128, epilogue: str = "none",
-                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """C (G, M, N) = epilogue(A (G, M, K) · B (G, K, N) [+ bias (N,)]).
+                      bias: Optional[torch.Tensor] = None,
+                      out_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """C (G, M, N) = epilogue(A (G, M, K) · B (G, K, N) [+ bias (N,)]) for
+    f32 operands (any other dtype raises ``TypeError``), C stored in
+    ``out_dtype`` (f32, or bf16 rounded once at the flush).
 
     CUDA tensors launch the batched kernel (one grid layer per g, K not
     split) on the current stream under the tile ``kernel_tile(bm, bn, M,
     N)``; CPU tensors run ``batched_gemm_plain``."""
+    check_kernel_dtype("batched_gemm", a)
+    out_dtype = gemm_out_dtype(a.dtype, out_dtype)
     if a.device.type == "cpu":
-        return batched_gemm_plain(a, b, epilogue, bias)
+        return batched_gemm_plain(a, b, epilogue, bias, out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"batched_gemm: unsupported device {a.device}")
     relu = check_epilogue(epilogue, bias)
@@ -280,11 +336,12 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     tile_m, tile_n = kernel_tile(bm, bn, m, n)
     if -(-m // tile_m) > _MAX_GRID_Y or g > _MAX_GRID_Y:
         raise ValueError(f"batched_gemm: G={g} M={m} exceeds the launch grid")
-    out = torch.empty((g, m, n), device=a.device, dtype=torch.float32)
+    out = torch.empty((g, m, n), device=a.device, dtype=out_dtype)
     with torch.cuda.device(a.device):
         BATCHED_GEMM.launch(a.data_ptr(), b.data_ptr(),
                             None if bias is None else bias.data_ptr(),
                             out.data_ptr(), g, m, n, k, tile_m, tile_n,
                             int(relu), b_vector_path(b, n),
+                            int(out_dtype == torch.bfloat16),
                             torch.cuda.current_stream(a.device).cuda_stream)
     return out

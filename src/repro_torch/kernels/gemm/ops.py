@@ -33,17 +33,21 @@ def gemm(a: torch.Tensor, b: torch.Tensor,
          epilogue: str = "none",
          bias: Optional[torch.Tensor] = None,
          scale: Optional[torch.Tensor] = None,
-         out_scale: Optional[float] = None) -> torch.Tensor:
+         out_scale: Optional[float] = None,
+         out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C = epilogue(A @ B [+ bias]) on the dataflow-switchable Computing
     Unit; the epilogue is fused into the kernel's output flush. The
     binding picks the kernel's tile, never the math.
 
     Int8 operands accumulate in int32; ``scale`` ((N,) per-output-channel
     dequant factors) and ``out_scale`` (requantize to int8) ride the same
-    fused flush as bias/relu."""
+    fused flush as bias/relu. ``out_dtype`` is the reference's: None
+    stores C in the operands' dtype (f32 for int8 operands, int8 under
+    ``out_scale``); f32 and bf16 operands take f32 or bf16, rounded once
+    in the flush; other values raise (``gemm.gemm_out_dtype``)."""
     bm, bn, _ = dataflow_blocks(dataflow, p1, p2)
     return gemm_call(a, b, bm=bm, bn=bn, epilogue=epilogue, bias=bias,
-                     scale=scale, out_scale=out_scale)
+                     scale=scale, out_scale=out_scale, out_dtype=out_dtype)
 
 
 def toeplitz_gemm(t: torch.Tensor, w2d: torch.Tensor, spec,
@@ -71,11 +75,13 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor,
                  dataflow: Dataflow = Dataflow.NS,
                  p1: int = 128, p2: int = 128,
                  epilogue: str = "none",
-                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 bias: Optional[torch.Tensor] = None,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """C[g] = epilogue(A[g] @ B[g] [+ bias]) — Winograd's (m+r−1)²
     transform-space products (Eq. 6) under the plan's block binding.
     Unlike the reference, nothing is padded or cropped: the kernel masks
-    ragged edges."""
+    ragged edges. f32 operands only; ``out_dtype`` (None: f32, or bf16,
+    rounded once in the flush) as ``gemm``'s."""
     bm, bn, _ = dataflow_blocks(dataflow, p1, p2)
     return batched_gemm_call(a, b, bm=bm, bn=bn, epilogue=epilogue,
-                             bias=bias)
+                             bias=bias, out_dtype=out_dtype)

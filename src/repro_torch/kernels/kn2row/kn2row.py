@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.build import CudaKernel
 from repro_torch.kernels.common import (apply_epilogue, check_int8_depth,
-                                        int8_product)
+                                        check_kernel_dtype, int8_product)
 from repro_torch.kernels.gemm.gemm import (_MAX_GRID_Y, b_vector_path,
                                           check_epilogue, check_operand,
                                           check_quant_args, grid_splits,
@@ -83,6 +83,7 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, M, Cout)``; CPU tensors run
     ``unit_conv_gemms_plain``."""
+    check_kernel_dtype("unit_conv_gemms", x2d)
     if x2d.device.type == "cpu":
         return unit_conv_gemms_plain(x2d, w)
     if x2d.device.type != "cuda":
@@ -199,6 +200,7 @@ def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     ``pad_accumulate_plain``."""
+    check_kernel_dtype("pad_accumulate", p)
     if p.device.type == "cpu":
         return pad_accumulate_plain(p, k1=k1, k2=k2, o1=o1, o2=o2,
                                     stride=stride, pad_top=pad_top,

@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.build import CudaKernel
-from repro_torch.kernels.common import apply_epilogue, pad_nhwc
+from repro_torch.kernels.common import (apply_epilogue, check_kernel_dtype,
+                                        pad_nhwc)
 from repro_torch.kernels.gemm.gemm import check_operand, check_epilogue
 
 INPUT_TRANSFORM = CudaKernel(
@@ -171,6 +172,7 @@ def input_transform_call(x: torch.Tensor, *, m: int, r: int = 3,
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     ``input_transform_plain``."""
+    check_kernel_dtype("input_transform", x)
     if x.device.type == "cpu":
         return input_transform_plain(x, m=m, r=r, tiles_y=tiles_y,
                                      tiles_x=tiles_x, pad_top=pad_top,
@@ -222,6 +224,7 @@ def input_transform_tiles_call(tiles: torch.Tensor, *, m: int,
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     ``input_transform_tiles_plain``."""
+    check_kernel_dtype("input_transform_tiles", tiles)
     if tiles.device.type == "cpu":
         return input_transform_tiles_plain(tiles, m=m, r=r)
     if tiles.device.type != "cuda":
@@ -280,6 +283,7 @@ def output_transform_call(mm: torch.Tensor, *, m: int, r: int = 3,
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     ``output_transform_plain``."""
+    check_kernel_dtype("output_transform", mm)
     if mm.device.type == "cpu":
         return output_transform_plain(mm, m=m, r=r, tiles_y=tiles_y,
                                       tiles_x=tiles_x, o1=o1, o2=o2,

@@ -100,7 +100,8 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Set
 import numpy as np
 import torch
 
-from repro_torch.cnn.executor import _with_fault_hook, compile_plan
+from repro_torch.cnn.executor import (_with_fault_hook, check_dtype,
+                                      compile_plan, params_dtype)
 from repro_torch.core.algorithms import IM2COL, Algorithm
 from repro_torch.core.graph import Graph
 from repro_torch.core.mapper import ExecutionPlan
@@ -116,10 +117,10 @@ OUTCOME_REJECTED = "rejected_full"
 OUTCOME_SHED = "shed_deadline"
 OUTCOME_FAILED = "failed"
 
-# Every program fuses the conv bias and ReLU (the reference engine's
-# default lowering).
+# The reference engine's defaults: every program fuses the conv bias and
+# ReLU, and the ``RequestTrace`` log behind ``stats()`` keeps this many
+# requests.
 EPILOGUE = "bias_relu"
-# Requests kept in the ``RequestTrace`` log behind ``stats()``.
 TRACE_WINDOW = 2048
 
 
@@ -255,6 +256,19 @@ class CNNServingEngine:
     robustness options of the module docstring. ``submit()`` returns the
     admission verdict (``"queued"`` or ``"rejected_full"``) and raises
     ``ValueError`` on a rid already live in the engine.
+
+    ``use_pallas`` (None: the device decides, so a card runs the kernels),
+    ``epilogue`` (the lowering's fused epilogue) and ``trace_window`` (the
+    requests ``request_log`` keeps) are the reference engine's options,
+    with its defaults (``use_pallas`` aside: the reference's is False).
+    ``dtype`` (f32, or bf16 as
+    ``init_params(dtype=torch.bfloat16)`` gives the params, which must
+    match it) is the dtype every bucket program runs in and the staging
+    buffers hold: images are cast to it at ``submit`` (rounded to nearest
+    even) and the pinned buffers are filled through torch, since numpy
+    holds no bf16 where ``ml_dtypes`` is absent. Results come back as f32
+    numpy rows in either dtype, widening bf16 logits exactly (the
+    reference returns them in its engine dtype).
     """
 
     def __init__(self, graph: Graph, params, plan: Optional[ExecutionPlan],
@@ -276,6 +290,10 @@ class CNNServingEngine:
                  degrade: Optional[DegradeConfig] = None,
                  cache=None,
                  act_scales: Optional[Dict[int, float]] = None,
+                 use_pallas: Optional[bool] = None,
+                 epilogue: str = EPILOGUE,
+                 trace_window: int = TRACE_WINDOW,
+                 dtype: torch.dtype = torch.float32,
                  device="cuda") -> None:
         if mesh is not None and not isinstance(mesh, DataMesh):
             raise TypeError(f"CNNServingEngine(mesh=...) takes a launch."
@@ -288,6 +306,12 @@ class CNNServingEngine:
         if max_retries < 0:
             raise ValueError(f"max_retries must be >= 0, got {max_retries}")
         self.device = resolve_device(device)
+        self.dtype = check_dtype(dtype)
+        if params_dtype(params) != self.dtype:
+            raise TypeError(f"params of {params_dtype(params)} for an "
+                            f"engine of {self.dtype}")
+        self.use_pallas = use_pallas
+        self.epilogue = epilogue
         self.mesh = mesh
         if mesh is not None:
             if mesh.devices[0].type != self.device.type:
@@ -362,10 +386,13 @@ class CNNServingEngine:
         # program's output's).
         self._pin = self.device.type == "cuda"
         self._stagings = [torch.zeros((self.b,) + self._shape,
-                                      dtype=torch.float32,
+                                      dtype=self.dtype,
                                       pin_memory=self._pin)
                           for _ in range(self.pipeline_depth)]
-        self._batch_bufs = [s.numpy() for s in self._stagings]
+        # The same memory as numpy arrays where numpy can hold the dtype
+        # (f32); the tensors themselves in bf16.
+        self._batch_bufs = [s.numpy() if self.dtype == torch.float32 else s
+                            for s in self._stagings]
         self._filled = [0] * self.pipeline_depth
         self._host_outs: List[Optional[torch.Tensor]] = \
             [None] * self.pipeline_depth
@@ -387,7 +414,7 @@ class CNNServingEngine:
         self.dispatches: Dict[int, int] = {b: 0 for b in self.buckets}
         self.last_tick: Optional[Dict[str, object]] = None
         self.request_log: Deque[RequestTrace] = \
-            collections.deque(maxlen=TRACE_WINDOW)
+            collections.deque(maxlen=trace_window)
         self.submitted_total = 0
         self.served_total = 0
         self.slo_violations = 0
@@ -434,18 +461,20 @@ class CNNServingEngine:
         return self._stagings[0]
 
     @property
-    def _batch_buf(self) -> np.ndarray:
-        """``_staging`` as a numpy array (the same memory)."""
+    def _batch_buf(self):
+        """``_staging`` as a numpy array (the same memory; the tensor
+        itself in bf16)."""
         return self._batch_bufs[0]
 
     # ------------------------------------------------------------ intake
     def submit(self, req: CNNRequest) -> str:
         """Enqueue one request; returns the admission verdict —
         ``"queued"``, or ``"rejected_full"`` when ``max_queue`` is set
-        and already reached (counted and traced). Images are cast to f32
-        and validated against the graph's (H, W, C) input shape here, so a
-        bad request never crashes a tick; a ``rid`` already live anywhere
-        in the engine (queued, in flight, completed or failed) raises."""
+        and already reached (counted and traced). Images are cast to the
+        engine's dtype (an f32 numpy array, or a bf16 tensor) and validated
+        against the graph's (H, W, C) input shape here, so a bad request
+        never crashes a tick; a ``rid`` already live anywhere in the engine
+        (queued, in flight, completed or failed) raises."""
         img = np.asarray(req.image, dtype=np.float32)
         if img.shape != self._shape:
             raise ValueError(
@@ -458,7 +487,8 @@ class CNNServingEngine:
                 + ("queued" if req.rid in self._pending_rids else
                    "in flight" if req.rid in self._inflight_rids else
                    "completed" if req.rid in self.done else "failed"))
-        req.image = img
+        req.image = (img if self.dtype == torch.float32
+                     else torch.from_numpy(img).to(self.dtype))
         if req.t_submit is None:
             req.t_submit = self._clock()
         self.submitted_total += 1
@@ -737,9 +767,9 @@ class CNNServingEngine:
         still holding images an earlier tick staged there — a smaller
         bucket after a larger one must not leak stale images into its
         padded tail."""
-        x = self._batch_bufs[idx]
+        x = self._stagings[idx]
         for i, req in enumerate(batch):
-            x[i] = req.image
+            x[i] = torch.as_tensor(req.image)
         if self._filled[idx] > len(batch):
             x[len(batch):self._filled[idx]] = 0
         self._filled[idx] = len(batch)
@@ -802,8 +832,9 @@ class CNNServingEngine:
         self._overlap_s += min(max(t_block - free_from, 0.0), service)
         self._device_busy_s += service
         self._completed_ticks += 1
-        rows = (tick.out.numpy() if tick.event is None
-                else self._host_outs[tick.buf_index][:tick.bucket].numpy())
+        rows = (tick.out if tick.event is None
+                else self._host_outs[tick.buf_index][:tick.bucket])
+        rows = rows.to(torch.float32).numpy()
         for i, req in enumerate(tick.reqs):
             # A copy: the slot's buffer is rewritten by a later tick.
             self.done[req.rid] = rows[i].copy()
@@ -1064,18 +1095,19 @@ class CNNServingEngine:
         programs = {
             bucket: compile_plan(self.graph, plan,
                                  default_algo=self.default_algo,
-                                 epilogue=EPILOGUE, tuning=self.tuning,
+                                 use_pallas=self.use_pallas,
+                                 epilogue=self.epilogue, tuning=self.tuning,
                                  tuning_batch=bucket // self.data_shards,
                                  mesh=self.mesh,
                                  donate=self.pipeline_depth > 1,
                                  cache=self.cache, act_scales=act_scales,
-                                 device=self.device)
+                                 device=self.device, dtype=self.dtype)
             for bucket in self.buckets
         }
         if warm:
             passes = 2 if self.device.type == "cuda" else 1
             for bucket, run in programs.items():
-                x = torch.zeros((bucket,) + self._shape, dtype=torch.float32,
+                x = torch.zeros((bucket,) + self._shape, dtype=self.dtype,
                                 device=self.device)
                 for _ in range(passes):
                     run(self.params, x)

@@ -362,3 +362,43 @@ def test_global_pool_and_fc_match_reference():
         layers.fc(gap, t(w), t(b)).numpy(),
         np.asarray(jax_layers.fc(jax_layers.global_avg_pool(jnp.asarray(x)),
                                  jnp.asarray(w), jnp.asarray(b))), **TOL)
+
+
+# The four wrappers that once took an operand of any dtype, each called on
+# operands of ``dtype`` (shapes the kernels take, on the CPU).
+def _wrapper_calls(dtype):
+    from repro_torch.kernels.kn2row.kn2row import (pad_accumulate_call,
+                                                   unit_conv_gemms_call)
+    a = torch.ones((4, 8), dtype=dtype)
+    return {
+        "gemm": lambda: gemm_call(a, torch.ones((8, 3), dtype=dtype)),
+        "conv_im2col": lambda: conv_im2col_call(
+            torch.ones((1, 5, 5, 2), dtype=dtype),
+            torch.ones((3, 3, 2, 4), dtype=dtype)),
+        "unit_conv_gemms": lambda: unit_conv_gemms_call(
+            a, torch.ones((2, 8, 3), dtype=dtype)),
+        "pad_accumulate": lambda: pad_accumulate_call(
+            torch.ones((9, 1, 4, 4, 3), dtype=dtype), k1=3, k2=3, o1=4,
+            o2=4, pad_top=1, pad_left=1),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64,
+                                   torch.bfloat16],
+                         ids=["f16", "f64", "bf16"])
+@pytest.mark.parametrize("kernel", ["gemm", "conv_im2col",
+                                    "unit_conv_gemms", "pad_accumulate"])
+def test_wrappers_raise_on_dtypes_without_a_kernel(kernel, dtype):
+    """Each wrapper checks its operands' dtype against ``KERNEL_DTYPES``
+    before it picks the kernel or its plain version, so on the card no
+    f16, f64 (or, for kn2row, bf16) operand reaches an f32 kernel's
+    buffers; here the same check raises on CPU tensors. The GEMM and the
+    conv take bf16."""
+    from repro_torch.kernels.common import KERNEL_DTYPES
+    call = _wrapper_calls(dtype)[kernel]
+    if dtype in KERNEL_DTYPES[kernel]:
+        assert kernel in ("gemm", "conv_im2col") and dtype == torch.bfloat16
+        assert call().dtype == torch.bfloat16
+        return
+    with pytest.raises(TypeError, match="no kernel"):
+        call()
