@@ -539,10 +539,11 @@ def device_time(fn, reps: int = 1):
                 continue
             gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32|"
                              r"unit_conv_gemms_f32|gemm_i8|conv_im2col_i8|"
-                             r"unit_conv_gemms_i8|gemm_bf16|conv_im2col_bf16)"
-                             r"_kernel<(\d+), (\d+)>", e.key)
-            wino = re.search(r"\b(input_transform_tiles|input_transform|"
-                             r"output_transform)_kernel<(\d+)>", e.key)
+                             r"unit_conv_gemms_i8|batched_gemm_bf16|gemm_bf16|"
+                             r"conv_im2col_bf16)_kernel<(\d+), (\d+)>", e.key)
+            wino = re.search(r"\b((?:input_transform_tiles|input_transform|"
+                             r"output_transform)(?:_bf16)?)_kernel<(\d+)>",
+                             e.key)
             reduce = re.search(r"\b(gemm_f32|unit_conv_gemms_f32|"
                                r"conv_im2col_f32)_reduce_kernel", e.key)
             key = (f"{gemm[1]}<{gemm[2]}x{gemm[3]}>" if gemm
@@ -581,36 +582,71 @@ KERNEL_SYMBOLS = {"conv": "conv_im2col_f32_kernel", "gemm": "gemm_f32_kernel",
                   "unit_conv_gemms_i8": "unit_conv_gemms_i8_kernel",
                   "pad_accumulate_i32": "pad_accumulate_i32_kernel",
                   "conv_im2col_bf16": "conv_im2col_bf16_kernel",
-                  "gemm_bf16": "gemm_bf16_kernel"}
+                  "gemm_bf16": "gemm_bf16_kernel",
+                  "input_transform_bf16": "input_transform_bf16_kernel",
+                  "input_transform_tiles_bf16":
+                      "input_transform_tiles_bf16_kernel",
+                  "batched_gemm_bf16": "batched_gemm_bf16_kernel",
+                  "output_transform_bf16": "output_transform_bf16_kernel"}
+
+
+# Spin kernels (``torch.cuda._sleep``) that open every profiled window
+# whose kernel rows a check counts. On the card the profiler has dropped
+# the first kernels of a window, more of them later in the script (3-4
+# rows of phase 27's deepseek-v2 eager step past an opener of sixteen;
+# 25 in phase 29), so a window's rows are trusted only where some of its
+# opener's rows came back.
+OPENER_SPINS = 512
+
+
+def opened_window(fn):
+    """(``fn()``'s result, ``key_averages()``) of one call of ``fn`` under
+    ``torch.profiler``, the window opened by ``OPENER_SPINS`` spin kernels
+    (rows named ``spin_kernel``, which no count reads). The averages are
+    None where none of the opener's rows came back: the profiler may then
+    have dropped ``fn``'s first kernels too, and the caller takes the
+    window again. A window whose opener lost rows is reported on a line
+    of its own."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(OPENER_SPINS):
+            torch.cuda._sleep(1000)
+        out = fn()
+        torch.cuda.synchronize()
+    averages = prof.key_averages()
+    spins = sum(e.count for e in averages if e.device_type == DeviceType.CUDA
+                and "spin_kernel" in e.key)
+    if spins < OPENER_SPINS:
+        print(f"[profiler] a window's opener came back with {spins} of its "
+              f"{OPENER_SPINS} spin rows"
+              + ("; the window is taken again" if not spins else ""))
+    return out, (averages if spins else None)
 
 
 def profiled_launches(fn):
     """(``fn()``'s result, {short name: rows}) from ``torch.profiler``: the
     device rows of each ``KERNEL_SYMBOLS`` kernel one call of ``fn`` ran —
     for a replayed CUDA graph, the kernels the graph holds, which the
-    host's launch counters never see. Each window opens with seventeen
-    small kernels no count reads: late in the script the profiler dropped
-    the first kernels of a window on the card (up to four, a served tick's
-    stem conv among them; none once sixteen ran before it). A window
-    without any kernel row (seen on the card for short windows) is taken
-    again, up to three in all, so ``fn`` must be safe to call again."""
+    host's launch counters never see. Each window opens as
+    ``opened_window`` says: late in the script the profiler dropped the
+    first kernels of a window on the card (a served tick's stem conv among
+    them). A window without any kernel row (seen on the card for short
+    windows) or whose opener came back with no row is taken again, up to
+    three in all, so ``fn`` must be safe to call again."""
     import re
 
-    import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            opener = torch.ones(1, device="cuda")
-            for _ in range(16):
-                opener.mul_(2)
-            out = fn()
-            torch.cuda.synchronize()
+        out, averages = opened_window(fn)
+        if averages is None:
+            continue
         rows, kernels = Counter(), 0
-        for e in prof.key_averages():
+        for e in averages:
             if e.device_type != DeviceType.CUDA or "Memcpy" in e.key \
-                    or "Memset" in e.key:
+                    or "Memset" in e.key or "spin_kernel" in e.key:
                 continue
             kernels += e.count
             for name, symbol in KERNEL_SYMBOLS.items():
@@ -1383,15 +1419,6 @@ def phases_1_to_25() -> list:
         """The K slices the f32 wrappers run for this shape and tile."""
         return grid_splits(m, n, k, tile, sms, groups)
 
-    def offset_view(t):
-        """``t`` copied into a contiguous view one element into a larger
-        buffer: not 16-byte aligned, so the f32 loop copies B 4 bytes at a
-        time and the int8 MMA loop takes its byte-wise path."""
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
-
     # Main-path shapes first (conv2: 392 blocks, one slice; a narrow N on a
     # ragged M), then the edges of the split K loop on every tile the
     # wrapper takes at each shape: one element, ragged everything, 5b/1x1
@@ -1415,7 +1442,7 @@ def phases_1_to_25() -> list:
         b = randn(k, n, scale=k ** -0.5, rng=rng)
         bias = randn(n, scale=0.1, rng=rng)
         if label == "offset views":
-            a, b = offset_view(a), offset_view(b)
+            a, b = offset_copy(a), offset_copy(b)
         want = gemm_plain(a, b, "bias_relu", bias)
         tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in tiles})
         for bm, bn in tiles:
@@ -1480,7 +1507,7 @@ def phases_1_to_25() -> list:
         w = randn(*ws, scale=(ws[0] * ws[1] * ws[2]) ** -0.5, rng=rng)
         bias = randn(ws[3], scale=0.1, rng=rng)
         if label == "w offset":
-            w = offset_view(w)
+            w = offset_copy(w)
         want = conv_plain(x, w, stride=stride, padding=pad,
                           epilogue="bias_relu", bias=bias)
         o1, o2 = conv_geometry(xs[1], xs[2], ws[0], ws[1], stride, pad)[:2]
@@ -1710,7 +1737,7 @@ def phases_1_to_25() -> list:
         b = randn(g_, k, n, scale=k ** -0.5, rng=rng)
         bias = randn(n, scale=0.1, rng=rng)
         if label == "B offset":
-            b = offset_view(b)
+            b = offset_copy(b)
         want = batched_gemm_plain(a, b, "bias_relu", bias)
         tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in all_tiles})
         for bm, bn in tiles:
@@ -2315,7 +2342,7 @@ def phases_1_to_25() -> list:
             ("17x33x9", randi8(17, 33, rng=edge), randi8(33, 9, rng=edge)),
             ("K 96", randi8(64, 96, rng=edge), randi8(96, 8, rng=edge)),
             ("aligned", a128, b128),
-            ("offset views", offset_view(a128), offset_view(b128)),
+            ("offset views", offset_copy(a128), offset_copy(b128)),
             ("+-127 K 133144", extreme(16, INT8_MAX_K, INT8_MAX_K).mul_(-1),
              extreme(INT8_MAX_K, 16, 3)),
             ("+-127 K 133136", extreme(16, 133136, 133136),
@@ -2401,7 +2428,7 @@ def phases_1_to_25() -> list:
     ragged = (randi8(333, 70), randi8(3, 70, 100))
     x9, w9 = randi8(333, 64, rng=edge), randi8(9, 64, 96, rng=edge)
     for label, a, b in (("ragged", *ragged), ("G 9 ragged M", x9, w9),
-                        ("offset views", offset_view(x9), offset_view(w9))):
+                        ("offset views", offset_copy(x9), offset_copy(w9))):
         want = kn2.unit_conv_gemms_plain(a, b)
         (m, k), (g, _, n) = a.shape, b.shape
         tiles = sorted({kernel_tile(bm, bn, m, n) for bm, bn in all_tiles})
@@ -4492,25 +4519,20 @@ def kernel_rows(fn):
     """(kernel rows, device-busy ms, the five kernels of most device time
     as text) of one call of ``fn`` under ``torch.profiler``: every CUDA
     kernel the call ran, memcpys and memsets aside, and the sum of their
-    own device time. Each window opens with sixteen spin kernels
-    (``torch.cuda._sleep``) that no count reads: the profiler dropped up
-    to four kernels at the start of a window on the card (an eager train
-    step's rows came back 1-4 short of its graph's kernel nodes without
-    them)."""
+    own device time. Each window opens as ``opened_window`` says (an eager
+    train step's rows came back 1-4 short of its graph's kernel nodes on
+    the card behind an opener of sixteen); one whose opener came back with
+    no row is taken again, up to three in all."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(16):
-                torch.cuda._sleep(1000)
-            fn()
-            torch.cuda.synchronize()
+        _, averages = opened_window(fn)
+        if averages is None:
+            continue
         rows, busy, by_name = 0, 0.0, []
-        for e in prof.key_averages():
+        for e in averages:
             if e.device_type != DeviceType.CUDA or "Memcpy" in e.key \
                     or "Memset" in e.key or "spin_kernel" in e.key:
                 continue
@@ -5677,6 +5699,235 @@ def rel_dev(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+def offset_copy(t):
+    """``t`` copied into a contiguous view one element into a larger
+    buffer on its device: not 16-byte aligned, so the f32 loop copies B 4
+    bytes at a time, the int8 loop takes its byte path and the bf16 loop
+    its element path."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+class Bf16Counts:
+    """The launch counters of a bf16 phase's kernels: ``names`` (keys of
+    ``KERNEL_SYMBOLS``) for the ``kernels`` of the port in that order.
+    ``read`` raises if any other kernel of the port launched: a bf16 run
+    launches its bf16 kernels and none of the others."""
+
+    def __init__(self, names, kernels):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.conv_im2col import conv_im2col as conv_mod
+        from repro_torch.kernels.gemm import gemm as gemm_mod
+        from repro_torch.kernels.kn2row import kn2row as kn2_mod
+        from repro_torch.kernels.winograd import winograd as wino_mod
+        self.names, self.kernels = tuple(names), tuple(kernels)
+        self.every = [k for mod in (gemm_mod, conv_mod, kn2_mod, wino_mod)
+                      for k in vars(mod).values()
+                      if isinstance(k, build.CudaKernel)]
+
+    def reset(self) -> None:
+        for kern in self.every:
+            kern.launches = 0
+
+    def read(self) -> tuple:
+        others = {k.symbol: k.launches for k in self.every
+                  if k not in self.kernels and k.launches}
+        if others:
+            raise CheckFailed(f"a bf16 run launched other kernels {others}")
+        return tuple(k.launches for k in self.kernels)
+
+
+def bf16_window_rows(names, fn) -> tuple:
+    """The ``names`` kernels' device rows of one call of ``fn`` under
+    ``torch.profiler``, the window opened as ``opened_window`` says (after
+    the LM phases the profiler dropped the first 25 kernels of a window on
+    the card); one whose opener came back with no row is taken again, up
+    to three in all."""
+    import re
+
+    from torch.autograd import DeviceType
+    for _ in range(3):
+        _, averages = opened_window(fn)
+        if averages is not None:
+            break
+    else:
+        raise CheckFailed("three profiled windows lost every row of their "
+                          "opener")
+    rows = Counter()
+    for e in averages:
+        if e.device_type == DeviceType.CUDA:
+            for name in names:
+                if re.search(rf"\b{KERNEL_SYMBOLS[name]}\b", e.key):
+                    rows[name] += e.count
+    return tuple(rows[k] for k in names)
+
+
+def bf16_graph_nodes(names, run, params, x) -> tuple:
+    """The ``names`` kernels' nodes in a capture of the walk ``run``
+    captures (``graph_kernel_nodes``)."""
+    import torch
+
+    from repro_torch.cnn.executor import _eval_graph
+    static_in = x.clone()
+    cuda_graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.inference_mode(), torch.cuda.graph(cuda_graph):
+        _eval_graph(run.graph, run.lowering, params, static_in, None)
+    rows = graph_kernel_nodes(cuda_graph)
+    del cuda_graph
+    torch.cuda.empty_cache()
+    return tuple(rows.get(k, 0) for k in names)
+
+
+def check_bf16_forwards(phase: int, tag: str, g, plan, p16, p32, res: int,
+                        lc: Bf16Counts, derived, expect, limit: float,
+                        randn, dev) -> dict:
+    """A bf16 model (``p16``) at every bucket, elided and not: the
+    lowering's launches (``derived(lowering)``, in ``lc.names`` order) must
+    be ``expect[elide]``; the eager pass, the capture and a replay read
+    them, them and 0 on the counters, their outputs are bit-equal, and the
+    captured graph's kernel nodes and one replay's profiler rows equal
+    them (a window short of them, the profiler's dropped rows, is taken
+    again, up to three in all); the logits lie within ``limit`` of the
+    plain path's largest logit and of the f32 forward's of the same
+    weights widened (``p32``). Returns ({(elide, bucket): (run_k, run_32,
+    x)}, the launches the counters read over every eager pass and
+    capture, in ``lc.names`` order)."""
+    import torch
+
+    from repro_torch.cnn.executor import compile_plan
+    bf, names = torch.bfloat16, lc.names
+    fwd, totals = {}, [0] * len(names)
+    for elide in (True, False):
+        for bsz in BUCKETS:
+            label = f"{tag} b{bsz} elide={elide}"
+            run_k, run_p, run_32 = (
+                compile_plan(g, plan, epilogue="bias_relu", tuning_batch=bsz,
+                             elide=elide, dtype=dtype, use_pallas=kernels,
+                             device=dev)
+                for dtype, kernels in ((bf, None), (bf, False),
+                                       (torch.float32, None)))
+            want_n = derived(run_k.lowering)
+            if want_n != expect[elide]:
+                raise CheckFailed(f"{label}: the lowering gives {want_n}, "
+                                  f"expected {expect[elide]} {names}")
+            x = randn(bsz, res, res, 3)
+            outs = []
+            for stage, want_stage in (("eager", want_n), ("capture", want_n),
+                                      ("replay", (0,) * len(names))):
+                lc.reset()
+                outs.append(run_k(p16, x))
+                torch.cuda.synchronize()
+                if lc.read() != want_stage:
+                    raise CheckFailed(f"{label} {stage}: launches "
+                                      f"{lc.read()}, expected {want_stage} "
+                                      f"{names}")
+                totals = [t + n for t, n in zip(totals, lc.read())]
+            if outs[0].dtype != bf or not all(torch.equal(o, outs[0])
+                                               for o in outs[1:]):
+                raise CheckFailed(f"{label}: capture or replay differs from "
+                                  "the eager pass")
+            # The captured graph's kernel nodes must equal the lowering's;
+            # only then is a profiler window whose rows come back short of
+            # them (the profiler dropped rows) taken again, up to three in
+            # all, as phase 4's ``replay_rows`` does.
+            nodes = bf16_graph_nodes(names, run_k, p16, x)
+            if nodes != want_n:
+                raise CheckFailed(f"{label}: graph nodes {nodes}, expected "
+                                  f"{want_n} {names}")
+            short = []
+            for _ in range(3):
+                replayed = bf16_window_rows(names, lambda: run_k(p16, x))
+                if replayed == want_n or any(
+                        r > w for r, w in zip(replayed, want_n)):
+                    break
+                short.append(replayed)
+            if replayed != want_n:
+                raise CheckFailed(f"{label}: one replay ran {replayed} "
+                                  f"kernel rows, expected {want_n} {names} "
+                                  f"(short windows before it {short})")
+            rel = rel_dev(outs[0], run_p(p16, x))
+            rel32 = rel_dev(outs[0], run_32(p32, x.float()))
+            if not (rel <= limit and rel32 <= BF16_FORWARD_REL):
+                raise CheckFailed(f"{label}: max|diff| / max|want| {rel:.3e} "
+                                  f"vs plain (limit {limit}), {rel32:.3e} vs "
+                                  f"f32 (limit {BF16_FORWARD_REL})")
+            fwd[(elide, bsz)] = (run_k, run_32, x)
+            print(f"[{phase}] {label}: bf16 logits {tuple(outs[0].shape)}; "
+                  f"max|diff| / max|plain| {rel:.3e} (limit {limit}), vs the "
+                  f"f32 forward of the weights widened {rel32:.3e} (limit "
+                  f"{BF16_FORWARD_REL}); capture and replay bit-equal to "
+                  f"eager; launches {dict(zip(names, want_n))} on eager and "
+                  f"capture, 0 on a replay, equal to the captured graph's "
+                  f"kernel nodes and a replay's profiler rows"
+                  + (f" ({len(short)} short window(s) retaken, rows {short})"
+                     if short else ""))
+            del run_p
+    return fwd, tuple(totals)
+
+
+def serve_bf16(phase: int, tag: str, g, plan, p16, res: int,
+               lc: Bf16Counts, per_forward, n_requests: int, seed: int,
+               limit: float, dev) -> dict:
+    """``CNNServingEngine(dtype=bf16)`` at depths 1 and 2, every count
+    reset just before each engine is built (depth 1's is the main path's
+    run): its warm-up runs each bucket's eager pass and capture, so the
+    counts read two elided forwards' ``per_forward`` a bucket and do not
+    move over the replayed ticks; each result lies within ``limit`` of a
+    plain bf16 forward of its image. Returns {depth: launches}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cnn.executor import compile_plan
+    from repro_torch.serving.cnn_engine import CNNRequest, CNNServingEngine
+    bf, names = torch.bfloat16, lc.names
+    run_p1 = compile_plan(g, plan, epilogue="bias_relu", tuning_batch=1,
+                          dtype=bf, use_pallas=False, device=dev)
+    rng = np.random.default_rng(seed)
+    images = [rng.standard_normal((res, res, 3)).astype(np.float32)
+              for _ in range(n_requests)]
+    served = {}
+    for depth in (1, 2):
+        lc.reset()
+        engine = CNNServingEngine(g, p16, plan, batch_size=8, slo_s=0.25,
+                                  warmup=True, pipeline_depth=depth,
+                                  dtype=bf, device=dev)
+        warm = lc.read()
+        per_warmup = tuple(2 * len(engine.buckets) * v for v in per_forward)
+        if warm != per_warmup:
+            raise CheckFailed(f"{tag} bf16 engine depth {depth}: warm-up "
+                              f"launches {warm}, expected {per_warmup} "
+                              f"{names}")
+        for i, img in enumerate(images):
+            engine.submit(CNNRequest(rid=i, image=img))
+        done = engine.run_until_done()
+        if lc.read() != warm or sorted(done) != list(range(len(images))):
+            raise CheckFailed(f"{tag} bf16 engine depth {depth}: served "
+                              f"{len(done)} of {len(images)}, launches "
+                              f"{lc.read()} after {warm}")
+        worst = 0.0
+        for i, img in enumerate(images):
+            if done[i].dtype != np.float32:
+                raise CheckFailed(f"bf16 engine result of {done[i].dtype}")
+            want = run_p1(p16, torch.as_tensor(img[None]).to(dev, bf))[0]
+            rel = rel_dev(torch.as_tensor(done[i], device=dev), want)
+            worst = max(worst, rel)
+            if rel > limit:
+                raise CheckFailed(f"{tag} bf16 engine depth {depth} request "
+                                  f"{i}: max|diff| / max|plain| {rel:.3e}")
+        served[depth] = warm
+        print(f"[{phase}] {tag} bf16 engine depth {depth}: {len(images)} "
+              f"requests, dispatches {engine.stats()['dispatches']}; worst "
+              f"max|diff| / max|plain| per image {worst:.3e} (limit "
+              f"{limit}); launches counted over the run (warm-up eager and "
+              f"capture passes) {dict(zip(names, warm))}, 0 over the "
+              f"replayed ticks; {memory_line(dev)}")
+        del engine
+    return served
+
+
 def phase_29_bf16(dev) -> list:
     """29. The CNN path in bf16: (a) ptxas of each bf16 instantiation; (b)
     gemm_bf16 and conv_im2col_bf16 against their plain versions within one
@@ -5692,13 +5943,10 @@ def phase_29_bf16(dev) -> list:
     gated: each kernel against its bound and its library call, and the
     replayed bf16 forward per bucket beside the f32 one. Returns the two
     kernels' rows of the JSON line."""
-    import re
-
-    import numpy as np
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.cnn.executor import _eval_graph, compile_plan, init_params
+    from repro_torch.cnn.executor import init_params
     from repro_torch.cnn.models import googlenet
     from repro_torch.core.algorithms import AlgoFamily
     from repro_torch.core.dse import identify_parameters
@@ -5708,9 +5956,6 @@ def phase_29_bf16(dev) -> list:
     from repro_torch.kernels.conv_im2col import conv_im2col as conv_mod
     from repro_torch.kernels.conv_im2col.ref import conv_geometry
     from repro_torch.kernels.gemm import gemm as gemm_mod
-    from repro_torch.kernels.kn2row import kn2row as kn2_mod
-    from repro_torch.kernels.winograd import winograd as wino_mod
-    from repro_torch.serving.cnn_engine import CNNRequest, CNNServingEngine
 
     t29 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5722,38 +5967,13 @@ def phase_29_bf16(dev) -> list:
     bf = torch.bfloat16
     gemm_call, gemm_plain = gemm_mod.gemm_call, gemm_mod.gemm_plain
     conv_call, conv_plain = conv_mod.conv_im2col_call, conv_mod.conv_plain
-    # Every kernel of the port: a bf16 run launches the two bf16 kernels
-    # and none of the others.
-    every = [k for mod in (gemm_mod, conv_mod, kn2_mod, wino_mod)
-             for k in vars(mod).values() if isinstance(k, build.CudaKernel)]
     names = ("conv_im2col_bf16", "gemm_bf16")
-    bf16_kernels = (conv_mod.CONV_BF16, gemm_mod.GEMM_BF16)
-
-    def reset_counts():
-        for kern in every:
-            kern.launches = 0
-
-    def counts():
-        """(conv_im2col_bf16, gemm_bf16) launches; raises if any other
-        kernel launched."""
-        others = {k.symbol: k.launches for k in every
-                  if k not in bf16_kernels and k.launches}
-        if others:
-            raise CheckFailed(f"a bf16 run launched other kernels {others}")
-        return tuple(k.launches for k in bf16_kernels)
+    lc = Bf16Counts(names, (conv_mod.CONV_BF16, gemm_mod.GEMM_BF16))
 
     gen = torch.Generator().manual_seed(29)
 
     def randn(*shape, scale=1.0, dtype=bf):
         return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
-
-    def offset_view(t):
-        """``t`` in a contiguous view one element into a larger buffer:
-        B's word loads fall off alignment, so the element path runs."""
-        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-        view = buf[1:].view(t.shape)
-        view.copy_(t)
-        return view
 
     # ---- (a) ptxas of each bf16 instantiation --------------------------
     if not build.BUILD_LOG:
@@ -5776,7 +5996,7 @@ def phase_29_bf16(dev) -> list:
         b = randn(k, n, scale=k ** -0.5)
         bias = randn(n, scale=0.1)
         if label == "B off alignment":
-            b = offset_view(b)
+            b = offset_copy(b)
         want = gemm_plain(a, b, "bias_relu", bias)
         used = sorted({gemm_mod.kernel_tile(bm, bn, m, n)
                        for bm, bn in tiles})
@@ -5889,149 +6109,15 @@ def phase_29_bf16(dev) -> list:
             n["gemm_bf16" if toeplitz else "conv_im2col_bf16"] += 1
         return tuple(n[k] for k in names)
 
-    def window_rows(fn):
-        """The two kernels' device rows of one call of ``fn`` under
-        ``torch.profiler``, the window opened by 256 spin kernels that no
-        count reads: after the LM phases the profiler dropped the first
-        25 kernels of a window on the card (``profiled_launches`` opens
-        with 17)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(256):
-                torch.cuda._sleep(1000)
-            fn()
-            torch.cuda.synchronize()
-        rows = Counter()
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                for name in names:
-                    if re.search(rf"\b{KERNEL_SYMBOLS[name]}\b", e.key):
-                        rows[name] += e.count
-        return tuple(rows[k] for k in names)
-
-    def graph_nodes(run, x):
-        """The two kernels' nodes in a capture of the walk ``run``
-        captures (``graph_kernel_nodes``)."""
-        static_in = x.clone()
-        cuda_graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.inference_mode(), torch.cuda.graph(cuda_graph):
-            _eval_graph(run.graph, run.lowering, p16, static_in, None)
-        rows = graph_kernel_nodes(cuda_graph)
-        del cuda_graph
-        torch.cuda.empty_cache()
-        return tuple(rows.get(k, 0) for k in names)
-
     expect = {True: (1, 56), False: (57, 0)}
-    fwd = {}
-    for elide in (True, False):
-        for bsz in BUCKETS:
-            tag = f"googlenet 224 bf16 b{bsz} elide={elide}"
-            run_k, run_p, run_32 = (
-                compile_plan(g, plan, epilogue="bias_relu", tuning_batch=bsz,
-                             elide=elide, dtype=dtype, use_pallas=kernels,
-                             device=dev)
-                for dtype, kernels in ((bf, None), (bf, False),
-                                       (torch.float32, None)))
-            want_n = derived(run_k.lowering)
-            if want_n != expect[elide]:
-                raise CheckFailed(f"{tag}: the lowering gives {want_n}, "
-                                  f"expected {expect[elide]} {names}")
-            x = randn(bsz, 224, 224, 3)
-            outs = []
-            for stage, want_stage in (("eager", want_n), ("capture", want_n),
-                                      ("replay", (0, 0))):
-                reset_counts()
-                outs.append(run_k(p16, x))
-                torch.cuda.synchronize()
-                if counts() != want_stage:
-                    raise CheckFailed(f"{tag} {stage}: launches {counts()}, "
-                                      f"expected {want_stage} {names}")
-            if outs[0].dtype != bf or not all(torch.equal(o, outs[0])
-                                               for o in outs[1:]):
-                raise CheckFailed(f"{tag}: capture or replay differs from "
-                                  "the eager pass")
-            # The captured graph's kernel nodes must equal the lowering's;
-            # only then is a profiler window whose rows come back short of
-            # them (the profiler dropped rows) taken again, up to three in
-            # all, as phase 4's ``replay_rows`` does.
-            nodes = graph_nodes(run_k, x)
-            if nodes != want_n:
-                raise CheckFailed(f"{tag}: graph nodes {nodes}, expected "
-                                  f"{want_n} {names}")
-            short = []
-            for _ in range(3):
-                replayed = window_rows(lambda: run_k(p16, x))
-                if replayed == want_n or any(
-                        r > w for r, w in zip(replayed, want_n)):
-                    break
-                short.append(replayed)
-            if replayed != want_n:
-                raise CheckFailed(f"{tag}: one replay ran {replayed} kernel "
-                                  f"rows, expected {want_n} {names} (short "
-                                  f"windows before it {short})")
-            rel = rel_dev(outs[0], run_p(p16, x))
-            rel32 = rel_dev(outs[0], run_32(p32, x.float()))
-            if not (rel <= BF16_FORWARD_REL and rel32 <= BF16_FORWARD_REL):
-                raise CheckFailed(f"{tag}: max|diff| / max|want| {rel:.3e} "
-                                  f"vs plain, {rel32:.3e} vs f32 (limit "
-                                  f"{BF16_FORWARD_REL})")
-            fwd[(elide, bsz)] = (run_k, run_32, x)
-            print(f"[29] {tag}: bf16 logits {tuple(outs[0].shape)}; "
-                  f"max|diff| / max|plain| {rel:.3e}, vs the f32 forward of "
-                  f"the weights widened {rel32:.3e} (limit 5e-2); capture "
-                  f"and replay bit-equal to eager; launches "
-                  f"{dict(zip(names, want_n))} on eager and capture, 0 on a "
-                  f"replay, equal to the captured graph's kernel nodes and "
-                  f"a replay's profiler rows"
-                  + (f" ({len(short)} short window(s) retaken, rows {short})"
-                     if short else ""))
-            del run_p
+    fwd, _ = check_bf16_forwards(29, "googlenet 224 bf16", g, plan, p16,
+                                 p32, 224, lc, derived, expect,
+                                 BF16_FORWARD_REL, randn, dev)
 
     # ---- (d) the engine in bf16: the main path -------------------------
-    run_p1 = compile_plan(g, plan, epilogue="bias_relu", tuning_batch=1,
-                          dtype=bf, use_pallas=False, device=dev)
-    rng = np.random.default_rng(29)
-    images = [rng.standard_normal((224, 224, 3)).astype(np.float32)
-              for _ in range(N_BF16_REQUESTS)]
-    served = {}
-    for depth in (1, 2):
-        reset_counts()
-        engine = CNNServingEngine(g, p16, plan, batch_size=8, slo_s=0.25,
-                                  warmup=True, pipeline_depth=depth,
-                                  dtype=bf, device=dev)
-        warm = counts()
-        per_warmup = tuple(2 * len(engine.buckets) * v
-                           for v in expect[True])
-        if warm != per_warmup:
-            raise CheckFailed(f"bf16 engine depth {depth}: warm-up launches "
-                              f"{warm}, expected {per_warmup} {names}")
-        for i, img in enumerate(images):
-            engine.submit(CNNRequest(rid=i, image=img))
-        done = engine.run_until_done()
-        if counts() != warm or sorted(done) != list(range(len(images))):
-            raise CheckFailed(f"bf16 engine depth {depth}: served "
-                              f"{len(done)} of {len(images)}, launches "
-                              f"{counts()} after {warm}")
-        worst = 0.0
-        for i, img in enumerate(images):
-            if done[i].dtype != np.float32:
-                raise CheckFailed(f"bf16 engine result of {done[i].dtype}")
-            want = run_p1(p16, torch.as_tensor(img[None]).to(dev, bf))[0]
-            rel = rel_dev(torch.as_tensor(done[i], device=dev), want)
-            worst = max(worst, rel)
-            if rel > BF16_FORWARD_REL:
-                raise CheckFailed(f"bf16 engine depth {depth} request {i}: "
-                                  f"max|diff| / max|plain| {rel:.3e}")
-        served[depth] = warm
-        print(f"[29] bf16 engine depth {depth}: {len(images)} requests, "
-              f"dispatches {engine.stats()['dispatches']}; worst max|diff| / "
-              f"max|plain| per image {worst:.3e} (limit 5e-2); launches "
-              f"counted over the run (warm-up eager and capture passes) "
-              f"{dict(zip(names, warm))}, 0 over the replayed ticks; "
-              f"{memory_line(dev)}")
-        del engine
+    served = serve_bf16(29, "googlenet", g, plan, p16, 224, lc,
+                        expect[True], N_BF16_REQUESTS, 29, BF16_FORWARD_REL,
+                        dev)
 
     # ---- (e) timings, printed ------------------------------------------
     a, b, bias = inputs[("gemm", "conv2 b8")]
@@ -6074,9 +6160,13 @@ def phase_29_bf16(dev) -> list:
     s32 = queued_ms(lambda: gemm_call(a32, b32, epilogue="bias_relu",
                                       bias=bias32))
     s_lib = queued_ms(lambda: torch.matmul(a, b))
-    print(f"[29] 5b/1x1 b1 M=49 K=832 N=384 queued: gemm_bf16 {s16:.4f} ms, "
-          f"gemm_f32 (K split) {s32:.4f} ms, torch.matmul bf16 {s_lib:.4f} "
-          f"ms; {smi}")
+    m, k = a.shape
+    n = b.shape[1]
+    s_bound, s_by = bound(2.0 * m * n * k, 2.0 * (m * k + k * n + n + m * n),
+                          PEAK_BF16_FLOPS)
+    print(f"[29] 5b/1x1 b1 M={m} K={k} N={n} queued: gemm_bf16 {s16:.4f} "
+          f"ms, gemm_f32 (K split) {s32:.4f} ms, torch.matmul bf16 "
+          f"{s_lib:.4f} ms; bf16 bound {s_bound:.5f} ms ({s_by}); {smi}")
     torch.cuda.reset_peak_memory_stats()
     for bsz in BUCKETS:
         run_k, run_32, x = fwd[(True, bsz)]
@@ -6109,6 +6199,321 @@ def phase_29_bf16(dev) -> list:
              "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
              "bound_by": g_by, "library_ms": g_lib}]
 
+# Phase 30: full-width VGG16 in bf16 against its plain path on the card,
+# the largest logit's share. Set before the first card run from the CPU
+# reading: at 56² and 112² of width 0.25 the bf16 forward moves by
+# 4.0e-3 and 4.1e-3 of its largest logit when only the batched GEMM's
+# sums are taken in another order (f64, rounded once), so 5x that.
+VGG_BF16_PLAIN_REL = 2e-2
+N_VGG_BF16_REQUESTS = 12
+# Phase 30 (b): the Winograd cases, (label, batch, H, W, Cin, Cout, m,
+# padding); the first two are VGG16's conv0_1 and conv2_1 at bucket 8,
+# timed in (e). Then the batched GEMM's edges, (label, G, M, K, N): G 1,
+# 1x1x1, N 30 (n % 8 != 0: the element path for every g), a ragged M with
+# K 72 (a k16 step past K), and B one element off alignment (the element
+# path).
+WINO_BF16_CASES = (("conv0_1 b8", 8, 224, 224, 64, 64, 4, "SAME"),
+                   ("conv2_1 b8", 8, 56, 56, 256, 256, 4, "SAME"),
+                   ("F2 SAME 13x11", 2, 13, 11, 24, 40, 2, "SAME"),
+                   ("F4 SAME 13x11", 2, 13, 11, 24, 40, 4, "SAME"),
+                   ("F2 VALID 14x14", 2, 14, 14, 16, 30, 2, "VALID"),
+                   ("F4 VALID 9x10", 2, 9, 10, 8, 16, 4, "VALID"))
+BG_BF16_EDGES = (("G 1", 1, 200, 96, 64), ("1x1x1", 3, 1, 1, 1),
+                 ("N 30", 4, 70, 40, 30), ("ragged M", 16, 333, 72, 104),
+                 ("B offset", 4, 100, 64, 64))
+
+
+def phase_30_bf16_winograd(dev) -> list:
+    """30. The Winograd path in bf16: (a) ptxas of each new instantiation;
+    (b) ``batched_gemm_bf16`` and the three bf16 transforms against their
+    plain versions within one bf16 ulp, two calls bit-equal, at VGG16's
+    bucket-8 shapes (conv0_1 8x224²x64 -> 36x25088x64, conv2_1 8x56²x256)
+    and at the edges (F(2,3) and F(4,3), SAME on an odd map, VALID, bias
+    and none, ReLU and none; the GEMM at G 1, 1x1x1, N 30 and unaligned B
+    on the element path, a ragged M and K on every tile); (c) full-width
+    VGG16 with bf16 params at every bucket, elided (the tiles transform)
+    and not (the NHWC transform): kernels against the plain path, eager,
+    capture and replay bit-equal, the counters, the graph's kernel nodes
+    and a replay's profiler rows equal to the lowering's launches, and
+    against the f32 forward of the same weights widened; (d)
+    ``CNNServingEngine(dtype=bf16)`` at depths 1 and 2; (e) printed, not
+    gated: each kernel against its bound, plain version and library call,
+    and the replayed bf16 forward per bucket beside the f32 one. The main
+    path is (c) and (d)'s depth-1 engine, every count reset just before
+    each of their runs. Returns the four kernels' rows of the JSON line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.cnn.executor import init_params
+    from repro_torch.cnn.models import vgg16
+    from repro_torch.core.algorithms import AlgoFamily
+    from repro_torch.core.dse import identify_parameters
+    from repro_torch.core.layouts import LayoutSpec
+    from repro_torch.core.mapper import map_network
+    from repro_torch.kernels import build
+    from repro_torch.kernels.conv_im2col import conv_im2col as conv_mod
+    from repro_torch.kernels.gemm import gemm as gemm_mod
+    from repro_torch.kernels.layouts import materialize
+    from repro_torch.kernels.winograd import winograd as wino
+
+    t30 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    bf = torch.bfloat16
+    bg_call, bg_plain = gemm_mod.batched_gemm_call, gemm_mod.batched_gemm_plain
+    gen = torch.Generator().manual_seed(30)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    # ---- (a) ptxas of each new instantiation ---------------------------
+    if not build.BUILD_LOG:
+        build.build_all()
+    for source in ("gemm", "winograd"):
+        for kernel, info in ptxas_report(build.BUILD_LOG.get(source, "")):
+            if "bf16" in kernel and (source == "winograd"
+                                     or kernel.startswith("batched")):
+                print(f"[30] ptxas {source}: {kernel}: {info}")
+
+    # ---- (b) each kernel vs its plain version --------------------------
+    err, inputs = {}, {}
+
+    def held(name, label, call, plain):
+        """Two calls of ``call`` bit-equal and within one bf16 ulp of
+        ``plain()``; keeps the largest max|diff| of (name, label)."""
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise CheckFailed(f"{name} {label}: two calls differ")
+        e = bf16_close(f"{name} {label}", got, plain())
+        err[(name, label)] = max(err.get((name, label), 0.0), e)
+        return got
+
+    epilogues = (("bias_relu", True), ("bias", True), ("relu", False),
+                 ("none", False))
+    for label, bsz, h, w_in, c_in, c_out, m, pad in WINO_BF16_CASES:
+        t = m + 2
+        o1, o2 = (h, w_in) if pad == "SAME" else (h - 2, w_in - 2)
+        p = 1 if pad == "SAME" else 0
+        geo = dict(m=m, tiles_y=-(-o1 // m), tiles_x=-(-o2 // m))
+        x = randn(bsz, h, w_in, c_in)
+        w = randn(3, 3, c_in, c_out, scale=(9 * c_in) ** -0.5)
+        bias = randn(c_out, scale=0.1)
+        v = held("input_transform_bf16", label,
+                 lambda: wino.input_transform_call(x, pad_top=p, pad_left=p,
+                                                   **geo),
+                 lambda: wino.input_transform_plain(x, pad_top=p,
+                                                    pad_left=p, **geo))
+        spec = LayoutSpec("winograd", h=h, w=w_in, c=c_in, k1=3, k2=3,
+                          padding=pad, m=m, r=3)
+        tiles = materialize(x, spec).reshape(-1, t, t, c_in).contiguous()
+        vt = held("input_transform_tiles_bf16", label,
+                  lambda: wino.input_transform_tiles_call(tiles, m=m),
+                  lambda: wino.input_transform_tiles_plain(tiles, m=m))
+        bf16_close(f"input_transform_tiles_bf16 {label} vs the NHWC V", vt,
+                   v)
+        u = wino.transform_kernel_weights(w, m, 3).to(bf)
+        mm = held("batched_gemm_bf16", label, lambda: bg_call(v, u),
+                  lambda: bg_plain(v, u))
+        vgg = label.startswith("conv")
+        for epilogue, biased in (epilogues[:1] if vgg else epilogues):
+            out_geo = dict(geo, o1=o1, o2=o2, epilogue=epilogue,
+                           bias=bias if biased else None)
+            held("output_transform_bf16", label,
+                 lambda: wino.output_transform_call(mm, **out_geo),
+                 lambda: wino.output_transform_plain(mm, **out_geo))
+        inputs[label] = (x, tiles, v, u, mm, bias, geo, o1, o2)
+        print(f"[30] winograd F({m},3) bf16 {label} x({bsz}, {h}, {w_in}, "
+              f"{c_in}) {pad} Cout {c_out}: max|diff| vs plain "
+              + ", ".join(f"{k} {err[(k, label)]:.3e}" for k in (
+                  "input_transform_bf16", "input_transform_tiles_bf16",
+                  "batched_gemm_bf16", "output_transform_bf16"))
+              + f" (one bf16 ulp; output epilogues "
+              f"{[e for e, _ in (epilogues[:1] if vgg else epilogues)]}); "
+              f"two calls bit-equal; the tiles' V within one ulp of the "
+              f"NHWC V")
+
+    # The batched GEMM at its edges (BG_BF16_EDGES), bias_relu and no
+    # epilogue on every tile the wrapper takes.
+    all_tiles = ((64, 64), (64, 128), (128, 64), (128, 128))
+    for label, g_, m, k, n in BG_BF16_EDGES:
+        a = randn(g_, m, k)
+        b = randn(g_, k, n, scale=k ** -0.5)
+        bias = randn(n, scale=0.1)
+        if label == "B offset":
+            b = offset_copy(b)
+        used = sorted({gemm_mod.kernel_tile(bm, bn, m, n)
+                       for bm, bn in all_tiles})
+        for bm, bn in used:
+            held("batched_gemm_bf16", label,
+                 lambda: bg_call(a, b, bm=bm, bn=bn, epilogue="bias_relu",
+                                 bias=bias),
+                 lambda: bg_plain(a, b, "bias_relu", bias))
+            held("batched_gemm_bf16", label,
+                 lambda: bg_call(a, b, bm=bm, bn=bn),
+                 lambda: bg_plain(a, b))
+        vec = (k % 8 == 0 and n % 8 == 0 and a.data_ptr() % 16 == 0
+               and b.data_ptr() % 4 == 0)
+        print(f"[30] batched_gemm_bf16 {label} G={g_} M={m} K={k} N={n}, "
+              f"tiles {used} ({'vector' if vec else 'element'} path), "
+              f"bias_relu and none: max|diff| "
+              f"{err[('batched_gemm_bf16', label)]:.3e} (one bf16 ulp); "
+              f"two calls bit-equal")
+
+    # ---- (c) full-width VGG16 in bf16 ----------------------------------
+    g = vgg16(res=224, scale=1.0)
+    plan = map_network(g, hw=identify_parameters(g, max_dim=512))
+    algos = sorted(plan.assignment[n.id].key for n in g.conv_nodes())
+    if algos != ["im2col"] * 8 + ["winograd(F4x3)"] * 5:
+        raise CheckFailed(f"the VGG16 plan is not 8 im2col + 5 F(4,3): "
+                          f"{algos}")
+    p16 = init_params(g, seed=1, device=dev, dtype=bf)
+    for nid in sorted(p16):
+        p16[nid]["b"].copy_(randn(*p16[nid]["b"].shape, scale=0.05))
+    p32 = {nid: {k: t.float() for k, t in layer.items()}
+           for nid, layer in p16.items()}
+    names = ("conv_im2col_bf16", "gemm_bf16", "input_transform_bf16",
+             "input_transform_tiles_bf16", "batched_gemm_bf16",
+             "output_transform_bf16")
+    lc = Bf16Counts(names, (conv_mod.CONV_BF16, gemm_mod.GEMM_BF16,
+                            wino.INPUT_TRANSFORM_BF16,
+                            wino.INPUT_TRANSFORM_TILES_BF16,
+                            gemm_mod.BATCHED_GEMM_BF16,
+                            wino.OUTPUT_TRANSFORM_BF16))
+
+    def derived(lowering):
+        """Launches per forward: an im2col layer runs the conv on NHWC or
+        the GEMM on its Toeplitz matrix; a Winograd layer the NHWC or the
+        stored-tile transform, the batched GEMM and the output
+        transform."""
+        n = Counter()
+        for low in lowering.values():
+            kind = "nhwc" if low.in_layout is None else low.in_layout.kind
+            if low.algo.family is AlgoFamily.WINOGRAD:
+                n["input_transform_tiles_bf16" if kind == "winograd"
+                  else "input_transform_bf16"] += 1
+                n["batched_gemm_bf16"] += 1
+                n["output_transform_bf16"] += 1
+            else:
+                n["gemm_bf16" if kind == "toeplitz"
+                  else "conv_im2col_bf16"] += 1
+        return tuple(n[k] for k in names)
+
+    expect = {True: (1, 7, 0, 5, 5, 5), False: (8, 0, 5, 0, 5, 5)}
+    fwd, forward_launches = check_bf16_forwards(
+        30, "vgg16 224 bf16", g, plan, p16, p32, 224, lc, derived, expect,
+        VGG_BF16_PLAIN_REL, randn, dev)
+    for key in [k for k in fwd if not k[0]]:
+        del fwd[key]
+    torch.cuda.empty_cache()
+
+    # ---- (d) the engine in bf16 ----------------------------------------
+    served = serve_bf16(30, "vgg16", g, plan, p16, 224, lc, expect[True],
+                        N_VGG_BF16_REQUESTS, 30, VGG_BF16_PLAIN_REL, dev)
+    main_path = dict(zip(names, (f + e for f, e in zip(forward_launches,
+                                                       served[1]))))
+    if not all(main_path[k] for k in names[2:]):
+        raise CheckFailed(f"a Winograd kernel did not launch on the main "
+                          f"path: {main_path}")
+    print(f"[30] main path (the forwards' eager and capture passes, elided "
+          f"and not, and the depth-1 engine's warm-up): launches "
+          f"{main_path}")
+
+    # ---- (e) timings, printed ------------------------------------------
+    rows = {}
+    for label in ("conv0_1 b8", "conv2_1 b8"):
+        x, tiles, v, u, mm, bias, geo, o1, o2 = inputs[label]
+        bsz, _, _, c_in = x.shape
+        g_, n_tiles, c_out = mm.shape
+        m = geo["m"]
+        t = m + 2
+        out_geo = dict(geo, o1=o1, o2=o2, epilogue="bias_relu", bias=bias)
+        bt, _, at = (a.to(bf) for a in wino.torch_matrices(m, 3, dev))
+        filt = torch.einsum("ti,uj->tuij", bt, bt).reshape(
+            t * t, 1, t, t).repeat(c_in, 1, 1, 1)
+        x_nchw = x.permute(0, 3, 1, 2)
+        mm4 = mm.reshape(t, t, n_tiles, c_out)
+        out_bytes = 2.0 * bsz * o1 * o2 * c_out
+        cases = {
+            "input_transform_bf16": (
+                lambda: wino.input_transform_call(x, pad_top=1, pad_left=1,
+                                                  **geo),
+                lambda: wino.input_transform_plain(x, pad_top=1, pad_left=1,
+                                                   **geo),
+                lambda: F.conv2d(x_nchw, filt, stride=m, padding=1,
+                                 groups=c_in),
+                bound(n_tiles * c_in * TRANSFORM_FLOPS[("in", m)],
+                      2.0 * (x.numel() + v.numel()))),
+            "input_transform_tiles_bf16": (
+                lambda: wino.input_transform_tiles_call(tiles, m=m),
+                lambda: wino.input_transform_tiles_plain(tiles, m=m),
+                lambda: torch.einsum("ti,nijc,uj->tunc", bt, tiles, bt),
+                bound(n_tiles * c_in * TRANSFORM_FLOPS[("in", m)],
+                      2.0 * (tiles.numel() + v.numel()))),
+            "batched_gemm_bf16": (
+                lambda: bg_call(v, u), lambda: bg_plain(v, u),
+                lambda: torch.bmm(v, u),
+                bound(2.0 * g_ * n_tiles * c_in * c_out,
+                      2.0 * (v.numel() + u.numel() + mm.numel()),
+                      PEAK_BF16_FLOPS)),
+            "output_transform_bf16": (
+                lambda: wino.output_transform_call(mm, **out_geo),
+                lambda: wino.output_transform_plain(mm, **out_geo),
+                lambda: torch.relu(torch.einsum("ai,ijnc,bj->nabc", at, mm4,
+                                                at) + bias),
+                bound(n_tiles * c_out * TRANSFORM_FLOPS[("out", m)],
+                      2.0 * (mm.numel() + c_out) + out_bytes)),
+        }
+        libs = {"input_transform_bf16": "F.conv2d depthwise bf16 (cuDNN)",
+                "input_transform_tiles_bf16": "torch.einsum bf16",
+                "batched_gemm_bf16": "torch.bmm bf16 (cuBLAS)",
+                "output_transform_bf16": "torch.einsum + bias + ReLU bf16"}
+        for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
+            k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+            rows[(name, label)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            print(f"[30] {name} {label}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, {libs[name]} {l_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}): {100 * b_ms / k_ms:.1f}% of the "
+                  f"bound; {smi}")
+    for bsz in BUCKETS:
+        run_k, run_32, x = fwd[(True, bsz)]
+        x32 = x.float()
+        for _ in range(2):                 # the f32 capture and a replay
+            run_32(p32, x32)
+        b16 = time_ms(lambda: run_k(p16, x), reps=10, rounds=5)
+        f32 = time_ms(lambda: run_32(p32, x32), reps=10, rounds=5)
+        busy16, split16, _ = device_time(lambda: run_k(p16, x))
+        busy32, _, _ = device_time(lambda: run_32(p32, x32))
+        print(f"[30] vgg16 224 forward b{bsz} (elide, replay): bf16 "
+              f"{b16:.3f} ms, f32 {f32:.3f} ms ({f32 / b16:.2f}x); device "
+              f"busy bf16 {busy16:.3f} ms = {split16} (ms), f32 "
+              f"{busy32:.3f} ms; {memory_line(dev)}; {smi}")
+    del fwd
+    torch.cuda.empty_cache()
+    print(f"[30] phase 30 took {time.perf_counter() - t30:.1f} s")
+    replaces = {
+        "input_transform_bf16": "src/repro/kernels/winograd/winograd.py:111",
+        "input_transform_tiles_bf16":
+            "src/repro/kernels/winograd/winograd.py:141",
+        "batched_gemm_bf16": "src/repro/kernels/gemm/gemm.py:175",
+        "output_transform_bf16": "src/repro/kernels/winograd/winograd.py:192"}
+    out = []
+    for name, where in replaces.items():
+        k_ms, p_ms, l_ms, b_ms, b_by = rows[(name, "conv0_1 b8")]
+        out.append({"name": name, "route": "cuda",
+                    "source": ("src/repro_torch/csrc/gemm.cu"
+                               if name.startswith("batched")
+                               else "src/repro_torch/csrc/winograd.cu"),
+                    "replaces": where, "launches": main_path[name],
+                    "max_abs_err": err[(name, "conv0_1 b8")],
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": l_ms})
+    return out
+
 
 def main() -> int:
     t_main = time.perf_counter()
@@ -6130,6 +6535,7 @@ def main() -> int:
     phase_27_training(dev)
     phase_28_lm_mesh(dev)
     kernels += phase_29_bf16(dev)
+    kernels += phase_30_bf16_winograd(dev)
     print(f"total {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -659,9 +659,9 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
 
     ``dtype`` (f32 or bf16) is the program's (``CompiledProgram``): bf16
     params (``init_params(dtype=torch.bfloat16)``) run the reference's
-    bf16 path, every im2col conv on the bf16 kernels, which sum in f32
-    and round once per layer; kn2row and Winograd layers have no bf16
-    kernel yet and raise. It enters the cache key."""
+    bf16 path, every im2col and Winograd conv on the bf16 kernels, which
+    sum in f32 and round once per kernel, as the reference's do; kn2row
+    layers have no bf16 kernel yet and raise. It enters the cache key."""
     if mesh is not None and not isinstance(mesh, DataMesh):
         raise TypeError(f"compile_plan(mesh=...) takes a launch.mesh."
                         f"DataMesh, got {type(mesh).__name__}")

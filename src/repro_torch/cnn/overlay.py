@@ -25,10 +25,11 @@ emulate it with fake-quantized f32 operands — a layer never falls back
 to another algorithm. Winograd rejects int8, as the reference does.
 
 bf16 operands (the reference's bf16 path: ``init_params(dtype=bf16)``)
-run im2col on the bf16 kernels, whose f32 sums round once per layer.
-kn2row and Winograd have no bf16 kernel yet, nor does an int8 layer of a
-bf16 model: those raise ``TypeError`` on the kernel path rather than run
-anything else. The plain backends take bf16 as the reference's do.
+run im2col and Winograd on the bf16 kernels, whose f32 sums round once
+per kernel, where the reference's do. kn2row has no bf16 kernel yet, nor
+does an int8 layer of a bf16 model: those raise ``TypeError`` on the
+kernel path rather than run anything else. The plain backends take bf16
+as the reference's do.
 
 Tests that monkeypatch ``apply_conv`` with a plain NHWC oracle wrap it
 with ``nhwc_conv`` so it honors the layout contract.
@@ -188,15 +189,16 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
 def _check_bf16(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
                 precision: str, kernels: bool) -> None:
     """A bf16 layer takes bf16 ``x`` and ``w`` and, on the kernel path,
-    im2col at bf16 precision: the layers with no bf16 kernel raise
-    ``TypeError``."""
+    im2col or Winograd at bf16 precision: the layers with no bf16 kernel
+    (kn2row, int8) raise ``TypeError``."""
     if x.dtype != w.dtype:
         raise TypeError(f"bf16 conv with x of {x.dtype} and w of {w.dtype}")
     if not kernels:
         return
-    if algo.family is not AlgoFamily.IM2COL:
+    if algo.family not in (AlgoFamily.IM2COL, AlgoFamily.WINOGRAD):
         raise TypeError(f"{algo.key} has no bf16 kernel yet; a bf16 model "
-                        "runs im2col layers only on the kernel path")
+                        "runs im2col and Winograd layers only on the kernel "
+                        "path")
     if precision == "int8":
         raise TypeError("an int8 layer of a bf16 model has no kernel yet")
 

@@ -78,6 +78,17 @@
 // wgmma yet. The f32 kernels take a bf16 C the same way (out_bf16:
 // CastFlush<float, bf16> in the flush and in the split-K reduce), a store
 // of the flush and never a second pass.
+//
+// batched_gemm_bf16 is batched_gemm_pallas's bf16 path (bf16 A[g] and B[g],
+// the f32 VMEM accumulator, out_dtype = a.dtype): the Winograd layers of a
+// bf16 model (full-width VGG16's five F(4,3) layers: G 36, M = B·tiles, K =
+// Cin, N = Cout). It runs gemm_bf16's loop on each g's operands, as
+// batched_gemm_f32 runs the f32 loop: f32 sums on the tensor cores, bias and
+// ReLU in f32, one rounding at the flush. Bound: bytes at conv0_1 (K = N =
+// 64: ~32 FLOP per byte moved) and at conv2_x (K = N = 256: ~128), both
+// below bf16's ~295. No split K, as the reference has none: G·M fills the
+// card at VGG16's shapes at every bucket (the smallest grid, conv2_x at
+// bucket 1, M 196 and N 256, is 36 x 2 x 2 = 144 blocks of 128 x 128).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -216,6 +227,33 @@ __global__ void __launch_bounds__(repro::kThreads)
       k, vec);
 }
 
+// Problem g = blockIdx.z of the bf16 product. The entry point takes the
+// vector path only when it holds for every g, not only g = 0
+// (batched_bf16_vector_path).
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    batched_gemm_bf16_kernel(const uint16_t* __restrict__ a,
+                             const uint16_t* __restrict__ b,
+                             const __nv_bfloat16* __restrict__ bias,
+                             __nv_bfloat16* __restrict__ c, int m, int n,
+                             int k, int relu, int vec) {
+  const size_t g = blockIdx.z;
+  repro::tile_mma_bf16_flush<BM, BN>(
+      repro::DenseBf16{a + g * m * k, m, k}, b + g * k * n,
+      repro::CastFlush<__nv_bfloat16, __nv_bfloat16>{bias, c + g * m * n, n,
+                                                     relu},
+      m, n, k, vec);
+}
+
+// Whether every g of a batched bf16 product can take the 16-byte path:
+// bf16_vector_path for g = 0, and per-g strides that keep the same
+// alignment, k % 8 (A[g] moves by g·m·k elements, a multiple of 16 bytes)
+// and n % 8 (B[g] by g·k·n, C[g] by g·m·n: multiples of 16 bytes).
+inline bool batched_bf16_vector_path(const void* a, const void* b, int n,
+                                     int k) {
+  return repro::bf16_vector_path(a, b, n, k) && k % 8 == 0 && n % 8 == 0;
+}
+
 template <int BM, int BN>
 __global__ void __launch_bounds__(repro::kThreads)
     gemm_bf16_out_f32_kernel(const uint16_t* __restrict__ a,
@@ -340,5 +378,25 @@ extern "C" int batched_gemm_f32(const void* a, const void* b,
     REPRO_DISPATCH_TILE(batched_gemm_f32_kernel, tile_m, tile_n, m, n, groups,
                         s, fa, fb, fbias, static_cast<float*>(c), m, n, k,
                         relu, vec);
+  return (int)cudaGetLastError();
+}
+
+// C[g] (m, n) = epilogue(A[g] (m, k) · B[g] (k, n) [+ bias (n)]) for
+// g < groups with A, B, bias and C bf16, the sum in f32 on the tensor cores,
+// bias and ReLU in f32, one round-to-nearest-even store; all contiguous, on
+// the current device. bias may be NULL. (tile_m, tile_n) must be an
+// instantiated tile: 64 or 128 each. The path is batched_bf16_vector_path's.
+// Returns cudaGetLastError().
+extern "C" int batched_gemm_bf16(const void* a, const void* b,
+                                 const void* bias, void* c, int groups, int m,
+                                 int n, int k, int tile_m, int tile_n,
+                                 int relu, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  REPRO_DISPATCH_TILE(batched_gemm_bf16_kernel, tile_m, tile_n, m, n, groups,
+                      s, static_cast<const uint16_t*>(a),
+                      static_cast<const uint16_t*>(b),
+                      static_cast<const __nv_bfloat16*>(bias),
+                      static_cast<__nv_bfloat16*>(c), m, n, k, relu,
+                      (int)batched_bf16_vector_path(a, b, n, k));
   return (int)cudaGetLastError();
 }

@@ -26,16 +26,16 @@ PRECISIONS = ("bf16", "int8")
 # operand): a wrapper raises ``TypeError`` for any other, on every device,
 # before it picks the kernel or its plain version, so no operand of
 # another dtype ever reaches a kernel's buffers. The bf16 forms of the
-# Winograd and kn2row kernels are not written yet.
+# kn2row kernels are not written yet.
 KERNEL_DTYPES = {
     "gemm": (torch.float32, torch.bfloat16, torch.int8),
     "conv_im2col": (torch.float32, torch.bfloat16, torch.int8),
-    "batched_gemm": (torch.float32,),
+    "batched_gemm": (torch.float32, torch.bfloat16),
     "unit_conv_gemms": (torch.float32, torch.int8),
     "pad_accumulate": (torch.float32, torch.int32),
-    "input_transform": (torch.float32,),
-    "input_transform_tiles": (torch.float32,),
-    "output_transform": (torch.float32,),
+    "input_transform": (torch.float32, torch.bfloat16),
+    "input_transform_tiles": (torch.float32, torch.bfloat16),
+    "output_transform": (torch.float32, torch.bfloat16),
 }
 
 

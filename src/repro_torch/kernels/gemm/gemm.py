@@ -4,7 +4,7 @@ its plain torch version beside it.
 
 C = epilogue(A · B [+ bias]) in IEEE f32; the batched form computes G
 independent products C[g] = epilogue(A[g] · B[g] [+ bias]) with one bias
-shared by every g (Winograd's transform-space GEMMs). The int8 form takes
+shared by every g (Winograd's transform-space GEMMs), in f32 or bf16. The int8 form takes
 int8 A and B, sums exactly in int32 and flushes dequant (· ``scale``, the
 per-channel in_scale · w_scale) → bias → ReLU → optional requant at
 ``out_scale`` to an int8 C. The kernels mask ragged M/N/K edges
@@ -51,6 +51,9 @@ GEMM_BF16 = CudaKernel("gemm", "gemm_bf16",
 BATCHED_GEMM = CudaKernel("gemm", "batched_gemm_f32",
                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p])
+BATCHED_GEMM_BF16 = CudaKernel("gemm", "batched_gemm_bf16",
+                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                               + [ctypes.c_void_p])
 
 _MAX_GRID_Y = 65535
 K_CHUNK = 16           # csrc/tile_gemm.cuh::kBK, the depth of one K chunk
@@ -306,14 +309,20 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                       out_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
     """C (G, M, N) = epilogue(A (G, M, K) · B (G, K, N) [+ bias (N,)]) for
-    f32 operands (any other dtype raises ``TypeError``), C stored in
-    ``out_dtype`` (f32, or bf16 rounded once at the flush).
+    f32 or bf16 operands (any other dtype raises ``TypeError``). f32
+    operands store C in ``out_dtype`` (f32, or bf16 rounded once at the
+    flush); bf16 operands (and a bf16 bias) sum in f32 on the tensor cores
+    and store a bf16 C, rounded once, the reference's ``out_dtype =
+    a.dtype``: any other ``out_dtype`` raises ``ValueError``.
 
     CUDA tensors launch the batched kernel (one grid layer per g, K not
     split) on the current stream under the tile ``kernel_tile(bm, bn, M,
     N)``; CPU tensors run ``batched_gemm_plain``."""
     check_kernel_dtype("batched_gemm", a)
     out_dtype = gemm_out_dtype(a.dtype, out_dtype)
+    if a.dtype == torch.bfloat16 and out_dtype != torch.bfloat16:
+        raise ValueError(f"batched_gemm: out_dtype={out_dtype} is not taken "
+                         "for bfloat16 operands; want None or bfloat16")
     if a.device.type == "cpu":
         return batched_gemm_plain(a, b, epilogue, bias, out_dtype)
     if a.device.type != "cuda":
@@ -324,12 +333,12 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
     g, m, k = (int(d) for d in a.shape)
     n = int(b.shape[2])
-    check_operand("a", a, a.device, (g, m, k))
-    check_operand("b", b, a.device, (g, k, n))
+    check_operand("a", a, a.device, (g, m, k), a.dtype)
+    check_operand("b", b, a.device, (g, k, n), a.dtype)
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
     if bias is not None:
-        check_operand("bias", bias, a.device, (n,))
+        check_operand("bias", bias, a.device, (n,), a.dtype)
     if min(g, m, n, k) < 1:
         raise ValueError(f"batched_gemm: empty operand G={g} M={m} N={n} "
                          f"K={k}")
@@ -337,11 +346,17 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     if -(-m // tile_m) > _MAX_GRID_Y or g > _MAX_GRID_Y:
         raise ValueError(f"batched_gemm: G={g} M={m} exceeds the launch grid")
     out = torch.empty((g, m, n), device=a.device, dtype=out_dtype)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if a.dtype == torch.bfloat16:
+        with torch.cuda.device(a.device):
+            BATCHED_GEMM_BF16.launch(a.data_ptr(), b.data_ptr(), bias_ptr,
+                                     out.data_ptr(), g, m, n, k, tile_m,
+                                     tile_n, int(relu), stream)
+        return out
     with torch.cuda.device(a.device):
-        BATCHED_GEMM.launch(a.data_ptr(), b.data_ptr(),
-                            None if bias is None else bias.data_ptr(),
+        BATCHED_GEMM.launch(a.data_ptr(), b.data_ptr(), bias_ptr,
                             out.data_ptr(), g, m, n, k, tile_m, tile_n,
                             int(relu), b_vector_path(b, n),
-                            int(out_dtype == torch.bfloat16),
-                            torch.cuda.current_stream(a.device).cuda_stream)
+                            int(out_dtype == torch.bfloat16), stream)
     return out

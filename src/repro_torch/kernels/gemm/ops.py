@@ -80,8 +80,9 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor,
     """C[g] = epilogue(A[g] @ B[g] [+ bias]) — Winograd's (m+r−1)²
     transform-space products (Eq. 6) under the plan's block binding.
     Unlike the reference, nothing is padded or cropped: the kernel masks
-    ragged edges. f32 operands only; ``out_dtype`` (None: f32, or bf16,
-    rounded once in the flush) as ``gemm``'s."""
+    ragged edges. f32 operands take ``out_dtype`` None (f32) or bf16,
+    rounded once in the flush; bf16 operands (a bf16 bias) sum in f32 and
+    store bf16, rounded once (``out_dtype`` None or bf16)."""
     bm, bn, _ = dataflow_blocks(dataflow, p1, p2)
     return batched_gemm_call(a, b, bm=bm, bn=bn, epilogue=epilogue,
                              bias=bias, out_dtype=out_dtype)

@@ -8,6 +8,12 @@ binding is forwarded to that batched GEMM's block dims (Eq. 9). Accepts
 shared by every image, so the batch folds into the tile dim: one V of
 (T², B·tiles, Cin), one batched GEMM and one output transform per layer
 per forward (the reference maps the conv over the batch).
+
+bf16 operands round where the reference's pipeline rounds: V in the input
+transform's store, U (computed in f32) once to the activation dtype, M in
+the batched GEMM's flush (f32 sums), the output once after the epilogue;
+the K > r rounds accumulate in the activation dtype, each ``acc + part``
+rounded once, and the epilogue follows the sum.
 """
 from __future__ import annotations
 
@@ -46,7 +52,7 @@ def _conv_f_mr(x: torch.Tensor, w: torch.Tensor, m: int, o1: int, o2: int,
     transform = input_transform_plain if plain else input_transform_call
     v = transform(x, m=m, r=r, tiles_y=ty, tiles_x=tx, pad_top=pt,
                   pad_left=pl)                          # (T², B·tiles, Cin)
-    u = transform_kernel_weights(w, m, r)               # (T², Cin, Cout)
+    u = transform_kernel_weights(w, m, r).to(x.dtype)   # (T², Cin, Cout)
     mm = _gemm(v, u, dataflow, p1, p2, plain)           # (T², B·tiles, Cout)
     back = output_transform_plain if plain else output_transform_call
     return back(mm, m=m, r=r, tiles_y=ty, tiles_x=tx, o1=o1, o2=o2,
@@ -63,7 +69,7 @@ def _conv_from_tiles(tiles: torch.Tensor, w: torch.Tensor, m: int, spec,
     r = w.shape[0]
     flat = tiles.reshape(-1, *tiles.shape[-3:]).contiguous()
     v = input_transform_tiles_call(flat, m=m, r=r)
-    u = transform_kernel_weights(w, m, r)
+    u = transform_kernel_weights(w, m, r).to(tiles.dtype)
     mm = batched_gemm(v, u, dataflow, p1, p2)
     return output_transform_call(mm, m=m, r=r, tiles_y=spec.tiles_y,
                                  tiles_x=spec.tiles_x, o1=spec.o1, o2=spec.o2,

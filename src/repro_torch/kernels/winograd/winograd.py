@@ -21,6 +21,11 @@ predicates, and the output transform writes only the in-range pixels of
 (B, O1, O2, C). Each ``*_call`` launches its kernel for CUDA tensors and
 runs its ``*_plain`` version for CPU tensors; nothing else selects between
 the two.
+
+Each kernel takes f32 or bf16 (``KERNEL_DTYPES``), as the reference's
+dtype-generic kernels do: loads widen to f32, the transform, bias and ReLU
+run in f32, and the single store rounds once to the input's dtype; the
+plain versions compute in f32 and round once the same way.
 """
 from __future__ import annotations
 
@@ -36,15 +41,21 @@ from repro_torch.kernels.common import (apply_epilogue, check_kernel_dtype,
                                         pad_nhwc)
 from repro_torch.kernels.gemm.gemm import check_operand, check_epilogue
 
-INPUT_TRANSFORM = CudaKernel(
-    "winograd", "winograd_input_transform_f32",
-    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_INPUT_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_TILES_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_OUTPUT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+INPUT_TRANSFORM = CudaKernel("winograd", "winograd_input_transform_f32",
+                             _INPUT_ARGS)
 INPUT_TRANSFORM_TILES = CudaKernel(
-    "winograd", "winograd_input_transform_tiles_f32",
-    [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-OUTPUT_TRANSFORM = CudaKernel(
-    "winograd", "winograd_output_transform_f32",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    "winograd", "winograd_input_transform_tiles_f32", _TILES_ARGS)
+OUTPUT_TRANSFORM = CudaKernel("winograd", "winograd_output_transform_f32",
+                              _OUTPUT_ARGS)
+INPUT_TRANSFORM_BF16 = CudaKernel(
+    "winograd", "winograd_input_transform_bf16", _INPUT_ARGS)
+INPUT_TRANSFORM_TILES_BF16 = CudaKernel(
+    "winograd", "winograd_input_transform_tiles_bf16", _TILES_ARGS)
+OUTPUT_TRANSFORM_BF16 = CudaKernel(
+    "winograd", "winograd_output_transform_bf16", _OUTPUT_ARGS)
 
 # ---------------------------------------------------------------------------
 # Transform matrices (Lavin & Gray). F(2,3) uses only ±1, ±1/2 — the paper
@@ -151,7 +162,8 @@ def input_transform_plain(x: torch.Tensor, *, m: int, r: int = 3,
                           pad_left: int = 0) -> torch.Tensor:
     """The input transform in plain torch: pad x (B, H, W, C) by the halo
     and the bottom/right fill, cut the overlapping T×T tiles (stride m) and
-    apply Bᵀ d B. Returns V (T², B·tiles_y·tiles_x, C)."""
+    apply Bᵀ d B in f32. Returns V (T², B·tiles_y·tiles_x, C) in x's
+    dtype (a bf16 V rounded once)."""
     t = _check_fm(m, r)
     _check_tiling(tiles_y, tiles_x, pad_top, pad_left)
     b, _, _, c = x.shape
@@ -160,7 +172,7 @@ def input_transform_plain(x: torch.Tensor, *, m: int, r: int = 3,
     d = xp.unfold(1, t, m).unfold(2, t, m)[:, :tiles_y, :tiles_x]
     bt, _, _ = torch_matrices(m, r, x.device)
     v = torch.einsum("ti,byxcij,uj->tubyxc", bt, d.to(torch.float32), bt)
-    return v.reshape(t * t, b * tiles_y * tiles_x, c)
+    return v.reshape(t * t, b * tiles_y * tiles_x, c).to(x.dtype)
 
 
 def input_transform_call(x: torch.Tensor, *, m: int, r: int = 3,
@@ -185,18 +197,20 @@ def input_transform_call(x: torch.Tensor, *, m: int, r: int = 3,
         raise ValueError(f"input_transform wants x (B, H, W, C), got "
                          f"{tuple(x.shape)}")
     b, h, w, c = (int(d) for d in x.shape)
-    check_operand("x", x, x.device, (b, h, w, c))
+    check_operand("x", x, x.device, (b, h, w, c), x.dtype)
     n = b * tiles_y * tiles_x
     if min(n, c) < 1:
         raise ValueError(f"input_transform: empty problem n={n} C={c}")
     if max(x.numel(), t * t * n * c) >= 2 ** 31:
         raise ValueError("input_transform: tensor too large for 32-bit "
                          "indices")
-    v = torch.empty((t * t, n, c), device=x.device, dtype=torch.float32)
+    v = torch.empty((t * t, n, c), device=x.device, dtype=x.dtype)
+    kernel = (INPUT_TRANSFORM_BF16 if x.dtype == torch.bfloat16
+              else INPUT_TRANSFORM)
     with torch.cuda.device(x.device):
-        INPUT_TRANSFORM.launch(x.data_ptr(), v.data_ptr(), b, h, w, c, m,
-                               tiles_y, tiles_x, pad_top, pad_left,
-                               torch.cuda.current_stream().cuda_stream)
+        kernel.launch(x.data_ptr(), v.data_ptr(), b, h, w, c, m, tiles_y,
+                      tiles_x, pad_top, pad_left,
+                      torch.cuda.current_stream().cuda_stream)
     return v
 
 
@@ -206,13 +220,13 @@ def input_transform_call(x: torch.Tensor, *, m: int, r: int = 3,
 
 def input_transform_tiles_plain(tiles: torch.Tensor, *, m: int,
                                 r: int = 3) -> torch.Tensor:
-    """Bᵀ d B on each tile of tiles (n, T, T, C) in plain torch → V
-    (T², n, C)."""
+    """Bᵀ d B on each tile of tiles (n, T, T, C) in plain torch, in f32 →
+    V (T², n, C) in the tiles' dtype (a bf16 V rounded once)."""
     t = _check_fm(m, r)
     n, _, _, c = tiles.shape
     bt, _, _ = torch_matrices(m, r, tiles.device)
     v = torch.einsum("ti,nijc,uj->tunc", bt, tiles.to(torch.float32), bt)
-    return v.reshape(t * t, n, c)
+    return v.reshape(t * t, n, c).to(tiles.dtype)
 
 
 def input_transform_tiles_call(tiles: torch.Tensor, *, m: int,
@@ -235,16 +249,18 @@ def input_transform_tiles_call(tiles: torch.Tensor, *, m: int,
         raise ValueError(f"input_transform_tiles wants (n, T, T, C), got "
                          f"{tuple(tiles.shape)}")
     n, c = int(tiles.shape[0]), int(tiles.shape[3])
-    check_operand("tiles", tiles, tiles.device, (n, t, t, c))
+    check_operand("tiles", tiles, tiles.device, (n, t, t, c), tiles.dtype)
     if min(n, c) < 1:
         raise ValueError(f"input_transform_tiles: empty problem n={n} C={c}")
     if tiles.numel() >= 2 ** 31:
         raise ValueError("input_transform_tiles: tensor too large for "
                          "32-bit indices")
-    v = torch.empty((t * t, n, c), device=tiles.device, dtype=torch.float32)
+    v = torch.empty((t * t, n, c), device=tiles.device, dtype=tiles.dtype)
+    kernel = (INPUT_TRANSFORM_TILES_BF16 if tiles.dtype == torch.bfloat16
+              else INPUT_TRANSFORM_TILES)
     with torch.cuda.device(tiles.device):
-        INPUT_TRANSFORM_TILES.launch(tiles.data_ptr(), v.data_ptr(), n, c, m,
-                                     torch.cuda.current_stream().cuda_stream)
+        kernel.launch(tiles.data_ptr(), v.data_ptr(), n, c, m,
+                      torch.cuda.current_stream().cuda_stream)
     return v
 
 
@@ -258,15 +274,16 @@ def output_transform_plain(mm: torch.Tensor, *, m: int, r: int = 3,
                            bias: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """The output transform in plain torch: Aᵀ M A per tile of mm (T²,
-    B·tiles, C), the epilogue, the m×m blocks put back in place and the
-    map cropped to (B, o1, o2, C)."""
+    B·tiles, C) and the epilogue in f32, the m×m blocks put back in place
+    and the map cropped to (B, o1, o2, C), in mm's dtype (a bf16 output
+    rounded once, after the epilogue)."""
     t = _check_fm(m, r)
     check_epilogue(epilogue, bias)
     _, n, c = mm.shape
     _, _, at = torch_matrices(m, r, mm.device)
     y = torch.einsum("ai,ijnc,bj->nabc", at,
                      mm.to(torch.float32).reshape(t, t, n, c), at)
-    y = apply_epilogue(y, epilogue, bias)
+    y = apply_epilogue(y, epilogue, bias).to(mm.dtype)
     y = y.reshape(-1, tiles_y, tiles_x, m, m, c).permute(0, 1, 3, 2, 4, 5)
     return y.reshape(-1, tiles_y * m, tiles_x * m, c)[:, :o1, :o2]
 
@@ -296,7 +313,7 @@ def output_transform_call(mm: torch.Tensor, *, m: int, r: int = 3,
         raise ValueError(f"output_transform wants M (T², n, C), got "
                          f"{tuple(mm.shape)}")
     n, c = int(mm.shape[1]), int(mm.shape[2])
-    check_operand("M", mm, mm.device, (t * t, n, c))
+    check_operand("M", mm, mm.device, (t * t, n, c), mm.dtype)
     per_image = tiles_y * tiles_x
     if per_image < 1 or n % per_image:
         raise ValueError(f"output_transform: {n} tiles is not a whole "
@@ -307,17 +324,17 @@ def output_transform_call(mm: torch.Tensor, *, m: int, r: int = 3,
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
     if bias is not None:
-        check_operand("bias", bias, mm.device, (c,))
+        check_operand("bias", bias, mm.device, (c,), mm.dtype)
     if mm.numel() >= 2 ** 31:
         raise ValueError("output_transform: tensor too large for 32-bit "
                          "indices")
     batch = n // per_image
-    out = torch.empty((batch, o1, o2, c), device=mm.device,
-                      dtype=torch.float32)
+    out = torch.empty((batch, o1, o2, c), device=mm.device, dtype=mm.dtype)
+    kernel = (OUTPUT_TRANSFORM_BF16 if mm.dtype == torch.bfloat16
+              else OUTPUT_TRANSFORM)
     with torch.cuda.device(mm.device):
-        OUTPUT_TRANSFORM.launch(mm.data_ptr(),
-                                None if bias is None else bias.data_ptr(),
-                                out.data_ptr(), batch, c, m, tiles_y,
-                                tiles_x, o1, o2, int(relu),
-                                torch.cuda.current_stream().cuda_stream)
+        kernel.launch(mm.data_ptr(),
+                      None if bias is None else bias.data_ptr(),
+                      out.data_ptr(), batch, c, m, tiles_y, tiles_x, o1, o2,
+                      int(relu), torch.cuda.current_stream().cuda_stream)
     return out

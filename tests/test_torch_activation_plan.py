@@ -65,6 +65,19 @@ from repro_torch.models.scan_util import (tree_at, tree_leaves,
                                           tree_leaves_with_path,
                                           tree_unflatten)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 REF_CELLS = (("h2o-danube-1.8b", 2, 4, 64, 2), ("mamba2-370m", 2, 4, 64, 2),
              ("deepseek-v2-236b", 2, 4, 64, 2),

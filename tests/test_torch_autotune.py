@@ -63,6 +63,19 @@ from repro_torch.core.graph import ConvMeta, LayerKind
 from repro_torch.core.mapper import lower_plan, map_network
 from repro_torch.serving.cnn_engine import CNNRequest, CNNServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PLAN_TOL = dict(rtol=2e-2, atol=2e-3)
 CPU = dict(device="cpu")
 CONV = ConvMeta(c_in=4, c_out=6, h1=8, h2=8, k1=3, k2=3, stride=1)

@@ -51,6 +51,19 @@ from repro_torch.kernels.gemm.ops import batched_gemm, gemm
 from repro_torch.kernels.layouts import materialize, restore
 from repro_torch.serving.cnn_engine import CNNRequest, CNNServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 BF = torch.bfloat16
 BF16_ULP = 2.0 ** -7
 FORWARD_REL = 5e-2          # the reference's bf16 tolerance
@@ -148,8 +161,14 @@ def test_gemm_out_dtype_both_ways():
         with pytest.raises(ValueError, match="out_dtype"):
             gemm(bad[0], bad[0], out_dtype=bad[1],
                  scale=torch.ones(4) if bad[0].dtype == torch.int8 else None)
+    # The bf16 batched GEMM stores bf16 only (the reference's out_dtype =
+    # a.dtype); f16 operands have no kernel.
+    assert batched_gemm(_to_torch(ga), _to_torch(gb)).dtype == BF
+    with pytest.raises(ValueError, match="out_dtype"):
+        batched_gemm(_to_torch(ga), _to_torch(gb), out_dtype=torch.float32)
     with pytest.raises(TypeError):
-        batched_gemm(_to_torch(ga), _to_torch(gb))
+        batched_gemm(_to_torch(ga, torch.float16),
+                     _to_torch(gb, torch.float16))
 
 
 # The reference's conv CASES (tests/test_kernels.py:55-58).
@@ -212,17 +231,19 @@ def test_toeplitz_layout_round_trip_keeps_bf16():
 
 
 def test_overlay_bf16_runs_im2col_only():
-    """A bf16 layer runs im2col on the kernel path; kn2row, Winograd, an
-    int8 layer and mixed operand dtypes raise ``TypeError``. The plain
-    backends take bf16."""
+    """A bf16 layer runs im2col and Winograd on the kernel path (bf16
+    out); kn2row, an int8 layer and mixed operand dtypes raise
+    ``TypeError``. The plain backends take bf16."""
     rng = _rng(5)
     x = _to_torch(rng.standard_normal((2, 8, 8, 4)))
     w = _to_torch(rng.standard_normal((3, 3, 4, 6)) / 6)
     y = overlay.apply_conv(x, w, IM2COL, epilogue="relu")
     assert y.dtype == BF
+    y = overlay.apply_conv(x, w, WINO_2_3, epilogue="relu")
+    assert y.dtype == BF and tuple(y.shape) == (2, 8, 8, 6)
+    with pytest.raises(TypeError, match="no bf16 kernel"):
+        overlay.apply_conv(x, w, KN2ROW)
     for algo in (KN2ROW, WINO_2_3):
-        with pytest.raises(TypeError, match="no bf16 kernel"):
-            overlay.apply_conv(x, w, algo)
         assert overlay.apply_conv(x, w, algo,
                                   backend="reference").dtype == BF
     with pytest.raises(TypeError, match="int8"):

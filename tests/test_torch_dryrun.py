@@ -43,6 +43,19 @@ from repro_torch.distributed.sharding import AbstractMesh
 from repro_torch.launch import dryrun, roofline, steps
 from repro_torch.launch.mesh import make_production_mesh, make_smoke_mesh
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = Path(__file__).resolve().parents[1]
 PROD = {"pod": ((16, 16), ("data", "model")),
         "multipod": ((2, 16, 16), ("pod", "data", "model"))}

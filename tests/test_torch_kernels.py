@@ -38,6 +38,19 @@ from repro_torch.kernels.gemm.gemm import (K_CHUNK, MIN_SLICE_CHUNKS,
 from repro_torch.kernels.gemm.ops import dataflow_blocks, gemm, toeplitz_gemm
 from repro_torch.kernels.layouts import materialize, restore
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -364,13 +377,27 @@ def test_global_pool_and_fc_match_reference():
                                  jnp.asarray(w), jnp.asarray(b))), **TOL)
 
 
-# The four wrappers that once took an operand of any dtype, each called on
-# operands of ``dtype`` (shapes the kernels take, on the CPU).
+# The four wrappers that once took an operand of any dtype and the
+# Winograd path's four, each called on operands of ``dtype`` (shapes the
+# kernels take, on the CPU).
 def _wrapper_calls(dtype):
+    from repro_torch.kernels.gemm.gemm import batched_gemm_call
     from repro_torch.kernels.kn2row.kn2row import (pad_accumulate_call,
                                                    unit_conv_gemms_call)
+    from repro_torch.kernels.winograd import winograd as wino
     a = torch.ones((4, 8), dtype=dtype)
     return {
+        "batched_gemm": lambda: batched_gemm_call(
+            torch.ones((2, 4, 8), dtype=dtype),
+            torch.ones((2, 8, 3), dtype=dtype)),
+        "input_transform": lambda: wino.input_transform_call(
+            torch.ones((1, 4, 4, 2), dtype=dtype), m=2, tiles_y=2,
+            tiles_x=2, pad_top=1, pad_left=1),
+        "input_transform_tiles": lambda: wino.input_transform_tiles_call(
+            torch.ones((3, 4, 4, 2), dtype=dtype), m=2),
+        "output_transform": lambda: wino.output_transform_call(
+            torch.ones((16, 4, 2), dtype=dtype), m=2, tiles_y=2, tiles_x=2,
+            o1=4, o2=4),
         "gemm": lambda: gemm_call(a, torch.ones((8, 3), dtype=dtype)),
         "conv_im2col": lambda: conv_im2col_call(
             torch.ones((1, 5, 5, 2), dtype=dtype),
@@ -387,17 +414,21 @@ def _wrapper_calls(dtype):
                                    torch.bfloat16],
                          ids=["f16", "f64", "bf16"])
 @pytest.mark.parametrize("kernel", ["gemm", "conv_im2col",
-                                    "unit_conv_gemms", "pad_accumulate"])
+                                    "unit_conv_gemms", "pad_accumulate",
+                                    "batched_gemm", "input_transform",
+                                    "input_transform_tiles",
+                                    "output_transform"])
 def test_wrappers_raise_on_dtypes_without_a_kernel(kernel, dtype):
     """Each wrapper checks its operands' dtype against ``KERNEL_DTYPES``
     before it picks the kernel or its plain version, so on the card no
     f16, f64 (or, for kn2row, bf16) operand reaches an f32 kernel's
-    buffers; here the same check raises on CPU tensors. The GEMM and the
-    conv take bf16."""
+    buffers; here the same check raises on CPU tensors. The GEMMs, the
+    conv and the Winograd transforms take bf16."""
     from repro_torch.kernels.common import KERNEL_DTYPES
     call = _wrapper_calls(dtype)[kernel]
     if dtype in KERNEL_DTYPES[kernel]:
-        assert kernel in ("gemm", "conv_im2col") and dtype == torch.bfloat16
+        assert kernel not in ("unit_conv_gemms", "pad_accumulate") \
+            and dtype == torch.bfloat16
         assert call().dtype == torch.bfloat16
         return
     with pytest.raises(TypeError, match="no kernel"):

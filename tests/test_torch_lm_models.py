@@ -38,6 +38,19 @@ from repro_torch.models.attention import chunked_attention
 from repro_torch.models.moe import moe_ffn, moe_ffn_dense
 from repro_torch.models.ssm import ssd_chunked
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 KEY = jax.random.PRNGKey(0)
 DTYPES = ("float32", "bfloat16")
 # Least gap between the k-th and (k+1)-th router probability of a bf16

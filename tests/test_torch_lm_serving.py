@@ -25,6 +25,19 @@ from repro_torch.core import lm_mapping
 from repro_torch.launch import serve
 from repro_torch.serving.engine import Request, ServingEngine
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (arch, config overrides, batch, max_len, requests, prompt length, new
 # tokens): the reference's continuous-batching set-up (4 requests on 2
 # slots), a window smaller than a request's length (the ring wraps),

@@ -60,6 +60,19 @@ from repro_torch.serving.cnn_engine import (CNNRequest, CNNServingEngine,
 from repro_torch.serving.multi_engine import MultiModelEngine
 from repro_torch.serving.supervisor import PlanSupervisor
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = dict(rtol=1e-4, atol=1e-5)
 PLAN_TOL = dict(rtol=2e-2, atol=2e-3)
 CPU = dict(device="cpu")

@@ -53,6 +53,18 @@ from repro_torch.models.scan_util import tree_leaves, tree_unflatten
 from repro_torch.optim import adamw
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: the suite's workers share the cores, and
+    torch's thread pool, oversubscribed, wakes slower than the small CPU
+    ops it would split (on an eight-core host, a reduced GoogleNet's max
+    pool took ~16 ms on eight threads, ~0.03 ms on one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def clone(tree):
     return tree_unflatten(tree, [t.clone() for t in tree_leaves(tree)])
 
