@@ -347,7 +347,19 @@ both matrix products and cuDNN:
     printed, not gated: both kernels against their bounds (989 TFLOP/s
     bf16, 3.35 TB/s), ``torch.matmul`` at conv2 and ``F.conv2d`` at the
     stem in bf16 (bucket 8), and the replayed bf16 forward per bucket
-    beside the f32 one with ``max_memory_reserved``.
+    beside the f32 one with ``max_memory_reserved``;
+30. the Winograd path in bf16 on full-width VGG16 (``phase_30_bf16_
+    winograd``'s docstring);
+31. the kn2row path in bf16: ``unit_conv_gemms_bf16`` and
+    ``pad_accumulate_bf16`` within one bf16 ulp of their plain versions
+    at Inception-v4's bucket-8 kn2row shapes and at the edges, full-width
+    Inception-v4 with bf16 params at every bucket, elided and not (16
+    launches of each a forward), the gated plan of the same bf16 params
+    (f32 logits held to its plain path, the kernels it launched printed
+    by dtype, an engine serving it), the bf16 engine at depths 1 and 2,
+    and, printed, each kernel against its bound, plain version and
+    library call and the replayed bf16 forward beside the f32 one
+    (``phase_31_bf16_kn2row``'s docstring).
 
 Phases 8, 12 and 17 check their forwards as phase 4 does, phases 9, 13
 and 18 serve as phase 5 does, and every forward timed is a replay. Each
@@ -540,7 +552,8 @@ def device_time(fn, reps: int = 1):
             gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32|"
                              r"unit_conv_gemms_f32|gemm_i8|conv_im2col_i8|"
                              r"unit_conv_gemms_i8|batched_gemm_bf16|gemm_bf16|"
-                             r"conv_im2col_bf16)_kernel<(\d+), (\d+)>", e.key)
+                             r"conv_im2col_bf16|unit_conv_gemms_bf16)"
+                             r"_kernel<(\d+), (\d+)>", e.key)
             wino = re.search(r"\b((?:input_transform_tiles|input_transform|"
                              r"output_transform)(?:_bf16)?)_kernel<(\d+)>",
                              e.key)
@@ -552,6 +565,8 @@ def device_time(fn, reps: int = 1):
                    else "pad_accumulate_f32" if "pad_accumulate_f32_kernel"
                    in e.key
                    else "pad_accumulate_i32" if "pad_accumulate_i32_kernel"
+                   in e.key
+                   else "pad_accumulate_bf16" if "pad_accumulate_bf16_kernel"
                    in e.key
                    else "torch index/gather" if re.search(r"index|gather",
                                                           e.key)
@@ -587,7 +602,9 @@ KERNEL_SYMBOLS = {"conv": "conv_im2col_f32_kernel", "gemm": "gemm_f32_kernel",
                   "input_transform_tiles_bf16":
                       "input_transform_tiles_bf16_kernel",
                   "batched_gemm_bf16": "batched_gemm_bf16_kernel",
-                  "output_transform_bf16": "output_transform_bf16_kernel"}
+                  "output_transform_bf16": "output_transform_bf16_kernel",
+                  "unit_conv_gemms_bf16": "unit_conv_gemms_bf16_kernel",
+                  "pad_accumulate_bf16": "pad_accumulate_bf16_kernel"}
 
 
 # Spin kernels (``torch.cuda._sleep``) that open every profiled window
@@ -6515,6 +6532,400 @@ def phase_30_bf16_winograd(dev) -> list:
     return out
 
 
+# Phase 31: the kn2row path in bf16. Full-width Inception-v4 in bf16
+# against its plain path on the card, the largest logit's share (the
+# bound of phases 29 and 30); its gated twin (f32 logits) the same.
+IV4_BF16_PLAIN_REL = 2e-2
+N_IV4_BF16_REQUESTS = 11
+N_IV4_GATED_REQUESTS = 5
+# Phase 31 (b): the kn2row cases, (label, x (B, H, W, Cin), K1, K2,
+# stride, padding, Cout). First Inception-v4's kn2row layers at bucket 8
+# (KN2ROW_LAYERS: stem/c4, stem/c5, redA/b2, redA/b3a and the Inception-C
+# 1x3 and 3x1), bias_relu; then the edges under all four epilogues on
+# every tile the wrapper takes: a ragged M, Cout 30 (phase 1's element
+# path, phase 2's one-channel path), x, w and p one element off their
+# alignment (the element and one-channel paths), the generic 5x5 and 7x1
+# offsets and SAME at stride 2 on an odd map.
+KN2ROW_BF16_MAIN = ("stem/c4", "stem/c5", "redA/b2", "redA/b3a", "incC/b3b",
+                    "incC/b3c")
+KN2ROW_BF16_EDGES = (("ragged M", (1, 13, 11, 64), 3, 3, 1, "SAME", 64),
+                     ("Cout 30", (2, 9, 9, 32), 3, 3, 1, "SAME", 30),
+                     ("offset views", (2, 9, 9, 32), 3, 3, 1, "SAME", 64),
+                     ("5x5", (2, 17, 17, 32), 5, 5, 1, "SAME", 64),
+                     ("7x1", (2, 17, 17, 32), 7, 1, 1, "SAME", 48),
+                     ("s2 SAME odd", (2, 15, 15, 32), 3, 3, 2, "SAME", 64))
+
+
+def phase_31_bf16_kn2row(dev) -> list:
+    """31. The kn2row path in bf16: (a) ptxas of each new instantiation;
+    (b) ``unit_conv_gemms_bf16`` and ``pad_accumulate_bf16`` against their
+    plain versions within one bf16 ulp, two calls bit-equal, at
+    Inception-v4's bucket-8 kn2row shapes and at the edges
+    (``KN2ROW_BF16_EDGES``); (c) full-width Inception-v4 with bf16 params
+    at every bucket, elided and not: kernels against the plain path,
+    eager, capture and replay bit-equal, the counters, the graph's kernel
+    nodes and a replay's profiler rows equal to the lowering's launches,
+    and against the f32 forward of the same weights widened; (d) the gated
+    plan of the same bf16 params (``plan_mixed_precision`` on the card):
+    f32 logits held to the plain path at buckets 1 and 8, elided and not,
+    eager, capture and replay bit-equal, the kernels it launched printed by
+    dtype, and an engine serving it; (e) ``CNNServingEngine(dtype=bf16)``
+    at depths 1 and 2; (f) printed, not gated: each kernel against its
+    bound, plain version and library call, and the replayed bf16 forward
+    per bucket beside the f32 one. The main path is (c) and (e)'s depth-1
+    engine, every count reset just before each of their runs. Returns the
+    two kernels' rows of the JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.cnn.executor import compile_plan, init_params
+    from repro_torch.cnn.models import inception_v4
+    from repro_torch.core.algorithms import AlgoFamily
+    from repro_torch.core.dse import identify_parameters
+    from repro_torch.core.mapper import map_network
+    from repro_torch.core.quant import plan_mixed_precision
+    from repro_torch.kernels import build
+    from repro_torch.kernels.conv_im2col import conv_im2col as conv_mod
+    from repro_torch.kernels.conv_im2col.ref import conv_geometry
+    from repro_torch.kernels.gemm import gemm as gemm_mod
+    from repro_torch.kernels.kn2row import kn2row as kn2
+    from repro_torch.kernels.winograd import winograd as wino
+    from repro_torch.serving.cnn_engine import CNNRequest, CNNServingEngine
+
+    t31 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(31)
+
+    def randn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    # ---- (a) ptxas of each new instantiation ---------------------------
+    if not build.BUILD_LOG:
+        build.build_all()
+    for kernel, info in ptxas_report(build.BUILD_LOG.get("kn2row", "")):
+        if "bf16" in kernel:
+            print(f"[31] ptxas kn2row: {kernel}: {info}")
+
+    # ---- (b) each kernel vs its plain version --------------------------
+    err, inputs = {}, {}
+
+    def held(name, label, call, plain):
+        """Two calls of ``call`` bit-equal and within one bf16 ulp of
+        ``plain()``; keeps the largest max|diff| of (name, label)."""
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise CheckFailed(f"{name} {label}: two calls differ")
+        e = bf16_close(f"{name} {label}", got, plain())
+        err[(name, label)] = max(err.get((name, label), 0.0), e)
+        return got
+
+    all_tiles = ((64, 64), (64, 128), (128, 64), (128, 128))
+    cases = []
+    for label in KN2ROW_BF16_MAIN:
+        hw, k1, k2, stride, pad, c_in, c_out = KN2ROW_LAYERS[label]
+        cases.append((label, (8, hw, hw, c_in), k1, k2, stride, pad, c_out))
+    for case in cases + list(KN2ROW_BF16_EDGES):
+        label, xs, k1, k2, stride, pad, c_out = case
+        bsz, h, w_in, c_in = xs
+        g_, m = k1 * k2, bsz * h * w_in
+        o1, o2, pt, _, pl, _ = conv_geometry(h, w_in, k1, k2, stride, pad)
+        geo = dict(k1=k1, k2=k2, o1=o1, o2=o2, stride=stride, pad_top=pt,
+                   pad_left=pl)
+        x2d = randn(m, c_in)
+        w = randn(g_, c_in, c_out, scale=(g_ * c_in) ** -0.5)
+        bias = randn(c_out, scale=0.1)
+        if label == "offset views":
+            x2d, w = offset_copy(x2d), offset_copy(w)
+        main = label in KN2ROW_BF16_MAIN
+        tiles = sorted({gemm_mod.kernel_tile(bm, bn, m, c_out)
+                        for bm, bn in ((all_tiles[-1],) if main
+                                       else all_tiles)})
+        for bm, bn in tiles:
+            p = held("unit_conv_gemms_bf16", label,
+                     lambda: kn2.unit_conv_gemms_call(x2d, w, bm=bm, bn=bn),
+                     lambda: kn2.unit_conv_gemms_plain(x2d, w))
+        p5 = p.view(g_, bsz, h, w_in, c_out)
+        if label == "offset views":
+            p5 = offset_copy(p5)
+        epilogues = ("bias_relu",) if main else (
+            "none", "relu", "bias", "bias_relu")
+        for ep in epilogues:
+            kw = dict(geo, epilogue=ep, bias=bias if ep.startswith("bias")
+                      else None)
+            out = held("pad_accumulate_bf16", label,
+                       lambda: kn2.pad_accumulate_call(p5, **kw),
+                       lambda: kn2.pad_accumulate_plain(p5, **kw))
+        vec1 = (c_in % 8 == 0 and c_out % 8 == 0
+                and x2d.data_ptr() % 16 == 0 and w.data_ptr() % 4 == 0)
+        vec2 = kn2.accumulate_vector_path(p5, out)
+        path2 = ("vector" if vec2 else "one-channel") + (
+            " unrolled" if (k1, k2) in kn2.UNROLLED_OFFSETS else " generic")
+        inputs[label] = (x2d, w, p5, bias, geo)
+        print(f"[31] kn2row bf16 {label} x{xs} {k1}x{k2} s{stride} {pad} "
+              f"Cout {c_out}: unit_conv_gemms_bf16 G={g_} M={m} K={c_in} "
+              f"N={c_out} tiles {tiles} ({'vector' if vec1 else 'element'} "
+              f"path) max|diff| "
+              f"{err[('unit_conv_gemms_bf16', label)]:.3e}; "
+              f"pad_accumulate_bf16 ({path2} path, {list(epilogues)}) "
+              f"max|diff| {err[('pad_accumulate_bf16', label)]:.3e} (one "
+              f"bf16 ulp); two calls bit-equal")
+
+    # ---- (c) full-width Inception-v4 in bf16 ---------------------------
+    g = inception_v4(res=299, scale=1.0)
+    plan = map_network(g, hw=identify_parameters(g, max_dim=512))
+    mix = Counter(a.key for a in plan.assignment.values())
+    if mix != {"im2col": 117, "kn2row": 16, "winograd(F4x3)": 16}:
+        raise CheckFailed(f"the Inception-v4 plan is not 117 im2col + 16 "
+                          f"kn2row + 16 F(4,3): {dict(mix)}")
+    p16 = init_params(g, seed=2, device=dev, dtype=bf)
+    for nid in sorted(p16):
+        p16[nid]["b"].copy_(randn(*p16[nid]["b"].shape, scale=0.05))
+    p32 = {nid: {k: t.float() for k, t in layer.items()}
+           for nid, layer in p16.items()}
+    names = ("conv_im2col_bf16", "gemm_bf16", "input_transform_bf16",
+             "input_transform_tiles_bf16", "batched_gemm_bf16",
+             "output_transform_bf16", "unit_conv_gemms_bf16",
+             "pad_accumulate_bf16")
+    lc = Bf16Counts(names, (conv_mod.CONV_BF16, gemm_mod.GEMM_BF16,
+                            wino.INPUT_TRANSFORM_BF16,
+                            wino.INPUT_TRANSFORM_TILES_BF16,
+                            gemm_mod.BATCHED_GEMM_BF16,
+                            wino.OUTPUT_TRANSFORM_BF16,
+                            kn2.UNIT_CONV_GEMMS_BF16,
+                            kn2.PAD_ACCUMULATE_BF16))
+
+    def derived(lowering):
+        """Launches per forward: an im2col layer runs the conv on NHWC or
+        the GEMM on its Toeplitz matrix; a Winograd layer (3x3: one
+        round) the NHWC or the stored-tile transform, the batched GEMM
+        and the output transform; a kn2row layer both kn2row kernels."""
+        n = Counter()
+        for low in lowering.values():
+            kind = "nhwc" if low.in_layout is None else low.in_layout.kind
+            if low.algo.family is AlgoFamily.WINOGRAD:
+                n["input_transform_tiles_bf16" if kind == "winograd"
+                  else "input_transform_bf16"] += 1
+                n["batched_gemm_bf16"] += 1
+                n["output_transform_bf16"] += 1
+            elif low.algo.family is AlgoFamily.KN2ROW:
+                n["unit_conv_gemms_bf16"] += 1
+                n["pad_accumulate_bf16"] += 1
+            else:
+                n["gemm_bf16" if kind == "toeplitz"
+                  else "conv_im2col_bf16"] += 1
+        return tuple(n[k] for k in names)
+
+    expect = {True: (1, 116, 0, 16, 16, 16, 16, 16),
+              False: (117, 0, 16, 0, 16, 16, 16, 16)}
+    fwd, forward_launches = check_bf16_forwards(
+        31, "inception_v4 299 bf16", g, plan, p16, p32, 299, lc, derived,
+        expect, IV4_BF16_PLAIN_REL, randn, dev)
+    for key in [k for k in fwd if not k[0]]:
+        del fwd[key]
+    torch.cuda.empty_cache()
+
+    # ---- (d) the gated plan of the bf16 params -------------------------
+    samples = randn(2, 299, 299, 3)
+    t0 = time.perf_counter()
+    report = plan_mixed_precision(g, p16, samples, tol=GATE_TOL,
+                                  hw=identify_parameters(g, max_dim=512))
+    torch.cuda.synchronize()
+    gate_s = time.perf_counter() - t0
+    qplan, qscales = report.plan, report.act_scales
+    qmix = Counter((qplan.assignment[n].key, p)
+                   for n, p in qplan.precisions.items())
+    if not (qmix[("im2col", "int8")] and qmix[("kn2row", "int8")]):
+        raise CheckFailed(f"the gated bf16 plan lacks int8 im2col or int8 "
+                          f"kn2row layers: {dict(qmix)}")
+    print(f"[31] gate on inception_v4 299 bf16 params (tol {GATE_TOL}, 2 "
+          f"bf16 calibration images, {gate_s:.2f} s): mix "
+          + ", ".join(f"{a} {p} {c}" for (a, p), c in sorted(qmix.items()))
+          + f"; demoted {len(report.demoted)}, rounds {report.rounds}")
+    every = lc.every
+    for elide in (True, False):
+        for bsz in (1, 8):
+            label = f"inception_v4 299 gated bf16 b{bsz} elide={elide}"
+            run_k, run_p = (
+                compile_plan(g, qplan, epilogue="bias_relu",
+                             tuning_batch=bsz, elide=elide, dtype=bf,
+                             act_scales=qscales, use_pallas=kernels,
+                             device=dev)
+                for kernels in (None, False))
+            x = randn(bsz, 299, 299, 3)
+            outs = []
+            for stage in ("eager", "capture", "replay"):
+                lc.reset()
+                outs.append(run_k(p16, x))
+                torch.cuda.synchronize()
+                ran = {k.symbol: k.launches for k in every if k.launches}
+                if stage == "eager":
+                    eager_ran = ran
+                elif stage == "capture" and ran != eager_ran:
+                    raise CheckFailed(f"{label}: the capture launched "
+                                      f"{ran}, the eager pass {eager_ran}")
+                elif stage == "replay" and ran:
+                    raise CheckFailed(f"{label}: a replay moved the "
+                                      f"counters {ran}")
+            if outs[0].dtype != torch.float32 or not all(
+                    torch.equal(o, outs[0]) for o in outs[1:]):
+                raise CheckFailed(f"{label}: logits of {outs[0].dtype}, or "
+                                  "capture or replay differs from eager")
+            int8_sfx, bf16_sfx = ("_i8", "_i32"), ("_bf16",)
+            by_dtype = {
+                "f32": {s: n for s, n in eager_ran.items()
+                        if not s.endswith(int8_sfx + bf16_sfx)},
+                "bf16": {s: n for s, n in eager_ran.items()
+                         if s.endswith(bf16_sfx)},
+                "int8": {s: n for s, n in eager_ran.items()
+                         if s.endswith(int8_sfx)}}
+            if not (by_dtype["int8"] and by_dtype["f32"]):
+                raise CheckFailed(f"{label}: no int8 or no f32 kernel "
+                                  f"launched: {eager_ran}")
+            rel = rel_dev(outs[0], run_p(p16, x))
+            if rel > IV4_BF16_PLAIN_REL:
+                raise CheckFailed(f"{label}: max|diff| / max|plain| "
+                                  f"{rel:.3e} > {IV4_BF16_PLAIN_REL}")
+            print(f"[31] {label}: f32 logits {tuple(outs[0].shape)}; "
+                  f"max|diff| / max|plain| {rel:.3e} (limit "
+                  f"{IV4_BF16_PLAIN_REL}); capture and replay bit-equal to "
+                  f"eager, 0 launches counted on a replay; kernels launched "
+                  f"a forward by dtype: "
+                  + "; ".join(f"{d} {by_dtype[d]}" for d in
+                              ("f32", "bf16", "int8")))
+            del run_k, run_p
+    torch.cuda.empty_cache()
+    run_p1 = compile_plan(g, qplan, epilogue="bias_relu", tuning_batch=1,
+                          dtype=bf, act_scales=qscales, use_pallas=False,
+                          device=dev)
+    engine = CNNServingEngine(g, p16, qplan, batch_size=8, slo_s=0.25,
+                              warmup=True, act_scales=qscales, dtype=bf,
+                              device=dev)
+    rng = np.random.default_rng(31)
+    images = [rng.standard_normal((299, 299, 3)).astype(np.float32)
+              for _ in range(N_IV4_GATED_REQUESTS)]
+    for i, img in enumerate(images):
+        engine.submit(CNNRequest(rid=i, image=img))
+    done = engine.run_until_done()
+    if sorted(done) != list(range(len(images))):
+        raise CheckFailed(f"gated bf16 engine served {sorted(done)}")
+    worst = 0.0
+    for i, img in enumerate(images):
+        want = run_p1(p16, torch.as_tensor(img[None]).to(dev, bf))[0]
+        if done[i].dtype != np.float32 or want.dtype != torch.float32:
+            raise CheckFailed(f"gated bf16 engine result of "
+                              f"{done[i].dtype}, plain {want.dtype}")
+        worst = max(worst, rel_dev(torch.as_tensor(done[i], device=dev),
+                                   want))
+    if worst > IV4_BF16_PLAIN_REL:
+        raise CheckFailed(f"gated bf16 engine: max|diff| / max|plain| "
+                          f"{worst:.3e}")
+    print(f"[31] gated bf16 engine (act_scales, depth 1): "
+          f"{len(images)} requests, dispatches "
+          f"{engine.stats()['dispatches']}, precision "
+          f"{engine.stats()['precision']}; worst max|diff| / max|plain| "
+          f"per image {worst:.3e} (limit {IV4_BF16_PLAIN_REL})")
+    del engine, run_p1
+    torch.cuda.empty_cache()
+
+    # ---- (e) the engine in bf16: the main path -------------------------
+    served = serve_bf16(31, "inception_v4", g, plan, p16, 299, lc,
+                        expect[True], N_IV4_BF16_REQUESTS, 31,
+                        IV4_BF16_PLAIN_REL, dev)
+    main_path = dict(zip(names, (f + e for f, e in zip(forward_launches,
+                                                       served[1]))))
+    if not all(main_path[k] for k in names[-2:]):
+        raise CheckFailed(f"a bf16 kn2row kernel did not launch on the main "
+                          f"path: {main_path}")
+    print(f"[31] main path (the forwards' eager and capture passes, elided "
+          f"and not, and the depth-1 engine's warm-up): launches "
+          f"{main_path}")
+
+    # ---- (f) timings, printed ------------------------------------------
+    rows = {}
+    for label in ("stem/c4", "incC/b3b"):
+        x2d, w, p5, bias, geo = inputs[label]
+        g_, bsz, hw, _, c = p5.shape
+        m, c_in = x2d.shape
+        kw = dict(geo, epilogue="bias", bias=bias)   # the library's function
+        n_out = bsz * geo["o1"] * geo["o2"] * c
+        p_nchw = p5.permute(1, 4, 0, 2, 3).reshape(bsz, c * g_, hw, hw
+                                                   ).contiguous()
+        onehot = torch.zeros(c, g_, geo["k1"], geo["k2"], device=dev,
+                             dtype=bf)
+        for gg in range(g_):
+            onehot[:, gg, gg // geo["k2"], gg % geo["k2"]] = 1.0
+
+        def grouped():
+            return F.conv2d(p_nchw, onehot, bias, stride=geo["stride"],
+                            padding=(geo["pad_top"], geo["pad_left"]),
+                            groups=c)
+
+        want = kn2.pad_accumulate_plain(p5, **kw).float()
+        check_close(f"grouped F.conv2d bf16 pad_accumulate {label}",
+                    grouped().permute(0, 2, 3, 1).float(), want, BF16_ULP,
+                    BF16_FORWARD_REL * float(want.abs().max()))
+        timed = {
+            "unit_conv_gemms_bf16": (
+                lambda: kn2.unit_conv_gemms_call(x2d, w),
+                lambda: kn2.unit_conv_gemms_plain(x2d, w),
+                lambda: torch.matmul(x2d, w),
+                bound(2.0 * g_ * m * c_in * c,
+                      2.0 * (m * c_in + g_ * c_in * c + g_ * m * c),
+                      PEAK_BF16_FLOPS)),
+            "pad_accumulate_bf16": (
+                lambda: kn2.pad_accumulate_call(p5, **kw),
+                lambda: kn2.pad_accumulate_plain(p5, **kw), grouped,
+                bound(1.0 * g_ * n_out,
+                      2.0 * (pad_accumulate_reads(p5, geo) + c + n_out)))}
+        libs = {"unit_conv_gemms_bf16": "torch.matmul bf16 (cuBLAS)",
+                "pad_accumulate_bf16": "grouped F.conv2d bf16 (cuDNN)"}
+        for name, (kern, plain, lib, (b_ms, b_by)) in timed.items():
+            k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+            q_ms = queued_ms(kern)
+            rows[(name, label)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            print(f"[31] {name} {label} b8: kernel {k_ms:.4f} ms (queued "
+                  f"{q_ms:.4f} ms), plain {p_ms:.4f} ms, {libs[name]} "
+                  f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}): "
+                  f"{100 * b_ms / k_ms:.1f}% of the bound; {smi}")
+    for bsz in BUCKETS:
+        run_k, run_32, x = fwd[(True, bsz)]
+        x32 = x.float()
+        for _ in range(2):                 # the f32 capture and a replay
+            run_32(p32, x32)
+        b16 = time_ms(lambda: run_k(p16, x), reps=10, rounds=5)
+        f32 = time_ms(lambda: run_32(p32, x32), reps=10, rounds=5)
+        busy16, split16, _ = device_time(lambda: run_k(p16, x))
+        busy32, _, _ = device_time(lambda: run_32(p32, x32))
+        print(f"[31] inception_v4 299 forward b{bsz} (elide, replay): bf16 "
+              f"{b16:.3f} ms, f32 {f32:.3f} ms ({f32 / b16:.2f}x); device "
+              f"busy bf16 {busy16:.3f} ms = {split16} (ms), f32 "
+              f"{busy32:.3f} ms; {memory_line(dev)}; {smi}")
+    del fwd
+    torch.cuda.empty_cache()
+    print(f"[31] phase 31 took {time.perf_counter() - t31:.1f} s")
+    tpu = "src/repro/kernels/kn2row/kn2row.py"
+    replaces = {"unit_conv_gemms_bf16": f"{tpu}:66",
+                "pad_accumulate_bf16": f"{tpu}:154"}
+    out = []
+    for name, where in replaces.items():
+        k_ms, p_ms, l_ms, b_ms, b_by = rows[(name, "stem/c4")]
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/kn2row.cu",
+                    "replaces": where, "launches": main_path[name],
+                    "max_abs_err": err[(name, "stem/c4")],
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": l_ms})
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -6536,6 +6947,7 @@ def main() -> int:
     phase_28_lm_mesh(dev)
     kernels += phase_29_bf16(dev)
     kernels += phase_30_bf16_winograd(dev)
+    kernels += phase_31_bf16_kn2row(dev)
     print(f"total {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

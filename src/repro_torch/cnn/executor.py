@@ -486,8 +486,13 @@ class CompiledProgram:
 
     ``dtype`` (f32 or bf16) is the program's: its params must all be of
     it and its input is taken in it (``_typed_input``: a tensor of the other
-    of the two raises ``TypeError``; numpy arrays are converted), so every
-    activation and the logits are of it too."""
+    of the two raises ``TypeError``; numpy arrays are converted). The
+    logits are of it too, but for a bf16 program whose plan carries int8
+    layers: those emit f32, every layer downstream of them runs in f32
+    (``overlay``'s dtype rule) and the logits are f32, as the reference's
+    are. A capture keeps whatever dtype the eager walk gave: the static
+    output is the walk's own tensor, and each replay's clone has its
+    dtype."""
 
     def __init__(self, graph: Graph, lowering: Lowering,
                  use_pallas: Optional[bool], device: torch.device,
@@ -659,9 +664,12 @@ def compile_plan(graph: Graph, plan: Optional[ExecutionPlan] = None, *,
 
     ``dtype`` (f32 or bf16) is the program's (``CompiledProgram``): bf16
     params (``init_params(dtype=torch.bfloat16)``) run the reference's
-    bf16 path, every im2col and Winograd conv on the bf16 kernels, which
-    sum in f32 and round once per kernel, as the reference's do; kn2row
-    layers have no bf16 kernel yet and raise. It enters the cache key."""
+    bf16 path, every im2col, kn2row and Winograd conv on the bf16
+    kernels, which sum in f32 and round once per kernel, as the
+    reference's do. A gated plan of bf16 params (int8 layers from
+    ``plan_mixed_precision``) runs its int8 layers on the int8 kernels
+    and every layer downstream of one in f32, and returns f32 logits, as
+    the reference's does. It enters the cache key."""
     if mesh is not None and not isinstance(mesh, DataMesh):
         raise TypeError(f"compile_plan(mesh=...) takes a launch.mesh."
                         f"DataMesh, got {type(mesh).__name__}")

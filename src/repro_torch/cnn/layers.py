@@ -120,6 +120,8 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
 def fc(x: torch.Tensor, w: torch.Tensor,
        b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fully connected layer over pre-flattened features: x is (f,) or
-    (B, f)."""
-    y = x @ w
+    (B, f). Operands of two dtypes promote, as the reference's ``@``
+    does: f32 features with bf16 weights (a gated bf16 model) give f32."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    y = x.to(dtype) @ w.to(dtype)
     return y + b if b is not None else y

@@ -24,12 +24,18 @@ kernels (their plain versions for CPU tensors), the plain backends
 emulate it with fake-quantized f32 operands — a layer never falls back
 to another algorithm. Winograd rejects int8, as the reference does.
 
-bf16 operands (the reference's bf16 path: ``init_params(dtype=bf16)``)
-run im2col and Winograd on the bf16 kernels, whose f32 sums round once
-per kernel, where the reference's do. kn2row has no bf16 kernel yet, nor
-does an int8 layer of a bf16 model: those raise ``TypeError`` on the
-kernel path rather than run anything else. The plain backends take bf16
-as the reference's do.
+A bf16 model (``init_params(dtype=bf16)``) follows the reference's dtype
+rule, which is its type promotion. A layer with bf16 ``x`` and ``w`` runs
+the bf16 kernels of its algorithm (im2col, kn2row, Winograd), whose f32
+sums round once per kernel where the reference's do, and emits bf16. An
+int8 layer quantizes its bf16 (or f32) input as it is and emits f32, or
+int8 under ``out_scale``, with its bias widened to f32 for the int8
+flush. So in a gated plan every layer downstream of an int8 one
+receives f32: such a layer widens its bf16 weights and bias to f32
+(exactly), runs the f32 kernels and emits f32, as the reference's
+promotion of f32 x with bf16 w computes. Any other operand pair (bf16 x
+with f32 w) raises ``TypeError``. The plain backends follow the same
+rule.
 
 Tests that monkeypatch ``apply_conv`` with a plain NHWC oracle wrap it
 with ``nhwc_conv`` so it honors the layout contract.
@@ -122,7 +128,7 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
         raise ValueError("the Hopper kernels take CUDA tensors; got "
                          f"{x.device} (use backend='reference' on the CPU)")
     if torch.bfloat16 in (x.dtype, w.dtype):
-        _check_bf16(x, w, algo, precision, use_pallas is not False)
+        w, bias = _bf16_model_operands(x, w, bias, precision)
     quant_kw = {}
     post_requant = None
     if precision == "int8":
@@ -186,21 +192,25 @@ def apply_conv(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
     return requantize(y, post_requant) if post_requant else y
 
 
-def _check_bf16(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,
-                precision: str, kernels: bool) -> None:
-    """A bf16 layer takes bf16 ``x`` and ``w`` and, on the kernel path,
-    im2col or Winograd at bf16 precision: the layers with no bf16 kernel
-    (kn2row, int8) raise ``TypeError``."""
-    if x.dtype != w.dtype:
-        raise TypeError(f"bf16 conv with x of {x.dtype} and w of {w.dtype}")
-    if not kernels:
-        return
-    if algo.family not in (AlgoFamily.IM2COL, AlgoFamily.WINOGRAD):
-        raise TypeError(f"{algo.key} has no bf16 kernel yet; a bf16 model "
-                        "runs im2col and Winograd layers only on the kernel "
-                        "path")
-    if precision == "int8":
-        raise TypeError("an int8 layer of a bf16 model has no kernel yet")
+def _bf16_model_operands(x: torch.Tensor, w: torch.Tensor,
+                         bias: Optional[torch.Tensor], precision: str):
+    """``(w, bias)`` as a layer of a bf16 model runs them (the
+    reference's dtype rule, its type promotion): unchanged for bf16 ``x``
+    and ``w`` at bf16 precision (the bf16 kernels); widened to f32, which
+    is exact, for f32 ``x`` (the f32 kernels, f32 out) and for an int8
+    layer, whose input (bf16, f32 or its producer's int8) is quantized as
+    it is and whose flush adds an f32 bias. Any other pair raises
+    ``TypeError``."""
+    if w.dtype == torch.bfloat16:
+        if precision != "int8" and x.dtype == torch.bfloat16:
+            return w, bias
+        if x.dtype == torch.float32 or (
+                precision == "int8" and x.dtype in (torch.bfloat16,
+                                                    torch.int8)):
+            return w.float(), None if bias is None else bias.float()
+    raise TypeError(f"{precision} conv with x of {x.dtype} and w of "
+                    f"{w.dtype}: a bf16 model's layer takes bf16 or f32 x "
+                    "with bf16 w")
 
 
 def _winograd(x: torch.Tensor, w: torch.Tensor, algo: Algorithm,

@@ -1,18 +1,21 @@
-// kn2row convolution (§2.1.2) in IEEE f32 and in int8: the K1·K2 unit-conv
-// GEMMs of phase 1 and the pad-and-accumulate of phase 2 with the fused
-// flush.
+// kn2row convolution (§2.1.2) in IEEE f32, in bf16 and in int8: the K1·K2
+// unit-conv GEMMs of phase 1 and the pad-and-accumulate of phase 2 with the
+// fused flush.
 //
 // Replaces, in src/repro/kernels/kn2row/kn2row.py:
-//   unit_conv_gemms  -> unit_conv_gemms_f32, and unit_conv_gemms_i8 for its
-//                       int8 path (exact int32 partials)
-//   pad_accumulate   -> pad_accumulate_f32, and pad_accumulate_i32 for its
-//                       int8 path (int32 sum, then dequant → bias → ReLU →
-//                       optional requant)
+//   unit_conv_gemms  -> unit_conv_gemms_f32, unit_conv_gemms_bf16 for its
+//                       bf16 path (f32 sums, bf16 p), and unit_conv_gemms_i8
+//                       for its int8 path (exact int32 partials)
+//   pad_accumulate   -> pad_accumulate_f32, pad_accumulate_bf16 for its bf16
+//                       path (f32 sum of bf16 p, bf16 out), and
+//                       pad_accumulate_i32 for its int8 path (int32 sum,
+//                       then dequant → bias → ReLU → optional requant)
 // On the main path (full-width Inception-v4) they run its 16 kn2row layers:
 // the 3x3 stride-2 VALID reductions (stem/c4, stem/c5, redA/b2), the 1x1
 // redA/b3a, and the 1x3 / 3x1 SAME convs of the Inception-C blocks, each
 // as one launch of each kernel per layer per forward, with the batch folded
-// into the GEMM's M.
+// into the GEMM's M. The bf16 forms run the same 16 layers of Inception-v4
+// with bf16 params (init_params(dtype=bf16)).
 //
 // Layouts: x2d (M, Cin) with M = B·H·W (the NHWC map, flattened); w (G,
 // Cin, Cout) with G = K1·K2 and g = k1·K2 + k2; p (G, B, H, W, Cout), the
@@ -80,11 +83,27 @@
 // applies tile_gemm.cuh's dequant_epilogue and requantize per lane before
 // its single store of 4 lanes, f32 (16 bytes) or int8 (4 bytes). On the
 // gated Inception-v4 path they run its 15 int8 kn2row layers.
+//
+// The bf16 forms (the reference's kernels are dtype-generic: phase 1 sums
+// in f32 and stores p in x's dtype, phase 2 sums p in f32 and stores p's
+// dtype). Phase 1 runs tile_mma_bf16.cuh's mma.sync loop (m16n8k16 bf16,
+// f32 accumulators), as batched_gemm_bf16 does, with blockIdx.z = g and one
+// A for every g: p[g] = x2d · w[g] rounded once to nearest even at the store
+// (CastFlush, no bias, no ReLU), half the bytes of the f32 p. K is not
+// split: the bf16 loop has no split-K form yet (a grid smaller than the
+// card, the Inception-C layers at small batches, runs as it is). Phase 2 is
+// the f32 kernel's body on bf16 p: each tap's V = 4 channels come in one
+// 8-byte streaming load, widened to f32, summed in the order g = 0 … G-1;
+// bias (bf16, widened) and ReLU in f32, then one __float2bfloat16_rn store
+// per value, 8 bytes for V = 4. It has its own __global__, so a profile
+// names it apart from the f32 and int32 kernels.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tile_gemm.cuh"
 #include "tile_gemm_async.cuh"
+#include "tile_mma_bf16.cuh"
 #include "tile_mma_i8.cuh"
 
 namespace {
@@ -138,6 +157,23 @@ __global__ void __launch_bounds__(repro::kThreads)
                                    n, k, vec);
 }
 
+// Offset g = blockIdx.z of the bf16 product: the same A (x2d) for every g,
+// w and p offset by g; the f32 sum rounded once into p. The entry point
+// takes the 16-byte path only when it holds for every g.
+template <int BM, int BN>
+__global__ void __launch_bounds__(repro::kThreads)
+    unit_conv_gemms_bf16_kernel(const uint16_t* __restrict__ x,
+                                const uint16_t* __restrict__ w,
+                                __nv_bfloat16* __restrict__ p, int m, int n,
+                                int k, int vec) {
+  const size_t g = blockIdx.z;
+  repro::tile_mma_bf16_flush<BM, BN>(
+      repro::DenseBf16{x, m, k}, w + g * k * n,
+      repro::CastFlush<__nv_bfloat16, __nv_bfloat16>{nullptr, p + g * m * n,
+                                                     n, 0},
+      m, n, k, vec);
+}
+
 // The geometry of one pad-and-accumulate: p (k1·k2, batch, h, w, c), out
 // (batch, o1, o2, c). Every index into p or out is below 2^31, as the
 // wrapper checks, so the kernels index in 32 bits.
@@ -163,29 +199,47 @@ __device__ __forceinline__ void load_lanes(const int* src, int (&v)[4]) {
   v[3] = q.w;
 }
 
-template <class T>
-__device__ __forceinline__ void load_lanes(const T* src, T (&v)[1]) {
-  v[0] = __ldcs(src);
+// Four bf16 channels in one 8-byte load, widened exactly to f32 (a bf16
+// value is the upper half of its f32).
+__device__ __forceinline__ void load_lanes(const __nv_bfloat16* src,
+                                           float (&v)[4]) {
+  const uint2 q = __ldcs(reinterpret_cast<const uint2*>(src));
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
-template <class T, int V>
-__device__ __forceinline__ void tap(const T* src, bool in, T (&v)[V]) {
+// One value of p as its sum's type: bf16 widened exactly to f32.
+__device__ __forceinline__ float as_sum(float v) { return v; }
+__device__ __forceinline__ int as_sum(int v) { return v; }
+__device__ __forceinline__ float as_sum(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <class T, class A>
+__device__ __forceinline__ void load_lanes(const T* src, A (&v)[1]) {
+  v[0] = as_sum(__ldcs(src));
+}
+
+template <class T, class A, int V>
+__device__ __forceinline__ void tap(const T* src, bool in, A (&v)[V]) {
   if (in) {
     load_lanes(src, v);
   } else {
 #pragma unroll
-    for (int l = 0; l < V; ++l) v[l] = T(0);
+    for (int l = 0; l < V; ++l) v[l] = A(0);
   }
 }
 
 // One thread owns V consecutive channels of one output pixel, channel
 // fastest, so output element o = V · thread index. It sums p's K1·K2
-// offsets in the order g = 0 … G-1, a tap outside its own image's (h, w)
-// map adding 0, as the plain version adds F.pad's zeros, and hands the
-// sums to flush(o, first channel, acc). With K1 and K2 known (K1 > 0)
-// the taps unroll into predicated loads, all issued before the adds in
-// program order; K1 = K2 = 0 is the generic form, a loop over the
-// geometry's k1 x k2.
+// offsets in the order g = 0 … G-1 (in as_sum's type: bf16 p in f32), a
+// tap outside its own image's (h, w) map adding 0, as the plain version
+// adds F.pad's zeros, and hands the sums to flush(o, first channel, acc).
+// With K1 and K2 known (K1 > 0) the taps unroll into predicated loads, all
+// issued before the adds in program order; K1 = K2 = 0 is the generic
+// form, a loop over the geometry's k1 x k2.
 template <int K1, int K2, int V, class T, class Flush>
 __device__ __forceinline__ void pad_accumulate(const T* __restrict__ p,
                                                const AccGeom& g,
@@ -205,9 +259,10 @@ __device__ __forceinline__ void pad_accumulate(const T* __restrict__ p,
   const int plane = g.batch * g.h * g.w * g.c;  // one offset's p_g
   const T* __restrict__ img = p + (int)b * g.h * g.w * g.c + ch;
 
-  T acc[V];
+  using A = decltype(as_sum(*p));  // the sums' type: f32, or int32
+  A acc[V];
   if constexpr (K1 > 0) {
-    T v[K1 * K2][V];
+    A v[K1 * K2][V];
 #pragma unroll
     for (int dk1 = 0; dk1 < K1; ++dk1) {
 #pragma unroll
@@ -231,7 +286,7 @@ __device__ __forceinline__ void pad_accumulate(const T* __restrict__ p,
         const int y = y0 + dk1, x = x0 + dk2;
         const bool in =
             (unsigned)y < (unsigned)g.h && (unsigned)x < (unsigned)g.w;
-        T v[V];
+        A v[V];
         tap(img + j * plane + (in ? (y * g.w + x) * g.c : 0), in, v);
 #pragma unroll
         for (int l = 0; l < V; ++l) acc[l] = j == 0 ? v[l] : acc[l] + v[l];
@@ -261,6 +316,34 @@ struct F32Lanes {
           make_float4(acc[0], acc[1], acc[2], acc[3]);
     else
       out[o] = acc[0];
+  }
+};
+
+// bf16 flush of V f32 sums: bias widened and ReLU per lane in f32, then
+// one round-to-nearest-even store (8 bytes for V = 4).
+struct Bf16Lanes {
+  const __nv_bfloat16* __restrict__ bias;
+  __nv_bfloat16* __restrict__ out;
+  int relu;
+
+  template <int V>
+  __device__ __forceinline__ void operator()(int o, int ch,
+                                             float (&acc)[V]) const {
+#pragma unroll
+    for (int l = 0; l < V; ++l) {
+      if (bias != nullptr)
+        acc[l] = __fadd_rn(acc[l], repro::widen(bias[ch + l]));
+      if (relu) acc[l] = acc[l] > 0.f ? acc[l] : 0.f;
+    }
+    if constexpr (V == 4) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(acc[0], acc[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(acc[2], acc[3]);
+      *reinterpret_cast<uint2*>(out + o) =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    } else {
+      out[o] = __float2bfloat16_rn(acc[0]);
+    }
   }
 };
 
@@ -311,6 +394,13 @@ __global__ void __launch_bounds__(kAccThreads)
 
 template <int K1, int K2, int V>
 __global__ void __launch_bounds__(kAccThreads)
+    pad_accumulate_bf16_kernel(const __nv_bfloat16* __restrict__ p,
+                               Bf16Lanes flush, AccGeom g) {
+  pad_accumulate<K1, K2, V>(p, g, flush);
+}
+
+template <int K1, int K2, int V>
+__global__ void __launch_bounds__(kAccThreads)
     pad_accumulate_i32_kernel(const int* __restrict__ p, QuantLanes flush,
                               AccGeom g) {
   pad_accumulate<K1, K2, V>(p, g, flush);
@@ -327,6 +417,19 @@ struct F32Launch {
   template <int K1, int K2, int V>
   void run(unsigned blocks) const {
     pad_accumulate_f32_kernel<K1, K2, V><<<blocks, kAccThreads, 0, s>>>(
+        p, flush, g);
+  }
+};
+
+struct Bf16Launch {
+  const __nv_bfloat16* p;
+  Bf16Lanes flush;
+  AccGeom g;
+  cudaStream_t s;
+
+  template <int K1, int K2, int V>
+  void run(unsigned blocks) const {
+    pad_accumulate_bf16_kernel<K1, K2, V><<<blocks, kAccThreads, 0, s>>>(
         p, flush, g);
   }
 };
@@ -367,12 +470,15 @@ void dispatch_offsets(const Launch& launch) {
 }
 
 // V = 4 when vec is nonzero, else 1. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a vector path the operands do not allow.
+// cudaErrorInvalidValue for a vector path the operands do not allow: p and
+// out must lie on 4 of p's elements (16 bytes, or 8 for bf16 p).
 template <class Launch>
 int dispatch_accumulate(const Launch& launch, const void* out, int vec) {
   if (vec) {
-    if (launch.g.c % 4 != 0 || reinterpret_cast<uintptr_t>(launch.p) % 16 ||
-        reinterpret_cast<uintptr_t>(out) % 16)
+    const uintptr_t align = 4 * sizeof(*launch.p);
+    if (launch.g.c % 4 != 0 ||
+        reinterpret_cast<uintptr_t>(launch.p) % align ||
+        reinterpret_cast<uintptr_t>(out) % align)
       return (int)cudaErrorInvalidValue;
     dispatch_offsets<4>(launch);
   } else {
@@ -409,6 +515,26 @@ extern "C" int unit_conv_gemms_f32(const void* x, const void* w, void* p,
   return (int)cudaGetLastError();
 }
 
+// p (groups, m, n) = x (m, k) · w[g] (k, n) for g < groups with x, w and p
+// bf16, the sum in f32 on the tensor cores, rounded once to nearest even
+// into p: one A shared by every g, no epilogue; all contiguous, on the
+// current device. (tile_m, tile_n) must be an instantiated tile: 64 or 128
+// each. K is not split. The 16-byte path is taken when it holds for every
+// g: bf16_vector_path(x, w) and n % 8 == 0 (w[g] and p[g] move by
+// multiples of 16 bytes); else the element path. Returns
+// cudaGetLastError().
+extern "C" int unit_conv_gemms_bf16(const void* x, const void* w, void* p,
+                                    int groups, int m, int n, int k,
+                                    int tile_m, int tile_n, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int vec = (int)(repro::bf16_vector_path(x, w, n, k) && n % 8 == 0);
+  REPRO_DISPATCH_TILE(unit_conv_gemms_bf16_kernel, tile_m, tile_n, m, n,
+                      groups, s, static_cast<const uint16_t*>(x),
+                      static_cast<const uint16_t*>(w),
+                      static_cast<__nv_bfloat16*>(p), m, n, k, vec);
+  return (int)cudaGetLastError();
+}
+
 // p (groups, m, n) = x (m, k) · w[g] (k, n) for g < groups with x and w
 // int8 and p the exact int32 sums: one A shared by every g, no epilogue;
 // all contiguous, on the current device; the caller keeps k · 127² < 2^31.
@@ -440,6 +566,28 @@ extern "C" int pad_accumulate_f32(const void* p, const void* bias, void* out,
       static_cast<const float*>(p),
       F32Lanes{static_cast<const float*>(bias), static_cast<float*>(out),
                relu},
+      AccGeom{batch, h, w, c, k1, k2, o1, o2, stride, pad_top, pad_left},
+      static_cast<cudaStream_t>(stream)};
+  return dispatch_accumulate(launch, out, vec);
+}
+
+// out (batch, o1, o2, c) = epilogue(Σ_g p[g, b, S·y + k1 - pad_top,
+// S·x + k2 - pad_left, c] [+ bias (c)]) for bf16 p (K1·K2, batch, h, w, c):
+// the sum in f32 over g = k1·K2 + k2 < K1·K2 in order, rows and columns
+// outside the (h, w) map counting as 0, bias (bf16, may be NULL) widened
+// and ReLU in f32, out bf16 rounded once to nearest even; all contiguous,
+// on the current device, every index into p and out below 2^31. vec:
+// c % 4 == 0 and p and out 8-byte aligned (4 channels a thread). Returns
+// cudaGetLastError().
+extern "C" int pad_accumulate_bf16(const void* p, const void* bias, void* out,
+                                   int batch, int h, int w, int c, int k1,
+                                   int k2, int o1, int o2, int stride,
+                                   int pad_top, int pad_left, int relu,
+                                   int vec, void* stream) {
+  const Bf16Launch launch{
+      static_cast<const __nv_bfloat16*>(p),
+      Bf16Lanes{static_cast<const __nv_bfloat16*>(bias),
+                static_cast<__nv_bfloat16*>(out), relu},
       AccGeom{batch, h, w, c, k1, k2, o1, o2, stride, pad_top, pad_left},
       static_cast<cudaStream_t>(stream)};
   return dispatch_accumulate(launch, out, vec);

@@ -25,14 +25,15 @@ PRECISIONS = ("bf16", "int8")
 # The operand dtypes each kernel wrapper takes (the dtype of its first
 # operand): a wrapper raises ``TypeError`` for any other, on every device,
 # before it picks the kernel or its plain version, so no operand of
-# another dtype ever reaches a kernel's buffers. The bf16 forms of the
-# kn2row kernels are not written yet.
+# another dtype ever reaches a kernel's buffers. Every kernel takes the
+# dtypes the reference's counterpart takes: f32 and bf16 everywhere, int8
+# (int32 partials for pad_accumulate) where the reference has an int8 path.
 KERNEL_DTYPES = {
     "gemm": (torch.float32, torch.bfloat16, torch.int8),
     "conv_im2col": (torch.float32, torch.bfloat16, torch.int8),
     "batched_gemm": (torch.float32, torch.bfloat16),
-    "unit_conv_gemms": (torch.float32, torch.int8),
-    "pad_accumulate": (torch.float32, torch.int32),
+    "unit_conv_gemms": (torch.float32, torch.bfloat16, torch.int8),
+    "pad_accumulate": (torch.float32, torch.bfloat16, torch.int32),
     "input_transform": (torch.float32, torch.bfloat16),
     "input_transform_tiles": (torch.float32, torch.bfloat16),
     "output_transform": (torch.float32, torch.bfloat16),

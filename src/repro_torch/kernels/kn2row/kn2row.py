@@ -12,12 +12,17 @@ S·x + k2 − pl]. The reference zero-pads p on the host first; the kernel
 takes p unpadded, and rows or columns outside one image's map count as 0.
 As the last kn2row stage it owns the fused bias/ReLU epilogue.
 
+bf16 (the reference's bf16 path: its kernels are dtype-generic): phase
+1 takes bf16 x2d and w, sums in f32 on the tensor cores and rounds p once
+to bf16; phase 2 sums bf16 p in f32, applies the bf16 bias (widened) and
+ReLU in f32 and rounds the output once to bf16.
+
 Int8 (the reference's int8 path): phase 1 takes int8 x2d and w and
 writes the exact int32 partials p; phase 2 sums them in int32 and flushes
 dequant (· ``scale``) → bias → ReLU → optional requant at ``out_scale``.
 
 ``unit_conv_gemms_call`` and ``pad_accumulate_call`` launch the kernels
-(f32 or int8 on the operands' dtype) for CUDA tensors and run
+(f32, bf16 or int8 on the operands' dtype) for CUDA tensors and run
 ``unit_conv_gemms_plain`` / ``pad_accumulate_plain`` for CPU tensors;
 nothing else selects between the two.
 """
@@ -47,6 +52,12 @@ PAD_ACCUMULATE = CudaKernel("kn2row", "pad_accumulate_f32",
 UNIT_CONV_GEMMS_I8 = CudaKernel("kn2row", "unit_conv_gemms_i8",
                                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
                                 + [ctypes.c_void_p])
+UNIT_CONV_GEMMS_BF16 = CudaKernel("kn2row", "unit_conv_gemms_bf16",
+                                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                                  + [ctypes.c_void_p])
+PAD_ACCUMULATE_BF16 = CudaKernel("kn2row", "pad_accumulate_bf16",
+                                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
+                                 + [ctypes.c_void_p])
 PAD_ACCUMULATE_I32 = CudaKernel("kn2row", "pad_accumulate_i32",
                                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
                                 + [ctypes.c_float, ctypes.c_int,
@@ -66,10 +77,13 @@ def unit_conv_gemms_plain(x2d: torch.Tensor, w: torch.Tensor
                           ) -> torch.Tensor:
     """The kernel's function in plain torch: x2d (M, Cin) @ w (G, Cin,
     Cout), broadcast over G → p (G, M, Cout); for int8 operands the exact
-    int32 sums."""
+    int32 sums; for bf16 ones the f32 product of the widened operands,
+    rounded once to bf16 (as the kernel's f32 sums are)."""
     if x2d.dtype == torch.int8:
         check_int8_depth("unit_conv_gemms", int(x2d.shape[-1]))
         return int8_product(x2d, w)
+    if x2d.dtype == torch.bfloat16:
+        return (x2d.float() @ w.float()).to(torch.bfloat16)
     return x2d @ w
 
 
@@ -78,7 +92,8 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
     """p (G, M, Cout) = x2d (M, Cin) · w[g] (Cin, Cout) for every g < G,
     with no epilogue (phase 1 ends before the offsets' sum): f32 for f32
     operands, with K split ``split_k`` ways on a grid smaller than the
-    card, the exact int32 sums for int8 ones.
+    card; bf16 for bf16 ones (f32 sums on the tensor cores, rounded once,
+    K not split); the exact int32 sums for int8 ones.
 
     CUDA tensors launch the kernel on the current stream under the tile
     ``kernel_tile(bm, bn, M, Cout)``; CPU tensors run
@@ -95,6 +110,7 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
     m, k = (int(d) for d in x2d.shape)
     g, n = int(w.shape[0]), int(w.shape[2])
     quant = x2d.dtype == torch.int8
+    half = x2d.dtype == torch.bfloat16
     check_operand("x2d", x2d, x2d.device, (m, k), x2d.dtype)
     check_operand("w", w, x2d.device, (g, k, n), x2d.dtype)
     if min(g, m, n, k) < 1:
@@ -110,13 +126,13 @@ def unit_conv_gemms_call(x2d: torch.Tensor, w: torch.Tensor, *,
     if quant:
         check_int8_depth("unit_conv_gemms", k)
     p = torch.empty((g, m, n), device=x2d.device,
-                    dtype=torch.int32 if quant else torch.float32)
+                    dtype=torch.int32 if quant else x2d.dtype)
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if quant:
-            UNIT_CONV_GEMMS_I8.launch(x2d.data_ptr(), w.data_ptr(),
-                                      p.data_ptr(), g, m, n, k, tile_m,
-                                      tile_n, stream)
+        if quant or half:
+            kern = UNIT_CONV_GEMMS_I8 if quant else UNIT_CONV_GEMMS_BF16
+            kern.launch(x2d.data_ptr(), w.data_ptr(), p.data_ptr(), g, m, n,
+                        k, tile_m, tile_n, stream)
             return p
         splits = grid_splits(m, n, k, (tile_m, tile_n), sm_count(x2d.device),
                              groups=g)
@@ -146,11 +162,13 @@ def _check_geometry(p: torch.Tensor, k1: int, k2: int, o1: int, o2: int,
 
 
 def accumulate_vector_path(p: torch.Tensor, out: torch.Tensor) -> int:
-    """Whether pad_accumulate runs 4 channels a thread (16-byte loads of p
-    and stores of out): C % 4 == 0 and p and out 16-byte aligned (an
-    offset view takes the one-channel path)."""
-    return int(int(p.shape[-1]) % 4 == 0 and p.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
+    """Whether pad_accumulate runs 4 channels a thread (one load of 4 of
+    p's values a tap, 16 bytes or 8 for bf16): C % 4 == 0 and p and out
+    aligned to 4 of p's elements (an offset view takes the one-channel
+    path)."""
+    align = 4 * p.element_size()
+    return int(int(p.shape[-1]) % 4 == 0 and p.data_ptr() % align == 0
+               and out.data_ptr() % align == 0)
 
 
 def pad_accumulate_plain(p: torch.Tensor, *, k1: int, k2: int, o1: int,
@@ -163,8 +181,9 @@ def pad_accumulate_plain(p: torch.Tensor, *, k1: int, k2: int, o1: int,
                          ) -> torch.Tensor:
     """The kernel's function in plain torch: zero-pad p (K1K2, B, H, W, C)
     with ``F.pad``, sum the K1K2 strided slices in the order g = 0 … G−1
-    (in int32 for int32 p), then the epilogue (dequant · ``scale`` first
-    and requant at ``out_scale`` last for int32 p) → (B, O1, O2, C)."""
+    (in int32 for int32 p, else in f32), then the epilogue (dequant ·
+    ``scale`` first and requant at ``out_scale`` last for int32 p) → (B,
+    O1, O2, C), rounded once to bf16 for bf16 p."""
     _check_geometry(p, k1, k2, o1, o2, stride, pad_top, pad_left)
     check_epilogue(epilogue, bias)
     check_quant_args("pad_accumulate", p, scale, out_scale, torch.int32)
@@ -179,8 +198,9 @@ def pad_accumulate_plain(p: torch.Tensor, *, k1: int, k2: int, o1: int,
         dk1, dk2 = divmod(g, k2)
         sl = pp[g, :, dk1:dk1 + span_r:stride, dk2:dk2 + span_c:stride]
         acc = sl if acc is None else acc + sl
-    return apply_epilogue(acc, epilogue, bias, scale=scale,
-                          out_scale=out_scale)
+    out = apply_epilogue(acc, epilogue, bias, scale=scale,
+                         out_scale=out_scale)
+    return out.to(torch.bfloat16) if p.dtype == torch.bfloat16 else out
 
 
 def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
@@ -196,7 +216,9 @@ def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
     products p (K1K2, B, H, W, C); rows and columns outside each image's
     (H, W) map count as 0. For int32 p (the int8 path) the sum is int32
     and is dequantized by ``scale`` (C,) before the epilogue; ``out_scale``
-    requantizes the output to int8 (else it is f32).
+    requantizes the output to int8 (else it is f32). For bf16 p the sum is
+    f32, the bias must be bf16, and the output is bf16, rounded once after
+    the epilogue.
 
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     ``pad_accumulate_plain``."""
@@ -219,8 +241,10 @@ def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
         raise ValueError(f"pad_accumulate: empty problem B={batch} C={c}")
     if bias is not None and not epilogue.startswith("bias"):
         bias = None
+    half = p.dtype == torch.bfloat16
     if bias is not None:
-        check_operand("bias", bias, p.device, (c,))
+        check_operand("bias", bias, p.device, (c,),
+                      torch.bfloat16 if half else torch.float32)
     if quant:
         check_operand("scale", scale, p.device, (c,))
     if max(p.numel(), batch * o1 * o2 * c) >= _INDEX_LIMIT:
@@ -232,10 +256,13 @@ def pad_accumulate_call(p: torch.Tensor, *, k1: int, k2: int, o1: int,
     stream = torch.cuda.current_stream(p.device).cuda_stream
     out = torch.empty((batch, o1, o2, c), device=p.device,
                       dtype=torch.int8 if out_scale is not None
-                      else torch.float32)
+                      else p.dtype if half else torch.float32)
     vec = accumulate_vector_path(p, out)
     with torch.cuda.device(p.device):
-        if quant:
+        if half:
+            PAD_ACCUMULATE_BF16.launch(p.data_ptr(), bias_ptr, out.data_ptr(),
+                                       *geom, vec, stream)
+        elif quant:
             PAD_ACCUMULATE_I32.launch(p.data_ptr(), scale.data_ptr(),
                                       bias_ptr, out.data_ptr(), *geom,
                                       int(out_scale is not None),

@@ -37,6 +37,10 @@ def conv_kn2row(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     K2, Cin, Cout) → (…, O1, O2, Cout). ``epilogue`` fuses into the final
     pad-and-accumulate.
 
+    bf16 ``x``, ``w`` and ``bias``: phase 1 rounds each offset's f32
+    product once to bf16 (p), phase 2 sums p in f32 and rounds the output
+    once after the epilogue, where the reference's kernels round.
+
     int8 ``x`` and ``w``: phase 1 writes exact int32 partials, phase 2
     sums them in int32 and dequantizes by ``scale`` (Cout,) before the
     epilogue; ``out_scale`` requantizes the output to int8.

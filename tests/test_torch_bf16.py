@@ -231,9 +231,10 @@ def test_toeplitz_layout_round_trip_keeps_bf16():
 
 
 def test_overlay_bf16_runs_im2col_only():
-    """A bf16 layer runs im2col and Winograd on the kernel path (bf16
-    out); kn2row, an int8 layer and mixed operand dtypes raise
-    ``TypeError``. The plain backends take bf16."""
+    """A bf16 layer runs im2col, kn2row and Winograd on the kernel path
+    (bf16 out); an int8 layer takes bf16 x and emits f32, as the
+    reference's does; bf16 x with f32 w raises ``TypeError``. The plain
+    backends take bf16."""
     rng = _rng(5)
     x = _to_torch(rng.standard_normal((2, 8, 8, 4)))
     w = _to_torch(rng.standard_normal((3, 3, 4, 6)) / 6)
@@ -241,13 +242,14 @@ def test_overlay_bf16_runs_im2col_only():
     assert y.dtype == BF
     y = overlay.apply_conv(x, w, WINO_2_3, epilogue="relu")
     assert y.dtype == BF and tuple(y.shape) == (2, 8, 8, 6)
-    with pytest.raises(TypeError, match="no bf16 kernel"):
-        overlay.apply_conv(x, w, KN2ROW)
+    y = overlay.apply_conv(x, w, KN2ROW, epilogue="relu")
+    assert y.dtype == BF and tuple(y.shape) == (2, 8, 8, 6)
     for algo in (KN2ROW, WINO_2_3):
         assert overlay.apply_conv(x, w, algo,
                                   backend="reference").dtype == BF
-    with pytest.raises(TypeError, match="int8"):
-        overlay.apply_conv(x, w, IM2COL, precision="int8", in_scale=0.1)
+    for algo in (IM2COL, KN2ROW):
+        y = overlay.apply_conv(x, w, algo, precision="int8", in_scale=0.1)
+        assert y.dtype == torch.float32 and tuple(y.shape) == (2, 8, 8, 6)
     with pytest.raises(TypeError):
         overlay.apply_conv(x, w.float(), IM2COL)
 

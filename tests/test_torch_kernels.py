@@ -421,14 +421,13 @@ def _wrapper_calls(dtype):
 def test_wrappers_raise_on_dtypes_without_a_kernel(kernel, dtype):
     """Each wrapper checks its operands' dtype against ``KERNEL_DTYPES``
     before it picks the kernel or its plain version, so on the card no
-    f16, f64 (or, for kn2row, bf16) operand reaches an f32 kernel's
-    buffers; here the same check raises on CPU tensors. The GEMMs, the
-    conv and the Winograd transforms take bf16."""
+    f16 or f64 operand reaches an f32 kernel's buffers; here the same
+    check raises on CPU tensors. Every wrapper takes bf16 and returns
+    bf16."""
     from repro_torch.kernels.common import KERNEL_DTYPES
     call = _wrapper_calls(dtype)[kernel]
     if dtype in KERNEL_DTYPES[kernel]:
-        assert kernel not in ("unit_conv_gemms", "pad_accumulate") \
-            and dtype == torch.bfloat16
+        assert dtype == torch.bfloat16
         assert call().dtype == torch.bfloat16
         return
     with pytest.raises(TypeError, match="no kernel"):
