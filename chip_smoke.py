@@ -447,6 +447,17 @@ TRANSFORM_FLOPS = {("in", 2): 32, ("in", 4): 336,
                    ("out", 2): 24 + 8, ("out", 4): 130 + 32}
 
 
+def use_source_tree(src) -> None:
+    """Import ``repro_torch`` from ``src`` (a checkout's ``src`` directory)
+    from now on. Importing this module put its own checkout's ``src``
+    first on the path and imported ``repro_torch`` from there, so a tool
+    that times another tree (``--src``) drops those modules and puts that
+    tree first before it imports anything of the port."""
+    for name in [m for m in sys.modules
+                 if m == "repro_torch" or m.startswith("repro_torch.")]:
+        del sys.modules[name]
+    sys.path.insert(0, str(Path(src).resolve()))
+
 class CheckFailed(AssertionError):
     pass
 
@@ -521,44 +532,47 @@ def queued_ms(fn, reps: int = 10) -> float:
 def device_time(fn, reps: int = 1):
     """(device ms summed over every kernel one call runs, that time split
     into this port's kernels by tile or F(m,3) (the split-K reduce kernels
-    of the f32 GEMMs and the f32 conv under keys of their own), torch's
+    of the f32 and bf16 GEMMs and the f32 conv under keys of their own; a
+    wgmma GEMM's split partials under its tile), torch's
     index gathers — the Toeplitz and Winograd-tile layout conversions —
     and all other torch kernels, as text and as a dict of ms) from
     ``torch.profiler``, over
     ``reps`` calls in one profiled window, divided by ``reps``. Only the
     kernels' own rows are summed: an aten op's row repeats the time of the
-    kernels it launched."""
+    kernels it launched. The window opens as ``opened_window`` says; one
+    whose opener or kernels came back with no row (both seen on the card)
+    is taken again, up to five in all."""
     import re
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # A profiled window now and then comes back without its kernel rows
-    # (seen on the card, for short windows); such a window is taken again,
-    # up to three times in all.
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(reps):
+            fn()
+
+    for _ in range(5):
+        _, averages = opened_window(calls)
         groups = {}
-        for e in prof.key_averages():
+        for e in averages or ():
             ms = getattr(e, "self_device_time_total", 0) / 1e3 / reps
-            if e.device_type != DeviceType.CUDA or ms <= 0:
+            if (e.device_type != DeviceType.CUDA or ms <= 0
+                    or "spin_kernel" in e.key):
                 continue
             gemm = re.search(r"\b(batched_gemm_f32|gemm_f32|conv_im2col_f32|"
                              r"unit_conv_gemms_f32|gemm_i8|conv_im2col_i8|"
                              r"unit_conv_gemms_i8|batched_gemm_bf16|gemm_bf16|"
-                             r"conv_im2col_bf16|unit_conv_gemms_bf16)"
-                             r"_kernel<(\d+), (\d+)>", e.key)
+                             r"conv_im2col_bf16|unit_conv_gemms_bf16|"
+                             r"batched_gemm_bf16_mma|gemm_bf16_mma)"
+                             r"_kernel<(\d+), (\d+)(?:, \d+)?>", e.key)
             wino = re.search(r"\b((?:input_transform_tiles|input_transform|"
                              r"output_transform)(?:_bf16)?)_kernel<(\d+)>",
                              e.key)
             reduce = re.search(r"\b(gemm_f32|unit_conv_gemms_f32|"
-                               r"conv_im2col_f32)_reduce_kernel", e.key)
+                               r"conv_im2col_f32|gemm_bf16|gemm_bf16_out_f32)"
+                               r"_reduce_kernel", e.key)
             key = (f"{gemm[1]}<{gemm[2]}x{gemm[3]}>" if gemm
                    else f"{reduce[1]}_reduce" if reduce
                    else f"{wino[1]}<F{wino[2]}>" if wino
@@ -574,8 +588,11 @@ def device_time(fn, reps: int = 1):
             groups[key] = groups.get(key, 0.0) + ms
         if groups:
             break
+        if averages is not None:
+            print("[profiler] a window came back with its opener's rows and "
+                  "none of its kernels'; the window is taken again")
     else:
-        raise CheckFailed("the profiler recorded no kernel time in three "
+        raise CheckFailed("the profiler recorded no kernel time in five "
                           "windows")
     split = ", ".join(f"{k} {v:.3f}" for k, v in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
@@ -5815,6 +5832,7 @@ def check_bf16_forwards(phase: int, tag: str, g, plan, p16, p32, res: int,
     import torch
 
     from repro_torch.cnn.executor import compile_plan
+    from repro_torch.kernels.gemm import gemm as gemm_mod
     bf, names = torch.bfloat16, lc.names
     fwd, totals = {}, [0] * len(names)
     for elide in (True, False):
@@ -5842,6 +5860,8 @@ def check_bf16_forwards(phase: int, tag: str, g, plan, p16, p32, res: int,
                                       f"{lc.read()}, expected {want_stage} "
                                       f"{names}")
                 totals = [t + n for t, n in zip(totals, lc.read())]
+                if stage == "eager" and elide and bsz == 1:
+                    BF16_LOOPS[tag] = gemm_mod.bf16_loop_launches()
             if outs[0].dtype != bf or not all(torch.equal(o, outs[0])
                                                for o in outs[1:]):
                 raise CheckFailed(f"{label}: capture or replay differs from "
@@ -6032,8 +6052,10 @@ def phase_29_bf16(dev) -> list:
                    gemm_plain(a, b))
         inputs[("gemm", label)] = (a, b, bias)
         vec = n % 2 == 0 and k % 8 == 0 and b.data_ptr() % 4 == 0
+        loop = ("wgmma loop" if gemm_mod.wgmma_path(a, b, n, k) else
+                f"mma.sync loop, {'vector' if vec else 'element'} path")
         print(f"[29] gemm_bf16 {label} M={m} K={k} N={n} bias_relu, tiles "
-              f"{used} ({'vector' if vec else 'element'} path): max|diff| "
+              f"{used} ({loop}): max|diff| "
               f"{err[('gemm', label)]:.3e} (rtol 2^-7, atol 1e-4 of max|out| "
               f"{float(want.float().abs().max()):.3e}); two calls equal bit "
               f"for bit; no epilogue within one ulp too")
@@ -6140,15 +6162,24 @@ def phase_29_bf16(dev) -> list:
     a, b, bias = inputs[("gemm", "conv2 b8")]
     m, k = a.shape
     n = b.shape[1]
-    g_ms = time_ms(lambda: gemm_call(a, b, epilogue="bias_relu", bias=bias))
+
+    def gemm_fn():
+        return gemm_call(a, b, epilogue="bias_relu", bias=bias)
+
+    # The kernel and the library call by events, the kernels line's clock,
+    # and by queued launches (device time without host gaps): the wgmma
+    # loop takes less than a call's host time here.
+    g_ms, g_q = time_ms(gemm_fn), queued_ms(gemm_fn)
     g_plain = time_ms(lambda: gemm_plain(a, b, "bias_relu", bias))
     g_lib = time_ms(lambda: torch.matmul(a, b))
+    g_lib_q = queued_ms(lambda: torch.matmul(a, b))
     g_bound, g_by = bound(2.0 * m * n * k, 2.0 * (m * k + k * n + n + m * n),
                           PEAK_BF16_FLOPS)
-    print(f"[29] gemm_bf16 conv2 b8 M={m} K={k} N={n}: kernel {g_ms:.4f} ms, "
-          f"plain {g_plain:.4f} ms, torch.matmul bf16 {g_lib:.4f} ms, bound "
+    print(f"[29] gemm_bf16 conv2 b8 M={m} K={k} N={n}: kernel {g_ms:.4f} ms "
+          f"(queued {g_q:.4f}), plain {g_plain:.4f} ms, torch.matmul bf16 "
+          f"{g_lib:.4f} ms (queued {g_lib_q:.4f}), bound "
           f"{g_bound:.4f} ms ({g_by}; 989 TFLOP/s bf16, 3.35 TB/s): "
-          f"{100 * g_bound / g_ms:.1f}% of the bound; {smi}")
+          f"{100 * g_bound / g_q:.1f}% of the bound queued; {smi}")
     x, w, cbias, stride, pad = inputs[("conv", "stem b8")]
     bsz, h, w_in, c_in = x.shape
     k1, k2, _, c_out = w.shape
@@ -6214,7 +6245,8 @@ def phase_29_bf16(dev) -> list:
              "launches": served[1][1],
              "max_abs_err": err[("gemm", "conv2 b8")],
              "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-             "bound_by": g_by, "library_ms": g_lib}]
+             "bound_by": g_by, "library_ms": g_lib, "queued_ms": g_q,
+             "library_queued_ms": g_lib_q}]
 
 # Phase 30: full-width VGG16 in bf16 against its plain path on the card,
 # the largest logit's share. Set before the first card run from the CPU
@@ -6375,8 +6407,10 @@ def phase_30_bf16_winograd(dev) -> list:
                  lambda: bg_plain(a, b))
         vec = (k % 8 == 0 and n % 8 == 0 and a.data_ptr() % 16 == 0
                and b.data_ptr() % 4 == 0)
+        loop = ("wgmma loop" if gemm_mod.wgmma_path(a, b, n, k) else
+                f"mma.sync loop, {'vector' if vec else 'element'} path")
         print(f"[30] batched_gemm_bf16 {label} G={g_} M={m} K={k} N={n}, "
-              f"tiles {used} ({'vector' if vec else 'element'} path), "
+              f"tiles {used} ({loop}), "
               f"bias_relu and none: max|diff| "
               f"{err[('batched_gemm_bf16', label)]:.3e} (one bf16 ulp); "
               f"two calls bit-equal")
@@ -6491,9 +6525,18 @@ def phase_30_bf16_winograd(dev) -> list:
                 "output_transform_bf16": "torch.einsum + bias + ReLU bf16"}
         for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
             k_ms, p_ms, l_ms = time_ms(kern), time_ms(plain), time_ms(lib)
-            rows[(name, label)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            extra = {}
+            if name == "batched_gemm_bf16":
+                # Also by queued launches: the wgmma loop takes less than
+                # a call's host time at conv2_1.
+                extra = {"queued_ms": queued_ms(kern),
+                         "library_queued_ms": queued_ms(lib)}
+            rows[(name, label)] = (k_ms, p_ms, l_ms, b_ms, b_by, extra)
+            queued = ("" if not extra else
+                      f" (queued {extra['queued_ms']:.4f} ms, library "
+                      f"{extra['library_queued_ms']:.4f} ms)")
             print(f"[30] {name} {label}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, {libs[name]} {l_ms:.4f} ms, bound "
+                  f"{p_ms:.4f} ms, {libs[name]} {l_ms:.4f} ms{queued}, bound "
                   f"{b_ms:.4f} ms ({b_by}): {100 * b_ms / k_ms:.1f}% of the "
                   f"bound; {smi}")
     for bsz in BUCKETS:
@@ -6520,7 +6563,7 @@ def phase_30_bf16_winograd(dev) -> list:
         "output_transform_bf16": "src/repro/kernels/winograd/winograd.py:192"}
     out = []
     for name, where in replaces.items():
-        k_ms, p_ms, l_ms, b_ms, b_by = rows[(name, "conv0_1 b8")]
+        k_ms, p_ms, l_ms, b_ms, b_by, extra = rows[(name, "conv0_1 b8")]
         out.append({"name": name, "route": "cuda",
                     "source": ("src/repro_torch/csrc/gemm.cu"
                                if name.startswith("batched")
@@ -6528,7 +6571,7 @@ def phase_30_bf16_winograd(dev) -> list:
                     "replaces": where, "launches": main_path[name],
                     "max_abs_err": err[(name, "conv0_1 b8")],
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": l_ms})
+                    "bound_by": b_by, "library_ms": l_ms, **extra})
     return out
 
 
@@ -6778,7 +6821,7 @@ def phase_31_bf16_kn2row(dev) -> list:
                     torch.equal(o, outs[0]) for o in outs[1:]):
                 raise CheckFailed(f"{label}: logits of {outs[0].dtype}, or "
                                   "capture or replay differs from eager")
-            int8_sfx, bf16_sfx = ("_i8", "_i32"), ("_bf16",)
+            int8_sfx, bf16_sfx = ("_i8", "_i32"), ("_bf16", "_bf16_mma")
             by_dtype = {
                 "f32": {s: n for s, n in eager_ran.items()
                         if not s.endswith(int8_sfx + bf16_sfx)},
@@ -6926,6 +6969,236 @@ def phase_31_bf16_kn2row(dev) -> list:
     return out
 
 
+# Phase 32: the two bf16 GEMMs redesigned for Hopper. Each wrapper picks its
+# loop by shape and alignment (``gemm.wgmma_path``): the TMA / wgmma loop
+# (``csrc/tile_wgmma_bf16.cuh``, entry points gemm_bf16 and
+# batched_gemm_bf16) or the mma.sync loop (the ``_mma`` entry points). The
+# cases, (label, M, K, N, B offset): GoogleNet's 5b/1x1 at bucket 1 (3
+# blocks: K split) and conv2 at bucket 8, a ragged M, N and K (K 200: a
+# chunk past K), a K of 8, a deep K on one block (64 slices), then the
+# mma.sync loop, K never split: 1x1x1, K 830 (k % 8: the element path), B
+# one element off alignment.
+HOPPER_GEMM_CASES = (("5b/1x1 b1", 49, 832, 384, False),
+                     ("conv2 b8", 25088, 576, 192, False),
+                     ("ragged", 333, 200, 104, False),
+                     ("K 8", 70, 8, 16, False),
+                     ("deep K", 64, 4096, 64, False),
+                     ("1x1x1", 1, 1, 1, False),
+                     ("K 830", 49, 830, 384, False),
+                     ("B offset", 49, 832, 384, True))
+# (label, G, M, K, N, B offset): VGG16's conv0_1 and conv2_1 at bucket 8,
+# G 1, a ragged M, N and K, then the mma.sync loop: N 30 and B off
+# alignment.
+HOPPER_BATCHED_CASES = (("conv0_1 b8", 36, 25088, 64, 64, False),
+                        ("conv2_1 b8", 36, 1568, 256, 256, False),
+                        ("G 1", 1, 200, 96, 64, False),
+                        ("ragged", 16, 333, 72, 104, False),
+                        ("N 30", 4, 70, 40, 30, False),
+                        ("B offset", 4, 100, 64, 64, True))
+# ptxas registers of the kernels that keep the mma.sync loop, by tile (64,
+# 64), (64, 128), (128, 64), (128, 128), as built before the GEMMs moved to
+# the wgmma loop: the redesign must leave them unchanged.
+KEPT_BF16_REGISTERS = {"conv_im2col_bf16_kernel": (64, 98, 80, 128),
+                       "unit_conv_gemms_bf16_kernel": (58, 89, 80, 128)}
+# The main path's launches per forward of each bf16 model (elided), per
+# entry point: all on the wgmma loop.
+BF16_MAIN_LOOPS = {"googlenet 224 bf16": {"gemm_bf16": 56},
+                   "vgg16 224 bf16": {"gemm_bf16": 7,
+                                      "batched_gemm_bf16": 5},
+                   "inception_v4 299 bf16": {"gemm_bf16": 116,
+                                             "batched_gemm_bf16": 16}}
+# {model tag: {entry point: launches}} of one elided bucket-1 eager
+# forward, recorded by phases 29-31 (check_bf16_forwards).
+BF16_LOOPS = {}
+
+
+def phase_32_bf16_gemm_hopper(dev) -> None:
+    """32. gemm_bf16 and batched_gemm_bf16 redesigned for Hopper: (a) the
+    ptxas registers and spills of every bf16 instantiation of gemm.cu,
+    conv_im2col.cu and kn2row.cu, no spill in the GEMMs and the kept
+    mma.sync kernels' registers unchanged (``KEPT_BF16_REGISTERS``); (b)
+    both kernels against their plain versions within one bf16 ulp at
+    ``HOPPER_GEMM_CASES`` and ``HOPPER_BATCHED_CASES`` on every tile, both
+    ``out_dtype``s of the GEMM, with and without the epilogue, the loop
+    and the K slices of each case printed and checked, two calls bit-equal;
+    (c) a CUDA graph of one launch of each loop, split and not, replayed
+    bit-equal to the eager launches; (d) the main path's launches per loop
+    (``BF16_LOOPS``, when phases 29-31 ran first): every one on the wgmma
+    loop."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.gemm import gemm as gemm_mod
+
+    t32 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(32)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, bf)
+
+    # ---- (a) ptxas ------------------------------------------------------
+    if not build.BUILD_LOG:
+        build.build_all()
+    regs = {}
+    for source in ("gemm", "conv_im2col", "kn2row"):
+        for kernel, info in ptxas_report(build.BUILD_LOG.get(source, "")):
+            if "bf16" not in kernel:
+                continue
+            print(f"[32] ptxas {source}: {kernel}: {info}")
+            used, spill = (int(v) for v in re.findall(r"(\d+) (?:registers|B "
+                                                      r"spill)", info))
+            regs[kernel] = used
+            if spill:
+                raise CheckFailed(f"{kernel} spills: {info}")
+    for name, want in KEPT_BF16_REGISTERS.items():
+        got = tuple(regs.get(f"{name}<{bm}, {bn}>")
+                    for bm, bn in ((64, 64), (64, 128), (128, 64),
+                                   (128, 128)))
+        if got != want:
+            raise CheckFailed(f"{name} registers {got}, want {want}")
+    print(f"[32] the mma.sync loop's other kernels keep their registers "
+          f"{KEPT_BF16_REGISTERS}; no bf16 kernel spills")
+
+    # ---- (b) each kernel vs its plain version --------------------------
+    all_tiles = ((64, 64), (64, 128), (128, 64), (128, 128))
+    sms = gemm_mod.sm_count(dev)
+    kerns = (gemm_mod.GEMM_BF16, gemm_mod.GEMM_BF16_MMA,
+             gemm_mod.BATCHED_GEMM_BF16, gemm_mod.BATCHED_GEMM_BF16_MMA)
+    for label, m, k, n, off in HOPPER_GEMM_CASES:
+        a, b, bias = randn(m, k), randn(k, n, scale=k ** -0.5), randn(
+            n, scale=0.1)
+        if off:
+            b = offset_copy(b)
+        wgmma = gemm_mod.wgmma_path(a, b, n, k)
+        tiles = ((128, 128),) if label == "conv2 b8" else all_tiles
+        used = sorted({gemm_mod.kernel_tile(bm, bn, m, n)
+                       for bm, bn in tiles})
+        worst, cuts = 0.0, []
+        for bm, bn in used:
+            splits = (gemm_mod.grid_splits(m, n, k, (bm, bn), sms,
+                                           chunk=gemm_mod.BF16_WGMMA_CHUNK)
+                      if wgmma else 1)
+            cuts.append(splits)
+            for out_dtype in (bf, torch.float32):
+                want = gemm_mod.gemm_plain(a, b, "bias_relu", bias, out_dtype)
+                for kern in kerns:
+                    kern.launches = 0
+                got, again = (gemm_mod.gemm_call(
+                    a, b, bm=bm, bn=bn, epilogue="bias_relu", bias=bias,
+                    out_dtype=out_dtype) for _ in range(2))
+                torch.cuda.synchronize()
+                ran = [kern.launches for kern in kerns]
+                if ran != ([2, 0, 0, 0] if wgmma else [0, 2, 0, 0]):
+                    raise CheckFailed(f"gemm_bf16 {label}: launches {ran} of "
+                                      f"{[k.symbol for k in kerns]}")
+                tag = f"gemm_bf16 {label} ({bm},{bn}) S{splits} {out_dtype}"
+                if out_dtype == bf:
+                    worst = max(worst, bf16_close(tag, got, want))
+                else:                      # f32 C: the f32 sums' order
+                    worst = max(worst, check_close(
+                        tag, got, want, 1e-4, 1e-4 * float(want.abs().max())))
+                if not torch.equal(got, again):
+                    raise CheckFailed(f"{tag}: two calls differ")
+            bf16_close(f"gemm_bf16 {label} ({bm},{bn}) no epilogue",
+                       gemm_mod.gemm_call(a, b, bm=bm, bn=bn),
+                       gemm_mod.gemm_plain(a, b))
+        if label == "5b/1x1 b1" and not (wgmma and max(cuts) == 13):
+            raise CheckFailed(f"5b/1x1 b1: loop wgmma={wgmma}, slices "
+                              f"{cuts}; want the wgmma loop, 13 slices on "
+                              "the 64-row tiles")
+        print(f"[32] gemm_bf16 {label} M={m} K={k} N={n}: "
+              f"{'wgmma' if wgmma else 'mma.sync'} loop, tiles {used} with "
+              f"K slices {cuts}; a bf16 C within one bf16 ulp, an f32 C "
+              f"within 1e-4, bias_relu and none (max|diff| {worst:.3e}); two "
+              f"calls equal bit for bit")
+    for label, g, m, k, n, off in HOPPER_BATCHED_CASES:
+        a, b, bias = randn(g, m, k), randn(g, k, n, scale=k ** -0.5), randn(
+            n, scale=0.1)
+        if off:
+            b = offset_copy(b)
+        wgmma = gemm_mod.wgmma_path(a, b, n, k)
+        tiles = ((128, 128),) if label.endswith("b8") else all_tiles
+        used = sorted({gemm_mod.kernel_tile(bm, bn, m, n)
+                       for bm, bn in tiles})
+        want = gemm_mod.batched_gemm_plain(a, b, "bias_relu", bias)
+        worst = 0.0
+        for bm, bn in used:
+            for kern in kerns:
+                kern.launches = 0
+            got, again = (gemm_mod.batched_gemm_call(
+                a, b, bm=bm, bn=bn, epilogue="bias_relu", bias=bias)
+                for _ in range(2))
+            torch.cuda.synchronize()
+            ran = [kern.launches for kern in kerns]
+            if ran != ([0, 0, 2, 0] if wgmma else [0, 0, 0, 2]):
+                raise CheckFailed(f"batched_gemm_bf16 {label}: launches "
+                                  f"{ran} of {[k.symbol for k in kerns]}")
+            tag = f"batched_gemm_bf16 {label} ({bm},{bn})"
+            worst = max(worst, bf16_close(tag, got, want))
+            if not torch.equal(got, again):
+                raise CheckFailed(f"{tag}: two calls differ")
+        bf16_close(f"batched_gemm_bf16 {label} no epilogue",
+                   gemm_mod.batched_gemm_call(a, b),
+                   gemm_mod.batched_gemm_plain(a, b))
+        print(f"[32] batched_gemm_bf16 {label} G={g} M={m} K={k} N={n}: "
+              f"{'wgmma' if wgmma else 'mma.sync'} loop, tiles {used}; "
+              f"within one bf16 ulp (max|diff| {worst:.3e}); two calls "
+              f"equal bit for bit")
+
+    # ---- (c) a captured replay, bit-equal to eager ---------------------
+    a1, b1, bias1 = randn(49, 832), randn(832, 384, scale=832 ** -0.5), \
+        randn(384, scale=0.1)
+    a2, b2 = randn(333, 200), randn(200, 104, scale=200 ** -0.5)
+    a3, b3 = randn(49, 830), randn(830, 384, scale=830 ** -0.5)
+    ag, bg = randn(16, 333, 72), randn(16, 72, 104, scale=72 ** -0.5)
+
+    def launches():
+        return (gemm_mod.gemm_call(a1, b1, bm=64, bn=128,
+                                   epilogue="bias_relu", bias=bias1),
+                gemm_mod.gemm_call(a2, b2, epilogue="relu",
+                                   out_dtype=torch.float32),
+                gemm_mod.gemm_call(a3, b3, bm=64, bn=128),
+                gemm_mod.batched_gemm_call(ag, bg, epilogue="relu"))
+
+    eager = launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = launches()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not all(torch.equal(e, r) for e, r in zip(eager, static)):
+        raise CheckFailed("a replay of the bf16 GEMMs differs from eager")
+    del graph
+    cut = [gemm_mod.grid_splits(m, n, k, tile, sms,
+                                chunk=gemm_mod.BF16_WGMMA_CHUNK)
+           for m, k, n, tile in ((49, 832, 384, (64, 128)),
+                                 (333, 200, 104, (128, 128)))]
+    print(f"[32] one CUDA graph of the wgmma loop in {cut[0]} slices "
+          f"(bias_relu, bf16 C) and in {cut[1]} (ReLU, f32 C), the mma.sync "
+          f"loop (K 830, one slice) and the batched wgmma loop: its replay "
+          f"equals the eager launches bit for bit")
+
+    # ---- (d) the main path's launches per loop -------------------------
+    if BF16_LOOPS:
+        for tag, want in BF16_MAIN_LOOPS.items():
+            got = BF16_LOOPS.get(tag)
+            if got is None:
+                raise CheckFailed(f"phases 29-31 recorded no loops for {tag}")
+            if {e: n for e, n in got.items() if n} != want:
+                raise CheckFailed(f"{tag}: launches per loop {got}, want "
+                                  f"{want} and none on the mma.sync loop")
+            print(f"[32] {tag} forward b1 (elided, eager): launches per "
+                  f"loop {got}: every bf16 GEMM on the wgmma loop")
+    else:
+        print("[32] the main path's launches per loop: phases 29-31 did not "
+              "run")
+    print(f"[32] phase 32 took {time.perf_counter() - t32:.1f} s")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -6948,6 +7221,7 @@ def main() -> int:
     kernels += phase_29_bf16(dev)
     kernels += phase_30_bf16_winograd(dev)
     kernels += phase_31_bf16_kn2row(dev)
+    phase_32_bf16_gemm_hopper(dev)
     print(f"total {time.perf_counter() - t_main:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -340,23 +340,32 @@ def _eval_graph(graph: Graph, lowering: Lowering, params: Params,
     return values[graph.sink()].nhwc()
 
 
+def input_dtype(x) -> torch.dtype:
+    """The dtype a walk takes ``x`` in: bf16 for a bf16 tensor, else f32
+    (numpy holds no bf16 here)."""
+    bf16 = torch.is_tensor(x) and x.dtype == torch.bfloat16
+    return torch.bfloat16 if bf16 else torch.float32
+
+
 def _as_input(x, device: Optional[torch.device]) -> torch.Tensor:
-    """A numpy array or tensor as a tensor on ``device`` (None: where it
-    lies): f32, or bf16 for a bf16 tensor (numpy holds no bf16 here)."""
-    if not (torch.is_tensor(x) and x.dtype == torch.bfloat16):
-        x = torch.as_tensor(x, dtype=torch.float32)
+    """A numpy array or tensor as a tensor of ``input_dtype`` on
+    ``device`` (None: where it lies)."""
+    x = torch.as_tensor(x, dtype=input_dtype(x))
     return x if device is None else x.to(device)
 
 
 def _typed_input(x, device: Optional[torch.device],
                  dtype: torch.dtype) -> torch.Tensor:
-    """``_as_input`` in the params' ``dtype``: a tensor in one of
-    ``DTYPES`` must already be of it (``TypeError`` otherwise); numpy
-    arrays and other tensors are converted, rounding to nearest even into
-    bf16."""
-    if torch.is_tensor(x) and x.dtype in DTYPES and x.dtype != dtype:
+    """``_as_input`` for params of ``dtype``, as the reference types the
+    input of its walk: f32 over f32 params; f32 or bf16 over bf16 params,
+    an f32 image kept in f32 (the reference promotes it, and the walk runs
+    f32 through the overlay's dtype rule, the weights widened exactly).
+    Numpy arrays and tensors of dtypes outside ``DTYPES`` become f32; a
+    bf16 input over f32 params raises ``TypeError``."""
+    x = _as_input(x, device)
+    if x.dtype != dtype and x.dtype != torch.float32:
         raise TypeError(f"input of dtype {x.dtype} for params of {dtype}")
-    return _as_input(x, device).to(dtype)
+    return x
 
 
 def forward(graph: Graph, params: Params, x,
@@ -406,14 +415,17 @@ class _Capture:
         self.static_out = static_out
 
 
-def capture_key(params: Params, x) -> Tuple[tuple, str, tuple]:
-    """The capture-table key of one call: ``x``'s shape, the params'
-    dtype (the input's, ``params_dtype``) and the ``data_ptr()`` of every
-    parameter tensor, in sorted node-id (then name) order. A CUDA graph
-    binds pointers and dtypes, so two params dicts of different tensors
-    need two captures, a new dict of the same tensors reuses one, and an
-    f32 and a bf16 walk never share one."""
-    return (tuple(int(d) for d in x.shape), str(params_dtype(params)),
+def capture_key(params: Params, x) -> Tuple[tuple, str, str, tuple]:
+    """The capture-table key of one call: ``x``'s shape, its dtype as the
+    walk takes it (``input_dtype``), the params' dtype (``params_dtype``)
+    and the ``data_ptr()`` of every parameter tensor, in sorted node-id
+    (then name) order. A CUDA graph binds pointers and dtypes, so two
+    params dicts of different tensors need two captures, a new dict of the
+    same tensors reuses one, and an f32 and a bf16 walk never share one:
+    a bf16 program captures once per input dtype, as the reference's jit
+    compiles once per input shape and dtype."""
+    return (tuple(int(d) for d in x.shape), str(input_dtype(x)),
+            str(params_dtype(params)),
             tuple(t.data_ptr() for nid in sorted(params)
                   for _, t in sorted(params[nid].items())))
 
@@ -485,14 +497,17 @@ class CompiledProgram:
     warm pass only).
 
     ``dtype`` (f32 or bf16) is the program's: its params must all be of
-    it and its input is taken in it (``_typed_input``: a tensor of the other
-    of the two raises ``TypeError``; numpy arrays are converted). The
-    logits are of it too, but for a bf16 program whose plan carries int8
+    it. Its input is f32 or, for a bf16 program, bf16 (``_typed_input``:
+    numpy arrays are f32; a bf16 input to an f32 program raises
+    ``TypeError``), and the capture key holds the input's dtype, so a
+    bf16 program captures one walk per input dtype. A bf16 input walks in
+    bf16 and returns bf16 logits, but for a plan that carries int8
     layers: those emit f32, every layer downstream of them runs in f32
     (``overlay``'s dtype rule) and the logits are f32, as the reference's
-    are. A capture keeps whatever dtype the eager walk gave: the static
-    output is the walk's own tensor, and each replay's clone has its
-    dtype."""
+    are. An f32 input to a bf16 program walks in f32 on the exactly
+    widened weights and returns f32 logits, as the reference promotes it.
+    A capture keeps whatever dtype the eager walk gave: the static output
+    is the walk's own tensor, and each replay's clone has its dtype."""
 
     def __init__(self, graph: Graph, lowering: Lowering,
                  use_pallas: Optional[bool], device: torch.device,
@@ -579,7 +594,7 @@ class ShardedProgram:
 
     def __call__(self, params, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
-            x = torch.as_tensor(x, dtype=self.dtype)
+            x = _as_input(x, None)
         xs = shard_batch(x, self.mesh)
         shard_params = (params if isinstance(params, tuple)
                         else replicate(params, self.mesh))

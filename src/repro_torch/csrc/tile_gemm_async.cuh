@@ -76,6 +76,13 @@ __host__ __device__ __forceinline__ int slice_depth(int k, int splits) {
   return (chunks + splits - 1) / splits * kBK;
 }
 
+// The same for a loop of `chunk`-deep chunks (the bf16 wgmma loop's 64).
+__host__ __device__ __forceinline__ int slice_depth(int k, int splits,
+                                                    int chunk) {
+  const int chunks = (k + chunk - 1) / chunk;
+  return (chunks + splits - 1) / splits * chunk;
+}
+
 // The raw f32 partial sum of one K slice into its workspace slab (rows, n).
 struct RawF32Flush {
   float* __restrict__ c;
@@ -110,8 +117,11 @@ __device__ __forceinline__ void flush4(const RawF32Flush& f, int gm, int gn,
   *reinterpret_cast<float4*>(f.c + (size_t)gm * f.n + gn) = v;
 }
 
-// A bf16 C (out_dtype=bf16): four values rounded once, in one 8-byte store.
-__device__ __forceinline__ void flush4(const CastFlush<float, __nv_bfloat16>& f,
+// A bf16 C (out_dtype=bf16 of the f32 kernels, and the bf16 kernels'
+// split-K reduce): bias widened, ReLU, four values rounded once, in one
+// 8-byte store.
+template <class Bias>
+__device__ __forceinline__ void flush4(const CastFlush<Bias, __nv_bfloat16>& f,
                                        int gm, int gn, float4 v) {
   const __nv_bfloat162 lo =
       __floats2bfloat162_rn(f.value(gn, v.x), f.value(gn + 1, v.y));
@@ -120,6 +130,15 @@ __device__ __forceinline__ void flush4(const CastFlush<float, __nv_bfloat16>& f,
   *reinterpret_cast<uint2*>(f.c + (size_t)gm * f.n + gn) =
       make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
                  *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// The bf16 kernels' split-K reduce into an f32 C (out_dtype=f32): one
+// 16-byte store.
+__device__ __forceinline__ void flush4(
+    const CastFlush<__nv_bfloat16, float>& f, int gm, int gn, float4 v) {
+  *reinterpret_cast<float4*>(f.c + (size_t)gm * f.n + gn) =
+      make_float4(f.value(gn, v.x), f.value(gn + 1, v.y),
+                  f.value(gn + 2, v.z), f.value(gn + 3, v.w));
 }
 
 // 4 bytes global -> shared; zero when src_bytes is 0.

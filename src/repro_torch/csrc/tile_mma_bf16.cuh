@@ -1,7 +1,9 @@
 // One block's BM x BN tile of C = flush(A · B) for bf16 A (m, k) from the
 // caller's A source and row-major bf16 B (k, n), summed in f32 on the bf16
-// tensor cores: the mainloop of gemm.cu's gemm_bf16 (dense A) and
-// conv_im2col.cu's conv_im2col_bf16 (A gathered from an NHWC map).
+// tensor cores: the mainloop of conv_im2col.cu's conv_im2col_bf16 (A
+// gathered from an NHWC map), kn2row.cu's unit_conv_gemms_bf16 and gemm.cu's
+// gemm_bf16_mma and batched_gemm_bf16_mma (dense A: the operands
+// tile_wgmma_bf16.cuh's TMA cannot address).
 //
 // It is tile_mma_i8.cuh's loop with 16-bit elements. A 32-deep bf16 chunk
 // is the int8 loop's 64-byte chunk, and the m16n8k16 bf16 fragments hold

@@ -19,12 +19,22 @@ and ``batched_gemm_call`` launch them for CUDA tensors and run
 ``gemm_plain`` / ``gemm_i8_plain`` / ``batched_gemm_plain`` for CPU
 tensors; nothing else selects between the two.
 
-The f32 GEMM splits K when its grid has fewer blocks than the card has
-SMs (``split_k``): each slice writes its raw partial into a workspace the
-wrapper allocates, and a second kernel of the same entry point sums the
-slices in a fixed order before the epilogue, so a shape gives the same
-bits on every call. The batched GEMM never splits: ``split_k`` gives its
-main-path grids one slice (their K is 4-6 chunks deep).
+bf16 operands run one of two loops, picked by shape and alignment alone
+(``wgmma_path``): operands whose rows TMA can address (K and N multiples
+of 8, A and B 16-byte aligned: every main-path launch) run the Hopper loop
+(``csrc/tile_wgmma_bf16.cuh``: a TMA ring feeding ``wgmma``), any other
+runs the ``mma.sync`` loop (``csrc/tile_mma_bf16.cuh``, the ``_mma``
+entry points). Each loop has its own entry point and launch count.
+
+The f32 GEMM and the bf16 wgmma loop split K when the grid has fewer
+blocks than the card has SMs (``split_k``, at the loop's chunk depth; the
+bf16 ``mma.sync`` loop, which no main-path operand takes, never splits):
+each slice writes
+its raw f32 partial into a workspace the wrapper allocates, and a second
+kernel of the same entry point sums the slices in a fixed order before
+the epilogue and the one rounding, so a shape gives the same bits on
+every call. The batched GEMMs never split: their main-path grids (G = 36
+layers of output tiles) fill the card.
 """
 from __future__ import annotations
 
@@ -45,51 +55,86 @@ GEMM = CudaKernel("gemm", "gemm_f32",
 GEMM_I8 = CudaKernel("gemm", "gemm_i8",
                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                      + [ctypes.c_float, ctypes.c_void_p])
+# The bf16 GEMMs, one entry point per loop: gemm_bf16 and
+# batched_gemm_bf16 run the TMA / wgmma loop (wgmma_path operands), the
+# _mma entry points the mma.sync loop (any other operand).
 GEMM_BF16 = CudaKernel("gemm", "gemm_bf16",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
+GEMM_BF16_MMA = CudaKernel("gemm", "gemm_bf16_mma",
+                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p])
 BATCHED_GEMM = CudaKernel("gemm", "batched_gemm_f32",
                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p])
 BATCHED_GEMM_BF16 = CudaKernel("gemm", "batched_gemm_bf16",
                                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                                + [ctypes.c_void_p])
+BATCHED_GEMM_BF16_MMA = CudaKernel("gemm", "batched_gemm_bf16_mma",
+                                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                   + [ctypes.c_void_p])
 
 _MAX_GRID_Y = 65535
-K_CHUNK = 16           # csrc/tile_gemm.cuh::kBK, the depth of one K chunk
-MIN_SLICE_CHUNKS = 4   # the fewest K chunks split_k leaves a slice
+# The depth of one K chunk, elements: the f32 loop's (csrc/tile_gemm.cuh::
+# kBK) and the bf16 wgmma loop's (tile_wgmma_bf16.cuh::kWgChunk).
+K_CHUNK = 16
+BF16_WGMMA_CHUNK = 64
+MIN_SLICE_CHUNKS = 4   # the fewest f32 K chunks split_k leaves a slice
+# ... that is, the fewest elements of K, in any loop's whole chunks.
+MIN_SLICE_DEPTH = MIN_SLICE_CHUNKS * K_CHUNK
 
 
-def split_k(blocks: int, k: int, sms: int) -> int:
+def split_k(blocks: int, k: int, sms: int, chunk: int = K_CHUNK) -> int:
     """How many K slices S a grid of ``blocks`` output tiles runs on a card
-    of ``sms`` SMs: 1 when the grid already fills the card, else the
-    largest S whose grid still runs in one wave (``blocks · S <= sms``: at
-    the 128 x 128 tile one block fits an SM, and a partial second wave
-    costs a whole slice), capped so that a slice keeps at least
-    ``MIN_SLICE_CHUNKS`` chunks of K, then lowered to the number of slices
-    of that depth K needs, so that no slice is empty. The slices are
-    ``k_slices(k, S)``; the shape and the SM count alone decide S."""
+    of ``sms`` SMs, for a loop of ``chunk``-deep K chunks: 1 when the grid
+    already fills the card, else the largest S whose grid still runs in
+    one wave (``blocks · S <= sms``: at the 128 x 128 tile one block fits
+    an SM, and a partial second wave costs a whole slice), capped so that
+    a slice keeps at least ``MIN_SLICE_DEPTH`` elements of K (whole
+    chunks, at least one), then lowered to the number of slices of that
+    depth K needs, so that no slice is empty. The slices are
+    ``k_slices(k, S, chunk)``; the shape, the loop and the SM count alone
+    decide S."""
     if blocks >= sms:
         return 1
-    chunks = -(-k // K_CHUNK)
-    splits = min(sms // blocks, max(1, chunks // MIN_SLICE_CHUNKS))
+    chunks = -(-k // chunk)
+    min_chunks = max(1, MIN_SLICE_DEPTH // chunk)
+    splits = min(sms // blocks, max(1, chunks // min_chunks))
     return -(-chunks // -(-chunks // splits))
 
 
 def grid_splits(m: int, n: int, k: int, tile: Tuple[int, int], sms: int,
-                groups: int = 1) -> int:
+                groups: int = 1, chunk: int = K_CHUNK) -> int:
     """``split_k`` for a grid of ``groups`` x ⌈m / tile_m⌉ x ⌈n / tile_n⌉
-    output tiles: the K slices an f32 kernel runs for this shape."""
+    output tiles of a loop of ``chunk``-deep K chunks: the K slices a
+    kernel runs for this shape."""
     blocks = groups * -(-m // tile[0]) * -(-n // tile[1])
-    return split_k(blocks, k, sms)
+    return split_k(blocks, k, sms, chunk)
 
 
-def k_slices(k: int, splits: int) -> List[Tuple[int, int]]:
+def k_slices(k: int, splits: int, chunk: int = K_CHUNK
+             ) -> List[Tuple[int, int]]:
     """The K ranges [begin, end) of ``splits`` slices, as the kernels cut
     them (``csrc/tile_gemm_async.cuh::slice_depth``): whole chunks each,
     only the last ragged or short."""
-    depth = -(-(-(-k // K_CHUNK)) // splits) * K_CHUNK
+    depth = -(-(-(-k // chunk)) // splits) * chunk
     return [(s * depth, min(k, (s + 1) * depth)) for s in range(splits)]
+
+
+def wgmma_path(a: torch.Tensor, b: torch.Tensor, n: int, k: int) -> bool:
+    """Whether bf16 operands run the TMA / wgmma loop
+    (``csrc/tile_wgmma_bf16.cuh::wgmma_path``): TMA addresses rows of
+    16-byte multiples from 16-byte aligned bases, so K and N must be
+    multiples of 8 and A and B 16-byte aligned (then every matrix of a
+    batched product is too). Any other operand runs the mma.sync loop."""
+    return (k % 8 == 0 and n % 8 == 0 and a.data_ptr() % 16 == 0
+            and b.data_ptr() % 16 == 0)
+
+
+def bf16_loop_launches() -> dict:
+    """{entry point: launches} of the bf16 GEMMs' two loops."""
+    return {kern.symbol: kern.launches for kern in (
+        GEMM_BF16, GEMM_BF16_MMA, BATCHED_GEMM_BF16, BATCHED_GEMM_BF16_MMA)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -228,8 +273,10 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
 
     f32 operands run ``gemm_f32``, with K split ``split_k`` ways on a grid
     smaller than the card. bf16 operands (and a bf16 bias) run
-    ``gemm_bf16`` on the tensor cores, f32 sums and one rounding at the
-    flush. int8 operands run ``gemm_i8``: the exact int32 sum is
+    ``gemm_bf16`` (the wgmma loop, K split the same way at its 64-deep
+    chunks) or, for operands ``wgmma_path`` refuses, ``gemm_bf16_mma``
+    (the mma.sync loop, K not split) on the tensor cores, f32 sums and one
+    rounding at the flush. int8 operands run ``gemm_i8``: the exact int32 sum is
     dequantized by ``scale`` (N,) before the epilogue, and ``out_scale``
     requantizes C to int8 (else C is f32). ``out_dtype`` (f32 or bf16,
     ``gemm_out_dtype``) is the dtype C is stored in by the flush; any
@@ -283,10 +330,21 @@ def gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
         return out
     out = torch.empty((m, n), device=a.device, dtype=out_dtype)
     if a.dtype == torch.bfloat16:
+        out_f32 = int(out_dtype == torch.float32)
+        if not wgmma_path(a, b, n, k):
+            with torch.cuda.device(a.device):
+                GEMM_BF16_MMA.launch(a.data_ptr(), b.data_ptr(), bias_ptr,
+                                     out.data_ptr(), m, n, k, tile_m, tile_n,
+                                     int(relu), out_f32, stream)
+            return out
+        splits = grid_splits(m, n, k, (tile_m, tile_n), sm_count(a.device),
+                             chunk=BF16_WGMMA_CHUNK)
+        work = split_workspace(splits, m, n, a.device)
         with torch.cuda.device(a.device):
             GEMM_BF16.launch(a.data_ptr(), b.data_ptr(), bias_ptr,
-                             out.data_ptr(), m, n, k, tile_m, tile_n,
-                             int(relu), int(out_dtype == torch.float32),
+                             out.data_ptr(),
+                             None if work is None else work.data_ptr(), m, n,
+                             k, tile_m, tile_n, int(relu), splits, out_f32,
                              stream)
         return out
     splits = grid_splits(m, n, k, (tile_m, tile_n), sm_count(a.device))
@@ -316,8 +374,10 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     a.dtype``: any other ``out_dtype`` raises ``ValueError``.
 
     CUDA tensors launch the batched kernel (one grid layer per g, K not
-    split) on the current stream under the tile ``kernel_tile(bm, bn, M,
-    N)``; CPU tensors run ``batched_gemm_plain``."""
+    split; for bf16 the wgmma loop, or the mma.sync loop for operands
+    ``wgmma_path`` refuses) on the current stream under the tile
+    ``kernel_tile(bm, bn, M, N)``; CPU tensors run
+    ``batched_gemm_plain``."""
     check_kernel_dtype("batched_gemm", a)
     out_dtype = gemm_out_dtype(a.dtype, out_dtype)
     if a.dtype == torch.bfloat16 and out_dtype != torch.bfloat16:
@@ -349,10 +409,11 @@ def batched_gemm_call(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
     stream = torch.cuda.current_stream(a.device).cuda_stream
     bias_ptr = None if bias is None else bias.data_ptr()
     if a.dtype == torch.bfloat16:
+        kern = (BATCHED_GEMM_BF16 if wgmma_path(a, b, n, k)
+                else BATCHED_GEMM_BF16_MMA)
         with torch.cuda.device(a.device):
-            BATCHED_GEMM_BF16.launch(a.data_ptr(), b.data_ptr(), bias_ptr,
-                                     out.data_ptr(), g, m, n, k, tile_m,
-                                     tile_n, int(relu), stream)
+            kern.launch(a.data_ptr(), b.data_ptr(), bias_ptr, out.data_ptr(),
+                        g, m, n, k, tile_m, tile_n, int(relu), stream)
         return out
     with torch.cuda.device(a.device):
         BATCHED_GEMM.launch(a.data_ptr(), b.data_ptr(), bias_ptr,

@@ -382,13 +382,17 @@ def test_googlenet_bf16_served_matches_reference(bf16_googlenet):
     np.testing.assert_array_equal(_f32(_to_torch(got)), got)
     run = compile_plan(g, plan, epilogue="bias_relu", dtype=BF,
                        device="cpu")
-    logits = run(params, images)
+    logits = run(params, _to_torch(images))
     assert logits.dtype == BF
     assert _rel(logits, ref) <= FORWARD_REL
+    # f32 images promote, as the reference's do: an f32 walk, f32 logits.
+    assert run(params, torch.from_numpy(images)).dtype == torch.float32
     with pytest.raises(TypeError):
         run(init_params(g, seed=0, device="cpu"), images)
     with pytest.raises(TypeError):
-        run(params, torch.from_numpy(images))
+        compile_plan(g, plan, device="cpu")(init_params(g, seed=0,
+                                                        device="cpu"),
+                                            _to_torch(images))
     with pytest.raises(TypeError):
         CNNServingEngine(g, params, plan, device="cpu")
     assert executable_cache_key(g, plan, device="cpu") != \
@@ -404,7 +408,8 @@ def test_bf16_forward_tracks_the_f32_forward(bf16_googlenet):
     x = _rng(8).standard_normal((2, 56, 56, 3)).astype(np.float32)
     widened = {nid: {k: t.float() for k, t in layer.items()}
                for nid, layer in params.items()}
-    got = forward(g, params, x, plan, epilogue="bias_relu", device="cpu")
+    got = forward(g, params, _to_torch(x), plan, epilogue="bias_relu",
+                  device="cpu")
     want = forward(g, widened, x, plan, epilogue="bias_relu", device="cpu")
     assert got.dtype == BF and want.dtype == torch.float32
     assert 0 < _rel(got, want) <= FORWARD_REL

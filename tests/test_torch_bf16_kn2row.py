@@ -17,9 +17,9 @@ held within one bf16 ulp (rtol 2^-7, atol 1e-4 of the output's max),
 whole convs within the reference's bf16 tolerance, 5e-2 of the largest
 value (``tests/test_kernels.py:41``), bf16 forwards within 2e-2 of the
 reference's largest logit and gated (f32) ones at the reference's
-whole-plan tolerance. Both sides take bf16 inputs: the port casts a bf16
-program's input to bf16, so the reference is given the same bf16 values
-(it would promote f32 samples and walk in f32).
+whole-plan tolerance. Both sides take the same bf16 images, so that both
+walk in bf16; f32 images promote on both sides, and
+``tests/test_torch_bf16_promotion.py`` holds that walk.
 """
 import collections
 
@@ -374,7 +374,7 @@ def test_inception_v4_bf16_compile_plan_matches_reference(bf16_iv4, elide):
     assert mix == {"im2col": 38, "kn2row": 8, "winograd(F4x3)": 2}
     run = compile_plan(g, plan, epilogue="bias_relu", elide=elide,
                        tuning_batch=2, dtype=BF, device="cpu")
-    got = run(params_from_jax(np_params, "cpu"), x)
+    got = run(params_from_jax(np_params, "cpu"), _bf(x))
     assert got.dtype == BF and ref.dtype == jnp.bfloat16
     assert tuple(got.shape) == tuple(ref.shape) == (2, 1000)
     assert _rel(got, ref) <= FORWARD_REL
@@ -396,7 +396,7 @@ def gated_iv4(bf16_iv4):
     jplan = jax_map_network(jg, hw=jax_identify(jg, max_dim=512),
                             quantize=True, force_bf16=force)
     params = params_from_jax(np_params, "cpu")
-    scales = calibrate_act_scales(g, params, x)
+    scales = calibrate_act_scales(g, params, _bf(x))
     jscales = jax_calibrate(jg, _jparams(np_params), _jbf(x))
     ref = jax_compile_plan(jg, jplan, epilogue="bias_relu", tuning_batch=2,
                            use_pallas=True, act_scales=jscales,
@@ -434,7 +434,7 @@ def test_gated_bf16_inception_v4_matches_reference(bf16_iv4, gated_iv4,
     run = compile_plan(g, plan, epilogue="bias_relu", elide=elide,
                        tuning_batch=2, act_scales=jscales, dtype=BF,
                        device="cpu")
-    got = run(params_from_jax(np_params, "cpu"), x)
+    got = run(params_from_jax(np_params, "cpu"), _bf(x))
     assert got.dtype == torch.float32 and ref.dtype == jnp.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **PLAN_TOL)
     f32_in = {fam for fam, prec, dt in seen

@@ -308,7 +308,7 @@ def test_vgg16_bf16_compile_plan_matches_reference(bf16_vgg, elide):
     params = params_from_jax(np_params, "cpu")
     run = compile_plan(g, plan, epilogue="bias_relu", elide=elide,
                        tuning_batch=2, dtype=BF, device="cpu")
-    got = run(params, x)
+    got = run(params, _bf(x))
     assert got.dtype == BF and tuple(got.shape) == (2, 1000)
     reads_tiles = [n for n, low in run.lowering.items()
                    if low.in_layout is not None

@@ -3,6 +3,7 @@
 and with ``--lm`` the LM (data, model) mesh.
 
     python3 tools/check_mesh.py --cards 2 4        # needs 4 visible cards
+    python3 tools/check_mesh.py --cards 2 4 --dtype bf16   # in bf16
     python3 tools/check_mesh.py --virtual --cards 2  # one card, cuda:0 twice
     PYTHONPATH=src python tools/check_mesh.py --device cpu --virtual \\
         --res 32 --scale 0.125                     # the control flow, CPU
@@ -78,8 +79,16 @@ GoogleNet (224², scale 1.0 by default) under the serving plan
   program, every shard holding one capture per tenant;
 
 and prints each device's ``max_memory_reserved`` (every card of a real
-mesh must have held work). Any failed check raises. The last line is one
-JSON object: ``{"ok": true, "meshes": [...], "device": {...}}``.
+mesh must have held work). ``--dtype bf16`` runs the same checks on bf16
+params (``init_params(dtype=torch.bfloat16)``), bf16 programs fed bf16
+images and bf16 engines; on the cards every pass must launch the bf16
+GEMMs on their wgmma loop and never on the mma.sync loop, so each card
+of the mesh runs the Hopper kernels (their shared-memory opt-in is a
+setting of each device), and a whole bucket is held to the unsharded
+program within the reference's bf16 tolerance, 5e-2 of its largest
+logit, in place of rtol 2e-2 / atol 2e-3. Any failed check raises. The
+last line is one JSON object:
+``{"ok": true, "meshes": [...], "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -93,6 +102,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=2e-2, atol=2e-3)
+# A bf16 bucket against the unsharded bf16 program (other tiles and K
+# slices: other f32 sums, each rounded once): the reference's bf16
+# tolerance (tests/test_kernels.py:41) of the largest logit.
+BF16_REL = 5e-2
 WAVES = (8, 8, 2)
 
 
@@ -723,6 +736,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--res", type=int, default=224)
     ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="the CNN mesh's params, programs and engines")
     args = ap.parse_args(argv)
     if args.lm:
         return lm_main(args)
@@ -745,6 +760,7 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     card = dev.type == "cuda"
+    dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if card:
@@ -754,14 +770,25 @@ def main(argv=None) -> int:
             check=True).stdout.strip())
         print(f"built {', '.join(build.SOURCES)} in "
               f"{build.build_all():.1f} s", flush=True)
-    from repro_torch.kernels.conv_im2col.conv_im2col import CONV, CONV_I8
-    from repro_torch.kernels.gemm.gemm import BATCHED_GEMM, GEMM, GEMM_I8
+    from repro_torch.kernels.conv_im2col.conv_im2col import (CONV, CONV_BF16,
+                                                             CONV_I8)
+    from repro_torch.kernels.gemm import gemm as gm
     from repro_torch.kernels.kn2row import kn2row as kn2
     from repro_torch.kernels.winograd import winograd as wino
-    kernels = (CONV, GEMM, wino.INPUT_TRANSFORM, wino.INPUT_TRANSFORM_TILES,
-               BATCHED_GEMM, wino.OUTPUT_TRANSFORM, kn2.UNIT_CONV_GEMMS,
-               kn2.PAD_ACCUMULATE, GEMM_I8, CONV_I8, kn2.UNIT_CONV_GEMMS_I8,
-               kn2.PAD_ACCUMULATE_I32)
+    kernels = (CONV, gm.GEMM, wino.INPUT_TRANSFORM, wino.INPUT_TRANSFORM_TILES,
+               gm.BATCHED_GEMM, wino.OUTPUT_TRANSFORM, kn2.UNIT_CONV_GEMMS,
+               kn2.PAD_ACCUMULATE, gm.GEMM_I8, CONV_I8, kn2.UNIT_CONV_GEMMS_I8,
+               kn2.PAD_ACCUMULATE_I32, CONV_BF16, gm.GEMM_BF16,
+               gm.GEMM_BF16_MMA, gm.BATCHED_GEMM_BF16,
+               gm.BATCHED_GEMM_BF16_MMA, wino.INPUT_TRANSFORM_BF16,
+               wino.INPUT_TRANSFORM_TILES_BF16, wino.OUTPUT_TRANSFORM_BF16,
+               kn2.UNIT_CONV_GEMMS_BF16, kn2.PAD_ACCUMULATE_BF16)
+    # Where the bf16 GEMMs' launches sit in a counts() tuple: the wgmma
+    # loop's entry points, then the mma.sync loop's.
+    wgmma_at = [kernels.index(k) for k in (gm.GEMM_BF16,
+                                           gm.BATCHED_GEMM_BF16)]
+    mma_at = [kernels.index(k) for k in (gm.GEMM_BF16_MMA,
+                                         gm.BATCHED_GEMM_BF16_MMA)]
 
     def counts():
         return tuple(k.launches for k in kernels)
@@ -788,7 +815,7 @@ def main(argv=None) -> int:
     shape = tuple(int(d) for d in g.nodes[g.source()].attrs["out_shape"])
 
     def seeded(seed):
-        p = init_params(g, seed=seed, device=dev)
+        p = init_params(g, seed=seed, device=dev, dtype=dt)
         gen = torch.Generator().manual_seed(1000 + seed)
         for nid in sorted(p):
             p[nid]["b"].copy_(torch.randn(p[nid]["b"].shape,
@@ -801,17 +828,39 @@ def main(argv=None) -> int:
     def images(n):
         return rng.standard_normal((n,) + shape).astype(np.float32)
 
+    def batch(imgs):
+        """Images as a program's input: a tensor in the params' dtype."""
+        return torch.as_tensor(imgs, device=dev).to(dt)
+
     def unsharded(bsz):
         return compile_plan(g, plan, epilogue="bias_relu", tuning_batch=bsz,
-                            device=dev)
+                            device=dev, dtype=dt)
 
     def close(got, want, what):
-        got, want = torch.as_tensor(got), torch.as_tensor(want)
-        err = float((got.cpu() - want.cpu()).abs().max())
-        check(torch.allclose(got.cpu(), want.cpu(), **TOL),
-              f"{what}: max|diff| {err:.3e} outside rtol 2e-2 atol 2e-3")
+        got = torch.as_tensor(got).cpu().float()
+        want = torch.as_tensor(want).cpu().float()
+        err = float((got - want).abs().max())
+        if dt == torch.float32:
+            check(torch.allclose(got, want, **TOL),
+                  f"{what}: max|diff| {err:.3e} outside rtol 2e-2 atol 2e-3")
+        else:
+            bound = BF16_REL * float(want.abs().max())
+            check(err <= bound, f"{what}: max|diff| {err:.3e} above "
+                  f"{BF16_REL} of the largest logit ({bound:.3e})")
         return err
 
+    def on_wgmma(k, what):
+        """A bf16 pass's counts: the bf16 GEMMs launched on the wgmma loop
+        and never on the mma.sync loop."""
+        if dt == torch.bfloat16:
+            check(all(k[i] for i in wgmma_at) and not any(k[i] for i in
+                                                           mma_at),
+                  f"{what}: bf16 GEMM launches {[k[i] for i in wgmma_at]} "
+                  f"on the wgmma loop, {[k[i] for i in mma_at]} on the "
+                  f"mma.sync loop")
+
+    tol_text = ("rtol 2e-2 atol 2e-3" if dt == torch.float32 else
+                f"{BF16_REL} of the unsharded program's largest logit")
     report = []
     for n in args.cards:
         t0 = time.perf_counter()
@@ -820,16 +869,17 @@ def main(argv=None) -> int:
                 torch.cuda.reset_peak_memory_stats(i)
         mesh = (DataMesh((torch.device(dev.type, 0),) * n) if args.virtual
                 else make_data_mesh(n, device=dev))
-        tag = f"{'virtual ' if args.virtual else ''}{n}-device mesh " \
-              f"{[str(d) for d in mesh.devices]}"
+        tag = f"{'virtual ' if args.virtual else ''}{n}-device {args.dtype} " \
+              f"mesh {[str(d) for d in mesh.devices]}"
         reps = replicate(params, mesh)
         per_fwd = None
         errs = []
         for bsz in batch_buckets(8, n):
             per = bsz // n
             run = compile_plan(g, plan, epilogue="bias_relu",
-                               tuning_batch=per, mesh=mesh, device=dev)
-            x = torch.as_tensor(images(bsz), device=dev)
+                               tuning_batch=per, mesh=mesh, device=dev,
+                               dtype=dt)
+            x = batch(images(bsz))
             outs, ns = [], []
             for _ in range(3):
                 out, k = launched(lambda: run(reps, x))
@@ -839,6 +889,7 @@ def main(argv=None) -> int:
                 per_fwd = ns[0]
                 check(ns[0] == ns[1] and not any(ns[2]) and any(ns[0]),
                       f"{tag} b{bsz}: launches per pass {ns}")
+                on_wgmma(ns[0], f"{tag} b{bsz}")
                 for s, d in zip(run.shards, mesh.devices):
                     caps = list(s.captures.values())
                     check(s.device == d and len(caps) == 1
@@ -871,7 +922,7 @@ def main(argv=None) -> int:
         for depth in (1, 2):
             eng = CNNServingEngine(g, params, plan, batch_size=8, mesh=mesh,
                                    warmup=True, pipeline_depth=depth,
-                                   device=dev)
+                                   device=dev, dtype=dt)
             imgs = images(sum(WAVES))
             slots = []
 
@@ -902,7 +953,7 @@ def main(argv=None) -> int:
             run8 = unsharded(8)
             for lo in range(0, len(imgs), 8):
                 chunk = imgs[lo:lo + 8]
-                want = run8(params, torch.as_tensor(chunk, device=dev))
+                want = run8(params, batch(chunk))
                 for i in range(len(chunk)):
                     errs.append(close(eng.done[lo + i], want[i],
                                       f"{tag} depth {depth} request "
@@ -914,14 +965,14 @@ def main(argv=None) -> int:
                   f"sharding {want_sh}, last_tick per_chip_batch "
                   f"{eng.last_tick['per_chip_batch']}, stale rows zeroed, "
                   f"no launch over the ticks, {len(imgs)} results within "
-                  f"rtol 2e-2 atol 2e-3", flush=True)
+                  f"{tol_text}", flush=True)
             del eng
 
         multi = MultiModelEngine()
         tenants = {"a": params, "b": seeded(3)}
         for name, p in tenants.items():
             multi.register_model(name, g, p, plan, batch_size=8, mesh=mesh,
-                                 warmup=True, device=dev)
+                                 warmup=True, device=dev, dtype=dt)
         ea, eb = multi.engines["a"], multi.engines["b"]
         nb = len(ea.buckets)
         check(multi.cache.stats() == {"entries": nb, "hits": nb,
@@ -942,7 +993,7 @@ def main(argv=None) -> int:
         for name, p in tenants.items():
             for lo in (0, 8):
                 chunk = imgs[lo:lo + 8]
-                want = run8(p, torch.as_tensor(chunk, device=dev))
+                want = run8(p, batch(chunk))
                 for i in range(len(chunk)):
                     errs.append(close(done[name][lo + i], want[i],
                                       f"{tag} tenant {name}"))
@@ -961,7 +1012,8 @@ def main(argv=None) -> int:
         print(f"{tag}: max_memory_reserved GiB per device {reserved}; "
               f"max|diff| {max(errs):.3e}; {secs:.1f} s", flush=True)
         report.append({"devices": [str(d) for d in mesh.devices],
-                       "virtual": args.virtual, "max_abs_diff": max(errs),
+                       "virtual": args.virtual, "dtype": args.dtype,
+                       "max_abs_diff": max(errs),
                        "launches_per_forward_all_shards": per_fwd,
                        "max_memory_reserved_gib": reserved,
                        "seconds": secs})

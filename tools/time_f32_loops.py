@@ -50,7 +50,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import torch.nn.functional as F
 
-    from chip_smoke import KERNEL_TOL, bound, check_close, queued_ms, time_ms
+    from chip_smoke import (KERNEL_TOL, bound, check_close, queued_ms,
+                            time_ms, use_source_tree)
+    use_source_tree(args.src)
     from repro_torch.kernels import build
     from repro_torch.kernels.common import pad_nhwc
     from repro_torch.kernels.conv_im2col.conv_im2col import (conv_im2col_call,

@@ -58,7 +58,9 @@ def time_tree(src: Path, label: str) -> int:
     sys.path.insert(0, str(src.resolve()))
     sys.path.insert(0, str(REPO))
 
-    from chip_smoke import device_time, profiled_launches, time_ms
+    from chip_smoke import (device_time, profiled_launches, time_ms,
+                            use_source_tree)
+    use_source_tree(src)
     from repro_torch.cnn.executor import compile_plan, init_params
     from repro_torch.cnn.models import googlenet, inception_v4, vgg16
     from repro_torch.core.dse import identify_parameters

@@ -56,7 +56,8 @@ def main() -> int:
 
     from chip_smoke import (EXACT, KERNEL_TOL, PEAK_INT8_OPS, bound,
                             check_close, device_time, ptxas_report,
-                            queued_ms, time_ms)
+                            queued_ms, time_ms, use_source_tree)
+    use_source_tree(args.src)
     from repro_torch.cnn.executor import compile_plan, init_params
     from repro_torch.cnn.models import inception_v4
     from repro_torch.core.algorithms import AlgoFamily

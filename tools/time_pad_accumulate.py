@@ -49,7 +49,9 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
 
     from chip_smoke import (PAD_ACCUMULATE_LAUNCHES, device_time,
-                            pad_accumulate_text, time_pad_accumulate)
+                            pad_accumulate_text, time_pad_accumulate,
+                            use_source_tree)
+    use_source_tree(args.src)
     from repro_torch.cnn.executor import compile_plan, init_params
     from repro_torch.cnn.models import inception_v4
     from repro_torch.core.dse import identify_parameters
